@@ -1,0 +1,116 @@
+"""Where an outer step of the PyTorch port's engine spends its time on
+one CUDA device.
+
+    python3 profile_torch_step.py                      # 1M SNPs, K = 18
+    python3 profile_torch_step.py --blocks 88 -K 582   # ~90K SNPs, K = 582
+
+Builds the engine as chip_smoke.py's phase 5 does (AR(1) blocks of 1024
+at rank 512 factored on the card, bf16 U, 2 cohorts sharing the panel,
+f32), runs 2 outer steps to warm up, times 10 more with the host clock
+(outer iterations/s, host syncs per step), then traces 3 further steps
+with torch.profiler. From the trace's timeline it prints the
+traced wall time, the device's busy share (the union of kernel, memcpy
+and memset intervals over that wall time; the rest is idle) and the
+device time of each kernel, largest first. Imports nothing of JAX.
+"""
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
+WARMUP, STEPS, TRACED, TOP = 2, 10, 3, 12
+
+
+def timeline(trace_path):
+    """(wall ms, busy ms, {kernel name: [ms, launches]}) of the trace's
+    'outer_steps' annotation and the device events inside it."""
+    with open(trace_path) as fh:
+        events = json.load(fh)['traceEvents']
+    span = [e for e in events if e.get('name') == 'outer_steps'
+            and e.get('cat') == 'user_annotation']
+    if not span:
+        raise SystemExit('the trace has no outer_steps annotation')
+    t0 = span[0]['ts']
+    t1 = t0 + span[0]['dur']
+    dev = sorted((e['ts'], e['ts'] + e['dur'], e['cat'], e['name'])
+                 for e in events if e.get('cat') in DEVICE_CATS
+                 and e.get('ph') == 'X' and e['ts'] >= t0)
+    if not dev:
+        raise SystemExit('the trace holds no device events')
+    t1 = max(t1, dev[-1][1])
+    busy, cur_start, cur_end = 0.0, None, None
+    per_kernel = {}
+    for start, end, cat, name in dev:
+        if cat == 'kernel':
+            entry = per_kernel.setdefault(name, [0.0, 0])
+            entry[0] += (end - start) / 1e3
+            entry[1] += 1
+        if cur_end is None or start > cur_end:
+            if cur_end is not None:
+                busy += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    busy += cur_end - cur_start
+    return (t1 - t0) / 1e3, busy / 1e3, per_kernel
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument('--blocks', type=int, default=977,
+                        help='LD blocks of 1024 SNPs')
+    parser.add_argument('-K', type=int, default=18,
+                        help='mixture components')
+    args = parser.parse_args()
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    if not torch.cuda.is_available():
+        raise SystemExit('profile_torch_step.py needs a CUDA device')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from vilma_tpu_torch.inference import engine
+
+    data, st = chip_smoke.build_engine('cuda', num_blocks=args.blocks,
+                                       K=args.K)
+    for _ in range(WARMUP):
+        st, _ = engine.outer_step(data, st)
+    torch.cuda.synchronize()
+    syncs0 = engine.host_syncs
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        st, _ = engine.outer_step(data, st)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f'I={data.marginal_effects.shape[1]} K={args.K}: '
+          f'{STEPS / dt:.3f} outer iterations/s over '
+          f'{STEPS} steps, '
+          f'{(engine.host_syncs - syncs0) / STEPS:.2f} host syncs '
+          f'per step', flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function('outer_steps'):
+            for _ in range(TRACED):
+                st, _ = engine.outer_step(data, st)
+            torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'trace.json')
+        prof.export_chrome_trace(path)
+        wall, busy, per_kernel = timeline(path)
+    kernel_ms = sum(v[0] for v in per_kernel.values())
+    print(f'  traced {TRACED} steps: wall {wall:.3f} ms, device busy '
+          f'{busy:.3f} ms (share {busy / wall:.3f}), kernels '
+          f'{kernel_ms:.3f} ms')
+    for name, (ms, n) in sorted(per_kernel.items(),
+                                key=lambda kv: -kv[1][0])[:TOP]:
+        print(f'  {ms:10.3f} ms {n:5d}x  {ms / wall:6.1%}  {name[:90]}')
+
+
+if __name__ == '__main__':
+    main()

@@ -18,8 +18,13 @@ setup(
     extras_require={
         # gradient-/MCMC-based posterior validation tooling
         'validation': ['optax'],
+        # the PyTorch + CUDA port (vilma_tpu_torch); its kernels build
+        # from the shipped csrc/*.cu with nvcc at first use on a card
+        'torch': ['torch'],
     },
+    package_data={'vilma_tpu_torch': ['csrc/*.cu']},
     entry_points={
-        'console_scripts': ['vilma-tpu=vilma_tpu.frontend:main'],
+        'console_scripts': ['vilma-tpu=vilma_tpu.frontend:main',
+                            'vilma-tpu-torch=vilma_tpu_torch.frontend:main'],
     },
 )

@@ -1,0 +1,141 @@
+"""The port imports neither jax, pandas nor ml_dtypes, and its unported
+surface raises with the ROADMAP item it waits for."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from vilma_tpu_torch import frontend
+from vilma_tpu_torch.commands import fit as fit_cmd
+from vilma_tpu_torch.inference import engine
+from vilma_tpu_torch.models import sigma
+from vilma_tpu_torch.ops.cuda import block_matvec, compact_obj
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+GUARD = """
+import sys
+sys.modules['jax'] = sys.modules['pandas'] = sys.modules['ml_dtypes'] = None
+import vilma_tpu_torch
+import vilma_tpu_torch.frontend
+import vilma_tpu_torch.commands.fit
+import vilma_tpu_torch.inference.engine
+import vilma_tpu_torch.ops.cuda.block_matvec
+import vilma_tpu_torch.ops.cuda.compact_obj
+import vilma_tpu_torch.convert
+import vilma_tpu_torch.io.load
+import vilma_tpu_torch.utils.npz_stream
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
+                and m.split('.')[0] in ('jax', 'jaxlib', 'pandas',
+                                       'ml_dtypes', 'vilma_tpu'))
+print('LOADED', loaded)
+"""
+
+
+def test_import_guard():
+    """Every module of the port imports with jax, pandas and ml_dtypes
+    blocked, and none of them (nor the JAX package) gets loaded."""
+    env = dict(os.environ)
+    env['PYTHONPATH'] = REPO + os.pathsep + env.get('PYTHONPATH', '')
+    out = subprocess.run([sys.executable, '-c', GUARD], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert 'LOADED []' in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize('name', ['make_ld_schema', 'check_ld_schema',
+                                  'sim'])
+def test_unported_subcommands_raise(name):
+    with pytest.raises(NotImplementedError, match='not yet ported'):
+        frontend.main([name])
+
+
+@pytest.mark.parametrize('flags', [
+    ['--mesh', 'snp=4'], ['--distributed'], ['--mmap'],
+    ['--factor-cache', '/nonexistent'], ['--learn-scaling'],
+    ['--load-checkpoint', 'a.npz', 'b.pkl'],
+    ['--sumstats', 'a,b,c,d']])
+def test_unported_fit_flags_raise(flags, tmp_path):
+    """Each unported fit option raises before any file is read, naming
+    its ROADMAP item."""
+    argv = ['fit', '--ld-schema', 'x.schema', '--sumstats', 'a.tsv',
+            '--extract', 'e.tsv', '--output', str(tmp_path / 'o'),
+            '--device', 'cpu']
+    if flags[0] == '--sumstats':
+        argv[argv.index('--sumstats') + 1] = flags[1]
+    else:
+        argv += flags
+    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
+        frontend.main(argv)
+
+
+def test_cuda_device_never_falls_back(tmp_path, monkeypatch):
+    """--device cuda without a card raises instead of running the plain
+    versions; --pallas off is refused on cuda."""
+    parser, _ = frontend.build_parser()
+    argv = ['fit', '--ld-schema', 'x', '--sumstats', 'a', '--extract',
+            'e', '--output', str(tmp_path / 'o')]
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='needs a CUDA device'):
+        fit_cmd._resolve_device(parser.parse_args(argv))
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+    with pytest.raises(ValueError, match='refused'):
+        fit_cmd._resolve_device(parser.parse_args(argv + ['--pallas',
+                                                          'off']))
+    args = parser.parse_args(argv)
+    assert fit_cmd._resolve_device(args).type == 'cuda'
+    assert args.precision == 'f32'
+    # f64 is the host parity path: the kernels compute in f32
+    with pytest.raises(ValueError, match='--device cpu'):
+        fit_cmd._resolve_device(parser.parse_args(argv + ['--precision',
+                                                          'f64']))
+
+
+def test_p4_and_kdim_raise():
+    prec = torch.eye(4, dtype=torch.float64)[None].repeat(2, 1, 1)
+    with pytest.raises(NotImplementedError, match='P >= 4'):
+        sigma.make_summaries(prec, torch.zeros(2, dtype=torch.float64),
+                             torch.ones(4, 5, dtype=torch.float64))
+    coeffs = torch.zeros(3, 4)
+    with pytest.raises(NotImplementedError, match='kdim'):
+        compact_obj._check_operands(
+            'prologue', coeffs, torch.zeros(3, 1),
+            torch.zeros(5, dtype=torch.int32), torch.ones(2, 5),
+            torch.zeros(3, 2, 5), 1)
+
+
+def test_kernel_wrappers_refuse_bad_operands():
+    """The wrappers' operand checks (the part of a CUDA launch that runs
+    before the kernel) reject wrong shapes and types."""
+    with pytest.raises(ValueError, match='float32'):
+        compact_obj._check_operands(
+            'prologue', torch.zeros(3, 4, dtype=torch.float64),
+            torch.zeros(3, 1), torch.zeros(5, dtype=torch.int32),
+            torch.ones(2, 5), torch.zeros(2, 5), 1)
+    with pytest.raises(ValueError, match='shape'):
+        compact_obj._check_operands(
+            'prologue', torch.zeros(3, 5), torch.zeros(3, 1),
+            torch.zeros(5, dtype=torch.int32), torch.ones(2, 5),
+            torch.zeros(2, 5), 1)
+    kt, nblocks = compact_obj._launch_shape(1_000_000, 582, 4, 4,
+                                            sums=True)
+    assert 1 <= kt <= 582 and nblocks == 1024
+    # the plain versions run for CPU tensors; launches stay 0
+    before = block_matvec.launches
+    block_matvec.bucket_matvec_multi(torch.zeros(1, 8, 8), torch.zeros(1, 8),
+                                     torch.zeros(1, 8), torch.zeros(1, 2, 8))
+    assert block_matvec.launches == before
+
+
+def test_engine_constants_match_reference():
+    from vilma_tpu.inference import engine as jengine
+    for name in ('L_MAX', 'REL_TOL', 'ABS_TOL', 'ELBO_TOL', 'ELBO_MOMENTUM',
+                 'MAX_NUM_ITERS', '_STREAM_OUTPUT_BYTES'):
+        assert getattr(engine, name) == getattr(jengine, name), name
+    assert np.isclose(engine._err_rtol(torch.float32),
+                      jengine._err_rtol(np.float32))

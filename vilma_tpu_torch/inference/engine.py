@@ -1,0 +1,836 @@
+"""Coordinate-ascent variational inference engine, slice A.
+
+Port of vilma_tpu/inference/engine.py for the compact shared [P, I]
+natural-mean state: every fit of P <= 3 cohorts without
+--learn-scaling. One outer step runs up to MAX_NUM_ITERS
+natural-gradient updates, each a backtracking line search whose trials
+are objective evaluations (fused prologue -> block LD matvec ->
+likelihood reduction), then the closed-form hyper-delta update.
+
+The JAX engine runs a whole step on the device inside lax.while_loop.
+Here the loops run on the host: every loop predicate (`new_obj <
+threshold` of a line-search trial, the beta loop's convergence test)
+needs the trial's objective, one device->host synchronization each. The
+module counts them in `host_syncs`.
+
+Not ported (each raises, naming its ROADMAP item): the per-component
+[K, P, I] and epoch-history --learn-scaling states (slice B), the
+K-chunked objective, the materialized P >= 4 path, mesh execution and
+checkpoint resume.
+"""
+import dataclasses
+import logging
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from vilma_tpu_torch.models import sigma as sigma_mod
+from vilma_tpu_torch.ops import blocks as blocks_mod
+from vilma_tpu_torch.ops import kernels
+from vilma_tpu_torch.ops.cuda import compact_obj
+from vilma_tpu_torch.utils.config import epsilon
+
+# Optimization constants (reference variational_inference.py:18-24)
+L_MAX = 1e12
+REL_TOL = 1e-6
+ABS_TOL = 1e-6
+ELBO_TOL = 0.1
+EM_TOL = 10
+ELBO_MOMENTUM = 0.5
+MAX_NUM_ITERS = 20
+
+SLICE_B = ('--learn-scaling (the per-component [K, P, I] natural mean '
+           'and the epoch-history state) is not ported yet (ROADMAP.md '
+           'queue 1, "Slice B" and "Epoch-history state")')
+RESUME = ('checkpoint resume is not ported yet (ROADMAP.md queue 1, '
+          '"Checkpoint resume")')
+
+#: device->host synchronizations made by the host loops of the optimizer
+#: (one per objective fetched to decide a loop predicate, one per
+#: convergence-statistics fetch)
+host_syncs = 0
+
+
+def _sync_float(x):
+    """Fetch a device scalar to the host: one counted synchronization."""
+    global host_syncs
+    host_syncs += 1
+    return float(x)
+
+
+@dataclass(frozen=True)
+class ModelData:
+    """Immutable sufficient statistics of the RSS model (reference
+    VIScheme.__init__ precomputation, variational_inference.py:96-259)."""
+    marginal_effects: torch.Tensor      # [P, I]
+    std_errs: torch.Tensor              # [P, I]
+    scalings: torch.Tensor              # [P, I] undo --scaled at output
+    ld_diags: torch.Tensor              # [P, I]
+    scaled_ld_diags: torch.Tensor       # [P, I] = std_errs**-2 * ld_diags
+    adj_marginal_effects: torch.Tensor  # [P, I]
+    chi_stat: torch.Tensor              # [P]
+    ld_ranks: torch.Tensor              # [P]
+    inverse_betas: torch.Tensor         # [P, I] LDpred-inf init
+    annotations: torch.Tensor           # [I] int32 (== A on pad slots)
+    annotation_counts: torch.Tensor     # [A]
+    mixture_prec: torch.Tensor          # [K, P, P]
+    log_det: torch.Tensor               # [K] prior covariance log-dets
+    ld: tuple                           # tuple[PackedLD], unique matrices
+    num_annotations: int
+    scale_se: bool
+    # population p uses ld[ld_index[p]]; cohorts sharing one panel share
+    # one matvec pass (blocks.dot_multi)
+    ld_index: tuple = ()
+
+
+@dataclass(frozen=True)
+class VIState:
+    """Optimization state of the compact representation: the whole beta
+    family is carried as one shared [P, I] natural mean (vi_mu[k] =
+    vi_sigma[k] @ nat_mu for every k; see the JAX VIState docstring).
+    Scalars the host loop reads live on the host.
+
+    vi_mu/vi_delta/sigma/nat_grad_vi_delta are filled only by
+    `materialize_state`, for outputs and tests."""
+    nat_mu: torch.Tensor          # [P, I]
+    hyper_delta: torch.Tensor     # [A, K]
+    error_scaling: torch.Tensor   # [P]
+    L: tuple                      # 3 per-paramset Lipschitz estimates
+    elbo: float
+    running_elbo_delta: float     # nan = not yet initialized
+    num_err: int                  # count of line-search failures
+    vi_mu: torch.Tensor = None            # [K, P, I]
+    vi_delta: torch.Tensor = None         # [K, I]
+    sigma: sigma_mod.SigmaSummaries = None
+    nat_grad_vi_delta: torch.Tensor = None  # [K-1, I]
+
+
+def _isclose(a, b, rtol=1e-5, atol=1e-8):
+    return abs(a - b) <= atol + rtol * abs(b)
+
+
+def _err_rtol(dtype):
+    """Tolerance of the line-search "inconsistent objectives" guard: the
+    reference's np.isclose default at f64, a 1e-3 band at f32, where two
+    evaluations of a 1e5..1e7-term reduction legitimately differ by
+    rounding (see the JAX engine's _err_rtol)."""
+    return 1e-5 if dtype == torch.float64 else 1e-3
+
+
+def _diag_term(data, error_scaling):
+    return data.scaled_ld_diags / error_scaling[:, None]
+
+
+def _ld_scaled_dot(data, post_means):
+    """linked = LD . (post_means / SE) for each population — the hot block
+    matvec (variational_inference.py:459,812). Populations sharing an LD
+    matrix go through ONE multi-RHS pass."""
+    scaled_mu = post_means / data.std_errs
+    P = scaled_mu.shape[0]
+    outs = [None] * P
+    for m, ld in enumerate(data.ld):
+        pops = [p for p in range(P) if data.ld_index[p] == m]
+        if pops:
+            ys = blocks_mod.dot_multi(ld, scaled_mu[pops])
+            for j, p in enumerate(pops):
+                outs[p] = ys[j]
+    return scaled_mu, torch.stack(outs)
+
+
+# ---------------------------------------------------------------------------
+# The compact objective
+# ---------------------------------------------------------------------------
+
+def _fused_operands(data, error_scaling, nat_mu, hyper_delta):
+    """Operands of the fused compact kernels (ops/cuda/compact_obj):
+    coefficient table, transposed prior scores, per-SNP [*, I] arrays."""
+    dterm = _diag_term(data, error_scaling)
+    coeffs = compact_obj.build_coeffs(data.mixture_prec, data.log_det)
+    scores_t = (torch.log(hyper_delta) - 0.5 * data.log_det).T.contiguous()
+    # the kernels take dense row-major operands; the initial natural mean
+    # comes out of an einsum with permuted strides
+    return coeffs, scores_t, data.annotations, dterm, nat_mu.contiguous()
+
+
+def _objective_compact(data, st, nat_mu, hyper_delta):
+    """(objective tensor, post_means, linked) of a compact parameter point
+    (st supplies only error_scaling): the fused prologue, the LD matvec
+    and the likelihood reduction (reference variational_inference.py:
+    452-490, 632-641, 868-885)."""
+    post_means, post_vars, beta_kl = compact_obj.prologue(
+        *_fused_operands(data, st.error_scaling, nat_mu, hyper_delta),
+        num_annotations=data.num_annotations)
+    scaled_mu, linked_ests = _ld_scaled_dot(data, post_means)
+    ll = kernels.fast_likelihood(
+        post_means, post_vars, scaled_mu, data.scaled_ld_diags,
+        linked_ests, data.adj_marginal_effects, data.chi_stat,
+        data.ld_ranks, st.error_scaling)
+    return ll - beta_kl, post_means, linked_ests
+
+
+def _nat_grad_resid(data, error_scaling, post_mean, linked_raw):
+    """The [P, I] natural-gradient residual (constant across mixture
+    components — the structural fact the compact state exploits)."""
+    linked = kernels.fast_linked_ests(linked_raw, data.std_errs, post_mean,
+                                      data.scaled_ld_diags)
+    return (data.adj_marginal_effects - linked) / error_scaling[:, None]
+
+
+def _update_beta_compact(data, st, orig_obj, cur_post_mean, cur_linked,
+                         line_search_rate):
+    """One natural-gradient step with backtracking line search
+    (variational_inference.py:762-802) on the shared natural mean.
+    orig_obj is a host float. Returns (nat_mu, L0, new_obj, post_mean,
+    linked, err) for the accepted (or kept) parameters."""
+    grad = _nat_grad_resid(data, st.error_scaling, cur_post_mean,
+                           cur_linked)
+    threshold = orig_obj - REL_TOL * abs(orig_obj) - ABS_TOL
+
+    def trial(L0):
+        nat_new = kernels.sum_betas(st.nat_mu, grad, 1. / L0)
+        obj, pm, lk = _objective_compact(data, st, nat_new, st.hyper_delta)
+        return nat_new, _sync_float(obj), pm, lk
+
+    L0 = st.L[0]
+    nat_new, new_obj, pm, lk = trial(L0)
+    while new_obj < threshold and L0 <= L_MAX:
+        L0 = L0 * line_search_rate
+        nat_new, new_obj, pm, lk = trial(L0)
+
+    err = int(L0 > L_MAX and not _isclose(
+        orig_obj, new_obj, rtol=_err_rtol(st.nat_mu.dtype)))
+    if new_obj >= threshold:
+        return nat_new, L0, new_obj, pm, lk, err
+    return st.nat_mu, L0, orig_obj, cur_post_mean, cur_linked, err
+
+
+def _beta_loop_compact(data, st, conv_tol, line_search_rate):
+    """Up to MAX_NUM_ITERS beta updates (variational_inference.py:427-439),
+    stopping once the objective gain is below conv_tol or L hits its
+    bounds. Returns (state, objective delta, final objective, post_mean,
+    linked)."""
+    obj, pm, lk = _objective_compact(data, st, st.nat_mu, st.hyper_delta)
+    orig_obj = _sync_float(obj)
+    nat_mu, L0, num_err = st.nat_mu, st.L[0], st.num_err
+    delta = 0.0
+    for _ in range(MAX_NUM_ITERS):
+        L0 = max(1., L0 / 1.25)
+        cur = dataclasses.replace(st, nat_mu=nat_mu, L=(L0,) + st.L[1:])
+        nat_mu, L0, new_obj, pm, lk, err = _update_beta_compact(
+            data, cur, orig_obj, pm, lk, line_search_rate)
+        delta = delta + new_obj - orig_obj
+        done = (abs(new_obj - orig_obj) <= conv_tol
+                or L0 == 1. or L0 > L_MAX)
+        num_err += err
+        orig_obj = new_obj
+        if done:
+            break
+    st = dataclasses.replace(st, nat_mu=nat_mu, L=(L0,) + st.L[1:],
+                             num_err=num_err)
+    return st, delta, orig_obj, pm, lk
+
+
+def _update_hyper_delta_compact(data, st, orig_obj):
+    """Closed-form per-annotation mixture-weight update
+    (variational_inference.py:825-860), from the fused annotation sums of
+    the derived vi_delta."""
+    eps = epsilon(st.nat_mu.dtype)
+    new_hd = compact_obj.delta_sums(
+        *_fused_operands(data, st.error_scaling, st.nat_mu, st.hyper_delta),
+        num_annotations=data.num_annotations)
+    new_hd = torch.clamp(new_hd / (data.annotation_counts[:, None] + eps),
+                         min=eps)
+    new_hd = new_hd / new_hd.sum(dim=1, keepdim=True)
+    obj, pm, lk = _objective_compact(data, st, st.nat_mu, new_hd)
+    new_obj = _sync_float(obj)
+    st = dataclasses.replace(st, hyper_delta=new_hd)
+    return st, new_obj - orig_obj, new_obj, pm, lk
+
+
+def outer_step(data, st, line_search_rate=2.0):
+    """One full coordinate-ascent iteration of the compact state
+    (reference _optimize_step/_nat_grad_step,
+    variational_inference.py:396-450). Returns (state, posterior mean in
+    output scale)."""
+    if data.scale_se:
+        raise NotImplementedError(SLICE_B)
+    red = st.running_elbo_delta
+    conv_tol = math.inf if math.isnan(red) else 0.1 * red
+    st, delta_beta, obj, pm, lk = _beta_loop_compact(data, st, conv_tol,
+                                                     line_search_rate)
+    st, delta_hyper, obj, pm, lk = _update_hyper_delta_compact(data, st,
+                                                               obj)
+    new_elbo_delta = delta_beta + delta_hyper
+    red = new_elbo_delta if math.isnan(red) else red
+    red = red * ELBO_MOMENTUM + (1 - ELBO_MOMENTUM) * max(new_elbo_delta,
+                                                          0.0)
+    st = dataclasses.replace(st, elbo=st.elbo + new_elbo_delta,
+                             running_elbo_delta=red)
+    # pm belongs to the final parameters (the hyper-delta evaluation)
+    return st, pm * data.scalings
+
+
+# ---------------------------------------------------------------------------
+# Derived state (outputs, tests)
+# ---------------------------------------------------------------------------
+
+def _derive_params(data, error_scaling, nat_mu, hyper_delta):
+    """(sigma, vi_mu [K,P,I], vi_delta [K,I]) derived from the compact
+    state, staged as tensor expressions."""
+    dterm = _diag_term(data, error_scaling)
+    sigma = sigma_mod.make_summaries(data.mixture_prec, data.log_det,
+                                     dterm)
+    nat_vd = kernels.fast_vi_delta_grad(hyper_delta, data.log_det,
+                                        data.annotations)
+    K = data.mixture_prec.shape[0]
+    nat_b = nat_mu[None].expand((K,) + tuple(nat_mu.shape))
+    vi_mu = sigma_mod.apply_sigma(data.mixture_prec, dterm, nat_b)
+    vi_delta = kernels.fast_invert_nat_vi_delta(
+        vi_mu, nat_b, sigma.log_det_sigma, nat_vd)
+    return sigma, vi_mu, vi_delta
+
+
+def materialize_state(data, st):
+    """Fill a compact VIState's derived fields (vi_mu, vi_delta, sigma,
+    nat_grad_vi_delta) for outputs and tests."""
+    sigma, vi_mu, vi_delta = _derive_params(data, st.error_scaling,
+                                            st.nat_mu, st.hyper_delta)
+    nat_vd = kernels.fast_vi_delta_grad(st.hyper_delta, data.log_det,
+                                        data.annotations)
+    return dataclasses.replace(st, vi_mu=vi_mu, vi_delta=vi_delta,
+                               sigma=sigma, nat_grad_vi_delta=nat_vd)
+
+
+def compact_nat_mu(data, error_scaling, vi_mu):
+    """Recover the shared [P, I] natural mean from a materialized vi_mu:
+    nat = (prec_0 + diag) @ vi_mu[0] (exact for any non-scale_se state)."""
+    dterm = _diag_term(data, error_scaling)
+    return (torch.einsum('pq,qi->pi', data.mixture_prec[0], vi_mu[0])
+            + dterm * vi_mu[0])
+
+
+def _conv_stats(new_pm, old_pm, ckp_pm, st):
+    """Per-iteration convergence/telemetry scalars, reduced on the device
+    and fetched in ONE synchronization: [num_err, elbo, running delta,
+    allclose, max|pm|, max rel diff, max abs diff, checkpoint RMSE,
+    error_scaling...]."""
+    global host_syncs
+    eps = epsilon(new_pm.dtype)
+    diff = torch.abs(new_pm - old_pm)
+    # np.allclose(new, old, atol=ABS_TOL, rtol=REL_TOL) semantics
+    allclose = torch.all(diff <= ABS_TOL + REL_TOL * torch.abs(old_pm))
+    dev = torch.cat([torch.stack([
+        allclose.to(new_pm.dtype),
+        torch.max(torch.abs(new_pm)),
+        torch.max(torch.abs(diff / (old_pm + eps))),
+        torch.max(diff),
+        torch.sqrt(torch.mean((new_pm - ckp_pm) ** 2)),
+    ]), st.error_scaling.to(new_pm.dtype)])
+    host_syncs += 1
+    dev = dev.cpu().numpy().astype(np.float64)
+    return np.concatenate([[st.num_err, st.elbo, st.running_elbo_delta],
+                           dev])
+
+
+# ---------------------------------------------------------------------------
+# Initialization (reference MultiPopVI._initialize,
+# variational_inference.py:643-700). RNG draws happen on the host with the
+# global numpy stream, in the reference's order.
+# ---------------------------------------------------------------------------
+
+def make_fake_mu(inverse_betas, std_errs, ld_diags):
+    """Host-side jittered initial means (variational_inference.py:646-657),
+    from the *global* numpy RNG in the reference's order."""
+    real_mu = np.asarray(inverse_betas)
+    std_errs = np.asarray(std_errs)
+    missing = np.isclose(np.asarray(ld_diags), 0)
+    fake_mu = np.random.normal(loc=np.copy(real_mu), scale=1e-3 * std_errs,
+                               size=real_mu.shape)
+    fake_mu[missing] = np.nan
+    with np.errstate(invalid='ignore'):
+        import warnings
+        with warnings.catch_warnings():
+            warnings.simplefilter('ignore')
+            mu_fill = np.tile(np.nanmean(fake_mu, axis=0),
+                              [fake_mu.shape[0], 1])
+    fake_mu[missing] = mu_fill[missing]
+    fake_mu[np.isnan(fake_mu)] = 0.
+    return fake_mu
+
+
+def initialize_from_fake_mu(data, sigma, error_scaling, fake_mu):
+    """Device-side remainder of _initialize
+    (variational_inference.py:658-700) for the compact state: returns
+    (hyper_delta [A, K], the shared natural mean [P, I])."""
+    eps = epsilon(fake_mu.dtype)
+    probs = torch.einsum('pi,oi,kpo->ki', 1.6 * fake_mu, 1.6 * fake_mu,
+                         data.mixture_prec)
+    probs = probs + sigma.matches - data.log_det[:, None]
+    probs = torch.exp(-0.5 * (probs - probs.amin(dim=0, keepdim=True)))
+    vi_delta = torch.clamp(probs / probs.sum(dim=0, keepdim=True), min=eps)
+
+    hyper = kernels.sum_annotations(vi_delta, data.annotations,
+                                    data.num_annotations) + 1.
+    hyper = hyper / torch.sum(hyper, dim=1, keepdim=True)
+    hyper = torch.clamp(hyper, min=eps)
+
+    dterm = _diag_term(data, error_scaling)
+    avg_mats = sigma_mod.sigma_weighted_sum(data.mixture_prec, dterm,
+                                            vi_delta)            # [I,P,P]
+    inv_avg = torch.linalg.inv(avg_mats)
+    temp_nat_mu = torch.einsum('pi,iqp->qi', fake_mu, inv_avg)   # [P,I]
+    return hyper, temp_nat_mu
+
+
+# ---------------------------------------------------------------------------
+# Model setup (reference VIScheme.__init__ precomputation,
+# variational_inference.py:96-259)
+# ---------------------------------------------------------------------------
+
+def _precompute_stats(ld, ld_index, marginal_effects, std_errs, gwas_N,
+                      init_hg, real_mask):
+    P = marginal_effects.shape[0]
+    lds = [ld[ld_index[p]] for p in range(P)]
+    ld_diags = torch.stack([blocks_mod.diag(lds[p]).to(std_errs.dtype)
+                            for p in range(P)])
+    z_scores = marginal_effects / std_errs
+    mle = torch.stack([blocks_mod.inverse_dot(lds[p], z_scores[p])
+                       for p in range(P)])
+    chi_stat = torch.einsum('pi,pi->p', z_scores, mle)
+    adj = torch.stack([blocks_mod.dot(lds[p], mle[p]) for p in range(P)])
+    adj = adj / std_errs
+    # layout-pad slots must not inflate the LDpred-style prior's SE^-2 sum
+    prior = (2 * gwas_N * init_hg) / torch.sum(
+        std_errs ** -2 * real_mask[None, :], dim=1)
+    inv_z = torch.stack([
+        blocks_mod.ridge_inverse_dot(lds[p], adj[p] * std_errs[p],
+                                     std_errs[p] ** 2 / prior[p])
+        for p in range(P)])
+    return ld_diags, chi_stat, adj, inv_z * std_errs
+
+
+def _floor_mixture_covs(mixture_covs, rel_floor=1e-10):
+    """Floor mixture-covariance eigenvalues for sub-f64 precisions (see
+    the JAX engine's _floor_mixture_covs: the grid's near-zero spike
+    component can land below float32's smallest normal)."""
+    w, v = np.linalg.eigh(mixture_covs)                  # [K,P], [K,P,P]
+    floor = float(w.max()) * rel_floor
+    if w.min() >= floor:
+        return mixture_covs
+    if w.min() < -floor:
+        raise ValueError('Every mixture-component covariance matrix '
+                         'must be positive definite.')
+    logging.info('f32 path: flooring %d mixture-covariance eigenvalues '
+                 'below %.3e (near-zero spike components outside f32 '
+                 'range)', int((w < floor).sum()), floor)
+    w = np.maximum(w, floor)
+    return np.einsum('kpq,kq,krq->kpr', v, w, v)
+
+
+def build_model_data(marginal_effects, std_errs, ld_mats, annotations,
+                     mixture_covs, scaled, scale_se, gwas_N, init_hg,
+                     dtype=torch.float64, device='cpu'):
+    """Assemble ModelData with the same validations as VIScheme.__init__;
+    every tensor lives on `device`."""
+    marginal_effects = np.asarray(marginal_effects)
+    std_errs = np.asarray(std_errs)
+    eps = epsilon(dtype)
+    if not np.all(np.isfinite(marginal_effects)):
+        raise ValueError('The GWAS effect-size estimates contain a '
+                         'non-finite (NaN or infinite) value.')
+    if not np.all(np.isfinite(std_errs)):
+        raise ValueError('The GWAS standard errors contain a '
+                         'non-finite (NaN or infinite) value.')
+    num_pops, num_loci = marginal_effects.shape
+    if len(ld_mats) != num_pops:
+        raise ValueError('One LD matrix is required per population.')
+    for ld in ld_mats:
+        if not isinstance(ld, blocks_mod.PackedLD):
+            raise ValueError('LD Matrices must be of type PackedLD.')
+        if ld.shape != (num_loci, num_loci):
+            raise ValueError('An LD matrix has a different variant '
+                             'count than the GWAS effect sizes.')
+    annotations = np.asarray(annotations)
+    row_sums = annotations.sum(axis=1)
+    # all-zero rows are pad sentinels; anything else must be one-hot
+    if not np.all(np.isclose(row_sums, 1) | (row_sums == 0)):
+        raise ValueError('Every SNP needs exactly one annotation; '
+                         'found rows with zero or several.')
+    if annotations.shape[0] != num_loci:
+        raise ValueError('The annotation matrix has a different '
+                         'variant count than the GWAS effect sizes.')
+
+    mixture_covs = np.asarray(mixture_covs)
+    if mixture_covs.shape[1:] != (num_pops, num_pops):
+        raise ValueError('Mixture-component covariance matrices must '
+                         'be [num_pops x num_pops].')
+    signs, log_det = np.linalg.slogdet(mixture_covs)
+    if not np.all(signs == 1):
+        raise ValueError('Every mixture-component covariance matrix '
+                         'must be positive definite.')
+    if dtype != torch.float64:
+        mixture_covs = _floor_mixture_covs(mixture_covs)
+        log_det = np.linalg.slogdet(mixture_covs)[1]
+    mixture_prec = np.linalg.inv(mixture_covs)
+
+    if scaled:
+        marginal = marginal_effects / (std_errs + eps)
+        use_std_errs = np.ones_like(std_errs)
+        scalings = std_errs + eps
+    else:
+        marginal = np.copy(marginal_effects)
+        use_std_errs = np.copy(std_errs)
+        scalings = np.ones_like(std_errs)
+
+    def dev(x, dt=dtype):
+        return torch.as_tensor(np.asarray(x), device=device).to(dt)
+
+    # deduplicate by identity: cohorts sharing one LD matrix share its
+    # tensors and one matvec pass
+    uniq, ld_index = [], []
+    for m in ld_mats:
+        hit = [j for j, u in enumerate(uniq) if u is m]
+        if hit:
+            ld_index.append(hit[0])
+        else:
+            ld_index.append(len(uniq))
+            uniq.append(m)
+    ld_tuple, ld_index = tuple(uniq), tuple(ld_index)
+
+    marginal_t = dev(marginal)
+    std_errs_t = dev(use_std_errs)
+    ld_diags, chi_stat, adj, inverse_betas = _precompute_stats(
+        ld_tuple, ld_index, marginal_t, std_errs_t, dev(gwas_N),
+        dev(init_hg), dev((row_sums > 0).astype(np.float64)))
+
+    ld_diags_np = ld_diags.cpu().numpy()
+    if not np.allclose(adj.cpu().numpy()[np.isclose(ld_diags_np, 0)], 0):
+        raise ValueError('SNPs absent from the LD matrix have nonzero '
+                         'adjusted marginal effects; they should have '
+                         'been marked missing upstream.')
+
+    num_annotations = annotations.shape[1]
+    annot_idx = np.where(row_sums > 0, np.argmax(annotations, axis=1),
+                         num_annotations).astype(np.int32)
+    return ModelData(
+        marginal_effects=marginal_t,
+        std_errs=std_errs_t,
+        scalings=dev(scalings),
+        ld_diags=ld_diags,
+        scaled_ld_diags=std_errs_t ** -2 * ld_diags,
+        adj_marginal_effects=adj,
+        chi_stat=chi_stat,
+        ld_ranks=dev([ld.get_rank() for ld in ld_mats]),
+        inverse_betas=inverse_betas,
+        annotations=dev(annot_idx, torch.int32),
+        annotation_counts=dev(annotations.sum(axis=0)),
+        mixture_prec=dev(mixture_prec),
+        log_det=dev(log_det),
+        ld=ld_tuple,
+        num_annotations=int(num_annotations),
+        scale_se=bool(scale_se),
+        ld_index=ld_index,
+    )
+
+
+# ---------------------------------------------------------------------------
+# User-facing engine
+# ---------------------------------------------------------------------------
+
+# outputs whose derived [K, *, I] members exceed this stream to disk in
+# chunks instead of materializing (MultiPopVI.dump_spec)
+_STREAM_OUTPUT_BYTES = 1 << 28
+
+
+def _np(x):
+    return x.detach().cpu().numpy()
+
+
+class MultiPopVI:
+    """Equivalent of the reference MultiPopVI
+    (variational_inference.py:567-889) for the compact slice: same
+    constructor surface plus `dtype` and `device`, same optimize() and
+    output arrays."""
+
+    def __init__(self, marginal_effects=None, std_errs=None, ld_mats=None,
+                 annotations=None, mixture_covs=None, checkpoint=True,
+                 checkpoint_freq=5, scaled=False, scale_se=False,
+                 output='vilma_output', gwas_N=None, init_hg=None,
+                 num_its=None, dtype=torch.float64, device='cpu'):
+        for name, val in [('marginal_effects', marginal_effects),
+                          ('std_errs', std_errs), ('ld_mats', ld_mats),
+                          ('annotations', annotations),
+                          ('mixture_covs', mixture_covs),
+                          ('gwas_N', gwas_N), ('init_hg', init_hg),
+                          ('num_its', num_its)]:
+            if val is None:
+                raise ValueError(f'{name} must be specified when calling '
+                                 'MultiPopVI()')
+        if scale_se:
+            raise NotImplementedError(SLICE_B)
+        if np.asarray(marginal_effects).shape[0] > 3:
+            raise NotImplementedError(sigma_mod._P4_MESSAGE)
+        self.data = build_model_data(
+            marginal_effects, std_errs, ld_mats, annotations, mixture_covs,
+            scaled, scale_se, gwas_N, init_hg, dtype=dtype, device=device)
+        self.scaled = scaled
+        self.scale_se = scale_se
+        self.checkpoint = checkpoint
+        self.checkpoint_freq = checkpoint_freq
+        self.checkpoint_path = '%s-checkpoint' % output
+        self.num_its = num_its
+        self.num_pops, self.num_loci = self.data.marginal_effects.shape
+        self.num_mix = self.data.mixture_prec.shape[0]
+        self.num_annotations = self.data.num_annotations
+        self.state = None
+
+    @property
+    def _dtype(self):
+        return self.data.marginal_effects.dtype
+
+    @property
+    def _np_dtype(self):
+        return np.dtype(str(self._dtype).replace('torch.', ''))
+
+    @property
+    def error_scaling(self):
+        return _np(self.state.error_scaling)
+
+    @property
+    def scalings(self):
+        return _np(self.data.scalings)
+
+    def vi_sigma_chunks(self, chunk_k=None):
+        """Yield vi_sigma in [<=chunk_k, P, P, I] component chunks
+        (~256 MB each by default), for utils/npz_stream."""
+        K, P = self.num_mix, self.num_pops
+        if chunk_k is None:
+            per_k = max(self.num_loci * P * P * self._np_dtype.itemsize, 1)
+            chunk_k = max(1, min(K, (256 << 20) // per_k))
+        dterm = _diag_term(self.data, self.state.error_scaling)
+        for k0 in range(0, K, chunk_k):
+            yield _np(sigma_mod.materialize_sigma(
+                self.data.mixture_prec[k0:k0 + chunk_k], dterm))
+
+    # -- genome-scale output streaming (see dump_spec) ---------------------
+    def _stream_big(self):
+        """Whether derived [K, *, I] outputs exceed the in-memory budget."""
+        return (self.num_mix * self.num_pops * self.num_loci
+                * self._np_dtype.itemsize > _STREAM_OUTPUT_BYTES)
+
+    def vi_mu_chunks(self, st=None, chunk_k=None):
+        """Yield vi_mu in [<=chunk_k, P, I] component chunks derived from
+        the compact state (vi_mu_k = sigma_k @ nat_mu)."""
+        st = st or self.state
+        K, P = self.num_mix, self.num_pops
+        if chunk_k is None:
+            per_k = max(self.num_loci * P * self._np_dtype.itemsize, 1)
+            chunk_k = max(1, min(K, (256 << 20) // per_k))
+        dterm = _diag_term(self.data, st.error_scaling)
+        for k0 in range(0, K, chunk_k):
+            prec = self.data.mixture_prec[k0:k0 + chunk_k]
+            nat = st.nat_mu[None].expand((prec.shape[0],)
+                                         + tuple(st.nat_mu.shape))
+            yield _np(sigma_mod.apply_sigma(prec, dterm, nat))
+
+    def _derived_col_chunks(self, st, chunk_i=None):
+        """Yield (vi_delta [c, K], pm [P, c], pv [P, c]) over variant
+        chunks (bounded device memory)."""
+        st = st or self.state
+        K, P, n = self.num_mix, self.num_pops, self.num_loci
+        if chunk_i is None:
+            chunk_i = max(1024, (64 << 20) // max(K * P * 4, 1))
+        data = self.data
+        for i0 in range(0, n, chunk_i):
+            sl = slice(i0, i0 + chunk_i)
+            dt_c = data.scaled_ld_diags[:, sl] / st.error_scaling[:, None]
+            natvd = kernels.fast_vi_delta_grad(
+                st.hyper_delta, data.log_det, data.annotations[sl])
+            ex = sigma_mod.compact_exprs(data.mixture_prec, dt_c,
+                                         st.nat_mu[:, sl])
+            addenda = ex.log_det_sigma + ex.quad
+            li = 0.5 * (addenda[:-1] - addenda[-1:]) + natvd
+            vi_delta = kernels.invert_nat_cat_2D(li)             # [K, c]
+            pm = torch.einsum('kpc,kc->pc', ex.mu, vi_delta)
+            second = torch.einsum('kpc,kc->pc', ex.diag + ex.mu ** 2,
+                                  vi_delta)
+            yield _np(vi_delta.T), _np(pm), _np(second - pm ** 2)
+
+    def vi_delta_chunks(self, st=None, chunk_i=None):
+        """Yield the [I, K] (reference-layout) vi_delta in row chunks."""
+        for vd, _, _ in self._derived_col_chunks(st, chunk_i):
+            yield vd
+
+    def dump_spec(self, st=None):
+        """(arrays, streams) covering the reference checkpoint/.npz key set
+        (vi_mu, vi_delta, hyper_delta, error_scaling, scalings).
+
+        Small problems return everything materialized in `arrays`;
+        problems whose derived [K, *, I] members exceed the budget stream
+        vi_mu (component chunks) and vi_delta (variant chunks) for
+        utils/npz_stream.save_npz_stream."""
+        st = st or self.state
+        if not self._stream_big():
+            return self.create_dump_dict(st), []
+        arrays = {
+            'hyper_delta': _np(st.hyper_delta),
+            'error_scaling': _np(st.error_scaling),
+            'scalings': _np(self.data.scalings),
+        }
+        K, P, n = self.num_mix, self.num_pops, self.num_loci
+        dtype = self._np_dtype
+        streams = [
+            ('vi_mu', (K, P, n), dtype, self.vi_mu_chunks(st)),
+            ('vi_delta', (n, K), dtype, self.vi_delta_chunks(st)),
+        ]
+        return arrays, streams
+
+    def create_dump_dict(self, st=None):
+        st = st or self.state
+        if st.vi_mu is None and self._stream_big():
+            raise MemoryError(
+                'materializing the derived vi_mu/vi_delta of this '
+                'problem needs tens of GB; use dump_spec() + '
+                'utils/npz_stream.save_npz_stream (fit does this '
+                'automatically)')
+        mat = st if st.vi_mu is not None else materialize_state(self.data,
+                                                                 st)
+        return {
+            'vi_mu': _np(mat.vi_mu),
+            'vi_delta': _np(mat.vi_delta).T,
+            'hyper_delta': _np(mat.hyper_delta),
+            'error_scaling': _np(mat.error_scaling),
+            'scalings': _np(self.data.scalings),
+        }
+
+    def _streamed_moments(self, st):
+        """(posterior mean, variance) assembled from bounded chunks."""
+        P, n = self.num_pops, self.num_loci
+        pm = np.empty((P, n), dtype=self._np_dtype)
+        pv = np.empty((P, n), dtype=self._np_dtype)
+        pos = 0
+        for _, pm_c, pv_c in self._derived_col_chunks(st):
+            c = pm_c.shape[1]
+            pm[:, pos:pos + c] = pm_c
+            pv[:, pos:pos + c] = pv_c
+            pos += c
+        scalings = self.scalings
+        return pm * scalings, pv * scalings ** 2
+
+    def real_posterior_mean(self, st=None):
+        st = st or self.state
+        if st.vi_mu is None and self._stream_big():
+            return self._streamed_moments(st)[0]
+        mat = st if st.vi_mu is not None else materialize_state(self.data,
+                                                                 st)
+        return _np(kernels.fast_posterior_mean(mat.vi_mu, mat.vi_delta)
+                   * self.data.scalings)
+
+    def real_posterior_variance(self, st=None):
+        st = st or self.state
+        if st.vi_mu is None and self._stream_big():
+            return self._streamed_moments(st)[1]
+        mat = st if st.vi_mu is not None else materialize_state(self.data,
+                                                                 st)
+        mean = kernels.fast_posterior_mean(mat.vi_mu, mat.vi_delta)
+        return _np(kernels.fast_pmv(mean, mat.vi_mu, mat.vi_delta,
+                                    mat.sigma.diag)
+                   * self.data.scalings ** 2)
+
+    def _fresh_state(self):
+        zeros = dict(dtype=self._dtype,
+                     device=self.data.marginal_effects.device)
+        return VIState(
+            nat_mu=torch.zeros(self.num_pops, self.num_loci, **zeros),
+            hyper_delta=torch.zeros(self.num_annotations, self.num_mix,
+                                    **zeros),
+            error_scaling=torch.ones(self.num_pops, **zeros),
+            L=(1., 1., 1.), elbo=0., running_elbo_delta=math.nan,
+            num_err=0)
+
+    def _initialize(self):
+        st = self._fresh_state()
+        data = self.data
+        fake = make_fake_mu(_np(data.inverse_betas), _np(data.std_errs),
+                            _np(data.ld_diags))
+        fake_mu = torch.as_tensor(
+            fake.astype(self._np_dtype),
+            device=data.marginal_effects.device)
+        logging.info('Max |inverse_beta| at initialization: %f',
+                     float(torch.max(torch.abs(data.inverse_betas))))
+        sig = sigma_mod.make_summaries(data.mixture_prec, data.log_det,
+                                       _diag_term(data, st.error_scaling))
+        hyper, temp_nat = initialize_from_fake_mu(data, sig,
+                                                  st.error_scaling, fake_mu)
+        return dataclasses.replace(st, nat_mu=temp_nat, hyper_delta=hyper)
+
+    def _posterior_mean(self, st):
+        _, pm, _ = _objective_compact(self.data, st, st.nat_mu,
+                                      st.hyper_delta)
+        return pm * self.data.scalings
+
+    def optimize(self, loaded_checkpoint=None):
+        """Coordinate ascent until convergence
+        (reference optimize(), variational_inference.py:340-394)."""
+        if loaded_checkpoint is not None:
+            raise NotImplementedError(RESUME)
+        from vilma_tpu_torch.utils.npz_stream import save_npz_stream
+        data = self.data
+        st = self._initialize()
+        e0, _, _ = _objective_compact(data, st, st.nat_mu, st.hyper_delta)
+        st = dataclasses.replace(st, elbo=_sync_float(e0))
+        converged = False
+        num_its = 0
+        post_mean = self._posterior_mean(st)
+        ckp_post_mean = post_mean
+        prev_err = 0
+        while num_its < self.num_its and not converged:
+            if num_its % self.checkpoint_freq == 0 and self.checkpoint:
+                arrays, streams = self.dump_spec(st)
+                save_npz_stream('{}.{}'.format(self.checkpoint_path,
+                                               num_its), arrays, streams)
+                ckp_post_mean = self._posterior_mean(st)
+            st, new_post_mean = outer_step(data, st, line_search_rate=2.0)
+            stats = _conv_stats(new_post_mean, post_mean, ckp_post_mean, st)
+            num_err = int(stats[0])
+            if num_err > prev_err:
+                raise RuntimeError('Encountered a numerical error.')
+            prev_err = num_err
+            # the f32 line-search guard is loose (_err_rtol), so a fit
+            # that degenerates to NaN is caught here
+            if np.isnan(stats[1]) or np.isnan(stats[4]):
+                raise RuntimeError('Encountered a numerical error '
+                                   '(non-finite ELBO or posterior mean).')
+            red = float(stats[2])
+            converged = bool(stats[3]) or bool(
+                np.isclose(red, 0, atol=ELBO_TOL, rtol=0))
+            if num_its < 10:
+                converged = False
+            self._dump_info(num_its, stats)
+            post_mean = new_post_mean
+            num_its += 1
+
+        if num_its == self.num_its:
+            logging.warning('Failed to converge')
+        logging.info('Optimization ran for %d iterations', num_its)
+        # production grids at genome scale keep the compact state; their
+        # outputs go through the chunked paths (dump_spec,
+        # _streamed_moments, vi_sigma_chunks)
+        self.state = (st if self._stream_big()
+                      else materialize_state(data, st))
+        return self.state
+
+    def _dump_info(self, num_its, stats):
+        """Per-iteration telemetry (reference _dump_info,
+        variational_inference.py:292-331)."""
+        logging.info('Completed iteration %d', num_its + 1)
+        logging.info('ELBO = %f, running delta = %f', float(stats[1]),
+                     float(stats[2]))
+        logging.info('Maximum posterior mean beta: %e', float(stats[4]))
+        logging.info('SE scaling is: %r', np.asarray(stats[8:]))
+        logging.info('Max relative difference is: %e', float(stats[5]))
+        logging.info('Max absolute difference is: %e', float(stats[6]))
+        logging.info('RMSE difference (checkpoint iterations) is: %e',
+                     float(stats[7]))

@@ -1,0 +1,236 @@
+"""Closed-form algebra for the variational covariances vi_sigma (P <= 3).
+
+Port of vilma_tpu/models/sigma.py. The per-SNP, per-component covariance
+
+    vi_sigma[k,:,:,i] = inv(mixture_prec[k] + diag(diag_term[:, i]))
+
+is never materialized in compute: every contraction against it is a
+closed-form PxP inverse, P = 1..3 cohorts. The JAX package also has a
+chunked batched-solve path for P >= 4; the port raises for it (ROADMAP
+queue 1, "Materialized path, P >= 4").
+
+Functions take `diag_term` = scaled_ld_diags / error_scaling[:, None]
+([P, I]) and `mixture_prec` ([K, P, P]).
+"""
+from dataclasses import dataclass
+
+import torch
+
+_P4_MESSAGE = ('P >= 4 cohorts need the materialized path, which is not '
+               'ported yet (ROADMAP.md queue 1, "Materialized path, '
+               'P >= 4")')
+
+
+def _require_closed_form(P):
+    if P > 3:
+        raise NotImplementedError(_P4_MESSAGE)
+
+
+@dataclass(frozen=True)
+class SigmaSummaries:
+    """O(K*I) summaries of vi_sigma (reference _set_vi_sigma,
+    variational_inference.py:712-733); all [K, I] except diag [K, P, I]."""
+    log_det_sigma: torch.Tensor
+    sigma_summary: torch.Tensor
+    diag: torch.Tensor
+    matches: torch.Tensor
+
+
+def _precision_parts(mixture_prec, diag_term):
+    """Split the per-(k,i) precision into reusable [K, I] components."""
+    P = mixture_prec.shape[1]
+    _require_closed_form(P)
+    if P == 1:
+        return (mixture_prec[:, 0, 0][:, None] + diag_term[0][None, :],)
+    if P == 2:
+        a = mixture_prec[:, 0, 0][:, None] + diag_term[0][None, :]
+        b = mixture_prec[:, 0, 1][:, None] + torch.zeros_like(diag_term[0])
+        d = mixture_prec[:, 1, 1][:, None] + diag_term[1][None, :]
+        return (a, b, d)
+    # M[k,i] = [[a, b, c], [b, d, e], [c, e, f]]: the diagonal varies
+    # with i, the off-diagonals stay [K, 1] broadcastables
+    a = mixture_prec[:, 0, 0][:, None] + diag_term[0][None, :]
+    d = mixture_prec[:, 1, 1][:, None] + diag_term[1][None, :]
+    f = mixture_prec[:, 2, 2][:, None] + diag_term[2][None, :]
+    b = mixture_prec[:, 0, 1][:, None]
+    c = mixture_prec[:, 0, 2][:, None]
+    e = mixture_prec[:, 1, 2][:, None]
+    return (a, b, c, d, e, f)
+
+
+def _adjugate3(parts):
+    """Adjugate entries + determinant of the symmetric 3x3 family."""
+    a, b, c, d, e, f = parts
+    A = d * f - e * e
+    B = c * e - b * f
+    C = b * e - c * d
+    D = a * f - c * c
+    E = b * c - a * e
+    F = a * d - b * b
+    det = a * A + b * B + c * C
+    return A, B, C, D, E, F, det
+
+
+def apply_precision(mixture_prec, diag_term, x):
+    """(mixture_prec[k] + diag(diag_term[:,i])) @ x[k,:,i] -> [K,P,I]."""
+    return (torch.einsum('kpq,kqi->kpi', mixture_prec, x)
+            + diag_term[None, :, :] * x)
+
+
+def apply_sigma(mixture_prec, diag_term, x):
+    """vi_sigma[k,:,:,i] @ x[k,:,i] -> [K,P,I] via closed-form solves."""
+    P = mixture_prec.shape[1]
+    parts = _precision_parts(mixture_prec, diag_term)
+    if P == 1:
+        (a,) = parts
+        return (x[:, 0, :] / a)[:, None, :]
+    if P == 2:
+        a, b, d = parts
+        det = a * d - b * b
+        x0, x1 = x[:, 0, :], x[:, 1, :]
+        return torch.stack([(d * x0 - b * x1) / det,
+                            (a * x1 - b * x0) / det], dim=1)
+    A, B, C, D, E, F, det = _adjugate3(parts)
+    x0, x1, x2 = x[:, 0, :], x[:, 1, :], x[:, 2, :]
+    return torch.stack([(A * x0 + B * x1 + C * x2) / det,
+                        (B * x0 + D * x1 + E * x2) / det,
+                        (C * x0 + E * x1 + F * x2) / det], dim=1)
+
+
+def _matches3(mixture_prec, adj):
+    """trace(prec @ sigma) over the symmetric entries, times det."""
+    A, B, C, D, E, F = adj
+    pr = mixture_prec[:, :, :, None]
+    return (pr[:, 0, 0] * A + pr[:, 1, 1] * D + pr[:, 2, 2] * F
+            + 2 * (pr[:, 0, 1] * B + pr[:, 0, 2] * C + pr[:, 1, 2] * E))
+
+
+def make_summaries(mixture_prec, log_det_prior, diag_term):
+    """Build the O(K*I) vi_sigma summaries. log_det_prior: [K]
+    log-determinants of the prior covariances (-logdet(mixture_prec))."""
+    P = mixture_prec.shape[1]
+    parts = _precision_parts(mixture_prec, diag_term)
+    if P == 1:
+        (a,) = parts
+        log_det_sigma = -torch.log(a)
+        diag = (1.0 / a)[:, None, :]
+        matches = mixture_prec[:, 0, 0][:, None] / a
+    elif P == 2:
+        a, b, d = parts
+        det = a * d - b * b
+        log_det_sigma = -torch.log(det)
+        diag = torch.stack([d / det, a / det], dim=1)
+        p00 = mixture_prec[:, 0, 0][:, None]
+        p01 = mixture_prec[:, 0, 1][:, None]
+        p11 = mixture_prec[:, 1, 1][:, None]
+        matches = (p00 * d - 2 * p01 * b + p11 * a) / det
+    else:
+        A, B, C, D, E, F, det = _adjugate3(parts)
+        log_det_sigma = -torch.log(det)
+        diag = torch.stack([A, D, F], dim=1) / det[:, None, :]
+        matches = _matches3(mixture_prec, (A, B, C, D, E, F)) / det
+    sigma_summary = log_det_prior[:, None] - log_det_sigma + matches
+    return SigmaSummaries(log_det_sigma=log_det_sigma,
+                          sigma_summary=sigma_summary, diag=diag,
+                          matches=matches)
+
+
+@dataclass(frozen=True)
+class CompactExprs:
+    """Per-component closed forms of the compact [P, I] natural-mean
+    state: mu[k] = vi_sigma[k] @ nat_mu; quad[k] = mu[k].nat_mu;
+    quadform[k] = mu[k]' mixture_prec[k] mu[k]; the rest as in
+    SigmaSummaries."""
+    mu: torch.Tensor              # [K, P, I]
+    diag: torch.Tensor            # [K, P, I]
+    log_det_sigma: torch.Tensor   # [K, I]
+    matches: torch.Tensor         # [K, I]
+    quad: torch.Tensor            # [K, I]
+    quadform: torch.Tensor        # [K, I]
+
+
+def compact_exprs(mixture_prec, diag_term, nat_mu):
+    """CompactExprs of the shared [P, I] natural mean (slice A; the
+    per-component [K, P, I] state of --learn-scaling is slice B)."""
+    P = mixture_prec.shape[1]
+    if nat_mu.dim() != 2:
+        raise NotImplementedError(
+            'the per-component [K, P, I] natural mean (--learn-scaling) '
+            'is not ported yet (ROADMAP.md queue 1, "Slice B")')
+    parts = _precision_parts(mixture_prec, diag_term)
+    n = [nat_mu[p][None, :] for p in range(P)]
+    if P == 1:
+        (a,) = parts
+        mu0 = n[0] / a
+        p00 = mixture_prec[:, 0, 0][:, None]
+        return CompactExprs(
+            mu=mu0[:, None, :], diag=(1.0 / a)[:, None, :],
+            log_det_sigma=-torch.log(a), matches=p00 / a,
+            quad=n[0] * mu0, quadform=p00 * mu0 * mu0)
+    if P == 2:
+        a, b, d = parts
+        det = a * d - b * b
+        y0 = (d * n[0] - b * n[1]) / det
+        y1 = (a * n[1] - b * n[0]) / det
+        p00 = mixture_prec[:, 0, 0][:, None]
+        p01 = mixture_prec[:, 0, 1][:, None]
+        p11 = mixture_prec[:, 1, 1][:, None]
+        return CompactExprs(
+            mu=torch.stack([y0, y1], dim=1),
+            diag=torch.stack([d / det, a / det], dim=1),
+            log_det_sigma=-torch.log(det),
+            matches=(p00 * d - 2 * p01 * b + p11 * a) / det,
+            quad=y0 * n[0] + y1 * n[1],
+            quadform=p00 * y0 * y0 + 2 * p01 * y0 * y1 + p11 * y1 * y1)
+    A, B, C, D, E, F, det = _adjugate3(parts)
+    y0 = (A * n[0] + B * n[1] + C * n[2]) / det
+    y1 = (B * n[0] + D * n[1] + E * n[2]) / det
+    y2 = (C * n[0] + E * n[1] + F * n[2]) / det
+    pr = mixture_prec[:, :, :, None]
+    quadform = (pr[:, 0, 0] * y0 * y0 + pr[:, 1, 1] * y1 * y1
+                + pr[:, 2, 2] * y2 * y2
+                + 2 * (pr[:, 0, 1] * y0 * y1 + pr[:, 0, 2] * y0 * y2
+                       + pr[:, 1, 2] * y1 * y2))
+    return CompactExprs(
+        mu=torch.stack([y0, y1, y2], dim=1),
+        diag=torch.stack([A, D, F], dim=1) / det[:, None, :],
+        log_det_sigma=-torch.log(det),
+        matches=_matches3(mixture_prec, (A, B, C, D, E, F)) / det,
+        quad=y0 * n[0] + y1 * n[1] + y2 * n[2], quadform=quadform)
+
+
+def sigma_weighted_sum(mixture_prec, diag_term, vi_delta):
+    """sum_k vi_delta[k,i] * vi_sigma[k,:,:,i] -> [I,P,P] (used only at
+    initialization, reference variational_inference.py:681-684)."""
+    P = mixture_prec.shape[1]
+    parts = _precision_parts(mixture_prec, diag_term)
+
+    def w(x):
+        return torch.einsum('ki,ki->i', vi_delta, x)
+
+    if P == 1:
+        (a,) = parts
+        return w(1.0 / a)[:, None, None]
+    if P == 2:
+        a, b, d = parts
+        det = a * d - b * b
+        s00, s01, s11 = w(d / det), w(-b / det), w(a / det)
+        return torch.stack([torch.stack([s00, s01], dim=-1),
+                            torch.stack([s01, s11], dim=-1)], dim=-2)
+    A, B, C, D, E, F, det = _adjugate3(parts)
+    s00, s01, s02 = w(A / det), w(B / det), w(C / det)
+    s11, s12, s22 = w(D / det), w(E / det), w(F / det)
+    return torch.stack([torch.stack([s00, s01, s02], dim=-1),
+                        torch.stack([s01, s11, s12], dim=-1),
+                        torch.stack([s02, s12, s22], dim=-1)], dim=-2)
+
+
+def materialize_sigma(mixture_prec, diag_term):
+    """Dense [K,P,P,I] vi_sigma, for output parity with the reference's
+    saved `vi_sigma` array (vi_options.py:264) only."""
+    _require_closed_form(mixture_prec.shape[1])
+    P = mixture_prec.shape[1]
+    eye = torch.eye(P, dtype=mixture_prec.dtype, device=mixture_prec.device)
+    prec = (mixture_prec[:, None, :, :]
+            + eye * diag_term.T[None, :, :, None])       # [K, I, P, P]
+    return torch.linalg.inv(prec).permute(0, 2, 3, 1)
