@@ -3,12 +3,17 @@ one CUDA device.
 
     python3 profile_torch_step.py                      # 1M SNPs, K = 18
     python3 profile_torch_step.py --blocks 88 -K 582   # ~90K SNPs, K = 582
+    python3 profile_torch_step.py --learn-scaling      # 1M SNPs, epoch state
 
 Builds the engine as chip_smoke.py's phase 5 does (AR(1) blocks of 1024
 at rank 512 factored on the card, bf16 U, 2 cohorts sharing the panel,
 f32), runs 2 outer steps to warm up, times 10 more with the host clock
 (outer iterations/s, host syncs per step), then traces 3 further steps
-with torch.profiler. From the trace's timeline it prints the
+with torch.profiler. With --learn-scaling the fit learns the error
+scaling on the CLI's -K 12 grid (582 components), as chip_smoke.py's
+phase 7 does: at 1M SNPs the size rule selects the epoch-history state,
+and one EM append after the warm-up gives the epoch kernels a live
+epoch (at --blocks 88 the kdim state runs instead). From the trace's timeline it prints the
 traced wall time, the device's busy share (the union of kernel, memcpy
 and memset intervals over that wall time; the rest is idle) and the
 device time of each kernel, largest first. Imports nothing of JAX.
@@ -64,7 +69,9 @@ def main():
     parser.add_argument('--blocks', type=int, default=977,
                         help='LD blocks of 1024 SNPs')
     parser.add_argument('-K', type=int, default=18,
-                        help='mixture components')
+                        help='mixture components (without --learn-scaling)')
+    parser.add_argument('--learn-scaling', action='store_true',
+                        help='learn the error scaling on the -K 12 grid')
     args = parser.parse_args()
 
     import torch
@@ -76,10 +83,20 @@ def main():
     import chip_smoke
     from vilma_tpu_torch.inference import engine
 
-    data, st = chip_smoke.build_engine('cuda', num_blocks=args.blocks,
-                                       K=args.K)
+    vi, st, _ = chip_smoke.build_engine('cuda', num_blocks=args.blocks,
+                                        K=args.K,
+                                        scale_se=args.learn_scaling)
+    data = vi.data
     for _ in range(WARMUP):
         st, _ = engine.outer_step(data, st)
+    if args.learn_scaling:
+        obj, pm, lk = engine._objective(data, st, engine._params(st),
+                                        st.hyper_delta)
+        st, _, _ = engine._update_error_scaling(
+            data, st, engine._sync_float(obj), pm, lk)
+        print(f'state: {"epoch history" if vi._epoch else "kdim"}, '
+              f'live epochs {st.nat_hist_n}, error_scaling '
+              f'{st.error_scaling.tolist()}')
     torch.cuda.synchronize()
     syncs0 = engine.host_syncs
     t0 = time.perf_counter()
@@ -87,7 +104,7 @@ def main():
         st, _ = engine.outer_step(data, st)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    print(f'I={data.marginal_effects.shape[1]} K={args.K}: '
+    print(f'I={data.marginal_effects.shape[1]} K={vi.num_mix}: '
           f'{STEPS / dt:.3f} outer iterations/s over '
           f'{STEPS} steps, '
           f'{(engine.host_syncs - syncs0) / STEPS:.2f} host syncs '

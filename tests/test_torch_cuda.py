@@ -110,3 +110,77 @@ def test_compact_kernels_match_plain(cuda, P, K):
     assert _scaled_err(pv, rpv) <= 1e-5
     assert abs(float(kl) - float(rkl)) <= 1e-4 * abs(float(rkl))
     assert _scaled_err(sums, rsums) <= 1e-5
+
+
+def _epoch_args(device, P, K, I, A, B, live, seed):
+    """Epoch-kernel operands: `live` filled history slots of B, the rest
+    inert (zero vectors, coefficient 0, scale 1)."""
+    coeffs, scores_t, ann, dterm, nat = _compact_args(device, P, K, I, A,
+                                                      seed)
+    rng = np.random.default_rng(seed + 1)
+    hist = np.zeros((B, P, I))
+    hist[:live] = rng.standard_normal((live, P, I)) * 0.5
+    inv_scales = np.ones((B + 1, P))
+    inv_scales[:live + 1] = rng.uniform(0.7, 1.4, (live + 1, P))
+    hist_c = np.zeros(B)
+    hist_c[:live] = rng.uniform(0.1, 1.0, live)
+
+    def f32(v):
+        return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+    return (coeffs, scores_t, ann, dterm, nat, f32(hist), f32(inv_scales),
+            f32(hist_c))
+
+
+@pytest.mark.parametrize('P', [1, 2, 3])
+@pytest.mark.parametrize('K', [7, 600])
+def test_kdim_kernels_match_plain(cuda, P, K):
+    """The per-component [K, P, I] natural mean of --learn-scaling fits."""
+    A = 3
+    args = list(_compact_args(cuda, P, K, 20_000, A, seed=P * 100 + K))
+    gen = torch.Generator(device=cuda).manual_seed(P + K)
+    args[4] = torch.randn(K, P, 20_000, generator=gen, device=cuda) * 0.5
+    before = dict(co.launches)
+    pm, pv, kl = co.prologue(*args, num_annotations=A)
+    pm2, _, kl2 = co.prologue(*args, num_annotations=A)
+    sums = co.delta_sums(*args, num_annotations=A)
+    again = co.delta_sums(*args, num_annotations=A)
+    rpm, rpv, rkl = co.prologue_plain(*args, num_annotations=A)
+    rsums = co.delta_sums_plain(*args, num_annotations=A)
+    torch.cuda.synchronize()
+    assert co.launches['prologue_kdim'] == before['prologue_kdim'] + 2
+    assert co.launches['delta_sums_kdim'] == before['delta_sums_kdim'] + 2
+    assert co.launches['prologue'] == before['prologue']
+    assert torch.equal(pm, pm2) and torch.equal(kl, kl2)
+    assert torch.equal(sums, again)
+    assert _scaled_err(pm, rpm) <= 1e-5
+    assert _scaled_err(pv, rpv) <= 1e-5
+    assert abs(float(kl) - float(rkl)) <= 1e-4 * abs(float(rkl))
+    assert _scaled_err(sums, rsums) <= 1e-5
+
+
+@pytest.mark.parametrize('P', [1, 2, 3])
+@pytest.mark.parametrize('K', [7, 600])
+def test_epoch_kernels_match_plain(cuda, P, K):
+    """The epoch-history state: 2 live epochs of 4 slots; the kernels
+    loop over the live ones only."""
+    A, B, live = 3, 4, 2
+    args = _epoch_args(cuda, P, K, 20_000, A, B, live, seed=P * 10 + K)
+    kw = dict(num_annotations=A, num_live=live)
+    before = dict(co.launches)
+    pm, pv, kl = co.prologue_epochs(*args, **kw)
+    pm2, _, kl2 = co.prologue_epochs(*args, **kw)
+    sums = co.delta_sums_epochs(*args, **kw)
+    again = co.delta_sums_epochs(*args, **kw)
+    rpm, rpv, rkl = co.prologue_epochs_plain(*args, num_annotations=A)
+    rsums = co.delta_sums_epochs_plain(*args, num_annotations=A)
+    torch.cuda.synchronize()
+    assert co.launches['prologue_epochs'] == before['prologue_epochs'] + 2
+    assert (co.launches['delta_sums_epochs']
+            == before['delta_sums_epochs'] + 2)
+    assert torch.equal(pm, pm2) and torch.equal(kl, kl2)
+    assert torch.equal(sums, again)
+    assert _scaled_err(pm, rpm) <= 1e-5
+    assert _scaled_err(pv, rpv) <= 1e-5
+    assert abs(float(kl) - float(rkl)) <= 1e-4 * abs(float(rkl))
+    assert _scaled_err(sums, rsums) <= 1e-5

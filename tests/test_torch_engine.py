@@ -47,7 +47,8 @@ def test_build_model_data_matches_jax(num_pops):
     raw = _raw_problem(num_pops, seed=num_pops)
     jdata = jengine.build_model_data(**raw)
     tld = ld_to_torch(raw['ld_mats'][0])
-    tdata = tengine.build_model_data(**dict(raw, ld_mats=[tld] * num_pops))
+    tdata = tengine.build_model_data(**dict(raw, ld_mats=[tld] * num_pops),
+                                     device='cpu')
     assert tdata.ld_index == tuple(jdata.ld_index) == (0,) * num_pops
     assert len(tdata.ld) == 1
     assert tdata.num_annotations == jdata.num_annotations
@@ -168,7 +169,7 @@ def test_initial_state_meets_kernel_contract():
                                              dtype=np.float32))
     np.random.seed(0)
     vi = tengine.MultiPopVI(**dict(raw, ld_mats=[tld, tld], num_its=1),
-                            dtype=torch.float32)
+                            dtype=torch.float32, device='cpu')
     st = vi._initialize()
     args = tengine._fused_operands(vi.data, st.error_scaling, st.nat_mu,
                                    st.hyper_delta)

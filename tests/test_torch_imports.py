@@ -1,5 +1,6 @@
-"""The port imports neither jax, pandas nor ml_dtypes, and its unported
-surface raises with the ROADMAP item it waits for."""
+"""The port imports neither jax, pandas nor ml_dtypes, its unported
+surface raises with the ROADMAP item it waits for, and its entry points
+run on the card unless the caller asks for the CPU."""
 import os
 import subprocess
 import sys
@@ -25,9 +26,13 @@ import vilma_tpu_torch
 import vilma_tpu_torch.frontend
 import vilma_tpu_torch.commands.fit
 import vilma_tpu_torch.inference.engine
+import vilma_tpu_torch.models.sigma
 import vilma_tpu_torch.ops.cuda.block_matvec
+import vilma_tpu_torch.ops.cuda.build
 import vilma_tpu_torch.ops.cuda.compact_obj
 import vilma_tpu_torch.convert
+import chip_smoke
+import profile_torch_step
 import vilma_tpu_torch.io.load
 import vilma_tpu_torch.utils.npz_stream
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
@@ -38,8 +43,9 @@ print('LOADED', loaded)
 
 
 def test_import_guard():
-    """Every module of the port imports with jax, pandas and ml_dtypes
-    blocked, and none of them (nor the JAX package) gets loaded."""
+    """Every module of the port, chip_smoke.py and profile_torch_step.py
+    import with jax, pandas and ml_dtypes blocked, and none of them (nor
+    the JAX package) gets loaded."""
     env = dict(os.environ)
     env['PYTHONPATH'] = REPO + os.pathsep + env.get('PYTHONPATH', '')
     out = subprocess.run([sys.executable, '-c', GUARD], env=env, cwd=REPO,
@@ -57,7 +63,7 @@ def test_unported_subcommands_raise(name):
 
 @pytest.mark.parametrize('flags', [
     ['--mesh', 'snp=4'], ['--distributed'], ['--mmap'],
-    ['--factor-cache', '/nonexistent'], ['--learn-scaling'],
+    ['--factor-cache', '/nonexistent'],
     ['--load-checkpoint', 'a.npz', 'b.pkl'],
     ['--sumstats', 'a,b,c,d']])
 def test_unported_fit_flags_raise(flags, tmp_path):
@@ -72,6 +78,36 @@ def test_unported_fit_flags_raise(flags, tmp_path):
         argv += flags
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
         frontend.main(argv)
+
+
+def test_learn_scaling_is_accepted(tmp_path):
+    """--learn-scaling passes the flag checks on --device cpu: the fit
+    goes on to read its inputs (absent here)."""
+    argv = ['fit', '--ld-schema', 'x.schema', '--sumstats', 'a.tsv',
+            '--extract', str(tmp_path / 'e.tsv'), '--output',
+            str(tmp_path / 'o'), '--device', 'cpu', '--learn-scaling']
+    args = frontend.build_parser()[0].parse_args(argv)
+    assert args.scale_se
+    fit_cmd._check_supported(args)
+    with pytest.raises(FileNotFoundError, match='e.tsv'):
+        frontend.main(argv)
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """MultiPopVI and build_model_data target cuda unless told otherwise;
+    without a CUDA device they raise, naming device='cpu'."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        engine.resolve_device()
+    kw = dict(marginal_effects=np.zeros((1, 4)),
+              std_errs=np.ones((1, 4)), ld_mats=[None],
+              annotations=np.ones((4, 1)), mixture_covs=np.eye(1)[None],
+              gwas_N=np.ones(1), init_hg=np.ones(1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        engine.MultiPopVI(num_its=1, **kw)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        engine.build_model_data(scaled=False, scale_se=True, **kw)
+    assert engine.resolve_device('cpu').type == 'cpu'
 
 
 def test_cuda_device_never_falls_back(tmp_path, monkeypatch):
@@ -101,12 +137,19 @@ def test_p4_and_kdim_raise():
     with pytest.raises(NotImplementedError, match='P >= 4'):
         sigma.make_summaries(prec, torch.zeros(2, dtype=torch.float64),
                              torch.ones(4, 5, dtype=torch.float64))
+    # the kdim wrapper takes [K, P, I] and checks its K against the tables
     coeffs = torch.zeros(3, 4)
-    with pytest.raises(NotImplementedError, match='kdim'):
-        compact_obj._check_operands(
-            'prologue', coeffs, torch.zeros(3, 1),
-            torch.zeros(5, dtype=torch.int32), torch.ones(2, 5),
-            torch.zeros(3, 2, 5), 1)
+    args = (coeffs, torch.zeros(3, 1), torch.zeros(5, dtype=torch.int32),
+            torch.ones(2, 5))
+    assert compact_obj._check_operands('prologue', *args,
+                                       torch.zeros(3, 2, 5), 1) == (
+        2, 5, 3, 1, 4)
+    with pytest.raises(ValueError, match='shape'):
+        compact_obj._check_operands('prologue', *args,
+                                    torch.zeros(4, 2, 5), 1)
+    with pytest.raises(ValueError, match='dims'):
+        compact_obj._check_operands('prologue', *args,
+                                    torch.zeros(1, 3, 2, 5), 1)
 
 
 def test_kernel_wrappers_refuse_bad_operands():
@@ -134,8 +177,10 @@ def test_kernel_wrappers_refuse_bad_operands():
 
 def test_engine_constants_match_reference():
     from vilma_tpu.inference import engine as jengine
-    for name in ('L_MAX', 'REL_TOL', 'ABS_TOL', 'ELBO_TOL', 'ELBO_MOMENTUM',
-                 'MAX_NUM_ITERS', '_STREAM_OUTPUT_BYTES'):
+    for name in ('L_MAX', 'REL_TOL', 'ABS_TOL', 'ELBO_TOL', 'EM_TOL',
+                 'ELBO_MOMENTUM', 'MAX_NUM_ITERS', '_STREAM_OUTPUT_BYTES',
+                 '_EPOCH_SKIP_TOL', '_EPOCH_BUCKETS', '_EPOCH_CAP',
+                 '_EPOCH_STATE_BYTES'):
         assert getattr(engine, name) == getattr(jengine, name), name
     assert np.isclose(engine._err_rtol(torch.float32),
                       jengine._err_rtol(np.float32))

@@ -29,11 +29,18 @@ def data_to_torch(data):
 
 
 def state_to_torch(st):
-    """A JAX compact VIState as the port's VIState."""
+    """A JAX compact VIState (shared, kdim or epoch-history) as the port's
+    VIState."""
+    epoch = {}
+    if st.nat_hist is not None:
+        epoch = dict(nat_hist=np.asarray(st.nat_hist),
+                     nat_hist_scale=np.asarray(st.nat_hist_scale),
+                     nat_hist_c=np.asarray(st.nat_hist_c),
+                     nat_hist_n=int(st.nat_hist_n))
     return convert.state_from_numpy(
         np.asarray(st.nat_mu), np.asarray(st.hyper_delta),
         np.asarray(st.error_scaling), np.asarray(st.L), float(st.elbo),
-        float(st.running_elbo_delta), int(st.num_err))
+        float(st.running_elbo_delta), int(st.num_err), **epoch)
 
 
 def t2n(x):

@@ -19,7 +19,6 @@ _NOT_PORTED = {
     'distributed': ('--distributed', 'Multi-GPU'),
     'mmap': ('--mmap', 'Bounded-memory I/O'),
     'factor_cache': ('--factor-cache', 'Bounded-memory I/O'),
-    'scale_se': ('--learn-scaling', 'Slice B'),
     'load_checkpoint': ('--load-checkpoint', 'Checkpoint resume'),
 }
 
@@ -73,7 +72,7 @@ def args(super_parser):
     parser.add_argument('--learn-scaling', dest='scale_se',
                         action='store_true',
                         help='Learn a scaling factor for the standard '
-                             'errors (not ported yet).')
+                             'errors.')
     parser.add_argument('--samplesizes', type=str, default='100e3',
                         help='Comma-separated GWAS sample sizes used for '
                              'initialization.')

@@ -64,8 +64,19 @@ def model_data_from_numpy(fields, ld, num_annotations, scale_se, ld_index,
 
 
 def state_from_numpy(nat_mu, hyper_delta, error_scaling, L, elbo,
-                     running_elbo_delta, num_err, device='cpu'):
-    """The compact VIState (shared [P, I] natural mean) from numpy."""
+                     running_elbo_delta, num_err, nat_hist=None,
+                     nat_hist_scale=None, nat_hist_c=None, nat_hist_n=None,
+                     device='cpu'):
+    """A compact VIState from numpy: nat_mu is the shared [P, I] or the
+    kdim [K, P, I] natural mean, or, with the nat_hist* arrays, the
+    current-epoch accumulator of an epoch-history state."""
+    epoch = {}
+    if nat_hist is not None:
+        epoch = dict(nat_hist=tensor_from_numpy(nat_hist, device),
+                     nat_hist_scale=tensor_from_numpy(nat_hist_scale,
+                                                      device),
+                     nat_hist_c=tensor_from_numpy(nat_hist_c, device),
+                     nat_hist_n=int(nat_hist_n))
     return VIState(
         nat_mu=tensor_from_numpy(nat_mu, device),
         hyper_delta=tensor_from_numpy(hyper_delta, device),
@@ -74,4 +85,4 @@ def state_from_numpy(nat_mu, hyper_delta, error_scaling, L, elbo,
         elbo=float(elbo),
         running_elbo_delta=(math.nan if running_elbo_delta is None
                             else float(running_elbo_delta)),
-        num_err=int(num_err))
+        num_err=int(num_err), **epoch)

@@ -1,354 +1,57 @@
-// Fused compact-objective prologue and annotation sums for Hopper (sm_90a).
+// Fused compact-objective prologue and annotation sums for Hopper (sm_90a):
+// the shared [P, I] and the per-component [K, P, I] natural mean.
 //
 // Replaces the Pallas TPU kernels of vilma_tpu/ops/pallas/compact_obj.py
-// for the shared [P, I] natural mean: `prologue` (kernel `_kernel` via
-// `_derive_tile`) and `delta_sums` (`_sums_kernel`). Per SNP i and mixture
-// component k, with the closed-form (prec_k + diag(dterm_i))^-1 algebra
-// for P in {1, 2, 3}:
+// `prologue` (kernel `_kernel` via `_derive_tile`) and `delta_sums`
+// (`_sums_kernel`), in both their forms: the shared [P, I] natural mean of
+// fits without --learn-scaling, and the kdim form (`_derive_tile`,
+// compact_obj.py:257-263), whose [K, P, I] natural mean is the state of
+// --learn-scaling fits below the epoch-state threshold. The algebra and
+// the kernel body are in compact_obj.cuh.
 //
-//     z_k   = 0.5 (quad_k - logdet_k) + scores[a_i, k]
-//     vd_k  = max(softmax_k(z), eps),  log_vd_k = max(z_k - m - log s, log eps)
-//     prologue:   post_means, post_vars [P, I] and the beta-KL scalar
-//     delta_sums: S[k, a] = sum_{i: a_i = a} vd_k(i)
+// What bounds it:
+//   shared form: arithmetic, not bytes. Each SNP reads and writes a few
+//     [P] values (~50 MB at 1M SNPs), but does K closed-form solves, two
+//     exponentials and two logarithms per component and pass; at K = 582
+//     the special-function units and FP32 pipes set the time. At K = 18 it
+//     is a memory-bound streaming pass.
+//   kdim form: bytes. The [K, P, I] state is K times larger (420 MB at
+//     90,112 SNPs x 582 components, P = 2) and each (SNP, component) reads
+//     P floats of it for a few dozen flops.
 //
-// Pad SNPs (a_i == A) stay out of the KL and the sums (compact_obj.py:353,
-// 640); their selected scores read column A-1.
-//
-// What bounds it: arithmetic, not bytes. Each SNP reads and writes a few
-// [P] values (~50 MB at 1M SNPs), but does K closed-form solves, two
-// exponentials and two logarithms per component and pass; at K = 582 the
-// special-function units and FP32 pipes set the time. At K = 18 it is a
-// memory-bound streaming pass.
-//
-// Design: one thread per SNP, templated on P, with a runtime loop over K,
-// so any K runs (no _pick_tile, no K ~ 900 ceiling). The coefficient table
-// and the scores are staged through shared memory in component tiles
-// (once per CTA when all of K fits). The eps clamp needs the softmax
-// normalizer before any weighted sum, so each thread makes two passes over
-// K: pass 1 keeps an online max and sum, pass 2 recomputes the closed form
-// and accumulates the moments and KL terms; no [K]-sized per-thread state.
-// The TPU accumulates the KL and the sums across its sequential grid; here
-// each CTA writes a partial in fixed order (warp shuffles, then warps in
-// order) and a second kernel adds the partials in fixed order. No float
-// atomics touch device memory, so every result repeats bit for bit.
-#include <cuda_runtime.h>
-#include <math.h>
+// Design for the kdim form (kKdim in compact_obj.cuh): thread i reads
+// nat[k, p, i], so the 32 lanes of a warp read 128 contiguous bytes of each
+// [K, P, I] row and every load coalesces. The two passes over K read the state twice (2 x 420 MB at the
+// per-chromosome size); a single pass that keeps the [K] logits in shared
+// memory is later work.
+#include "compact_obj.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
+using namespace vilma;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-template <int P>
-struct Comp {
-  float y[P];
-  float diag[P];
-  float logdet, quad, quadform, matches, ldp;
-};
-
-template <int P>
-__host__ __device__ constexpr int ncol() {
-  return P * (P + 1) / 2 + 1;
-}
-
-// closed-form component algebra of one (SNP, component) pair; c is the
-// component's coefficient row (precision upper triangle, then logdet)
-template <int P>
-__device__ __forceinline__ void derive(const float* c, const float* dt,
-                                       const float* n, Comp<P>& o);
-
-template <>
-__device__ __forceinline__ void derive<1>(const float* c, const float* dt,
-                                          const float* n, Comp<1>& o) {
-  const float a = c[0] + dt[0];
-  o.ldp = c[1];
-  const float inv = 1.0f / a;
-  o.y[0] = n[0] * inv;
-  o.diag[0] = inv;
-  o.logdet = logf(a);
-  o.quad = o.y[0] * n[0];
-  o.quadform = c[0] * o.y[0] * o.y[0];
-  o.matches = c[0] * inv;
-}
-
-template <>
-__device__ __forceinline__ void derive<2>(const float* c, const float* dt,
-                                          const float* n, Comp<2>& o) {
-  const float a = c[0] + dt[0];
-  const float b = c[1];
-  const float d = c[2] + dt[1];
-  o.ldp = c[3];
-  const float det = a * d - b * b;
-  const float inv = 1.0f / det;
-  o.y[0] = (d * n[0] - b * n[1]) * inv;
-  o.y[1] = (a * n[1] - b * n[0]) * inv;
-  o.diag[0] = d * inv;
-  o.diag[1] = a * inv;
-  o.logdet = logf(det);
-  o.quad = o.y[0] * n[0] + o.y[1] * n[1];
-  o.quadform = c[0] * o.y[0] * o.y[0] + 2.0f * c[1] * o.y[0] * o.y[1] +
-               c[2] * o.y[1] * o.y[1];
-  o.matches = (c[0] * d - 2.0f * c[1] * b + c[2] * a) * inv;
-}
-
-template <>
-__device__ __forceinline__ void derive<3>(const float* c, const float* dt,
-                                          const float* n, Comp<3>& o) {
-  const float pa = c[0] + dt[0];
-  const float pb = c[1], pc = c[2];
-  const float pd = c[3] + dt[1];
-  const float pe = c[4];
-  const float pf = c[5] + dt[2];
-  o.ldp = c[6];
-  // symmetric-3x3 adjugate (models/sigma._adjugate3)
-  const float A3 = pd * pf - pe * pe;
-  const float B3 = pc * pe - pb * pf;
-  const float C3 = pb * pe - pc * pd;
-  const float D3 = pa * pf - pc * pc;
-  const float E3 = pb * pc - pa * pe;
-  const float F3 = pa * pd - pb * pb;
-  const float det = pa * A3 + pb * B3 + pc * C3;
-  const float inv = 1.0f / det;
-  o.y[0] = (A3 * n[0] + B3 * n[1] + C3 * n[2]) * inv;
-  o.y[1] = (B3 * n[0] + D3 * n[1] + E3 * n[2]) * inv;
-  o.y[2] = (C3 * n[0] + E3 * n[1] + F3 * n[2]) * inv;
-  o.diag[0] = A3 * inv;
-  o.diag[1] = D3 * inv;
-  o.diag[2] = F3 * inv;
-  o.logdet = logf(det);
-  o.quad = o.y[0] * n[0] + o.y[1] * n[1] + o.y[2] * n[2];
-  o.quadform = c[0] * o.y[0] * o.y[0] + c[3] * o.y[1] * o.y[1] +
-               c[5] * o.y[2] * o.y[2] +
-               2.0f * (c[1] * o.y[0] * o.y[1] + c[2] * o.y[0] * o.y[2] +
-                       c[4] * o.y[1] * o.y[2]);
-  o.matches = (c[0] * A3 + c[3] * D3 + c[5] * F3 +
-               2.0f * (c[1] * B3 + c[2] * C3 + c[4] * E3)) *
-              inv;
-}
-
-// SUMS = false: prologue (pm, pv, per-CTA KL partial in part[blockIdx]).
-// SUMS = true: per-CTA annotation sums added into part[blockIdx][K][A]
-// (zeroed by the caller).
-template <int P, bool SUMS>
-__global__ void __launch_bounds__(kThreads)
-    compact_kernel(const float* __restrict__ coeffs,
-                   const float* __restrict__ scores_t,
-                   const int* __restrict__ ann, const float* __restrict__ dterm,
-                   const float* __restrict__ nat, float* __restrict__ pm_out,
-                   float* __restrict__ pv_out, float* __restrict__ part, int I,
-                   int K, int A, int kt, float eps, float log_eps) {
-  constexpr int NCOL = ncol<P>();
-  extern __shared__ float smem[];
-  float* coef_s = smem;                 // [kt][NCOL]
-  float* score_s = coef_s + kt * NCOL;  // [kt][A]
-  float* extra = score_s + kt * A;      // SUMS: [kWarps][kt][A]; else [kWarps]
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int ntiles = (K + kt - 1) / kt;
-
-  auto load_tile = [&](int t) {
-    const int k0 = t * kt;
-    const int cnt = min(kt, K - k0);
-    for (int j = tid; j < cnt * NCOL; j += kThreads)
-      coef_s[j] = coeffs[(size_t)k0 * NCOL + j];
-    for (int j = tid; j < cnt * A; j += kThreads)
-      score_s[j] = scores_t[(size_t)k0 * A + j];
-  };
-
-  if (ntiles == 1) {
-    load_tile(0);
-    __syncthreads();
-  }
-
-  float kl = 0.f;
-  // grid-stride over SNP tiles; every thread of a CTA runs the same
-  // number of iterations, so the barriers below are uniform
-  for (int base = blockIdx.x * kThreads; base < I;
-       base += gridDim.x * kThreads) {
-    const int i = base + tid;
-    const bool live = i < I;
-    float dt[P], n[P];
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      // dead lanes carry an inert pad slot (dterm 1, nat 0, id A)
-      dt[p] = live ? dterm[(size_t)p * I + i] : 1.0f;
-      n[p] = live ? nat[(size_t)p * I + i] : 0.0f;
-    }
-    const int a = live ? ann[i] : A;
-    const int asel = min(a, A - 1);
-
-    // pass 1: online max and normalizer of z over K
-    float m = -INFINITY, s = 0.f;
-    for (int t = 0; t < ntiles; ++t) {
-      if (ntiles > 1) {
-        __syncthreads();
-        load_tile(t);
-        __syncthreads();
-      }
-      const int cnt = min(kt, K - t * kt);
-      for (int kl_ = 0; kl_ < cnt; ++kl_) {
-        Comp<P> o;
-        derive<P>(coef_s + kl_ * NCOL, dt, n, o);
-        const float z = 0.5f * (o.quad - o.logdet) + score_s[kl_ * A + asel];
-        if (z > m) {
-          s = s * expf(m - z) + 1.0f;
-          m = z;
-        } else {
-          s += expf(z - m);
-        }
-      }
-    }
-    const float log_s = logf(s);
-
-    // pass 2: moments and KL terms (or the annotation sums)
-    float pm[P], sec[P];
-#pragma unroll
-    for (int p = 0; p < P; ++p) pm[p] = sec[p] = 0.f;
-    float kl_i = 0.f;
-    for (int t = 0; t < ntiles; ++t) {
-      if (ntiles > 1) {
-        __syncthreads();
-        load_tile(t);
-        __syncthreads();
-      }
-      const int cnt = min(kt, K - t * kt);
-      for (int kl_ = 0; kl_ < cnt; ++kl_) {
-        Comp<P> o;
-        derive<P>(coef_s + kl_ * NCOL, dt, n, o);
-        const float sel = score_s[kl_ * A + asel];
-        const float z = 0.5f * (o.quad - o.logdet) + sel;
-        const float vd = fmaxf(expf(z - m) / s, eps);
-        if (!SUMS) {
-          const float log_vd = fmaxf(z - m - log_s, log_eps);
-#pragma unroll
-          for (int p = 0; p < P; ++p) {
-            pm[p] += vd * o.y[p];
-            sec[p] += vd * (o.diag[p] + o.y[p] * o.y[p]);
-          }
-          const float log_hd = sel + 0.5f * o.ldp;
-          const float ss = o.ldp + o.logdet + o.matches;
-          kl_i += vd * ((log_vd - log_hd) + 0.5f * o.quadform + 0.5f * ss);
-        } else {
-          // per-warp sums by annotation; lanes of other ids add zero
-          for (int aa = 0; aa < A; ++aa) {
-            const bool mine = a == aa;
-            float v = 0.f;
-            if (__any_sync(kFull, mine)) v = warp_sum(mine ? vd : 0.f);
-            if (lane == 0) extra[(warp * kt + kl_) * A + aa] = v;
-          }
-        }
-      }
-      if (SUMS) {
-        __syncthreads();
-        float* dst = part + (size_t)blockIdx.x * K * A + (size_t)t * kt * A;
-        for (int j = tid; j < cnt * A; j += kThreads) {
-          float v = 0.f;
-          for (int w = 0; w < kWarps; ++w) v += extra[w * kt * A + j];
-          dst[j] += v;
-        }
-        __syncthreads();
-      }
-    }
-    if (!SUMS && live) {
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        pm_out[(size_t)p * I + i] = pm[p];
-        pv_out[(size_t)p * I + i] = sec[p] - pm[p] * pm[p];
-      }
-      if (a < A) kl += kl_i;
-    }
-  }
-
-  if (!SUMS) {
-    const float v = warp_sum(kl);
-    if (lane == 0) extra[warp] = v;
-    __syncthreads();
-    if (tid == 0) {
-      float tot = 0.f;
-      for (int w = 0; w < kWarps; ++w) tot += extra[w];
-      part[blockIdx.x] = tot;
-    }
-  }
-}
-
-// out[0] = sum of n partials, in a fixed order (one CTA)
-__global__ void __launch_bounds__(kThreads)
-    reduce_scalar(const float* __restrict__ part, int n,
-                  float* __restrict__ out) {
-  __shared__ double red[kThreads];
-  double v = 0.0;
-  for (int j = threadIdx.x; j < n; j += kThreads) v += part[j];
-  red[threadIdx.x] = v;
-  __syncthreads();
-  for (int h = kThreads / 2; h > 0; h >>= 1) {
-    if (threadIdx.x < h) red[threadIdx.x] += red[threadIdx.x + h];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[0] = (float)red[0];
-}
-
-// out[j] = sum_b part[b][j] over nb partial rows of width m, in order
-__global__ void __launch_bounds__(kThreads)
-    reduce_rows(const float* __restrict__ part, int nb, int m,
-                float* __restrict__ out) {
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  if (j >= m) return;
-  double v = 0.0;
-  for (int b = 0; b < nb; ++b) v += part[(size_t)b * m + j];
-  out[j] = (float)v;
-}
-
-template <int P, bool SUMS>
-cudaError_t launch_compact(const void* coeffs, const void* scores_t,
-                           const void* ann, const void* dterm, const void* nat,
-                           void* pm, void* pv, void* part, int I, int K, int A,
-                           int kt, int nblocks, float eps, float log_eps,
-                           cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)kt * (ncol<P>() + A) +
-                       (SUMS ? (size_t)kWarps * kt * A : (size_t)kWarps));
-  auto kernel = compact_kernel<P, SUMS>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<nblocks, kThreads, smem, stream>>>(
-      static_cast<const float*>(coeffs), static_cast<const float*>(scores_t),
-      static_cast<const int*>(ann), static_cast<const float*>(dterm),
-      static_cast<const float*>(nat), static_cast<float*>(pm),
-      static_cast<float*>(pv), static_cast<float*>(part), I, K, A, kt, eps,
-      log_eps);
-  return cudaGetLastError();
-}
-
-template <bool SUMS>
-cudaError_t dispatch_p(int P, const void* coeffs, const void* scores_t,
-                       const void* ann, const void* dterm, const void* nat,
-                       void* pm, void* pv, void* part, int I, int K, int A,
-                       int kt, int nblocks, float eps, float log_eps,
-                       cudaStream_t stream) {
+template <int FORM, bool SUMS>
+cudaError_t dispatch(int P, const void* coeffs, const void* scores_t,
+                     const void* ann, const void* dterm, const void* nat,
+                     void* pm, void* pv, void* part, void* out, int I, int K,
+                     int A, int kt, int nblocks, float eps, float log_eps,
+                     cudaStream_t stream) {
+  const Operands op{static_cast<const float*>(dterm),
+                    static_cast<const float*>(nat), nullptr, nullptr, nullptr,
+                    I, 0};
   switch (P) {
     case 1:
-      return launch_compact<1, SUMS>(coeffs, scores_t, ann, dterm, nat, pm,
-                                     pv, part, I, K, A, kt, nblocks, eps,
-                                     log_eps, stream);
+      return launch<1, SUMS, FORM>(op, coeffs, scores_t, ann, pm, pv, part,
+                                   out, I, K, A, kt, nblocks, eps, log_eps,
+                                   stream);
     case 2:
-      return launch_compact<2, SUMS>(coeffs, scores_t, ann, dterm, nat, pm,
-                                     pv, part, I, K, A, kt, nblocks, eps,
-                                     log_eps, stream);
+      return launch<2, SUMS, FORM>(op, coeffs, scores_t, ann, pm, pv, part,
+                                   out, I, K, A, kt, nblocks, eps, log_eps,
+                                   stream);
     case 3:
-      return launch_compact<3, SUMS>(coeffs, scores_t, ann, dterm, nat, pm,
-                                     pv, part, I, K, A, kt, nblocks, eps,
-                                     log_eps, stream);
+      return launch<3, SUMS, FORM>(op, coeffs, scores_t, ann, pm, pv, part,
+                                   out, I, K, A, kt, nblocks, eps, log_eps,
+                                   stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -365,14 +68,9 @@ extern "C" int vilma_compact_prologue(const void* coeffs, const void* scores_t,
                                       void* part, void* kl_out, int I, int K,
                                       int A, int P, int kt, int nblocks,
                                       float eps, float log_eps, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      dispatch_p<false>(P, coeffs, scores_t, ann, dterm, nat, pm, pv, part, I,
-                        K, A, kt, nblocks, eps, log_eps, st);
-  if (err != cudaSuccess) return (int)err;
-  reduce_scalar<<<1, kThreads, 0, st>>>(static_cast<const float*>(part),
-                                        nblocks, static_cast<float*>(kl_out));
-  return (int)cudaGetLastError();
+  return (int)dispatch<kShared, false>(
+      P, coeffs, scores_t, ann, dterm, nat, pm, pv, part, kl_out, I, K, A, kt,
+      nblocks, eps, log_eps, static_cast<cudaStream_t>(stream));
 }
 
 // As above, but writes out [K, A] = the per-annotation sums of vi_delta;
@@ -384,13 +82,28 @@ extern "C" int vilma_compact_delta_sums(const void* coeffs,
                                         int A, int P, int kt, int nblocks,
                                         float eps, float log_eps,
                                         void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      dispatch_p<true>(P, coeffs, scores_t, ann, dterm, nat, nullptr, nullptr,
-                       part, I, K, A, kt, nblocks, eps, log_eps, st);
-  if (err != cudaSuccess) return (int)err;
-  const int m = K * A;
-  reduce_rows<<<(m + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      static_cast<const float*>(part), nblocks, m, static_cast<float*>(out));
-  return (int)cudaGetLastError();
+  return (int)dispatch<kShared, true>(
+      P, coeffs, scores_t, ann, dterm, nat, nullptr, nullptr, part, out, I, K,
+      A, kt, nblocks, eps, log_eps, static_cast<cudaStream_t>(stream));
+}
+
+// The kdim forms: nat is the [K, P, I] per-component natural mean.
+extern "C" int vilma_compact_prologue_kdim(
+    const void* coeffs, const void* scores_t, const void* ann,
+    const void* dterm, const void* nat, void* pm, void* pv, void* part,
+    void* kl_out, int I, int K, int A, int P, int kt, int nblocks, float eps,
+    float log_eps, void* stream) {
+  return (int)dispatch<kKdim, false>(
+      P, coeffs, scores_t, ann, dterm, nat, pm, pv, part, kl_out, I, K, A, kt,
+      nblocks, eps, log_eps, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int vilma_compact_delta_sums_kdim(
+    const void* coeffs, const void* scores_t, const void* ann,
+    const void* dterm, const void* nat, void* part, void* out, int I, int K,
+    int A, int P, int kt, int nblocks, float eps, float log_eps,
+    void* stream) {
+  return (int)dispatch<kKdim, true>(
+      P, coeffs, scores_t, ann, dterm, nat, nullptr, nullptr, part, out, I, K,
+      A, kt, nblocks, eps, log_eps, static_cast<cudaStream_t>(stream));
 }

@@ -1,11 +1,14 @@
-"""Coordinate-ascent variational inference engine, slice A.
+"""Coordinate-ascent variational inference engine.
 
-Port of vilma_tpu/inference/engine.py for the compact shared [P, I]
-natural-mean state: every fit of P <= 3 cohorts without
---learn-scaling. One outer step runs up to MAX_NUM_ITERS
-natural-gradient updates, each a backtracking line search whose trials
-are objective evaluations (fused prologue -> block LD matvec ->
-likelihood reduction), then the closed-form hyper-delta update.
+Port of vilma_tpu/inference/engine.py for the compact states of P <= 3
+cohorts: the shared [P, I] natural mean of fits without --learn-scaling,
+and, with --learn-scaling (scale_se), the per-component [K, P, I]
+natural mean (kdim) or, above _EPOCH_STATE_BYTES, the epoch-history
+state. One outer step runs up to MAX_NUM_ITERS natural-gradient
+updates, each a backtracking line search whose trials are objective
+evaluations (fused prologue -> block LD matvec -> likelihood reduction),
+then the closed-form hyper-delta update and, for scale_se fits, the
+error-scaling EM.
 
 The JAX engine runs a whole step on the device inside lax.while_loop.
 Here the loops run on the host: every loop predicate (`new_obj <
@@ -13,14 +16,14 @@ threshold` of a line-search trial, the beta loop's convergence test)
 needs the trial's objective, one device->host synchronization each. The
 module counts them in `host_syncs`.
 
-Not ported (each raises, naming its ROADMAP item): the per-component
-[K, P, I] and epoch-history --learn-scaling states (slice B), the
-K-chunked objective, the materialized P >= 4 path, mesh execution and
-checkpoint resume.
+Not ported (each raises, naming its ROADMAP item): the K-chunked
+objective, the materialized P >= 4 path, mesh execution and checkpoint
+resume.
 """
 import dataclasses
 import logging
 import math
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -41,10 +44,20 @@ EM_TOL = 10
 ELBO_MOMENTUM = 0.5
 MAX_NUM_ITERS = 20
 
-SLICE_B = ('--learn-scaling (the per-component [K, P, I] natural mean '
-           'and the epoch-history state) is not ported yet (ROADMAP.md '
-           'queue 1, "Slice B" and "Epoch-history state")')
-RESUME = ('checkpoint resume is not ported yet (ROADMAP.md queue 1, '
+# EM re-basings whose relative error-scaling change is below this are
+# treated as converged (no epoch appended, scaling frozen): 1e-6 is the
+# f32 noise floor; the f64 parity tests pin exactness with 0.0
+_EPOCH_SKIP_TOL = 1e-6
+# epoch-buffer growth buckets and the hard cap; at the cap further EM
+# updates freeze with a warning
+_EPOCH_BUCKETS = (4, 8, 16, 32, 48)
+_EPOCH_CAP = _EPOCH_BUCKETS[-1]
+# scale_se fits whose kdim [K, P, I] state would exceed this use the
+# epoch-history representation instead; VILMA_EPOCH_STATE_BYTES
+# overrides (0 forces the epoch state everywhere)
+_EPOCH_STATE_BYTES = int(os.environ.get('VILMA_EPOCH_STATE_BYTES', 1 << 30))
+
+RESUME =('checkpoint resume is not ported yet (ROADMAP.md queue 1, '
           '"Checkpoint resume")')
 
 #: device->host synchronizations made by the host loops of the optimizer
@@ -87,14 +100,24 @@ class ModelData:
 
 @dataclass(frozen=True)
 class VIState:
-    """Optimization state of the compact representation: the whole beta
-    family is carried as one shared [P, I] natural mean (vi_mu[k] =
-    vi_sigma[k] @ nat_mu for every k; see the JAX VIState docstring).
-    Scalars the host loop reads live on the host.
+    """Optimization state of the compact representations (see the JAX
+    VIState docstring): the beta family is carried as its natural
+    mean(s), and vi_delta and every vi_sigma summary are closed forms of
+    (natural mean, hyper_delta, error_scaling).
 
-    vi_mu/vi_delta/sigma/nat_grad_vi_delta are filled only by
+    * shared: nat_mu [P, I], vi_mu[k] = vi_sigma[k] @ nat_mu for every k
+      (fits without --learn-scaling);
+    * kdim: nat_mu [K, P, I], one natural mean per component (each
+      error-scaling EM event re-bases them k-dependently);
+    * epoch history (nat_hist set): nat_mu is the [P, I] current-epoch
+      accumulator and the per-component means are implied by the
+      history (sigma.compact_exprs_epochs). Slots >= nat_hist_n are
+      inert (nat_hist_c == 0, zero vectors, scale 1).
+
+    Scalars the host loop reads (nat_hist_n among them) live on the
+    host. vi_mu/vi_delta/sigma/nat_grad_vi_delta are filled only by
     `materialize_state`, for outputs and tests."""
-    nat_mu: torch.Tensor          # [P, I]
+    nat_mu: torch.Tensor          # [P, I] or [K, P, I]
     hyper_delta: torch.Tensor     # [A, K]
     error_scaling: torch.Tensor   # [P]
     L: tuple                      # 3 per-paramset Lipschitz estimates
@@ -105,6 +128,10 @@ class VIState:
     vi_delta: torch.Tensor = None         # [K, I]
     sigma: sigma_mod.SigmaSummaries = None
     nat_grad_vi_delta: torch.Tensor = None  # [K-1, I]
+    nat_hist: torch.Tensor = None         # [B, P, I] epoch vectors
+    nat_hist_scale: torch.Tensor = None   # [B, P] error_scaling per epoch
+    nat_hist_c: torch.Tensor = None       # [B] coefficients
+    nat_hist_n: int = None                # live epoch count
 
 
 def _isclose(a, b, rtol=1e-5, atol=1e-8):
@@ -140,12 +167,13 @@ def _ld_scaled_dot(data, post_means):
 
 
 # ---------------------------------------------------------------------------
-# The compact objective
+# The objective of each compact state
 # ---------------------------------------------------------------------------
 
 def _fused_operands(data, error_scaling, nat_mu, hyper_delta):
     """Operands of the fused compact kernels (ops/cuda/compact_obj):
-    coefficient table, transposed prior scores, per-SNP [*, I] arrays."""
+    coefficient table, transposed prior scores, per-SNP [*, I] arrays.
+    nat_mu is the shared [P, I] or the kdim [K, P, I] natural mean."""
     dterm = _diag_term(data, error_scaling)
     coeffs = compact_obj.build_coeffs(data.mixture_prec, data.log_det)
     scores_t = (torch.log(hyper_delta) - 0.5 * data.log_det).T.contiguous()
@@ -154,20 +182,67 @@ def _fused_operands(data, error_scaling, nat_mu, hyper_delta):
     return coeffs, scores_t, data.annotations, dterm, nat_mu.contiguous()
 
 
-def _objective_compact(data, st, nat_mu, hyper_delta):
-    """(objective tensor, post_means, linked) of a compact parameter point
-    (st supplies only error_scaling): the fused prologue, the LD matvec
-    and the likelihood reduction (reference variational_inference.py:
-    452-490, 632-641, 868-885)."""
-    post_means, post_vars, beta_kl = compact_obj.prologue(
-        *_fused_operands(data, st.error_scaling, nat_mu, hyper_delta),
-        num_annotations=data.num_annotations)
+def _epoch_operands(data, st, nat_u, hist_c, hyper_delta):
+    """Operands of the fused epoch kernels (compact_obj.prologue_epochs):
+    the raw scaled_ld_diags, the accumulator, the history and the
+    [B+1, P] inverse-scaling table (row 0 = the current scaling)."""
+    coeffs = compact_obj.build_coeffs(data.mixture_prec, data.log_det)
+    scores_t = (torch.log(hyper_delta) - 0.5 * data.log_det).T.contiguous()
+    inv_scales = torch.cat([1.0 / st.error_scaling[None],
+                            1.0 / st.nat_hist_scale], dim=0)
+    return (coeffs, scores_t, data.annotations, data.scaled_ld_diags,
+            nat_u.contiguous(), st.nat_hist, inv_scales, hist_c)
+
+
+# The beta parameters of a state: (nat_mu,) for the shared and kdim
+# states, (nat_u, hist_c) for the epoch state. A natural-gradient step
+# nat <- (1-s) nat + s grad becomes u <- (1-s) u + s grad, c <- (1-s) c
+# on the epoch state (the gradient is K-constant).
+
+def _params(st):
+    if st.nat_hist is None:
+        return (st.nat_mu,)
+    return (st.nat_mu, st.nat_hist_c)
+
+
+def _with_params(st, params):
+    if st.nat_hist is None:
+        return dataclasses.replace(st, nat_mu=params[0])
+    return dataclasses.replace(st, nat_mu=params[0], nat_hist_c=params[1])
+
+
+def _fused(data, st, params, hyper_delta, sums=False):
+    """The fused prologue (post_means, post_vars, beta_kl) of the state's
+    form at the beta parameters `params`, or with sums=True the [A, K]
+    annotation sums of the derived vi_delta (st supplies error_scaling
+    and the epoch buffers)."""
+    A = data.num_annotations
+    if st.nat_hist is None:
+        fn = compact_obj.delta_sums if sums else compact_obj.prologue
+        return fn(*_fused_operands(data, st.error_scaling, params[0],
+                                   hyper_delta), num_annotations=A)
+    fn = (compact_obj.delta_sums_epochs if sums
+          else compact_obj.prologue_epochs)
+    return fn(*_epoch_operands(data, st, *params, hyper_delta),
+              num_annotations=A, num_live=st.nat_hist_n)
+
+
+def _objective(data, st, params, hyper_delta):
+    """(objective tensor, post_means, linked) of a parameter point: the
+    fused prologue, the LD matvec and the likelihood reduction (reference
+    variational_inference.py:452-490, 632-641, 868-885)."""
+    post_means, post_vars, beta_kl = _fused(data, st, params, hyper_delta)
     scaled_mu, linked_ests = _ld_scaled_dot(data, post_means)
     ll = kernels.fast_likelihood(
         post_means, post_vars, scaled_mu, data.scaled_ld_diags,
         linked_ests, data.adj_marginal_effects, data.chi_stat,
         data.ld_ranks, st.error_scaling)
     return ll - beta_kl, post_means, linked_ests
+
+
+def _objective_compact(data, st, nat_mu, hyper_delta):
+    """`_objective` of a shared or kdim natural mean."""
+    return _objective(data, st, (nat_mu,), hyper_delta)
 
 
 def _nat_grad_resid(data, error_scaling, post_mean, linked_raw):
@@ -178,48 +253,52 @@ def _nat_grad_resid(data, error_scaling, post_mean, linked_raw):
     return (data.adj_marginal_effects - linked) / error_scaling[:, None]
 
 
-def _update_beta_compact(data, st, orig_obj, cur_post_mean, cur_linked,
-                         line_search_rate):
+def _update_beta(data, st, orig_obj, cur_post_mean, cur_linked,
+                 line_search_rate):
     """One natural-gradient step with backtracking line search
-    (variational_inference.py:762-802) on the shared natural mean.
-    orig_obj is a host float. Returns (nat_mu, L0, new_obj, post_mean,
+    (variational_inference.py:762-802) on the state's beta parameters.
+    orig_obj is a host float. Returns (params, L0, new_obj, post_mean,
     linked, err) for the accepted (or kept) parameters."""
     grad = _nat_grad_resid(data, st.error_scaling, cur_post_mean,
                            cur_linked)
     threshold = orig_obj - REL_TOL * abs(orig_obj) - ABS_TOL
+    params = _params(st)
 
     def trial(L0):
-        nat_new = kernels.sum_betas(st.nat_mu, grad, 1. / L0)
-        obj, pm, lk = _objective_compact(data, st, nat_new, st.hyper_delta)
-        return nat_new, _sync_float(obj), pm, lk
+        s = 1. / L0
+        new = (kernels.sum_betas(params[0], grad, s),) + tuple(
+            (1. - s) * c for c in params[1:])
+        obj, pm, lk = _objective(data, st, new, st.hyper_delta)
+        return new, _sync_float(obj), pm, lk
 
     L0 = st.L[0]
-    nat_new, new_obj, pm, lk = trial(L0)
+    new, new_obj, pm, lk = trial(L0)
     while new_obj < threshold and L0 <= L_MAX:
         L0 = L0 * line_search_rate
-        nat_new, new_obj, pm, lk = trial(L0)
+        new, new_obj, pm, lk = trial(L0)
 
     err = int(L0 > L_MAX and not _isclose(
         orig_obj, new_obj, rtol=_err_rtol(st.nat_mu.dtype)))
     if new_obj >= threshold:
-        return nat_new, L0, new_obj, pm, lk, err
-    return st.nat_mu, L0, orig_obj, cur_post_mean, cur_linked, err
+        return new, L0, new_obj, pm, lk, err
+    return params, L0, orig_obj, cur_post_mean, cur_linked, err
 
 
-def _beta_loop_compact(data, st, conv_tol, line_search_rate):
+def _beta_loop(data, st, conv_tol, line_search_rate):
     """Up to MAX_NUM_ITERS beta updates (variational_inference.py:427-439),
     stopping once the objective gain is below conv_tol or L hits its
     bounds. Returns (state, objective delta, final objective, post_mean,
     linked)."""
-    obj, pm, lk = _objective_compact(data, st, st.nat_mu, st.hyper_delta)
+    obj, pm, lk = _objective(data, st, _params(st), st.hyper_delta)
     orig_obj = _sync_float(obj)
-    nat_mu, L0, num_err = st.nat_mu, st.L[0], st.num_err
+    L0, num_err = st.L[0], st.num_err
     delta = 0.0
     for _ in range(MAX_NUM_ITERS):
         L0 = max(1., L0 / 1.25)
-        cur = dataclasses.replace(st, nat_mu=nat_mu, L=(L0,) + st.L[1:])
-        nat_mu, L0, new_obj, pm, lk, err = _update_beta_compact(
-            data, cur, orig_obj, pm, lk, line_search_rate)
+        st = dataclasses.replace(st, L=(L0,) + st.L[1:])
+        params, L0, new_obj, pm, lk, err = _update_beta(
+            data, st, orig_obj, pm, lk, line_search_rate)
+        st = _with_params(st, params)
         delta = delta + new_obj - orig_obj
         done = (abs(new_obj - orig_obj) <= conv_tol
                 or L0 == 1. or L0 > L_MAX)
@@ -227,48 +306,107 @@ def _beta_loop_compact(data, st, conv_tol, line_search_rate):
         orig_obj = new_obj
         if done:
             break
-    st = dataclasses.replace(st, nat_mu=nat_mu, L=(L0,) + st.L[1:],
-                             num_err=num_err)
+    st = dataclasses.replace(st, L=(L0,) + st.L[1:], num_err=num_err)
     return st, delta, orig_obj, pm, lk
 
 
-def _update_hyper_delta_compact(data, st, orig_obj):
+def _update_hyper_delta(data, st, orig_obj):
     """Closed-form per-annotation mixture-weight update
     (variational_inference.py:825-860), from the fused annotation sums of
     the derived vi_delta."""
     eps = epsilon(st.nat_mu.dtype)
-    new_hd = compact_obj.delta_sums(
-        *_fused_operands(data, st.error_scaling, st.nat_mu, st.hyper_delta),
-        num_annotations=data.num_annotations)
+    new_hd = _fused(data, st, _params(st), st.hyper_delta, sums=True)
     new_hd = torch.clamp(new_hd / (data.annotation_counts[:, None] + eps),
                          min=eps)
     new_hd = new_hd / new_hd.sum(dim=1, keepdim=True)
-    obj, pm, lk = _objective_compact(data, st, st.nat_mu, new_hd)
+    obj, pm, lk = _objective(data, st, _params(st), new_hd)
     new_obj = _sync_float(obj)
     st = dataclasses.replace(st, hyper_delta=new_hd)
     return st, new_obj - orig_obj, new_obj, pm, lk
 
 
+def _update_error_scaling(data, st, orig_obj, post_means, linked):
+    """The error-scaling EM of --learn-scaling fits
+    (variational_inference.py:472-486, 735-738), from the posterior
+    moments and the LD matvec of the current parameters.
+
+    The reference keeps vi_mu fixed while the scaling moves, so the
+    natural means re-base k-dependently: nat'_k = (prec_k + d_new) @
+    sigma_old_k @ nat_k. The kdim state applies that map; the epoch
+    state appends an epoch instead (the maps telescope, see
+    sigma.compact_exprs_epochs): the accumulator goes into the history
+    with coefficient 1 under the old scaling, and a zero accumulator
+    starts under the new one. An epoch state freezes (no change) when the
+    relative scaling change is below _EPOCH_SKIP_TOL or its buffer is
+    full. Returns (state, objective delta, post_mean)."""
+    post_vars = _fused(data, st, _params(st), st.hyper_delta)[1]
+    scaled_mu = post_means / data.std_errs
+    quad = torch.einsum('pi,pi->p', scaled_mu, linked)
+    new_scaling = (
+        data.chi_stat
+        - 2 * torch.einsum('pi,pi->p', post_means,
+                           data.adj_marginal_effects)
+        + quad
+        + torch.sum(data.ld_diags * post_vars * data.std_errs ** -2, dim=1)
+    ) / data.ld_ranks
+    if st.nat_hist is None:
+        vi_mu = sigma_mod.apply_sigma(
+            data.mixture_prec, _diag_term(data, st.error_scaling),
+            st.nat_mu)
+        nat_new = sigma_mod.apply_precision(
+            data.mixture_prec, _diag_term(data, new_scaling), vi_mu)
+        st = dataclasses.replace(st, error_scaling=new_scaling,
+                                 nat_mu=nat_new)
+    else:
+        n = st.nat_hist_n
+        change = _sync_float(torch.max(torch.abs(
+            new_scaling / st.error_scaling - 1.0)))
+        if not (change > _EPOCH_SKIP_TOL and n < st.nat_hist.shape[0]):
+            return st, 0.0, post_means
+        hist = st.nat_hist.clone()
+        hist[n] = st.nat_mu
+        scale = st.nat_hist_scale.clone()
+        scale[n] = st.error_scaling
+        coef = st.nat_hist_c.clone()
+        coef[n] = 1.0
+        st = dataclasses.replace(
+            st, error_scaling=new_scaling,
+            nat_mu=torch.zeros_like(st.nat_mu), nat_hist=hist,
+            nat_hist_scale=scale, nat_hist_c=coef, nat_hist_n=n + 1)
+    obj, pm, _ = _objective(data, st, _params(st), st.hyper_delta)
+    return st, _sync_float(obj) - orig_obj, pm
+
+
 def outer_step(data, st, line_search_rate=2.0):
-    """One full coordinate-ascent iteration of the compact state
+    """One full coordinate-ascent iteration of a compact state
     (reference _optimize_step/_nat_grad_step,
     variational_inference.py:396-450). Returns (state, posterior mean in
     output scale)."""
-    if data.scale_se:
-        raise NotImplementedError(SLICE_B)
+    if data.scale_se and st.nat_hist is None and st.nat_mu.dim() != 3:
+        raise ValueError('compact scale_se fits carry a per-component '
+                         '[K, P, I] natural mean (the error-scaling EM '
+                         'makes natural means K-dependent); got a shared '
+                         '[P, I] state')
+    # materialized fields would go stale the moment the parameters move
+    st = dataclasses.replace(st, vi_mu=None, vi_delta=None, sigma=None,
+                             nat_grad_vi_delta=None)
     red = st.running_elbo_delta
     conv_tol = math.inf if math.isnan(red) else 0.1 * red
-    st, delta_beta, obj, pm, lk = _beta_loop_compact(data, st, conv_tol,
-                                                     line_search_rate)
-    st, delta_hyper, obj, pm, lk = _update_hyper_delta_compact(data, st,
-                                                               obj)
+    st, delta_beta, obj, pm, lk = _beta_loop(data, st, conv_tol,
+                                             line_search_rate)
+    st, delta_hyper, obj, pm, lk = _update_hyper_delta(data, st, obj)
     new_elbo_delta = delta_beta + delta_hyper
+    if (data.scale_se or st.nat_hist is not None) \
+            and new_elbo_delta < EM_TOL:
+        st, em_delta, pm = _update_error_scaling(data, st, obj, pm, lk)
+        new_elbo_delta = new_elbo_delta + em_delta
     red = new_elbo_delta if math.isnan(red) else red
     red = red * ELBO_MOMENTUM + (1 - ELBO_MOMENTUM) * max(new_elbo_delta,
                                                           0.0)
     st = dataclasses.replace(st, elbo=st.elbo + new_elbo_delta,
                              running_elbo_delta=red)
-    # pm belongs to the final parameters (the hyper-delta evaluation)
+    # pm belongs to the final parameters (the hyper-delta evaluation, or
+    # the post-EM one)
     return st, pm * data.scalings
 
 
@@ -276,16 +414,47 @@ def outer_step(data, st, line_search_rate=2.0):
 # Derived state (outputs, tests)
 # ---------------------------------------------------------------------------
 
-def _derive_params(data, error_scaling, nat_mu, hyper_delta):
-    """(sigma, vi_mu [K,P,I], vi_delta [K,I]) derived from the compact
-    state, staged as tensor expressions."""
-    dterm = _diag_term(data, error_scaling)
+def _nat_k(data, nat_mu):
+    """A compact natural mean as [K, P, I]: the shared [P, I] state
+    broadcasts (a view), the kdim state passes through."""
+    if nat_mu.dim() == 2:
+        K = data.mixture_prec.shape[0]
+        return nat_mu[None].expand((K,) + tuple(nat_mu.shape))
+    return nat_mu
+
+
+def _live_hist(st):
+    """(vectors, scalings, coefficients) of the live epochs; the slots
+    past them add exact zeros."""
+    n = st.nat_hist_n
+    return st.nat_hist[:n], st.nat_hist_scale[:n], st.nat_hist_c[:n]
+
+
+def _epoch_exprs(mixture_prec, sld, error_scaling, st, cols=slice(None)):
+    """sigma.compact_exprs_epochs of an epoch state's live epochs at SNP
+    columns `cols`."""
+    hist, scale, coef = _live_hist(st)
+    sld = sld[:, cols]
+    return sigma_mod.compact_exprs_epochs(
+        mixture_prec, sld / error_scaling[:, None], st.nat_mu[:, cols],
+        hist[..., cols], sld[None] / scale[:, :, None], coef)
+
+
+def _derive_params(data, st):
+    """(sigma, vi_mu [K,P,I], vi_delta [K,I]) derived from a compact or
+    epoch state, staged as tensor expressions."""
+    dterm = _diag_term(data, st.error_scaling)
     sigma = sigma_mod.make_summaries(data.mixture_prec, data.log_det,
                                      dterm)
-    nat_vd = kernels.fast_vi_delta_grad(hyper_delta, data.log_det,
+    nat_vd = kernels.fast_vi_delta_grad(st.hyper_delta, data.log_det,
                                         data.annotations)
-    K = data.mixture_prec.shape[0]
-    nat_b = nat_mu[None].expand((K,) + tuple(nat_mu.shape))
+    if st.nat_hist is not None:
+        ex = _epoch_exprs(data.mixture_prec, data.scaled_ld_diags,
+                          st.error_scaling, st)
+        addenda = ex.log_det_sigma + ex.quad
+        li = 0.5 * (addenda[:-1] - addenda[-1:]) + nat_vd
+        return sigma, ex.mu, kernels.invert_nat_cat_2D(li)
+    nat_b = _nat_k(data, st.nat_mu)
     vi_mu = sigma_mod.apply_sigma(data.mixture_prec, dterm, nat_b)
     vi_delta = kernels.fast_invert_nat_vi_delta(
         vi_mu, nat_b, sigma.log_det_sigma, nat_vd)
@@ -295,8 +464,7 @@ def _derive_params(data, error_scaling, nat_mu, hyper_delta):
 def materialize_state(data, st):
     """Fill a compact VIState's derived fields (vi_mu, vi_delta, sigma,
     nat_grad_vi_delta) for outputs and tests."""
-    sigma, vi_mu, vi_delta = _derive_params(data, st.error_scaling,
-                                            st.nat_mu, st.hyper_delta)
+    sigma, vi_mu, vi_delta = _derive_params(data, st)
     nat_vd = kernels.fast_vi_delta_grad(st.hyper_delta, data.log_det,
                                         data.annotations)
     return dataclasses.replace(st, vi_mu=vi_mu, vi_delta=vi_delta,
@@ -309,6 +477,14 @@ def compact_nat_mu(data, error_scaling, vi_mu):
     dterm = _diag_term(data, error_scaling)
     return (torch.einsum('pq,qi->pi', data.mixture_prec[0], vi_mu[0])
             + dterm * vi_mu[0])
+
+
+def compact_nat_mu_k(data, error_scaling, vi_mu):
+    """Per-component [K, P, I] natural means from a materialized vi_mu
+    (scale_se): nat_k = (prec_k + diag) @ vi_mu[k], exact given the
+    error_scaling."""
+    return sigma_mod.apply_precision(data.mixture_prec,
+                                     _diag_term(data, error_scaling), vi_mu)
 
 
 def _conv_stats(new_pm, old_pm, ckp_pm, st):
@@ -429,11 +605,25 @@ def _floor_mixture_covs(mixture_covs, rel_floor=1e-10):
     return np.einsum('kpq,kq,krq->kpr', v, w, v)
 
 
+def resolve_device(device=None):
+    """The torch device of a fit: the card unless the caller asks for the
+    CPU. Without a CUDA device, asking for (or defaulting to) cuda
+    raises; nothing falls back to the host."""
+    device = torch.device('cuda' if device is None else device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available: pass "
+                           "device='cpu' to run the plain PyTorch "
+                           "versions of the kernels on the host")
+    return device
+
+
 def build_model_data(marginal_effects, std_errs, ld_mats, annotations,
                      mixture_covs, scaled, scale_se, gwas_N, init_hg,
-                     dtype=torch.float64, device='cpu'):
+                     dtype=torch.float64, device=None):
     """Assemble ModelData with the same validations as VIScheme.__init__;
-    every tensor lives on `device`."""
+    every tensor lives on `device` (the card by default, see
+    `resolve_device`)."""
+    device = resolve_device(device)
     marginal_effects = np.asarray(marginal_effects)
     std_errs = np.asarray(std_errs)
     eps = epsilon(dtype)
@@ -550,15 +740,15 @@ def _np(x):
 
 class MultiPopVI:
     """Equivalent of the reference MultiPopVI
-    (variational_inference.py:567-889) for the compact slice: same
-    constructor surface plus `dtype` and `device`, same optimize() and
-    output arrays."""
+    (variational_inference.py:567-889) for P <= 3 cohorts: same
+    constructor surface plus `dtype` and `device` (the card unless
+    device='cpu'), same optimize() and output arrays."""
 
     def __init__(self, marginal_effects=None, std_errs=None, ld_mats=None,
                  annotations=None, mixture_covs=None, checkpoint=True,
                  checkpoint_freq=5, scaled=False, scale_se=False,
                  output='vilma_output', gwas_N=None, init_hg=None,
-                 num_its=None, dtype=torch.float64, device='cpu'):
+                 num_its=None, dtype=torch.float64, device=None):
         for name, val in [('marginal_effects', marginal_effects),
                           ('std_errs', std_errs), ('ld_mats', ld_mats),
                           ('annotations', annotations),
@@ -568,8 +758,6 @@ class MultiPopVI:
             if val is None:
                 raise ValueError(f'{name} must be specified when calling '
                                  'MultiPopVI()')
-        if scale_se:
-            raise NotImplementedError(SLICE_B)
         if np.asarray(marginal_effects).shape[0] > 3:
             raise NotImplementedError(sigma_mod._P4_MESSAGE)
         self.data = build_model_data(
@@ -584,6 +772,19 @@ class MultiPopVI:
         self.num_pops, self.num_loci = self.data.marginal_effects.shape
         self.num_mix = self.data.mixture_prec.shape[0]
         self.num_annotations = self.data.num_annotations
+        # scale_se fits carry a per-component [K, P, I] natural mean; when
+        # that state would be too large (the production mixture grid at
+        # genome scale: 582 x 2 x 1M f32 is 4.66 GB) they switch to the
+        # epoch-history representation, exact and bounded
+        kdim_bytes = (self.num_mix * self.num_pops * self.num_loci
+                      * self._np_dtype.itemsize)
+        self._epoch = bool(scale_se and kdim_bytes > _EPOCH_STATE_BYTES)
+        self._hist_cap_warned = False
+        if self._epoch:
+            logging.info(
+                'scale_se state uses the epoch-history representation '
+                '(the per-component [K, P, I] state would be %.1f GiB)',
+                kdim_bytes / 2 ** 30)
         self.state = None
 
     @property
@@ -622,17 +823,24 @@ class MultiPopVI:
 
     def vi_mu_chunks(self, st=None, chunk_k=None):
         """Yield vi_mu in [<=chunk_k, P, I] component chunks derived from
-        the compact state (vi_mu_k = sigma_k @ nat_mu)."""
+        the state (vi_mu_k = sigma_k @ nat_k; epoch states sum their
+        history, sigma.compact_exprs_epochs)."""
         st = st or self.state
         K, P = self.num_mix, self.num_pops
         if chunk_k is None:
             per_k = max(self.num_loci * P * self._np_dtype.itemsize, 1)
             chunk_k = max(1, min(K, (256 << 20) // per_k))
-        dterm = _diag_term(self.data, st.error_scaling)
+        data = self.data
+        dterm = _diag_term(data, st.error_scaling)
         for k0 in range(0, K, chunk_k):
-            prec = self.data.mixture_prec[k0:k0 + chunk_k]
-            nat = st.nat_mu[None].expand((prec.shape[0],)
-                                         + tuple(st.nat_mu.shape))
+            prec = data.mixture_prec[k0:k0 + chunk_k]
+            if st.nat_hist is not None:
+                yield _np(_epoch_exprs(prec, data.scaled_ld_diags,
+                                       st.error_scaling, st).mu)
+                continue
+            nat = (st.nat_mu[k0:k0 + chunk_k] if st.nat_mu.dim() == 3
+                   else st.nat_mu[None].expand((prec.shape[0],)
+                                               + tuple(st.nat_mu.shape)))
             yield _np(sigma_mod.apply_sigma(prec, dterm, nat))
 
     def _derived_col_chunks(self, st, chunk_i=None):
@@ -645,11 +853,15 @@ class MultiPopVI:
         data = self.data
         for i0 in range(0, n, chunk_i):
             sl = slice(i0, i0 + chunk_i)
-            dt_c = data.scaled_ld_diags[:, sl] / st.error_scaling[:, None]
             natvd = kernels.fast_vi_delta_grad(
                 st.hyper_delta, data.log_det, data.annotations[sl])
-            ex = sigma_mod.compact_exprs(data.mixture_prec, dt_c,
-                                         st.nat_mu[:, sl])
+            if st.nat_hist is not None:
+                ex = _epoch_exprs(data.mixture_prec, data.scaled_ld_diags,
+                                  st.error_scaling, st, sl)
+            else:
+                dt_c = data.scaled_ld_diags[:, sl] / st.error_scaling[:, None]
+                ex = sigma_mod.compact_exprs(data.mixture_prec, dt_c,
+                                             st.nat_mu[..., sl])
             addenda = ex.log_det_sigma + ex.quad
             li = 0.5 * (addenda[:-1] - addenda[-1:]) + natvd
             vi_delta = kernels.invert_nat_cat_2D(li)             # [K, c]
@@ -665,7 +877,8 @@ class MultiPopVI:
 
     def dump_spec(self, st=None):
         """(arrays, streams) covering the reference checkpoint/.npz key set
-        (vi_mu, vi_delta, hyper_delta, error_scaling, scalings).
+        (vi_mu, vi_delta, hyper_delta, error_scaling, scalings), plus the
+        epoch keys of an epoch-history state.
 
         Small problems return everything materialized in `arrays`;
         problems whose derived [K, *, I] members exceed the budget stream
@@ -679,6 +892,7 @@ class MultiPopVI:
             'error_scaling': _np(st.error_scaling),
             'scalings': _np(self.data.scalings),
         }
+        arrays.update(self._epoch_dump_arrays(st))
         K, P, n = self.num_mix, self.num_pops, self.num_loci
         dtype = self._np_dtype
         streams = [
@@ -697,12 +911,27 @@ class MultiPopVI:
                 'automatically)')
         mat = st if st.vi_mu is not None else materialize_state(self.data,
                                                                  st)
-        return {
+        out = {
             'vi_mu': _np(mat.vi_mu),
             'vi_delta': _np(mat.vi_delta).T,
             'hyper_delta': _np(mat.hyper_delta),
             'error_scaling': _np(mat.error_scaling),
             'scalings': _np(self.data.scalings),
+        }
+        out.update(self._epoch_dump_arrays(st))
+        return out
+
+    def _epoch_dump_arrays(self, st):
+        """Extra checkpoint keys of an epoch-history state: the state
+        itself, which a genome-scale resume restores directly."""
+        if st.nat_hist is None:
+            return {}
+        return {
+            'nat_u': _np(st.nat_mu),
+            'nat_hist': _np(st.nat_hist),
+            'nat_hist_scale': _np(st.nat_hist_scale),
+            'nat_hist_c': _np(st.nat_hist_c),
+            'nat_hist_n': np.asarray(st.nat_hist_n, dtype=np.int32),
         }
 
     def _streamed_moments(self, st):
@@ -739,16 +968,30 @@ class MultiPopVI:
                                     mat.sigma.diag)
                    * self.data.scalings ** 2)
 
+    def elbo_value(self, st=None):
+        """The ELBO of a state (the beta objective equals the ELBO in
+        MultiPopVI: the annotation KL is 0)."""
+        st = st or self.state
+        obj, _, _ = _objective(self.data, st, _params(st), st.hyper_delta)
+        return _sync_float(obj)
+
     def _fresh_state(self):
         zeros = dict(dtype=self._dtype,
                      device=self.data.marginal_effects.device)
-        return VIState(
-            nat_mu=torch.zeros(self.num_pops, self.num_loci, **zeros),
-            hyper_delta=torch.zeros(self.num_annotations, self.num_mix,
-                                    **zeros),
-            error_scaling=torch.ones(self.num_pops, **zeros),
+        P, I, K = self.num_pops, self.num_loci, self.num_mix
+        st = VIState(
+            nat_mu=torch.zeros(P, I, **zeros),
+            hyper_delta=torch.zeros(self.num_annotations, K, **zeros),
+            error_scaling=torch.ones(P, **zeros),
             L=(1., 1., 1.), elbo=0., running_elbo_delta=math.nan,
             num_err=0)
+        if self._epoch:
+            B0 = _EPOCH_BUCKETS[0]
+            st = dataclasses.replace(
+                st, nat_hist=torch.zeros(B0, P, I, **zeros),
+                nat_hist_scale=torch.ones(B0, P, **zeros),
+                nat_hist_c=torch.zeros(B0, **zeros), nat_hist_n=0)
+        return st
 
     def _initialize(self):
         st = self._fresh_state()
@@ -764,11 +1007,17 @@ class MultiPopVI:
                                        _diag_term(data, st.error_scaling))
         hyper, temp_nat = initialize_from_fake_mu(data, sig,
                                                   st.error_scaling, fake_mu)
+        if self.scale_se and not self._epoch:
+            # initialization is K-constant (error_scaling all ones): the
+            # per-component state starts as a broadcast, copied so that
+            # every component owns its row (the epoch state instead starts
+            # with temp_nat as its accumulator and an empty history)
+            temp_nat = temp_nat[None].expand(
+                (self.num_mix,) + tuple(temp_nat.shape)).contiguous()
         return dataclasses.replace(st, nat_mu=temp_nat, hyper_delta=hyper)
 
     def _posterior_mean(self, st):
-        _, pm, _ = _objective_compact(self.data, st, st.nat_mu,
-                                      st.hyper_delta)
+        _, pm, _ = _objective(self.data, st, _params(st), st.hyper_delta)
         return pm * self.data.scalings
 
     def optimize(self, loaded_checkpoint=None):
@@ -779,8 +1028,7 @@ class MultiPopVI:
         from vilma_tpu_torch.utils.npz_stream import save_npz_stream
         data = self.data
         st = self._initialize()
-        e0, _, _ = _objective_compact(data, st, st.nat_mu, st.hyper_delta)
-        st = dataclasses.replace(st, elbo=_sync_float(e0))
+        st = dataclasses.replace(st, elbo=self.elbo_value(st))
         converged = False
         num_its = 0
         post_mean = self._posterior_mean(st)
@@ -793,6 +1041,10 @@ class MultiPopVI:
                                                num_its), arrays, streams)
                 ckp_post_mean = self._posterior_mean(st)
             st, new_post_mean = outer_step(data, st, line_search_rate=2.0)
+            if self._epoch:
+                # keep a free epoch slot ahead of the next EM event, so
+                # the append never freezes before the hard cap
+                st = self._maybe_grow_hist(st)
             stats = _conv_stats(new_post_mean, post_mean, ckp_post_mean, st)
             num_err = int(stats[0])
             if num_err > prev_err:
@@ -821,6 +1073,35 @@ class MultiPopVI:
         self.state = (st if self._stream_big()
                       else materialize_state(data, st))
         return self.state
+
+    def _maybe_grow_hist(self, st):
+        """Grow the epoch buffer to the next bucket once nearly full; at
+        the hard cap, warn once that further EM updates are frozen."""
+        B = st.nat_hist.shape[0]
+        n = st.nat_hist_n
+        if n < B - 1:
+            return st
+        if B >= _EPOCH_CAP:
+            if n >= B and not self._hist_cap_warned:
+                logging.warning(
+                    'error-scaling epoch history reached its cap (%d); '
+                    'further EM updates are frozen (the scaling has '
+                    'seen %d re-basings and is effectively converged)',
+                    _EPOCH_CAP, n)
+                self._hist_cap_warned = True
+            return st
+        nb = next(b for b in _EPOCH_BUCKETS if b > B)
+        pad = nb - B
+        logging.info('epoch history grown %d -> %d slots', B, nb)
+        return dataclasses.replace(
+            st,
+            nat_hist=torch.cat([st.nat_hist, st.nat_hist.new_zeros(
+                (pad,) + tuple(st.nat_hist.shape[1:]))]),
+            nat_hist_scale=torch.cat([st.nat_hist_scale,
+                                      st.nat_hist_scale.new_ones(
+                                          (pad, self.num_pops))]),
+            nat_hist_c=torch.cat([st.nat_hist_c,
+                                  st.nat_hist_c.new_zeros(pad)]))
 
     def _dump_info(self, num_its, stats):
         """Per-iteration telemetry (reference _dump_info,

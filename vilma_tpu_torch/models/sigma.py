@@ -149,16 +149,22 @@ class CompactExprs:
     quadform: torch.Tensor        # [K, I]
 
 
+def _nat_row(nat_mu, p):
+    """Population-p rows of a natural mean, broadcastable over [K, I]:
+    the shared [P, I] state gives a [1, I] row, the per-component
+    [K, P, I] state of --learn-scaling fits (each error-scaling EM event
+    re-bases the natural means k-dependently) a [K, I] one."""
+    if nat_mu.dim() == 2:
+        return nat_mu[p][None, :]
+    return nat_mu[:, p, :]
+
+
 def compact_exprs(mixture_prec, diag_term, nat_mu):
-    """CompactExprs of the shared [P, I] natural mean (slice A; the
-    per-component [K, P, I] state of --learn-scaling is slice B)."""
+    """CompactExprs of a natural mean: the shared [P, I] state or the
+    per-component [K, P, I] one (see `_nat_row`)."""
     P = mixture_prec.shape[1]
-    if nat_mu.dim() != 2:
-        raise NotImplementedError(
-            'the per-component [K, P, I] natural mean (--learn-scaling) '
-            'is not ported yet (ROADMAP.md queue 1, "Slice B")')
     parts = _precision_parts(mixture_prec, diag_term)
-    n = [nat_mu[p][None, :] for p in range(P)]
+    n = [_nat_row(nat_mu, p) for p in range(P)]
     if P == 1:
         (a,) = parts
         mu0 = n[0] / a
@@ -197,6 +203,43 @@ def compact_exprs(mixture_prec, diag_term, nat_mu):
         log_det_sigma=-torch.log(det),
         matches=_matches3(mixture_prec, (A, B, C, D, E, F)) / det,
         quad=y0 * n[0] + y1 * n[1] + y2 * n[2], quadform=quadform)
+
+
+def compact_exprs_epochs(mixture_prec, diag_term, nat_u, hist_v,
+                         hist_dterms, hist_c):
+    """CompactExprs of the epoch-history state of --learn-scaling fits.
+
+    The error-scaling EM re-basings telescope, so after E EM events the
+    per-component natural means are implied by E + 1 shared [P, I]
+    vectors, the scaling history and E coefficients:
+
+        vi_mu_k = sum_e hist_c[e] * sigma_k^(e) @ hist_v[e]
+                  + sigma_k^(cur) @ nat_u
+
+    (see the JAX package's sigma.compact_exprs_epochs).
+
+    Args:
+        nat_u: [P, I] current-epoch accumulator.
+        hist_v: [B, P, I] epoch vectors (slots past the live count carry
+            hist_c == 0 and are inert).
+        hist_dterms: [B, P, I] scaled_ld_diags / hist_scale per epoch.
+        hist_c: [B] coefficients.
+    """
+    K = mixture_prec.shape[0]
+
+    def bk(x):
+        return x[None].expand((K,) + tuple(x.shape))
+
+    mu = apply_sigma(mixture_prec, diag_term, bk(nat_u))
+    for e in range(hist_v.shape[0]):
+        mu = mu + hist_c[e] * apply_sigma(mixture_prec, hist_dterms[e],
+                                          bk(hist_v[e]))
+    nat = apply_precision(mixture_prec, diag_term, mu)
+    s = make_summaries(mixture_prec, mu.new_zeros(K), diag_term)
+    quad = torch.einsum('kpi,kpi->ki', mu, nat)
+    quadform = torch.einsum('kpq,kpi,kqi->ki', mixture_prec, mu, mu)
+    return CompactExprs(mu=mu, diag=s.diag, log_det_sigma=s.log_det_sigma,
+                        matches=s.matches, quad=quad, quadform=quadform)
 
 
 def sigma_weighted_sum(mixture_prec, diag_term, vi_delta):

@@ -2,9 +2,10 @@
 
 The sources have a plain C interface (no PyTorch headers), so nvcc
 builds them in seconds into one shared library for sm_90a (Hopper),
-loaded with ctypes. The build runs at first use, from the checkout's
-sources alone, into vilma_tpu_torch/build/ (ignored by git); the library
-name carries a hash of the sources, so an edited source is rebuilt.
+loaded with ctypes: one nvcc per source, all started together, then one
+link. The build runs at first use, from the checkout's sources alone,
+into vilma_tpu_torch/build/ (ignored by git); the library name carries a
+hash of the sources and headers, so an edited file is rebuilt.
 
 Nothing here runs on import: the CPU tests import every module, and
 there is no nvcc where they run.
@@ -21,7 +22,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG / 'build'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC']
+              '-O3', '-Xcompiler', '-fPIC']
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,7 +34,15 @@ SIGNATURES = {
                                _I, _I, _I, _I, _I, _I, _F, _F, _P],
     'vilma_compact_delta_sums': [_P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    'vilma_compact_prologue_epochs': [_P] * 12 + [_I] * 7 + [_F, _F, _P],
+    'vilma_compact_delta_sums_epochs': [_P] * 10 + [_I] * 7
+    + [_F, _F, _P],
 }
+# the kdim forms take the same arguments as the shared-state entry points
+SIGNATURES['vilma_compact_prologue_kdim'] = SIGNATURES[
+    'vilma_compact_prologue']
+SIGNATURES['vilma_compact_delta_sums_kdim'] = SIGNATURES[
+    'vilma_compact_delta_sums']
 
 _lib = None
 #: wall seconds the last build took (None until a build ran here)
@@ -59,7 +68,7 @@ def _sources():
 
 def library_path():
     digest = hashlib.sha256()
-    for src in _sources():
+    for src in sorted(CSRC.glob('*.cu*')):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(' '.join(NVCC_FLAGS).encode())
@@ -74,16 +83,35 @@ def build(verbose=False):
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-    cmd = [_nvcc()] + NVCC_FLAGS + (['-Xptxas', '-v'] if verbose else [])
-    cmd += ['-o', str(tmp)] + [str(s) for s in _sources()]
+    nvcc = _nvcc()
+    tag = f'{out.stem}.{os.getpid()}'
+    flags = NVCC_FLAGS + (['-Xptxas', '-v'] if verbose else [])
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in _sources():
+        obj = BUILD_DIR / f'{src.stem}.{tag}.o'
+        objs.append(obj)
+        procs.append((src, subprocess.Popen(
+            [nvcc] + flags + ['-c', '-o', str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    errors, notes = [], []
+    for src, proc in procs:
+        _, err = proc.communicate()
+        (errors if proc.returncode else notes).append(f'{src.name}:\n{err}')
+    if not errors:
+        tmp = out.with_suffix(f'.{os.getpid()}.tmp')
+        link = subprocess.run([nvcc] + NVCC_FLAGS + ['-shared', '-o', str(tmp)]
+                              + [str(o) for o in objs],
+                              capture_output=True, text=True)
+        if link.returncode:
+            errors.append('link:\n' + link.stderr)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError('nvcc failed:\n' + proc.stderr[-8000:])
+    if errors:
+        raise RuntimeError('nvcc failed:\n' + '\n'.join(errors)[-8000:])
     if verbose:
-        print(proc.stderr)
+        print('\n'.join(notes))
     os.replace(tmp, out)
     return out
 

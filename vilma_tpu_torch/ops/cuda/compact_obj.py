@@ -1,22 +1,29 @@
 """Fused compact-objective prologue and annotation sums: wrappers of the
-CUDA kernels in csrc/compact_obj.cu, with their plain PyTorch versions.
+CUDA kernels in csrc/compact_obj.cu and csrc/compact_obj_epochs.cu, with
+their plain PyTorch versions.
 
 Replace vilma_tpu/ops/pallas/compact_obj.py::prologue (Pallas kernel
-`_kernel` via `_derive_tile`) and ::delta_sums (`_sums_kernel`) for the
-shared [P, I] natural mean (slice A). Per SNP and per mixture component
-k: the closed-form (prec_k + diag(dterm))^-1 solve for P in {1, 2, 3},
-then the softmax over K of z_k = 0.5 (quad_k - logdet_k) + scores[a, k]
-clamped at eps, then
+`_kernel` via `_derive_tile`), ::delta_sums (`_sums_kernel`),
+::prologue_epochs (`_epochs_kernel` via `_derive_tile_epochs`) and
+::delta_sums_epochs (`_sums_epochs_kernel`). Per SNP and per mixture
+component k: the closed-form (prec_k + diag(dterm))^-1 solve for P in
+{1, 2, 3}, then the softmax over K of z_k = 0.5 (quad_k - logdet_k) +
+scores[a, k] clamped at eps, then
 
 * prologue: post_means [P, I], post_vars [P, I] and the beta-KL scalar;
 * delta_sums: S[a, k] = sum_{i: ann_i = a} vi_delta[k, i], [A, K].
 
+Three forms of the state feed them:
+
+* the shared [P, I] natural mean (fits without --learn-scaling);
+* kdim: the per-component [K, P, I] natural mean of --learn-scaling fits
+  (`prologue`/`delta_sums` take it in place of the [P, I] one);
+* epochs: the epoch-history state of large --learn-scaling fits
+  (`prologue_epochs`/`delta_sums_epochs`).
+
 Pad SNPs (annotation id == A) stay out of the KL and the sums. Their
 selected scores read the last annotation column, as in the staged XLA
 route (kernels.fast_vi_delta_grad); their moments are inert downstream.
-
-The per-component [K, P, I] natural mean (`kdim`, --learn-scaling) and
-the epoch-history kernels are not ported yet (ROADMAP queue 2).
 
 On a CUDA tensor the wrappers launch the kernels or raise; on a CPU
 tensor they run the plain versions. There is no fallback.
@@ -29,7 +36,9 @@ from vilma_tpu_torch.ops.cuda import build
 from vilma_tpu_torch.utils.config import epsilon
 
 #: launches of each CUDA kernel (plain-version calls do not count)
-launches = {'prologue': 0, 'delta_sums': 0}
+launches = {'prologue': 0, 'delta_sums': 0, 'prologue_kdim': 0,
+            'delta_sums_kdim': 0, 'prologue_epochs': 0,
+            'delta_sums_epochs': 0}
 
 _THREADS = 256
 _MAX_BLOCKS = 1024
@@ -50,20 +59,73 @@ def build_coeffs(mixture_prec, log_det):
     return torch.stack(cols, dim=1)
 
 
-def _derive_plain(coeffs, scores_t, ann, dterm, nat, eps):
-    """Vectorized over [K, T]: the closed-form component algebra and the
-    clamped full-logit softmax of compact_obj._derive_tile."""
-    P = nat.shape[0]
+def _coeff_cols(coeffs):
+    return [coeffs[:, j:j + 1] for j in range(coeffs.shape[1])]
+
+
+def _select_scores(scores_t, ann):
+    """SEL[k, t] = scores_t[k, ann_t]; pad ids read column A-1."""
     A = scores_t.shape[1]
-    sel = scores_t[:, torch.clamp(ann.long(), max=A - 1)]       # [K, T]
-    c = [coeffs[:, j:j + 1] for j in range(coeffs.shape[1])]
-    n = [nat[p:p + 1] for p in range(P)]
-    dt = [dterm[p:p + 1] for p in range(P)]
+    return scores_t[:, torch.clamp(ann.long(), max=A - 1)]
+
+
+def _sigma_apply(P, c, dt, n):
+    """y = (prec_k + diag(dt))^-1 n, vectorized over [K, T]
+    (compact_obj._sigma_apply)."""
+    if P not in (1, 2, 3):
+        raise NotImplementedError('the fused prologue covers P <= 3')
+    if P == 1:
+        return [n[0] * (1.0 / (c[0] + dt[0]))]
+    if P == 2:
+        a = c[0] + dt[0]
+        b = c[1]
+        d = c[2] + dt[1]
+        inv = 1.0 / (a * d - b * b)
+        return [(d * n[0] - b * n[1]) * inv, (a * n[1] - b * n[0]) * inv]
+    pa = c[0] + dt[0]
+    pb, pc = c[1], c[2]
+    pd = c[3] + dt[1]
+    pe = c[4]
+    pf = c[5] + dt[2]
+    A3 = pd * pf - pe * pe
+    B3 = pc * pe - pb * pf
+    C3 = pb * pe - pc * pd
+    D3 = pa * pf - pc * pc
+    E3 = pb * pc - pa * pe
+    F3 = pa * pd - pb * pb
+    inv = 1.0 / (pa * A3 + pb * B3 + pc * C3)
+    return [(A3 * n[0] + B3 * n[1] + C3 * n[2]) * inv,
+            (B3 * n[0] + D3 * n[1] + E3 * n[2]) * inv,
+            (C3 * n[0] + E3 * n[1] + F3 * n[2]) * inv]
+
+
+def _softmax(z, eps):
+    m = torch.amax(z, dim=0, keepdim=True)
+    ez = torch.exp(z - m)
+    den = torch.sum(ez, dim=0, keepdim=True)
+    vd = torch.clamp(ez / den, min=eps)
+    log_vd = torch.clamp(z - m - torch.log(den), min=math.log(eps))
+    return vd, log_vd
+
+
+def _precision(P, c, dt):
+    """Rows of the symmetric prec_k + diag(dt), [K, T] or [K, 1] each."""
+    if P == 1:
+        return [[c[0] + dt[0]]]
+    if P == 2:
+        return [[c[0] + dt[0], c[1]], [c[1], c[2] + dt[1]]]
+    return [[c[0] + dt[0], c[1], c[2]], [c[1], c[3] + dt[1], c[4]],
+            [c[2], c[4], c[5] + dt[2]]]
+
+
+def _finish(P, c, dt, y, quad, sel, eps):
+    """The current-scaling summaries of a component's mean y (diag,
+    logdet, matches, quadform) and the clamped full-logit softmax of
+    z = 0.5 (quad - logdet) + sel (compact_obj._derive_tile)."""
     if P == 1:
         a = c[0] + dt[0]
         ldp = c[1]
         inv = 1.0 / a
-        y = [n[0] * inv]
         diag = [inv]
         logdet = torch.log(a)
         quadform = c[0] * y[0] * y[0]
@@ -75,13 +137,12 @@ def _derive_plain(coeffs, scores_t, ann, dterm, nat, eps):
         ldp = c[3]
         det = a * d - b * b
         inv = 1.0 / det
-        y = [(d * n[0] - b * n[1]) * inv, (a * n[1] - b * n[0]) * inv]
         diag = [d * inv, a * inv]
         logdet = torch.log(det)
         quadform = (c[0] * y[0] * y[0] + 2 * c[1] * y[0] * y[1]
                     + c[2] * y[1] * y[1])
         matches = (c[0] * d - 2 * c[1] * b + c[2] * a) * inv
-    elif P == 3:
+    else:
         pa = c[0] + dt[0]
         pb, pc = c[1], c[2]
         pd = c[3] + dt[1]
@@ -96,9 +157,6 @@ def _derive_plain(coeffs, scores_t, ann, dterm, nat, eps):
         F3 = pa * pd - pb * pb
         det = pa * A3 + pb * B3 + pc * C3
         inv = 1.0 / det
-        y = [(A3 * n[0] + B3 * n[1] + C3 * n[2]) * inv,
-             (B3 * n[0] + D3 * n[1] + E3 * n[2]) * inv,
-             (C3 * n[0] + E3 * n[1] + F3 * n[2]) * inv]
         diag = [A3 * inv, D3 * inv, F3 * inv]
         logdet = torch.log(det)
         quadform = (c[0] * y[0] * y[0] + c[3] * y[1] * y[1]
@@ -107,19 +165,52 @@ def _derive_plain(coeffs, scores_t, ann, dterm, nat, eps):
                            + c[4] * y[1] * y[2]))
         matches = (c[0] * A3 + c[3] * D3 + c[5] * F3
                    + 2 * (c[1] * B3 + c[2] * C3 + c[4] * E3)) * inv
-    else:
-        raise NotImplementedError('the fused prologue covers P <= 3')
-    quad = y[0] * n[0]
-    for p in range(1, P):
-        quad = quad + y[p] * n[p]
-    z = 0.5 * (quad - logdet) + sel
-    m = torch.amax(z, dim=0, keepdim=True)
-    ez = torch.exp(z - m)
-    den = torch.sum(ez, dim=0, keepdim=True)
-    vd = torch.clamp(ez / den, min=eps)
-    log_vd = torch.clamp(z - m - torch.log(den), min=math.log(eps))
+    vd, log_vd = _softmax(0.5 * (quad - logdet) + sel, eps)
     return dict(sel=sel, y=y, diag=diag, logdet=logdet, ldp=ldp,
                 quadform=quadform, matches=matches, vd=vd, log_vd=log_vd)
+
+
+def _dot(u, v):
+    out = u[0] * v[0]
+    for p in range(1, len(u)):
+        out = out + u[p] * v[p]
+    return out
+
+
+def _derive_plain(coeffs, scores_t, ann, dterm, nat, eps):
+    """Vectorized over [K, T]: compact_obj._derive_tile. nat is the
+    shared [P, T] natural mean or the per-component [K, P, T] one, whose
+    [K, T] rows stand in for the broadcast [1, T] rows;
+    y = sigma nat, quad = y . nat."""
+    P = nat.shape[-2]
+    c = _coeff_cols(coeffs)
+    if nat.dim() == 3:
+        n = [nat[:, p] for p in range(P)]
+    else:
+        n = [nat[p:p + 1] for p in range(P)]
+    dt = [dterm[p:p + 1] for p in range(P)]
+    y = _sigma_apply(P, c, dt, n)
+    return _finish(P, c, dt, y, _dot(y, n), _select_scores(scores_t, ann),
+                   eps)
+
+
+def _derive_plain_epochs(coeffs, scores_t, ann, sld, u, hist, isc, hc, eps,
+                         num_live):
+    """Vectorized over [K, T]: compact_obj._derive_tile_epochs over the
+    first `num_live` epochs (the slots past them are inert):
+    y = sigma^cur u + sum_e c_e sigma^(e) v_e, quad = y . (prec + dt) y."""
+    P = u.shape[0]
+    c = _coeff_cols(coeffs)
+    sl = [sld[p:p + 1] for p in range(P)]
+    dt = [sl[p] * isc[0, p] for p in range(P)]
+    y = _sigma_apply(P, c, dt, [u[p:p + 1] for p in range(P)])
+    for e in range(num_live):
+        dte = [sl[p] * isc[e + 1, p] for p in range(P)]
+        ye = _sigma_apply(P, c, dte, [hist[e, p:p + 1] for p in range(P)])
+        y = [y[p] + hc[e] * ye[p] for p in range(P)]
+    nat = [_dot(row, y) for row in _precision(P, c, dt)]
+    return _finish(P, c, dt, y, _dot(nat, y), _select_scores(scores_t, ann),
+                   eps)
 
 
 def _plain_chunks(K, I):
@@ -127,19 +218,14 @@ def _plain_chunks(K, I):
     return [(i0, min(I, i0 + step)) for i0 in range(0, I, step)]
 
 
-def prologue_plain(coeffs, scores_t, annotations, dterm, nat_mu, *,
-                   num_annotations):
-    """Plain PyTorch version of `prologue`, in SNP chunks."""
-    P, I = nat_mu.shape
-    K, A = scores_t.shape
-    eps = epsilon(nat_mu.dtype)
-    pm = torch.empty_like(nat_mu)
-    pv = torch.empty_like(nat_mu)
-    kl = nat_mu.new_zeros(())
+def _moments_kl_plain(derive, P, I, K, annotations, num_annotations, like):
+    """post_means, post_vars and the KL scalar from a per-chunk derive."""
+    pm = like.new_empty((P, I))
+    pv = like.new_empty((P, I))
+    kl = like.new_zeros(())
     for i0, i1 in _plain_chunks(K, I):
         ann = annotations[i0:i1]
-        d = _derive_plain(coeffs, scores_t, ann, dterm[:, i0:i1],
-                          nat_mu[:, i0:i1], eps)
+        d = derive(i0, i1)
         vd, y = d['vd'], d['y']
         for p in range(P):
             m1 = torch.sum(vd * y[p], dim=0)
@@ -155,62 +241,151 @@ def prologue_plain(coeffs, scores_t, annotations, dterm, nat_mu, *,
     return pm, pv, kl
 
 
-def delta_sums_plain(coeffs, scores_t, annotations, dterm, nat_mu, *,
-                     num_annotations):
-    """Plain PyTorch version of `delta_sums`, in SNP chunks: [A, K]."""
-    P, I = nat_mu.shape
-    K, A = scores_t.shape
-    eps = epsilon(nat_mu.dtype)
-    sums = nat_mu.new_zeros((K, A))
+def _sums_plain(derive, I, K, annotations, num_annotations, like):
+    """[A, K] per-annotation sums of vi_delta from a per-chunk derive."""
+    A = num_annotations
+    sums = like.new_zeros((K, A))
     ids = torch.arange(A, device=annotations.device)
     for i0, i1 in _plain_chunks(K, I):
-        ann = annotations[i0:i1]
-        vd = _derive_plain(coeffs, scores_t, ann, dterm[:, i0:i1],
-                           nat_mu[:, i0:i1], eps)['vd']
-        onehot = (ann[:, None] == ids[None, :]).to(vd.dtype)    # [T, A]
+        vd = derive(i0, i1)['vd']
+        onehot = (annotations[i0:i1, None] == ids[None, :]).to(vd.dtype)
         sums = sums + vd @ onehot
     return sums.T
 
 
+def prologue_plain(coeffs, scores_t, annotations, dterm, nat_mu, *,
+                   num_annotations):
+    """Plain PyTorch version of `prologue`, in SNP chunks."""
+    P, I = nat_mu.shape[-2:]
+    K = scores_t.shape[0]
+    eps = epsilon(nat_mu.dtype)
+
+    def derive(i0, i1):
+        return _derive_plain(coeffs, scores_t, annotations[i0:i1],
+                             dterm[:, i0:i1], nat_mu[..., i0:i1], eps)
+
+    return _moments_kl_plain(derive, P, I, K, annotations, num_annotations,
+                             nat_mu)
+
+
+def delta_sums_plain(coeffs, scores_t, annotations, dterm, nat_mu, *,
+                     num_annotations):
+    """Plain PyTorch version of `delta_sums`, in SNP chunks: [A, K]."""
+    I = nat_mu.shape[-1]
+    K = scores_t.shape[0]
+    eps = epsilon(nat_mu.dtype)
+
+    def derive(i0, i1):
+        return _derive_plain(coeffs, scores_t, annotations[i0:i1],
+                             dterm[:, i0:i1], nat_mu[..., i0:i1], eps)
+
+    return _sums_plain(derive, I, K, annotations, num_annotations, nat_mu)
+
+
+def _epoch_deriver(coeffs, scores_t, annotations, sld, nat_u, hist_v,
+                   inv_scales, hist_c, num_live):
+    eps = epsilon(nat_u.dtype)
+
+    def derive(i0, i1):
+        return _derive_plain_epochs(
+            coeffs, scores_t, annotations[i0:i1], sld[:, i0:i1],
+            nat_u[:, i0:i1], hist_v[..., i0:i1], inv_scales, hist_c, eps,
+            num_live)
+
+    return derive
+
+
+def prologue_epochs_plain(coeffs, scores_t, annotations, sld, nat_u,
+                          hist_v, inv_scales, hist_c, *, num_annotations,
+                          num_live=None):
+    """Plain PyTorch version of `prologue_epochs`, in SNP chunks."""
+    P, I = nat_u.shape
+    K = scores_t.shape[0]
+    num_live = hist_v.shape[0] if num_live is None else num_live
+    derive = _epoch_deriver(coeffs, scores_t, annotations, sld, nat_u,
+                            hist_v, inv_scales, hist_c, num_live)
+    return _moments_kl_plain(derive, P, I, K, annotations, num_annotations,
+                             nat_u)
+
+
+def delta_sums_epochs_plain(coeffs, scores_t, annotations, sld, nat_u,
+                            hist_v, inv_scales, hist_c, *, num_annotations,
+                            num_live=None):
+    """Plain PyTorch version of `delta_sums_epochs`: [A, K]."""
+    I = nat_u.shape[1]
+    K = scores_t.shape[0]
+    num_live = hist_v.shape[0] if num_live is None else num_live
+    derive = _epoch_deriver(coeffs, scores_t, annotations, sld, nat_u,
+                            hist_v, inv_scales, hist_c, num_live)
+    return _sums_plain(derive, I, K, annotations, num_annotations, nat_u)
+
+
+def _require(name, cond, msg):
+    if not cond:
+        raise ValueError(f'{name}: {msg}')
+
+
+def _check_f32(name, operands, device):
+    """Every operand float32 (int32 for annotations), dense row-major,
+    on `device`, with the expected shape."""
+    for arg, t, shape in operands:
+        want = torch.int32 if arg == 'annotations' else torch.float32
+        _require(name, t.dtype == want,
+                 f'{arg} must be {want} on CUDA, got {t.dtype}')
+        _require(name, tuple(t.shape) == shape,
+                 f'{arg} has shape {tuple(t.shape)}, expected {shape}')
+        _require(name, t.device == device, f'{arg} must be on {device}')
+        _require(name, t.is_contiguous(), f'{arg} must be contiguous')
+
+
 def _check_operands(name, coeffs, scores_t, annotations, dterm, nat_mu,
                     num_annotations):
-    def require(cond, msg):
-        if not cond:
-            raise ValueError(f'{name}: {msg}')
-
-    if nat_mu.dim() != 2:
-        raise NotImplementedError(
-            f'{name}: the per-component [K, P, I] natural mean (kdim, '
-            '--learn-scaling) is not ported yet (ROADMAP.md queue 2)')
-    P, I = nat_mu.shape
+    """(P, I, K, A, ncol) of a launch of `prologue`/`delta_sums`; raises
+    on what the kernels do not take. nat_mu is [P, I] or, kdim, [K, P, I]."""
+    _require(name, nat_mu.dim() in (2, 3),
+             f'nat_mu must be [P, I] or [K, P, I], got {nat_mu.dim()} dims')
+    P, I = nat_mu.shape[-2:]
     K, A = scores_t.shape
-    require(P in (1, 2, 3), f'P = {P} (the kernel covers 1..3)')
-    require(A == num_annotations, 'scores_t must be [K, num_annotations]')
+    _require(name, P in (1, 2, 3), f'P = {P} (the kernel covers 1..3)')
+    _require(name, A == num_annotations,
+             'scores_t must be [K, num_annotations]')
     ncol = P * (P + 1) // 2 + 1
-    for arg, t, shape in (('coeffs', coeffs, (K, ncol)),
-                          ('scores_t', scores_t, (K, A)),
-                          ('dterm', dterm, (P, I)),
-                          ('nat_mu', nat_mu, (P, I))):
-        require(t.dtype == torch.float32,
-                f'{arg} must be float32 on CUDA, got {t.dtype}')
-        require(tuple(t.shape) == shape,
-                f'{arg} has shape {tuple(t.shape)}, expected {shape}')
-    require(annotations.dtype == torch.int32
-            and tuple(annotations.shape) == (I,),
-            'annotations must be int32 [I]')
-    for arg, t in (('coeffs', coeffs), ('scores_t', scores_t),
-                   ('annotations', annotations), ('dterm', dterm),
-                   ('nat_mu', nat_mu)):
-        require(t.device == nat_mu.device, f'{arg} must be on '
-                f'{nat_mu.device}')
-        require(t.is_contiguous(), f'{arg} must be contiguous')
+    nat_shape = (P, I) if nat_mu.dim() == 2 else (K, P, I)
+    _check_f32(name, (('coeffs', coeffs, (K, ncol)),
+                      ('scores_t', scores_t, (K, A)),
+                      ('annotations', annotations, (I,)),
+                      ('dterm', dterm, (P, I)),
+                      ('nat_mu', nat_mu, nat_shape)), nat_mu.device)
     return P, I, K, A, ncol
 
 
-def _launch_shape(I, K, A, ncol, sums):
+def _check_epoch_operands(name, coeffs, scores_t, annotations, sld, nat_u,
+                          hist_v, inv_scales, hist_c, num_annotations,
+                          num_live):
+    """(P, I, K, A, ncol, B) of an epoch-kernel launch."""
+    _require(name, hist_v.dim() == 3, 'hist_v must be [B, P, I]')
+    B, P, I = hist_v.shape
+    K, A = scores_t.shape
+    _require(name, P in (1, 2, 3), f'P = {P} (the kernel covers 1..3)')
+    _require(name, A == num_annotations,
+             'scores_t must be [K, num_annotations]')
+    _require(name, 0 <= num_live <= B,
+             f'num_live = {num_live} outside 0..{B}')
+    ncol = P * (P + 1) // 2 + 1
+    _check_f32(name, (('coeffs', coeffs, (K, ncol)),
+                      ('scores_t', scores_t, (K, A)),
+                      ('annotations', annotations, (I,)),
+                      ('sld', sld, (P, I)), ('nat_u', nat_u, (P, I)),
+                      ('hist_v', hist_v, (B, P, I)),
+                      ('inv_scales', inv_scales, (B + 1, P)),
+                      ('hist_c', hist_c, (B,))), nat_u.device)
+    return P, I, K, A, ncol, B
+
+
+def _launch_shape(I, K, A, ncol, sums, table_floats=0):
     """(component tile width, grid blocks) for the kernels."""
     per_comp = ncol + A + (8 * A if sums else 0)
-    kt = min(K, (_SMEM_BYTES // 4 - 8) // per_comp)
+    kt = min(K, (_SMEM_BYTES // 4 - 8 - table_floats) // per_comp)
     if kt < 1:
         raise ValueError(f'{A} annotations exceed the kernel\'s shared-'
                          'memory tile')
@@ -228,7 +403,8 @@ def prologue(coeffs, scores_t, annotations, dterm, nat_mu, *,
         scores_t: [K, A] = (log hyper_delta - 0.5*log_det).T.
         annotations: [I] int32 ids (== num_annotations on pad slots).
         dterm: [P, I] = scaled_ld_diags / error_scaling.
-        nat_mu: [P, I] compact natural mean.
+        nat_mu: [P, I] shared natural mean, or the [K, P, I]
+            per-component one (kdim, --learn-scaling).
     """
     if not nat_mu.is_cuda:
         return prologue_plain(coeffs, scores_t, annotations, dterm, nat_mu,
@@ -236,41 +412,116 @@ def prologue(coeffs, scores_t, annotations, dterm, nat_mu, *,
     P, I, K, A, ncol = _check_operands('prologue', coeffs, scores_t,
                                        annotations, dterm, nat_mu,
                                        num_annotations)
+    kdim = nat_mu.dim() == 3
     kt, nblocks = _launch_shape(I, K, A, ncol, sums=False)
-    pm = torch.empty_like(nat_mu)
-    pv = torch.empty_like(nat_mu)
-    part = torch.empty(nblocks, dtype=torch.float32, device=nat_mu.device)
-    kl = torch.empty((), dtype=torch.float32, device=nat_mu.device)
+    dev = nat_mu.device
+    pm = torch.empty((P, I), dtype=torch.float32, device=dev)
+    pv = torch.empty((P, I), dtype=torch.float32, device=dev)
+    part = torch.empty(nblocks, dtype=torch.float32, device=dev)
+    kl = torch.empty((), dtype=torch.float32, device=dev)
     eps = epsilon(torch.float32)
-    status = build.library().vilma_compact_prologue(
+    entry = ('vilma_compact_prologue_kdim' if kdim
+             else 'vilma_compact_prologue')
+    status = getattr(build.library(), entry)(
         coeffs.data_ptr(), scores_t.data_ptr(), annotations.data_ptr(),
         dterm.data_ptr(), nat_mu.data_ptr(), pm.data_ptr(), pv.data_ptr(),
         part.data_ptr(), kl.data_ptr(), I, K, A, P, kt, nblocks, eps,
-        math.log(eps), build.stream_handle(nat_mu.device))
-    build.check(status, 'vilma_compact_prologue')
-    launches['prologue'] += 1
+        math.log(eps), build.stream_handle(dev))
+    build.check(status, entry)
+    launches['prologue_kdim' if kdim else 'prologue'] += 1
     return pm, pv, kl
 
 
 def delta_sums(coeffs, scores_t, annotations, dterm, nat_mu, *,
                num_annotations):
-    """Per-annotation sums of the derived vi_delta: [A, K]."""
+    """Per-annotation sums of the derived vi_delta: [A, K]. nat_mu as in
+    `prologue`."""
     if not nat_mu.is_cuda:
         return delta_sums_plain(coeffs, scores_t, annotations, dterm,
                                 nat_mu, num_annotations=num_annotations)
     P, I, K, A, ncol = _check_operands('delta_sums', coeffs, scores_t,
                                        annotations, dterm, nat_mu,
                                        num_annotations)
+    kdim = nat_mu.dim() == 3
     kt, nblocks = _launch_shape(I, K, A, ncol, sums=True)
-    part = torch.zeros((nblocks, K, A), dtype=torch.float32,
-                       device=nat_mu.device)
-    out = torch.empty((K, A), dtype=torch.float32, device=nat_mu.device)
+    dev = nat_mu.device
+    part = torch.zeros((nblocks, K, A), dtype=torch.float32, device=dev)
+    out = torch.empty((K, A), dtype=torch.float32, device=dev)
     eps = epsilon(torch.float32)
-    status = build.library().vilma_compact_delta_sums(
+    entry = ('vilma_compact_delta_sums_kdim' if kdim
+             else 'vilma_compact_delta_sums')
+    status = getattr(build.library(), entry)(
         coeffs.data_ptr(), scores_t.data_ptr(), annotations.data_ptr(),
         dterm.data_ptr(), nat_mu.data_ptr(), part.data_ptr(),
         out.data_ptr(), I, K, A, P, kt, nblocks, eps, math.log(eps),
-        build.stream_handle(nat_mu.device))
-    build.check(status, 'vilma_compact_delta_sums')
-    launches['delta_sums'] += 1
+        build.stream_handle(dev))
+    build.check(status, entry)
+    launches['delta_sums_kdim' if kdim else 'delta_sums'] += 1
+    return out.T
+
+
+def prologue_epochs(coeffs, scores_t, annotations, sld, nat_u, hist_v,
+                    inv_scales, hist_c, *, num_annotations, num_live=None):
+    """Fused (post_means, post_vars, beta_kl) of an epoch-history
+    parameter point (sigma.compact_exprs_epochs semantics).
+
+    Args beyond `prologue`'s: sld [P, I] raw scaled_ld_diags; nat_u
+    [P, I] current-epoch accumulator; hist_v [B, P, I]; inv_scales
+    [B+1, P] (row 0 = 1/current error_scaling, row e+1 = 1/epoch-e
+    scaling); hist_c [B] coefficients; num_live: the live epochs (the
+    slots past them must be inert: zero vectors, c 0, scale 1), all B
+    by default."""
+    num_live = hist_v.shape[0] if num_live is None else int(num_live)
+    if not nat_u.is_cuda:
+        return prologue_epochs_plain(
+            coeffs, scores_t, annotations, sld, nat_u, hist_v, inv_scales,
+            hist_c, num_annotations=num_annotations, num_live=num_live)
+    P, I, K, A, ncol, _ = _check_epoch_operands(
+        'prologue_epochs', coeffs, scores_t, annotations, sld, nat_u,
+        hist_v, inv_scales, hist_c, num_annotations, num_live)
+    kt, nblocks = _launch_shape(I, K, A, ncol, sums=False,
+                                table_floats=(num_live + 1) * P + num_live)
+    dev = nat_u.device
+    pm = torch.empty((P, I), dtype=torch.float32, device=dev)
+    pv = torch.empty((P, I), dtype=torch.float32, device=dev)
+    part = torch.empty(nblocks, dtype=torch.float32, device=dev)
+    kl = torch.empty((), dtype=torch.float32, device=dev)
+    eps = epsilon(torch.float32)
+    status = build.library().vilma_compact_prologue_epochs(
+        coeffs.data_ptr(), scores_t.data_ptr(), annotations.data_ptr(),
+        sld.data_ptr(), nat_u.data_ptr(), hist_v.data_ptr(),
+        inv_scales.data_ptr(), hist_c.data_ptr(), pm.data_ptr(),
+        pv.data_ptr(), part.data_ptr(), kl.data_ptr(), I, K, A, P,
+        num_live, kt, nblocks, eps, math.log(eps), build.stream_handle(dev))
+    build.check(status, 'vilma_compact_prologue_epochs')
+    launches['prologue_epochs'] += 1
+    return pm, pv, kl
+
+
+def delta_sums_epochs(coeffs, scores_t, annotations, sld, nat_u, hist_v,
+                      inv_scales, hist_c, *, num_annotations, num_live=None):
+    """Per-annotation sums of the derived vi_delta for the epoch state:
+    [A, K] (operands as in `prologue_epochs`)."""
+    num_live = hist_v.shape[0] if num_live is None else int(num_live)
+    if not nat_u.is_cuda:
+        return delta_sums_epochs_plain(
+            coeffs, scores_t, annotations, sld, nat_u, hist_v, inv_scales,
+            hist_c, num_annotations=num_annotations, num_live=num_live)
+    P, I, K, A, ncol, _ = _check_epoch_operands(
+        'delta_sums_epochs', coeffs, scores_t, annotations, sld, nat_u,
+        hist_v, inv_scales, hist_c, num_annotations, num_live)
+    kt, nblocks = _launch_shape(I, K, A, ncol, sums=True,
+                                table_floats=(num_live + 1) * P + num_live)
+    dev = nat_u.device
+    part = torch.zeros((nblocks, K, A), dtype=torch.float32, device=dev)
+    out = torch.empty((K, A), dtype=torch.float32, device=dev)
+    eps = epsilon(torch.float32)
+    status = build.library().vilma_compact_delta_sums_epochs(
+        coeffs.data_ptr(), scores_t.data_ptr(), annotations.data_ptr(),
+        sld.data_ptr(), nat_u.data_ptr(), hist_v.data_ptr(),
+        inv_scales.data_ptr(), hist_c.data_ptr(), part.data_ptr(),
+        out.data_ptr(), I, K, A, P, num_live, kt, nblocks, eps,
+        math.log(eps), build.stream_handle(dev))
+    build.check(status, 'vilma_compact_delta_sums_epochs')
+    launches['delta_sums_epochs'] += 1
     return out.T
