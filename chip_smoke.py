@@ -9,7 +9,13 @@ Phases:
   3. kernels: each CUDA kernel against its plain PyTorch version on the
      card at main-path shapes, within a stated band, bit-for-bit
      repeatable, with CUDA-event times of both (the matvec also beside
-     its cuBLAS route) and the least time the card could take (bound).
+     its cuBLAS route) and the least time the card could take (bound);
+     each kernel's cluster size and what ptxas reported for it. The
+     matvec in bf16 and f32 U (the cluster route) and at an oversize
+     block (the two-read route); the epoch prologue at 2 and 1 live
+     epochs and on a clamp-heavy input. Two bars are required: the bf16
+     matvec no slower than cuBLAS in turns, the epoch prologue at most
+     0.6 of the epoch sums' time.
   4. fit: `vilma-tpu-torch fit` in-process on a synthetic on-disk schema
      the size of a per-chromosome HapMap3 fit (~90K variants in
      1024-SNP AR(1) blocks at half rank, 2 cohorts sharing the panel) at
@@ -19,6 +25,9 @@ Phases:
      must launch. Then small-input references: a 2-block fit on the
      card (f32) held against the same fit on the host at f64, without
      and with --learn-scaling (kdim and epoch-history routes).
+  4b. fit at the default precision (f32 U) on a schema of a 1024-SNP and
+     a 2048-SNP block: the f32 cluster route and the two-read route of
+     the matvec must launch.
   5. engine: 1M SNPs (977 blocks of 1024), 2 cohorts, K = 18, bf16 U;
      3 timed outer steps after one warm-up step.
   6. fit --learn-scaling: phase 4's schema and flags; the kdim
@@ -80,28 +89,45 @@ HBM_BYTES_S = 3.35e12
 FP32_OPS_S = 67e12
 BF16_OPS_S = 989e12
 
+# each kernel of the port, with the main-path instantiation whose ptxas
+# report phase 3 prints (a pattern on the demangled name)
 KERNELS = {
     'bucket_matvec_multi': dict(
         source='vilma_tpu_torch/csrc/block_matvec.cu',
-        replaces='vilma_tpu/ops/pallas/block_matvec.py:88'),
+        replaces='vilma_tpu/ops/pallas/block_matvec.py:88',
+        ptxas=r'cluster_matvec_kernel<__nv_bfloat16, \(int\)2>'),
+    'bucket_matvec_multi_f32': dict(
+        source='vilma_tpu_torch/csrc/block_matvec.cu',
+        replaces='vilma_tpu/ops/pallas/block_matvec.py:88',
+        ptxas=r'cluster_matvec_kernel<float, \(int\)2>'),
+    'bucket_matvec_multi_two_read': dict(
+        source='vilma_tpu_torch/csrc/block_matvec.cu',
+        replaces='vilma_tpu/ops/pallas/block_matvec.py:88',
+        ptxas=r'block_matvec_kernel<float, \(int\)2>'),
     'prologue': dict(
         source='vilma_tpu_torch/csrc/compact_obj.cu',
-        replaces='vilma_tpu/ops/pallas/compact_obj.py:414'),
+        replaces='vilma_tpu/ops/pallas/compact_obj.py:414',
+        ptxas=r'compact_kernel<\(int\)2, \(bool\)0, \(int\)0,'),
     'delta_sums': dict(
         source='vilma_tpu_torch/csrc/compact_obj.cu',
-        replaces='vilma_tpu/ops/pallas/compact_obj.py:653'),
+        replaces='vilma_tpu/ops/pallas/compact_obj.py:653',
+        ptxas=r'compact_kernel<\(int\)2, \(bool\)1, \(int\)0,'),
     'prologue_kdim': dict(
         source='vilma_tpu_torch/csrc/compact_obj.cu',
-        replaces='vilma_tpu/ops/pallas/compact_obj.py:257'),
+        replaces='vilma_tpu/ops/pallas/compact_obj.py:257',
+        ptxas=r'compact_kernel<\(int\)2, \(bool\)0, \(int\)1,'),
     'delta_sums_kdim': dict(
         source='vilma_tpu_torch/csrc/compact_obj.cu',
-        replaces='vilma_tpu/ops/pallas/compact_obj.py:257'),
+        replaces='vilma_tpu/ops/pallas/compact_obj.py:257',
+        ptxas=r'compact_kernel<\(int\)2, \(bool\)1, \(int\)1,'),
     'prologue_epochs': dict(
         source='vilma_tpu_torch/csrc/compact_obj_epochs.cu',
-        replaces='vilma_tpu/ops/pallas/compact_obj.py:562'),
+        replaces='vilma_tpu/ops/pallas/compact_obj.py:562',
+        ptxas=r'compact_kernel<\(int\)2, \(bool\)0, \(int\)2, \(int\)[12]>'),
     'delta_sums_epochs': dict(
         source='vilma_tpu_torch/csrc/compact_obj_epochs.cu',
-        replaces='vilma_tpu/ops/pallas/compact_obj.py:603'),
+        replaces='vilma_tpu/ops/pallas/compact_obj.py:603',
+        ptxas=r'compact_kernel<\(int\)2, \(bool\)1, \(int\)2,'),
 }
 
 
@@ -116,6 +142,13 @@ def require(cond, msg):
 
 def log(msg):
     print(msg, flush=True)
+
+
+_T0 = time.perf_counter()
+
+
+def phase(msg):
+    log(f'{msg} [at {time.perf_counter() - _T0:.1f} s]')
 
 
 # ---------------------------------------------------------------------------
@@ -201,11 +234,11 @@ def max_err(got, want):
 # phase 3: kernel checks
 # ---------------------------------------------------------------------------
 
-def synthetic_covs(P, K, seed):
-    """K mixture covariances with log-spaced scales and random
-    correlations (vilma_tpu's synthetic_problem construction)."""
+def synthetic_covs(P, K, seed, lo=1e-6, hi=1e-2):
+    """K mixture covariances with scales log-spaced over [lo, hi] and
+    random correlations (vilma_tpu's synthetic_problem construction)."""
     rng = np.random.default_rng(seed)
-    scales = np.exp(np.linspace(np.log(1e-6), np.log(1e-2), K))
+    scales = np.exp(np.linspace(np.log(lo), np.log(hi), K))
     covs = []
     for k in range(K):
         a = rng.standard_normal((P, P))
@@ -235,17 +268,45 @@ def cublas_matvec(u, s, d, x):
             + d[:, None, :] * x)
 
 
-def check_matvec(device, results, B=977, P=1024, R=512, C=2):
+# the main path's bucket (977 blocks of 1024 SNPs at rank 512), and an
+# oversize one for the two-read route: 128 blocks of 2048 SNPs at rank
+# 1024 in f32 (1.07 GB of U), too large for 16 slices of shared memory
+MATVEC_SHAPE = (977, 1024, 512, 2)
+TWO_READ_SHAPE = (128, 2048, 1024, 2)
+MATVEC_CASES = (
+    ('bucket_matvec_multi', 'bfloat16', MATVEC_SHAPE),
+    ('bucket_matvec_multi_f32', 'float32', MATVEC_SHAPE),
+    ('bucket_matvec_multi_two_read', 'float32', TWO_READ_SHAPE),
+)
+
+
+def matvec_plan(name):
+    """The planner's route for a MATVEC_CASES entry."""
+    from vilma_tpu_torch.ops.cuda import block_matvec as bm
+    _, dtype, (_, P, R, C) = next(c for c in MATVEC_CASES if c[0] == name)
+    return bm.plan(P, R, 2 if dtype == 'bfloat16' else 4, C)
+
+
+def check_matvec(device, results):
+    """The matvec's routes at their shapes: bf16 and f32 U at the main
+    path's bucket (the cluster route), f32 at an oversize bucket (the
+    two-read route). Each against its plain version and its cuBLAS
+    route (timed in turns with the kernel), with its bound."""
     import torch
     from vilma_tpu_torch.ops.cuda import block_matvec as bm
-    gen = torch.Generator(device=device).manual_seed(3)
-    x = torch.randn(B, C, P, generator=gen, device=device)
-    s = torch.rand(B, R, generator=gen, device=device) * 1.9 + 0.1
-    d = torch.rand(B, P, generator=gen, device=device)
-    for u_dtype, band in ((torch.bfloat16, BAND_BF16),
-                          (torch.float32, BAND_F32)):
+    for key, dtype, (B, P, R, C) in MATVEC_CASES:
+        u_dtype = getattr(torch, dtype)
+        bf16 = u_dtype == torch.bfloat16
+        band = BAND_BF16 if bf16 else BAND_F32
+        gen = torch.Generator(device=device).manual_seed(3)
+        x = torch.randn(B, C, P, generator=gen, device=device)
+        s = torch.rand(B, R, generator=gen, device=device) * 1.9 + 0.1
+        d = torch.rand(B, P, generator=gen, device=device)
         u = (torch.randn(B, P, R, generator=gen, device=device)
              / math.sqrt(P)).to(u_dtype)
+        pl = bm.plan(P, R, u.element_size(), C)
+        require(pl.route == ('two_read' if 'two_read' in key else 'cluster'),
+                f'{key}: the planner chose the {pl.route} route')
         y = bm.bucket_matvec_multi(u, s, d, x)
         y2 = bm.bucket_matvec_multi(u, s, d, x)
         ref = bm.bucket_matvec_multi_plain(u, s, d, x)
@@ -255,14 +316,27 @@ def check_matvec(device, results, B=977, P=1024, R=512, C=2):
         ms, plain_ms = paired_ms(
             lambda: bm.bucket_matvec_multi(u, s, d, x),
             lambda: bm.bucket_matvec_multi_plain(u, s, d, x))
+        # the library yardstick: cuBLAS, two batched products (U's type,
+        # f32 accumulation) plus the diagonal, in turns with the kernel
+        k_ms, lib_ms = paired_ms(lambda: bm.bucket_matvec_multi(u, s, d, x),
+                                 lambda: cublas_matvec(u, s, d, x), 10)
         ubytes = u.numel() * u.element_size()
-        name = f'bucket_matvec_multi u={str(u_dtype)[6:]} B={B} P={P} R={R} C={C}'
-        log(f'  {name}: max_abs_err {err:.3e} scaled {rel:.3e} (band '
-            f'{band:.1e}) repeatable {repeat}; kernel {ms:.4f} ms '
-            f'({ubytes / ms / 1e6:.1f} GB/s of U), plain {plain_ms:.4f} ms')
+        nbytes = ubytes + 4 * B * R + 4 * B * P + 2 * 4 * B * C * P
+        b = bound(nbytes, 4 * B * P * R * C, BF16_OPS_S if bf16 else FP32_OPS_S)
+        name = f'{key} u={dtype} B={B} P={P} R={R} C={C}'
+        log(f'  {name}: {pl.route} route, {pl.cluster} CTAs per block, '
+            f'{pl.slots} slot(s), {pl.smem} B of shared memory each; '
+            f'max_abs_err {err:.3e} '
+            f'scaled {rel:.3e} (band {band:.1e}) repeatable {repeat}; kernel '
+            f'{ms:.4f} ms ({ubytes / ms / 1e6:.1f} GB/s of U), plain '
+            f'{plain_ms:.4f} ms')
+        log(f'    in turns with cuBLAS (2 torch.bmm + diagonal): kernel '
+            f'{k_ms:.4f} ms, cuBLAS {lib_ms:.4f} ms (kernel/cuBLAS '
+            f'{k_ms / lib_ms:.3f}, target <= 1); bound {b[0]:.4f} ms '
+            f'({b[1]}), {b[0] / ms:.1%} of it reached')
         require(rel <= band, f'{name} outside its band')
         require(repeat, f'{name} not bit-for-bit repeatable')
-        if u_dtype == torch.bfloat16:
+        if bf16:
             # the rounding of x and of t both matter: the kernel must sit
             # closer to the plain version than a product missing either
             half = [max_err(half_rounded_matvec(u, s, d, x, rx), ref)[1]
@@ -271,37 +345,80 @@ def check_matvec(device, results, B=977, P=1024, R=512, C=2):
                 f'{half[0]:.3e}, only t {half[1]:.3e}')
             require(rel < min(half), f'{name} is no closer to the plain '
                     'version than a product that skips a bf16 rounding')
-            # the library yardstick: cuBLAS, two batched products (bf16
-            # operands, f32 accumulation) plus the diagonal term
-            lib_ms = cuda_ms(lambda: cublas_matvec(u, s, d, x), 10)
-            nbytes = (ubytes + 4 * B * R + 4 * B * P + 2 * 4 * B * C * P)
-            b = bound(nbytes, 4 * B * P * R * C, BF16_OPS_S)
-            log(f'    cuBLAS route (2 torch.bmm + diagonal) {lib_ms:.4f} ms;'
-                f' bound {b[0]:.4f} ms ({b[1]})')
-            results['bucket_matvec_multi'] = entry(err, ms, plain_ms, b,
-                                                   lib_ms)
+            # the main path's route reads U once: it must not lose to the
+            # library, which reads it twice
+            require(k_ms <= lib_ms, f'{name}: {k_ms:.4f} ms, slower than '
+                    f'cuBLAS ({lib_ms:.4f} ms) in turns')
+        results[key] = entry(err, ms, plain_ms, b, lib_ms)
+        del u, x, s, d, y, y2, ref
+        torch.cuda.empty_cache()
 
 
-def compact_inputs(device, P, K, I, A, seed):
+def print_kernel_resources():
+    """Each kernel's cluster size and what ptxas reported for its
+    main-path instantiation (registers, static shared memory, spills).
+    A diagnostic: an entry it cannot match fails nothing."""
+    import re
+    from vilma_tpu_torch.ops.cuda import build
+    if not build.ptxas_report:
+        log('  ptxas report: not available (the library was built earlier)')
+        return
+    found = build.kernel_resources(build.ptxas_report)
+    for name, meta in KERNELS.items():
+        cluster = (matvec_plan(name).cluster if name.startswith('bucket')
+                   else 1)
+        hits = [(k, v) for k, v in found.items()
+                if re.search(meta['ptxas'], k.replace('false', '(bool)0')
+                             .replace('true', '(bool)1'))]
+        if not hits:
+            # a diagnostic: mangled names (no cu++filt) match no pattern
+            log(f'  {name}: cluster {cluster}; no ptxas entry matched '
+                '(names not demangled: no cu++filt beside nvcc?)')
+        for k, v in hits:
+            short = re.search(r'(\w+<.*?>)\(', k.replace('<unnamed>::', '')
+                              .replace('(anonymous namespace)::', ''))
+            log(f'  {name}: cluster {cluster}; '
+                f'{short.group(1) if short else k}: {v.get("registers")} '
+                f'registers, {v.get("smem")} B static shared memory, '
+                f'{v.get("stack")} B stack, spills {v.get("spill_stores")}/'
+                f'{v.get("spill_loads")} B (stores/loads)')
+
+
+def compact_inputs(device, P, K, I, A, seed, clamp_heavy=False):
+    """Compact-kernel operands. clamp_heavy: most components of most SNPs
+    sit beyond the f32 clamp (69 nats below the largest logit): variances
+    1e-8..1, natural means at z-scores up to 1.5 (~100x the ordinary
+    ones), and hyper-deltas of e^-600..e^-80 on ~80% of the components, as
+    a converged fit leaves the components it does not use. (Larger means
+    make post_vars = E[y^2] - pm^2 cancel in f32, in the kernel and the
+    plain version alike.)"""
     import torch
     from vilma_tpu_torch.ops.cuda import compact_obj as co
     rng = np.random.default_rng(seed)
-    covs = synthetic_covs(P, K, seed)
+    covs = synthetic_covs(P, K, seed, *((1e-8, 1.0) if clamp_heavy
+                                        else (1e-6, 1e-2)))
     prec = np.linalg.inv(covs)
     log_det = np.linalg.slogdet(covs)[1]
     hd = rng.uniform(0.1, 1.0, (A, K))
     hd /= hd.sum(axis=1, keepdims=True)
+    log_hd = np.log(hd)
+    if clamp_heavy:
+        unused = rng.random((A, K)) < 0.8
+        log_hd[unused] = rng.uniform(-600, -80, unused.sum())
     ann = rng.integers(0, A, I).astype(np.int32)
     ann[rng.random(I) < 0.01] = A                      # ~1% pad SNPs
     dterm = 1.0 / rng.uniform(0.01, 0.05, (P, I)) ** 2
-    nat = rng.standard_normal((P, I)) * 0.5
+    if clamp_heavy:
+        nat = rng.uniform(-1.5, 1.5, (P, I)) * np.sqrt(dterm)
+    else:
+        nat = rng.standard_normal((P, I)) * 0.5
 
     def f32(a):
         return torch.as_tensor(np.ascontiguousarray(a),
                                dtype=torch.float32, device=device)
 
     coeffs = co.build_coeffs(f32(prec), f32(log_det)).contiguous()
-    scores_t = f32((np.log(hd) - 0.5 * log_det).T)
+    scores_t = f32((log_hd - 0.5 * log_det).T)
     return (coeffs, scores_t, torch.as_tensor(ann, device=device),
             f32(dterm), f32(nat))
 
@@ -325,10 +442,11 @@ def check_compact(device, results, I=1_000_000, A=4):
 
 
 def check_pair(name, key, results, run, plain, kw, cost, reps=10,
-               plain_reps=None):
+               plain_reps=2, timed=True):
     """One prologue/sums pair of a state form against its plain
-    versions: bands, repeatability, times, bound. `run` and `plain` are
-    (prologue, delta_sums) callables taking **kw."""
+    versions: bands, repeatability, times (unless not `timed`), bound.
+    `run` and `plain` are (prologue, delta_sums) callables taking **kw.
+    Returns the (prologue, sums) kernel ms."""
     import torch
     pm, pv, kl = run[0](**kw)
     pm2, pv2, kl2 = run[0](**kw)
@@ -342,27 +460,41 @@ def check_pair(name, key, results, run, plain, kw, cost, reps=10,
     rep = bool(torch.equal(pm, pm2) and torch.equal(pv, pv2)
                and torch.equal(kl, kl2) and torch.equal(s, s2))
     times = [paired_ms(lambda: run[j](**kw), lambda: plain[j](**kw), reps,
-                       plain_reps) for j in (0, 1)]
+                       plain_reps) if timed else (math.nan, math.nan)
+             for j in (0, 1)]
     log(f'  {name}: pm {e_pm:.3e} ({r_pm:.3e}) pv {e_pv:.3e} ({r_pv:.3e}) '
         f'kl {e_kl:.3e} ({r_kl:.3e}) sums {e_s:.3e} ({r_s:.3e}); bands '
-        f'{BAND_F32:.0e}/{BAND_KL:.0e}; repeatable {rep}; prologue '
-        f'{times[0][0]:.4f} ms (plain {times[0][1]:.4f}), sums '
-        f'{times[1][0]:.4f} ms (plain {times[1][1]:.4f})')
+        f'{BAND_F32:.0e}/{BAND_KL:.0e}; repeatable {rep}'
+        + (f'; prologue {times[0][0]:.4f} ms (plain {times[0][1]:.4f}), '
+           f'sums {times[1][0]:.4f} ms (plain {times[1][1]:.4f}), '
+           f'prologue/sums {times[0][0] / times[1][0]:.3f}' if timed
+           else ''))
     require(max(r_pm, r_pv, r_s) <= BAND_F32 and r_kl <= BAND_KL,
             f'{name} outside its band')
     require(rep, f'{name} not bit-for-bit repeatable')
-    if key is not None:
-        for j, (kname, sums) in enumerate(((key[0], False),
-                                           (key[1], True))):
+    if timed:
+        names = key or ('prologue', 'sums')
+        for j, sums in enumerate((False, True)):
             b = bound(*cost(sums))
-            results[kname] = entry(e_s if sums else max(e_pm, e_pv),
-                                   times[j][0], times[j][1], b)
-            log(f'    {kname}: bound {b[0]:.4f} ms ({b[1]})')
+            if key is not None:
+                results[names[j]] = entry(e_s if sums else max(e_pm, e_pv),
+                                          times[j][0], times[j][1], b)
+            log(f'    {names[j]}: bound {b[0]:.4f} ms ({b[1]}), '
+                f'{b[0] / times[j][0]:.1%} of it reached')
+    return times[0][0], times[1][0]
 
 
 KDIM_SHAPES = ((2, 582, 90_112), (2, 18, 1_000_000), (1, 582, 90_112),
                (3, 582, 90_112))
-EPOCH_SHAPES = ((2, 582, 1_000_000), (1, 582, 90_112), (3, 582, 90_112))
+# (P, K, I, live epochs, clamp-heavy input, timed): the first is phase 7's
+# shape, the one reported; phase 7 itself runs with 1 live epoch
+EPOCH_CASES = ((2, 582, 1_000_000, 2, False, True),
+               (2, 582, 1_000_000, 1, False, True),
+               (1, 582, 90_112, 2, False, True),
+               (3, 582, 90_112, 2, False, True),
+               (2, 582, 1_000_000, 2, True, False),
+               (1, 582, 90_112, 2, True, False),
+               (3, 582, 90_112, 2, True, False))
 
 
 def check_kdim(device, results, A=4, shapes=KDIM_SHAPES):
@@ -387,19 +519,24 @@ def check_kdim(device, results, A=4, shapes=KDIM_SHAPES):
         del kw
 
 
-def check_epochs(device, results, A=4, B=4, live=2, shapes=EPOCH_SHAPES):
-    """The epoch-history state with `live` of B slots live, at (P, K, I)
-    shapes: the first is the shape of phase 7, the one reported."""
+def check_epochs(device, results, A=4, B=4, cases=EPOCH_CASES):
+    """The epoch-history state with `live` of B slots live (EPOCH_CASES).
+    On the clamp-heavy inputs the share of (SNP, component) pairs the
+    plain version clamps, over the first 20,000 SNPs, must pass one half.
+    Returns the reported case's (prologue, sums) kernel ms."""
     import torch
     from vilma_tpu_torch.ops.cuda import compact_obj as co
-    for P, K, I in shapes:
-        coeffs, scores_t, ann, sld, u = compact_inputs(device, P, K, I, A,
-                                                       seed=11 * P + K)
+    from vilma_tpu_torch.utils.config import epsilon
+    reported = None
+    for P, K, I, live, clamp_heavy, timed in cases:
+        coeffs, scores_t, ann, sld, u = compact_inputs(
+            device, P, K, I, A, seed=11 * P + K, clamp_heavy=clamp_heavy)
         rng = np.random.default_rng(P)
         gen = torch.Generator(device=device).manual_seed(P + K)
         hist = torch.zeros(B, P, I, device=device)
         hist[:live] = torch.randn(live, P, I, generator=gen,
-                                  device=device) * 0.5
+                                  device=device) * (
+            0.5 * torch.sqrt(sld) if clamp_heavy else 0.5)
         isc = np.ones((B + 1, P))
         isc[:live + 1] = 1 / rng.uniform(0.7, 1.4, (live + 1, P))
         hc = np.zeros(B)
@@ -411,20 +548,38 @@ def check_epochs(device, results, A=4, B=4, live=2, shapes=EPOCH_SHAPES):
                   hist_c=torch.as_tensor(hc, dtype=torch.float32,
                                          device=device),
                   num_annotations=A, num_live=live)
-        main = (P, K, I) == shapes[0]
+        name = (f'epochs P={P} K={K} I={I} A={A} B={B} live={live}'
+                + (' clamp-heavy' if clamp_heavy else ''))
+        if clamp_heavy:
+            log_vd = co._epoch_deriver(
+                coeffs, scores_t, ann, sld, u, hist, kw['inv_scales'],
+                kw['hist_c'], live)(0, 20_000)['log_vd']
+            share = float((log_vd <= math.log(epsilon(torch.float32))
+                           ).float().mean())
+            log(f'  {name}: {share:.3f} of (SNP, component) pairs clamped')
+            require(share > 0.5, f'{name}: only {share:.3f} clamped')
+        main = reported is None
         # the plain version loops over every slot: the inert ones add
         # exact zeros, so the kernel's live-only loop must agree with it
         plain = (lambda **k: co.prologue_epochs_plain(
                      **dict(k, num_live=None)),
                  lambda **k: co.delta_sums_epochs_plain(
                      **dict(k, num_live=None)))
-        check_pair(f'epochs P={P} K={K} I={I} A={A} B={B} live={live}',
-                   ('prologue_epochs', 'delta_sums_epochs') if main
-                   else None, results,
-                   (co.prologue_epochs, co.delta_sums_epochs), plain, kw,
-                   lambda sums: compact_cost(P, K, I, A, sums, live),
-                   plain_reps=2 if main else None)
+        ms = check_pair(name, ('prologue_epochs', 'delta_sums_epochs')
+                        if main else None, results,
+                        (co.prologue_epochs, co.delta_sums_epochs), plain,
+                        kw, lambda sums: compact_cost(P, K, I, A, sums, live),
+                        timed=timed)
+        if main:
+            reported = ms
         del hist, kw
+    ratio = reported[0] / reported[1]
+    log(f'  epoch prologue / epoch sums at the reported shape: '
+        f'{ratio:.3f} (target <= 0.6)')
+    # one pass over K against the sums' two: at most 0.6 of their time
+    require(ratio <= 0.6, f'epoch prologue takes {ratio:.3f} of the epoch '
+            'sums\' time (target <= 0.6)')
+    return reported
 
 
 # ---------------------------------------------------------------------------
@@ -439,24 +594,29 @@ def ar1_factor(n, rho, rank):
 
 
 def write_schema(out_dir, num_blocks, block_size=1024, rank_frac=0.5,
-                 num_pops=2, seed=1):
+                 num_pops=2, seed=1, block_sizes=None):
     """Stacked-eigendecomposition .npy + .var blocks, a .schema manifest,
     one sumstats TSV per cohort and an extract list (the layout
-    tools/export_synthetic_schema.py writes). Returns the paths."""
+    tools/export_synthetic_schema.py writes): `num_blocks` blocks of
+    `block_size` SNPs, or one block per entry of `block_sizes`. Returns
+    the paths."""
     rng = np.random.default_rng(seed)
-    n = num_blocks * block_size
+    sizes = block_sizes or [block_size] * num_blocks
+    n = sum(sizes)
     ids = [f'snp{i}' for i in range(n)]
     manifest = []
-    for b in range(num_blocks):
-        u, s = ar1_factor(block_size, rng.uniform(0.3, 0.95),
-                          int(block_size * rank_frac))
+    start = 0
+    for b, size in enumerate(sizes):
+        u, s = ar1_factor(size, rng.uniform(0.3, 0.95),
+                          int(size * rank_frac))
         base = f'block{b}'
         np.save(os.path.join(out_dir, base + '.npy'),
                 np.vstack([u, s[None, :]]).astype(np.float32))
         with open(os.path.join(out_dir, base + '.var'), 'w') as fh:
-            for i in range(b * block_size, (b + 1) * block_size):
+            for i in range(start, start + size):
                 fh.write(f'{ids[i]}\t1\t{i + 1}\t0.0\tA\tG\n')
         manifest.append(f'{base}.var\t{base}.npy')
+        start += size
     schema = os.path.join(out_dir, 'panel.schema')
     with open(schema, 'w') as fh:
         fh.write('\n'.join(manifest) + '\n')
@@ -614,14 +774,17 @@ def run_fit(paths, prefix, device, extra=()):
 
 def zero_counts():
     from vilma_tpu_torch.ops.cuda import block_matvec, compact_obj
-    block_matvec.launches = 0
+    block_matvec.launches = block_matvec.launches_two_read = 0
     for key in compact_obj.launches:
         compact_obj.launches[key] = 0
 
 
 def read_counts():
+    """Launches by kernel; the matvec's cluster route counts under
+    bucket_matvec_multi whatever U's type."""
     from vilma_tpu_torch.ops.cuda import block_matvec, compact_obj
     return dict(bucket_matvec_multi=block_matvec.launches,
+                bucket_matvec_multi_two_read=block_matvec.launches_two_read,
                 **compact_obj.launches)
 
 
@@ -792,7 +955,7 @@ F32_BF16 = ['--precision', 'f32', '--ld-precision', 'bf16']
 
 def main():
     import torch
-    log('phase 1: device')
+    phase('phase 1: device')
     if not torch.cuda.is_available():
         raise SmokeFailure('torch.cuda.is_available() is false: '
                            'chip_smoke.py needs a CUDA device')
@@ -807,25 +970,28 @@ def main():
     device = 'cuda'
     t_start = time.perf_counter()
 
-    log('phase 2: build')
+    phase('phase 2: build')
     from vilma_tpu_torch.ops.cuda import build
     t0 = time.perf_counter()
     build.library()
     log(f'  built {build.library_path().name} in '
         f'{time.perf_counter() - t0:.1f} s (nvcc '
         f'{build.build_seconds if build.build_seconds is not None else 0:.1f} s)')
+    print_kernel_resources()
 
     results = {}
-    log('phase 3: kernels against their plain versions')
+    phase('phase 3: kernels against their plain versions')
+    t0 = time.perf_counter()
     check_matvec(device, results)
     check_compact(device, results)
     check_kdim(device, results)
     check_epochs(device, results)
     torch.cuda.empty_cache()
+    log(f'  phase 3: {time.perf_counter() - t0:.1f} s')
 
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
-        log('phase 4: CLI fit, ~90K variants, -K 12 (582 components)')
+        phase('phase 4: CLI fit, ~90K variants, -K 12 (582 components)')
         t0 = time.perf_counter()
         paths = write_schema(tmp, num_blocks=88)
         n = paths[3]
@@ -851,13 +1017,28 @@ def main():
                 f'host f32 vs host f64 {host_err}); learned scaling {scal} '
                 f'within {s_err:.2e} of the host')
 
-        log('phase 5: engine, 1M SNPs, 2 cohorts, K=18, bf16 U')
+        phase('phase 4b: CLI fit at the default precision (f32 U), a 1024-SNP '
+            'and a 2048-SNP block')
+        with tempfile.TemporaryDirectory() as mixed:
+            paths4b = write_schema(mixed, 2, block_sizes=[1024, 2048])
+            prefix = os.path.join(mixed, 'fit')
+            counts, step_s, _, _ = run_fit(paths4b, prefix, device)
+            check_fit_outputs(prefix, paths4b[3], K=582)
+        log(f'  launches {counts}; {len(step_s)} outer steps')
+        require_launched(counts, ('bucket_matvec_multi',
+                                  'bucket_matvec_multi_two_read', 'prologue',
+                                  'delta_sums'), 'phase 4b')
+        launches['bucket_matvec_multi_f32'] = counts['bucket_matvec_multi']
+        launches['bucket_matvec_multi_two_read'] = counts[
+            'bucket_matvec_multi_two_read']
+
+        phase('phase 5: engine, 1M SNPs, 2 cohorts, K=18, bf16 U')
         ips, syncs, elbo, ld = run_engine(device)
         log(f'  {ips:.3f} outer iterations/s ({syncs:.1f} host syncs per '
             f'step), ELBO {elbo:.6e}; {smi}')
         torch.cuda.empty_cache()
 
-        log('phase 6: CLI fit --learn-scaling, phase 4\'s schema, -K 12, '
+        phase('phase 6: CLI fit --learn-scaling, phase 4\'s schema, -K 12, '
             'kdim state')
         prefix = os.path.join(tmp, 'fit_se')
         counts, step_s, syncs, em = run_fit(
@@ -882,7 +1063,7 @@ def main():
                 'phase 6 ran a shared-state kernel on the kdim state')
         launches.update({k: counts[k] for k in path_b})
 
-    log('phase 7: engine --learn-scaling, 1M SNPs, 2 cohorts, -K 12 grid, '
+    phase('phase 7: engine --learn-scaling, 1M SNPs, 2 cohorts, -K 12 grid, '
         'epoch-history state')
     counts, ips, syncs, st, em, K = run_engine_se(device, ld)
     log(f'  K = {K}; launches {counts}; {ips:.3f} outer iterations/s '
@@ -893,7 +1074,7 @@ def main():
     launches.update({k: counts[k] for k in path_c})
     log(f'  all phases: {time.perf_counter() - t_start:.1f} s')
 
-    log(smi)
+    print(smi, flush=True)
     table = [dict(name=name, route='cuda', source=meta['source'],
                   replaces=meta['replaces'], launches=launches[name],
                   **results[name])

@@ -42,11 +42,11 @@ def test_matvec_kernel_matches_plain(cuda, u_dtype, band, C):
     s = torch.rand(B, R, generator=gen, device=cuda) + 0.1
     d = torch.rand(B, P, generator=gen, device=cuda)
     x = torch.randn(B, C, P, generator=gen, device=cuda)
-    before = bm.launches
+    before = bm.launches + bm.launches_two_read
     y = bm.bucket_matvec_multi(u, s, d, x)
     y2 = bm.bucket_matvec_multi(u, s, d, x)
     torch.cuda.synchronize()
-    assert bm.launches == before + 2
+    assert bm.launches + bm.launches_two_read == before + 2
     assert torch.equal(y, y2)
     ref = bm.bucket_matvec_multi_plain(u, s, d, x)
     err = _scaled_err(y, ref)
@@ -57,6 +57,71 @@ def test_matvec_kernel_matches_plain(cuda, u_dtype, band, C):
         for round_x in (True, False):
             assert err < _scaled_err(
                 _half_rounded_matvec(u, s, d, x, round_x), ref)
+
+
+@pytest.mark.parametrize('P,R,u_dtype,route', [
+    (128, 64, torch.bfloat16, ('cluster', 1)),
+    (256, 136, torch.bfloat16, ('cluster', 1)),
+    (512, 256, torch.bfloat16, ('cluster', 2)),
+    (1024, 288, torch.bfloat16, ('cluster', 4)),
+    (1024, 512, torch.bfloat16, ('cluster', 8)),
+    (2048, 512, torch.bfloat16, ('cluster', 16)),
+    (1024, 512, torch.float32, ('cluster', 16)),
+    (2048, 1024, torch.float32, ('two_read', 1)),
+])
+@pytest.mark.parametrize('C', [1, 2, 3])
+def test_matvec_routes_match_plain(cuda, P, R, u_dtype, route, C):
+    """Each route and cluster size the planner takes (1, 2, 4, 8, 16 CTAs
+    per block, a rank with a partial column block, and the two-read route
+    of an oversize block) within its band of the plain version,
+    bit-for-bit repeatable, counted on its own launch counter. 40 blocks:
+    more than the card holds clusters at once, so the clusters walk
+    several."""
+    gen = torch.Generator(device=cuda).manual_seed(P + C)
+    B = 40 if route[0] == 'cluster' else 4
+    u = (torch.randn(B, P, R, generator=gen, device=cuda)
+         / math.sqrt(P)).to(u_dtype)
+    s = torch.rand(B, R, generator=gen, device=cuda) + 0.1
+    d = torch.rand(B, P, generator=gen, device=cuda)
+    x = torch.randn(B, C, P, generator=gen, device=cuda)
+    pl = bm.plan(P, R, u.element_size(), C)
+    assert (pl.route, pl.cluster) == route
+    before = (bm.launches, bm.launches_two_read)
+    y = bm.bucket_matvec_multi(u, s, d, x)
+    y2 = bm.bucket_matvec_multi(u, s, d, x)
+    torch.cuda.synchronize()
+    two = route[0] == 'two_read'
+    assert (bm.launches, bm.launches_two_read) == (
+        before[0] + 2 * (not two), before[1] + 2 * two)
+    assert torch.equal(y, y2)
+    ref = bm.bucket_matvec_multi_plain(u, s, d, x)
+    err = _scaled_err(y, ref)
+    assert err <= (2.0 ** -8 if u_dtype == torch.bfloat16 else 1e-5)
+    if u_dtype == torch.bfloat16:
+        for round_x in (True, False):
+            assert err < _scaled_err(
+                _half_rounded_matvec(u, s, d, x, round_x), ref)
+
+
+@pytest.mark.parametrize('u_dtype', [torch.bfloat16, torch.float32])
+def test_cluster_plans_agree_with_kernel_layout(cuda, u_dtype):
+    """Every cluster plan the Python planner makes over a sweep of bucket
+    shapes is one the kernel library takes: its shape rules hold and its
+    shared-memory layout comes to the planner's byte count
+    (block_matvec.cu::cluster_shape_ok), and the card places the cluster."""
+    from vilma_tpu_torch.ops.cuda import build
+    lib = build.library()
+    itemsize = torch.tensor([], dtype=u_dtype).element_size()
+    planned = 0
+    for P in (128, 256, 512, 1024, 2048):
+        for R in (64, 136, 256, 288, 512, 1024):
+            for C in (1, 2, 3):
+                pl = bm.plan(P, R, itemsize, C)
+                if pl.route == 'cluster':
+                    assert bm._clusters(lib, cuda, P, R, C, int(itemsize == 2),
+                                        pl) >= 1
+                    planned += 1
+    assert planned > 0
 
 
 def _half_rounded_matvec(u, s, d, x, round_x):
@@ -112,14 +177,45 @@ def test_compact_kernels_match_plain(cuda, P, K):
     assert _scaled_err(sums, rsums) <= 1e-5
 
 
-def _epoch_args(device, P, K, I, A, B, live, seed):
+def _clamp_heavy_args(device, P, K, I, A, seed):
+    """Compact operands where most components of most SNPs sit beyond
+    the f32 clamp (69 nats below the largest logit): variances 1e-8..1,
+    natural means at z-scores up to 1.5 (~100x the ordinary input's), and
+    hyper-deltas of e^-600..e^-80 on ~80% of the components (as a
+    converged fit leaves the components it does not use). Larger means
+    make post_vars = E[y^2] - pm^2 cancel in f32, in the kernel and the
+    plain version alike."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((K, P, P))
+    covs = (a @ np.swapaxes(a, 1, 2) + P * np.eye(P)) * np.exp(
+        np.linspace(np.log(1e-8), 0.0, K))[:, None, None]
+    log_det = np.linalg.slogdet(covs)[1]
+    log_hd = np.log(rng.dirichlet(np.ones(K), A))
+    unused = rng.random((A, K)) < 0.8
+    log_hd[unused] = rng.uniform(-600, -80, unused.sum())
+    dterm = 1.0 / rng.uniform(0.01, 0.05, (P, I)) ** 2
+    zs = rng.uniform(-1.5, 1.5, (P, I))
+
+    def f32(v):
+        return torch.as_tensor(np.ascontiguousarray(v), dtype=torch.float32,
+                               device=device)
+
+    return (co.build_coeffs(f32(np.linalg.inv(covs)), f32(log_det))
+            .contiguous(), f32((log_hd - 0.5 * log_det).T),
+            torch.as_tensor(rng.integers(0, A + 1, I).astype(np.int32),
+                            device=device),
+            f32(dterm), f32(zs * np.sqrt(dterm)))
+
+
+def _epoch_args(device, P, K, I, A, B, live, seed, clamp_heavy=False):
     """Epoch-kernel operands: `live` filled history slots of B, the rest
     inert (zero vectors, coefficient 0, scale 1)."""
-    coeffs, scores_t, ann, dterm, nat = _compact_args(device, P, K, I, A,
-                                                      seed)
+    make = _clamp_heavy_args if clamp_heavy else _compact_args
+    coeffs, scores_t, ann, dterm, nat = make(device, P, K, I, A, seed)
     rng = np.random.default_rng(seed + 1)
     hist = np.zeros((B, P, I))
-    hist[:live] = rng.standard_normal((live, P, I)) * 0.5
+    hist_scale = 0.5 * np.sqrt(dterm.cpu().numpy()) if clamp_heavy else 0.5
+    hist[:live] = rng.standard_normal((live, P, I)) * hist_scale
     inv_scales = np.ones((B + 1, P))
     inv_scales[:live + 1] = rng.uniform(0.7, 1.4, (live + 1, P))
     hist_c = np.zeros(B)
@@ -184,3 +280,28 @@ def test_epoch_kernels_match_plain(cuda, P, K):
     assert _scaled_err(pv, rpv) <= 1e-5
     assert abs(float(kl) - float(rkl)) <= 1e-4 * abs(float(rkl))
     assert _scaled_err(sums, rsums) <= 1e-5
+
+
+@pytest.mark.parametrize('P', [1, 2, 3])
+@pytest.mark.parametrize('live', [0, 1, 2, 3, 4, 5, 6])
+@pytest.mark.parametrize('clamp_heavy', [False, True])
+def test_epoch_prologue_live_counts(cuda, P, live, clamp_heavy):
+    """The one-pass epoch prologue at every live count up to 6 of 8 slots
+    (2 and below hold the epochs in registers, 3 to 6 read them at run
+    time), on an ordinary and on a clamp-heavy input: within its bands of
+    the two-pass plain version and bit-for-bit repeatable."""
+    A, B, K = 3, 8, 600
+    args = _epoch_args(cuda, P, K, 20_000, A, B, live, seed=P * 10 + live,
+                       clamp_heavy=clamp_heavy)
+    kw = dict(num_annotations=A, num_live=live)
+    before = co.launches['prologue_epochs']
+    pm, pv, kl = co.prologue_epochs(*args, **kw)
+    pm2, pv2, kl2 = co.prologue_epochs(*args, **kw)
+    rpm, rpv, rkl = co.prologue_epochs_plain(*args, num_annotations=A)
+    torch.cuda.synchronize()
+    assert co.launches['prologue_epochs'] == before + 2
+    assert (torch.equal(pm, pm2) and torch.equal(pv, pv2)
+            and torch.equal(kl, kl2))
+    assert _scaled_err(pm, rpm) <= 1e-5
+    assert _scaled_err(pv, rpv) <= 1e-5
+    assert abs(float(kl) - float(rkl)) <= 1e-4 * abs(float(rkl))

@@ -1,0 +1,315 @@
+"""The designs of the port's redesigned CUDA kernels, checked on the CPU.
+
+The kernels run only on a card (tests/test_torch_cuda.py and
+chip_smoke.py hold them against their plain versions there). Here:
+
+* the matvec planner's route and cluster size for the bucket shapes of
+  the 1M-SNP LD (977 blocks of 1024 SNPs at rank 512, whose last block in
+  bench.py's LD holds 576 SNPs at rank 288), for bf16 and f32 U, and for
+  blocks too large for a 16-CTA cluster;
+* the cluster matvec's arithmetic, emulated: row-slice partials of
+  t = U^T x added in cluster-rank order, then scaled and rounded, then
+  the second contraction, against the plain version and the JAX
+  package's Pallas kernel in interpret mode;
+* the one-pass epoch prologue's online accumulators, emulated over K,
+  against the two-pass clamped plain version (f64 at the JAX package's
+  route-equality tolerances, f32 within chip_smoke.py's bands) and the
+  Pallas kernel, on an ordinary and on a clamp-heavy input.
+"""
+import math
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from vilma_tpu.ops.pallas import block_matvec as jbm
+from vilma_tpu.ops.pallas import compact_obj as jco
+from vilma_tpu_torch.convert import tensor_from_numpy
+from vilma_tpu_torch.ops.cuda import block_matvec as tbm
+from vilma_tpu_torch.ops.cuda import compact_obj as tco
+from vilma_tpu_torch.utils.config import epsilon
+
+from tests.torch_parity import t2n
+
+# chip_smoke.py's bands (kernel against plain version on the card)
+BAND_F32 = 1e-5
+BAND_BF16 = 2.0 ** -8
+BAND_KL = 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the matvec planner
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('P,R,itemsize,route,G', [
+    # the 1M-SNP LD: full blocks, and bench.py's last block
+    (1024, 512, 2, 'cluster', 8),
+    (1024, 512, 4, 'cluster', 16),
+    (1024, 288, 2, 'cluster', 4),
+    (1024, 288, 4, 'cluster', 8),
+    # small blocks take fewer CTAs
+    (128, 64, 2, 'cluster', 1),
+    (256, 136, 2, 'cluster', 1),
+    (512, 256, 2, 'cluster', 2),
+    (2048, 512, 2, 'cluster', 16),
+    (1024, 1024, 2, 'cluster', 16),
+    # too large for 16 slices of shared memory, too wide a rank, or
+    # fewer than 16 rows per CTA
+    (2048, 512, 4, 'two_read', 1),
+    (2048, 1024, 4, 'two_read', 1),
+    (2048, 1024, 2, 'two_read', 1),
+    (4096, 4096, 2, 'two_read', 1),
+    (8, 8, 2, 'two_read', 1),
+])
+@pytest.mark.parametrize('C', [1, 2, 3])
+def test_plan_routes_bucket_shapes(P, R, itemsize, route, G, C):
+    pl = tbm.plan(P, R, itemsize, C)
+    assert (pl.route, pl.cluster) == (route, G)
+    if route == 'cluster':
+        # the slice of U dominates the CTA's memory; a bf16 ring holds
+        # one to two blocks' column blocks
+        rows = P // G
+        assert rows * R * itemsize < pl.smem <= 227 * 1024
+        ncb = -(-R // 64)
+        assert (ncb <= pl.slots <= 2 * ncb if itemsize == 2
+                else pl.slots == 1)
+        # no smaller cluster holds the slice: too many rows for one
+        # tensor copy (bf16), or too many bytes even with the least ring
+        for g in (1, 2, 4, 8):
+            if g < G and P % g == 0:
+                assert ((itemsize == 2 and P // g > 256)
+                        or tbm.cluster_smem(P, R, C, itemsize, g,
+                                            ncb if itemsize == 2 else 1)
+                        > 227 * 1024)
+    else:
+        assert pl.smem == 4 * C * R
+
+
+# ---------------------------------------------------------------------------
+# the cluster matvec's arithmetic
+# ---------------------------------------------------------------------------
+
+def _cluster_matvec(u, s, d, x, G):
+    """What the cluster route computes: CTA g's partial over rows
+    [g P/G, (g+1) P/G), the G partials added in rank order, scaled by s
+    and rounded to U's type, then y = U t + d x."""
+    B, P, R = u.shape
+    rows = P // G
+    bf16 = u.dtype == torch.bfloat16
+    uf = u.float()
+    xr = x.to(torch.bfloat16).float() if bf16 else x
+    t = None
+    for g in range(G):
+        sl = slice(g * rows, (g + 1) * rows)
+        part = torch.einsum('bpr,bcp->bcr', uf[:, sl], xr[..., sl])
+        t = part if t is None else t + part
+    t = t * s[:, None, :]
+    if bf16:
+        t = t.to(torch.bfloat16).float()
+    return torch.einsum('bpr,bcr->bcp', uf, t) + d[:, None, :] * x
+
+
+def _matvec_inputs(u_dtype, C, seed, B=3, P=64, R=32):
+    rng = np.random.default_rng(seed)
+    u = rng.standard_normal((B, P, R)) / np.sqrt(P)
+    s = rng.uniform(0.1, 2.0, (B, R))
+    d = rng.uniform(0.0, 1.0, (B, P))
+    x = rng.standard_normal((B, C, P))
+    j = [jnp.asarray(u, dtype=u_dtype)] + [
+        jnp.asarray(a, dtype=jnp.float32) for a in (s, d, x)]
+    return j, [tensor_from_numpy(np.asarray(a)) for a in j]
+
+
+def _scaled(got, want):
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize('u_dtype', ['f32', 'bf16'])
+@pytest.mark.parametrize('C', [1, 2, 3])
+@pytest.mark.parametrize('G', [1, 4, 16])
+def test_cluster_matvec_arithmetic(u_dtype, C, G):
+    """Within the kernel's bands of the plain version and of the Pallas
+    kernel; with bf16 U also closer to the plain version than a product
+    that skips rounding x or t."""
+    dt = jnp.float32 if u_dtype == 'f32' else jnp.bfloat16
+    band = BAND_F32 if u_dtype == 'f32' else BAND_BF16
+    j, t = _matvec_inputs(dt, C, seed=10 * C + G)
+    got = t2n(_cluster_matvec(*t, G))
+    plain = t2n(tbm.bucket_matvec_multi_plain(*t))
+    pallas = np.asarray(jbm.bucket_matvec_multi(*j, interpret=True))
+    assert got.shape == plain.shape == pallas.shape
+    err = _scaled(got, plain)
+    assert err <= band
+    assert _scaled(got, pallas) <= band
+    if u_dtype == 'bf16':
+        u, s, d, x = t
+        for skipped in (x.to(torch.bfloat16).float(), None):
+            xr = x if skipped is None else skipped
+            tt = torch.einsum('bpr,bcp->bcr', u.float(), xr) * s[:, None, :]
+            if skipped is None:
+                tt = tt.to(torch.bfloat16).float()
+            half = torch.einsum('bpr,bcr->bcp', u.float(), tt) + d[:, None] * x
+            assert err < _scaled(t2n(half), plain)
+
+
+# ---------------------------------------------------------------------------
+# the one-pass epoch prologue
+# ---------------------------------------------------------------------------
+
+RESCALE_NATS = 8.0     # csrc/compact_obj.cuh kRescale
+
+
+def _one_pass_epochs(coeffs, scores_t, annotations, sld, nat_u, hist_v,
+                     inv_scales, hist_c, *, num_annotations, num_live):
+    """What the one-pass epoch prologue computes (compact_obj.cuh,
+    struct Online): the port's per-component algebra, then online softmax
+    accumulators over K, vectorized over SNPs, with no clamp. Returns
+    (post_means, post_vars, KL) and the logits z [K, I]."""
+    P, I = nat_u.shape
+    K = scores_t.shape[0]
+    dev = tco._derive_plain_epochs(coeffs, scores_t, annotations, sld, nat_u,
+                                   hist_v, inv_scales, hist_c,
+                                   epsilon(nat_u.dtype), num_live)
+    c = tco._coeff_cols(coeffs)
+    dt = [sld[p:p + 1] * inv_scales[0, p] for p in range(P)]
+    y = dev['y']
+    quad = tco._dot([tco._dot(row, y) for row in tco._precision(P, c, dt)],
+                    y)
+    z = 0.5 * (quad - dev['logdet']) + dev['sel']
+    log_hd = dev['sel'] + 0.5 * dev['ldp']
+    g_term = ((0.5 * dev['quadform']
+               + 0.5 * (dev['ldp'] + dev['logdet'] + dev['matches']))
+              - log_hd)
+    zeros = nat_u.new_zeros(I)
+    m = torch.full_like(zeros, -math.inf)
+    s0, sz, sg = zeros, zeros, zeros
+    sy = [zeros] * P
+    ssec = [zeros] * P
+    for k in range(K):
+        zk = z[k]
+        move = zk > m + RESCALE_NATS
+        alpha = torch.where(move, torch.exp(m - zk), torch.ones_like(zk))
+        sz = torch.where(move, torch.where(s0 > 0, (sz + (m - zk) * s0) * alpha,
+                                           zeros), sz)
+        s0, sg = s0 * alpha, sg * alpha
+        sy = [v * alpha for v in sy]
+        ssec = [v * alpha for v in ssec]
+        m = torch.where(move, zk, m)
+        dz = zk - m
+        w = torch.exp(dz)
+        s0 = s0 + w
+        sy = [sy[p] + w * y[p][k] for p in range(P)]
+        ssec = [ssec[p] + w * (dev['diag'][p][k] + y[p][k] * y[p][k])
+                for p in range(P)]
+        sz = sz + w * dz
+        sg = sg + w * g_term[k]
+    inv = 1.0 / s0
+    pm = torch.stack([v * inv for v in sy])
+    pv = torch.stack([ssec[p] * inv - pm[p] * pm[p] for p in range(P)])
+    kl_i = (sz + sg) * inv - torch.log(s0)
+    kl = torch.sum(kl_i * (annotations < num_annotations).to(kl_i.dtype))
+    return (pm, pv, kl), z
+
+
+def _epoch_inputs(P, kind, seed, K=24, I=300, A=3, B=4, live=2):
+    """Epoch-kernel operands (numpy f64): `live` filled history slots of
+    B, every 11th SNP a pad slot. kind:
+
+    * 'ordinary': variances 1e-6..1e-2, small natural means;
+    * 'clamp': variances 1e-8..1, natural means at z-scores up to 1.5
+      (~100x the ordinary ones), and hyper-deltas of e^-600..e^-80 for
+      ~80% of the components (what a converged fit leaves on the
+      components it does not use): most components of most SNPs sit
+      beyond the clamp at f32 and at f64;
+    * 'large_means': variances 1e-8..1 and |z-scores| 20..40, where the
+      logits spread over hundreds of nats. At f32 post_vars = E[y^2] -
+      pm^2 then cancels in both versions alike, so only f64 uses it.
+    """
+    rng = np.random.default_rng(seed)
+    lo, hi = (1e-6, 1e-2) if kind == 'ordinary' else (1e-8, 1.0)
+    scales = np.exp(np.linspace(np.log(lo), np.log(hi), K))
+    a = rng.standard_normal((K, P, P))
+    corr = a @ np.swapaxes(a, 1, 2) + P * np.eye(P)
+    dd = 1 / np.sqrt(np.einsum('kpp->kp', corr))
+    covs = scales[:, None, None] * corr * dd[:, :, None] * dd[:, None, :]
+    prec = np.linalg.inv(covs)
+    log_det = np.linalg.slogdet(covs)[1]
+    log_hd = np.log(rng.dirichlet(np.ones(K), A))
+    if kind == 'clamp':
+        unused = rng.random((A, K)) < 0.8
+        log_hd[unused] = rng.uniform(-600, -80, unused.sum())
+    ann = rng.integers(0, A, I).astype(np.int32)
+    ann[::11] = A
+    sld = 1.0 / rng.uniform(0.01, 0.05, (P, I)) ** 2
+    if kind == 'ordinary':
+        u = rng.standard_normal((P, I)) * 0.5
+        hist_scale = 0.5
+    else:
+        if kind == 'clamp':
+            zs = rng.uniform(-1.5, 1.5, (P, I))
+        else:
+            zs = rng.uniform(20, 40, (P, I)) * rng.choice([-1, 1], (P, I))
+        u = zs * np.sqrt(sld)
+        hist_scale = 0.5 * np.sqrt(sld)
+    hist = np.zeros((B, P, I))
+    hist[:live] = rng.standard_normal((live, P, I)) * hist_scale
+    inv_scales = np.ones((B + 1, P))
+    inv_scales[:live + 1] = 1 / rng.uniform(0.7, 1.4, (live + 1, P))
+    hist_c = np.zeros(B)
+    hist_c[:live] = rng.uniform(0.1, 1.0, live)
+    coeffs = np.concatenate(
+        [np.stack([prec[:, p, q] for p in range(P) for q in range(p, P)], 1),
+         log_det[:, None]], axis=1)
+    scores_t = (log_hd - 0.5 * log_det).T
+    return [coeffs, scores_t, ann, sld, u, hist, inv_scales, hist_c], A, live
+
+
+def _as_torch(args, dtype):
+    return [tensor_from_numpy(a) if a.dtype == np.int32
+            else torch.as_tensor(a, dtype=dtype) for a in args]
+
+
+@pytest.mark.parametrize('P', [1, 2, 3])
+@pytest.mark.parametrize('kind', ['ordinary', 'clamp', 'large_means'])
+def test_one_pass_epochs_f64_matches_plain_and_pallas(P, kind):
+    """At f64 the one-pass form equals the clamped two-pass plain version
+    and the Pallas kernel to the route-equality tolerances of
+    tests/test_torch_epoch.py: the clamp moves no sum by a visible amount."""
+    args, A, live = _epoch_inputs(P, kind, seed=P + 10 * len(kind))
+    t = _as_torch(args, torch.float64)
+    kw = dict(num_annotations=A, num_live=live)
+    (pm, pv, kl), z = _one_pass_epochs(*t, **kw)
+    want = tco.prologue_epochs_plain(*t, **kw)
+    jpm, jpv, jkl = jco.prologue_epochs(*[jnp.asarray(a) for a in args],
+                                        num_annotations=A, interpret=True)
+    for ref_pm, ref_pv, ref_kl in (want, (jpm, jpv, jkl)):
+        for got, ref in ((pm, ref_pm), (pv, ref_pv)):
+            ref = np.asarray(ref)
+            np.testing.assert_allclose(t2n(got), ref, rtol=1e-9,
+                                       atol=1e-9 * np.abs(ref).max())
+        assert np.isclose(float(kl), float(ref_kl), rtol=1e-9)
+    below = t2n(z - z.max(dim=0).values) < math.log(epsilon(torch.float64))
+    if kind == 'ordinary':
+        assert not below.any()
+    else:
+        assert below.mean() > 0.5       # the clamp is in play at f64 too
+
+
+@pytest.mark.parametrize('P', [1, 2, 3])
+@pytest.mark.parametrize('kind', ['ordinary', 'clamp'])
+def test_one_pass_epochs_f32_within_bands(P, kind):
+    """At f32 (eps = 1e-30) the one-pass form sits within chip_smoke.py's
+    bands of the plain version on the same inputs."""
+    args, A, live = _epoch_inputs(P, kind, seed=P + 20 * len(kind))
+    t = _as_torch(args, torch.float32)
+    kw = dict(num_annotations=A, num_live=live)
+    (pm, pv, kl), z = _one_pass_epochs(*t, **kw)
+    rpm, rpv, rkl = tco.prologue_epochs_plain(*t, **kw)
+    for got, ref in ((pm, rpm), (pv, rpv)):
+        assert np.all(np.isfinite(t2n(got)))
+        assert _scaled(t2n(got).astype(np.float64),
+                       t2n(ref).astype(np.float64)) <= BAND_F32
+    assert abs(float(kl) - float(rkl)) <= BAND_KL * abs(float(rkl))
+    below = t2n(z - z.max(dim=0).values) < math.log(epsilon(torch.float32))
+    assert (below.mean() > 0.5) == (kind == 'clamp')

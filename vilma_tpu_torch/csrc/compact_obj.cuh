@@ -25,13 +25,29 @@
 // so any K runs (no VMEM tile ceiling). The coefficient table and the
 // scores are staged through shared memory in component tiles (once per CTA
 // when all of K fits). The eps clamp needs the softmax normalizer before
-// any weighted sum, so each thread makes two passes over K: pass 1 keeps an
-// online max and sum, pass 2 recomputes the closed form and accumulates
-// the moments and KL terms; no [K]-sized per-thread state. The TPU
-// accumulates the KL and the sums across its sequential grid; here each
-// CTA writes a partial in fixed order (warp shuffles, then warps in order)
-// and a second kernel adds the partials in fixed order. No float atomics
-// touch device memory, so every result repeats bit for bit.
+// any weighted sum, so the [P, I] and kdim prologues and all the sums make
+// two passes over K per thread: pass 1 keeps an online max and sum, pass 2
+// recomputes the closed form and accumulates the moments and KL terms (or
+// the sums); no [K]-sized per-thread state.
+//
+// The epoch prologue (kOnePass in compact_kernel) makes one pass: online
+// softmax accumulators (struct Online, weights by __expf) rescaled when the
+// running max moves, then pm = sy/s0, pv = ssec/s0 - pm^2,
+// kl_i = (sz + sg)/s0 - log s0. It drops the clamp, which changes no
+// result the band can see: a component
+// the clamp touches has vd_k < eps = 1e-30 (f32), and there the clamped
+// form adds eps (resp. eps log eps) where the unclamped one adds vd_k
+// (resp. vd_k log vd_k), so each sum moves by at most K eps max|f_k| (the
+// term f_k: y_k, diag_k + y_k^2, or the KL term, with |x log x| <=
+// eps |log eps| below eps). At K <= a few thousand that is ~1e-25 of
+// quantities of order 1e-8 and up: far below half an ulp of any sum. The
+// sums kernels cannot take one pass per SNP: they add vd_k(i) across SNPs,
+// and each term needs its SNP's final normalizer.
+//
+// The TPU accumulates the KL and the sums across its sequential grid; here
+// each CTA writes a partial in fixed order (warp shuffles, then warps in
+// order) and a second kernel adds the partials in fixed order. No float
+// atomics touch device memory, so every result repeats bit for bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -126,6 +142,30 @@ __device__ __forceinline__ void solve<3>(const float* c, const float* dt,
   y[2] = (C3 * n[0] + E3 * n[1] + F3 * n[2]) * inv;
 }
 
+// y' prec y with c a component's coefficient row
+template <int P>
+__device__ __forceinline__ float quadform_of(const float* c, const float* y);
+
+template <>
+__device__ __forceinline__ float quadform_of<1>(const float* c,
+                                                const float* y) {
+  return c[0] * y[0] * y[0];
+}
+
+template <>
+__device__ __forceinline__ float quadform_of<2>(const float* c,
+                                                const float* y) {
+  return c[0] * y[0] * y[0] + 2.0f * c[1] * y[0] * y[1] + c[2] * y[1] * y[1];
+}
+
+template <>
+__device__ __forceinline__ float quadform_of<3>(const float* c,
+                                                const float* y) {
+  return c[0] * y[0] * y[0] + c[3] * y[1] * y[1] + c[5] * y[2] * y[2] +
+         2.0f * (c[1] * y[0] * y[1] + c[2] * y[0] * y[2] +
+                 c[4] * y[1] * y[2]);
+}
+
 // current-scaling summaries of a component's mean o.y: the diagonal of
 // sigma, its log-determinant, trace(prec sigma) and y' prec y
 template <int P>
@@ -140,7 +180,7 @@ __device__ __forceinline__ void summaries<1>(const float* c, const float* dt,
   const float inv = 1.0f / a;
   o.diag[0] = inv;
   o.logdet = logf(a);
-  o.quadform = c[0] * o.y[0] * o.y[0];
+  o.quadform = quadform_of<1>(c, o.y);
   o.matches = c[0] * inv;
 }
 
@@ -156,8 +196,7 @@ __device__ __forceinline__ void summaries<2>(const float* c, const float* dt,
   o.diag[0] = d * inv;
   o.diag[1] = a * inv;
   o.logdet = logf(det);
-  o.quadform = c[0] * o.y[0] * o.y[0] + 2.0f * c[1] * o.y[0] * o.y[1] +
-               c[2] * o.y[1] * o.y[1];
+  o.quadform = quadform_of<2>(c, o.y);
   o.matches = (c[0] * d - 2.0f * c[1] * b + c[2] * a) * inv;
 }
 
@@ -183,10 +222,82 @@ __device__ __forceinline__ void summaries<3>(const float* c, const float* dt,
   o.diag[1] = D3 * inv;
   o.diag[2] = F3 * inv;
   o.logdet = logf(det);
-  o.quadform = c[0] * o.y[0] * o.y[0] + c[3] * o.y[1] * o.y[1] +
-               c[5] * o.y[2] * o.y[2] +
-               2.0f * (c[1] * o.y[0] * o.y[1] + c[2] * o.y[0] * o.y[2] +
-                       c[4] * o.y[1] * o.y[2]);
+  o.quadform = quadform_of<3>(c, o.y);
+  o.matches = (c[0] * A3 + c[3] * D3 + c[5] * F3 +
+               2.0f * (c[1] * B3 + c[2] * C3 + c[4] * E3)) *
+              inv;
+}
+
+// solve<P> and summaries<P> at one dt sharing one determinant and one
+// reciprocal: o.y = (prec + diag(dt))^-1 n and the summaries that do not
+// depend on y (the caller forms o.quadform once y is final). For the
+// one-pass epoch prologue only: the reciprocal and the log-determinant
+// come from the SFU (__fdividef, __logf: a few ulp, far inside the
+// prologue's bands on the card).
+template <int P>
+__device__ __forceinline__ void solve_summaries(const float* c,
+                                                const float* dt,
+                                                const float* n, Comp<P>& o);
+
+template <>
+__device__ __forceinline__ void solve_summaries<1>(const float* c,
+                                                   const float* dt,
+                                                   const float* n,
+                                                   Comp<1>& o) {
+  const float a = c[0] + dt[0];
+  o.ldp = c[1];
+  const float inv = __fdividef(1.0f, a);
+  o.y[0] = n[0] * inv;
+  o.diag[0] = inv;
+  o.logdet = __logf(a);
+  o.matches = c[0] * inv;
+}
+
+template <>
+__device__ __forceinline__ void solve_summaries<2>(const float* c,
+                                                   const float* dt,
+                                                   const float* n,
+                                                   Comp<2>& o) {
+  const float a = c[0] + dt[0];
+  const float b = c[1];
+  const float d = c[2] + dt[1];
+  o.ldp = c[3];
+  const float det = a * d - b * b;
+  const float inv = __fdividef(1.0f, det);
+  o.y[0] = (d * n[0] - b * n[1]) * inv;
+  o.y[1] = (a * n[1] - b * n[0]) * inv;
+  o.diag[0] = d * inv;
+  o.diag[1] = a * inv;
+  o.logdet = __logf(det);
+  o.matches = (c[0] * d - 2.0f * c[1] * b + c[2] * a) * inv;
+}
+
+template <>
+__device__ __forceinline__ void solve_summaries<3>(const float* c,
+                                                   const float* dt,
+                                                   const float* n,
+                                                   Comp<3>& o) {
+  const float pa = c[0] + dt[0];
+  const float pb = c[1], pc = c[2];
+  const float pd = c[3] + dt[1];
+  const float pe = c[4];
+  const float pf = c[5] + dt[2];
+  o.ldp = c[6];
+  const float A3 = pd * pf - pe * pe;
+  const float B3 = pc * pe - pb * pf;
+  const float C3 = pb * pe - pc * pd;
+  const float D3 = pa * pf - pc * pc;
+  const float E3 = pb * pc - pa * pe;
+  const float F3 = pa * pd - pb * pb;
+  const float det = pa * A3 + pb * B3 + pc * C3;
+  const float inv = __fdividef(1.0f, det);
+  o.y[0] = (A3 * n[0] + B3 * n[1] + C3 * n[2]) * inv;
+  o.y[1] = (B3 * n[0] + D3 * n[1] + E3 * n[2]) * inv;
+  o.y[2] = (C3 * n[0] + E3 * n[1] + F3 * n[2]) * inv;
+  o.diag[0] = A3 * inv;
+  o.diag[1] = D3 * inv;
+  o.diag[2] = F3 * inv;
+  o.logdet = __logf(det);
   o.matches = (c[0] * A3 + c[3] * D3 + c[5] * F3 +
                2.0f * (c[1] * B3 + c[2] * C3 + c[4] * E3)) *
               inv;
@@ -213,21 +324,27 @@ __device__ __forceinline__ float prec_entry(const float* c, const float* dt,
   return p == q ? v + dt[p] : v;
 }
 
-// summaries of a given mean o.y (compact_obj._derive_tile_epochs):
-// nat = (prec + diag(dt)) y, quad = nat . y
+// quad = nat . y with nat = (prec + diag(dt)) y
+template <int P>
+__device__ __forceinline__ float quad_of_mean(const float* c, const float* dt,
+                                              const float* y) {
+  float quad = 0.f;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    float nat = prec_entry<P>(c, dt, p, 0) * y[0];
+#pragma unroll
+    for (int q = 1; q < P; ++q) nat += prec_entry<P>(c, dt, p, q) * y[q];
+    quad = p == 0 ? nat * y[0] : quad + nat * y[p];
+  }
+  return quad;
+}
+
+// summaries of a given mean o.y (compact_obj._derive_tile_epochs)
 template <int P>
 __device__ __forceinline__ void stats_of_mean(const float* c, const float* dt,
                                               Comp<P>& o) {
   summaries<P>(c, dt, o);
-  float quad = 0.f;
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    float nat = prec_entry<P>(c, dt, p, 0) * o.y[0];
-#pragma unroll
-    for (int q = 1; q < P; ++q) nat += prec_entry<P>(c, dt, p, q) * o.y[q];
-    quad = p == 0 ? nat * o.y[0] : quad + nat * o.y[p];
-  }
-  o.quad = quad;
+  o.quad = quad_of_mean<P>(c, dt, o.y);
 }
 
 // per-thread registers of one SNP: the diagonal term (kEpochs: the raw
@@ -289,10 +406,129 @@ __device__ __forceinline__ void derive_form(const Operands& op,
   }
 }
 
+// Registers of one SNP for the one-pass epoch prologue: the current
+// scaled diagonal and, with NL >= 0 live epochs held in registers, each
+// epoch's scaled diagonal, vector and coefficient. With NL < 0 the live
+// count is read at run time and the epochs come through L1 per component,
+// as in derive_form.
+template <int P, int NL>
+struct EpochRegs {
+  static constexpr int N = NL > 0 ? NL : 1;
+  float dc[P];
+  float dte[N][P], v[N][P], ce[N];
+};
+
+template <int P, int NL>
+__device__ __forceinline__ void load_epochs(const Operands& op,
+                                            const Snp<P>& s, const float* tab,
+                                            EpochRegs<P, NL>& r) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) r.dc[p] = s.dt[p] * tab[p];
+  if constexpr (NL > 0) {
+    const float* coef = tab + (NL + 1) * P;  // op.nlive == NL
+#pragma unroll
+    for (int e = 0; e < NL; ++e) {
+      r.ce[e] = coef[e];
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        r.dte[e][p] = s.dt[p] * tab[(e + 1) * P + p];
+        r.v[e][p] = s.live ? op.hist[((size_t)e * P + p) * op.I + s.i] : 0.0f;
+      }
+    }
+  }
+}
+
+// component k of an epoch-state SNP (derive_form's kEpochs branch, with
+// the per-SNP values hoisted into r and one determinant shared between
+// the current-scaling solve and the summaries)
+template <int P, int NL>
+__device__ __forceinline__ void derive_epochs(const Operands& op,
+                                              const Snp<P>& s,
+                                              const EpochRegs<P, NL>& r,
+                                              const float* tab,
+                                              const float* c, Comp<P>& o) {
+  solve_summaries<P>(c, r.dc, s.n, o);
+  if constexpr (NL >= 0) {
+#pragma unroll
+    for (int e = 0; e < NL; ++e) {
+      float ye[P];
+      solve<P>(c, r.dte[e], r.v[e], ye);
+#pragma unroll
+      for (int p = 0; p < P; ++p) o.y[p] = o.y[p] + r.ce[e] * ye[p];
+    }
+  } else {
+    const float* coef = tab + (op.nlive + 1) * P;
+    for (int e = 0; e < op.nlive; ++e) {
+      float dte[P], v[P], ye[P];
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        dte[p] = s.dt[p] * tab[(e + 1) * P + p];
+        v[p] = s.live ? op.hist[((size_t)e * P + p) * op.I + s.i] : 0.0f;
+      }
+      solve<P>(c, dte, v, ye);
+      const float ce = coef[e];
+#pragma unroll
+      for (int p = 0; p < P; ++p) o.y[p] = o.y[p] + ce * ye[p];
+    }
+  }
+  o.quadform = quadform_of<P>(c, o.y);
+  o.quad = quad_of_mean<P>(c, r.dc, o.y);
+}
+
+// a logit must pass the running reference m by this many nats to move it
+constexpr float kRescale = 8.0f;
+
+// Online softmax accumulators of one SNP over K (the one-pass prologue).
+// With w_k = exp(z_k - m) under a running reference m:
+//   s0 = sum w_k,  sy = sum w_k y_k,  ssec = sum w_k (diag_k + y_k^2),
+//   sz = sum w_k (z_k - m),
+//   sg = sum w_k (0.5 quadform_k + 0.5 ss_k - log_hd_k).
+// m moves only when a logit passes it by more than kRescale nats (so
+// w_k <= e^kRescale and rescales are rare); a move multiplies every sum by
+// exp(m_old - m_new), and sz also takes the shift (m_old - m_new) s0.
+template <int P>
+struct Online {
+  float m, s0, sz, sg, sy[P], ssec[P];
+
+  __device__ __forceinline__ Online() : m(-INFINITY), s0(0.f), sz(0.f),
+                                        sg(0.f) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) sy[p] = ssec[p] = 0.f;
+  }
+
+  __device__ __forceinline__ void add(const Comp<P>& o, float z, float sel) {
+    if (z > m + kRescale) {
+      const float alpha = expf(m - z);  // 0 at the first component
+      sz = s0 > 0.f ? (sz + (m - z) * s0) * alpha : 0.f;
+      s0 *= alpha;
+      sg *= alpha;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        sy[p] *= alpha;
+        ssec[p] *= alpha;
+      }
+      m = z;
+    }
+    const float dz = z - m;
+    const float w = __expf(dz);
+    s0 += w;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      sy[p] += w * o.y[p];
+      ssec[p] += w * (o.diag[p] + o.y[p] * o.y[p]);
+    }
+    sz += w * dz;
+    const float log_hd = sel + 0.5f * o.ldp;
+    const float ss = o.ldp + o.logdet + o.matches;
+    sg += w * ((0.5f * o.quadform + 0.5f * ss) - log_hd);
+  }
+};
+
 // SUMS = false: prologue (pm, pv, per-CTA KL partial in part[blockIdx]).
 // SUMS = true: per-CTA annotation sums added into part[blockIdx][K][A]
-// (zeroed by the caller).
-template <int P, bool SUMS, int FORM>
+// (zeroed by the caller). NL: the epoch prologue's live epochs held in
+// registers (-1: read at run time; the other kernels ignore it).
+template <int P, bool SUMS, int FORM, int NL = -1>
 __global__ void __launch_bounds__(kThreads)
     compact_kernel(Operands op, const float* __restrict__ coeffs,
                    const float* __restrict__ scores_t,
@@ -300,6 +536,9 @@ __global__ void __launch_bounds__(kThreads)
                    float* __restrict__ pv_out, float* __restrict__ part, int I,
                    int K, int A, int kt, float eps, float log_eps) {
   constexpr int NCOL = ncol<P>();
+  // One pass over K with online accumulators (the epoch prologue), or two:
+  // pass 1 the max and normalizer, pass 2 the clamped weighted sums.
+  constexpr bool kOnePass = !SUMS && FORM == kEpochs;
   extern __shared__ float smem[];
   float* coef_s = smem;                 // [kt][NCOL]
   float* score_s = coef_s + kt * NCOL;  // [kt][A]
@@ -340,6 +579,41 @@ __global__ void __launch_bounds__(kThreads)
     load_snp<P, FORM>(op, snp, i, live);
     const int a = live ? ann[i] : A;
     const int asel = min(a, A - 1);
+
+    if constexpr (kOnePass) {
+      EpochRegs<P, NL> er;
+      if constexpr (FORM == kEpochs) load_epochs<P, NL>(op, snp, tab, er);
+      Online<P> acc;
+      for (int t = 0; t < ntiles; ++t) {
+        if (ntiles > 1) {
+          __syncthreads();
+          load_tile(t);
+          __syncthreads();
+        }
+        const int cnt = min(kt, K - t * kt);
+        for (int kl_ = 0; kl_ < cnt; ++kl_) {
+          Comp<P> o;
+          const float* c = coef_s + kl_ * NCOL;
+          if constexpr (FORM == kEpochs)
+            derive_epochs<P, NL>(op, snp, er, tab, c, o);
+          else
+            derive_form<P, FORM>(op, snp, tab, c, t * kt + kl_, o);
+          const float sel = score_s[kl_ * A + asel];
+          acc.add(o, 0.5f * (o.quad - o.logdet) + sel, sel);
+        }
+      }
+      if (live) {
+        const float inv = 1.0f / acc.s0;  // one reciprocal per SNP
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          const float pm = acc.sy[p] * inv;
+          pm_out[(size_t)p * I + i] = pm;
+          pv_out[(size_t)p * I + i] = acc.ssec[p] * inv - pm * pm;
+        }
+        if (a < A) kl += (acc.sz + acc.sg) * inv - logf(acc.s0);
+      }
+      continue;
+    }
 
     // pass 1: online max and normalizer of z over K
     float m = -INFINITY, s = 0.f;
@@ -466,7 +740,7 @@ __global__ void __launch_bounds__(kThreads)
 
 // Launch the compact kernel of form FORM, then the fixed-order reduction
 // of its partials: out is the KL scalar (prologue) or the [K, A] sums.
-template <int P, bool SUMS, int FORM>
+template <int P, bool SUMS, int FORM, int NL = -1>
 cudaError_t launch(const Operands& op, const void* coeffs,
                    const void* scores_t,
                    const void* ann, void* pm, void* pv, void* part, void* out,
@@ -476,7 +750,7 @@ cudaError_t launch(const Operands& op, const void* coeffs,
       sizeof(float) * ((size_t)kt * (ncol<P>() + A) +
                        (SUMS ? (size_t)kWarps * kt * A : (size_t)kWarps) +
                        (size_t)table_floats(FORM, P, op.nlive));
-  auto kernel = compact_kernel<P, SUMS, FORM>;
+  auto kernel = compact_kernel<P, SUMS, FORM, NL>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -17,25 +17,60 @@
 // annotation sums of compact_obj.cuh.
 //
 // What bounds it: arithmetic. Each (SNP, component) does one closed-form
-// solve per live epoch plus the current one, and the two passes over K
-// repeat them: 2 K (E + 1) solves per SNP for E live epochs, against
-// (E + 3) P + 1 floats read per SNP.
+// solve per live epoch plus the current one, with a reciprocal in each,
+// and a logarithm and an exponential, against (E + 3) P + 1 floats read
+// per SNP for E live epochs.
 //
-// Design (kEpochs in compact_obj.cuh): the kernel loops over the live
-// epochs only. Slots at or past the live count hold c == 0, zero vectors
+// Design (kEpochs in compact_obj.cuh). The kernels loop over the live
+// epochs only: slots at or past the live count hold c == 0, zero vectors
 // and scale 1, so the terms they add are exactly zero and skipping them
-// changes no result; the wrapper passes the live count it keeps on the
-// host. The [E+1, P] inverse scalings and
-// the [E] coefficients are staged once per CTA into shared memory (every
-// thread reads the same entry: a broadcast). A thread's epoch vectors
-// (E P floats) are re-read for each component through the L1 cache, which
-// holds a CTA's 256 SNPs x E x P x 4 B; registers would cap E at compile
-// time.
+// changes no result; the wrapper passes the live count the host keeps. The
+// [E+1, P] inverse scalings and the [E] coefficients are staged once per
+// CTA into shared memory (a broadcast).
+//   prologue: one pass over K with online softmax accumulators (see
+//     compact_obj.cuh), so each (SNP, component) is derived once: K (E + 1)
+//     solves per SNP. The current-scaling solve and the summaries share
+//     one determinant and reciprocal (SFU intrinsics for it, the
+//     log-determinant and the weights), and the per-epoch scaled diagonals
+//     are formed once per SNP. Up to kMaxRegEpochs live epochs (dispatched
+//     on the live count) keep their vectors, scaled diagonals and
+//     coefficients in registers; more are read per component through L1.
+//   delta sums: two passes over K, 2 K (E + 1) solves per SNP, the epoch
+//     vectors re-read per component through L1, which holds a CTA's 256
+//     SNPs x E x P x 4 B.
 #include "compact_obj.cuh"
 
 namespace {
 
 using namespace vilma;
+
+// live epochs the prologue holds in registers (more: read through L1);
+// 1 and 2 are the counts a fit runs at and the ones timed
+constexpr int kMaxRegEpochs = 2;
+
+// the prologue at P cohorts with its live-epoch count as NL (or -1)
+template <int P>
+cudaError_t launch_prologue(const Operands& op, const void* coeffs,
+                            const void* scores_t, const void* ann, void* pm,
+                            void* pv, void* part, void* out, int I, int K,
+                            int A, int kt, int nblocks, float eps,
+                            float log_eps, cudaStream_t stream) {
+#define VILMA_PROLOGUE(NL)                                                    \
+  launch<P, false, kEpochs, NL>(op, coeffs, scores_t, ann, pm, pv, part, out, \
+                                I, K, A, kt, nblocks, eps, log_eps, stream)
+  static_assert(kMaxRegEpochs == 2, "one case per register epoch count");
+  switch (op.nlive) {
+    case 0:
+      return VILMA_PROLOGUE(0);
+    case 1:
+      return VILMA_PROLOGUE(1);
+    case 2:
+      return VILMA_PROLOGUE(2);
+    default:
+      return VILMA_PROLOGUE(-1);
+  }
+#undef VILMA_PROLOGUE
+}
 
 template <bool SUMS>
 cudaError_t dispatch(int P, const void* coeffs, const void* scores_t,
@@ -50,22 +85,23 @@ cudaError_t dispatch(int P, const void* coeffs, const void* scores_t,
                     static_cast<const float*>(hist),
                     static_cast<const float*>(inv_scales),
                     static_cast<const float*>(hist_c), I, nlive};
+#define VILMA_EPOCHS(P)                                                        \
+  (SUMS ? launch<P, true, kEpochs>(op, coeffs, scores_t, ann, pm, pv, part,     \
+                                   out, I, K, A, kt, nblocks, eps, log_eps,     \
+                                   stream)                                      \
+        : launch_prologue<P>(op, coeffs, scores_t, ann, pm, pv, part, out, I,   \
+                             K, A, kt, nblocks, eps, log_eps, stream))
   switch (P) {
     case 1:
-      return launch<1, SUMS, kEpochs>(op, coeffs, scores_t, ann, pm, pv, part,
-                                      out, I, K, A, kt, nblocks, eps, log_eps,
-                                      stream);
+      return VILMA_EPOCHS(1);
     case 2:
-      return launch<2, SUMS, kEpochs>(op, coeffs, scores_t, ann, pm, pv, part,
-                                      out, I, K, A, kt, nblocks, eps, log_eps,
-                                      stream);
+      return VILMA_EPOCHS(2);
     case 3:
-      return launch<3, SUMS, kEpochs>(op, coeffs, scores_t, ann, pm, pv, part,
-                                      out, I, K, A, kt, nblocks, eps, log_eps,
-                                      stream);
+      return VILMA_EPOCHS(3);
     default:
       return cudaErrorInvalidValue;
   }
+#undef VILMA_EPOCHS
 }
 
 }  // namespace

@@ -13,6 +13,7 @@ there is no nvcc where they run.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -30,6 +31,8 @@ _F = ctypes.c_float
 # C entry points: every pointer and the stream are void*, counts int
 SIGNATURES = {
     'vilma_block_matvec': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    'vilma_block_matvec_cluster': [_P] * 5 + [_I] * 9 + [_P],
+    'vilma_block_matvec_cluster_fit': [_I] * 7 + [_P],
     'vilma_compact_prologue': [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _F, _F, _P],
     'vilma_compact_delta_sums': [_P, _P, _P, _P, _P, _P, _P,
@@ -47,6 +50,9 @@ SIGNATURES['vilma_compact_delta_sums_kdim'] = SIGNATURES[
 _lib = None
 #: wall seconds the last build took (None until a build ran here)
 build_seconds = None
+#: what ptxas (-Xptxas -v) reported for every kernel of the last build
+#: here: registers, shared memory, spills (None until a build ran here)
+ptxas_report = None
 
 
 def _nvcc():
@@ -78,14 +84,14 @@ def library_path():
 def build(verbose=False):
     """Compile every csrc/*.cu into one shared library (if not built
     yet) and return its path."""
-    global build_seconds
+    global build_seconds, ptxas_report
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f'{out.stem}.{os.getpid()}'
-    flags = NVCC_FLAGS + (['-Xptxas', '-v'] if verbose else [])
+    flags = NVCC_FLAGS + ['-Xptxas', '-v']
     t0 = time.perf_counter()
     objs, procs = [], []
     for src in _sources():
@@ -108,12 +114,48 @@ def build(verbose=False):
     for obj in objs:
         obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
+    ptxas_report = '\n'.join(notes)
     if errors:
         raise RuntimeError('nvcc failed:\n' + '\n'.join(errors)[-8000:])
     if verbose:
         print('\n'.join(notes))
     os.replace(tmp, out)
     return out
+
+
+def kernel_resources(report):
+    """{kernel: dict(registers, smem, stack, spill_stores, spill_loads)}
+    from a ptxas report, kernels by their demangled names where cu++filt
+    is found beside nvcc."""
+    found, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            found.setdefault(name, {})
+            continue
+        m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                      r'(\d+) bytes spill loads', line)
+        if m and name:
+            found[name].update(stack=int(m.group(1)),
+                               spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r'Used (\d+) registers', line)
+        if m and name:
+            smem = re.search(r'(\d+) bytes smem', line)
+            found[name].update(registers=int(m.group(1)),
+                               smem=int(smem.group(1)) if smem else 0)
+    names = list(found)
+    try:
+        filt = Path(_nvcc()).with_name('cu++filt')
+        out = subprocess.run([str(filt)] + names, capture_output=True,
+                             text=True, check=True).stdout.splitlines()
+        if len(out) == len(names):
+            return dict(zip(out, found.values()))
+    except (OSError, RuntimeError, subprocess.CalledProcessError):
+        pass
+    return found
 
 
 def library():
