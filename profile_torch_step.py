@@ -3,6 +3,7 @@ one CUDA device.
 
     python3 profile_torch_step.py                      # 1M SNPs, K = 18
     python3 profile_torch_step.py --blocks 88 -K 582   # ~90K SNPs, K = 582
+    python3 profile_torch_step.py -K 582               # 1M SNPs, K = 582
     python3 profile_torch_step.py --learn-scaling      # 1M SNPs, epoch state
 
 Builds the engine as chip_smoke.py's phase 5 does (AR(1) blocks of 1024

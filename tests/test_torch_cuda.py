@@ -156,20 +156,24 @@ def _compact_args(device, P, K, I, A, seed):
 
 
 @pytest.mark.parametrize('P', [1, 2, 3])
-@pytest.mark.parametrize('K', [7, 600])
+@pytest.mark.parametrize('K', [7, 600, 2500])
 def test_compact_kernels_match_plain(cuda, P, K):
-    """600 components take the kernels' multi-tile path for the sums."""
+    """600 components take the kernels' multi-tile path for the sums,
+    2500 for the one-pass prologue too."""
     A = 3
     args = _compact_args(cuda, P, K, 20_000, A, seed=P * 1000 + K)
     before = dict(co.launches)
     pm, pv, kl = co.prologue(*args, num_annotations=A)
+    pm2, pv2, kl2 = co.prologue(*args, num_annotations=A)
     sums = co.delta_sums(*args, num_annotations=A)
     again = co.delta_sums(*args, num_annotations=A)
     rpm, rpv, rkl = co.prologue_plain(*args, num_annotations=A)
     rsums = co.delta_sums_plain(*args, num_annotations=A)
     torch.cuda.synchronize()
-    assert co.launches['prologue'] == before['prologue'] + 1
+    assert co.launches['prologue'] == before['prologue'] + 2
     assert co.launches['delta_sums'] == before['delta_sums'] + 2
+    assert (torch.equal(pm, pm2) and torch.equal(pv, pv2)
+            and torch.equal(kl, kl2))
     assert torch.equal(sums, again)
     assert _scaled_err(pm, rpm) <= 1e-5
     assert _scaled_err(pv, rpv) <= 1e-5
@@ -229,9 +233,10 @@ def _epoch_args(device, P, K, I, A, B, live, seed, clamp_heavy=False):
 
 
 @pytest.mark.parametrize('P', [1, 2, 3])
-@pytest.mark.parametrize('K', [7, 600])
+@pytest.mark.parametrize('K', [7, 600, 2500])
 def test_kdim_kernels_match_plain(cuda, P, K):
-    """The per-component [K, P, I] natural mean of --learn-scaling fits."""
+    """The per-component [K, P, I] natural mean of --learn-scaling fits;
+    2500 components take the one-pass prologue's multi-tile path."""
     A = 3
     args = list(_compact_args(cuda, P, K, 20_000, A, seed=P * 100 + K))
     gen = torch.Generator(device=cuda).manual_seed(P + K)
@@ -305,3 +310,32 @@ def test_epoch_prologue_live_counts(cuda, P, live, clamp_heavy):
     assert _scaled_err(pm, rpm) <= 1e-5
     assert _scaled_err(pv, rpv) <= 1e-5
     assert abs(float(kl) - float(rkl)) <= 1e-4 * abs(float(rkl))
+
+
+@pytest.mark.parametrize('P,K,A,live,I', [
+    (2, 600, 1, 1, 20_000),       # one annotation
+    (2, 600, 12, 3, 20_000),      # A > 8, the run-time epoch loop
+    (1, 7, 4, 0, 20_000),
+    (3, 600, 4, 1, 20_000),
+    (2, 3000, 12, 2, 20_000),     # K over three tiles beside the partial
+    (2, 600, 4, 1, 300_000),      # more SNP tiles than CTAs: the partial
+                                  # accumulates across the grid stride
+])
+@pytest.mark.parametrize('clamp_heavy', [False, True])
+def test_epoch_sums_shapes(cuda, P, K, A, live, I, clamp_heavy):
+    """The z-only epoch sums (sorted per-CTA reduction) within their band
+    of the plain version, with pad SNPs, bit-for-bit repeatable."""
+    B = 4
+    args = _epoch_args(cuda, P, K, I, A, B, live, seed=P * 7 + K + A,
+                       clamp_heavy=clamp_heavy)
+    assert bool((args[2] == A).any())            # pad SNPs present
+    kw = dict(num_annotations=A, num_live=live)
+    before = co.launches['delta_sums_epochs']
+    sums = co.delta_sums_epochs(*args, **kw)
+    again = co.delta_sums_epochs(*args, **kw)
+    rsums = co.delta_sums_epochs_plain(*args, num_annotations=A)
+    torch.cuda.synchronize()
+    assert co.launches['delta_sums_epochs'] == before + 2
+    assert sums.shape == (A, K)
+    assert torch.equal(sums, again)
+    assert _scaled_err(sums, rsums) <= 1e-5

@@ -11,10 +11,17 @@ chip_smoke.py hold them against their plain versions there). Here:
   t = U^T x added in cluster-rank order, then scaled and rounded, then
   the second contraction, against the plain version and the JAX
   package's Pallas kernel in interpret mode;
-* the one-pass epoch prologue's online accumulators, emulated over K,
-  against the two-pass clamped plain version (f64 at the JAX package's
-  route-equality tolerances, f32 within chip_smoke.py's bands) and the
-  Pallas kernel, on an ordinary and on a clamp-heavy input.
+* the one-pass prologue's online accumulators (epoch, [P, I] and kdim
+  forms), emulated over K, against the two-pass clamped plain version
+  (f64 at the JAX package's route-equality tolerances, f32 within
+  chip_smoke.py's bands) and the Pallas kernel, on an ordinary and on a
+  clamp-heavy input;
+* the z-only epoch sums in the kernel's order (pass 1's online
+  normalizer, the clamped weights, each CTA's sums by annotation in SNP
+  order across its grid stride, the partials added by reduce_rows),
+  against the plain version and the Pallas kernel;
+* the epoch sums' launch shape: all of K = 582 in one tile, small enough
+  for four CTAs per SM.
 """
 import math
 
@@ -160,28 +167,21 @@ def test_cluster_matvec_arithmetic(u_dtype, C, G):
 RESCALE_NATS = 8.0     # csrc/compact_obj.cuh kRescale
 
 
-def _one_pass_epochs(coeffs, scores_t, annotations, sld, nat_u, hist_v,
-                     inv_scales, hist_c, *, num_annotations, num_live):
-    """What the one-pass epoch prologue computes (compact_obj.cuh,
-    struct Online): the port's per-component algebra, then online softmax
-    accumulators over K, vectorized over SNPs, with no clamp. Returns
-    (post_means, post_vars, KL) and the logits z [K, I]."""
-    P, I = nat_u.shape
-    K = scores_t.shape[0]
-    dev = tco._derive_plain_epochs(coeffs, scores_t, annotations, sld, nat_u,
-                                   hist_v, inv_scales, hist_c,
-                                   epsilon(nat_u.dtype), num_live)
-    c = tco._coeff_cols(coeffs)
-    dt = [sld[p:p + 1] * inv_scales[0, p] for p in range(P)]
-    y = dev['y']
-    quad = tco._dot([tco._dot(row, y) for row in tco._precision(P, c, dt)],
-                    y)
-    z = 0.5 * (quad - dev['logdet']) + dev['sel']
+def _g_term(dev):
+    """The KL term of each (component, SNP) beside its log weight."""
     log_hd = dev['sel'] + 0.5 * dev['ldp']
-    g_term = ((0.5 * dev['quadform']
-               + 0.5 * (dev['ldp'] + dev['logdet'] + dev['matches']))
-              - log_hd)
-    zeros = nat_u.new_zeros(I)
+    return ((0.5 * dev['quadform']
+             + 0.5 * (dev['ldp'] + dev['logdet'] + dev['matches']))
+            - log_hd)
+
+
+def _online(y, diag, g_term, z, annotations, num_annotations):
+    """Online softmax accumulators over K (compact_obj.cuh struct
+    Online), vectorized over SNPs, with no clamp: (post_means, post_vars,
+    KL)."""
+    P = len(y)
+    K, I = z.shape
+    zeros = z.new_zeros(I)
     m = torch.full_like(zeros, -math.inf)
     s0, sz, sg = zeros, zeros, zeros
     sy = [zeros] * P
@@ -200,7 +200,7 @@ def _one_pass_epochs(coeffs, scores_t, annotations, sld, nat_u, hist_v,
         w = torch.exp(dz)
         s0 = s0 + w
         sy = [sy[p] + w * y[p][k] for p in range(P)]
-        ssec = [ssec[p] + w * (dev['diag'][p][k] + y[p][k] * y[p][k])
+        ssec = [ssec[p] + w * (diag[p][k] + y[p][k] * y[p][k])
                 for p in range(P)]
         sz = sz + w * dz
         sg = sg + w * g_term[k]
@@ -209,7 +209,50 @@ def _one_pass_epochs(coeffs, scores_t, annotations, sld, nat_u, hist_v,
     pv = torch.stack([ssec[p] * inv - pm[p] * pm[p] for p in range(P)])
     kl_i = (sz + sg) * inv - torch.log(s0)
     kl = torch.sum(kl_i * (annotations < num_annotations).to(kl_i.dtype))
-    return (pm, pv, kl), z
+    return pm, pv, kl
+
+
+def _epoch_logits(coeffs, scores_t, annotations, sld, nat_u, hist_v,
+                  inv_scales, hist_c, num_live):
+    """The port's per-component epoch algebra and the logits z [K, I],
+    quad = y (prec + diag(dt)) y."""
+    P = nat_u.shape[0]
+    dev = tco._derive_plain_epochs(coeffs, scores_t, annotations, sld, nat_u,
+                                   hist_v, inv_scales, hist_c,
+                                   epsilon(nat_u.dtype), num_live)
+    c = tco._coeff_cols(coeffs)
+    dt = [sld[p:p + 1] * inv_scales[0, p] for p in range(P)]
+    y = dev['y']
+    quad = tco._dot([tco._dot(row, y) for row in tco._precision(P, c, dt)],
+                    y)
+    return dev, 0.5 * (quad - dev['logdet']) + dev['sel']
+
+
+def _one_pass_epochs(coeffs, scores_t, annotations, sld, nat_u, hist_v,
+                     inv_scales, hist_c, *, num_annotations, num_live):
+    """What the one-pass epoch prologue computes (compact_obj.cuh,
+    derive_epochs and struct Online). Returns (post_means, post_vars, KL)
+    and the logits z [K, I]."""
+    dev, z = _epoch_logits(coeffs, scores_t, annotations, sld, nat_u,
+                           hist_v, inv_scales, hist_c, num_live)
+    return _online(dev['y'], dev['diag'], _g_term(dev), z, annotations,
+                   num_annotations), z
+
+
+def _one_pass(coeffs, scores_t, annotations, dterm, nat_mu, *,
+              num_annotations):
+    """What the one-pass [P, I] and kdim prologue computes (compact_obj.cuh,
+    derive_once and struct Online): y = sigma n, quad = y . n with the
+    shared [P, I] or the per-component [K, P, I] natural mean n. Returns
+    (post_means, post_vars, KL) and the logits z [K, I]."""
+    P = nat_mu.shape[-2]
+    dev = tco._derive_plain(coeffs, scores_t, annotations, dterm, nat_mu,
+                            epsilon(nat_mu.dtype))
+    n = ([nat_mu[:, p] for p in range(P)] if nat_mu.dim() == 3
+         else [nat_mu[p:p + 1] for p in range(P)])
+    z = 0.5 * (tco._dot(dev['y'], n) - dev['logdet']) + dev['sel']
+    return _online(dev['y'], dev['diag'], _g_term(dev), z, annotations,
+                   num_annotations), z
 
 
 def _epoch_inputs(P, kind, seed, K=24, I=300, A=3, B=4, live=2):
@@ -313,3 +356,175 @@ def test_one_pass_epochs_f32_within_bands(P, kind):
     assert abs(float(kl) - float(rkl)) <= BAND_KL * abs(float(rkl))
     below = t2n(z - z.max(dim=0).values) < math.log(epsilon(torch.float32))
     assert (below.mean() > 0.5) == (kind == 'clamp')
+
+
+# ---------------------------------------------------------------------------
+# the one-pass [P, I] and kdim prologue
+# ---------------------------------------------------------------------------
+
+def _compact_inputs(P, kind, seed, K, kdim):
+    """[P, I] or kdim prologue operands (numpy f64) from _epoch_inputs:
+    dterm the scaled LD diagonal, the natural mean its accumulator, and in
+    the kdim form one perturbed copy of it per component."""
+    args, A, _ = _epoch_inputs(P, kind, seed, K=K, live=0)
+    coeffs, scores_t, ann, dterm, nat = args[:5]
+    if kdim:
+        rng = np.random.default_rng(seed + 1)
+        scale = 0.1 if kind == 'ordinary' else 0.2 * np.sqrt(dterm)
+        nat = nat[None] + rng.standard_normal((K, P, nat.shape[1])) * scale
+    return [coeffs, scores_t, ann, dterm, nat], A
+
+
+@pytest.mark.parametrize('P', [1, 2, 3])
+@pytest.mark.parametrize('kind', ['ordinary', 'clamp', 'large_means'])
+@pytest.mark.parametrize('kdim', [False, True])
+def test_one_pass_prologue_f64_matches_plain_and_pallas(P, kind, kdim):
+    """The one-pass [P, I] and kdim prologue at f64 equals the clamped
+    two-pass plain version and the Pallas kernel to the route-equality
+    tolerances of tests/test_torch_epoch.py."""
+    args, A = _compact_inputs(P, kind, 3 * P + len(kind), 24, kdim)
+    t = _as_torch(args, torch.float64)
+    (pm, pv, kl), z = _one_pass(*t, num_annotations=A)
+    want = tco.prologue_plain(*t, num_annotations=A)
+    pallas = jco.prologue(*[jnp.asarray(a) for a in args],
+                          num_annotations=A, interpret=True)
+    for ref_pm, ref_pv, ref_kl in (want, pallas):
+        for got, ref in ((pm, ref_pm), (pv, ref_pv)):
+            ref = np.asarray(ref)
+            np.testing.assert_allclose(t2n(got), ref, rtol=1e-9,
+                                       atol=1e-9 * np.abs(ref).max())
+        assert np.isclose(float(kl), float(ref_kl), rtol=1e-9)
+    below = t2n(z - z.max(dim=0).values) < math.log(epsilon(torch.float64))
+    assert below.any() == (kind != 'ordinary')
+
+
+@pytest.mark.parametrize('P', [1, 2, 3])
+@pytest.mark.parametrize('kind', ['ordinary', 'clamp'])
+@pytest.mark.parametrize('kdim', [False, True])
+@pytest.mark.parametrize('K', [24, 2500])
+def test_one_pass_prologue_f32_within_bands(P, kind, kdim, K):
+    """At f32 the one-pass [P, I] and kdim prologue sits within
+    chip_smoke.py's bands of the plain version, also over more
+    components than the kernel's shared-memory tile holds (2500)."""
+    args, A = _compact_inputs(P, kind, 5 * P + len(kind) + K, K, kdim)
+    t = _as_torch(args, torch.float32)
+    (pm, pv, kl), z = _one_pass(*t, num_annotations=A)
+    rpm, rpv, rkl = tco.prologue_plain(*t, num_annotations=A)
+    for got, ref in ((pm, rpm), (pv, rpv)):
+        assert np.all(np.isfinite(t2n(got)))
+        assert _scaled(t2n(got).astype(np.float64),
+                       t2n(ref).astype(np.float64)) <= BAND_F32
+    assert abs(float(kl) - float(rkl)) <= BAND_KL * abs(float(rkl))
+    below = t2n(z - z.max(dim=0).values) < math.log(epsilon(torch.float32))
+    assert (below.mean() > 0.5) == (kind == 'clamp')
+
+
+# ---------------------------------------------------------------------------
+# the z-only epoch sums
+# ---------------------------------------------------------------------------
+
+THREADS = 256          # csrc/compact_obj.cuh kThreads: SNPs per tile
+WARPS = THREADS // 32
+
+
+def _z_only_sums(coeffs, scores_t, annotations, sld, nat_u, hist_v,
+                 inv_scales, hist_c, *, num_annotations, num_live, nblocks):
+    """What the epoch sums compute (compact_obj.cuh, kZSums), in the
+    kernel's order: pass 1's online max and normalizer over K; the
+    clamped weights max(exp(z - m) / s, eps); per SNP tile, each
+    annotation's weights added in SNP order (the sorted segment) into the
+    partial of CTA (tile mod nblocks); then reduce_rows: warp w adds the
+    partials of CTAs w, w + 8, ... in f64, and the warps' sums are added
+    in warp order. Returns [A, K]."""
+    A = num_annotations
+    I = nat_u.shape[1]
+    K = scores_t.shape[0]
+    _, z = _epoch_logits(coeffs, scores_t, annotations, sld, nat_u, hist_v,
+                         inv_scales, hist_c, num_live)
+    m = torch.full_like(z[0], -math.inf)
+    s = torch.zeros_like(z[0])
+    for k in range(K):
+        move = z[k] > m
+        s = torch.where(move, s * torch.exp(m - z[k]) + 1.0,
+                        s + torch.exp(z[k] - m))
+        m = torch.where(move, z[k], m)
+    w = torch.clamp(torch.exp(z - m) * (1.0 / s), min=epsilon(z.dtype))
+    part = z.new_zeros((nblocks, K, A))
+    for t0 in range(0, I, THREADS):
+        ann = annotations[t0:t0 + THREADS]
+        for aa in range(A):
+            v = z.new_zeros(K)
+            for i in torch.nonzero(ann == aa).flatten().tolist():
+                v = v + w[:, t0 + i]
+            part[(t0 // THREADS) % nblocks, :, aa] += v
+    rows = part.reshape(nblocks, K * A).double()
+    warp_sums = []
+    for wp in range(WARPS):
+        acc = torch.zeros(K * A, dtype=torch.float64)
+        for b in range(wp, nblocks, WARPS):
+            acc = acc + rows[b]
+        warp_sums.append(acc)
+    tot = warp_sums[0]
+    for acc in warp_sums[1:]:
+        tot = tot + acc
+    return tot.to(z.dtype).reshape(K, A).T
+
+
+@pytest.mark.parametrize('P', [1, 2, 3])
+@pytest.mark.parametrize('live', [0, 1, 2, 3])
+@pytest.mark.parametrize('kind', ['ordinary', 'clamp'])
+def test_z_only_sums_f64_matches_plain_and_pallas(P, live, kind):
+    """At f64 the z-only epoch sums in the kernel's reduction order equal
+    the plain version and the Pallas kernel to the route-equality
+    tolerances; every 11th SNP is a pad slot. One CTA (all SNP tiles in
+    its grid stride) or two."""
+    args, A, _ = _epoch_inputs(P, kind, seed=7 * P + live + len(kind),
+                               live=live)
+    t = _as_torch(args, torch.float64)
+    got = _z_only_sums(*t, num_annotations=A, num_live=live,
+                       nblocks=1 + live % 2)
+    plain = tco.delta_sums_epochs_plain(*t, num_annotations=A,
+                                        num_live=live)
+    pallas = jco.delta_sums_epochs(*[jnp.asarray(a) for a in args],
+                                   num_annotations=A, interpret=True)
+    for ref in (plain, pallas):
+        ref = np.asarray(ref)
+        assert got.shape == ref.shape == (A, args[1].shape[0])
+        np.testing.assert_allclose(t2n(got), ref, rtol=1e-9,
+                                   atol=1e-9 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize('P', [1, 2, 3])
+@pytest.mark.parametrize('live', [1, 3])
+@pytest.mark.parametrize('kind', ['ordinary', 'clamp'])
+def test_z_only_sums_f32_within_band(P, live, kind):
+    """At f32 the z-only epoch sums sit within chip_smoke.py's band of
+    the plain version on the same inputs."""
+    args, A, _ = _epoch_inputs(P, kind, seed=9 * P + live + len(kind),
+                               live=live)
+    t = _as_torch(args, torch.float32)
+    got = _z_only_sums(*t, num_annotations=A, num_live=live, nblocks=2)
+    ref = tco.delta_sums_epochs_plain(*t, num_annotations=A, num_live=live)
+    assert np.all(np.isfinite(t2n(got)))
+    assert _scaled(t2n(got).astype(np.float64),
+                   t2n(ref).astype(np.float64)) <= BAND_F32
+
+
+@pytest.mark.parametrize('K,A,tiles', [(582, 4, 1), (600, 12, 1),
+                                       (3000, 12, 3)])
+def test_epoch_sums_launch_shape(K, A, tiles):
+    """The epoch sums hold all of K = 582 in one component tile beside
+    their [K, A] partial, in at most 56 KB of shared memory (four CTAs of
+    256 threads per SM), and split larger K·A over tiles within the
+    card's per-block limit."""
+    P, ncol = 2, 4
+    table = 2 * P + 1                                  # 1 live epoch
+    kt, nblocks = tco._launch_shape(1_000_000, K, A, ncol, sums=True,
+                                    epochs=True, table_floats=table)
+    assert -(-K // kt) == tiles
+    assert nblocks == 1024
+    smem = 4 * (kt * (ncol + A) + K * A + tco._CHUNK * (THREADS + 1)
+                + (A + 1) * WARPS + A + 2 + table)
+    assert smem <= tco._SMEM_MAX
+    if (K, A) == (582, 4):
+        assert smem <= 56 * 1024

@@ -11,19 +11,19 @@
 //
 // What bounds it:
 //   shared form: arithmetic, not bytes. Each SNP reads and writes a few
-//     [P] values (~50 MB at 1M SNPs), but does K closed-form solves, two
-//     exponentials and two logarithms per component and pass; at K = 582
-//     the special-function units and FP32 pipes set the time. At K = 18 it
-//     is a memory-bound streaming pass.
+//     [P] values (~50 MB at 1M SNPs), but does a closed-form solve, an
+//     exponential and a logarithm per component (two passes for the sums);
+//     at K = 582 the special-function units and FP32 pipes set the time. At
+//     K = 18 it is a memory-bound streaming pass.
 //   kdim form: bytes. The [K, P, I] state is K times larger (420 MB at
 //     90,112 SNPs x 582 components, P = 2) and each (SNP, component) reads
 //     P floats of it for a few dozen flops.
 //
-// Design for the kdim form (kKdim in compact_obj.cuh): thread i reads
-// nat[k, p, i], so the 32 lanes of a warp read 128 contiguous bytes of each
-// [K, P, I] row and every load coalesces. The two passes over K read the state twice (2 x 420 MB at the
-// per-chromosome size); a single pass that keeps the [K] logits in shared
-// memory is later work.
+// Design (compact_obj.cuh): the prologues make one pass over K, so the
+// kdim prologue reads its state once; thread i reads nat[k, p, i], so the
+// 32 lanes of a warp read 128 contiguous bytes of each [K, P, I] row and
+// every load coalesces. The sums make two passes (2 x 420 MB of kdim
+// state at the per-chromosome size).
 #include "compact_obj.cuh"
 
 namespace {
@@ -34,7 +34,7 @@ template <int FORM, bool SUMS>
 cudaError_t dispatch(int P, const void* coeffs, const void* scores_t,
                      const void* ann, const void* dterm, const void* nat,
                      void* pm, void* pv, void* part, void* out, int I, int K,
-                     int A, int kt, int nblocks, float eps, float log_eps,
+                     int A, int kt, int nblocks, float eps,
                      cudaStream_t stream) {
   const Operands op{static_cast<const float*>(dterm),
                     static_cast<const float*>(nat), nullptr, nullptr, nullptr,
@@ -42,15 +42,15 @@ cudaError_t dispatch(int P, const void* coeffs, const void* scores_t,
   switch (P) {
     case 1:
       return launch<1, SUMS, FORM>(op, coeffs, scores_t, ann, pm, pv, part,
-                                   out, I, K, A, kt, nblocks, eps, log_eps,
+                                   out, I, K, A, kt, nblocks, eps,
                                    stream);
     case 2:
       return launch<2, SUMS, FORM>(op, coeffs, scores_t, ann, pm, pv, part,
-                                   out, I, K, A, kt, nblocks, eps, log_eps,
+                                   out, I, K, A, kt, nblocks, eps,
                                    stream);
     case 3:
       return launch<3, SUMS, FORM>(op, coeffs, scores_t, ann, pm, pv, part,
-                                   out, I, K, A, kt, nblocks, eps, log_eps,
+                                   out, I, K, A, kt, nblocks, eps,
                                    stream);
     default:
       return cudaErrorInvalidValue;
@@ -67,10 +67,10 @@ extern "C" int vilma_compact_prologue(const void* coeffs, const void* scores_t,
                                       const void* nat, void* pm, void* pv,
                                       void* part, void* kl_out, int I, int K,
                                       int A, int P, int kt, int nblocks,
-                                      float eps, float log_eps, void* stream) {
+                                      float eps, void* stream) {
   return (int)dispatch<kShared, false>(
       P, coeffs, scores_t, ann, dterm, nat, pm, pv, part, kl_out, I, K, A, kt,
-      nblocks, eps, log_eps, static_cast<cudaStream_t>(stream));
+      nblocks, eps, static_cast<cudaStream_t>(stream));
 }
 
 // As above, but writes out [K, A] = the per-annotation sums of vi_delta;
@@ -80,11 +80,10 @@ extern "C" int vilma_compact_delta_sums(const void* coeffs,
                                         const void* dterm, const void* nat,
                                         void* part, void* out, int I, int K,
                                         int A, int P, int kt, int nblocks,
-                                        float eps, float log_eps,
-                                        void* stream) {
+                                        float eps, void* stream) {
   return (int)dispatch<kShared, true>(
       P, coeffs, scores_t, ann, dterm, nat, nullptr, nullptr, part, out, I, K,
-      A, kt, nblocks, eps, log_eps, static_cast<cudaStream_t>(stream));
+      A, kt, nblocks, eps, static_cast<cudaStream_t>(stream));
 }
 
 // The kdim forms: nat is the [K, P, I] per-component natural mean.
@@ -92,18 +91,17 @@ extern "C" int vilma_compact_prologue_kdim(
     const void* coeffs, const void* scores_t, const void* ann,
     const void* dterm, const void* nat, void* pm, void* pv, void* part,
     void* kl_out, int I, int K, int A, int P, int kt, int nblocks, float eps,
-    float log_eps, void* stream) {
+    void* stream) {
   return (int)dispatch<kKdim, false>(
       P, coeffs, scores_t, ann, dterm, nat, pm, pv, part, kl_out, I, K, A, kt,
-      nblocks, eps, log_eps, static_cast<cudaStream_t>(stream));
+      nblocks, eps, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int vilma_compact_delta_sums_kdim(
     const void* coeffs, const void* scores_t, const void* ann,
     const void* dterm, const void* nat, void* part, void* out, int I, int K,
-    int A, int P, int kt, int nblocks, float eps, float log_eps,
-    void* stream) {
+    int A, int P, int kt, int nblocks, float eps, void* stream) {
   return (int)dispatch<kKdim, true>(
       P, coeffs, scores_t, ann, dterm, nat, nullptr, nullptr, part, out, I, K,
-      A, kt, nblocks, eps, log_eps, static_cast<cudaStream_t>(stream));
+      A, kt, nblocks, eps, static_cast<cudaStream_t>(stream));
 }

@@ -10,7 +10,7 @@
 //     delta_sums: S[k, a] = sum_{i: a_i = a} vd_k(i)
 //
 // The forms differ only in where the component's mean y_k and quad_k come
-// from (`derive_form`):
+// from:
 //   kShared  the shared [P, I] natural mean n: y_k = sigma_k n
 //   kKdim    the per-component [K, P, I] natural mean of --learn-scaling
 //            fits: y_k = sigma_k n_k
@@ -24,30 +24,42 @@
 // Design: one thread per SNP, templated on P, with a runtime loop over K,
 // so any K runs (no VMEM tile ceiling). The coefficient table and the
 // scores are staged through shared memory in component tiles (once per CTA
-// when all of K fits). The eps clamp needs the softmax normalizer before
-// any weighted sum, so the [P, I] and kdim prologues and all the sums make
-// two passes over K per thread: pass 1 keeps an online max and sum, pass 2
-// recomputes the closed form and accumulates the moments and KL terms (or
-// the sums); no [K]-sized per-thread state.
+// when all of K fits).
 //
-// The epoch prologue (kOnePass in compact_kernel) makes one pass: online
-// softmax accumulators (struct Online, weights by __expf) rescaled when the
+// Prologues, all three forms: one pass over K with online softmax
+// accumulators (struct Online, weights by __expf) rescaled when the
 // running max moves, then pm = sy/s0, pv = ssec/s0 - pm^2,
-// kl_i = (sz + sg)/s0 - log s0. It drops the clamp, which changes no
-// result the band can see: a component
-// the clamp touches has vd_k < eps = 1e-30 (f32), and there the clamped
-// form adds eps (resp. eps log eps) where the unclamped one adds vd_k
-// (resp. vd_k log vd_k), so each sum moves by at most K eps max|f_k| (the
-// term f_k: y_k, diag_k + y_k^2, or the KL term, with |x log x| <=
-// eps |log eps| below eps). At K <= a few thousand that is ~1e-25 of
-// quantities of order 1e-8 and up: far below half an ulp of any sum. The
-// sums kernels cannot take one pass per SNP: they add vd_k(i) across SNPs,
-// and each term needs its SNP's final normalizer.
+// kl_i = (sz + sg)/s0 - log s0. Each component is derived once, its solve
+// and summaries sharing one determinant and one SFU reciprocal
+// (solve_summaries; kKdim reads each nat[k, p, i] once). They drop the
+// clamp, which changes no result the band can see, whatever the form: a
+// component the clamp touches has vd_k < eps = 1e-30 (f32), and there the
+// clamped form adds eps (resp. eps log eps) where the unclamped one adds
+// vd_k (resp. vd_k log vd_k), so each sum moves by at most K eps max|f_k|
+// (the term f_k: y_k, diag_k + y_k^2, or the KL term, with |x log x| <=
+// eps |log eps| below eps). The forms differ only in y_k and quad_k, so
+// the bound holds for each; at K <= a few thousand it is ~1e-25 of
+// quantities of order 1e-8 and up: far below half an ulp of any sum.
+//
+// Sums: they add vd_k(i) across SNPs and each term needs its SNP's final
+// normalizer, so they make two passes over K per thread: pass 1 an online
+// max and normalizer, pass 2 the clamped weights; no [K]-sized per-thread
+// state.
+//   kEpochs (kZSums in compact_kernel): both passes derive z_k alone
+//     (z_epochs: no diagonal, matches or quadform; SFU reciprocals,
+//     logarithm and exponential). Once per SNP tile the CTA sorts its 256
+//     SNPs by annotation (stable counting sort), then stages the weights of
+//     kChunk components at their sorted places; one thread per (component,
+//     annotation) adds its contiguous segment into the CTA's [K, A]
+//     partial in shared memory, which goes to device memory once.
+//   kShared, kKdim: both passes run the full derivation (derive), and each
+//     warp sums by annotation with a vote and shuffles per (component,
+//     annotation), added per component tile into a zeroed buffer.
 //
 // The TPU accumulates the KL and the sums across its sequential grid; here
-// each CTA writes a partial in fixed order (warp shuffles, then warps in
-// order) and a second kernel adds the partials in fixed order. No float
-// atomics touch device memory, so every result repeats bit for bit.
+// each CTA writes a partial in fixed order and a second kernel adds the
+// partials in fixed order. No float atomics touch device memory, so every
+// result repeats bit for bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -99,47 +111,50 @@ __host__ __device__ constexpr int ncol() {
   return P * (P + 1) / 2 + 1;
 }
 
-// y = (prec + diag(dt))^-1 n for one (SNP, component); c is the
-// component's coefficient row (precision upper triangle, then logdet)
-template <int P>
-__device__ __forceinline__ void solve(const float* c, const float* dt,
-                                      const float* n, float* y);
-
-template <>
-__device__ __forceinline__ void solve<1>(const float* c, const float* dt,
-                                         const float* n, float* y) {
-  y[0] = n[0] * (1.0f / (c[0] + dt[0]));
+// the reciprocal of a determinant: IEEE, or from the SFU (kFast)
+template <bool kFast>
+__device__ __forceinline__ float rcp(float x) {
+  return kFast ? __fdividef(1.0f, x) : 1.0f / x;
 }
 
-template <>
-__device__ __forceinline__ void solve<2>(const float* c, const float* dt,
-                                         const float* n, float* y) {
-  const float a = c[0] + dt[0];
-  const float b = c[1];
-  const float d = c[2] + dt[1];
-  const float inv = 1.0f / (a * d - b * b);
-  y[0] = (d * n[0] - b * n[1]) * inv;
-  y[1] = (a * n[1] - b * n[0]) * inv;
-}
-
-template <>
-__device__ __forceinline__ void solve<3>(const float* c, const float* dt,
-                                         const float* n, float* y) {
-  const float pa = c[0] + dt[0];
-  const float pb = c[1], pc = c[2];
-  const float pd = c[3] + dt[1];
-  const float pe = c[4];
-  const float pf = c[5] + dt[2];
-  const float A3 = pd * pf - pe * pe;
-  const float B3 = pc * pe - pb * pf;
-  const float C3 = pb * pe - pc * pd;
-  const float D3 = pa * pf - pc * pc;
-  const float E3 = pb * pc - pa * pe;
-  const float F3 = pa * pd - pb * pb;
-  const float inv = 1.0f / (pa * A3 + pb * B3 + pc * C3);
-  y[0] = (A3 * n[0] + B3 * n[1] + C3 * n[2]) * inv;
-  y[1] = (B3 * n[0] + D3 * n[1] + E3 * n[2]) * inv;
-  y[2] = (C3 * n[0] + E3 * n[1] + F3 * n[2]) * inv;
+// y = (prec + diag(dt))^-1 n for one (SNP, component); returns
+// det(prec + diag(dt)). c is the component's coefficient row (precision
+// upper triangle, then logdet).
+template <int P, bool kFast = false>
+__device__ __forceinline__ float solve(const float* c, const float* dt,
+                                       const float* n, float* y) {
+  if constexpr (P == 1) {
+    const float a = c[0] + dt[0];
+    y[0] = n[0] * rcp<kFast>(a);
+    return a;
+  } else if constexpr (P == 2) {
+    const float a = c[0] + dt[0];
+    const float b = c[1];
+    const float d = c[2] + dt[1];
+    const float det = a * d - b * b;
+    const float inv = rcp<kFast>(det);
+    y[0] = (d * n[0] - b * n[1]) * inv;
+    y[1] = (a * n[1] - b * n[0]) * inv;
+    return det;
+  } else {
+    const float pa = c[0] + dt[0];
+    const float pb = c[1], pc = c[2];
+    const float pd = c[3] + dt[1];
+    const float pe = c[4];
+    const float pf = c[5] + dt[2];
+    const float A3 = pd * pf - pe * pe;
+    const float B3 = pc * pe - pb * pf;
+    const float C3 = pb * pe - pc * pd;
+    const float D3 = pa * pf - pc * pc;
+    const float E3 = pb * pc - pa * pe;
+    const float F3 = pa * pd - pb * pb;
+    const float det = pa * A3 + pb * B3 + pc * C3;
+    const float inv = rcp<kFast>(det);
+    y[0] = (A3 * n[0] + B3 * n[1] + C3 * n[2]) * inv;
+    y[1] = (B3 * n[0] + D3 * n[1] + E3 * n[2]) * inv;
+    y[2] = (C3 * n[0] + E3 * n[1] + F3 * n[2]) * inv;
+    return det;
+  }
 }
 
 // y' prec y with c a component's coefficient row
@@ -231,9 +246,9 @@ __device__ __forceinline__ void summaries<3>(const float* c, const float* dt,
 // solve<P> and summaries<P> at one dt sharing one determinant and one
 // reciprocal: o.y = (prec + diag(dt))^-1 n and the summaries that do not
 // depend on y (the caller forms o.quadform once y is final). For the
-// one-pass epoch prologue only: the reciprocal and the log-determinant
-// come from the SFU (__fdividef, __logf: a few ulp, far inside the
-// prologue's bands on the card).
+// one-pass prologues only: the reciprocal and the log-determinant come
+// from the SFU (__fdividef, __logf: a few ulp, far inside the prologues'
+// bands on the card).
 template <int P>
 __device__ __forceinline__ void solve_summaries(const float* c,
                                                 const float* dt,
@@ -339,14 +354,6 @@ __device__ __forceinline__ float quad_of_mean(const float* c, const float* dt,
   return quad;
 }
 
-// summaries of a given mean o.y (compact_obj._derive_tile_epochs)
-template <int P>
-__device__ __forceinline__ void stats_of_mean(const float* c, const float* dt,
-                                              Comp<P>& o) {
-  summaries<P>(c, dt, o);
-  o.quad = quad_of_mean<P>(c, dt, o.y);
-}
-
 // per-thread registers of one SNP: the diagonal term (kEpochs: the raw
 // scaled LD diagonal) and the natural mean (kEpochs: the accumulator)
 template <int P>
@@ -369,48 +376,48 @@ __device__ __forceinline__ void load_snp(const Operands& op, Snp<P>& s,
   s.live = live;
 }
 
-// component k of SNP s under form FORM; tab is the staged table
+// the natural mean of component k (kShared: the SNP's own; kKdim: lane i
+// reads nat[k, p, i], so a warp's loads are contiguous)
 template <int P, int FORM>
-__device__ __forceinline__ void derive_form(const Operands& op,
-                                            const Snp<P>& s, const float* tab,
-                                            const float* c, int k,
-                                            Comp<P>& o) {
-  if (FORM == kShared) {
-    derive<P>(c, s.dt, s.n, o);
-  } else if (FORM == kKdim) {
-    // lane i reads nat[k, p, i]: a warp's loads are contiguous
-    float n[P];
+__device__ __forceinline__ void nat_of(const Operands& op, const Snp<P>& s,
+                                       int k, float* n) {
 #pragma unroll
-    for (int p = 0; p < P; ++p)
-      n[p] = s.live ? op.nat[((size_t)k * P + p) * op.I + s.i] : 0.0f;
-    derive<P>(c, s.dt, n, o);
-  } else {
-    const float* coef = tab + (op.nlive + 1) * P;
-    float dt[P];
-#pragma unroll
-    for (int p = 0; p < P; ++p) dt[p] = s.dt[p] * tab[p];
-    solve<P>(c, dt, s.n, o.y);
-    for (int e = 0; e < op.nlive; ++e) {
-      float dte[P], v[P], ye[P];
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        dte[p] = s.dt[p] * tab[(e + 1) * P + p];
-        v[p] = s.live ? op.hist[((size_t)e * P + p) * op.I + s.i] : 0.0f;
-      }
-      solve<P>(c, dte, v, ye);
-      const float ce = coef[e];
-#pragma unroll
-      for (int p = 0; p < P; ++p) o.y[p] = o.y[p] + ce * ye[p];
-    }
-    stats_of_mean<P>(c, dt, o);
-  }
+  for (int p = 0; p < P; ++p)
+    n[p] = FORM != kKdim ? s.n[p]
+           : s.live    ? op.nat[((size_t)k * P + p) * op.I + s.i]
+                       : 0.0f;
 }
 
-// Registers of one SNP for the one-pass epoch prologue: the current
-// scaled diagonal and, with NL >= 0 live epochs held in registers, each
-// epoch's scaled diagonal, vector and coefficient. With NL < 0 the live
-// count is read at run time and the epochs come through L1 per component,
-// as in derive_form.
+// component k of a [P, I] or kdim SNP for the two-pass sums
+template <int P, int FORM>
+__device__ __forceinline__ void derive_form(const Operands& op,
+                                            const Snp<P>& s, const float* c,
+                                            int k, Comp<P>& o) {
+  float n[P];
+  nat_of<P, FORM>(op, s, k, n);
+  derive<P>(c, s.dt, n, o);
+}
+
+// component k of a [P, I] or kdim SNP for the one-pass prologue: derive's
+// algebra with the solve and the summaries sharing one determinant and
+// one SFU reciprocal
+template <int P, int FORM>
+__device__ __forceinline__ void derive_once(const Operands& op,
+                                            const Snp<P>& s, const float* c,
+                                            int k, Comp<P>& o) {
+  float n[P];
+  nat_of<P, FORM>(op, s, k, n);
+  solve_summaries<P>(c, s.dt, n, o);
+  o.quadform = quadform_of<P>(c, o.y);
+  o.quad = o.y[0] * n[0];
+#pragma unroll
+  for (int p = 1; p < P; ++p) o.quad += o.y[p] * n[p];
+}
+
+// Registers of one epoch-state SNP: the current scaled diagonal and, with
+// NL >= 0 live epochs held in registers, each epoch's scaled diagonal,
+// vector and coefficient. With NL < 0 the live count is read at run time
+// and the epochs come through L1 per component.
 template <int P, int NL>
 struct EpochRegs {
   static constexpr int N = NL > 0 ? NL : 1;
@@ -438,23 +445,21 @@ __device__ __forceinline__ void load_epochs(const Operands& op,
   }
 }
 
-// component k of an epoch-state SNP (derive_form's kEpochs branch, with
-// the per-SNP values hoisted into r and one determinant shared between
-// the current-scaling solve and the summaries)
-template <int P, int NL>
-__device__ __forceinline__ void derive_epochs(const Operands& op,
-                                              const Snp<P>& s,
-                                              const EpochRegs<P, NL>& r,
-                                              const float* tab,
-                                              const float* c, Comp<P>& o) {
-  solve_summaries<P>(c, r.dc, s.n, o);
+// y += sum_e c_e (prec + diag(dte_e))^-1 v_e over the live epochs, from
+// the registers r (NL >= 0) or through L1 (NL < 0); kFast: SFU reciprocals
+template <int P, int NL, bool kFast>
+__device__ __forceinline__ void add_epochs(const Operands& op,
+                                           const Snp<P>& s,
+                                           const EpochRegs<P, NL>& r,
+                                           const float* tab, const float* c,
+                                           float* y) {
   if constexpr (NL >= 0) {
 #pragma unroll
     for (int e = 0; e < NL; ++e) {
       float ye[P];
-      solve<P>(c, r.dte[e], r.v[e], ye);
+      solve<P, kFast>(c, r.dte[e], r.v[e], ye);
 #pragma unroll
-      for (int p = 0; p < P; ++p) o.y[p] = o.y[p] + r.ce[e] * ye[p];
+      for (int p = 0; p < P; ++p) y[p] = y[p] + r.ce[e] * ye[p];
     }
   } else {
     const float* coef = tab + (op.nlive + 1) * P;
@@ -465,14 +470,43 @@ __device__ __forceinline__ void derive_epochs(const Operands& op,
         dte[p] = s.dt[p] * tab[(e + 1) * P + p];
         v[p] = s.live ? op.hist[((size_t)e * P + p) * op.I + s.i] : 0.0f;
       }
-      solve<P>(c, dte, v, ye);
+      solve<P, kFast>(c, dte, v, ye);
       const float ce = coef[e];
 #pragma unroll
-      for (int p = 0; p < P; ++p) o.y[p] = o.y[p] + ce * ye[p];
+      for (int p = 0; p < P; ++p) y[p] = y[p] + ce * ye[p];
     }
   }
+}
+
+// component k of an epoch-state SNP for the prologue
+// (compact_obj._derive_tile_epochs), one determinant shared between the
+// current-scaling solve and the summaries
+template <int P, int NL>
+__device__ __forceinline__ void derive_epochs(const Operands& op,
+                                              const Snp<P>& s,
+                                              const EpochRegs<P, NL>& r,
+                                              const float* tab,
+                                              const float* c, Comp<P>& o) {
+  solve_summaries<P>(c, r.dc, s.n, o);
+  add_epochs<P, NL, false>(op, s, r, tab, c, o.y);
   o.quadform = quadform_of<P>(c, o.y);
   o.quad = quad_of_mean<P>(c, r.dc, o.y);
+}
+
+// the logit z_k of an epoch-state SNP alone, for the sums: the
+// current-scaling solve and the log-determinant from one determinant, the
+// epoch solves, quad = y (prec + diag(dc)) y; every reciprocal, the
+// logarithm and (in the caller) the exponential from the SFU
+template <int P, int NL>
+__device__ __forceinline__ float z_epochs(const Operands& op,
+                                          const Snp<P>& s,
+                                          const EpochRegs<P, NL>& r,
+                                          const float* tab, const float* c,
+                                          float sel) {
+  float y[P];
+  const float det = solve<P, true>(c, r.dc, s.n, y);
+  add_epochs<P, NL, true>(op, s, r, tab, c, y);
+  return 0.5f * (quad_of_mean<P>(c, r.dc, y) - __logf(det)) + sel;
 }
 
 // a logit must pass the running reference m by this many nats to move it
@@ -524,26 +558,54 @@ struct Online {
   }
 };
 
-// SUMS = false: prologue (pm, pv, per-CTA KL partial in part[blockIdx]).
-// SUMS = true: per-CTA annotation sums added into part[blockIdx][K][A]
-// (zeroed by the caller). NL: the epoch prologue's live epochs held in
-// registers (-1: read at run time; the other kernels ignore it).
+// the epoch sums stage the weights of kChunk components per SNP tile, one
+// row of kWStride floats each (the odd stride spreads a warp's rows over
+// the banks)
+constexpr int kChunk = 16;
+constexpr int kWStride = kThreads + 1;
+
+// floats of shared memory past the [kt] component tiles:
+//   prologue            the warps' KL sums [kWarps]
+//   sums, kShared/kKdim the warps' sums by annotation [kWarps][kt][A]
+//   sums, kEpochs       the CTA's partial [K][A], the staged weights
+//                       [kChunk][kWStride], the per-warp annotation counts
+//                       [A + 1][kWarps] and segment starts [A + 2] (ints)
+// then the form's table (table_floats). ops/cuda/compact_obj.py
+// (_launch_shape) sizes the tiles by the same count.
+__host__ __device__ inline int extra_floats(bool sums, int form, int K,
+                                            int A, int kt) {
+  if (!sums) return kWarps;
+  if (form == kEpochs)
+    return K * A + kChunk * kWStride + (A + 1) * kWarps + A + 2;
+  return kWarps * kt * A;
+}
+
+// SUMS = false: prologue (pm, pv, per-CTA KL partial in part[blockIdx]),
+// one pass over K.
+// SUMS = true: per-CTA annotation sums in part[blockIdx][K][A]; kEpochs
+// writes them once, the other forms add them into a zeroed buffer.
+// NL: the live epochs held in registers (-1: read at run time; the
+// kShared and kKdim kernels ignore it).
 template <int P, bool SUMS, int FORM, int NL = -1>
 __global__ void __launch_bounds__(kThreads)
     compact_kernel(Operands op, const float* __restrict__ coeffs,
                    const float* __restrict__ scores_t,
                    const int* __restrict__ ann, float* __restrict__ pm_out,
                    float* __restrict__ pv_out, float* __restrict__ part, int I,
-                   int K, int A, int kt, float eps, float log_eps) {
+                   int K, int A, int kt, float eps) {
   constexpr int NCOL = ncol<P>();
-  // One pass over K with online accumulators (the epoch prologue), or two:
-  // pass 1 the max and normalizer, pass 2 the clamped weighted sums.
-  constexpr bool kOnePass = !SUMS && FORM == kEpochs;
+  // z-only epoch sums with the sorted reduction; the [P, I] and kdim sums
+  // keep two passes of the full derivation
+  constexpr bool kZSums = SUMS && FORM == kEpochs;
   extern __shared__ float smem[];
   float* coef_s = smem;                 // [kt][NCOL]
   float* score_s = coef_s + kt * NCOL;  // [kt][A]
-  float* extra = score_s + kt * A;      // SUMS: [kWarps][kt][A]; else [kWarps]
-  float* tab = extra + (SUMS ? kWarps * kt * A : kWarps);
+  float* extra = score_s + kt * A;      // see extra_floats
+  float* tab = extra + extra_floats(SUMS, FORM, K, A, kt);
+  float* part_s = extra;                                      // kZSums
+  float* w_s = part_s + K * A;                                // kZSums
+  int* cnt_s = reinterpret_cast<int*>(w_s + kChunk * kWStride);
+  int* seg_s = cnt_s + (A + 1) * kWarps;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -557,6 +619,14 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = tid; j < cnt * A; j += kThreads)
       score_s[j] = scores_t[(size_t)k0 * A + j];
   };
+  // the next component tile, once every thread is done with the last
+  auto next_tile = [&](int t) {
+    if (ntiles > 1) {
+      __syncthreads();
+      load_tile(t);
+      __syncthreads();
+    }
+  };
 
   if (FORM == kEpochs) {
     for (int j = tid; j < (op.nlive + 1) * P; j += kThreads)
@@ -564,6 +634,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = tid; j < op.nlive; j += kThreads)
       tab[(op.nlive + 1) * P + j] = op.hist_c[j];
   }
+  if (kZSums)
+    for (int j = tid; j < K * A; j += kThreads) part_s[j] = 0.f;
   if (ntiles == 1) load_tile(0);
   __syncthreads();
 
@@ -580,16 +652,12 @@ __global__ void __launch_bounds__(kThreads)
     const int a = live ? ann[i] : A;
     const int asel = min(a, A - 1);
 
-    if constexpr (kOnePass) {
+    if constexpr (!SUMS) {
       EpochRegs<P, NL> er;
       if constexpr (FORM == kEpochs) load_epochs<P, NL>(op, snp, tab, er);
       Online<P> acc;
       for (int t = 0; t < ntiles; ++t) {
-        if (ntiles > 1) {
-          __syncthreads();
-          load_tile(t);
-          __syncthreads();
-        }
+        next_tile(t);
         const int cnt = min(kt, K - t * kt);
         for (int kl_ = 0; kl_ < cnt; ++kl_) {
           Comp<P> o;
@@ -597,7 +665,7 @@ __global__ void __launch_bounds__(kThreads)
           if constexpr (FORM == kEpochs)
             derive_epochs<P, NL>(op, snp, er, tab, c, o);
           else
-            derive_form<P, FORM>(op, snp, tab, c, t * kt + kl_, o);
+            derive_once<P, FORM>(op, snp, c, t * kt + kl_, o);
           const float sel = score_s[kl_ * A + asel];
           acc.add(o, 0.5f * (o.quad - o.logdet) + sel, sel);
         }
@@ -612,64 +680,107 @@ __global__ void __launch_bounds__(kThreads)
         }
         if (a < A) kl += (acc.sz + acc.sg) * inv - logf(acc.s0);
       }
-      continue;
-    }
-
-    // pass 1: online max and normalizer of z over K
-    float m = -INFINITY, s = 0.f;
-    for (int t = 0; t < ntiles; ++t) {
-      if (ntiles > 1) {
-        __syncthreads();
-        load_tile(t);
-        __syncthreads();
+    } else if constexpr (kZSums) {
+      EpochRegs<P, NL> er;
+      load_epochs<P, NL>(op, snp, tab, er);
+      // The tile's SNPs in annotation order, stable: pos is this SNP's
+      // place, annotation aa holds places [seg_s[aa], seg_s[aa + 1]).
+      // Pad SNPs (id A) sort last and are never read.
+      for (int j = tid; j < (A + 1) * kWarps; j += kThreads) cnt_s[j] = 0;
+      __syncthreads();
+      const unsigned same = __match_any_sync(kFull, a);
+      const int rank = __popc(same & ((1u << lane) - 1u));
+      if (rank == 0) cnt_s[a * kWarps + warp] = __popc(same);
+      __syncthreads();
+      if (tid == 0) {
+        int run = 0;
+        for (int aa = 0; aa <= A; ++aa) {
+          seg_s[aa] = run;
+          for (int w = 0; w < kWarps; ++w) {
+            const int c = cnt_s[aa * kWarps + w];
+            cnt_s[aa * kWarps + w] = run;
+            run += c;
+          }
+        }
+        seg_s[A + 1] = run;
       }
-      const int cnt = min(kt, K - t * kt);
-      for (int kl_ = 0; kl_ < cnt; ++kl_) {
-        Comp<P> o;
-        derive_form<P, FORM>(op, snp, tab, coef_s + kl_ * NCOL, t * kt + kl_,
-                             o);
-        const float z = 0.5f * (o.quad - o.logdet) + score_s[kl_ * A + asel];
-        if (z > m) {
-          s = s * expf(m - z) + 1.0f;
-          m = z;
-        } else {
-          s += expf(z - m);
+      __syncthreads();
+      const int pos = cnt_s[a * kWarps + warp] + rank;
+
+      // pass 1: online max and normalizer of z over K
+      float m = -INFINITY, s = 0.f;
+      for (int t = 0; t < ntiles; ++t) {
+        next_tile(t);
+        const int cnt = min(kt, K - t * kt);
+        for (int kl_ = 0; kl_ < cnt; ++kl_) {
+          const float z = z_epochs<P, NL>(op, snp, er, tab,
+                                          coef_s + kl_ * NCOL,
+                                          score_s[kl_ * A + asel]);
+          if (z > m) {
+            s = s * __expf(m - z) + 1.0f;
+            m = z;
+          } else {
+            s += __expf(z - m);
+          }
         }
       }
-    }
-    const float log_s = logf(s);
+      const float inv_s = 1.0f / s;
 
-    // pass 2: moments and KL terms (or the annotation sums)
-    float pm[P], sec[P];
-#pragma unroll
-    for (int p = 0; p < P; ++p) pm[p] = sec[p] = 0.f;
-    float kl_i = 0.f;
-    for (int t = 0; t < ntiles; ++t) {
-      if (ntiles > 1) {
-        __syncthreads();
-        load_tile(t);
-        __syncthreads();
-      }
-      const int cnt = min(kt, K - t * kt);
-      for (int kl_ = 0; kl_ < cnt; ++kl_) {
-        Comp<P> o;
-        derive_form<P, FORM>(op, snp, tab, coef_s + kl_ * NCOL, t * kt + kl_,
-                             o);
-        const float sel = score_s[kl_ * A + asel];
-        const float z = 0.5f * (o.quad - o.logdet) + sel;
-        const float vd = fmaxf(expf(z - m) / s, eps);
-        if (!SUMS) {
-          const float log_vd = fmaxf(z - m - log_s, log_eps);
-#pragma unroll
-          for (int p = 0; p < P; ++p) {
-            pm[p] += vd * o.y[p];
-            sec[p] += vd * (o.diag[p] + o.y[p] * o.y[p]);
+      // pass 2: the clamped weights of kChunk components at a time, staged
+      // at their sorted places; one thread per (component, annotation)
+      // adds its segment, in place order, into the CTA's partial
+      for (int t = 0; t < ntiles; ++t) {
+        next_tile(t);
+        const int cnt = min(kt, K - t * kt);
+        for (int c0 = 0; c0 < cnt; c0 += kChunk) {
+          const int nc = min(kChunk, cnt - c0);
+          for (int j = 0; j < nc; ++j) {
+            const int kl_ = c0 + j;
+            const float z = z_epochs<P, NL>(op, snp, er, tab,
+                                            coef_s + kl_ * NCOL,
+                                            score_s[kl_ * A + asel]);
+            if (a < A)
+              w_s[j * kWStride + pos] = fmaxf(__expf(z - m) * inv_s, eps);
           }
-          const float log_hd = sel + 0.5f * o.ldp;
-          const float ss = o.ldp + o.logdet + o.matches;
-          kl_i += vd * ((log_vd - log_hd) + 0.5f * o.quadform + 0.5f * ss);
-        } else {
-          // per-warp sums by annotation; lanes of other ids add zero
+          __syncthreads();
+          for (int q = tid; q < nc * A; q += kThreads) {
+            const int aa = q / nc, j = q - aa * nc;
+            const float* row = w_s + j * kWStride;
+            float v = 0.f;
+            for (int r = seg_s[aa]; r < seg_s[aa + 1]; ++r) v += row[r];
+            part_s[(t * kt + c0 + j) * A + aa] += v;
+          }
+          __syncthreads();
+        }
+      }
+    } else {
+      // pass 1: online max and normalizer of z over K
+      float m = -INFINITY, s = 0.f;
+      for (int t = 0; t < ntiles; ++t) {
+        next_tile(t);
+        const int cnt = min(kt, K - t * kt);
+        for (int kl_ = 0; kl_ < cnt; ++kl_) {
+          Comp<P> o;
+          derive_form<P, FORM>(op, snp, coef_s + kl_ * NCOL, t * kt + kl_, o);
+          const float z = 0.5f * (o.quad - o.logdet) + score_s[kl_ * A + asel];
+          if (z > m) {
+            s = s * expf(m - z) + 1.0f;
+            m = z;
+          } else {
+            s += expf(z - m);
+          }
+        }
+      }
+
+      // pass 2: per-warp sums by annotation; lanes of other ids add zero
+      for (int t = 0; t < ntiles; ++t) {
+        next_tile(t);
+        const int cnt = min(kt, K - t * kt);
+        for (int kl_ = 0; kl_ < cnt; ++kl_) {
+          Comp<P> o;
+          derive_form<P, FORM>(op, snp, coef_s + kl_ * NCOL, t * kt + kl_, o);
+          const float z = 0.5f * (o.quad - o.logdet) + score_s[kl_ * A + asel];
+          const float vd = fmaxf(expf(z - m) / s, eps);
           for (int aa = 0; aa < A; ++aa) {
             const bool mine = a == aa;
             float v = 0.f;
@@ -677,8 +788,6 @@ __global__ void __launch_bounds__(kThreads)
             if (lane == 0) extra[(warp * kt + kl_) * A + aa] = v;
           }
         }
-      }
-      if (SUMS) {
         __syncthreads();
         float* dst = part + (size_t)blockIdx.x * K * A + (size_t)t * kt * A;
         for (int j = tid; j < cnt * A; j += kThreads) {
@@ -688,14 +797,6 @@ __global__ void __launch_bounds__(kThreads)
         }
         __syncthreads();
       }
-    }
-    if (!SUMS && live) {
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        pm_out[(size_t)p * I + i] = pm[p];
-        pv_out[(size_t)p * I + i] = sec[p] - pm[p] * pm[p];
-      }
-      if (a < A) kl += kl_i;
     }
   }
 
@@ -708,6 +809,11 @@ __global__ void __launch_bounds__(kThreads)
       for (int w = 0; w < kWarps; ++w) tot += extra[w];
       part[blockIdx.x] = tot;
     }
+  }
+  if (kZSums) {
+    __syncthreads();
+    float* dst = part + (size_t)blockIdx.x * K * A;
+    for (int j = tid; j < K * A; j += kThreads) dst[j] = part_s[j];
   }
 }
 
@@ -727,15 +833,39 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) out[0] = (float)red[0];
 }
 
-// out[j] = sum_b part[b][j] over nb partial rows of width m, in order
+// out[j] = sum_b part[b][j] over nb partial rows of width m, in a fixed
+// order: a CTA takes 32 columns (a lane each); warp w adds rows w, w + 8,
+// w + 16, ... in f64, four loads in flight, then the warps' sums are added
+// in warp order
 __global__ void __launch_bounds__(kThreads)
     reduce_rows(const float* __restrict__ part, int nb, int m,
                 float* __restrict__ out) {
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  if (j >= m) return;
+  __shared__ double red[kWarps][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int j = blockIdx.x * 32 + lane;
   double v = 0.0;
-  for (int b = 0; b < nb; ++b) v += part[(size_t)b * m + j];
-  out[j] = (float)v;
+  if (j < m) {
+    int b = warp;
+    for (; b + 3 * kWarps < nb; b += 4 * kWarps) {
+      const float x0 = part[(size_t)b * m + j];
+      const float x1 = part[(size_t)(b + kWarps) * m + j];
+      const float x2 = part[(size_t)(b + 2 * kWarps) * m + j];
+      const float x3 = part[(size_t)(b + 3 * kWarps) * m + j];
+      v += x0;
+      v += x1;
+      v += x2;
+      v += x3;
+    }
+    for (; b < nb; b += kWarps) v += part[(size_t)b * m + j];
+  }
+  red[warp][lane] = v;
+  __syncthreads();
+  if (warp == 0 && j < m) {
+    double tot = red[0][lane];
+    for (int w = 1; w < kWarps; ++w) tot += red[w][lane];
+    out[j] = (float)tot;
+  }
 }
 
 // Launch the compact kernel of form FORM, then the fixed-order reduction
@@ -745,10 +875,10 @@ cudaError_t launch(const Operands& op, const void* coeffs,
                    const void* scores_t,
                    const void* ann, void* pm, void* pv, void* part, void* out,
                    int I, int K, int A, int kt, int nblocks, float eps,
-                   float log_eps, cudaStream_t stream) {
+                   cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)kt * (ncol<P>() + A) +
-                       (SUMS ? (size_t)kWarps * kt * A : (size_t)kWarps) +
+                       (size_t)extra_floats(SUMS, FORM, K, A, kt) +
                        (size_t)table_floats(FORM, P, op.nlive));
   auto kernel = compact_kernel<P, SUMS, FORM, NL>;
   if (smem > 48 * 1024) {
@@ -760,12 +890,12 @@ cudaError_t launch(const Operands& op, const void* coeffs,
       op, static_cast<const float*>(coeffs),
       static_cast<const float*>(scores_t), static_cast<const int*>(ann),
       static_cast<float*>(pm), static_cast<float*>(pv),
-      static_cast<float*>(part), I, K, A, kt, eps, log_eps);
+      static_cast<float*>(part), I, K, A, kt, eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (SUMS) {
     const int m = K * A;
-    reduce_rows<<<(m + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+    reduce_rows<<<(m + 31) / 32, kThreads, 0, stream>>>(
         static_cast<const float*>(part), nblocks, m, static_cast<float*>(out));
   } else {
     reduce_scalar<<<1, kThreads, 0, stream>>>(

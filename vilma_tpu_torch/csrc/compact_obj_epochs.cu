@@ -26,50 +26,51 @@
 // and scale 1, so the terms they add are exactly zero and skipping them
 // changes no result; the wrapper passes the live count the host keeps. The
 // [E+1, P] inverse scalings and the [E] coefficients are staged once per
-// CTA into shared memory (a broadcast).
-//   prologue: one pass over K with online softmax accumulators (see
-//     compact_obj.cuh), so each (SNP, component) is derived once: K (E + 1)
-//     solves per SNP. The current-scaling solve and the summaries share
-//     one determinant and reciprocal (SFU intrinsics for it, the
-//     log-determinant and the weights), and the per-epoch scaled diagonals
-//     are formed once per SNP. Up to kMaxRegEpochs live epochs (dispatched
-//     on the live count) keep their vectors, scaled diagonals and
-//     coefficients in registers; more are read per component through L1.
-//   delta sums: two passes over K, 2 K (E + 1) solves per SNP, the epoch
-//     vectors re-read per component through L1, which holds a CTA's 256
-//     SNPs x E x P x 4 B.
+// CTA into shared memory (a broadcast). Up to kMaxRegEpochs live epochs
+// (dispatched on the live count) keep their vectors, scaled diagonals and
+// coefficients in registers; more are read per component through L1.
+//   prologue: one pass over K with online softmax accumulators, so each
+//     (SNP, component) is derived once: K (E + 1) solves per SNP. The
+//     current-scaling solve and the summaries share one determinant and
+//     reciprocal (SFU intrinsics for it, the log-determinant and the
+//     weights).
+//   delta sums: two passes over K of the logit alone, 2 K (E + 1) solves
+//     per SNP, every reciprocal, logarithm and exponential from the SFU;
+//     the CTA adds the weights by annotation through a sorted staging
+//     buffer in shared memory and writes its [K, A] partial once.
 #include "compact_obj.cuh"
 
 namespace {
 
 using namespace vilma;
 
-// live epochs the prologue holds in registers (more: read through L1);
+// live epochs the kernels hold in registers (more: read through L1);
 // 1 and 2 are the counts a fit runs at and the ones timed
 constexpr int kMaxRegEpochs = 2;
 
-// the prologue at P cohorts with its live-epoch count as NL (or -1)
-template <int P>
-cudaError_t launch_prologue(const Operands& op, const void* coeffs,
-                            const void* scores_t, const void* ann, void* pm,
-                            void* pv, void* part, void* out, int I, int K,
-                            int A, int kt, int nblocks, float eps,
-                            float log_eps, cudaStream_t stream) {
-#define VILMA_PROLOGUE(NL)                                                    \
-  launch<P, false, kEpochs, NL>(op, coeffs, scores_t, ann, pm, pv, part, out, \
-                                I, K, A, kt, nblocks, eps, log_eps, stream)
+// the prologue (SUMS false) or the sums at P cohorts, with the live-epoch
+// count as NL (or -1)
+template <int P, bool SUMS>
+cudaError_t launch_epochs(const Operands& op, const void* coeffs,
+                          const void* scores_t, const void* ann, void* pm,
+                          void* pv, void* part, void* out, int I, int K,
+                          int A, int kt, int nblocks, float eps,
+                          cudaStream_t stream) {
+#define VILMA_EPOCHS(NL)                                                    \
+  launch<P, SUMS, kEpochs, NL>(op, coeffs, scores_t, ann, pm, pv, part, out, \
+                               I, K, A, kt, nblocks, eps, stream)
   static_assert(kMaxRegEpochs == 2, "one case per register epoch count");
   switch (op.nlive) {
     case 0:
-      return VILMA_PROLOGUE(0);
+      return VILMA_EPOCHS(0);
     case 1:
-      return VILMA_PROLOGUE(1);
+      return VILMA_EPOCHS(1);
     case 2:
-      return VILMA_PROLOGUE(2);
+      return VILMA_EPOCHS(2);
     default:
-      return VILMA_PROLOGUE(-1);
+      return VILMA_EPOCHS(-1);
   }
-#undef VILMA_PROLOGUE
+#undef VILMA_EPOCHS
 }
 
 template <bool SUMS>
@@ -78,30 +79,25 @@ cudaError_t dispatch(int P, const void* coeffs, const void* scores_t,
                      const void* hist, const void* inv_scales,
                      const void* hist_c, void* pm, void* pv, void* part,
                      void* out, int I, int K, int A, int nlive, int kt,
-                     int nblocks, float eps, float log_eps,
-                     cudaStream_t stream) {
+                     int nblocks, float eps, cudaStream_t stream) {
   const Operands op{static_cast<const float*>(sld),
                     static_cast<const float*>(u),
                     static_cast<const float*>(hist),
                     static_cast<const float*>(inv_scales),
                     static_cast<const float*>(hist_c), I, nlive};
-#define VILMA_EPOCHS(P)                                                        \
-  (SUMS ? launch<P, true, kEpochs>(op, coeffs, scores_t, ann, pm, pv, part,     \
-                                   out, I, K, A, kt, nblocks, eps, log_eps,     \
-                                   stream)                                      \
-        : launch_prologue<P>(op, coeffs, scores_t, ann, pm, pv, part, out, I,   \
-                             K, A, kt, nblocks, eps, log_eps, stream))
   switch (P) {
     case 1:
-      return VILMA_EPOCHS(1);
+      return launch_epochs<1, SUMS>(op, coeffs, scores_t, ann, pm, pv, part,
+                                    out, I, K, A, kt, nblocks, eps, stream);
     case 2:
-      return VILMA_EPOCHS(2);
+      return launch_epochs<2, SUMS>(op, coeffs, scores_t, ann, pm, pv, part,
+                                    out, I, K, A, kt, nblocks, eps, stream);
     case 3:
-      return VILMA_EPOCHS(3);
+      return launch_epochs<3, SUMS>(op, coeffs, scores_t, ann, pm, pv, part,
+                                    out, I, K, A, kt, nblocks, eps, stream);
     default:
       return cudaErrorInvalidValue;
   }
-#undef VILMA_EPOCHS
 }
 
 }  // namespace
@@ -115,22 +111,22 @@ extern "C" int vilma_compact_prologue_epochs(
     const void* sld, const void* u, const void* hist, const void* inv_scales,
     const void* hist_c, void* pm, void* pv, void* part, void* kl_out, int I,
     int K, int A, int P, int nlive, int kt, int nblocks, float eps,
-    float log_eps, void* stream) {
+    void* stream) {
   return (int)dispatch<false>(P, coeffs, scores_t, ann, sld, u, hist,
                               inv_scales, hist_c, pm, pv, part, kl_out, I, K,
-                              A, nlive, kt, nblocks, eps, log_eps,
+                              A, nlive, kt, nblocks, eps,
                               static_cast<cudaStream_t>(stream));
 }
 
 // As above, but writes out [K, A] = the per-annotation sums of vi_delta;
-// part holds nblocks * K * A floats of scratch, zeroed by the caller.
+// part holds nblocks * K * A floats of scratch (every one written).
 extern "C" int vilma_compact_delta_sums_epochs(
     const void* coeffs, const void* scores_t, const void* ann,
     const void* sld, const void* u, const void* hist, const void* inv_scales,
     const void* hist_c, void* part, void* out, int I, int K, int A, int P,
-    int nlive, int kt, int nblocks, float eps, float log_eps, void* stream) {
+    int nlive, int kt, int nblocks, float eps, void* stream) {
   return (int)dispatch<true>(P, coeffs, scores_t, ann, sld, u, hist,
                              inv_scales, hist_c, nullptr, nullptr, part, out,
-                             I, K, A, nlive, kt, nblocks, eps, log_eps,
+                             I, K, A, nlive, kt, nblocks, eps,
                              static_cast<cudaStream_t>(stream));
 }

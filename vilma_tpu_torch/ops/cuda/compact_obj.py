@@ -41,9 +41,16 @@ launches = {'prologue': 0, 'delta_sums': 0, 'prologue_kdim': 0,
             'delta_sums_epochs': 0}
 
 _THREADS = 256
+_WARPS = _THREADS // 32
 _MAX_BLOCKS = 1024
-# dynamic shared memory the kernels' component tiles may use
+# dynamic shared memory the kernels' component tiles may use; the epoch
+# sums may take up to the card's per-block limit to hold all of K in one
+# tile beside their [K, A] partial
 _SMEM_BYTES = 48 * 1024
+_SMEM_MAX = 227 * 1024
+# the epoch sums stage the weights of this many components per SNP tile
+# (csrc/compact_obj.cuh kChunk), rows of _THREADS + 1 floats
+_CHUNK = 16
 # plain version: SNP columns per chunk, bounding its [K, chunk]
 # temporaries to ~2**26 elements each
 _PLAIN_CHUNK_ELEMS = 1 << 26
@@ -382,10 +389,22 @@ def _check_epoch_operands(name, coeffs, scores_t, annotations, sld, nat_u,
     return P, I, K, A, ncol, B
 
 
-def _launch_shape(I, K, A, ncol, sums, table_floats=0):
-    """(component tile width, grid blocks) for the kernels."""
-    per_comp = ncol + A + (8 * A if sums else 0)
-    kt = min(K, (_SMEM_BYTES // 4 - 8 - table_floats) // per_comp)
+def _launch_shape(I, K, A, ncol, sums, epochs=False, table_floats=0):
+    """(component tile width, grid blocks) for the kernels: the shared
+    memory past the [kt] tiles of coefficients and scores is counted as
+    csrc/compact_obj.cuh extra_floats counts it."""
+    per_comp = ncol + A
+    budget = _SMEM_BYTES
+    if not sums:
+        fixed = _WARPS
+    elif epochs:
+        fixed = K * A + _CHUNK * (_THREADS + 1) + (A + 1) * _WARPS + A + 2
+        budget = min(_SMEM_MAX, max(budget, 4 * (fixed + table_floats
+                                                 + K * per_comp)))
+    else:
+        fixed = 0
+        per_comp += _WARPS * A
+    kt = min(K, (budget // 4 - fixed - table_floats) // per_comp)
     if kt < 1:
         raise ValueError(f'{A} annotations exceed the kernel\'s shared-'
                          'memory tile')
@@ -426,7 +445,7 @@ def prologue(coeffs, scores_t, annotations, dterm, nat_mu, *,
         coeffs.data_ptr(), scores_t.data_ptr(), annotations.data_ptr(),
         dterm.data_ptr(), nat_mu.data_ptr(), pm.data_ptr(), pv.data_ptr(),
         part.data_ptr(), kl.data_ptr(), I, K, A, P, kt, nblocks, eps,
-        math.log(eps), build.stream_handle(dev))
+        build.stream_handle(dev))
     build.check(status, entry)
     launches['prologue_kdim' if kdim else 'prologue'] += 1
     return pm, pv, kl
@@ -453,7 +472,7 @@ def delta_sums(coeffs, scores_t, annotations, dterm, nat_mu, *,
     status = getattr(build.library(), entry)(
         coeffs.data_ptr(), scores_t.data_ptr(), annotations.data_ptr(),
         dterm.data_ptr(), nat_mu.data_ptr(), part.data_ptr(),
-        out.data_ptr(), I, K, A, P, kt, nblocks, eps, math.log(eps),
+        out.data_ptr(), I, K, A, P, kt, nblocks, eps,
         build.stream_handle(dev))
     build.check(status, entry)
     launches['delta_sums_kdim' if kdim else 'delta_sums'] += 1
@@ -492,7 +511,7 @@ def prologue_epochs(coeffs, scores_t, annotations, sld, nat_u, hist_v,
         sld.data_ptr(), nat_u.data_ptr(), hist_v.data_ptr(),
         inv_scales.data_ptr(), hist_c.data_ptr(), pm.data_ptr(),
         pv.data_ptr(), part.data_ptr(), kl.data_ptr(), I, K, A, P,
-        num_live, kt, nblocks, eps, math.log(eps), build.stream_handle(dev))
+        num_live, kt, nblocks, eps, build.stream_handle(dev))
     build.check(status, 'vilma_compact_prologue_epochs')
     launches['prologue_epochs'] += 1
     return pm, pv, kl
@@ -510,10 +529,10 @@ def delta_sums_epochs(coeffs, scores_t, annotations, sld, nat_u, hist_v,
     P, I, K, A, ncol, _ = _check_epoch_operands(
         'delta_sums_epochs', coeffs, scores_t, annotations, sld, nat_u,
         hist_v, inv_scales, hist_c, num_annotations, num_live)
-    kt, nblocks = _launch_shape(I, K, A, ncol, sums=True,
+    kt, nblocks = _launch_shape(I, K, A, ncol, sums=True, epochs=True,
                                 table_floats=(num_live + 1) * P + num_live)
     dev = nat_u.device
-    part = torch.zeros((nblocks, K, A), dtype=torch.float32, device=dev)
+    part = torch.empty((nblocks, K, A), dtype=torch.float32, device=dev)
     out = torch.empty((K, A), dtype=torch.float32, device=dev)
     eps = epsilon(torch.float32)
     status = build.library().vilma_compact_delta_sums_epochs(
@@ -521,7 +540,7 @@ def delta_sums_epochs(coeffs, scores_t, annotations, sld, nat_u, hist_v,
         sld.data_ptr(), nat_u.data_ptr(), hist_v.data_ptr(),
         inv_scales.data_ptr(), hist_c.data_ptr(), part.data_ptr(),
         out.data_ptr(), I, K, A, P, num_live, kt, nblocks, eps,
-        math.log(eps), build.stream_handle(dev))
+        build.stream_handle(dev))
     build.check(status, 'vilma_compact_delta_sums_epochs')
     launches['delta_sums_epochs'] += 1
     return out.T
