@@ -11,13 +11,17 @@ Phases:
      repeatable, with CUDA-event times of both (the matvec also beside
      its cuBLAS route) and the least time the card could take (bound);
      each kernel's cluster size and what ptxas reported for it. The
-     matvec in bf16 and f32 U (the cluster route) and at an oversize
-     block (the two-read route); the epoch prologue at 2 and 1 live
-     epochs and on a clamp-heavy input. Three bars are required, each
-     side measured in this run: the bf16 matvec no slower than cuBLAS in
-     turns; at 1M SNPs, P = 2, K = 582, the epoch sums (1 live epoch) at
-     most 2.0x the epoch prologue, and the [P, I] prologue no slower than
-     the epoch prologue.
+     matvec in bf16 and f32 U (the cluster route) and at four oversize
+     buckets (the group route: 128 and 4 blocks of [2048, 1024] f32, 128
+     of [2048, 512] f32, 64 of [2048, 1024] bf16); the epoch prologue at
+     2 and 1 live epochs and on a clamp-heavy input; the [P, I] sums at a
+     K·A past one shared-memory group. Bars required, each side measured
+     in this run: the bf16 matvec and the group route at the two 128-block
+     f32 buckets no slower than cuBLAS in turns; at 1M SNPs, P = 2,
+     K = 582, the epoch sums (1 live epoch) at most 2.0x the epoch
+     prologue, the [P, I] prologue no slower than the epoch prologue, and
+     the [P, I] sums at most 2.0x the [P, I] prologue; at 90,112 SNPs the
+     kdim sums at most 2.0x the kdim prologue.
   4. fit: `vilma-tpu-torch fit` in-process on a synthetic on-disk schema
      the size of a per-chromosome HapMap3 fit (~90K variants in
      1024-SNP AR(1) blocks at half rank, 2 cohorts sharing the panel) at
@@ -28,8 +32,8 @@ Phases:
      card (f32) held against the same fit on the host at f64, without
      and with --learn-scaling (kdim and epoch-history routes).
   4b. fit at the default precision (f32 U) on a schema of a 1024-SNP and
-     a 2048-SNP block: the f32 cluster route and the two-read route of
-     the matvec must launch.
+     a 2048-SNP block: the f32 cluster route and the group route of the
+     matvec must launch.
   5. engine: 1M SNPs (977 blocks of 1024), 2 cohorts, K = 18, bf16 U;
      3 timed outer steps after one warm-up step.
   6. fit --learn-scaling: phase 4's schema and flags; the kdim
@@ -102,10 +106,10 @@ KERNELS = {
         source='vilma_tpu_torch/csrc/block_matvec.cu',
         replaces='vilma_tpu/ops/pallas/block_matvec.py:88',
         ptxas=r'cluster_matvec_kernel<float, \(int\)2>'),
-    'bucket_matvec_multi_two_read': dict(
+    'bucket_matvec_multi_group': dict(
         source='vilma_tpu_torch/csrc/block_matvec.cu',
         replaces='vilma_tpu/ops/pallas/block_matvec.py:88',
-        ptxas=r'block_matvec_kernel<float, \(int\)2>'),
+        ptxas=r'group_matvec_kernel<float, \(int\)2, \(bool\)1>'),
     'prologue': dict(
         source='vilma_tpu_torch/csrc/compact_obj.cu',
         replaces='vilma_tpu/ops/pallas/compact_obj.py:414',
@@ -270,33 +274,44 @@ def cublas_matvec(u, s, d, x):
             + d[:, None, :] * x)
 
 
-# the main path's bucket (977 blocks of 1024 SNPs at rank 512), and an
-# oversize one for the two-read route: 128 blocks of 2048 SNPs at rank
-# 1024 in f32 (1.07 GB of U), too large for 16 slices of shared memory
+# the main path's bucket (977 blocks of 1024 SNPs at rank 512), and
+# oversize ones for the group route (blocks of 2048 SNPs, too large for 16
+# slices of shared memory): 128 blocks at rank 1024 in f32 (1.07 GB of U,
+# the reported one), 128 at rank 512, a small bucket of 4 blocks (as
+# per-block eigen-truncation leaves many), and 64 in bf16; and 8 blocks of
+# 4096 SNPs at full rank in bf16, whose column slices do not fit twice (U
+# read from device memory in both products, one block at a time)
 MATVEC_SHAPE = (977, 1024, 512, 2)
-TWO_READ_SHAPE = (128, 2048, 1024, 2)
+GROUP_SHAPE = (128, 2048, 1024, 2)
+# (kernels-line key or None, U's type, (B, P, R, C), route, required no
+# slower than cuBLAS in turns)
 MATVEC_CASES = (
-    ('bucket_matvec_multi', 'bfloat16', MATVEC_SHAPE),
-    ('bucket_matvec_multi_f32', 'float32', MATVEC_SHAPE),
-    ('bucket_matvec_multi_two_read', 'float32', TWO_READ_SHAPE),
+    ('bucket_matvec_multi', 'bfloat16', MATVEC_SHAPE, 'cluster', True),
+    ('bucket_matvec_multi_f32', 'float32', MATVEC_SHAPE, 'cluster', False),
+    ('bucket_matvec_multi_group', 'float32', GROUP_SHAPE, 'group', True),
+    (None, 'float32', (128, 2048, 512, 2), 'group', True),
+    (None, 'float32', (4, 2048, 1024, 2), 'group', False),
+    (None, 'bfloat16', (64, 2048, 1024, 2), 'group', False),
+    (None, 'bfloat16', (8, 4096, 4096, 2), 'group', False),
 )
 
 
 def matvec_plan(name):
     """The planner's route for a MATVEC_CASES entry."""
     from vilma_tpu_torch.ops.cuda import block_matvec as bm
-    _, dtype, (_, P, R, C) = next(c for c in MATVEC_CASES if c[0] == name)
+    _, dtype, (_, P, R, C), _, _ = next(c for c in MATVEC_CASES
+                                        if c[0] == name)
     return bm.plan(P, R, 2 if dtype == 'bfloat16' else 4, C)
 
 
 def check_matvec(device, results):
-    """The matvec's routes at their shapes: bf16 and f32 U at the main
-    path's bucket (the cluster route), f32 at an oversize bucket (the
-    two-read route). Each against its plain version and its cuBLAS
-    route (timed in turns with the kernel), with its bound."""
+    """The matvec's routes at their shapes (MATVEC_CASES): bf16 and f32 U
+    at the main path's bucket (the cluster route), oversize buckets (the
+    group route). Each against its plain version and its cuBLAS route
+    (timed in turns with the kernel), with its bound."""
     import torch
     from vilma_tpu_torch.ops.cuda import block_matvec as bm
-    for key, dtype, (B, P, R, C) in MATVEC_CASES:
+    for key, dtype, (B, P, R, C), route, vs_cublas in MATVEC_CASES:
         u_dtype = getattr(torch, dtype)
         bf16 = u_dtype == torch.bfloat16
         band = BAND_BF16 if bf16 else BAND_F32
@@ -307,7 +322,7 @@ def check_matvec(device, results):
         u = (torch.randn(B, P, R, generator=gen, device=device)
              / math.sqrt(P)).to(u_dtype)
         pl = bm.plan(P, R, u.element_size(), C)
-        require(pl.route == ('two_read' if 'two_read' in key else 'cluster'),
+        require(pl.route == route,
                 f'{key}: the planner chose the {pl.route} route')
         y = bm.bucket_matvec_multi(u, s, d, x)
         y2 = bm.bucket_matvec_multi(u, s, d, x)
@@ -325,10 +340,10 @@ def check_matvec(device, results):
         ubytes = u.numel() * u.element_size()
         nbytes = ubytes + 4 * B * R + 4 * B * P + 2 * 4 * B * C * P
         b = bound(nbytes, 4 * B * P * R * C, BF16_OPS_S if bf16 else FP32_OPS_S)
-        name = f'{key} u={dtype} B={B} P={P} R={R} C={C}'
+        name = f'{key or "matvec"} u={dtype} B={B} P={P} R={R} C={C}'
         log(f'  {name}: {pl.route} route, {pl.cluster} CTAs per block, '
-            f'{pl.slots} slot(s), {pl.smem} B of shared memory each; '
-            f'max_abs_err {err:.3e} '
+            f'{pl.slots} slot(s)/buffer(s), {pl.smem} B of shared memory '
+            f'each; max_abs_err {err:.3e} '
             f'scaled {rel:.3e} (band {band:.1e}) repeatable {repeat}; kernel '
             f'{ms:.4f} ms ({ubytes / ms / 1e6:.1f} GB/s of U), plain '
             f'{plain_ms:.4f} ms')
@@ -347,11 +362,13 @@ def check_matvec(device, results):
                 f'{half[0]:.3e}, only t {half[1]:.3e}')
             require(rel < min(half), f'{name} is no closer to the plain '
                     'version than a product that skips a bf16 rounding')
-            # the main path's route reads U once: it must not lose to the
-            # library, which reads it twice
+        if vs_cublas:
+            # these routes read U once: they must not lose to the library,
+            # which reads it twice
             require(k_ms <= lib_ms, f'{name}: {k_ms:.4f} ms, slower than '
                     f'cuBLAS ({lib_ms:.4f} ms) in turns')
-        results[key] = entry(err, ms, plain_ms, b, lib_ms)
+        if key is not None:
+            results[key] = entry(err, ms, plain_ms, b, lib_ms)
         del u, x, s, d, y, y2, ref
         torch.cuda.empty_cache()
 
@@ -446,6 +463,18 @@ def check_compact(device, results, I=1_000_000, A=4):
                             lambda sums: compact_cost(P, K, I, A, sums))
             if main:
                 reported = ms
+    # K·A past one shared-memory group: the sums take K in groups
+    K = 14_000
+    kt, kg, _ = co._launch_shape(100_000, K, A, 4, sums=True)
+    kw = dict(zip(('coeffs', 'scores_t', 'annotations', 'dterm', 'nat_mu'),
+                  compact_inputs(device, 2, K, 100_000, A, seed=K)),
+              num_annotations=A)
+    check_pair(f'[P, I] P=2 K={K} I=100000 A={A} ({-(-K // kg)} component '
+               f'groups of {kg})', None, results,
+               (co.prologue, co.delta_sums),
+               (co.prologue_plain, co.delta_sums_plain), kw,
+               lambda sums: compact_cost(2, K, 100_000, A, sums), timed=False)
+    require(kg < K, f'K = {K}, A = {A} fit one group ({kg})')
     return reported
 
 
@@ -507,9 +536,11 @@ EPOCH_CASES = ((2, 582, 1_000_000, 2, False, True),
 
 def check_kdim(device, results, A=4, shapes=KDIM_SHAPES):
     """The per-component [K, P, I] natural mean at (P, K, I) shapes: the
-    first is the per-chromosome shape of phase 6, the one reported."""
+    first is the per-chromosome shape of phase 6, the one reported.
+    Returns its (prologue, sums) kernel ms."""
     import torch
     from vilma_tpu_torch.ops.cuda import compact_obj as co
+    reported = None
     for P, K, I in shapes:
         coeffs, scores_t, ann, dterm, _ = compact_inputs(device, P, K, I, A,
                                                          seed=7 * P + K)
@@ -519,12 +550,15 @@ def check_kdim(device, results, A=4, shapes=KDIM_SHAPES):
                   nat_mu=torch.randn(K, P, I, generator=gen,
                                      device=device) * 0.5)
         main = (P, K, I) == shapes[0]
-        check_pair(f'kdim P={P} K={K} I={I} A={A}',
-                   ('prologue_kdim', 'delta_sums_kdim') if main else None,
-                   results, (co.prologue, co.delta_sums),
-                   (co.prologue_plain, co.delta_sums_plain), kw,
-                   lambda sums: compact_cost(P, K, I, A, sums, 'kdim'))
+        ms = check_pair(f'kdim P={P} K={K} I={I} A={A}',
+                        ('prologue_kdim', 'delta_sums_kdim') if main
+                        else None, results, (co.prologue, co.delta_sums),
+                        (co.prologue_plain, co.delta_sums_plain), kw,
+                        lambda sums: compact_cost(P, K, I, A, sums, 'kdim'))
+        if main:
+            reported = ms
         del kw
+    return reported
 
 
 def check_epochs(device, results, A=4, B=4, cases=EPOCH_CASES):
@@ -585,19 +619,24 @@ def check_epochs(device, results, A=4, B=4, cases=EPOCH_CASES):
     return times
 
 
-def check_bars(shared_ms, epoch_ms):
-    """The redesigned compact kernels against the epoch prologue at 1M
-    SNPs, P = 2, K = 582, 1 live epoch, all timed in this run: the epoch
-    sums' two z-only passes at most 2.0x its one full pass, and the
-    [P, I] prologue (the same pass with less algebra) no slower."""
+def check_bars(shared_ms, kdim_ms, epoch_ms):
+    """The redesigned compact kernels, all timed in this run. At 1M SNPs,
+    P = 2, K = 582, 1 live epoch: the epoch sums' two z-only passes at
+    most 2.0x the epoch prologue's one full pass, the [P, I] prologue (the
+    same pass with less algebra) no slower, and the [P, I] sums (two
+    z-only passes) at most 2.0x the [P, I] prologue. At 90,112 SNPs the
+    kdim sums at most 2.0x the kdim prologue."""
     pro, sums = epoch_ms[(2, 1_000_000, 1)]
-    log(f'  at 1M SNPs, K = 582: epoch sums / epoch prologue (1 live) '
-        f'{sums / pro:.3f} (target <= 2.0); [P, I] prologue / epoch '
-        f'prologue {shared_ms[0] / pro:.3f} (target <= 1)')
-    require(sums <= 2.0 * pro, f'epoch sums take {sums / pro:.3f}x the '
-            'epoch prologue (target <= 2.0)')
-    require(shared_ms[0] <= pro, f'[P, I] prologue takes '
-            f'{shared_ms[0] / pro:.3f}x the epoch prologue (target <= 1)')
+    ratios = (('epoch sums / epoch prologue (1 live)', sums / pro, 2.0),
+              ('[P, I] prologue / epoch prologue', shared_ms[0] / pro, 1.0),
+              ('[P, I] sums / [P, I] prologue', shared_ms[1] / shared_ms[0],
+               2.0),
+              ('kdim sums / kdim prologue (90K)', kdim_ms[1] / kdim_ms[0],
+               2.0))
+    log('  bars: ' + '; '.join(f'{name} {r:.3f} (target <= {cap})'
+                               for name, r, cap in ratios))
+    for name, r, cap in ratios:
+        require(r <= cap, f'{name} is {r:.3f} (target <= {cap})')
 
 
 # ---------------------------------------------------------------------------
@@ -792,7 +831,7 @@ def run_fit(paths, prefix, device, extra=()):
 
 def zero_counts():
     from vilma_tpu_torch.ops.cuda import block_matvec, compact_obj
-    block_matvec.launches = block_matvec.launches_two_read = 0
+    block_matvec.launches = block_matvec.launches_group = 0
     for key in compact_obj.launches:
         compact_obj.launches[key] = 0
 
@@ -802,7 +841,7 @@ def read_counts():
     bucket_matvec_multi whatever U's type."""
     from vilma_tpu_torch.ops.cuda import block_matvec, compact_obj
     return dict(bucket_matvec_multi=block_matvec.launches,
-                bucket_matvec_multi_two_read=block_matvec.launches_two_read,
+                bucket_matvec_multi_group=block_matvec.launches_group,
                 **compact_obj.launches)
 
 
@@ -852,10 +891,12 @@ def remove_outputs(prefix):
 # phases 5 and 7: engine at whole-genome HapMap3 scale
 # ---------------------------------------------------------------------------
 
-def device_ld(num_blocks, block_size, rank, device, seed=5):
+def device_ld(num_blocks, block_size, rank, device, seed=5, u_dtype=None):
     """A PackedLD of AR(1) blocks factored on the card (batched eigh,
-    set-up rather than a kernel), bf16 eigenvectors."""
+    set-up rather than a kernel), eigenvectors in u_dtype (bf16 by
+    default)."""
     import torch
+    u_dtype = torch.bfloat16 if u_dtype is None else u_dtype
     from vilma_tpu_torch.ops.blocks import BlockBucket, PackedLD
     rng = np.random.default_rng(seed)
     rho = torch.as_tensor(rng.uniform(0.3, 0.95, num_blocks),
@@ -867,7 +908,7 @@ def device_ld(num_blocks, block_size, rank, device, seed=5):
         r = rho[b0:b0 + 64]
         blocks = r[:, None, None] ** lag[None]
         vals, vecs = torch.linalg.eigh(blocks)
-        us.append(vecs[:, :, -rank:].to(torch.bfloat16))
+        us.append(vecs[:, :, -rank:].to(u_dtype))
         ss.append(vals[:, -rank:].contiguous())
         del blocks, vals, vecs
     u = torch.cat(us).contiguous()
@@ -883,17 +924,19 @@ def device_ld(num_blocks, block_size, rank, device, seed=5):
 
 
 def build_engine(device, ld=None, num_blocks=977, block_size=1024, K=18,
-                 scale_se=False):
+                 scale_se=False, u_dtype=None):
     """MultiPopVI and its initial state for a 2-cohort fit on AR(1)
-    blocks sharing one bf16 panel (`ld`, or `num_blocks` of them factored
-    here): K synthetic components, or with scale_se the CLI's -K 12 grid
-    drawn for these effect sizes (582 components)."""
+    blocks at half rank sharing one panel (`ld`, or `num_blocks` of them
+    factored here, U in u_dtype, bf16 by default): K synthetic
+    components, or with scale_se the CLI's -K 12 grid drawn for these
+    effect sizes (582 components)."""
     import torch
     from vilma_tpu_torch.inference import engine
     from vilma_tpu_torch.models import mixture
     t0 = time.perf_counter()
     if ld is None:
-        ld = device_ld(num_blocks, block_size, block_size // 2, device)
+        ld = device_ld(num_blocks, block_size, block_size // 2, device,
+                       u_dtype=u_dtype)
     _sync(device)
     n = ld.n
     rng = np.random.default_rng(7)
@@ -913,8 +956,10 @@ def build_engine(device, ld=None, num_blocks=977, block_size=1024, K=18,
     st = vi._initialize()
     st = engine.dataclasses.replace(st, elbo=vi.elbo_value(st))
     _sync(device)
+    u = ld.buckets[0].u
     log(f'  set-up: {n} SNPs, K = {vi.num_mix}, U '
-        f'{ld.buckets[0].u.numel() * 2 / 1e9:.2f} GB bf16, '
+        f'{u.numel() * u.element_size() / 1e9:.2f} GB '
+        f'{str(u.dtype).replace("torch.", "")}, '
         f'{time.perf_counter() - t0:.1f} s')
     return vi, st, ld
 
@@ -1002,8 +1047,8 @@ def main():
     t0 = time.perf_counter()
     check_matvec(device, results)
     shared_ms = check_compact(device, results)
-    check_kdim(device, results)
-    check_bars(shared_ms, check_epochs(device, results))
+    kdim_ms = check_kdim(device, results)
+    check_bars(shared_ms, kdim_ms, check_epochs(device, results))
     torch.cuda.empty_cache()
     log(f'  phase 3: {time.perf_counter() - t0:.1f} s')
 
@@ -1044,11 +1089,11 @@ def main():
             check_fit_outputs(prefix, paths4b[3], K=582)
         log(f'  launches {counts}; {len(step_s)} outer steps')
         require_launched(counts, ('bucket_matvec_multi',
-                                  'bucket_matvec_multi_two_read', 'prologue',
+                                  'bucket_matvec_multi_group', 'prologue',
                                   'delta_sums'), 'phase 4b')
         launches['bucket_matvec_multi_f32'] = counts['bucket_matvec_multi']
-        launches['bucket_matvec_multi_two_read'] = counts[
-            'bucket_matvec_multi_two_read']
+        launches['bucket_matvec_multi_group'] = counts[
+            'bucket_matvec_multi_group']
 
         phase('phase 5: engine, 1M SNPs, 2 cohorts, K=18, bf16 U')
         ips, syncs, elbo, ld = run_engine(device)

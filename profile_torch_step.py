@@ -5,10 +5,14 @@ one CUDA device.
     python3 profile_torch_step.py --blocks 88 -K 582   # ~90K SNPs, K = 582
     python3 profile_torch_step.py -K 582               # 1M SNPs, K = 582
     python3 profile_torch_step.py --learn-scaling      # 1M SNPs, epoch state
+    python3 profile_torch_step.py --blocks 489 --block-size 2048 \
+        --ld-precision f32                             # 1M SNPs, f32 U in
+                                                       # 2048-SNP blocks
 
-Builds the engine as chip_smoke.py's phase 5 does (AR(1) blocks of 1024
-at rank 512 factored on the card, bf16 U, 2 cohorts sharing the panel,
-f32), runs 2 outer steps to warm up, times 10 more with the host clock
+Builds the engine as chip_smoke.py's phase 5 does (AR(1) blocks of
+--block-size SNPs, 1024 by default, at half rank factored on the card, U
+in --ld-precision, bf16 by default, 2 cohorts sharing the panel, f32),
+runs 2 outer steps to warm up, times 10 more with the host clock
 (outer iterations/s, host syncs per step), then traces 3 further steps
 with torch.profiler. With --learn-scaling the fit learns the error
 scaling on the CLI's -K 12 grid (582 components), as chip_smoke.py's
@@ -68,7 +72,11 @@ def timeline(trace_path):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--blocks', type=int, default=977,
-                        help='LD blocks of 1024 SNPs')
+                        help='LD blocks of --block-size SNPs')
+    parser.add_argument('--block-size', type=int, default=1024,
+                        help='SNPs per LD block (rank: half of it)')
+    parser.add_argument('--ld-precision', choices=('bf16', 'f32'),
+                        default='bf16', help="U's storage type")
     parser.add_argument('-K', type=int, default=18,
                         help='mixture components (without --learn-scaling)')
     parser.add_argument('--learn-scaling', action='store_true',
@@ -84,9 +92,11 @@ def main():
     import chip_smoke
     from vilma_tpu_torch.inference import engine
 
-    vi, st, _ = chip_smoke.build_engine('cuda', num_blocks=args.blocks,
-                                        K=args.K,
-                                        scale_se=args.learn_scaling)
+    vi, st, _ = chip_smoke.build_engine(
+        'cuda', num_blocks=args.blocks, block_size=args.block_size, K=args.K,
+        scale_se=args.learn_scaling,
+        u_dtype=torch.float32 if args.ld_precision == 'f32'
+        else torch.bfloat16)
     data = vi.data
     for _ in range(WARMUP):
         st, _ = engine.outer_step(data, st)

@@ -42,11 +42,11 @@ def test_matvec_kernel_matches_plain(cuda, u_dtype, band, C):
     s = torch.rand(B, R, generator=gen, device=cuda) + 0.1
     d = torch.rand(B, P, generator=gen, device=cuda)
     x = torch.randn(B, C, P, generator=gen, device=cuda)
-    before = bm.launches + bm.launches_two_read
+    before = bm.launches + bm.launches_group
     y = bm.bucket_matvec_multi(u, s, d, x)
     y2 = bm.bucket_matvec_multi(u, s, d, x)
     torch.cuda.synchronize()
-    assert bm.launches + bm.launches_two_read == before + 2
+    assert bm.launches + bm.launches_group == before + 2
     assert torch.equal(y, y2)
     ref = bm.bucket_matvec_multi_plain(u, s, d, x)
     err = _scaled_err(y, ref)
@@ -54,6 +54,40 @@ def test_matvec_kernel_matches_plain(cuda, u_dtype, band, C):
     if u_dtype == torch.bfloat16:
         # the band alone would pass a kernel that skips rounding x or t:
         # it must sit closer to the plain version than either such product
+        for round_x in (True, False):
+            assert err < _scaled_err(
+                _half_rounded_matvec(u, s, d, x, round_x), ref)
+
+
+def _matvec_operands(device, B, P, R, C, u_dtype, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    u = (torch.randn(B, P, R, generator=gen, device=device)
+         / math.sqrt(P)).to(u_dtype)
+    s = torch.rand(B, R, generator=gen, device=device) + 0.1
+    d = torch.rand(B, P, generator=gen, device=device)
+    x = torch.randn(B, C, P, generator=gen, device=device)
+    return u, s, d, x
+
+
+def _check_route(u, s, d, x, route):
+    """The planned route and CTAs per block, its launch counter, bit-for-
+    bit repeatability and its band of the plain version (bf16 U: also
+    closer to it than a product that skips rounding x or t)."""
+    B, P, R = u.shape
+    pl = bm.plan(P, R, u.element_size(), x.shape[1])
+    assert (pl.route, pl.cluster) == route
+    before = (bm.launches, bm.launches_group)
+    y = bm.bucket_matvec_multi(u, s, d, x)
+    y2 = bm.bucket_matvec_multi(u, s, d, x)
+    torch.cuda.synchronize()
+    group = route[0] == 'group'
+    assert (bm.launches, bm.launches_group) == (
+        before[0] + 2 * (not group), before[1] + 2 * group)
+    assert torch.equal(y, y2)
+    ref = bm.bucket_matvec_multi_plain(u, s, d, x)
+    err = _scaled_err(y, ref)
+    assert err <= (2.0 ** -8 if u.dtype == torch.bfloat16 else 1e-5)
+    if u.dtype == torch.bfloat16:
         for round_x in (True, False):
             assert err < _scaled_err(
                 _half_rounded_matvec(u, s, d, x, round_x), ref)
@@ -67,40 +101,55 @@ def test_matvec_kernel_matches_plain(cuda, u_dtype, band, C):
     (1024, 512, torch.bfloat16, ('cluster', 8)),
     (2048, 512, torch.bfloat16, ('cluster', 16)),
     (1024, 512, torch.float32, ('cluster', 16)),
-    (2048, 1024, torch.float32, ('two_read', 1)),
+    (2048, 1024, torch.float32, ('group', 128)),
 ])
 @pytest.mark.parametrize('C', [1, 2, 3])
 def test_matvec_routes_match_plain(cuda, P, R, u_dtype, route, C):
     """Each route and cluster size the planner takes (1, 2, 4, 8, 16 CTAs
-    per block, a rank with a partial column block, and the two-read route
-    of an oversize block) within its band of the plain version,
-    bit-for-bit repeatable, counted on its own launch counter. 40 blocks:
-    more than the card holds clusters at once, so the clusters walk
-    several."""
-    gen = torch.Generator(device=cuda).manual_seed(P + C)
+    per block, a rank with a partial column block, and the group route of
+    an oversize block) within its band of the plain version,
+    bit-for-bit repeatable, counted on its own launch counter. 40 blocks
+    on the cluster route: more than the card holds clusters at once, so
+    the clusters walk several."""
     B = 40 if route[0] == 'cluster' else 4
-    u = (torch.randn(B, P, R, generator=gen, device=cuda)
-         / math.sqrt(P)).to(u_dtype)
-    s = torch.rand(B, R, generator=gen, device=cuda) + 0.1
-    d = torch.rand(B, P, generator=gen, device=cuda)
-    x = torch.randn(B, C, P, generator=gen, device=cuda)
-    pl = bm.plan(P, R, u.element_size(), C)
-    assert (pl.route, pl.cluster) == route
-    before = (bm.launches, bm.launches_two_read)
-    y = bm.bucket_matvec_multi(u, s, d, x)
-    y2 = bm.bucket_matvec_multi(u, s, d, x)
+    _check_route(*_matvec_operands(cuda, B, P, R, C, u_dtype, P + C), route)
+
+
+@pytest.mark.parametrize('P,R,u_dtype,G', [
+    (2048, 1024, torch.float32, 128),      # two slice buffers
+    (2048, 1024, torch.bfloat16, 128),
+    (4096, 512, torch.float32, 128),
+    (8, 8, torch.bfloat16, 1),             # under 16 rows: one column group
+    (8, 8, torch.float32, 2),
+    (1024, 4096, torch.float32, 128),      # no two slices fit: U read twice
+    (4096, 4096, torch.bfloat16, 128),
+])
+@pytest.mark.parametrize('B', [1, 4, 33])
+@pytest.mark.parametrize('C', [1, 3])
+def test_group_route_matches_plain(cuda, P, R, u_dtype, G, B, C):
+    """The group route at every bucket size (a bucket of 1 or 4 blocks on
+    the whole card, 33 blocks over several rounds of the resident groups)
+    within its band of the plain version and bit-for-bit repeatable."""
+    _check_route(*_matvec_operands(cuda, B, P, R, C, u_dtype, B * P + C),
+                 ('group', G))
+
+
+def test_group_route_workspace_per_stream(cuda):
+    """Each stream has its own group-route workspace (partials and the two
+    sets of barrier counters a launch alternates between), so launches on
+    two streams never share counters: launches taking turns on the two
+    streams equal the one-stream result bit for bit."""
+    u, s, d, x = _matvec_operands(cuda, 4, 2048, 1024, 2, torch.float32, 7)
+    ref = bm.bucket_matvec_multi(u, s, d, x)
     torch.cuda.synchronize()
-    two = route[0] == 'two_read'
-    assert (bm.launches, bm.launches_two_read) == (
-        before[0] + 2 * (not two), before[1] + 2 * two)
-    assert torch.equal(y, y2)
-    ref = bm.bucket_matvec_multi_plain(u, s, d, x)
-    err = _scaled_err(y, ref)
-    assert err <= (2.0 ** -8 if u_dtype == torch.bfloat16 else 1e-5)
-    if u_dtype == torch.bfloat16:
-        for round_x in (True, False):
-            assert err < _scaled_err(
-                _half_rounded_matvec(u, s, d, x, round_x), ref)
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    for i in range(5):
+        st = streams[i % 2]
+        with torch.cuda.stream(st):
+            y = bm.bucket_matvec_multi(u, s, d, x)
+        st.synchronize()
+        assert torch.equal(y, ref)
+    assert {st.cuda_stream for st in streams} <= {k[1] for k in bm._workspace}
 
 
 @pytest.mark.parametrize('u_dtype', [torch.bfloat16, torch.float32])
@@ -118,8 +167,8 @@ def test_cluster_plans_agree_with_kernel_layout(cuda, u_dtype):
             for C in (1, 2, 3):
                 pl = bm.plan(P, R, itemsize, C)
                 if pl.route == 'cluster':
-                    assert bm._clusters(lib, cuda, P, R, C, int(itemsize == 2),
-                                        pl) >= 1
+                    assert bm._capacity(lib, cuda, P, R, C,
+                                        int(itemsize == 2), pl) >= 1
                     planned += 1
     assert planned > 0
 
@@ -337,5 +386,55 @@ def test_epoch_sums_shapes(cuda, P, K, A, live, I, clamp_heavy):
     torch.cuda.synchronize()
     assert co.launches['delta_sums_epochs'] == before + 2
     assert sums.shape == (A, K)
+    assert torch.equal(sums, again)
+    assert _scaled_err(sums, rsums) <= 1e-5
+
+
+@pytest.mark.parametrize('P,K,A,kdim,I', [
+    (2, 600, 1, False, 20_000),        # one annotation
+    (2, 600, 12, True, 20_000),        # A > 8
+    (3, 600, 4, False, 300_000),       # more SNP tiles than CTAs
+    (2, 14_000, 4, False, 3_000),      # K·A past one group's partial
+    (2, 14_000, 4, True, 3_000),
+    (1, 20_000, 8, False, 3_000),
+])
+def test_compact_sums_shapes(cuda, P, K, A, kdim, I):
+    """The z-only [P, I] and kdim sums (sorted per-CTA reduction, K in
+    groups where K·A does not fit one) within their band of the plain
+    version, with pad SNPs, bit-for-bit repeatable."""
+    args = list(_compact_args(cuda, P, K, I, A, seed=P * 13 + K + A))
+    if kdim:
+        gen = torch.Generator(device=cuda).manual_seed(K + A)
+        args[4] = torch.randn(K, P, I, generator=gen, device=cuda) * 0.5
+    assert bool((args[2] == A).any())             # pad SNPs present
+    ncol = P * (P + 1) // 2 + 1
+    kt, kg, _ = co._launch_shape(I, K, A, ncol, sums=True)
+    assert (kg < K) == (K >= 14_000)
+    key = 'delta_sums_kdim' if kdim else 'delta_sums'
+    before = co.launches[key]
+    sums = co.delta_sums(*args, num_annotations=A)
+    again = co.delta_sums(*args, num_annotations=A)
+    rsums = co.delta_sums_plain(*args, num_annotations=A)
+    torch.cuda.synchronize()
+    assert co.launches[key] == before + 2
+    assert sums.shape == (A, K)
+    assert torch.equal(sums, again)
+    assert _scaled_err(sums, rsums) <= 1e-5
+
+
+@pytest.mark.parametrize('K,A', [(14_000, 4), (20_000, 8)])
+def test_epoch_sums_any_k_times_a(cuda, K, A):
+    """The epoch sums past one group's partial: K in groups, within their
+    band of the plain version, bit-for-bit repeatable."""
+    P, B, live, I = 2, 4, 1, 3_000
+    args = _epoch_args(cuda, P, K, I, A, B, live, seed=K + A)
+    kw = dict(num_annotations=A, num_live=live)
+    kt, kg, _ = co._launch_shape(I, K, A, 4, sums=True,
+                                 table_floats=(live + 1) * P + live)
+    assert kg < K
+    sums = co.delta_sums_epochs(*args, **kw)
+    again = co.delta_sums_epochs(*args, **kw)
+    rsums = co.delta_sums_epochs_plain(*args, num_annotations=A)
+    torch.cuda.synchronize()
     assert torch.equal(sums, again)
     assert _scaled_err(sums, rsums) <= 1e-5

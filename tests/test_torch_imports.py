@@ -165,9 +165,9 @@ def test_kernel_wrappers_refuse_bad_operands():
             'prologue', torch.zeros(3, 5), torch.zeros(3, 1),
             torch.zeros(5, dtype=torch.int32), torch.ones(2, 5),
             torch.zeros(2, 5), 1)
-    kt, nblocks = compact_obj._launch_shape(1_000_000, 582, 4, 4,
-                                            sums=True)
-    assert 1 <= kt <= 582 and nblocks == 1024
+    kt, kg, nblocks = compact_obj._launch_shape(1_000_000, 582, 4, 4,
+                                                sums=True)
+    assert 1 <= kt <= kg == 582 and nblocks == 1024
     # the plain versions run for CPU tensors; launches stay 0
     before = block_matvec.launches
     block_matvec.bucket_matvec_multi(torch.zeros(1, 8, 8), torch.zeros(1, 8),

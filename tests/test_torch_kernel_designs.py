@@ -3,25 +3,29 @@
 The kernels run only on a card (tests/test_torch_cuda.py and
 chip_smoke.py hold them against their plain versions there). Here:
 
-* the matvec planner's route and cluster size for the bucket shapes of
+* the matvec planner's route and group size for the bucket shapes of
   the 1M-SNP LD (977 blocks of 1024 SNPs at rank 512, whose last block in
   bench.py's LD holds 576 SNPs at rank 288), for bf16 and f32 U, and for
-  blocks too large for a 16-CTA cluster;
+  blocks too large for a 16-CTA cluster (the group route), with the
+  group route's CTAs per block independent of the number of blocks;
 * the cluster matvec's arithmetic, emulated: row-slice partials of
   t = U^T x added in cluster-rank order, then scaled and rounded, then
   the second contraction, against the plain version and the JAX
   package's Pallas kernel in interpret mode;
+* the group matvec's arithmetic, emulated in the kernel's order: each
+  CTA's t for its own columns, its partial y, the partials added by row
+  share in rank order; at f64 and in U's type;
 * the one-pass prologue's online accumulators (epoch, [P, I] and kdim
   forms), emulated over K, against the two-pass clamped plain version
   (f64 at the JAX package's route-equality tolerances, f32 within
   chip_smoke.py's bands) and the Pallas kernel, on an ordinary and on a
   clamp-heavy input;
-* the z-only epoch sums in the kernel's order (pass 1's online
-  normalizer, the clamped weights, each CTA's sums by annotation in SNP
-  order across its grid stride, the partials added by reduce_rows),
-  against the plain version and the Pallas kernel;
-* the epoch sums' launch shape: all of K = 582 in one tile, small enough
-  for four CTAs per SM.
+* the z-only sums of all three forms in the kernel's order (pass 1's
+  online normalizer, the clamped weights, each CTA's sums by annotation
+  in SNP order across its grid stride, the partials added by
+  reduce_rows), against the plain versions and the Pallas kernels;
+* the sums' launch shapes: all of K = 582 in one tile, small enough for
+  four CTAs per SM, and K taken in groups where K·A does not fit.
 """
 import math
 
@@ -43,6 +47,13 @@ from tests.torch_parity import t2n
 BAND_F32 = 1e-5
 BAND_BF16 = 2.0 ** -8
 BAND_KL = 1e-4
+# threads per CTA of the compact kernels (csrc kThreads): SNPs per tile
+THREADS = 256
+WARPS = THREADS // 32
+# threads of a group-route matvec CTA that compute steps 1 and 2 and that
+# reduce (step 3) (csrc/block_matvec.cu kComputeThreads, kReduceThreads)
+COMPUTE_THREADS = 384
+REDUCE_THREADS = 128
 
 
 # ---------------------------------------------------------------------------
@@ -62,12 +73,13 @@ BAND_KL = 1e-4
     (2048, 512, 2, 'cluster', 16),
     (1024, 1024, 2, 'cluster', 16),
     # too large for 16 slices of shared memory, too wide a rank, or
-    # fewer than 16 rows per CTA
-    (2048, 512, 4, 'two_read', 1),
-    (2048, 1024, 4, 'two_read', 1),
-    (2048, 1024, 2, 'two_read', 1),
-    (4096, 4096, 2, 'two_read', 1),
-    (8, 8, 2, 'two_read', 1),
+    # fewer than 16 rows per CTA: the group route, up to 128 CTAs each
+    # owning 16-byte column groups
+    (2048, 512, 4, 'group', 128),
+    (2048, 1024, 4, 'group', 128),
+    (2048, 1024, 2, 'group', 128),
+    (4096, 4096, 2, 'group', 128),
+    (8, 8, 2, 'group', 1),
 ])
 @pytest.mark.parametrize('C', [1, 2, 3])
 def test_plan_routes_bucket_shapes(P, R, itemsize, route, G, C):
@@ -90,7 +102,40 @@ def test_plan_routes_bucket_shapes(P, R, itemsize, route, G, C):
                                             ncb if itemsize == 2 else 1)
                         > 227 * 1024)
     else:
-        assert pl.smem == 4 * C * R
+        # the slice: all P rows by cgc column groups of 16 bytes, every
+        # column group owned by one CTA; in two buffers where they fit,
+        # else read from device memory (0 buffers)
+        cgc = tbm.group_columns(R, itemsize, G)
+        ncg = R * itemsize // 16
+        assert G <= ncg <= G * cgc < 2 * ncg or cgc == 1
+        assert pl.smem == tbm.group_smem(P, R, C, itemsize, G, pl.slots)
+        assert pl.smem > pl.slots * P * cgc * 16
+        fits = tbm.group_smem(P, R, C, itemsize, G, 2) <= 227 * 1024
+        assert pl.slots == (2 if fits else 0)
+
+
+@pytest.mark.parametrize('P,R,itemsize,held,groups', [
+    # one CTA per SM on 132 SMs: one group at a time
+    (2048, 1024, 4, 132, 1),
+    # two or three per SM: as many groups
+    (2048, 1024, 2, 264, 2),
+    (2048, 512, 4, 396, 3),
+    # no slice fits: 32 MB blocks, one at a time (the whole card on one
+    # block) however many the card holds
+    (4096, 4096, 2, 1056, 1),
+])
+@pytest.mark.parametrize('B', [1, 4, 128])
+def test_group_route_spreads_any_bucket_over_the_card(P, R, itemsize, held,
+                                                      groups, B):
+    """The group route's plan does not depend on B: a bucket of 1 or 4
+    blocks runs on 128 CTAs (on as many SMs) per block all the same; more
+    blocks fill as many groups as the card holds (`held` CTAs at once: the
+    occupancy of the planned shared memory times 132 SMs)."""
+    pl = tbm.plan(P, R, itemsize, 2)
+    assert (pl.route, pl.cluster) == ('group', 128)
+    n = tbm.group_count(B, held, pl)
+    assert n == min(B, groups)
+    assert n * pl.cluster >= 128
 
 
 # ---------------------------------------------------------------------------
@@ -143,6 +188,153 @@ def test_cluster_matvec_arithmetic(u_dtype, C, G):
     band = BAND_F32 if u_dtype == 'f32' else BAND_BF16
     j, t = _matvec_inputs(dt, C, seed=10 * C + G)
     got = t2n(_cluster_matvec(*t, G))
+    plain = t2n(tbm.bucket_matvec_multi_plain(*t))
+    pallas = np.asarray(jbm.bucket_matvec_multi(*j, interpret=True))
+    assert got.shape == plain.shape == pallas.shape
+    err = _scaled(got, plain)
+    assert err <= band
+    assert _scaled(got, pallas) <= band
+    if u_dtype == 'bf16':
+        u, s, d, x = t
+        for skipped in (x.to(torch.bfloat16).float(), None):
+            xr = x if skipped is None else skipped
+            tt = torch.einsum('bpr,bcp->bcr', u.float(), xr) * s[:, None, :]
+            if skipped is None:
+                tt = tt.to(torch.bfloat16).float()
+            half = torch.einsum('bpr,bcr->bcp', u.float(), tt) + d[:, None] * x
+            assert err < _scaled(t2n(half), plain)
+
+
+# ---------------------------------------------------------------------------
+# the group matvec's arithmetic
+# ---------------------------------------------------------------------------
+
+# a rank per group size G that the group route takes: at most 32 column
+# groups of 16 bytes per CTA, and at least one
+GROUP_RANK = {1: 64, 8: 256, 64: 512}
+
+
+def _butterfly(v, n=32):
+    """Lane 0 of a butterfly shuffle sum over the first axis (n lanes):
+    v[l] + v[l ^ o] for o = n/2, ..., 2, 1 (warp_sum for n = 32)."""
+    lanes = torch.arange(n)
+    o = n // 2
+    while o >= 1:
+        v = v + v[lanes ^ o]
+        o //= 2
+    return v[0]
+
+
+def _group_matvec(u, s, d, x, G):
+    """What the group route computes (block_matvec.cu, group_matvec_kernel)
+    in its order. CTA g owns cgc column groups of 16 bytes
+    (block_matvec.group_columns) and rows [g rpc, (g + 1) rpc) of y,
+    rpc = ceil(P / G):
+
+    1. t_g: thread (part, column group) adds rows part, part + nparts, ...
+       (nparts = 384 / cgc) in order; a butterfly over the 32 / cgc parts of
+       each warp, then the 12 warps' sums in warp order; times s, rounded
+       to U's type;
+    2. its partial y_g[c][p] = sum over its columns, in order, of
+       U[p][k] t_g[c][k];
+    3. y[c][p] for CTA g's rows: L lanes per value, lane q adding ranks
+       [q G/L, (q+1) G/L) in order, the lane sums added in lane order;
+       + d x.
+    x is rounded to U's type before step 1."""
+    B, P, R = u.shape
+    C = x.shape[1]
+    bf16 = u.dtype == torch.bfloat16
+    vec = 8 if bf16 else 4
+    uf = u.float().to(x.dtype) if bf16 else u.to(x.dtype)
+    xr = x.to(torch.bfloat16).to(x.dtype) if bf16 else x
+    ncg = R // vec
+    cgc = tbm.group_columns(R, u.element_size(), G)
+    nparts = COMPUTE_THREADS // cgc
+    lanes = 32 // cgc
+    parts = []
+    for g in range(G):
+        cg0 = min(ncg, g * cgc)
+        ncl = min(ncg, cg0 + cgc) - cg0
+        cols = slice(cg0 * vec, (cg0 + ncl) * vec)
+        yg = x.new_zeros((B, C, P))
+        if ncl:
+            acc = x.new_zeros((nparts, B, C, ncl * vec))
+            for part in range(min(nparts, P)):
+                for p in range(part, P, nparts):
+                    acc[part] = acc[part] + uf[:, None, p, cols] * xr[:, :, p,
+                                                                     None]
+            warp_sums = [_butterfly(acc[w * lanes:(w + 1) * lanes], lanes)
+                         for w in range(COMPUTE_THREADS // 32)]
+            tot = warp_sums[0]
+            for ws in warp_sums[1:]:
+                tot = tot + ws
+            t = tot * s[:, None, cols]
+            if bf16:
+                t = t.to(torch.bfloat16).to(x.dtype)
+            for k in range(ncl * vec):
+                yg = yg + uf[:, None, :, cols][..., k] * t[..., k, None]
+        parts.append(yg)
+    y = x.new_zeros((B, C, P))
+    rpc = -(-P // G)
+    for g in range(G):
+        r0 = min(P, g * rpc)
+        w = min(P, r0 + rpc) - r0
+        if w == 0:
+            continue
+        L = 1
+        while 2 * L * C * w <= REDUCE_THREADS and 2 * L <= G:
+            L *= 2
+        per = G // L
+        rows = slice(r0, r0 + w)
+        tot = None
+        for q in range(L):
+            acc = None
+            for r in range(q * per, (q + 1) * per):
+                acc = parts[r][..., rows] if acc is None else (
+                    acc + parts[r][..., rows])
+            tot = acc if tot is None else tot + acc
+        y[..., rows] = tot + d[:, None, rows] * x[..., rows]
+    return y
+
+
+@pytest.mark.parametrize('C', [1, 2, 3])
+@pytest.mark.parametrize('G', [1, 8, 64])
+@pytest.mark.parametrize('u_dtype', ['f32', 'bf16'])
+def test_group_matvec_f64_matches_plain_and_pallas(C, G, u_dtype):
+    """At f64 (U's values from f32 or bf16) the group route's order equals
+    the plain version to the route-equality tolerances, and the Pallas
+    kernel (interpret mode), which accumulates in f32 whatever its inputs
+    (preferred_element_type), within the f32 band (its own test,
+    tests/test_pallas.py, allows 1e-3)."""
+    rng = np.random.default_rng(100 * C + G + len(u_dtype))
+    B, P, R = 3, 64, GROUP_RANK[G]
+    u = rng.standard_normal((B, P, R)) / np.sqrt(P)
+    u = np.asarray(jnp.asarray(u, dtype=jnp.float32 if u_dtype == 'f32'
+                               else jnp.bfloat16), dtype=np.float64)
+    s = rng.uniform(0.1, 2.0, (B, R))
+    d = rng.uniform(0.0, 1.0, (B, P))
+    x = rng.standard_normal((B, C, P))
+    t = [torch.as_tensor(a) for a in (u, s, d, x)]
+    got = t2n(_group_matvec(*t, G))
+    plain = t2n(tbm.bucket_matvec_multi_plain(*t))
+    pallas = np.asarray(jbm.bucket_matvec_multi(
+        *[jnp.asarray(a) for a in (u, s, d, x)], interpret=True))
+    np.testing.assert_allclose(got, plain, rtol=1e-9,
+                               atol=1e-12 * np.abs(plain).max())
+    assert _scaled(got, pallas) <= BAND_F32
+
+
+@pytest.mark.parametrize('u_dtype', ['f32', 'bf16'])
+@pytest.mark.parametrize('C', [1, 2, 3])
+@pytest.mark.parametrize('G', [1, 8, 64])
+def test_group_matvec_arithmetic(u_dtype, C, G):
+    """In U's type: within the kernel's bands of the plain version and of
+    the Pallas kernel; with bf16 U also closer to the plain version than a
+    product that skips rounding x or t."""
+    dt = jnp.float32 if u_dtype == 'f32' else jnp.bfloat16
+    band = BAND_F32 if u_dtype == 'f32' else BAND_BF16
+    j, t = _matvec_inputs(dt, C, seed=30 * C + G, R=GROUP_RANK[G])
+    got = t2n(_group_matvec(*t, G))
     plain = t2n(tbm.bucket_matvec_multi_plain(*t))
     pallas = np.asarray(jbm.bucket_matvec_multi(*j, interpret=True))
     assert got.shape == plain.shape == pallas.shape
@@ -239,18 +431,24 @@ def _one_pass_epochs(coeffs, scores_t, annotations, sld, nat_u, hist_v,
                    num_annotations), z
 
 
-def _one_pass(coeffs, scores_t, annotations, dterm, nat_mu, *,
-              num_annotations):
-    """What the one-pass [P, I] and kdim prologue computes (compact_obj.cuh,
-    derive_once and struct Online): y = sigma n, quad = y . n with the
-    shared [P, I] or the per-component [K, P, I] natural mean n. Returns
-    (post_means, post_vars, KL) and the logits z [K, I]."""
+def _compact_logits(coeffs, scores_t, annotations, dterm, nat_mu):
+    """The port's [P, I] or kdim per-component algebra and the logits
+    z [K, I]: y = sigma n, quad = y . n with the shared [P, I] or the
+    per-component [K, P, I] natural mean n."""
     P = nat_mu.shape[-2]
     dev = tco._derive_plain(coeffs, scores_t, annotations, dterm, nat_mu,
                             epsilon(nat_mu.dtype))
     n = ([nat_mu[:, p] for p in range(P)] if nat_mu.dim() == 3
          else [nat_mu[p:p + 1] for p in range(P)])
-    z = 0.5 * (tco._dot(dev['y'], n) - dev['logdet']) + dev['sel']
+    return dev, 0.5 * (tco._dot(dev['y'], n) - dev['logdet']) + dev['sel']
+
+
+def _one_pass(coeffs, scores_t, annotations, dterm, nat_mu, *,
+              num_annotations):
+    """What the one-pass [P, I] and kdim prologue computes (compact_obj.cuh,
+    derive_once and struct Online). Returns (post_means, post_vars, KL) and
+    the logits z [K, I]."""
+    dev, z = _compact_logits(coeffs, scores_t, annotations, dterm, nat_mu)
     return _online(dev['y'], dev['diag'], _g_term(dev), z, annotations,
                    num_annotations), z
 
@@ -420,27 +618,21 @@ def test_one_pass_prologue_f32_within_bands(P, kind, kdim, K):
 
 
 # ---------------------------------------------------------------------------
-# the z-only epoch sums
+# the z-only sums (all three forms)
 # ---------------------------------------------------------------------------
 
-THREADS = 256          # csrc/compact_obj.cuh kThreads: SNPs per tile
-WARPS = THREADS // 32
-
-
-def _z_only_sums(coeffs, scores_t, annotations, sld, nat_u, hist_v,
-                 inv_scales, hist_c, *, num_annotations, num_live, nblocks):
-    """What the epoch sums compute (compact_obj.cuh, kZSums), in the
-    kernel's order: pass 1's online max and normalizer over K; the
-    clamped weights max(exp(z - m) / s, eps); per SNP tile, each
-    annotation's weights added in SNP order (the sorted segment) into the
-    partial of CTA (tile mod nblocks); then reduce_rows: warp w adds the
-    partials of CTAs w, w + 8, ... in f64, and the warps' sums are added
-    in warp order. Returns [A, K]."""
+def _sorted_sums(z, annotations, num_annotations, nblocks, kg=None):
+    """What the sums compute from the logits z [K, I] (compact_obj.cuh,
+    SUMS), in the kernel's order: pass 1's online max and normalizer over
+    K; the clamped weights max(exp(z - m) / s, eps); for each group of kg
+    components (all K by default), per SNP tile, each annotation's weights
+    added in SNP order (the sorted segment) into the partial of CTA (tile
+    mod nblocks); then reduce_rows: warp w adds the partials of CTAs w,
+    w + 8, ... in f64, and the warps' sums are added in warp order.
+    Returns [A, K]."""
     A = num_annotations
-    I = nat_u.shape[1]
-    K = scores_t.shape[0]
-    _, z = _epoch_logits(coeffs, scores_t, annotations, sld, nat_u, hist_v,
-                         inv_scales, hist_c, num_live)
+    K, I = z.shape
+    kg = K if kg is None else kg
     m = torch.full_like(z[0], -math.inf)
     s = torch.zeros_like(z[0])
     for k in range(K):
@@ -450,13 +642,15 @@ def _z_only_sums(coeffs, scores_t, annotations, sld, nat_u, hist_v,
         m = torch.where(move, z[k], m)
     w = torch.clamp(torch.exp(z - m) * (1.0 / s), min=epsilon(z.dtype))
     part = z.new_zeros((nblocks, K, A))
-    for t0 in range(0, I, THREADS):
-        ann = annotations[t0:t0 + THREADS]
-        for aa in range(A):
-            v = z.new_zeros(K)
-            for i in torch.nonzero(ann == aa).flatten().tolist():
-                v = v + w[:, t0 + i]
-            part[(t0 // THREADS) % nblocks, :, aa] += v
+    for g0 in range(0, K, kg):
+        grp = slice(g0, min(K, g0 + kg))
+        for t0 in range(0, I, THREADS):
+            ann = annotations[t0:t0 + THREADS]
+            for aa in range(A):
+                v = z.new_zeros(grp.stop - g0)
+                for i in torch.nonzero(ann == aa).flatten().tolist():
+                    v = v + w[grp, t0 + i]
+                part[(t0 // THREADS) % nblocks, grp, aa] += v
     rows = part.reshape(nblocks, K * A).double()
     warp_sums = []
     for wp in range(WARPS):
@@ -468,6 +662,22 @@ def _z_only_sums(coeffs, scores_t, annotations, sld, nat_u, hist_v,
     for acc in warp_sums[1:]:
         tot = tot + acc
     return tot.to(z.dtype).reshape(K, A).T
+
+
+def _z_only_sums(coeffs, scores_t, annotations, sld, nat_u, hist_v,
+                 inv_scales, hist_c, *, num_annotations, num_live, nblocks,
+                 kg=None):
+    """The epoch sums (z_epochs) in the kernel's order: [A, K]."""
+    _, z = _epoch_logits(coeffs, scores_t, annotations, sld, nat_u, hist_v,
+                         inv_scales, hist_c, num_live)
+    return _sorted_sums(z, annotations, num_annotations, nblocks, kg)
+
+
+def _z_only_compact_sums(coeffs, scores_t, annotations, dterm, nat_mu, *,
+                         num_annotations, nblocks, kg=None):
+    """The [P, I] and kdim sums (z_form) in the kernel's order: [A, K]."""
+    _, z = _compact_logits(coeffs, scores_t, annotations, dterm, nat_mu)
+    return _sorted_sums(z, annotations, num_annotations, nblocks, kg)
 
 
 @pytest.mark.parametrize('P', [1, 2, 3])
@@ -510,21 +720,99 @@ def test_z_only_sums_f32_within_band(P, live, kind):
                    t2n(ref).astype(np.float64)) <= BAND_F32
 
 
+@pytest.mark.parametrize('P', [1, 2, 3])
+@pytest.mark.parametrize('kind', ['ordinary', 'clamp'])
+@pytest.mark.parametrize('kdim', [False, True])
+def test_z_only_compact_sums_f64_matches_plain_and_pallas(P, kind, kdim):
+    """At f64 the z-only [P, I] and kdim sums in the kernel's reduction
+    order (pad SNPs every 11th, one CTA or two) equal the plain version
+    and the Pallas kernel (`delta_sums`, interpret mode) to the
+    route-equality tolerances."""
+    args, A = _compact_inputs(P, kind, 11 * P + len(kind) + kdim, 24, kdim)
+    t = _as_torch(args, torch.float64)
+    got = _z_only_compact_sums(*t, num_annotations=A, nblocks=1 + kdim)
+    plain = tco.delta_sums_plain(*t, num_annotations=A)
+    pallas = jco.delta_sums(*[jnp.asarray(a) for a in args],
+                            num_annotations=A, interpret=True)
+    for ref in (plain, pallas):
+        ref = np.asarray(ref)
+        assert got.shape == ref.shape == (A, 24)
+        np.testing.assert_allclose(t2n(got), ref, rtol=1e-9,
+                                   atol=1e-9 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize('P', [1, 2, 3])
+@pytest.mark.parametrize('kind', ['ordinary', 'clamp'])
+@pytest.mark.parametrize('kdim', [False, True])
+def test_z_only_compact_sums_f32_within_band(P, kind, kdim):
+    """At f32 the z-only [P, I] and kdim sums sit within chip_smoke.py's
+    band of the plain version on the same inputs."""
+    args, A = _compact_inputs(P, kind, 13 * P + len(kind) + kdim, 24, kdim)
+    t = _as_torch(args, torch.float32)
+    got = _z_only_compact_sums(*t, num_annotations=A, nblocks=2)
+    ref = tco.delta_sums_plain(*t, num_annotations=A)
+    assert np.all(np.isfinite(t2n(got)))
+    assert _scaled(t2n(got).astype(np.float64),
+                   t2n(ref).astype(np.float64)) <= BAND_F32
+
+
+def _sums_smem(kt, kg, A, ncol, table):
+    """Bytes of shared memory of a sums launch (csrc/compact_obj.cuh
+    extra_floats, compact launch)."""
+    return 4 * (kt * (ncol + A) + kg * A + tco._CHUNK * (THREADS + 1)
+                + (A + 1) * WARPS + A + 2 + table)
+
+
 @pytest.mark.parametrize('K,A,tiles', [(582, 4, 1), (600, 12, 1),
                                        (3000, 12, 3)])
 def test_epoch_sums_launch_shape(K, A, tiles):
     """The epoch sums hold all of K = 582 in one component tile beside
     their [K, A] partial, in at most 56 KB of shared memory (four CTAs of
-    256 threads per SM), and split larger K·A over tiles within the
-    card's per-block limit."""
+    256 threads per SM), and split larger K over tiles beside the whole
+    [K, A] partial within the card's per-block limit."""
     P, ncol = 2, 4
     table = 2 * P + 1                                  # 1 live epoch
-    kt, nblocks = tco._launch_shape(1_000_000, K, A, ncol, sums=True,
-                                    epochs=True, table_floats=table)
-    assert -(-K // kt) == tiles
+    kt, kg, nblocks = tco._launch_shape(1_000_000, K, A, ncol, sums=True,
+                                        table_floats=table)
+    assert -(-K // kt) == tiles and kg == K
     assert nblocks == 1024
-    smem = 4 * (kt * (ncol + A) + K * A + tco._CHUNK * (THREADS + 1)
-                + (A + 1) * WARPS + A + 2 + table)
+    smem = _sums_smem(kt, kg, A, ncol, table)
     assert smem <= tco._SMEM_MAX
     if (K, A) == (582, 4):
         assert smem <= 56 * 1024
+
+
+@pytest.mark.parametrize('K,A', [(14_000, 4), (20_000, 8)])
+@pytest.mark.parametrize('form', ['shared', 'kdim', 'epochs'])
+def test_sums_any_k_times_a(K, A, form):
+    """Past one group's partial in shared memory (K·A = 56,000 and
+    160,000 floats) the sums take K in groups of kg components, a multiple
+    of the tile, within the card's per-block limit, and the grouped order
+    still equals the plain version at f64 (130 SNPs, pad SNPs, 1 live
+    epoch for the epoch form)."""
+    P, ncol = 2, 4
+    live = 1 if form == 'epochs' else 0
+    table = (live + 1) * P + live if form == 'epochs' else 0
+    kt, kg, _ = tco._launch_shape(1_000_000, K, A, ncol, sums=True,
+                                  table_floats=table)
+    assert 1 <= kt <= kg < K and kg % kt == 0
+    assert _sums_smem(kt, kg, A, ncol, table) <= tco._SMEM_MAX
+    args, _, _ = _epoch_inputs(P, 'ordinary', seed=K + A, K=K, I=130, A=A,
+                               live=live)
+    if form == 'epochs':
+        t = _as_torch(args, torch.float64)
+        got = _z_only_sums(*t, num_annotations=A, num_live=live, nblocks=1,
+                           kg=kg)
+        ref = tco.delta_sums_epochs_plain(*t, num_annotations=A,
+                                          num_live=live)
+    else:
+        coeffs, scores_t, ann, dterm, nat = args[:5]
+        if form == 'kdim':
+            rng = np.random.default_rng(K)
+            nat = nat[None] + rng.standard_normal((K, P, 130)) * 0.1
+        t = _as_torch([coeffs, scores_t, ann, dterm, nat], torch.float64)
+        got = _z_only_compact_sums(*t, num_annotations=A, nblocks=1, kg=kg)
+        ref = tco.delta_sums_plain(*t, num_annotations=A)
+    assert got.shape == ref.shape == (A, K)
+    np.testing.assert_allclose(t2n(got), t2n(ref), rtol=1e-9,
+                               atol=1e-9 * float(ref.abs().max()))

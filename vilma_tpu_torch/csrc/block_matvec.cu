@@ -49,22 +49,41 @@
 // only half of the next block's slice fits beside this one's; 16 CTAs of
 // 64 KB (fewer resident clusters, steps 1-3 twice as often) were slower.
 //
-// Two-read route (block_matvec_kernel), for blocks too large for a
-// 16-CTA cluster (chosen by shape alone): one CTA per block reads U twice,
-//   phase 1: warp w walks rows p = w, w+8, ...; each lane holds a strip
-//            of columns and loads 16 bytes of a row at a time, accumulating
-//            t[c][r] for all C cohorts in registers. The 8 warp partials are
-//            added into shared memory in fixed warp order, then scaled by s
-//            and rounded to U's type.
-//   phase 2: the same row walk with t in registers, a butterfly shuffle
-//            per row, lane 0 writes y[c][p] (+ d*x on the last chunk).
-// Every sum of both routes runs in a fixed order.
+// Group route (group_matvec_kernel), for the blocks the cluster route does
+// not take (too large for 16 CTAs of shared memory, ranks above 1024 bf16
+// or 2048 f32, under 16 rows per CTA). A block is spread over a group of G
+// CTAs on as many SMs (up to 128: even a bucket of one block runs on the
+// whole card), split by COLUMNS of U: CTA g owns a few 16-byte column
+// groups (a [2048, 1024] f32 block: 8 columns, a 64 KB slice of all 2048
+// rows). Then t = s * U^T x needs no sum across CTAs (each owns its t
+// entries) and both products are local: only the second one,
+// y = sum over CTAs of U_g t_g, meets across the group, once per block. A
+// cooperative launch keeps every CTA resident (it is refused, and the
+// wrapper raises, where the card cannot hold the grid); as many groups as
+// fit walk the blocks. Per block, in CTA g:
+//   0. its slice lands in shared memory by TMA tensor copies (two buffers:
+//      the next block's lands while this one is worked on), read from device
+//      memory once; where two slices do not fit (e.g. [4096, 4096] bf16)
+//      both products read U from device memory, the second from L2, and one
+//      group (the whole card) works on one block at a time;
+//   1. t_g = round(s_g * U_g^T round(x)) on the CUDA cores (each element of
+//      U feeds 2C multiply-adds: 3 operations per byte of f32 U at C = 3,
+//      far below the card's ~20 per HBM byte);
+//   2. its partial y_g = U_g t_g [C][P], written to a workspace past L1,
+//      then an arrival on the group's barrier (counters in device memory,
+//      release/acquire);
+//   3. an iteration later (the barrier's wait overlaps the next block's
+//      steps 1 and 2), its share of y's rows: the G partials added in rank
+//      order, + d x.
+// No float atomics: every sum of both routes runs in a fixed order, so
+// results repeat bit for bit.
 #include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap (the encoder is found at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
 #include <type_traits>
 
 namespace cg = cooperative_groups;
@@ -73,7 +92,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kStrips = 4;  // two-read route: 16-byte loads per lane per chunk
 
 // cluster route
 constexpr int kMaxCluster = 16;     // non-portable above 8 on H100
@@ -707,15 +725,46 @@ __global__ void __launch_bounds__(kThreads)
   cluster_wait();
 }
 
-template <typename TU, int C>
-cudaError_t prepare_cluster(int G, size_t smem) {
-  auto kernel = cluster_matvec_kernel<TU, C>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess && G > 8)
+constexpr int kMaxDevices = 64;
+
+// What a kernel's attributes were set to on each device (one per kernel).
+struct Grant {
+  std::mutex mu;
+  size_t smem[kMaxDevices] = {};
+  bool wide[kMaxDevices] = {};
+};
+
+// Raises `kernel`'s dynamic shared-memory limit on the current device to
+// smem and, when `wide`, allows clusters above 8 CTAs, each only when it
+// grows: the limit bounds a launch's shared memory and does not set it, so
+// later launches of the kernel make no driver call for it.
+cudaError_t allow(Grant& grant, const void* kernel, size_t smem, bool wide) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(grant.mu);
+  if (smem > grant.smem[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    grant.smem[dev] = smem;
+  }
+  if (wide && !grant.wide[dev]) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  return err;
+    if (err != cudaSuccess) return err;
+    grant.wide[dev] = true;
+  }
+  return cudaSuccess;
+}
+
+template <typename TU, int C>
+cudaError_t prepare_cluster(int G, size_t smem) {
+  static Grant grant;
+  return allow(grant,
+               reinterpret_cast<const void*>(cluster_matvec_kernel<TU, C>),
+               smem, G > 8);
 }
 
 cudaLaunchConfig_t cluster_config(int nclusters, int G, size_t smem,
@@ -735,18 +784,44 @@ cudaLaunchConfig_t cluster_config(int nclusters, int G, size_t smem,
   return cfg;
 }
 
-// the [B * P, R] bf16 U as a 2-D tensor map: boxes of 64 columns by
-// `rows` rows, 128-byte swizzle, zeros past R; the encoder comes from the
-// driver at run time, so the library links no libcuda
-cudaError_t encode_umap(CUtensorMap* map, const void* u, int B, int P, int R,
-                        int rows) {
+// what a tensor map encodes: U's address and shape, the box, the swizzle
+struct MapKey {
+  const void* u;
+  int B, P, R, cols, rows;
+  bool bf16, swizzle;
+  bool operator==(const MapKey& o) const {
+    return u == o.u && B == o.B && P == o.P && R == o.R && cols == o.cols &&
+           rows == o.rows && bf16 == o.bf16 && swizzle == o.swizzle;
+  }
+};
+
+// the [B * P, R] U (bf16 or f32) as a 2-D tensor map: boxes of `cols`
+// columns by `rows` rows, zeros past R; the 128-byte swizzle (bf16
+// cluster route) or none. The last kMaps maps are kept: a map depends on
+// its key alone, so a fit's buckets, called again at the same address,
+// reuse theirs. The encoder is looked up at run time
+// (cudaGetDriverEntryPoint), so the library links no libcuda.
+cudaError_t encode_map(CUtensorMap* map, const void* u, bool bf16, int B,
+                       int P, int R, int cols, int rows, bool swizzle) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                               void*, const cuuint64_t*, const cuuint64_t*,
                               const cuuint32_t*, const cuuint32_t*,
                               CUtensorMapInterleave, CUtensorMapSwizzle,
                               CUtensorMapL2promotion,
                               CUtensorMapFloatOOBfill);
+  constexpr int kMaps = 32;
+  static std::mutex mu;
+  static MapKey keys[kMaps] = {};
+  static CUtensorMap maps[kMaps];
+  static int filled = 0, slot = 0;
   static Encode encode = nullptr;
+  const MapKey key = {u, B, P, R, cols, rows, bf16, swizzle};
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < filled; ++i)
+    if (keys[i] == key) {
+      *map = maps[i];
+      return cudaSuccess;
+    }
   if (encode == nullptr) {
     cudaDriverEntryPointQueryResult found;
     cudaError_t err = cudaGetDriverEntryPoint(
@@ -756,15 +831,22 @@ cudaError_t encode_umap(CUtensorMap* map, const void* u, int B, int P, int R,
     if (found != cudaDriverEntryPointSuccess) return cudaErrorNotSupported;
   }
   const cuuint64_t dims[2] = {(cuuint64_t)R, (cuuint64_t)B * P};
-  const cuuint64_t strides[1] = {(cuuint64_t)R * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)R * (bf16 ? 2 : 4)};
+  const cuuint32_t box[2] = {(cuuint32_t)cols, (cuuint32_t)rows};
   const cuuint32_t step[2] = {1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(u), dims,
-      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+      map,
+      bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      2, const_cast<void*>(u), dims, strides, box, step,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (res != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  keys[slot] = key;
+  maps[slot] = *map;
+  slot = (slot + 1) % kMaps;
+  if (filled < kMaps) ++filled;
+  return cudaSuccess;
 }
 
 template <typename TU, int C>
@@ -776,7 +858,7 @@ cudaError_t launch_cluster(const void* u, const void* s, const void* d,
   if (err != cudaSuccess) return err;
   CUtensorMap umap = {};
   if (std::is_same<TU, __nv_bfloat16>::value) {
-    err = encode_umap(&umap, u, B, P, R, P / G);
+    err = encode_map(&umap, u, true, B, P, R, 64, P / G, true);
     if (err != cudaSuccess) return err;
   }
   cudaLaunchAttribute attr;
@@ -802,153 +884,511 @@ cudaError_t clusters_placeable(int G, size_t smem, int* count) {
 }
 
 // ---------------------------------------------------------------------------
-// two-read route
+// group route
 // ---------------------------------------------------------------------------
 
-template <typename TU, int C>
-__global__ void __launch_bounds__(kThreads)
-    block_matvec_kernel(const TU* __restrict__ u, const float* __restrict__ s,
+constexpr size_t kBarBytes = 128;  // the mbarrier area (unused slots pad it)
+// a group-route CTA: 12 warps work on one block (steps 1 and 2) while 4
+// warps wait for and reduce the block before (step 3)
+constexpr int kComputeWarps = 12;
+constexpr int kReduceWarps = 4;
+constexpr int kComputeThreads = 32 * kComputeWarps;
+constexpr int kReduceThreads = 32 * kReduceWarps;
+constexpr int kGroupThreads = kComputeThreads + kReduceThreads;
+// a group barrier counts arrivals on up to kSub counters (CTA g on counter
+// g % kSub), kSubStride words apart, so that no one address takes more
+// than G / kSub atomics per barrier
+constexpr int kSub = 8;
+constexpr int kSubStride = 32;
+// partial-y buffers and barrier slots in the workspace (block j uses slot
+// j % kYBufs)
+constexpr int kYBufs = 4;
+
+// CTA g of a group owns `cgc` column groups of 16 bytes (columns
+// [g cgc vec, (g + 1) cgc vec) of U, vec = 16 / itemsize; cgc a power of
+// two <= 32) and rows [g rpc, (g + 1) rpc) of y. Its shared memory (byte
+// offsets from a 128-byte aligned base): the mbarriers; nbuf slices of U's
+// P rows by its cgc column groups (row pitch 16 cgc bytes) and as many
+// buffers of the block's x [C][P]; three buffers (blocks j - 1, j, j + 1)
+// of its share of s [cgc vec], of d [rpc] and of x [C][rpc]; t [C][cgc
+// vec]; the compute warps' sums of step 1 [kComputeWarps][cgc][vec][C];
+// and the reduce warps' lane sums [kReduceThreads].
+// ops/cuda/block_matvec.py::group_smem computes the same total (with 128
+// bytes to align the base).
+struct GroupLayout {
+  int cgc, rpc, vec;
+  size_t slice, xfull, vbuf, vstride, ts, red, redr, total;
+};
+
+__host__ __device__ inline GroupLayout group_layout(int P, int R, int C,
+                                                   int G, int itemsize,
+                                                   int nbuf) {
+  GroupLayout L;
+  L.vec = 16 / itemsize;
+  const int ncg = R / L.vec;
+  const int per = (ncg + G - 1) / G;
+  L.cgc = 1;
+  while (L.cgc < per) L.cgc *= 2;
+  L.rpc = (P + G - 1) / G;
+  // (each rounded up to 128 bytes, where the tensor copies land)
+  L.slice = ((size_t)P * L.cgc * 16 + 127) / 128 * 128;
+  L.xfull = (4 * (size_t)C * P + 127) / 128 * 128;
+  L.vbuf = kBarBytes + nbuf * (L.slice + L.xfull);
+  L.vstride = (4 * ((size_t)L.cgc * L.vec + (C + 1) * L.rpc) + 15) / 16 * 16;
+  L.ts = L.vbuf + 3 * L.vstride;
+  L.red = L.ts + (4 * (size_t)C * L.cgc * L.vec + 15) / 16 * 16;
+  L.redr = L.red + 4 * (size_t)kComputeWarps * L.cgc * L.vec * C;
+  L.total = L.redr + 4 * kReduceThreads + 128;  // room to align the base
+  return L;
+}
+
+// 4 bytes from device memory into shared memory, asynchronously
+// (cp.async; complete after cp_async_wait_all in the issuing thread)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// this thread's copies have landed
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// a barrier among n threads of the CTA (id 1: the compute warps, 2: the
+// reduce warps; 0 is __syncthreads)
+__device__ __forceinline__ void warps_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Split-phase group barrier of one block slot: nsub = min(kSub, G)
+// counters in device memory. Arrive (the compute warps): the CTA's writes
+// are published (fence), then CTA g adds one to counter g % nsub. Wait
+// (the reduce warps): until every counter reads k G / nsub at the slot's
+// k-th use (acquire; reduce thread i polls counter i). The counters start
+// at 0 (the launch before zeroed them) and only grow. A counter sums arrivals of
+// several CTAs, so a slot must not be reused while a CTA may still owe an
+// arrival to its previous use.
+__device__ __forceinline__ void group_arrive(unsigned int* ctrs, int g,
+                                             int nsub) {
+  warps_sync(1, kComputeThreads);
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(ctrs + (g % nsub) * kSubStride, 1u);
+  }
+}
+
+__device__ __forceinline__ void group_wait(unsigned int* ctrs, int nsub,
+                                           unsigned int target) {
+  const int rt = threadIdx.x - kComputeThreads;
+  if (rt < nsub) {
+    const unsigned int* ctr = ctrs + rt * kSubStride;
+    unsigned int seen;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                   : "=r"(seen)
+                   : "l"(ctr)
+                   : "memory");
+    } while (seen < target);
+    __threadfence();
+  }
+  warps_sync(2, kReduceThreads);
+}
+
+// Steps 1 and 2 of a block, local to the CTA, by its compute warps. us:
+// its slice (row p at us + p * pitch elements; cgl of the cgc groups at
+// cgl * vec); ncl of its column groups exist (the rest lie past R). xb:
+// the block's x [C][P] (in shared memory with HOLD, else in device
+// memory); sv its share of s.
+// 1. t[c][k] = round(s[k] * sum_p U[p][k] round(x[c][p])): compute thread
+//    (part, cgl), part = tid / cgc of nparts = kComputeThreads / cgc, adds
+//    rows part, part + nparts, ... in order; a butterfly shuffle adds the
+//    parts of a warp (offsets 16, 8, ..., cgc), then one thread sums the
+//    warps in warp order.
+// 2. ypart[c][p] = sum_k U[p][k] t[c][k]: thread p (p = tid, tid +
+//    kComputeThreads, ...) adds its row's column groups in order; written
+//    past L1 to the block's partial-y buffer [C][P].
+template <typename TU, int C, bool HOLD>
+__device__ __forceinline__ void group_local(const GroupLayout& L,
+                                            const TU* us, size_t pitch,
+                                            int ncl, int P, const float* xb,
+                                            const float* sv, float* ts,
+                                            float* red, float* ypart) {
+  constexpr int VEC = 16 / sizeof(TU);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cgl = tid % L.cgc, part = tid / L.cgc;
+  const int nparts = kComputeThreads / L.cgc;
+  float acc[VEC][C];
+#pragma unroll
+  for (int v = 0; v < VEC; ++v)
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[v][c] = 0.f;
+  if (cgl < ncl) {
+    const TU* col = us + cgl * VEC;
+#pragma unroll 4
+    for (int p = part; p < P; p += nparts) {
+      float uv[VEC];
+      load16(col + (size_t)p * pitch, uv);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const float xr = round_to<TU>(HOLD ? xb[(size_t)c * P + p]
+                                           : __ldg(xb + (size_t)c * P + p));
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) acc[v][c] += uv[v] * xr;
+      }
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < VEC; ++v)
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      for (int o = 16; o >= L.cgc; o >>= 1)
+        acc[v][c] += __shfl_xor_sync(0xffffffffu, acc[v][c], o);
+  if (lane < L.cgc) {
+#pragma unroll
+    for (int v = 0; v < VEC; ++v)
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        red[((warp * L.cgc + lane) * VEC + v) * C + c] = acc[v][c];
+  }
+  warps_sync(1, kComputeThreads);
+  const int nt = L.cgc * VEC * C;  // t values of the CTA
+  for (int e = tid; e < nt; e += kComputeThreads) {
+    float tot = red[e];
+    for (int w = 1; w < kComputeWarps; ++w) tot += red[w * nt + e];
+    const int c = e % C, k = e / C;  // k = cgl * VEC + v
+    ts[c * L.cgc * VEC + k] =
+        k < ncl * VEC ? round_to<TU>(tot * sv[k]) : 0.f;
+  }
+  warps_sync(1, kComputeThreads);
+  for (int p = tid; p < P; p += kComputeThreads) {
+    const TU* row = us + (size_t)p * pitch;
+    float y[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) y[c] = 0.f;
+    for (int g = 0; g < ncl; ++g) {
+      float uv[VEC];
+      load16(row + g * VEC, uv);
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+#pragma unroll
+        for (int v = 0; v < VEC; ++v)
+          y[c] += uv[v] * ts[c * L.cgc * VEC + g * VEC + v];
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) __stcg(ypart + (size_t)c * P + p, y[c]);
+  }
+}
+
+// Step 3 of a block, by the reduce warps: CTA g's rows [r0, r0 + w) of
+// y = sum over the G CTAs' partials + d x. L lanes share a value (L the
+// largest power of two with L * values <= kReduceThreads and L <= G); lane
+// q adds ranks [q G/L, (q+1) G/L) in rank order (sixteen loads in flight),
+// then the value's lane 0 adds the L lane sums in lane order. Neighbouring
+// threads take neighbouring rows, so a warp's loads are contiguous. dv, xv:
+// the CTA's rows of d and x [C][rpc] in shared memory.
+__device__ __forceinline__ void group_reduce(const float* parts, int G,
+                                             int C, int P, int r0, int w,
+                                             int rpc, const float* dv,
+                                             const float* xv, float* y,
+                                             float* red) {
+  const int rt = threadIdx.x - kComputeThreads;
+  const int S = C * w;
+  if (S == 0) return;
+  int L = 1;
+  while (2 * L * S <= kReduceThreads && 2 * L <= G) L *= 2;
+  const int per = G / L;
+  const int nv = kReduceThreads / L;  // values a round
+  const size_t stride = (size_t)C * P;
+  const int q = rt / nv, vi = rt - q * nv;
+  for (int v0 = 0; v0 < S; v0 += nv) {
+    const int v = v0 + vi;
+    const int c = v / w, j = v - c * w;
+    float acc = 0.f;
+    if (v < S) {
+      const float* p = parts + (size_t)q * per * stride + (size_t)c * P +
+                       r0 + j;
+      acc = __ldcg(p);
+#pragma unroll 1
+      for (int k0 = 1; k0 < per; k0 += 16) {
+        float x16[16];
+#pragma unroll
+        for (int k = 0; k < 16; ++k)
+          if (k0 + k < per) x16[k] = __ldcg(p + (k0 + k) * stride);
+#pragma unroll
+        for (int k = 0; k < 16; ++k)
+          if (k0 + k < per) acc += x16[k];
+      }
+    }
+    red[rt] = acc;
+    warps_sync(2, kReduceThreads);
+    if (q == 0 && v < S) {
+      float tot = red[vi];
+      for (int k = 1; k < L; ++k) tot += red[k * nv + vi];
+      y[(size_t)c * P + r0 + j] = tot + dv[j] * xv[c * rpc + j];
+    }
+    warps_sync(2, kReduceThreads);
+  }
+}
+
+// Persistent: group i (G consecutive CTAs) takes LD blocks i, i + n,
+// i + 2n, ... (n groups resident at once). Iteration j of a CTA, its two
+// warp roles at once:
+//   compute warps: steps 1 and 2 of block j from its slice, the partial y
+//   into buffer j % kYBufs, arrive;
+//   reduce warps: start the copies of block j + 1 (its slice and x with
+//   HOLD, by TMA; its shares of s, d and x by cp.async), wait for every
+//   CTA's arrival of block j - 1, step 3 of block j - 1, then wait for
+//   their cp.async copies;
+// and a CTA-wide barrier. The barrier the reduce warps wait on was arrived
+// at an iteration earlier. A partial buffer is rewritten only after every
+// CTA has passed step 3 of the block that used it four blocks earlier: a
+// CTA writes block j's partial after its wait for block j - 2, and every
+// CTA arrived for block j - 2 after its iteration j - 3, hence after its
+// step 3 of block j - 4. The same bound keeps the barrier slots apart: no
+// CTA arrives for block j before every CTA has arrived for block j - 2, so
+// slot j % kYBufs is free of block j - 4's. HOLD: the slice (TMA tensor
+// copies of 16 cgc bytes by up to 256 rows, from umap) and x (one bulk
+// copy per cohort) land in shared memory, two buffers, on one mbarrier
+// each. Else steps 1 and 2 read U from device memory, step 2 from L2, and
+// step 1 reads x through L1. The workspace holds two sets of barrier
+// counters: the launch counts on `ctrs` and zeroes the group's counters in
+// `next`, the set of the launch after it (launches on one stream run in
+// order, and the host alternates the sets).
+template <typename TU, int C, bool HOLD>
+__global__ void __launch_bounds__(kGroupThreads)
+    group_matvec_kernel(const __grid_constant__ CUtensorMap umap,
+                        const TU* __restrict__ u, const float* __restrict__ s,
                         const float* __restrict__ d,
                         const float* __restrict__ x, float* __restrict__ y,
-                        int P, int R) {
+                        float* __restrict__ parts,
+                        unsigned int* __restrict__ ctrs,
+                        unsigned int* __restrict__ next, int B, int P, int R,
+                        int G, int nbuf) {
   constexpr int VEC = 16 / sizeof(TU);
-  constexpr int CHUNK = 32 * VEC * kStrips;  // columns per register chunk
-  extern __shared__ float tsh[];             // [C][R]
-
-  const int b = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const TU* ub = u + (size_t)b * P * R;
-  const float* xb = x + (size_t)b * C * P;
-  const float* sb = s + (size_t)b * R;
-  const float* db = d + (size_t)b * P;
-  float* yb = y + (size_t)b * C * P;
-
-  // phase 1: t[c][r] = sum_p U[p][r] * round(x[c][p])
-  for (int c0 = 0; c0 < R; c0 += CHUNK) {
-    float acc[kStrips][VEC][C];
-#pragma unroll
-    for (int i = 0; i < kStrips; ++i)
-#pragma unroll
-      for (int v = 0; v < VEC; ++v)
-#pragma unroll
-        for (int c = 0; c < C; ++c) acc[i][v][c] = 0.f;
-
-    for (int p = warp; p < P; p += kWarps) {
-      float xr[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) xr[c] = round_to<TU>(xb[c * P + p]);
-      const TU* row = ub + (size_t)p * R;
-#pragma unroll
-      for (int i = 0; i < kStrips; ++i) {
-        const int col = c0 + (i * 32 + lane) * VEC;
-        if (col < R) {
-          float uv[VEC];
-          load16(row + col, uv);
-#pragma unroll
-          for (int v = 0; v < VEC; ++v)
-#pragma unroll
-            for (int c = 0; c < C; ++c) acc[i][v][c] += uv[v] * xr[c];
-        }
-      }
-    }
-    // warp partials into shared memory, in fixed warp order
-    for (int w = 0; w < kWarps; ++w) {
-      if (warp == w) {
-#pragma unroll
-        for (int i = 0; i < kStrips; ++i) {
-          const int col = c0 + (i * 32 + lane) * VEC;
-          if (col < R) {
-#pragma unroll
-            for (int v = 0; v < VEC; ++v)
-#pragma unroll
-              for (int c = 0; c < C; ++c) {
-                float* dst = tsh + c * R + col + v;
-                *dst = (w == 0) ? acc[i][v][c] : *dst + acc[i][v][c];
-              }
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-  for (int j = threadIdx.x; j < C * R; j += kThreads)
-    tsh[j] = round_to<TU>(tsh[j] * sb[j % R]);
-  __syncthreads();
-
-  // phase 2: y[c][p] = sum_r U[p][r] * t[c][r] + d[p] * x[c][p]
-  for (int c0 = 0; c0 < R; c0 += CHUNK) {
-    float tr[kStrips][VEC][C];
-#pragma unroll
-    for (int i = 0; i < kStrips; ++i) {
-      const int col = c0 + (i * 32 + lane) * VEC;
-#pragma unroll
-      for (int v = 0; v < VEC; ++v)
-#pragma unroll
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((128u - (smem_addr(smem_raw) & 127u)) & 127u);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  const GroupLayout L = group_layout(P, R, C, G, (int)sizeof(TU), nbuf);
+  const int ngroups = gridDim.x / G;
+  const int gi = blockIdx.x / G, g = blockIdx.x - gi * G;
+  const int ncg = R / VEC;
+  const int cg0 = min(ncg, g * L.cgc);
+  const int ncl = min(ncg, cg0 + L.cgc) - cg0;
+  const int r0 = min(P, g * L.rpc);
+  const int w = min(P, r0 + L.rpc) - r0;
+  const int nblk = (B - gi + ngroups - 1) / ngroups;
+  const int tid = threadIdx.x;
+  const bool computes = tid < kComputeThreads;
+  const int rt = tid - kComputeThreads;  // reduce thread
+  float* ts = reinterpret_cast<float*>(smem + L.ts);
+  float* gparts = parts + (size_t)gi * kYBufs * G * C * P;
+  unsigned int* ctr = ctrs + (size_t)gi * kYBufs * kSub * kSubStride;
+  const int nsub = min(kSub, G);
+  const unsigned int per_sub = (unsigned int)(G / nsub);
+  auto slot = [&](int j) { return ctr + (j % kYBufs) * kSub * kSubStride; };
+  auto blk_of = [&](int j) { return gi + j * ngroups; };
+  auto vec_of = [&](int j) {
+    return reinterpret_cast<float*>(smem + L.vbuf + (j % 3) * L.vstride);
+  };
+  auto part_of = [&](int j) {
+    return gparts + (size_t)(j % kYBufs) * G * C * P;
+  };
+  auto slice_at = [&](int j) {
+    return smem + kBarBytes + (j & 1) * (L.slice + L.xfull);
+  };
+  const int box_rows = min(P, 256);
+  // block j's copies, by the reduce warps: with HOLD its slice and x
+  // (reduce thread 0, TMA, on mbarrier j & 1); its shares of s (sv
+  // [cgc vec]), d (dv [rpc]) and x (xv [C][rpc]) by cp.async
+  auto issue = [&](int j) {
+    const int blk = blk_of(j);
+    if constexpr (HOLD) {
+      if (rt == 0) {
+        unsigned char* dst = slice_at(j);
+        mbar_expect_tx(&bars[j & 1],
+                       (uint32_t)(P * L.cgc * 16 + 4 * C * P));
+        // the buffers' last reads (generic proxy) before the copies
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        for (int r = 0; r < P; r += box_rows)
+          tile_load(dst + (size_t)r * L.cgc * 16, &umap, cg0 * VEC,
+                    blk * P + r, &bars[j & 1]);
         for (int c = 0; c < C; ++c)
-          tr[i][v][c] = (col < R) ? tsh[c * R + col + v] : 0.f;
-    }
-    const bool last = c0 + CHUNK >= R;
-    for (int p = warp; p < P; p += kWarps) {
-      const TU* row = ub + (size_t)p * R;
-      float part[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) part[c] = 0.f;
-#pragma unroll
-      for (int i = 0; i < kStrips; ++i) {
-        const int col = c0 + (i * 32 + lane) * VEC;
-        if (col < R) {
-          float uv[VEC];
-          load16(row + col, uv);
-#pragma unroll
-          for (int v = 0; v < VEC; ++v)
-#pragma unroll
-            for (int c = 0; c < C; ++c) part[c] += uv[v] * tr[i][v][c];
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < C; ++c) part[c] = warp_sum(part[c]);
-      if (lane == 0) {
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          // the owning warp's lane 0 carries y across column chunks
-          float v = (c0 == 0 ? 0.f : yb[c * P + p]) + part[c];
-          if (last) v += db[p] * xb[c * P + p];
-          yb[c * P + p] = v;
-        }
+          bulk_load(dst + L.slice + 4 * (size_t)c * P,
+                    x + ((size_t)blk * C + c) * P, 4 * P, &bars[j & 1]);
       }
     }
+    float* sv = vec_of(j);
+    float* dv = sv + L.cgc * VEC;
+    float* xv = dv + L.rpc;
+    for (int e = rt; e < ncl * VEC; e += kReduceThreads)
+      cp_async4(sv + e, s + (size_t)blk * R + cg0 * VEC + e);
+    for (int e = rt; e < w; e += kReduceThreads)
+      cp_async4(dv + e, d + (size_t)blk * P + r0 + e);
+    for (int e = rt; e < C * w; e += kReduceThreads) {
+      const int c = e / w, r = e - c * w;
+      cp_async4(xv + c * L.rpc + r, x + ((size_t)blk * C + c) * P + r0 + r);
+    }
+  };
+  auto reduce = [&](int j) {
+    group_wait(slot(j), nsub, (unsigned int)(j / kYBufs + 1) * per_sub);
+    const float* dv = vec_of(j) + L.cgc * VEC;
+    group_reduce(part_of(j), G, C, P, r0, w, L.rpc, dv, dv + L.rpc,
+                 y + (size_t)blk_of(j) * C * P,
+                 reinterpret_cast<float*>(smem + L.redr));
+  };
+
+  if (HOLD && tid == 0) {
+    mbar_init(&bars[0], 1);
+    mbar_init(&bars[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  // the next launch's counters of this group: slot rt / kSub, counter
+  // rt % kSub
+  if (g == 0 && !computes && rt < kYBufs * kSub)
+    next[((size_t)gi * kYBufs * kSub + rt) * kSubStride] = 0u;
+  __syncthreads();
+  if (!computes && nblk > 0) {
+    issue(0);
+    cp_async_wait_all();
+  }
+  __syncthreads();
+  for (int j = 0; j < nblk; ++j) {
+    if (computes) {
+      const int blk = blk_of(j);
+      const TU* us;
+      const float* xb;
+      size_t pitch;
+      if constexpr (HOLD) {
+        mbar_wait(&bars[j & 1], (uint32_t)(j >> 1) & 1u);
+        us = reinterpret_cast<const TU*>(slice_at(j));
+        xb = reinterpret_cast<const float*>(slice_at(j) + L.slice);
+        pitch = (size_t)L.cgc * VEC;
+      } else {
+        us = u + (size_t)blk * P * R + cg0 * VEC;
+        xb = x + (size_t)blk * C * P;
+        pitch = (size_t)R;
+      }
+      group_local<TU, C, HOLD>(L, us, pitch, ncl, P, xb, vec_of(j), ts,
+                               reinterpret_cast<float*>(smem + L.red),
+                               part_of(j) + (size_t)g * C * P);
+      group_arrive(slot(j), g, nsub);
+    } else {
+      if (j + 1 < nblk) issue(j + 1);
+      if (j > 0) reduce(j - 1);
+      cp_async_wait_all();
+    }
+    __syncthreads();
+  }
+  if (!computes && nblk > 0) reduce(nblk - 1);
+}
+
+template <typename TU, int C, bool HOLD>
+cudaError_t prepare_group(size_t smem) {
+  static Grant grant;
+  return allow(grant,
+               reinterpret_cast<const void*>(group_matvec_kernel<TU, C, HOLD>),
+               smem, false);
+}
+
+template <typename TU, int C, bool HOLD>
+cudaError_t launch_group(const void* u, const void* s, const void* d,
+                         const void* x, void* y, void* ws, int parity, int B,
+                         int P, int R, int G, int nbuf, int ngroups,
+                         size_t smem, cudaStream_t stream) {
+  auto kernel = group_matvec_kernel<TU, C, HOLD>;
+  cudaError_t err = prepare_group<TU, C, HOLD>(smem);
+  if (err != cudaSuccess) return err;
+  CUtensorMap umap = {};
+  if (HOLD) {
+    const GroupLayout L = group_layout(P, R, C, G, (int)sizeof(TU), nbuf);
+    err = encode_map(&umap, u, sizeof(TU) == 2, B, P, R,
+                     L.cgc * L.vec, P < 256 ? P : 256, false);
+    if (err != cudaSuccess) return err;
+  }
+  float* parts = static_cast<float*>(ws);
+  unsigned int* sets = reinterpret_cast<unsigned int*>(
+      parts + (size_t)ngroups * kYBufs * G * C * P);
+  const size_t set_words = (size_t)ngroups * kYBufs * kSub * kSubStride;
+  unsigned int* ctrs = sets + parity * set_words;
+  unsigned int* next = sets + (1 - parity) * set_words;
+  const TU* up = static_cast<const TU*>(u);
+  const float* sp = static_cast<const float*>(s);
+  const float* dp = static_cast<const float*>(d);
+  const float* xp = static_cast<const float*>(x);
+  float* yp = static_cast<float*>(y);
+  void* args[] = {&umap, &up, &sp, &dp, &xp, &yp, &parts, &ctrs,
+                  &next, &B, &P, &R, &G, &nbuf};
+  // every CTA of a group must be resident: a cooperative launch is
+  // refused (and nothing runs) if the card cannot hold the grid
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
+                                    dim3(ngroups * G), dim3(kGroupThreads),
+                                    args, smem, stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// CTAs of this configuration the current device holds at once
+template <typename TU, int C, bool HOLD>
+cudaError_t group_capacity(size_t smem, int* count) {
+  auto kernel = group_matvec_kernel<TU, C, HOLD>;
+  cudaError_t err = prepare_group<TU, C, HOLD>(smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0, dev = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kGroupThreads, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *count = per_sm * sms;
+  return err;
+}
+
+// the group route's shape rules; smem must be what group_layout gives
+bool group_shape_ok(int P, int R, int C, int G, int itemsize, int nbuf,
+                    size_t smem) {
+  const int vec = 16 / itemsize;
+  if (!(G >= 1 && (G & (G - 1)) == 0 && C >= 1 && C <= 3 && R >= vec &&
+        R % vec == 0 && G <= R / vec && P >= 1 &&
+        (nbuf == 0 || (nbuf == 2 && P % 4 == 0))))
+    return false;
+  const GroupLayout L = group_layout(P, R, C, G, itemsize, nbuf);
+  return L.cgc <= 32 && smem == L.total;
 }
 
 template <typename TU, int C>
-cudaError_t launch(const void* u, const void* s, const void* d, const void* x,
-                   void* y, int B, int P, int R, cudaStream_t stream) {
-  const size_t smem = (size_t)C * R * sizeof(float);
-  auto kernel = block_matvec_kernel<TU, C>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<B, kThreads, smem, stream>>>(
-      static_cast<const TU*>(u), static_cast<const float*>(s),
-      static_cast<const float*>(d), static_cast<const float*>(x),
-      static_cast<float*>(y), P, R);
-  return cudaGetLastError();
+cudaError_t dispatch_hold(bool hold, const void* u, const void* s,
+                          const void* d, const void* x, void* y, void* ws,
+                          int parity, int B, int P, int R, int G, int nbuf,
+                          int ngroups, size_t smem, cudaStream_t stream,
+                          int* count) {
+  if (count != nullptr)
+    return hold ? group_capacity<TU, C, true>(smem, count)
+                : group_capacity<TU, C, false>(smem, count);
+  return hold ? launch_group<TU, C, true>(u, s, d, x, y, ws, parity, B, P, R,
+                                          G, nbuf, ngroups, smem, stream)
+              : launch_group<TU, C, false>(u, s, d, x, y, ws, parity, B, P,
+                                           R, G, nbuf, ngroups, smem, stream);
 }
 
+// the group launch (count null) or its capacity query (into *count)
 template <typename TU>
-cudaError_t dispatch_c(const void* u, const void* s, const void* d,
-                       const void* x, void* y, int B, int P, int R, int C,
-                       cudaStream_t stream) {
+cudaError_t dispatch_group(const void* u, const void* s, const void* d,
+                           const void* x, void* y, void* ws, int parity, int B,
+                           int P, int R, int C, int G, int nbuf, int ngroups,
+                           size_t smem, cudaStream_t stream, int* count) {
+  const bool hold = nbuf > 0;
   switch (C) {
     case 1:
-      return launch<TU, 1>(u, s, d, x, y, B, P, R, stream);
+      return dispatch_hold<TU, 1>(hold, u, s, d, x, y, ws, parity, B, P, R, G,
+                                  nbuf, ngroups, smem, stream, count);
     case 2:
-      return launch<TU, 2>(u, s, d, x, y, B, P, R, stream);
+      return dispatch_hold<TU, 2>(hold, u, s, d, x, y, ws, parity, B, P, R, G,
+                                  nbuf, ngroups, smem, stream, count);
     case 3:
-      return launch<TU, 3>(u, s, d, x, y, B, P, R, stream);
+      return dispatch_hold<TU, 3>(hold, u, s, d, x, y, ws, parity, B, P, R, G,
+                                  nbuf, ngroups, smem, stream, count);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1005,16 +1445,52 @@ cudaError_t placeable_c(int C, int G, size_t smem, int* count) {
 
 }  // namespace
 
-// Two-read route. u [B, P, R] (f32, or bf16 when u_bf16); s [B, R],
-// d [B, P], x and y [B, C, P] f32. Returns the launch's cudaError_t.
-extern "C" int vilma_block_matvec(const void* u, const void* s, const void* d,
-                                  const void* x, void* y, int B, int P, int R,
-                                  int C, int u_bf16, void* stream) {
+// Group route. u [B, P, R] (f32, or bf16 when u_bf16); s [B, R],
+// d [B, P], x and y [B, C, P] f32; G CTAs per block, nbuf slice buffers per
+// CTA (2; 0: U read from device memory in both products), smem bytes of
+// dynamic shared memory per CTA, ngroups groups (ngroups * G CTAs, at most
+// what vilma_block_matvec_group_fit reports); ws holds
+// ngroups * 4 * (G * C * P + 2 * 8 * 32) floats of workspace: the partials,
+// then two sets of barrier counters, zero before the first launch. The
+// launch counts on set `parity` and zeroes the other; the caller passes
+// the other set's parity to the next launch on the same stream. Returns the
+// launch's cudaError_t.
+extern "C" int vilma_block_matvec_group(const void* u, const void* s,
+                                        const void* d, const void* x, void* y,
+                                        void* ws, int parity, int B, int P,
+                                        int R, int C, int u_bf16, int G,
+                                        int nbuf, int ngroups, int smem,
+                                        void* stream) {
+  if (!group_shape_ok(P, R, C, G, u_bf16 ? 2 : 4, nbuf, (size_t)smem) ||
+      ngroups < 1 || (parity != 0 && parity != 1))
+    return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      u_bf16 ? dispatch_c<__nv_bfloat16>(u, s, d, x, y, B, P, R, C, st)
-             : dispatch_c<float>(u, s, d, x, y, B, P, R, C, st);
+      u_bf16 ? dispatch_group<__nv_bfloat16>(u, s, d, x, y, ws, parity, B, P,
+                                             R, C, G, nbuf, ngroups, smem, st,
+                                             nullptr)
+             : dispatch_group<float>(u, s, d, x, y, ws, parity, B, P, R, C, G,
+                                     nbuf, ngroups, smem, st, nullptr);
+  return (int)err;
+}
+
+// How many CTAs of the group route's configuration the current device
+// holds at once, into *count.
+extern "C" int vilma_block_matvec_group_fit(int P, int R, int C, int u_bf16,
+                                            int G, int nbuf, int smem,
+                                            int* count) {
+  *count = 0;
+  if (!group_shape_ok(P, R, C, G, u_bf16 ? 2 : 4, nbuf, (size_t)smem))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      u_bf16 ? dispatch_group<__nv_bfloat16>(nullptr, nullptr, nullptr,
+                                             nullptr, nullptr, nullptr, 0, 0,
+                                             P, R, C, G, nbuf, 0, smem, 0,
+                                             count)
+             : dispatch_group<float>(nullptr, nullptr, nullptr, nullptr,
+                                     nullptr, nullptr, 0, 0, P, R, C, G, nbuf,
+                                     0, smem, 0, count);
   return (int)err;
 }
 

@@ -22,8 +22,9 @@
 // Design (compact_obj.cuh): the prologues make one pass over K, so the
 // kdim prologue reads its state once; thread i reads nat[k, p, i], so the
 // 32 lanes of a warp read 128 contiguous bytes of each [K, P, I] row and
-// every load coalesces. The sums make two passes (2 x 420 MB of kdim
-// state at the per-chromosome size).
+// every load coalesces. The sums make two passes of the logit alone (2 x
+// 420 MB of kdim state at the per-chromosome size) and add the weights by
+// annotation through the sorted per-CTA reduction of the epoch sums.
 #include "compact_obj.cuh"
 
 namespace {
@@ -33,24 +34,24 @@ using namespace vilma;
 template <int FORM, bool SUMS>
 cudaError_t dispatch(int P, const void* coeffs, const void* scores_t,
                      const void* ann, const void* dterm, const void* nat,
-                     void* pm, void* pv, void* part, void* out, int I, int K,
-                     int A, int kt, int nblocks, float eps,
-                     cudaStream_t stream) {
+                     void* pm, void* pv, void* part, void* norm, void* out,
+                     int I, int K, int A, int kt, int kg, int nblocks,
+                     float eps, cudaStream_t stream) {
   const Operands op{static_cast<const float*>(dterm),
                     static_cast<const float*>(nat), nullptr, nullptr, nullptr,
                     I, 0};
   switch (P) {
     case 1:
       return launch<1, SUMS, FORM>(op, coeffs, scores_t, ann, pm, pv, part,
-                                   out, I, K, A, kt, nblocks, eps,
+                                   norm, out, I, K, A, kt, kg, nblocks, eps,
                                    stream);
     case 2:
       return launch<2, SUMS, FORM>(op, coeffs, scores_t, ann, pm, pv, part,
-                                   out, I, K, A, kt, nblocks, eps,
+                                   norm, out, I, K, A, kt, kg, nblocks, eps,
                                    stream);
     case 3:
       return launch<3, SUMS, FORM>(op, coeffs, scores_t, ann, pm, pv, part,
-                                   out, I, K, A, kt, nblocks, eps,
+                                   norm, out, I, K, A, kt, kg, nblocks, eps,
                                    stream);
     default:
       return cudaErrorInvalidValue;
@@ -69,21 +70,23 @@ extern "C" int vilma_compact_prologue(const void* coeffs, const void* scores_t,
                                       int A, int P, int kt, int nblocks,
                                       float eps, void* stream) {
   return (int)dispatch<kShared, false>(
-      P, coeffs, scores_t, ann, dterm, nat, pm, pv, part, kl_out, I, K, A, kt,
-      nblocks, eps, static_cast<cudaStream_t>(stream));
+      P, coeffs, scores_t, ann, dterm, nat, pm, pv, part, nullptr, kl_out, I,
+      K, A, kt, K, nblocks, eps, static_cast<cudaStream_t>(stream));
 }
 
 // As above, but writes out [K, A] = the per-annotation sums of vi_delta;
-// part holds nblocks * K * A floats of scratch, zeroed by the caller.
+// part holds nblocks * K * A floats of scratch (every one written), norm
+// 2 * I floats when the kernel takes K in groups of kg < K (else unused).
 extern "C" int vilma_compact_delta_sums(const void* coeffs,
                                         const void* scores_t, const void* ann,
                                         const void* dterm, const void* nat,
-                                        void* part, void* out, int I, int K,
-                                        int A, int P, int kt, int nblocks,
-                                        float eps, void* stream) {
+                                        void* part, void* norm, void* out,
+                                        int I, int K, int A, int P, int kt,
+                                        int kg, int nblocks, float eps,
+                                        void* stream) {
   return (int)dispatch<kShared, true>(
-      P, coeffs, scores_t, ann, dterm, nat, nullptr, nullptr, part, out, I, K,
-      A, kt, nblocks, eps, static_cast<cudaStream_t>(stream));
+      P, coeffs, scores_t, ann, dterm, nat, nullptr, nullptr, part, norm, out,
+      I, K, A, kt, kg, nblocks, eps, static_cast<cudaStream_t>(stream));
 }
 
 // The kdim forms: nat is the [K, P, I] per-component natural mean.
@@ -93,15 +96,16 @@ extern "C" int vilma_compact_prologue_kdim(
     void* kl_out, int I, int K, int A, int P, int kt, int nblocks, float eps,
     void* stream) {
   return (int)dispatch<kKdim, false>(
-      P, coeffs, scores_t, ann, dterm, nat, pm, pv, part, kl_out, I, K, A, kt,
-      nblocks, eps, static_cast<cudaStream_t>(stream));
+      P, coeffs, scores_t, ann, dterm, nat, pm, pv, part, nullptr, kl_out, I,
+      K, A, kt, K, nblocks, eps, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int vilma_compact_delta_sums_kdim(
     const void* coeffs, const void* scores_t, const void* ann,
-    const void* dterm, const void* nat, void* part, void* out, int I, int K,
-    int A, int P, int kt, int nblocks, float eps, void* stream) {
+    const void* dterm, const void* nat, void* part, void* norm, void* out,
+    int I, int K, int A, int P, int kt, int kg, int nblocks, float eps,
+    void* stream) {
   return (int)dispatch<kKdim, true>(
-      P, coeffs, scores_t, ann, dterm, nat, nullptr, nullptr, part, out, I, K,
-      A, kt, nblocks, eps, static_cast<cudaStream_t>(stream));
+      P, coeffs, scores_t, ann, dterm, nat, nullptr, nullptr, part, norm, out,
+      I, K, A, kt, kg, nblocks, eps, static_cast<cudaStream_t>(stream));
 }

@@ -41,20 +41,21 @@
 // the bound holds for each; at K <= a few thousand it is ~1e-25 of
 // quantities of order 1e-8 and up: far below half an ulp of any sum.
 //
-// Sums: they add vd_k(i) across SNPs and each term needs its SNP's final
-// normalizer, so they make two passes over K per thread: pass 1 an online
-// max and normalizer, pass 2 the clamped weights; no [K]-sized per-thread
-// state.
-//   kEpochs (kZSums in compact_kernel): both passes derive z_k alone
-//     (z_epochs: no diagonal, matches or quadform; SFU reciprocals,
-//     logarithm and exponential). Once per SNP tile the CTA sorts its 256
-//     SNPs by annotation (stable counting sort), then stages the weights of
-//     kChunk components at their sorted places; one thread per (component,
-//     annotation) adds its contiguous segment into the CTA's [K, A]
-//     partial in shared memory, which goes to device memory once.
-//   kShared, kKdim: both passes run the full derivation (derive), and each
-//     warp sums by annotation with a vote and shuffles per (component,
-//     annotation), added per component tile into a zeroed buffer.
+// Sums, all three forms: they add vd_k(i) across SNPs and each term needs
+// its SNP's final normalizer, so they make two passes over K per thread:
+// pass 1 an online max and normalizer, pass 2 the clamped weights; no
+// [K]-sized per-thread state. Both passes derive z_k alone (z_form,
+// z_epochs: no diagonal, matches or quadform; SFU reciprocals, logarithm
+// and exponential; kKdim reads nat[k, p, i] once a pass). Once per SNP
+// tile the CTA sorts its 256 SNPs by annotation (stable counting sort),
+// then stages the weights of kChunk components at their sorted places; one
+// thread per (component, annotation) adds its contiguous segment into the
+// CTA's [Kg, A] partial in shared memory, which goes to device memory
+// once. Kg = K where the partial fits beside the component tile (K = 582
+// with A up to ~90); else K is taken in groups of Kg components, the CTA
+// walking its SNP tiles once per group, and pass 1 (in the first group)
+// leaves each SNP's max and 1/normalizer in a [2, I] workspace for the
+// later groups. So any K·A runs whose single component row fits.
 //
 // The TPU accumulates the KL and the sums across its sequential grid; here
 // each CTA writes a partial in fixed order and a second kernel adds the
@@ -181,74 +182,12 @@ __device__ __forceinline__ float quadform_of<3>(const float* c,
                  c[4] * y[1] * y[2]);
 }
 
-// current-scaling summaries of a component's mean o.y: the diagonal of
-// sigma, its log-determinant, trace(prec sigma) and y' prec y
-template <int P>
-__device__ __forceinline__ void summaries(const float* c, const float* dt,
-                                          Comp<P>& o);
-
-template <>
-__device__ __forceinline__ void summaries<1>(const float* c, const float* dt,
-                                             Comp<1>& o) {
-  const float a = c[0] + dt[0];
-  o.ldp = c[1];
-  const float inv = 1.0f / a;
-  o.diag[0] = inv;
-  o.logdet = logf(a);
-  o.quadform = quadform_of<1>(c, o.y);
-  o.matches = c[0] * inv;
-}
-
-template <>
-__device__ __forceinline__ void summaries<2>(const float* c, const float* dt,
-                                             Comp<2>& o) {
-  const float a = c[0] + dt[0];
-  const float b = c[1];
-  const float d = c[2] + dt[1];
-  o.ldp = c[3];
-  const float det = a * d - b * b;
-  const float inv = 1.0f / det;
-  o.diag[0] = d * inv;
-  o.diag[1] = a * inv;
-  o.logdet = logf(det);
-  o.quadform = quadform_of<2>(c, o.y);
-  o.matches = (c[0] * d - 2.0f * c[1] * b + c[2] * a) * inv;
-}
-
-template <>
-__device__ __forceinline__ void summaries<3>(const float* c, const float* dt,
-                                             Comp<3>& o) {
-  const float pa = c[0] + dt[0];
-  const float pb = c[1], pc = c[2];
-  const float pd = c[3] + dt[1];
-  const float pe = c[4];
-  const float pf = c[5] + dt[2];
-  o.ldp = c[6];
-  // symmetric-3x3 adjugate (models/sigma._adjugate3)
-  const float A3 = pd * pf - pe * pe;
-  const float B3 = pc * pe - pb * pf;
-  const float C3 = pb * pe - pc * pd;
-  const float D3 = pa * pf - pc * pc;
-  const float E3 = pb * pc - pa * pe;
-  const float F3 = pa * pd - pb * pb;
-  const float det = pa * A3 + pb * B3 + pc * C3;
-  const float inv = 1.0f / det;
-  o.diag[0] = A3 * inv;
-  o.diag[1] = D3 * inv;
-  o.diag[2] = F3 * inv;
-  o.logdet = logf(det);
-  o.quadform = quadform_of<3>(c, o.y);
-  o.matches = (c[0] * A3 + c[3] * D3 + c[5] * F3 +
-               2.0f * (c[1] * B3 + c[2] * C3 + c[4] * E3)) *
-              inv;
-}
-
-// solve<P> and summaries<P> at one dt sharing one determinant and one
-// reciprocal: o.y = (prec + diag(dt))^-1 n and the summaries that do not
-// depend on y (the caller forms o.quadform once y is final). For the
-// one-pass prologues only: the reciprocal and the log-determinant come
-// from the SFU (__fdividef, __logf: a few ulp, far inside the prologues'
-// bands on the card).
+// solve<P> and the current-scaling summaries at one dt sharing one
+// determinant and one reciprocal: o.y = (prec + diag(dt))^-1 n, the
+// diagonal of sigma, its log-determinant and trace(prec sigma) (the caller
+// forms o.quadform = y' prec y once y is final). The reciprocal and the
+// log-determinant come from the SFU (__fdividef, __logf: a few ulp, far
+// inside the prologues' bands on the card).
 template <int P>
 __device__ __forceinline__ void solve_summaries(const float* c,
                                                 const float* dt,
@@ -318,18 +257,6 @@ __device__ __forceinline__ void solve_summaries<3>(const float* c,
               inv;
 }
 
-// closed-form component algebra from an input natural mean n
-// (compact_obj._derive_tile): y = sigma n, quad = y . n
-template <int P>
-__device__ __forceinline__ void derive(const float* c, const float* dt,
-                                       const float* n, Comp<P>& o) {
-  solve<P>(c, dt, n, o.y);
-  summaries<P>(c, dt, o);
-  o.quad = o.y[0] * n[0];
-#pragma unroll
-  for (int p = 1; p < P; ++p) o.quad += o.y[p] * n[p];
-}
-
 // entry (p, q) of prec + diag(dt): c holds the upper triangle row-major
 template <int P>
 __device__ __forceinline__ float prec_entry(const float* c, const float* dt,
@@ -388,19 +315,9 @@ __device__ __forceinline__ void nat_of(const Operands& op, const Snp<P>& s,
                        : 0.0f;
 }
 
-// component k of a [P, I] or kdim SNP for the two-pass sums
-template <int P, int FORM>
-__device__ __forceinline__ void derive_form(const Operands& op,
-                                            const Snp<P>& s, const float* c,
-                                            int k, Comp<P>& o) {
-  float n[P];
-  nat_of<P, FORM>(op, s, k, n);
-  derive<P>(c, s.dt, n, o);
-}
-
-// component k of a [P, I] or kdim SNP for the one-pass prologue: derive's
-// algebra with the solve and the summaries sharing one determinant and
-// one SFU reciprocal
+// component k of a [P, I] or kdim SNP for the one-pass prologue
+// (compact_obj._derive_tile): y = sigma n, quad = y . n, the solve and the
+// summaries sharing one determinant and one SFU reciprocal
 template <int P, int FORM>
 __device__ __forceinline__ void derive_once(const Operands& op,
                                             const Snp<P>& s, const float* c,
@@ -509,6 +426,22 @@ __device__ __forceinline__ float z_epochs(const Operands& op,
   return 0.5f * (quad_of_mean<P>(c, r.dc, y) - __logf(det)) + sel;
 }
 
+// the logit z_k of a [P, I] or kdim SNP alone, for the sums: y = sigma_k n_k
+// and the log-determinant from one determinant and one SFU reciprocal (as
+// solve_summaries), quad = y . n; no diagonal, matches or quadform. kKdim
+// reads nat[k, p, i] once.
+template <int P, int FORM>
+__device__ __forceinline__ float z_form(const Operands& op, const Snp<P>& s,
+                                        const float* c, int k, float sel) {
+  float n[P], y[P];
+  nat_of<P, FORM>(op, s, k, n);
+  const float det = solve<P, true>(c, s.dt, n, y);
+  float quad = y[0] * n[0];
+#pragma unroll
+  for (int p = 1; p < P; ++p) quad += y[p] * n[p];
+  return 0.5f * (quad - __logf(det)) + sel;
+}
+
 // a logit must pass the running reference m by this many nats to move it
 constexpr float kRescale = 8.0f;
 
@@ -558,32 +491,29 @@ struct Online {
   }
 };
 
-// the epoch sums stage the weights of kChunk components per SNP tile, one
-// row of kWStride floats each (the odd stride spreads a warp's rows over
-// the banks)
+// the sums stage the weights of kChunk components per SNP tile, one row of
+// kWStride floats each (the odd stride spreads a warp's rows over the banks)
 constexpr int kChunk = 16;
 constexpr int kWStride = kThreads + 1;
 
 // floats of shared memory past the [kt] component tiles:
-//   prologue            the warps' KL sums [kWarps]
-//   sums, kShared/kKdim the warps' sums by annotation [kWarps][kt][A]
-//   sums, kEpochs       the CTA's partial [K][A], the staged weights
-//                       [kChunk][kWStride], the per-warp annotation counts
-//                       [A + 1][kWarps] and segment starts [A + 2] (ints)
+//   prologue  the warps' KL sums [kWarps]
+//   sums      the CTA's partial of one component group [kg][A], the staged
+//             weights [kChunk][kWStride], the per-warp annotation counts
+//             [A + 1][kWarps] and segment starts [A + 2] (ints)
 // then the form's table (table_floats). ops/cuda/compact_obj.py
-// (_launch_shape) sizes the tiles by the same count.
-__host__ __device__ inline int extra_floats(bool sums, int form, int K,
-                                            int A, int kt) {
+// (_launch_shape) sizes the tiles and groups by the same count.
+__host__ __device__ inline int extra_floats(bool sums, int kg, int A) {
   if (!sums) return kWarps;
-  if (form == kEpochs)
-    return K * A + kChunk * kWStride + (A + 1) * kWarps + A + 2;
-  return kWarps * kt * A;
+  return kg * A + kChunk * kWStride + (A + 1) * kWarps + A + 2;
 }
 
 // SUMS = false: prologue (pm, pv, per-CTA KL partial in part[blockIdx]),
 // one pass over K.
-// SUMS = true: per-CTA annotation sums in part[blockIdx][K][A]; kEpochs
-// writes them once, the other forms add them into a zeroed buffer.
+// SUMS = true: per-CTA annotation sums in part[blockIdx][K][A], written
+// once, component group by component group (kg components, a multiple of
+// kt, or all K). The first group's pass 1 leaves each SNP's (m, 1/s) in
+// norm[2][I] for the later groups (unused when kg == K).
 // NL: the live epochs held in registers (-1: read at run time; the
 // kShared and kKdim kernels ignore it).
 template <int P, bool SUMS, int FORM, int NL = -1>
@@ -591,19 +521,17 @@ __global__ void __launch_bounds__(kThreads)
     compact_kernel(Operands op, const float* __restrict__ coeffs,
                    const float* __restrict__ scores_t,
                    const int* __restrict__ ann, float* __restrict__ pm_out,
-                   float* __restrict__ pv_out, float* __restrict__ part, int I,
-                   int K, int A, int kt, float eps) {
+                   float* __restrict__ pv_out, float* __restrict__ part,
+                   float* __restrict__ norm, int I, int K, int A, int kt,
+                   int kg, float eps) {
   constexpr int NCOL = ncol<P>();
-  // z-only epoch sums with the sorted reduction; the [P, I] and kdim sums
-  // keep two passes of the full derivation
-  constexpr bool kZSums = SUMS && FORM == kEpochs;
   extern __shared__ float smem[];
   float* coef_s = smem;                 // [kt][NCOL]
   float* score_s = coef_s + kt * NCOL;  // [kt][A]
   float* extra = score_s + kt * A;      // see extra_floats
-  float* tab = extra + extra_floats(SUMS, FORM, K, A, kt);
-  float* part_s = extra;                                      // kZSums
-  float* w_s = part_s + K * A;                                // kZSums
+  float* tab = extra + extra_floats(SUMS, kg, A);
+  float* part_s = extra;                // sums: [kg][A]
+  float* w_s = part_s + kg * A;         // sums: [kChunk][kWStride]
   int* cnt_s = reinterpret_cast<int*>(w_s + kChunk * kWStride);
   int* seg_s = cnt_s + (A + 1) * kWarps;
   const int tid = threadIdx.x;
@@ -634,25 +562,22 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = tid; j < op.nlive; j += kThreads)
       tab[(op.nlive + 1) * P + j] = op.hist_c[j];
   }
-  if (kZSums)
-    for (int j = tid; j < K * A; j += kThreads) part_s[j] = 0.f;
   if (ntiles == 1) load_tile(0);
   __syncthreads();
 
-  float kl = 0.f;
-  // grid-stride over SNP tiles; every thread of a CTA runs the same
-  // number of iterations, so the barriers below are uniform
-  for (int base = blockIdx.x * kThreads; base < I;
-       base += gridDim.x * kThreads) {
-    const int i = base + tid;
-    const bool live = i < I;
-    // dead lanes carry an inert pad slot (dterm 1, natural mean 0, id A)
-    Snp<P> snp;
-    load_snp<P, FORM>(op, snp, i, live);
-    const int a = live ? ann[i] : A;
-    const int asel = min(a, A - 1);
-
-    if constexpr (!SUMS) {
+  if constexpr (!SUMS) {
+    float kl = 0.f;
+    // grid-stride over SNP tiles; every thread of a CTA runs the same
+    // number of iterations, so the barriers below are uniform
+    for (int base = blockIdx.x * kThreads; base < I;
+         base += gridDim.x * kThreads) {
+      const int i = base + tid;
+      const bool live = i < I;
+      // dead lanes carry an inert pad slot (dterm 1, natural mean 0, id A)
+      Snp<P> snp;
+      load_snp<P, FORM>(op, snp, i, live);
+      const int a = live ? ann[i] : A;
+      const int asel = min(a, A - 1);
       EpochRegs<P, NL> er;
       if constexpr (FORM == kEpochs) load_epochs<P, NL>(op, snp, tab, er);
       Online<P> acc;
@@ -680,127 +605,7 @@ __global__ void __launch_bounds__(kThreads)
         }
         if (a < A) kl += (acc.sz + acc.sg) * inv - logf(acc.s0);
       }
-    } else if constexpr (kZSums) {
-      EpochRegs<P, NL> er;
-      load_epochs<P, NL>(op, snp, tab, er);
-      // The tile's SNPs in annotation order, stable: pos is this SNP's
-      // place, annotation aa holds places [seg_s[aa], seg_s[aa + 1]).
-      // Pad SNPs (id A) sort last and are never read.
-      for (int j = tid; j < (A + 1) * kWarps; j += kThreads) cnt_s[j] = 0;
-      __syncthreads();
-      const unsigned same = __match_any_sync(kFull, a);
-      const int rank = __popc(same & ((1u << lane) - 1u));
-      if (rank == 0) cnt_s[a * kWarps + warp] = __popc(same);
-      __syncthreads();
-      if (tid == 0) {
-        int run = 0;
-        for (int aa = 0; aa <= A; ++aa) {
-          seg_s[aa] = run;
-          for (int w = 0; w < kWarps; ++w) {
-            const int c = cnt_s[aa * kWarps + w];
-            cnt_s[aa * kWarps + w] = run;
-            run += c;
-          }
-        }
-        seg_s[A + 1] = run;
-      }
-      __syncthreads();
-      const int pos = cnt_s[a * kWarps + warp] + rank;
-
-      // pass 1: online max and normalizer of z over K
-      float m = -INFINITY, s = 0.f;
-      for (int t = 0; t < ntiles; ++t) {
-        next_tile(t);
-        const int cnt = min(kt, K - t * kt);
-        for (int kl_ = 0; kl_ < cnt; ++kl_) {
-          const float z = z_epochs<P, NL>(op, snp, er, tab,
-                                          coef_s + kl_ * NCOL,
-                                          score_s[kl_ * A + asel]);
-          if (z > m) {
-            s = s * __expf(m - z) + 1.0f;
-            m = z;
-          } else {
-            s += __expf(z - m);
-          }
-        }
-      }
-      const float inv_s = 1.0f / s;
-
-      // pass 2: the clamped weights of kChunk components at a time, staged
-      // at their sorted places; one thread per (component, annotation)
-      // adds its segment, in place order, into the CTA's partial
-      for (int t = 0; t < ntiles; ++t) {
-        next_tile(t);
-        const int cnt = min(kt, K - t * kt);
-        for (int c0 = 0; c0 < cnt; c0 += kChunk) {
-          const int nc = min(kChunk, cnt - c0);
-          for (int j = 0; j < nc; ++j) {
-            const int kl_ = c0 + j;
-            const float z = z_epochs<P, NL>(op, snp, er, tab,
-                                            coef_s + kl_ * NCOL,
-                                            score_s[kl_ * A + asel]);
-            if (a < A)
-              w_s[j * kWStride + pos] = fmaxf(__expf(z - m) * inv_s, eps);
-          }
-          __syncthreads();
-          for (int q = tid; q < nc * A; q += kThreads) {
-            const int aa = q / nc, j = q - aa * nc;
-            const float* row = w_s + j * kWStride;
-            float v = 0.f;
-            for (int r = seg_s[aa]; r < seg_s[aa + 1]; ++r) v += row[r];
-            part_s[(t * kt + c0 + j) * A + aa] += v;
-          }
-          __syncthreads();
-        }
-      }
-    } else {
-      // pass 1: online max and normalizer of z over K
-      float m = -INFINITY, s = 0.f;
-      for (int t = 0; t < ntiles; ++t) {
-        next_tile(t);
-        const int cnt = min(kt, K - t * kt);
-        for (int kl_ = 0; kl_ < cnt; ++kl_) {
-          Comp<P> o;
-          derive_form<P, FORM>(op, snp, coef_s + kl_ * NCOL, t * kt + kl_, o);
-          const float z = 0.5f * (o.quad - o.logdet) + score_s[kl_ * A + asel];
-          if (z > m) {
-            s = s * expf(m - z) + 1.0f;
-            m = z;
-          } else {
-            s += expf(z - m);
-          }
-        }
-      }
-
-      // pass 2: per-warp sums by annotation; lanes of other ids add zero
-      for (int t = 0; t < ntiles; ++t) {
-        next_tile(t);
-        const int cnt = min(kt, K - t * kt);
-        for (int kl_ = 0; kl_ < cnt; ++kl_) {
-          Comp<P> o;
-          derive_form<P, FORM>(op, snp, coef_s + kl_ * NCOL, t * kt + kl_, o);
-          const float z = 0.5f * (o.quad - o.logdet) + score_s[kl_ * A + asel];
-          const float vd = fmaxf(expf(z - m) / s, eps);
-          for (int aa = 0; aa < A; ++aa) {
-            const bool mine = a == aa;
-            float v = 0.f;
-            if (__any_sync(kFull, mine)) v = warp_sum(mine ? vd : 0.f);
-            if (lane == 0) extra[(warp * kt + kl_) * A + aa] = v;
-          }
-        }
-        __syncthreads();
-        float* dst = part + (size_t)blockIdx.x * K * A + (size_t)t * kt * A;
-        for (int j = tid; j < cnt * A; j += kThreads) {
-          float v = 0.f;
-          for (int w = 0; w < kWarps; ++w) v += extra[w * kt * A + j];
-          dst[j] += v;
-        }
-        __syncthreads();
-      }
     }
-  }
-
-  if (!SUMS) {
     const float v = warp_sum(kl);
     if (lane == 0) extra[warp] = v;
     __syncthreads();
@@ -809,11 +614,116 @@ __global__ void __launch_bounds__(kThreads)
       for (int w = 0; w < kWarps; ++w) tot += extra[w];
       part[blockIdx.x] = tot;
     }
-  }
-  if (kZSums) {
-    __syncthreads();
-    float* dst = part + (size_t)blockIdx.x * K * A;
-    for (int j = tid; j < K * A; j += kThreads) dst[j] = part_s[j];
+  } else {
+    for (int g0 = 0; g0 < K; g0 += kg) {
+      const int gcnt = min(kg, K - g0);
+      for (int j = tid; j < gcnt * A; j += kThreads) part_s[j] = 0.f;
+      for (int base = blockIdx.x * kThreads; base < I;
+           base += gridDim.x * kThreads) {
+        const int i = base + tid;
+        const bool live = i < I;
+        Snp<P> snp;
+        load_snp<P, FORM>(op, snp, i, live);
+        const int a = live ? ann[i] : A;
+        const int asel = min(a, A - 1);
+        EpochRegs<P, NL> er;
+        if constexpr (FORM == kEpochs) load_epochs<P, NL>(op, snp, tab, er);
+        // the logit of the tile's component kl_ (component k)
+        auto z_of = [&](int kl_, int k) {
+          const float* c = coef_s + kl_ * NCOL;
+          const float sel = score_s[kl_ * A + asel];
+          if constexpr (FORM == kEpochs)
+            return z_epochs<P, NL>(op, snp, er, tab, c, sel);
+          else
+            return z_form<P, FORM>(op, snp, c, k, sel);
+        };
+        // The tile's SNPs in annotation order, stable: pos is this SNP's
+        // place, annotation aa holds places [seg_s[aa], seg_s[aa + 1]).
+        // Pad SNPs (id A) sort last and are never read.
+        for (int j = tid; j < (A + 1) * kWarps; j += kThreads) cnt_s[j] = 0;
+        __syncthreads();
+        const unsigned same = __match_any_sync(kFull, a);
+        const int rank = __popc(same & ((1u << lane) - 1u));
+        if (rank == 0) cnt_s[a * kWarps + warp] = __popc(same);
+        __syncthreads();
+        if (tid == 0) {
+          int run = 0;
+          for (int aa = 0; aa <= A; ++aa) {
+            seg_s[aa] = run;
+            for (int w = 0; w < kWarps; ++w) {
+              const int c = cnt_s[aa * kWarps + w];
+              cnt_s[aa * kWarps + w] = run;
+              run += c;
+            }
+          }
+          seg_s[A + 1] = run;
+        }
+        __syncthreads();
+        const int pos = cnt_s[a * kWarps + warp] + rank;
+
+        // pass 1 (first group): online max and normalizer of z over K
+        float m, inv_s;
+        if (g0 == 0) {
+          float s = 0.f;
+          m = -INFINITY;
+          for (int t = 0; t < ntiles; ++t) {
+            next_tile(t);
+            const int cnt = min(kt, K - t * kt);
+            // (unrolled by four: the loads and special-function latencies
+            // of four components overlap)
+#pragma unroll 4
+            for (int kl_ = 0; kl_ < cnt; ++kl_) {
+              const float z = z_of(kl_, t * kt + kl_);
+              if (z > m) {
+                s = s * __expf(m - z) + 1.0f;
+                m = z;
+              } else {
+                s += __expf(z - m);
+              }
+            }
+          }
+          inv_s = 1.0f / s;
+          if (kg < K && live) {
+            norm[i] = m;
+            norm[(size_t)I + i] = inv_s;
+          }
+        } else {  // this thread's own writes of the first group
+          m = live ? norm[i] : 0.f;
+          inv_s = live ? norm[(size_t)I + i] : 0.f;
+        }
+
+        // pass 2: the clamped weights of the group's components, kChunk at
+        // a time, staged at their sorted places; one thread per
+        // (component, annotation) adds its segment, in place order, into
+        // the CTA's partial
+        for (int t = g0 / kt; t * kt < g0 + gcnt; ++t) {
+          next_tile(t);
+          const int cnt = min(kt, K - t * kt);
+          for (int c0 = 0; c0 < cnt; c0 += kChunk) {
+            const int nc = min(kChunk, cnt - c0);
+#pragma unroll 4
+            for (int j = 0; j < nc; ++j) {
+              const float z = z_of(c0 + j, t * kt + c0 + j);
+              if (a < A)
+                w_s[j * kWStride + pos] = fmaxf(__expf(z - m) * inv_s, eps);
+            }
+            __syncthreads();
+            for (int q = tid; q < nc * A; q += kThreads) {
+              const int aa = q / nc, j = q - aa * nc;
+              const float* row = w_s + j * kWStride;
+              float v = 0.f;
+              for (int r = seg_s[aa]; r < seg_s[aa + 1]; ++r) v += row[r];
+              part_s[(t * kt + c0 + j - g0) * A + aa] += v;
+            }
+            __syncthreads();
+          }
+        }
+      }
+      __syncthreads();
+      float* dst = part + (size_t)blockIdx.x * K * A + (size_t)g0 * A;
+      for (int j = tid; j < gcnt * A; j += kThreads) dst[j] = part_s[j];
+      __syncthreads();
+    }
   }
 }
 
@@ -870,15 +780,16 @@ __global__ void __launch_bounds__(kThreads)
 
 // Launch the compact kernel of form FORM, then the fixed-order reduction
 // of its partials: out is the KL scalar (prologue) or the [K, A] sums.
+// norm: [2, I] floats of scratch for the sums when kg < K (else unused).
 template <int P, bool SUMS, int FORM, int NL = -1>
 cudaError_t launch(const Operands& op, const void* coeffs,
-                   const void* scores_t,
-                   const void* ann, void* pm, void* pv, void* part, void* out,
-                   int I, int K, int A, int kt, int nblocks, float eps,
+                   const void* scores_t, const void* ann, void* pm, void* pv,
+                   void* part, void* norm, void* out, int I, int K, int A,
+                   int kt, int kg, int nblocks, float eps,
                    cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)kt * (ncol<P>() + A) +
-                       (size_t)extra_floats(SUMS, FORM, K, A, kt) +
+                       (size_t)extra_floats(SUMS, kg, A) +
                        (size_t)table_floats(FORM, P, op.nlive));
   auto kernel = compact_kernel<P, SUMS, FORM, NL>;
   if (smem > 48 * 1024) {
@@ -890,7 +801,8 @@ cudaError_t launch(const Operands& op, const void* coeffs,
       op, static_cast<const float*>(coeffs),
       static_cast<const float*>(scores_t), static_cast<const int*>(ann),
       static_cast<float*>(pm), static_cast<float*>(pv),
-      static_cast<float*>(part), I, K, A, kt, eps);
+      static_cast<float*>(part), static_cast<float*>(norm), I, K, A, kt, kg,
+      eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (SUMS) {

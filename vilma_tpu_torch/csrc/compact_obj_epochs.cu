@@ -37,7 +37,8 @@
 //   delta sums: two passes over K of the logit alone, 2 K (E + 1) solves
 //     per SNP, every reciprocal, logarithm and exponential from the SFU;
 //     the CTA adds the weights by annotation through a sorted staging
-//     buffer in shared memory and writes its [K, A] partial once.
+//     buffer in shared memory and writes its [K, A] partial once (by
+//     component groups where K·A does not fit).
 #include "compact_obj.cuh"
 
 namespace {
@@ -53,12 +54,12 @@ constexpr int kMaxRegEpochs = 2;
 template <int P, bool SUMS>
 cudaError_t launch_epochs(const Operands& op, const void* coeffs,
                           const void* scores_t, const void* ann, void* pm,
-                          void* pv, void* part, void* out, int I, int K,
-                          int A, int kt, int nblocks, float eps,
-                          cudaStream_t stream) {
-#define VILMA_EPOCHS(NL)                                                    \
-  launch<P, SUMS, kEpochs, NL>(op, coeffs, scores_t, ann, pm, pv, part, out, \
-                               I, K, A, kt, nblocks, eps, stream)
+                          void* pv, void* part, void* norm, void* out, int I,
+                          int K, int A, int kt, int kg, int nblocks,
+                          float eps, cudaStream_t stream) {
+#define VILMA_EPOCHS(NL)                                                     \
+  launch<P, SUMS, kEpochs, NL>(op, coeffs, scores_t, ann, pm, pv, part, norm, \
+                               out, I, K, A, kt, kg, nblocks, eps, stream)
   static_assert(kMaxRegEpochs == 2, "one case per register epoch count");
   switch (op.nlive) {
     case 0:
@@ -78,8 +79,9 @@ cudaError_t dispatch(int P, const void* coeffs, const void* scores_t,
                      const void* ann, const void* sld, const void* u,
                      const void* hist, const void* inv_scales,
                      const void* hist_c, void* pm, void* pv, void* part,
-                     void* out, int I, int K, int A, int nlive, int kt,
-                     int nblocks, float eps, cudaStream_t stream) {
+                     void* norm, void* out, int I, int K, int A, int nlive,
+                     int kt, int kg, int nblocks, float eps,
+                     cudaStream_t stream) {
   const Operands op{static_cast<const float*>(sld),
                     static_cast<const float*>(u),
                     static_cast<const float*>(hist),
@@ -88,13 +90,16 @@ cudaError_t dispatch(int P, const void* coeffs, const void* scores_t,
   switch (P) {
     case 1:
       return launch_epochs<1, SUMS>(op, coeffs, scores_t, ann, pm, pv, part,
-                                    out, I, K, A, kt, nblocks, eps, stream);
+                                    norm, out, I, K, A, kt, kg, nblocks, eps,
+                                    stream);
     case 2:
       return launch_epochs<2, SUMS>(op, coeffs, scores_t, ann, pm, pv, part,
-                                    out, I, K, A, kt, nblocks, eps, stream);
+                                    norm, out, I, K, A, kt, kg, nblocks, eps,
+                                    stream);
     case 3:
       return launch_epochs<3, SUMS>(op, coeffs, scores_t, ann, pm, pv, part,
-                                    out, I, K, A, kt, nblocks, eps, stream);
+                                    norm, out, I, K, A, kt, kg, nblocks, eps,
+                                    stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -113,20 +118,22 @@ extern "C" int vilma_compact_prologue_epochs(
     int K, int A, int P, int nlive, int kt, int nblocks, float eps,
     void* stream) {
   return (int)dispatch<false>(P, coeffs, scores_t, ann, sld, u, hist,
-                              inv_scales, hist_c, pm, pv, part, kl_out, I, K,
-                              A, nlive, kt, nblocks, eps,
+                              inv_scales, hist_c, pm, pv, part, nullptr,
+                              kl_out, I, K, A, nlive, kt, K, nblocks, eps,
                               static_cast<cudaStream_t>(stream));
 }
 
 // As above, but writes out [K, A] = the per-annotation sums of vi_delta;
-// part holds nblocks * K * A floats of scratch (every one written).
+// part holds nblocks * K * A floats of scratch (every one written), norm
+// 2 * I floats when the kernel takes K in groups of kg < K (else unused).
 extern "C" int vilma_compact_delta_sums_epochs(
     const void* coeffs, const void* scores_t, const void* ann,
     const void* sld, const void* u, const void* hist, const void* inv_scales,
-    const void* hist_c, void* part, void* out, int I, int K, int A, int P,
-    int nlive, int kt, int nblocks, float eps, void* stream) {
+    const void* hist_c, void* part, void* norm, void* out, int I, int K,
+    int A, int P, int nlive, int kt, int kg, int nblocks, float eps,
+    void* stream) {
   return (int)dispatch<true>(P, coeffs, scores_t, ann, sld, u, hist,
-                             inv_scales, hist_c, nullptr, nullptr, part, out,
-                             I, K, A, nlive, kt, nblocks, eps,
+                             inv_scales, hist_c, nullptr, nullptr, part, norm,
+                             out, I, K, A, nlive, kt, kg, nblocks, eps,
                              static_cast<cudaStream_t>(stream));
 }

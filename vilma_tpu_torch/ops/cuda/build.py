@@ -30,13 +30,14 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: every pointer and the stream are void*, counts int
 SIGNATURES = {
-    'vilma_block_matvec': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    'vilma_block_matvec_group': [_P] * 6 + [_I] * 10 + [_P],
+    'vilma_block_matvec_group_fit': [_I] * 7 + [_P],
     'vilma_block_matvec_cluster': [_P] * 5 + [_I] * 9 + [_P],
     'vilma_block_matvec_cluster_fit': [_I] * 7 + [_P],
     'vilma_compact_prologue': [_P] * 9 + [_I] * 6 + [_F, _P],
-    'vilma_compact_delta_sums': [_P] * 7 + [_I] * 6 + [_F, _P],
+    'vilma_compact_delta_sums': [_P] * 8 + [_I] * 7 + [_F, _P],
     'vilma_compact_prologue_epochs': [_P] * 12 + [_I] * 7 + [_F, _P],
-    'vilma_compact_delta_sums_epochs': [_P] * 10 + [_I] * 7 + [_F, _P],
+    'vilma_compact_delta_sums_epochs': [_P] * 11 + [_I] * 8 + [_F, _P],
 }
 # the kdim forms take the same arguments as the shared-state entry points
 SIGNATURES['vilma_compact_prologue_kdim'] = SIGNATURES[

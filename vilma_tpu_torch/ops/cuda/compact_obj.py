@@ -43,12 +43,12 @@ launches = {'prologue': 0, 'delta_sums': 0, 'prologue_kdim': 0,
 _THREADS = 256
 _WARPS = _THREADS // 32
 _MAX_BLOCKS = 1024
-# dynamic shared memory the kernels' component tiles may use; the epoch
-# sums may take up to the card's per-block limit to hold all of K in one
-# tile beside their [K, A] partial
+# dynamic shared memory the prologues' component tiles may use; the sums
+# may take up to the card's per-block limit to hold all of K in one tile
+# beside their [K, A] partial
 _SMEM_BYTES = 48 * 1024
 _SMEM_MAX = 227 * 1024
-# the epoch sums stage the weights of this many components per SNP tile
+# the sums stage the weights of this many components per SNP tile
 # (csrc/compact_obj.cuh kChunk), rows of _THREADS + 1 floats
 _CHUNK = 16
 # plain version: SNP columns per chunk, bounding its [K, chunk]
@@ -389,27 +389,47 @@ def _check_epoch_operands(name, coeffs, scores_t, annotations, sld, nat_u,
     return P, I, K, A, ncol, B
 
 
-def _launch_shape(I, K, A, ncol, sums, epochs=False, table_floats=0):
-    """(component tile width, grid blocks) for the kernels: the shared
-    memory past the [kt] tiles of coefficients and scores is counted as
-    csrc/compact_obj.cuh extra_floats counts it."""
+def _launch_shape(I, K, A, ncol, sums, table_floats=0):
+    """(component tile width kt, component group kg, grid blocks) for the
+    kernels; the shared memory past the [kt] tiles of coefficients and
+    scores is counted as csrc/compact_obj.cuh extra_floats counts it. The
+    prologues keep their tiles within 48 KB (kg = K, unused). The sums
+    hold their CTA's [kg, A] partial beside the tile: all of K in one tile
+    where it fits the card's per-block limit, else all of K in one group
+    with narrower tiles, else groups of kg components (a multiple of kt)
+    whose partial fits. Raises only if one component row does not fit."""
     per_comp = ncol + A
-    budget = _SMEM_BYTES
+    nblocks = max(1, min(-(-I // _THREADS), _MAX_BLOCKS))
     if not sums:
-        fixed = _WARPS
-    elif epochs:
-        fixed = K * A + _CHUNK * (_THREADS + 1) + (A + 1) * _WARPS + A + 2
-        budget = min(_SMEM_MAX, max(budget, 4 * (fixed + table_floats
-                                                 + K * per_comp)))
+        kt = min(K, (_SMEM_BYTES // 4 - _WARPS - table_floats) // per_comp)
+        kg = K
     else:
-        fixed = 0
-        per_comp += _WARPS * A
-    kt = min(K, (budget // 4 - fixed - table_floats) // per_comp)
-    if kt < 1:
+        room = (_SMEM_MAX // 4 - _CHUNK * (_THREADS + 1) - (A + 1) * _WARPS
+                - A - 2 - table_floats)
+        if K * (per_comp + A) <= room:
+            kt = kg = K
+        elif K * A + per_comp <= room:
+            kg = K
+            kt = (room - K * A) // per_comp
+        else:
+            kt = min(K, max(1, room // (4 * per_comp)))
+            while kt > 1 and (room - kt * per_comp) // A < kt:
+                kt //= 2
+            kg = min(K, (room - kt * per_comp) // A // kt * kt)
+    if min(kt, kg) < 1:
         raise ValueError(f'{A} annotations exceed the kernel\'s shared-'
                          'memory tile')
-    nblocks = max(1, min(-(-I // _THREADS), _MAX_BLOCKS))
-    return kt, nblocks
+    return kt, kg, nblocks
+
+
+def _sums_scratch(nblocks, K, A, I, kg, dev):
+    """The sums' per-CTA partials [nblocks, K, A] (every one written) and,
+    when K is taken in groups, each SNP's pass-1 max and 1/normalizer
+    [2, I] (else None)."""
+    part = torch.empty((nblocks, K, A), dtype=torch.float32, device=dev)
+    norm = (torch.empty((2, I), dtype=torch.float32, device=dev)
+            if kg < K else None)
+    return part, norm
 
 
 def prologue(coeffs, scores_t, annotations, dterm, nat_mu, *,
@@ -432,7 +452,7 @@ def prologue(coeffs, scores_t, annotations, dterm, nat_mu, *,
                                        annotations, dterm, nat_mu,
                                        num_annotations)
     kdim = nat_mu.dim() == 3
-    kt, nblocks = _launch_shape(I, K, A, ncol, sums=False)
+    kt, _, nblocks = _launch_shape(I, K, A, ncol, sums=False)
     dev = nat_mu.device
     pm = torch.empty((P, I), dtype=torch.float32, device=dev)
     pv = torch.empty((P, I), dtype=torch.float32, device=dev)
@@ -462,9 +482,9 @@ def delta_sums(coeffs, scores_t, annotations, dterm, nat_mu, *,
                                        annotations, dterm, nat_mu,
                                        num_annotations)
     kdim = nat_mu.dim() == 3
-    kt, nblocks = _launch_shape(I, K, A, ncol, sums=True)
+    kt, kg, nblocks = _launch_shape(I, K, A, ncol, sums=True)
     dev = nat_mu.device
-    part = torch.zeros((nblocks, K, A), dtype=torch.float32, device=dev)
+    part, norm = _sums_scratch(nblocks, K, A, I, kg, dev)
     out = torch.empty((K, A), dtype=torch.float32, device=dev)
     eps = epsilon(torch.float32)
     entry = ('vilma_compact_delta_sums_kdim' if kdim
@@ -472,8 +492,8 @@ def delta_sums(coeffs, scores_t, annotations, dterm, nat_mu, *,
     status = getattr(build.library(), entry)(
         coeffs.data_ptr(), scores_t.data_ptr(), annotations.data_ptr(),
         dterm.data_ptr(), nat_mu.data_ptr(), part.data_ptr(),
-        out.data_ptr(), I, K, A, P, kt, nblocks, eps,
-        build.stream_handle(dev))
+        None if norm is None else norm.data_ptr(), out.data_ptr(), I, K, A,
+        P, kt, kg, nblocks, eps, build.stream_handle(dev))
     build.check(status, entry)
     launches['delta_sums_kdim' if kdim else 'delta_sums'] += 1
     return out.T
@@ -498,8 +518,8 @@ def prologue_epochs(coeffs, scores_t, annotations, sld, nat_u, hist_v,
     P, I, K, A, ncol, _ = _check_epoch_operands(
         'prologue_epochs', coeffs, scores_t, annotations, sld, nat_u,
         hist_v, inv_scales, hist_c, num_annotations, num_live)
-    kt, nblocks = _launch_shape(I, K, A, ncol, sums=False,
-                                table_floats=(num_live + 1) * P + num_live)
+    kt, _, nblocks = _launch_shape(I, K, A, ncol, sums=False,
+                                   table_floats=(num_live + 1) * P + num_live)
     dev = nat_u.device
     pm = torch.empty((P, I), dtype=torch.float32, device=dev)
     pv = torch.empty((P, I), dtype=torch.float32, device=dev)
@@ -529,18 +549,18 @@ def delta_sums_epochs(coeffs, scores_t, annotations, sld, nat_u, hist_v,
     P, I, K, A, ncol, _ = _check_epoch_operands(
         'delta_sums_epochs', coeffs, scores_t, annotations, sld, nat_u,
         hist_v, inv_scales, hist_c, num_annotations, num_live)
-    kt, nblocks = _launch_shape(I, K, A, ncol, sums=True, epochs=True,
-                                table_floats=(num_live + 1) * P + num_live)
+    kt, kg, nblocks = _launch_shape(
+        I, K, A, ncol, sums=True, table_floats=(num_live + 1) * P + num_live)
     dev = nat_u.device
-    part = torch.empty((nblocks, K, A), dtype=torch.float32, device=dev)
+    part, norm = _sums_scratch(nblocks, K, A, I, kg, dev)
     out = torch.empty((K, A), dtype=torch.float32, device=dev)
     eps = epsilon(torch.float32)
     status = build.library().vilma_compact_delta_sums_epochs(
         coeffs.data_ptr(), scores_t.data_ptr(), annotations.data_ptr(),
         sld.data_ptr(), nat_u.data_ptr(), hist_v.data_ptr(),
         inv_scales.data_ptr(), hist_c.data_ptr(), part.data_ptr(),
-        out.data_ptr(), I, K, A, P, num_live, kt, nblocks, eps,
-        build.stream_handle(dev))
+        None if norm is None else norm.data_ptr(), out.data_ptr(), I, K, A,
+        P, num_live, kt, kg, nblocks, eps, build.stream_handle(dev))
     build.check(status, 'vilma_compact_delta_sums_epochs')
     launches['delta_sums_epochs'] += 1
     return out.T
