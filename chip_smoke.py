@@ -38,10 +38,35 @@ Phases:
      3 timed outer steps after one warm-up step.
   6. fit --learn-scaling: phase 4's schema and flags; the kdim
      [K, P, I] state (420 MB). Steps until an error-scaling EM event
-     fires (step cap STEP_CAP_SE); the kdim kernels must launch.
+     fires (step cap STEP_CAP_SE), writing a checkpoint every
+     CHECKPOINT_FREQ steps; the kdim kernels must launch.
   7. engine --learn-scaling: phase 5's LD, the 582-component grid of
      the CLI; the epoch-history state, selected by size. One warm-up
      step, one EM append, 3 timed outer steps.
+  8. make_ld_schema --ldthresh 0.8 on the card of a synthetic PLINK
+     chromosome: 503 samples (the 1000 Genomes EUR panel), ~90K SNPs in
+     130 blocks of 500-900 (HapMap3 chromosome 1 under Berisa-Pickrell
+     blocks), ~1% missing calls, a few monomorphic SNPs. The host
+     rebuilds the first blocks (--device cpu --extract): .schema and
+     .var text equal, ranks equal, eigenvalues and U diag(s) U^T within
+     BAND_SCHEMA.
+  9. check_ld_schema --trace --listvars of that schema on the card and
+     on the host: equal text.
+ 10. sim from phase 4's fit (its .npz and .covariance.pkl) on phase 4's
+     schema, 2 cohorts, the default RNG path, on the card (f32), on the
+     host at f64 and at f32: true_beta equal to the host's bit for bit,
+     BETA within BAND_SIM of the host f64 run; the matvec must launch.
+ 11. resume: phase 6's last checkpoint through fit --load-checkpoint
+     (the kdim state, streamed), and phase 7's epoch state dumped and
+     resumed through MultiPopVI.optimize; the ELBO after resuming
+     within BAND_RESUME of the original run's; their kernels must
+     launch.
+ 12. the K-chunked shape: ~100K SNPs (phase 5's device LD, 98 blocks)
+     shared by 3 cohorts, the -K 12 --drop-non-psd grid (42,999
+     components), f32, the shared state: the [P, I] prologue and sums
+     against their plain versions at this shape, then MultiPopVI.optimize
+     (the initialization and 2 timed outer steps); seconds and peak
+     device memory of each; the [P, I] kernels must launch.
 
 The next-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failed phase exits
@@ -86,8 +111,32 @@ BAND_FIT = 2e-4
 BAND_FIT_SE = 7e-4
 BAND_SCALING = 2e-4
 SMALL_ITS_SE = '20'        # the first EM event fires at step 17 there
-# phase 6: the per-chromosome fit steps until an EM event fires
+# phase 6: the per-chromosome fit steps until an EM event fires, writing
+# a checkpoint every CHECKPOINT_FREQ steps for phase 11
 STEP_CAP_SE = 150
+CHECKPOINT_FREQ = 40
+# phase 8: a chromosome the size of HapMap3's chromosome 1 under
+# Berisa-Pickrell blocks (~90K SNPs, ~130 blocks of ~700), genotyped in
+# the 1000 Genomes EUR panel's 503 samples; the host rebuilds the first
+# SCHEMA_CHECK_BLOCKS blocks. Card against host (float64 both, GEMM
+# order and cuSOLVER against LAPACK): eigenvalues relative, U diag(s)
+# U^T absolute; they read 7.6e-15 and 9.4e-15 on the H100, the band
+# leaves ~100x room
+PLINK_SAMPLES = 503
+PLINK_BLOCKS = 130
+SCHEMA_CHECK_BLOCKS = 6
+BAND_SCHEMA = 1e-12
+# phase 10: the card's f32 sim BETA against the host's f64 run, relative
+# to its scale: the host's own f32 run lands within 2.0e-7 and the
+# card's within 7.7e-8; the band leaves ~10x room over the host's
+BAND_SIM = 2e-6
+# phase 11: the ELBO after a resume against the original run's,
+# relative (f32 objectives of a state restored through f32 vi_mu: both
+# read 0 on the H100); steps taken after resuming
+BAND_RESUME = 1e-6
+RESUME_STEPS = 3
+# phase 12: PSD components of the -K 12 grid at 3 cohorts
+CHUNKED_K = 42_999
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): HBM
 # bytes/s, FP32 and bf16 tensor operations/s
@@ -1008,10 +1057,504 @@ def run_engine_se(device, ld, steps=3):
     require(st.nat_hist_n >= 1, 'the EM update appended no epoch')
     st, ips, syncs = timed_steps(data, st, steps)
     counts = read_counts()
-    return counts, ips, syncs, st, em.events, vi.num_mix
+    return counts, ips, syncs, st, em.events, vi
 
 
 # ---------------------------------------------------------------------------
+# phases 8-12: the subcommands around fit, resume, the K-chunked shape
+# ---------------------------------------------------------------------------
+
+class time_calls:
+    """Context manager timing every call of the given module functions
+    made while active, on the host clock with the card synchronized
+    around each call: targets are label=(module or class, name), none
+    calling another. `split(total)` says where a phase's seconds went."""
+
+    def __init__(self, **targets):
+        self.targets = targets
+        self.spent = {label: [0.0, 0] for label in targets}
+
+    def __enter__(self):
+        self.real = {}
+        for label, (owner, name) in self.targets.items():
+            self.real[label] = real = getattr(owner, name)
+
+            def timed(*a, _real=real, _label=label, **k):
+                _sync('cuda')
+                t = time.perf_counter()
+                try:
+                    return _real(*a, **k)
+                finally:
+                    _sync('cuda')
+                    self.spent[_label][0] += time.perf_counter() - t
+                    self.spent[_label][1] += 1
+            setattr(owner, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for label, (owner, name) in self.targets.items():
+            setattr(owner, name, self.real[label])
+
+    def split(self, total):
+        rest = total - sum(sec for sec, _ in self.spent.values())
+        return '; '.join([f'{label} {sec:.3f} s ({calls} calls)'
+                          for label, (sec, calls) in self.spent.items()]
+                         + [f'the rest {rest:.3f} s'])
+
+
+def load_targets():
+    """time_calls targets of an LD load: each block's read, match and
+    eigendecomposition on the host, and the packing onto the device."""
+    from vilma_tpu_torch.io import load
+    from vilma_tpu_torch.ops import blocks
+    return dict(ld_read_eigh=(load, 'load_entry_factor'),
+                ld_pack=(blocks, 'pack'))
+
+
+class record_elbos:
+    """Context manager recording the ELBO of every outer step that
+    MultiPopVI.optimize reports while active."""
+
+    def __enter__(self):
+        from vilma_tpu_torch.inference import engine
+        self.cls, self.real, self.values = (
+            engine.MultiPopVI, engine.MultiPopVI._dump_info, [])
+
+        def recorded(vi, num_its, stats):
+            self.values.append(float(stats[1]))
+            return self.real(vi, num_its, stats)
+
+        self.cls._dump_info = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._dump_info = self.real
+
+
+def write_plink_chromosome(out_dir, num_blocks, samples, seed=3):
+    """One synthetic PLINK chromosome in `num_blocks` LD blocks of 500-900
+    SNPs (two SNPs between blocks lie in none): haplotypes that copy
+    their neighbour's allele with probability 0.95, ~1% missing calls and
+    a monomorphic SNP every 10,000. Returns (plink list, block bed file,
+    SNP IDs by block)."""
+    from vilma_tpu_torch.io import plink
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(500, 901, num_blocks)
+    bed_lines, block_ids, bps, ids = [], [], [], []
+    pos = 0
+    for b, size in enumerate(sizes):
+        start = pos
+        members = []
+        for _ in range(size):
+            pos += 10
+            bps.append(pos)
+            ids.append(f'snp{len(ids)}')
+            members.append(ids[-1])
+        bed_lines.append(f'1\t{start}\t{pos}')
+        block_ids.append(members)
+        for _ in range(2):                       # between blocks
+            pos += 10
+            bps.append(pos)
+            ids.append(f'snp{len(ids)}')
+    n = len(bps)
+    freqs = rng.uniform(0.05, 0.5, n)
+    haps = np.empty((n, 2 * samples), dtype=np.int8)
+    haps[0] = rng.random(2 * samples) < freqs[0]
+    for j in range(1, n):
+        copy = rng.random(2 * samples) < 0.95
+        haps[j] = np.where(copy, haps[j - 1],
+                           rng.random(2 * samples) < freqs[j])
+    genos = haps[:, :samples] + haps[:, samples:]
+    genos[rng.random(genos.shape) < 0.01] = 3
+    genos[::10_000] = 0
+    base = os.path.join(out_dir, 'chr1')
+    plink.encode_bed(base + '.bed', genos)
+    with open(base + '.bim', 'w') as fh:
+        fh.writelines(f'1\t{ids[j]}\t{bps[j] * 1e-6:.6f}\t{bps[j]}\tA\tG\n'
+                      for j in range(n))
+    with open(base + '.fam', 'w') as fh:
+        fh.writelines(f'f{i} i{i} 0 0 0 -9\n' for i in range(samples))
+    plist = os.path.join(out_dir, 'plink_list.txt')
+    with open(plist, 'w') as fh:
+        fh.write('chr1\n')
+    bed = os.path.join(out_dir, 'blocks.bed')
+    with open(bed, 'w') as fh:
+        fh.write('\n'.join(bed_lines) + '\n')
+    return plist, bed, block_ids
+
+
+def read_schema(root):
+    with open(root + '.schema') as fh:
+        text = fh.read()
+    return text, [line.split() for line in text.splitlines() if line]
+
+
+def run_make_ld_schema(out_dir):
+    """Phase 8: make_ld_schema --ldthresh 0.8 of the whole chromosome on
+    the card, then the first SCHEMA_CHECK_BLOCKS blocks (by --extract) on
+    the host, held against the card's files. Returns (schema, seconds,
+    variants, blocks, max ranks, errors)."""
+    from vilma_tpu_torch import frontend
+    from vilma_tpu_torch.commands import make_ld_schema
+    from vilma_tpu_torch.io import plink
+    t0 = time.perf_counter()
+    plist, bed, block_ids = write_plink_chromosome(out_dir, PLINK_BLOCKS,
+                                                   PLINK_SAMPLES)
+    log(f'  PLINK: {sum(map(len, block_ids))} SNPs in {len(block_ids)} '
+        f'blocks, {PLINK_SAMPLES} samples, written in '
+        f'{time.perf_counter() - t0:.1f} s')
+    roots = {dev: os.path.join(out_dir, dev, 'ld') for dev in ('cuda', 'cpu')}
+    for dev in roots:
+        os.makedirs(os.path.dirname(roots[dev]))
+    t0 = time.perf_counter()
+    with time_calls(decode=(plink, 'decode_bed'),
+                    correlation=(make_ld_schema, 'nan_corr'),
+                    eigh=(make_ld_schema, 'truncate')) as split:
+        frontend.main(['make_ld_schema', '-o', roots['cuda'], '-b', bed,
+                       '-p', plist, '--ldthresh', '0.8', '--device',
+                       'cuda'])
+    _sync('cuda')
+    seconds = time.perf_counter() - t0
+    log(f'  card split: {split.split(seconds)}')
+    extract = os.path.join(out_dir, 'extract.tsv')
+    with open(extract, 'w') as fh:
+        fh.write('ID\n')
+        fh.writelines(f'{i}\n' for b in block_ids[:SCHEMA_CHECK_BLOCKS]
+                      for i in b)
+    frontend.main(['make_ld_schema', '-o', roots['cpu'], '-b', bed, '-p',
+                   plist, '--ldthresh', '0.8', '--device', 'cpu',
+                   '--extract', extract])
+    card_text, card_entries = read_schema(roots['cuda'])
+    host_text, host_entries = read_schema(roots['cpu'])
+    require(len(card_entries) == len(block_ids),
+            f'{len(card_entries)} schema entries for {len(block_ids)} blocks')
+    require(host_text == ''.join(line + '\n' for line in
+                                 card_text.splitlines()[:SCHEMA_CHECK_BLOCKS]),
+            'card and host .schema text differ')
+    errs = dict(s=0.0, recon=0.0)
+    ranks = []
+    n_vars = 0
+    for j, (var, npy) in enumerate(card_entries):
+        with open(os.path.join(os.path.dirname(roots['cuda']), var)) as fh:
+            card_var = fh.read()
+        n = len(card_var.splitlines())
+        n_vars += n
+        card = np.load(os.path.join(os.path.dirname(roots['cuda']), npy))
+        require(card.shape[0] == n + 1 and np.all(np.isfinite(card)),
+                f'{npy}: shape {card.shape} for {n} variants')
+        ranks.append(card.shape[1])
+        if j >= SCHEMA_CHECK_BLOCKS:
+            continue
+        with open(os.path.join(os.path.dirname(roots['cpu']), var)) as fh:
+            require(fh.read() == card_var, f'{var}: card and host differ')
+        host = np.load(os.path.join(os.path.dirname(roots['cpu']), npy))
+        require(host.shape == card.shape,
+                f'{npy}: rank {card.shape[1]} on the card, {host.shape[1]} '
+                'on the host')
+        cu, cs, hu, hs = card[:n], card[n], host[:n], host[n]
+        errs['s'] = max(errs['s'], float(np.max(np.abs(cs / hs - 1))))
+        errs['recon'] = max(errs['recon'], float(np.max(np.abs(
+            (cu * cs) @ cu.T - (hu * hs) @ hu.T))))
+    require(errs['s'] <= BAND_SCHEMA and errs['recon'] <= BAND_SCHEMA,
+            f'card vs host eigen-truncation errors {errs} exceed '
+            f'{BAND_SCHEMA:.0e}')
+    return roots['cuda'], seconds, n_vars, len(card_entries), ranks, errs
+
+
+def run_check_ld_schema(root, out_dir):
+    """Phase 9: check_ld_schema --trace and --listvars of phase 8's
+    schema on the card and on the host: equal text. Returns (seconds on
+    the card, the trace table)."""
+    from vilma_tpu_torch import frontend
+    from vilma_tpu_torch.io import load
+    from vilma_tpu_torch.ops import blocks
+    texts, seconds = {}, None
+    for dev in ('cuda', 'cpu'):
+        trace = os.path.join(out_dir, f'{dev}.trace.tsv')
+        listvars = os.path.join(out_dir, f'{dev}.vars.tsv')
+        t0 = time.perf_counter()
+        with time_calls(**load_targets(),
+                        diagonal=(blocks, 'diag'),
+                        var_tables=(load, 'read_var_table')) as split:
+            frontend.main(['check_ld_schema', '--ld-schema',
+                           root + '.schema', '--trace', trace,
+                           '--listvars', listvars, '--device', dev])
+        if dev == 'cuda':
+            seconds = time.perf_counter() - t0
+            log(f'  card split: {split.split(seconds)}')
+        with open(trace) as fh, open(listvars) as gh:
+            texts[dev] = (fh.read(), gh.read())
+    require(texts['cuda'] == texts['cpu'],
+            'check_ld_schema: card and host text differ')
+    return seconds, texts['cuda'][0].strip().replace('\n', ' | ')
+
+
+def read_sim(path):
+    with open(path) as fh:
+        header = fh.readline().rstrip('\n').split('\t')
+        rows = [line.rstrip('\n').split('\t') for line in fh]
+    return header, rows
+
+
+def run_sim(paths, fit_prefix, out_dir):
+    """Phase 10: sim from phase 4's fit (its .npz weights and
+    .covariance.pkl) on phase 4's schema, 2 cohorts, default RNG path: on
+    the card (f32), on the host at f64 and, for the band, at f32. Returns
+    (card seconds, matvec launches, card error, host f32 error)."""
+    from vilma_tpu_torch import frontend
+    from vilma_tpu_torch.commands import sim
+    schema, sumstats, _, n = paths
+    outs, seconds, counts = {}, None, None
+    real_dtype = sim.ld_dtype
+    for tag, dev, dtype in (('cuda', 'cuda', None), ('cpu_f64', 'cpu', None),
+                            ('cpu_f32', 'cpu', 'f32')):
+        prefix = os.path.join(out_dir, f'sim_{tag}')
+        if dtype == 'f32':
+            import torch
+            sim.ld_dtype = lambda device: torch.float32
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            with time_calls(**load_targets(),
+                            components=(sim, 'sim_components'),
+                            ld_products_noise=(sim, 'sim_gwas')) as split:
+                frontend.main(['sim', '--sumstats', ','.join(sumstats),
+                               '--covariance',
+                               fit_prefix + '.covariance.pkl', '--weights',
+                               fit_prefix + '.npz', '--ld-schema',
+                               f'{schema},{schema}', '--output', prefix,
+                               '--names', 'pop1,pop2', '--seed', '42',
+                               '--device', dev])
+        finally:
+            sim.ld_dtype = real_dtype
+        if tag == 'cuda':
+            seconds = time.perf_counter() - t0
+            counts = read_counts()
+            log(f'  card split: {split.split(seconds)}')
+        outs[tag] = {p: read_sim(f'{prefix}.{p}.simgwas.tsv')
+                     for p in ('pop1', 'pop2')}
+    errs = {}
+    for tag in ('cuda', 'cpu_f32'):
+        worst = 0.0
+        for p in ('pop1', 'pop2'):
+            header, rows = outs[tag][p]
+            want_header, want = outs['cpu_f64'][p]
+            require(header == want_header == ['ID', 'A1', 'A2', 'SE',
+                                              'BETA', 'true_beta'],
+                    f'sim columns {header}')
+            require(len(rows) == len(want) == n, f'{len(rows)} sim rows')
+            require([r[0] for r in rows] == [r[0] for r in want]
+                    and [r[5] for r in rows] == [r[5] for r in want],
+                    f'sim {tag} {p}: IDs or true_beta differ from the host')
+            got = np.array([float(r[4]) for r in rows])
+            ref = np.array([float(r[4]) for r in want])
+            require(np.all(np.isfinite(got)), f'sim {tag}: non-finite BETA')
+            worst = max(worst, float(np.max(np.abs(got - ref))
+                                     / np.max(np.abs(ref))))
+        errs[tag] = worst
+    require(errs['cuda'] <= BAND_SIM,
+            f'sim: card BETA {errs["cuda"]:.2e} of scale from the host f64 '
+            f'run (band {BAND_SIM:.0e}; host f32 {errs["cpu_f32"]:.2e})')
+    require(counts['bucket_matvec_multi'] > 0,
+            'sim never launched the bucket_matvec_multi kernel')
+    return seconds, counts['bucket_matvec_multi'], errs
+
+
+def resume_kdim(paths, fit_prefix, elbos, out_dir):
+    """Phase 11a: resume phase 6's kdim fit from its last checkpoint
+    through `fit --load-checkpoint` on the card (the streamed route: the
+    vi_mu member is over 256 MB) for RESUME_STEPS steps. The first ELBO
+    after the resume, that of the restored state, is held to the
+    original run's ELBO at that iteration (after the step before the
+    checkpoint). Returns (checkpoint step, seconds, relative ELBO error,
+    launches)."""
+    from vilma_tpu_torch.inference import engine
+    steps = [int(f.split('.')[1]) for f in os.listdir(out_dir)
+             if f.startswith('fit_se-checkpoint.')]
+    c = max(k for k in steps if 0 < k < len(elbos))
+    streamed, first = [], []
+    cls = engine.MultiPopVI
+    real_elbo = cls.elbo_value
+
+    def counted(vi, *a):
+        streamed.append(1)
+        return real_stream(vi, *a)
+
+    def elbo_value(vi, *a):
+        value = real_elbo(vi, *a)
+        first.append(value)
+        return value
+
+    t0 = time.perf_counter()
+    with time_calls(**load_targets(),
+                    recovery=(cls, '_nat_from_checkpoint_streamed'),
+                    steps=(engine, 'outer_step')) as split:
+        real_stream = cls._nat_from_checkpoint_streamed      # timed
+        cls._nat_from_checkpoint_streamed = counted
+        cls.elbo_value = elbo_value
+        try:
+            with record_elbos() as rec:
+                counts, step_s, _, _ = run_fit(
+                    paths, os.path.join(out_dir, 'resumed'), 'cuda',
+                    F32_BF16 + ['--learn-scaling', '--num-its',
+                                str(RESUME_STEPS), '--load-checkpoint',
+                                os.path.join(out_dir,
+                                             f'fit_se-checkpoint.{c}.npz'),
+                                fit_prefix + '.covariance.pkl'])
+        finally:
+            cls._nat_from_checkpoint_streamed = real_stream
+            cls.elbo_value = real_elbo
+    seconds = time.perf_counter() - t0
+    log(f'  kdim card split: {split.split(seconds)}')
+    require(streamed, 'the kdim resume did not take the streamed route')
+    require(len(rec.values) == len(step_s) >= 1
+            and all(math.isfinite(v) for v in rec.values),
+            f'resumed fit: ELBOs {rec.values}')
+    err = abs(first[0] / elbos[c - 1] - 1)
+    require(err <= BAND_RESUME,
+            f'ELBO after resuming at iteration {c}: {first[0]!r} vs the '
+            f'original run\'s {elbos[c - 1]!r} ({err:.2e} > '
+            f'{BAND_RESUME:.0e})')
+    require_launched(counts, ('bucket_matvec_multi', 'prologue_kdim',
+                              'delta_sums_kdim'), 'the kdim resume')
+    return c, seconds, err, counts, rec.values
+
+
+def resume_epoch(vi, st, out_dir):
+    """Phase 11b: dump phase 7's epoch-history state as a checkpoint
+    (the arrays of dump_spec: the epoch keys, hyper_delta, error_scaling;
+    the derived vi_mu/vi_delta streams, 7 GB at this size, are not what
+    an epoch resume reads) and resume it through MultiPopVI.optimize on
+    the card for RESUME_STEPS steps. The first ELBO after the resume is
+    held to that of a step taken from the dumped state itself, with the
+    step-size and running-delta estimates a resume starts from. Returns
+    (seconds, relative ELBO error, launches)."""
+    from vilma_tpu_torch.inference import engine
+    from vilma_tpu_torch.utils.npz_stream import save_npz_stream
+    path = os.path.join(out_dir, 'epoch-checkpoint.npz')
+    arrays, _ = vi.dump_spec(st)
+    save_npz_stream(path, arrays)
+    fresh = vi._fresh_state()
+    st0 = engine.dataclasses.replace(
+        st, elbo=vi.elbo_value(st), L=fresh.L,
+        running_elbo_delta=fresh.running_elbo_delta, num_err=0)
+    want, _ = engine.outer_step(vi.data, st0)
+    vi.checkpoint, vi.num_its = False, RESUME_STEPS
+    zero_counts()
+    t0 = time.perf_counter()
+    with record_elbos() as rec:
+        vi.optimize(np.load(path))
+    _sync('cuda')
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    require(len(rec.values) >= 1, 'the resumed epoch fit took no step')
+    err = abs(rec.values[0] / want.elbo - 1)
+    require(err <= BAND_RESUME,
+            f'first ELBO after the epoch resume {rec.values[0]!r} vs '
+            f'{want.elbo!r} ({err:.2e} > {BAND_RESUME:.0e})')
+    require_launched(counts, ('bucket_matvec_multi', 'prologue_epochs',
+                              'delta_sums_epochs'), 'the epoch resume')
+    return seconds, err, counts
+
+
+def check_chunked_kernels(device, I, K, A=1, P=3):
+    """Phase 12's kernel check: the [P, I] prologue and sums against their
+    plain versions on seeded operands of the K-chunked shape, where the
+    prologue walks K in several tiles and the sums keep all of K in one
+    group of narrow tiles (a branch no phase 3 shape takes). Returns the
+    launch shapes."""
+    from vilma_tpu_torch.ops.cuda import compact_obj as co
+    kw = dict(zip(('coeffs', 'scores_t', 'annotations', 'dterm', 'nat_mu'),
+                  compact_inputs(device, P, K, I, A, seed=K)),
+              num_annotations=A)
+    ncol = kw['coeffs'].shape[1]
+    kt_p = co._launch_shape(I, K, A, ncol, sums=False)[0]
+    kt_s, kg_s, _ = co._launch_shape(I, K, A, ncol, sums=True)
+    check_pair(f'[P, I] P={P} K={K} I={I} A={A} (prologue '
+               f'{-(-K // kt_p)} tiles of {kt_p}; sums one group, '
+               f'{-(-K // kt_s)} tiles of {kt_s})', None, {},
+               (co.prologue, co.delta_sums),
+               (co.prologue_plain, co.delta_sums_plain), kw,
+               lambda sums: compact_cost(P, K, I, A, sums), timed=False)
+    require(kt_p < K and kg_s == K and kt_s < K,
+            f'K = {K}, A = {A}: prologue tile {kt_p}, sums tile {kt_s} and '
+            f'group {kg_s}, not the narrow-tile one-group branch')
+    return kt_p, kt_s, kg_s
+
+
+def run_chunked_shape(device, num_blocks=98, steps=2):
+    """Phase 12: the JAX package's largest K-chunked shape, through
+    MultiPopVI.optimize: ~100K SNPs (98 blocks of 1024 at half rank, bf16
+    U) shared by 3 cohorts, the CLI's -K 12 --drop-non-psd grid (42,999
+    components), f32, the shared [P, I] state; the initialization (its
+    [K, I] terms in SNP chunks) and `steps` outer steps. The prologue and
+    sums are first held against their plain versions at this shape.
+    Returns a dict of what it measured."""
+    import torch
+    from vilma_tpu_torch.inference import engine
+    from vilma_tpu_torch.models import mixture
+    ld = device_ld(num_blocks, 1024, 512, device)
+    n = ld.n
+    kt_p, kt_s, kg_s = check_chunked_kernels(device, n, CHUNKED_K)
+    rng = np.random.default_rng(11)
+    std_errs = rng.uniform(0.01, 0.05, (3, n)).astype(np.float32)
+    betas = (rng.standard_normal((3, n)) * std_errs * 2).astype(np.float32)
+    np.random.seed(42)
+    covs = mixture.make_simple(
+        3, 12, *mixture.effect_size_ranges(betas, std_errs, False),
+        drop_non_psd=True)
+    vi = engine.MultiPopVI(
+        marginal_effects=betas, std_errs=std_errs, ld_mats=[ld] * 3,
+        annotations=np.ones((n, 1)), mixture_covs=covs, checkpoint=False,
+        gwas_N=np.full(3, 1e5), init_hg=np.full(3, 0.3), num_its=steps,
+        dtype=torch.float32, device=device)
+    K = vi.num_mix
+    require(K == CHUNKED_K, f'the -K 12 grid at 3 cohorts has {K} PSD '
+            f'components, not {CHUNKED_K}')
+    out = dict(K=K, kt_prologue=kt_p, kt_sums=kt_s, kg_sums=kg_s)
+    step_s, finite = [], []
+    real_step, real_init = engine.outer_step, vi._initialize
+
+    def timed_step(*a, **k):
+        _sync(device)
+        t = time.perf_counter()
+        st, pm = real_step(*a, **k)
+        _sync(device)
+        step_s.append(time.perf_counter() - t)
+        finite.append(bool(torch.isfinite(pm).all()))
+        return st, pm
+
+    def timed_init():
+        t = time.perf_counter()
+        st = real_init()
+        _sync(device)
+        out['init_s'] = time.perf_counter() - t
+        out['init_peak'] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        return st
+
+    _sync(device)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    engine.host_syncs = 0
+    engine.outer_step, vi._initialize = timed_step, timed_init
+    try:
+        st = vi.optimize()
+    finally:
+        engine.outer_step = real_step
+        del vi._initialize
+    counts = read_counts()
+    require(len(step_s) == steps, f'{len(step_s)} outer steps, not {steps}')
+    require(math.isfinite(st.elbo), 'non-finite ELBO')
+    require(all(finite), 'non-finite posterior mean')
+    require(st.vi_mu is None, 'the [K, P, I] outputs were materialized')
+    require_launched(counts, ('bucket_matvec_multi', 'prologue',
+                              'delta_sums'), 'the K-chunked shape')
+    out.update(step_s=step_s, s_per_iter=sum(step_s) / steps,
+               step_peak=torch.cuda.max_memory_allocated(), counts=counts,
+               syncs=engine.host_syncs / steps, elbo=st.elbo)
+    return out
+
 
 F32_BF16 = ['--precision', 'f32', '--ld-precision', 'bf16']
 
@@ -1053,6 +1596,7 @@ def main():
     log(f'  phase 3: {time.perf_counter() - t0:.1f} s')
 
     launches = {}
+    timings = {}
     with tempfile.TemporaryDirectory() as tmp:
         phase('phase 4: CLI fit, ~90K variants, -K 12 (582 components)')
         t0 = time.perf_counter()
@@ -1060,10 +1604,10 @@ def main():
         n = paths[3]
         log(f'  schema: {n} variants in 88 blocks written in '
             f'{time.perf_counter() - t0:.1f} s')
-        prefix = os.path.join(tmp, 'fit')
-        counts, step_s, syncs, _ = run_fit(paths, prefix, device, F32_BF16)
-        top, _ = check_fit_outputs(prefix, n, K=582)
-        remove_outputs(prefix)
+        fit_prefix = os.path.join(tmp, 'fit')
+        counts, step_s, syncs, _ = run_fit(paths, fit_prefix, device,
+                                           F32_BF16)
+        top, _ = check_fit_outputs(fit_prefix, n, K=582)
         log(f'  launches {counts}; host syncs {syncs} '
             f'({syncs / max(len(step_s), 1):.1f} per step); seconds per '
             f'outer step {[round(x, 4) for x in step_s]}; max |posterior| '
@@ -1102,13 +1646,15 @@ def main():
         torch.cuda.empty_cache()
 
         phase('phase 6: CLI fit --learn-scaling, phase 4\'s schema, -K 12, '
-            'kdim state')
-        prefix = os.path.join(tmp, 'fit_se')
-        counts, step_s, syncs, em = run_fit(
-            paths, prefix, device,
-            F32_BF16 + ['--learn-scaling', '--num-its', str(STEP_CAP_SE)])
-        top, scaling = check_fit_outputs(prefix, n, K=582)
-        remove_outputs(prefix)
+            'kdim state, a checkpoint every '
+            f'{CHECKPOINT_FREQ} steps')
+        se_prefix = os.path.join(tmp, 'fit_se')
+        with record_elbos() as se_elbos:
+            counts, step_s, syncs, em = run_fit(
+                paths, se_prefix, device,
+                F32_BF16 + ['--learn-scaling', '--num-its', str(STEP_CAP_SE),
+                            '--checkpoint-freq', str(CHECKPOINT_FREQ)])
+        top, scaling = check_fit_outputs(se_prefix, n, K=582)
         log(f'  launches {counts}; {len(step_s)} outer steps, host syncs '
             f'{syncs / max(len(step_s), 1):.1f} per step, median '
             f'{float(np.median(step_s)):.4f} s a step; EM events '
@@ -1126,15 +1672,78 @@ def main():
                 'phase 6 ran a shared-state kernel on the kdim state')
         launches.update({k: counts[k] for k in path_b})
 
-    phase('phase 7: engine --learn-scaling, 1M SNPs, 2 cohorts, -K 12 grid, '
-        'epoch-history state')
-    counts, ips, syncs, st, em, K = run_engine_se(device, ld)
-    log(f'  K = {K}; launches {counts}; {ips:.3f} outer iterations/s '
-        f'({syncs:.1f} host syncs per step); nat_hist_n {st.nat_hist_n}; '
-        f'error_scaling {st.error_scaling.tolist()}; ELBO {st.elbo:.6e}')
-    path_c = ('prologue_epochs', 'delta_sums_epochs')
-    require_launched(counts, ('bucket_matvec_multi',) + path_c, 'phase 7')
-    launches.update({k: counts[k] for k in path_c})
+        phase('phase 7: engine --learn-scaling, 1M SNPs, 2 cohorts, -K 12 '
+              'grid, epoch-history state')
+        counts, ips, syncs, st7, em, vi7 = run_engine_se(device, ld)
+        log(f'  K = {vi7.num_mix}; launches {counts}; {ips:.3f} outer '
+            f'iterations/s ({syncs:.1f} host syncs per step); nat_hist_n '
+            f'{st7.nat_hist_n}; error_scaling {st7.error_scaling.tolist()}; '
+            f'ELBO {st7.elbo:.6e}')
+        path_c = ('prologue_epochs', 'delta_sums_epochs')
+        require_launched(counts, ('bucket_matvec_multi',) + path_c,
+                         'phase 7')
+        launches.update({k: counts[k] for k in path_c})
+
+        phase('phase 8: make_ld_schema --ldthresh 0.8, ~90K SNPs in ~130 '
+              f'blocks, {PLINK_SAMPLES} samples')
+        schema_dir = os.path.join(tmp, 'make')
+        os.makedirs(schema_dir)
+        root, secs, n_vars, n_blocks, ranks, errs = run_make_ld_schema(
+            schema_dir)
+        timings['make_ld_schema_s'] = secs
+        log(f'  card: {secs:.1f} s for {n_vars} variants in {n_blocks} '
+            f'blocks (ranks {min(ranks)}-{max(ranks)}, median '
+            f'{int(np.median(ranks))}); host vs card on the first '
+            f'{SCHEMA_CHECK_BLOCKS} blocks: .schema and .var text equal, '
+            f'ranks equal, eigenvalues within {errs["s"]:.2e} relative, '
+            f'U diag(s) U^T within {errs["recon"]:.2e} (band '
+            f'{BAND_SCHEMA:.0e})')
+
+        phase('phase 9: check_ld_schema --trace --listvars of phase 8\'s '
+              'schema, card and host')
+        secs, trace = run_check_ld_schema(root, schema_dir)
+        timings['check_ld_schema_s'] = secs
+        log(f'  card {secs:.1f} s; text equal to the host\'s; trace: {trace}')
+
+        phase('phase 10: sim from phase 4\'s fit, 2 cohorts, default RNG')
+        secs, matvecs, errs = run_sim(paths, fit_prefix, tmp)
+        timings['sim_s'] = secs
+        log(f'  card {secs:.1f} s, {matvecs} matvec launches; true_beta '
+            f'equal to the host\'s; BETA within {errs["cuda"]:.2e} of '
+            f'scale of the host f64 run (band {BAND_SIM:.0e}; the host\'s '
+            f'own f32 run: {errs["cpu_f32"]:.2e})')
+        remove_outputs(fit_prefix)
+
+        phase('phase 11: resume, kdim (phase 6\'s checkpoint) and epoch '
+              '(phase 7\'s state)')
+        c, secs, err, counts, values = resume_kdim(paths, se_prefix,
+                                                   se_elbos.values, tmp)
+        timings['resume_kdim_s'] = secs
+        log(f'  kdim: checkpoint at iteration {c}, streamed; {secs:.1f} s '
+            f'for {len(values)} steps (the load included); ELBO of the '
+            f'restored state within {err:.2e} of the original run\'s (band '
+            f'{BAND_RESUME:.0e}); launches {counts}')
+        remove_outputs(se_prefix)
+        secs, err, counts = resume_epoch(vi7, st7, tmp)
+        timings['resume_epoch_s'] = secs
+        log(f'  epoch: {secs:.1f} s for {RESUME_STEPS} steps; first ELBO '
+            f'within {err:.2e} of a step from the dumped state; launches '
+            f'{counts}')
+    del ld, vi7, st7
+    torch.cuda.empty_cache()
+
+    phase('phase 12: K-chunked shape, ~100K SNPs, 3 cohorts, -K 12 '
+          '--drop-non-psd grid, f32, shared state')
+    c = run_chunked_shape(device)
+    timings['chunked_init_s'] = c['init_s']
+    timings['chunked_s_per_iter'] = c['s_per_iter']
+    log(f'  K = {c["K"]}; initialization {c["init_s"]:.3f} s, peak device '
+        f'memory {c["init_peak"] / 2**30:.2f} GiB; steps '
+        f'{[round(t, 4) for t in c["step_s"]]} s, {c["s_per_iter"]:.3f} '
+        f's/iter ({c["syncs"]:.1f} host syncs per step), peak device '
+        f'memory {c["step_peak"] / 2**30:.2f} GiB; ELBO {c["elbo"]!r}; '
+        f'launches {c["counts"]}; {smi}')
+    log(f'  timings {json.dumps(timings)}')
     log(f'  all phases: {time.perf_counter() - t_start:.1f} s')
 
     print(smi, flush=True)

@@ -438,3 +438,55 @@ def test_epoch_sums_any_k_times_a(cuda, K, A):
     torch.cuda.synchronize()
     assert torch.equal(sums, again)
     assert _scaled_err(sums, rsums) <= 1e-5
+
+
+@pytest.mark.parametrize('power', [0.5, 1.0])
+def test_powered_matrix_dot_matches_plain(cuda, power):
+    """sim's LD products: blocks.dot on matrix_power(LD, power) (C = 1,
+    f32 U, the powered buckets gathering and scattering by their
+    sequential positions) launches the matvec kernel and lands within
+    its f32 band of the same product through the plain version."""
+    from vilma_tpu_torch.ops import blocks, lowrank
+    rng = np.random.default_rng(5)
+    n = 700
+    order = rng.permutation(n)
+    factors, indices, start = [], [], 0
+    for size in (40, 300, 17, 250):                 # 93 slots missing
+        lag = np.abs(np.subtract.outer(np.arange(size), np.arange(size)))
+        factors.append(lowrank.factor_block(X=rng.uniform(0.3, 0.9) ** lag,
+                                            t=0.999999))
+        indices.append(order[start:start + size])
+        start += size
+    ld = blocks.pack(factors, indices, n, dtype=torch.float32, device=cuda)
+    host = blocks.pack(factors, indices, n, dtype=torch.float32)
+    x = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32)
+    before = bm.launches + bm.launches_group
+    y = blocks.dot(blocks.matrix_power(ld, power), x.to(cuda))
+    torch.cuda.synchronize()
+    assert bm.launches + bm.launches_group > before
+    ref = blocks.dot(blocks.matrix_power(host, power), x)
+    assert _scaled_err(y.cpu(), ref) <= 1e-5
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_ld_diagonal_same_bits_on_card_and_host(cuda, dtype):
+    """blocks.diag (check_ld_schema --trace, the engine's LD diagonal)
+    sums over the rank in a fixed pairwise order of elementwise adds, so
+    the card gives the host's bits (block ranks 1, 64, 300 and 500:
+    powers of two and not)."""
+    from vilma_tpu_torch.ops import blocks, lowrank
+    rng = np.random.default_rng(8)
+    n = 900
+    order = rng.permutation(n)
+    factors, indices, start = [], [], 0
+    for size, t in ((1, 0.9), (64, 0.999999), (300, 0.999999),
+                    (500, 0.9)):
+        lag = np.abs(np.subtract.outer(np.arange(size), np.arange(size)))
+        factors.append(lowrank.factor_block(X=rng.uniform(0.3, 0.9) ** lag,
+                                            t=t))
+        indices.append(order[start:start + size])
+        start += size
+    host = blocks.diag(blocks.pack(factors, indices, n, dtype=dtype))
+    card = blocks.diag(blocks.pack(factors, indices, n, dtype=dtype,
+                                   device=cuda))
+    assert torch.equal(card.cpu(), host)

@@ -11,7 +11,6 @@ from vilma_tpu.inference import engine as jengine
 from vilma_tpu.models import sigma as jsigma
 from vilma_tpu.utils import synthetic
 from vilma_tpu_torch.inference import engine as tengine
-from vilma_tpu_torch.models import sigma as tsigma
 
 from tests.torch_parity import data_to_torch, ld_to_torch, state_to_torch
 from tests.torch_parity import t2n
@@ -88,10 +87,8 @@ def test_initialization_matches_jax():
     _, _, jhyper, _, jnat = jengine.initialize_from_fake_mu(
         data, jsig, es, jnp.asarray(jfake))
     tes = torch.ones(2, dtype=torch.float64)
-    tsig = tsigma.make_summaries(tdata.mixture_prec, tdata.log_det,
-                                 tengine._diag_term(tdata, tes))
     thyper, tnat = tengine.initialize_from_fake_mu(
-        tdata, tsig, tes, torch.as_tensor(tfake))
+        tdata, tes, torch.as_tensor(tfake))
     _close(thyper, jhyper)
     _close(tnat, jnat)
 

@@ -25,6 +25,11 @@ sys.modules['jax'] = sys.modules['pandas'] = sys.modules['ml_dtypes'] = None
 import vilma_tpu_torch
 import vilma_tpu_torch.frontend
 import vilma_tpu_torch.commands.fit
+import vilma_tpu_torch.commands.make_ld_schema
+import vilma_tpu_torch.commands.check_ld_schema
+import vilma_tpu_torch.commands.sim
+import vilma_tpu_torch.io.plink
+import vilma_tpu_torch.ops.blocks
 import vilma_tpu_torch.inference.engine
 import vilma_tpu_torch.models.sigma
 import vilma_tpu_torch.ops.cuda.block_matvec
@@ -54,17 +59,9 @@ def test_import_guard():
     assert 'LOADED []' in out.stdout, out.stdout
 
 
-@pytest.mark.parametrize('name', ['make_ld_schema', 'check_ld_schema',
-                                  'sim'])
-def test_unported_subcommands_raise(name):
-    with pytest.raises(NotImplementedError, match='not yet ported'):
-        frontend.main([name])
-
-
 @pytest.mark.parametrize('flags', [
     ['--mesh', 'snp=4'], ['--distributed'], ['--mmap'],
     ['--factor-cache', '/nonexistent'],
-    ['--load-checkpoint', 'a.npz', 'b.pkl'],
     ['--sumstats', 'a,b,c,d']])
 def test_unported_fit_flags_raise(flags, tmp_path):
     """Each unported fit option raises before any file is read, naming
@@ -77,6 +74,19 @@ def test_unported_fit_flags_raise(flags, tmp_path):
     else:
         argv += flags
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
+        frontend.main(argv)
+
+
+@pytest.mark.parametrize('argv', [
+    ['make_ld_schema', '-o', 'o', '-b', 'b.bed', '-p', 'list.txt'],
+    ['check_ld_schema', '--ld-schema', 'x.schema', '--listvars', 'v'],
+    ['sim', '--sumstats', 'a', '--covariance', 'c', '--weights', 'w',
+     '--output', 'o', '--ld-schema', 'x']])
+def test_subcommands_need_a_card_by_default(argv, monkeypatch):
+    """Every subcommand runs on --device cuda unless told otherwise, and
+    without a card raises instead of falling back to the host."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='--device cpu'):
         frontend.main(argv)
 
 

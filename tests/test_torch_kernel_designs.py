@@ -19,7 +19,8 @@ chip_smoke.py hold them against their plain versions there). Here:
   forms), emulated over K, against the two-pass clamped plain version
   (f64 at the JAX package's route-equality tolerances, f32 within
   chip_smoke.py's bands) and the Pallas kernel, on an ordinary and on a
-  clamp-heavy input;
+  clamp-heavy input; at K = 42,999, the runs of 128 components that keep
+  f32 sums from drifting;
 * the z-only sums of all three forms in the kernel's order (pass 1's
   online normalizer, the clamped weights, each CTA's sums by annotation
   in SNP order across its grid stride, the partials added by
@@ -357,6 +358,7 @@ def test_group_matvec_arithmetic(u_dtype, C, G):
 # ---------------------------------------------------------------------------
 
 RESCALE_NATS = 8.0     # csrc/compact_obj.cuh kRescale
+FOLD = 128             # csrc/compact_obj.cuh kFold
 
 
 def _g_term(dev):
@@ -367,35 +369,41 @@ def _g_term(dev):
             - log_hd)
 
 
-def _online(y, diag, g_term, z, annotations, num_annotations):
+def _online(y, diag, g_term, z, annotations, num_annotations, fold=FOLD):
     """Online softmax accumulators over K (compact_obj.cuh struct
-    Online), vectorized over SNPs, with no clamp: (post_means, post_vars,
-    KL)."""
+    Online), vectorized over SNPs, with no clamp: each run of `fold`
+    components is summed apart and then added into the totals (the
+    kernel also starts a run at each component tile, which only shortens
+    runs). Returns (post_means, post_vars, KL)."""
     P = len(y)
     K, I = z.shape
     zeros = z.new_zeros(I)
     m = torch.full_like(zeros, -math.inf)
-    s0, sz, sg = zeros, zeros, zeros
-    sy = [zeros] * P
-    ssec = [zeros] * P
+    # [s0, sz, sg, sy..., ssec...]: the totals and the current run
+    tot = [zeros] * (3 + 2 * P)
+    run = [zeros] * (3 + 2 * P)
     for k in range(K):
         zk = z[k]
         move = zk > m + RESCALE_NATS
         alpha = torch.where(move, torch.exp(m - zk), torch.ones_like(zk))
-        sz = torch.where(move, torch.where(s0 > 0, (sz + (m - zk) * s0) * alpha,
-                                           zeros), sz)
-        s0, sg = s0 * alpha, sg * alpha
-        sy = [v * alpha for v in sy]
-        ssec = [v * alpha for v in ssec]
+        for acc in (tot, run):
+            acc[1] = torch.where(move, torch.where(
+                acc[0] > 0, (acc[1] + (m - zk) * acc[0]) * alpha, zeros),
+                acc[1])
+            for j in [0] + list(range(2, 3 + 2 * P)):
+                acc[j] = acc[j] * alpha
         m = torch.where(move, zk, m)
         dz = zk - m
         w = torch.exp(dz)
-        s0 = s0 + w
-        sy = [sy[p] + w * y[p][k] for p in range(P)]
-        ssec = [ssec[p] + w * (diag[p][k] + y[p][k] * y[p][k])
-                for p in range(P)]
-        sz = sz + w * dz
-        sg = sg + w * g_term[k]
+        terms = ([w, w * dz, w * g_term[k]]
+                 + [w * y[p][k] for p in range(P)]
+                 + [w * (diag[p][k] + y[p][k] * y[p][k]) for p in range(P)])
+        run = [a + t for a, t in zip(run, terms)]
+        if (k + 1) % fold == 0 or k == K - 1:
+            tot = [a + r for a, r in zip(tot, run)]
+            run = [zeros] * len(run)
+    s0, sz, sg = tot[:3]
+    sy, ssec = tot[3:3 + P], tot[3 + P:]
     inv = 1.0 / s0
     pm = torch.stack([v * inv for v in sy])
     pv = torch.stack([ssec[p] * inv - pm[p] * pm[p] for p in range(P)])
@@ -615,6 +623,27 @@ def test_one_pass_prologue_f32_within_bands(P, kind, kdim, K):
     assert abs(float(kl) - float(rkl)) <= BAND_KL * abs(float(rkl))
     below = t2n(z - z.max(dim=0).values) < math.log(epsilon(torch.float32))
     assert (below.mean() > 0.5) == (kind == 'clamp')
+
+
+def test_one_pass_prologue_runs_keep_f32_at_large_k():
+    """At K = 42,999 (the -K 12 grid at 3 cohorts) one f32 run over all
+    of K drifts to ~6e-6 of the posterior means' scale; runs of FOLD
+    components added into totals stay within 1e-6 of the f64 plain
+    version, as the plain f32 version does (~2e-7)."""
+    from chip_smoke import compact_inputs, max_err
+    K, I = 42_999, 96
+    t = dict(zip(('coeffs', 'scores_t', 'annotations', 'dterm', 'nat_mu'),
+                 compact_inputs('cpu', 3, K, I, 1, seed=K)))
+    want = tco.prologue_plain(**{k: v.double() if v.is_floating_point()
+                                 else v for k, v in t.items()},
+                              num_annotations=1)
+    dev, z = _compact_logits(*t.values())
+    errs = {}
+    for fold in (FOLD, K):
+        pm, pv, _ = _online(dev['y'], dev['diag'], _g_term(dev), z,
+                            t['annotations'], 1, fold=fold)
+        errs[fold] = max(max_err(pm, want[0])[1], max_err(pv, want[1])[1])
+    assert errs[FOLD] <= 1e-6 < errs[K], errs
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,7 @@ from vilma_tpu_torch import convert
 # tier-1 runs the suite under xdist workers; one intra-op thread each
 torch.set_num_threads(1)
 
-BUCKET_LEAVES = ('u', 's', 'inv_s', 'd', 'perm')
+BUCKET_LEAVES = ('u', 's', 'inv_s', 'd', 'perm', 'seq')
 
 
 def ld_to_torch(ld):

@@ -11,6 +11,7 @@ import pickle
 
 import numpy as np
 
+from vilma_tpu_torch.commands import resolve_device
 from vilma_tpu_torch.io import load
 from vilma_tpu_torch.models import mixture
 
@@ -19,7 +20,6 @@ _NOT_PORTED = {
     'distributed': ('--distributed', 'Multi-GPU'),
     'mmap': ('--mmap', 'Bounded-memory I/O'),
     'factor_cache': ('--factor-cache', 'Bounded-memory I/O'),
-    'load_checkpoint': ('--load-checkpoint', 'Checkpoint resume'),
 }
 
 
@@ -90,7 +90,7 @@ def args(super_parser):
                              'Defaults to no checkpointing.')
     parser.add_argument('--load-checkpoint', type=str, default='', nargs=2,
                         help='Resume optimization from CHECKPOINT_FILE.npz '
-                             'and COVARIANCE_FILE.pkl (not ported yet).',
+                             'and COVARIANCE_FILE.pkl.',
                         metavar=('CHECKPOINT_FILE.npz',
                                  'COVARIANCE_FILE.pkl'))
     parser.add_argument('--precision', type=str, default='auto',
@@ -164,12 +164,8 @@ def _check_supported(args):
 
 
 def _resolve_device(args):
-    import torch
+    device = resolve_device(args.device)
     if args.device == 'cuda':
-        if not torch.cuda.is_available():
-            raise RuntimeError('--device cuda needs a CUDA device; pass '
-                               '--device cpu to run the plain PyTorch '
-                               'versions on the host')
         if args.pallas == 'off':
             raise ValueError('--pallas off is refused on cuda: the port '
                              'has no unfused device path; every kernel '
@@ -179,7 +175,7 @@ def _resolve_device(args):
     if args.device == 'cuda' and args.precision == 'f64':
         raise ValueError('--precision f64 is the host parity path: use '
                          '--device cpu (the CUDA kernels compute in f32)')
-    return torch.device(args.device)
+    return device
 
 
 def main(args):
@@ -278,13 +274,18 @@ def main(args):
     std_errs = np.concatenate(combined_errors, axis=0)
     logging.info('Largest beta is... %f', np.max(np.abs(betas)))
 
-    logging.info('Building cross-population covariances...')
-    mins, maxes = mixture.effect_size_ranges(betas, std_errs, args.scaled)
-    cross_pop_covs = mixture.make_simple(num_pops, args.components, mins,
-                                         maxes,
-                                         drop_non_psd=args.drop_non_psd)
-    with open('%s.covariance.pkl' % args.output, 'wb') as ofile:
-        pickle.dump([cross_pop_covs], ofile)
+    if args.load_checkpoint:
+        with open(args.load_checkpoint[1], 'rb') as pfile:
+            cross_pop_covs = pickle.load(pfile)[0]
+    else:
+        logging.info('Building cross-population covariances...')
+        mins, maxes = mixture.effect_size_ranges(betas, std_errs,
+                                                 args.scaled)
+        cross_pop_covs = mixture.make_simple(
+            num_pops, args.components, mins, maxes,
+            drop_non_psd=args.drop_non_psd)
+        with open('%s.covariance.pkl' % args.output, 'wb') as ofile:
+            pickle.dump([cross_pop_covs], ofile)
 
     logging.info('Fitting...')
     from vilma_tpu_torch.inference import MultiPopVI
@@ -306,10 +307,13 @@ def main(args):
         dtype=dtype,
         device=device,
     )
+    checkpoint = None
+    if args.load_checkpoint:
+        checkpoint = np.load(args.load_checkpoint[0])
     if args.profile:
-        state = _profiled(elbo, args.profile)
+        state = _profiled(elbo, args.profile, checkpoint)
     else:
-        state = elbo.optimize()
+        state = elbo.optimize(checkpoint)
 
     # genome-scale fits stream the [K, *, I]-shaped members (vi_mu,
     # vi_delta, vi_sigma) into the .npz in bounded chunks
@@ -336,7 +340,7 @@ def main(args):
     variants.to_tsv(args.output + '.estimates.tsv')
 
 
-def _profiled(elbo, trace_dir):
+def _profiled(elbo, trace_dir, checkpoint=None):
     """optimize() under torch.profiler, writing a chrome trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -345,6 +349,6 @@ def _profiled(elbo, trace_dir):
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(trace_dir, exist_ok=True)
     with profile(activities=activities) as prof:
-        state = elbo.optimize()
+        state = elbo.optimize(checkpoint)
     prof.export_chrome_trace(os.path.join(trace_dir, 'fit_trace.json'))
     return state

@@ -27,7 +27,7 @@ def tensor_from_numpy(array, device='cpu'):
 def packed_ld_from_numpy(buckets, n, has_diag, rank, missing,
                          device='cpu'):
     """PackedLD from bucket leaves: `buckets` is a sequence of mappings
-    with keys u, s, inv_s, d, perm (numpy arrays)."""
+    with keys u, s, inv_s, d, perm and optionally seq (numpy arrays)."""
     out = []
     for bk in buckets:
         out.append(BlockBucket(
@@ -36,7 +36,9 @@ def packed_ld_from_numpy(buckets, n, has_diag, rank, missing,
             inv_s=tensor_from_numpy(bk['inv_s'], device),
             d=tensor_from_numpy(bk['d'], device),
             perm=tensor_from_numpy(np.asarray(bk['perm'], dtype=np.int64),
-                                   device)))
+                                   device),
+            seq=(tensor_from_numpy(np.asarray(bk['seq'], dtype=np.int64),
+                                   device) if 'seq' in bk else None)))
     return PackedLD(buckets=tuple(out), n=int(n), has_diag=bool(has_diag),
                     rank=float(rank), missing=tuple(int(m) for m in missing))
 

@@ -28,10 +28,11 @@
 //
 // Prologues, all three forms: one pass over K with online softmax
 // accumulators (struct Online, weights by __expf) rescaled when the
-// running max moves, then pm = sy/s0, pv = ssec/s0 - pm^2,
-// kl_i = (sz + sg)/s0 - log s0. Each component is derived once, its solve
-// and summaries sharing one determinant and one SFU reciprocal
-// (solve_summaries; kKdim reads each nat[k, p, i] once). They drop the
+// running max moves and folded into totals every kFold components, then
+// pm = sy/s0, pv = ssec/s0 - pm^2, kl_i = (sz + sg)/s0 - log s0. Each
+// component is derived once, its solve and summaries sharing one
+// determinant and one SFU reciprocal (solve_summaries; kKdim reads each
+// nat[k, p, i] once). They drop the
 // clamp, which changes no result the band can see, whatever the form: a
 // component the clamp touches has vd_k < eps = 1e-30 (f32), and there the
 // clamped form adds eps (resp. eps log eps) where the unclamped one adds
@@ -445,49 +446,77 @@ __device__ __forceinline__ float z_form(const Operands& op, const Snp<P>& s,
 // a logit must pass the running reference m by this many nats to move it
 constexpr float kRescale = 8.0f;
 
+// the one-pass prologue folds its run sums into its totals every kFold
+// components: one f32 run over all of K drifts by ~sqrt(K) ulps (1.2e-5
+// of the posterior means at K = 42,999), runs of kFold by ~sqrt(kFold) +
+// sqrt(K / kFold)
+constexpr int kFold = 128;
+
 // Online softmax accumulators of one SNP over K (the one-pass prologue).
 // With w_k = exp(z_k - m) under a running reference m:
 //   s0 = sum w_k,  sy = sum w_k y_k,  ssec = sum w_k (diag_k + y_k^2),
 //   sz = sum w_k (z_k - m),
 //   sg = sum w_k (0.5 quadform_k + 0.5 ss_k - log_hd_k).
-// m moves only when a logit passes it by more than kRescale nats (so
-// w_k <= e^kRescale and rescales are rare); a move multiplies every sum by
-// exp(m_old - m_new), and sz also takes the shift (m_old - m_new) s0.
+// add() adds to the current run's sums (r*); fold() adds the run into the
+// totals (s*) and starts a new one, which the caller does every kFold
+// components and last. m moves only when a logit passes it by more than
+// kRescale nats (so w_k <= e^kRescale and rescales are rare); a move
+// multiplies every sum, run and total, by exp(m_old - m_new), and sz and
+// rz also take the shift (m_old - m_new) times their s0.
 template <int P>
 struct Online {
   float m, s0, sz, sg, sy[P], ssec[P];
+  float r0, rz, rg, ry[P], rsec[P];
 
   __device__ __forceinline__ Online() : m(-INFINITY), s0(0.f), sz(0.f),
-                                        sg(0.f) {
+                                        sg(0.f), r0(0.f), rz(0.f), rg(0.f) {
 #pragma unroll
-    for (int p = 0; p < P; ++p) sy[p] = ssec[p] = 0.f;
+    for (int p = 0; p < P; ++p) sy[p] = ssec[p] = ry[p] = rsec[p] = 0.f;
   }
 
   __device__ __forceinline__ void add(const Comp<P>& o, float z, float sel) {
     if (z > m + kRescale) {
       const float alpha = expf(m - z);  // 0 at the first component
       sz = s0 > 0.f ? (sz + (m - z) * s0) * alpha : 0.f;
+      rz = r0 > 0.f ? (rz + (m - z) * r0) * alpha : 0.f;
       s0 *= alpha;
       sg *= alpha;
+      r0 *= alpha;
+      rg *= alpha;
 #pragma unroll
       for (int p = 0; p < P; ++p) {
         sy[p] *= alpha;
         ssec[p] *= alpha;
+        ry[p] *= alpha;
+        rsec[p] *= alpha;
       }
       m = z;
     }
     const float dz = z - m;
     const float w = __expf(dz);
-    s0 += w;
+    r0 += w;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      sy[p] += w * o.y[p];
-      ssec[p] += w * (o.diag[p] + o.y[p] * o.y[p]);
+      ry[p] += w * o.y[p];
+      rsec[p] += w * (o.diag[p] + o.y[p] * o.y[p]);
     }
-    sz += w * dz;
+    rz += w * dz;
     const float log_hd = sel + 0.5f * o.ldp;
     const float ss = o.ldp + o.logdet + o.matches;
-    sg += w * ((0.5f * o.quadform + 0.5f * ss) - log_hd);
+    rg += w * ((0.5f * o.quadform + 0.5f * ss) - log_hd);
+  }
+
+  __device__ __forceinline__ void fold() {
+    s0 += r0;
+    sz += rz;
+    sg += rg;
+    r0 = rz = rg = 0.f;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      sy[p] += ry[p];
+      ssec[p] += rsec[p];
+      ry[p] = rsec[p] = 0.f;
+    }
   }
 };
 
@@ -584,15 +613,19 @@ __global__ void __launch_bounds__(kThreads)
       for (int t = 0; t < ntiles; ++t) {
         next_tile(t);
         const int cnt = min(kt, K - t * kt);
-        for (int kl_ = 0; kl_ < cnt; ++kl_) {
-          Comp<P> o;
-          const float* c = coef_s + kl_ * NCOL;
-          if constexpr (FORM == kEpochs)
-            derive_epochs<P, NL>(op, snp, er, tab, c, o);
-          else
-            derive_once<P, FORM>(op, snp, c, t * kt + kl_, o);
-          const float sel = score_s[kl_ * A + asel];
-          acc.add(o, 0.5f * (o.quad - o.logdet) + sel, sel);
+        for (int k0 = 0; k0 < cnt; k0 += kFold) {
+          const int k1 = min(cnt, k0 + kFold);
+          for (int kl_ = k0; kl_ < k1; ++kl_) {
+            Comp<P> o;
+            const float* c = coef_s + kl_ * NCOL;
+            if constexpr (FORM == kEpochs)
+              derive_epochs<P, NL>(op, snp, er, tab, c, o);
+            else
+              derive_once<P, FORM>(op, snp, c, t * kt + kl_, o);
+            const float sel = score_s[kl_ * A + asel];
+            acc.add(o, 0.5f * (o.quad - o.logdet) + sel, sel);
+          }
+          acc.fold();
         }
       }
       if (live) {

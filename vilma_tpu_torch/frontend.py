@@ -1,8 +1,7 @@
 """Command-line entry point for vilma-tpu-torch.
 
 The same four subcommands as vilma_tpu.frontend and the shared
---logfile/--verbose flags. `fit` is ported; make_ld_schema,
-check_ld_schema and sim raise "not yet ported" (ROADMAP.md queue 1).
+--logfile/--verbose flags; each subcommand adds --device {cuda,cpu}.
 """
 import argparse
 import logging
@@ -12,7 +11,6 @@ from importlib import import_module
 from vilma_tpu_torch import VERSION
 
 SUBCOMMANDS = ('make_ld_schema', 'check_ld_schema', 'sim', 'fit')
-_PORTED = ('fit',)
 
 
 def _attach_shared_flags(parser):
@@ -23,14 +21,6 @@ def _attach_shared_flags(parser):
     parser.add_argument(
         '--verbose', dest='verbose', action='store_true',
         help='Log all information (as opposed to just warnings)')
-
-
-def _not_ported(name):
-    def run(args):
-        raise NotImplementedError(
-            f'`{name}` is not yet ported to vilma_tpu_torch (ROADMAP.md '
-            'queue 1, "sim and check_ld_schema"); run it with vilma-tpu')
-    return run
 
 
 def build_parser():
@@ -44,15 +34,9 @@ def build_parser():
     subparsers = parser.add_subparsers(title='Commands', dest='command')
     dispatch = {}
     for name in SUBCOMMANDS:
-        if name in _PORTED:
-            module = import_module('vilma_tpu_torch.commands.' + name)
-            _attach_shared_flags(module.args(subparsers))
-            dispatch[name] = module.main
-        else:
-            sub = subparsers.add_parser(name, help='not yet ported')
-            sub.add_argument('rest', nargs=argparse.REMAINDER)
-            _attach_shared_flags(sub)
-            dispatch[name] = _not_ported(name)
+        module = import_module('vilma_tpu_torch.commands.' + name)
+        _attach_shared_flags(module.args(subparsers))
+        dispatch[name] = module.main
     return parser, dispatch
 
 

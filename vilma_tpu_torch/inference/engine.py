@@ -16,9 +16,14 @@ threshold` of a line-search trial, the beta loop's convergence test)
 needs the trial's objective, one device->host synchronization each. The
 module counts them in `host_syncs`.
 
-Not ported (each raises, naming its ROADMAP item): the K-chunked
-objective, the materialized P >= 4 path, mesh execution and checkpoint
-resume.
+The JAX package's K-chunked route needs no counterpart: the kernels and
+their plain versions take any K (the plain versions chunk SNPs to bound
+their [K, chunk] temporaries) and the initialization forms its
+[K, I] terms in SNP chunks. Checkpoint resume (`optimize(checkpoint)`)
+restores all three states, genome-scale ones in bounded K-chunks.
+
+Not ported (each raises, naming its ROADMAP item): the materialized
+P >= 4 path and mesh execution.
 """
 import dataclasses
 import logging
@@ -57,8 +62,13 @@ _EPOCH_CAP = _EPOCH_BUCKETS[-1]
 # overrides (0 forces the epoch state everywhere)
 _EPOCH_STATE_BYTES = int(os.environ.get('VILMA_EPOCH_STATE_BYTES', 1 << 30))
 
-RESUME =('checkpoint resume is not ported yet (ROADMAP.md queue 1, '
-          '"Checkpoint resume")')
+# host-side chunk budget of the streamed checkpoint recovery
+# (_nat_from_checkpoint_streamed); tests shrink it to prove boundedness
+_RESUME_CHUNK_BYTES = 256 << 20
+
+# device budget of each [K, chunk] temporary of the initialization
+# (initialize_from_fake_mu), which would otherwise form [K, I] ones
+_INIT_CHUNK_BYTES = 256 << 20
 
 #: device->host synchronizations made by the host loops of the optimizer
 #: (one per objective fetched to decide a loop predicate, one per
@@ -536,28 +546,39 @@ def make_fake_mu(inverse_betas, std_errs, ld_diags):
     return fake_mu
 
 
-def initialize_from_fake_mu(data, sigma, error_scaling, fake_mu):
+def initialize_from_fake_mu(data, error_scaling, fake_mu):
     """Device-side remainder of _initialize
     (variational_inference.py:658-700) for the compact state: returns
-    (hyper_delta [A, K], the shared natural mean [P, I])."""
+    (hyper_delta [A, K], the shared natural mean [P, I]). Every step is
+    per SNP but the annotation sums, so the [K, I] temporaries are formed
+    in SNP chunks of _INIT_CHUNK_BYTES per [K, chunk] array and the sums
+    added over chunks."""
     eps = epsilon(fake_mu.dtype)
-    probs = torch.einsum('pi,oi,kpo->ki', 1.6 * fake_mu, 1.6 * fake_mu,
-                         data.mixture_prec)
-    probs = probs + sigma.matches - data.log_det[:, None]
-    probs = torch.exp(-0.5 * (probs - probs.amin(dim=0, keepdim=True)))
-    vi_delta = torch.clamp(probs / probs.sum(dim=0, keepdim=True), min=eps)
-
-    hyper = kernels.sum_annotations(vi_delta, data.annotations,
-                                    data.num_annotations) + 1.
+    K, I = data.log_det.shape[0], fake_mu.shape[1]
+    chunk_i = max(1, _INIT_CHUNK_BYTES // (K * fake_mu.element_size()))
+    dterm = _diag_term(data, error_scaling)
+    sums, nats = 0., []
+    for i0 in range(0, I, chunk_i):
+        cols = slice(i0, i0 + chunk_i)
+        dt, mu = dterm[:, cols], fake_mu[:, cols]
+        matches = sigma_mod.make_summaries(data.mixture_prec, data.log_det,
+                                           dt).matches
+        probs = torch.einsum('pi,oi,kpo->ki', 1.6 * mu, 1.6 * mu,
+                             data.mixture_prec)
+        probs = probs + matches - data.log_det[:, None]
+        probs = torch.exp(-0.5 * (probs - probs.amin(dim=0, keepdim=True)))
+        vi_delta = torch.clamp(probs / probs.sum(dim=0, keepdim=True),
+                               min=eps)
+        sums = sums + kernels.sum_annotations(
+            vi_delta, data.annotations[cols], data.num_annotations)
+        avg_mats = sigma_mod.sigma_weighted_sum(data.mixture_prec, dt,
+                                                vi_delta)        # [i,P,P]
+        nats.append(torch.einsum('pi,iqp->qi', mu,
+                                 torch.linalg.inv(avg_mats)))    # [P,i]
+    hyper = sums + 1.
     hyper = hyper / torch.sum(hyper, dim=1, keepdim=True)
     hyper = torch.clamp(hyper, min=eps)
-
-    dterm = _diag_term(data, error_scaling)
-    avg_mats = sigma_mod.sigma_weighted_sum(data.mixture_prec, dterm,
-                                            vi_delta)            # [I,P,P]
-    inv_avg = torch.linalg.inv(avg_mats)
-    temp_nat_mu = torch.einsum('pi,iqp->qi', fake_mu, inv_avg)   # [P,I]
-    return hyper, temp_nat_mu
+    return hyper, torch.cat(nats, dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -975,14 +996,22 @@ class MultiPopVI:
         obj, _, _ = _objective(self.data, st, _params(st), st.hyper_delta)
         return _sync_float(obj)
 
-    def _fresh_state(self):
+    def _tensor(self, x, dtype=None):
+        """A host array (a read-only memmap slice, say) copied into a
+        tensor on the fit's device, in its dtype."""
+        return torch.as_tensor(
+            np.array(x, dtype=dtype or self._np_dtype),
+            device=self.data.marginal_effects.device)
+
+    def _fresh_state(self, error_scaling=None):
         zeros = dict(dtype=self._dtype,
                      device=self.data.marginal_effects.device)
         P, I, K = self.num_pops, self.num_loci, self.num_mix
         st = VIState(
             nat_mu=torch.zeros(P, I, **zeros),
             hyper_delta=torch.zeros(self.num_annotations, K, **zeros),
-            error_scaling=torch.ones(P, **zeros),
+            error_scaling=(torch.ones(P, **zeros) if error_scaling is None
+                           else self._tensor(error_scaling)),
             L=(1., 1., 1.), elbo=0., running_elbo_delta=math.nan,
             num_err=0)
         if self._epoch:
@@ -1003,10 +1032,8 @@ class MultiPopVI:
             device=data.marginal_effects.device)
         logging.info('Max |inverse_beta| at initialization: %f',
                      float(torch.max(torch.abs(data.inverse_betas))))
-        sig = sigma_mod.make_summaries(data.mixture_prec, data.log_det,
-                                       _diag_term(data, st.error_scaling))
-        hyper, temp_nat = initialize_from_fake_mu(data, sig,
-                                                  st.error_scaling, fake_mu)
+        hyper, temp_nat = initialize_from_fake_mu(data, st.error_scaling,
+                                                  fake_mu)
         if self.scale_se and not self._epoch:
             # initialization is K-constant (error_scaling all ones): the
             # per-component state starts as a broadcast, copied so that
@@ -1016,18 +1043,97 @@ class MultiPopVI:
                 (self.num_mix,) + tuple(temp_nat.shape)).contiguous()
         return dataclasses.replace(st, nat_mu=temp_nat, hyper_delta=hyper)
 
+    def _state_from_checkpoint(self, loaded_checkpoint):
+        """The state a checkpoint (np.load of a checkpoint or output .npz
+        of either package, or a mapping of its arrays) resumes (reference
+        MultiPopVI._state_from_checkpoint). The shared and kdim natural
+        means are recovered from vi_mu (exact given the checkpoint's
+        error_scaling); the epoch state is restored from its own keys.
+        The port does not pad loci, so the checkpoint's variant order is
+        the fit's."""
+        files = getattr(loaded_checkpoint, 'files', loaded_checkpoint)
+        error_scaling = None
+        if 'error_scaling' in files:
+            error_scaling = loaded_checkpoint['error_scaling']
+        else:
+            logging.warning('The checkpoint carries no "error_scaling" '
+                            'entry; defaulting all error scalings to 1.')
+        st = self._fresh_state(error_scaling)
+        hyper = self._tensor(loaded_checkpoint['hyper_delta'])
+        if self._epoch:
+            if 'nat_u' not in files:
+                raise ValueError(
+                    'this fit uses the epoch-history scale_se state '
+                    '(the per-component [K, P, I] state would not fit '
+                    'in device memory), but the checkpoint lacks the '
+                    'epoch keys (nat_u/nat_hist/...). Resume from a '
+                    'checkpoint written by this engine, or shrink the '
+                    'problem below the epoch threshold.')
+            # the history keeps the checkpoint's length B, one of
+            # _EPOCH_BUCKETS; _maybe_grow_hist grows it from there
+            return dataclasses.replace(
+                st, nat_mu=self._tensor(loaded_checkpoint['nat_u']),
+                nat_hist=self._tensor(loaded_checkpoint['nat_hist']),
+                nat_hist_scale=self._tensor(
+                    loaded_checkpoint['nat_hist_scale']),
+                nat_hist_c=self._tensor(loaded_checkpoint['nat_hist_c']),
+                nat_hist_n=int(loaded_checkpoint['nat_hist_n']),
+                hyper_delta=hyper)
+        if self._stream_big():
+            # genome-scale resume: the vi_mu member can be tens of GB;
+            # recover the natural mean(s) in bounded chunks straight off
+            # the uncompressed zip member
+            nat = self._nat_from_checkpoint_streamed(loaded_checkpoint,
+                                                     st)
+            return dataclasses.replace(st, nat_mu=nat, hyper_delta=hyper)
+        vi_mu = self._tensor(loaded_checkpoint['vi_mu'])
+        recover = compact_nat_mu_k if self.scale_se else compact_nat_mu
+        nat = recover(self.data, st.error_scaling, vi_mu).contiguous()
+        return dataclasses.replace(st, nat_mu=nat, hyper_delta=hyper)
+
+    def _nat_from_checkpoint_streamed(self, loaded_checkpoint, st):
+        """Bounded-memory natural-mean recovery (see
+        _state_from_checkpoint): the shared state needs only vi_mu[0];
+        the kdim state is recovered in K-chunks of at most
+        _RESUME_CHUNK_BYTES, each written straight into the [K, P, I]
+        tensor on the device, so the host holds one chunk at a time."""
+        from vilma_tpu_torch.utils.npz_stream import npz_member_memmap
+        mm = npz_member_memmap(loaded_checkpoint, 'vi_mu')
+        if mm is None:
+            logging.warning('checkpoint vi_mu member is not mappable '
+                            '(compressed?); falling back to a '
+                            'materialized read')
+            mm = loaded_checkpoint['vi_mu']
+        if not self.scale_se:
+            return compact_nat_mu(self.data, st.error_scaling,
+                                  self._tensor(mm[0])[None]).contiguous()
+        K, P, I = self.num_mix, self.num_pops, self.num_loci
+        chunk = max(1, _RESUME_CHUNK_BYTES
+                    // max(P * I * self._np_dtype.itemsize, 1))
+        dterm = _diag_term(self.data, st.error_scaling)
+        nat = torch.empty((K, P, I), dtype=self._dtype,
+                          device=self.data.marginal_effects.device)
+        for k0 in range(0, K, chunk):
+            part = self._tensor(mm[k0:k0 + chunk])
+            nat[k0:k0 + part.shape[0]] = sigma_mod.apply_precision(
+                self.data.mixture_prec[k0:k0 + chunk], dterm, part)
+        return nat
+
     def _posterior_mean(self, st):
         _, pm, _ = _objective(self.data, st, _params(st), st.hyper_delta)
         return pm * self.data.scalings
 
     def optimize(self, loaded_checkpoint=None):
-        """Coordinate ascent until convergence
-        (reference optimize(), variational_inference.py:340-394)."""
-        if loaded_checkpoint is not None:
-            raise NotImplementedError(RESUME)
+        """Coordinate ascent until convergence (reference optimize(),
+        variational_inference.py:340-394), from the initialization or,
+        given `loaded_checkpoint` (np.load of a checkpoint .npz), from
+        the state it holds; a resumed fit may converge before step 10."""
         from vilma_tpu_torch.utils.npz_stream import save_npz_stream
         data = self.data
-        st = self._initialize()
+        if loaded_checkpoint is None:
+            st = self._initialize()
+        else:
+            st = self._state_from_checkpoint(loaded_checkpoint)
         st = dataclasses.replace(st, elbo=self.elbo_value(st))
         converged = False
         num_its = 0
@@ -1058,7 +1164,7 @@ class MultiPopVI:
             red = float(stats[2])
             converged = bool(stats[3]) or bool(
                 np.isclose(red, 0, atol=ELBO_TOL, rtol=0))
-            if num_its < 10:
+            if num_its < 10 and loaded_checkpoint is None:
                 converged = False
             self._dump_info(num_its, stats)
             post_mean = new_post_mean

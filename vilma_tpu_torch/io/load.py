@@ -7,7 +7,9 @@ reference (reference load.py:21-354). LD blocks are packed into the
 port's device tensors (vilma_tpu_torch.ops.blocks).
 
 Not ported: --mmap disk staging and the --factor-cache memo (ROADMAP
-queue 1, "Bounded-memory I/O").
+queue 1, "Bounded-memory I/O"). The JAX package's mmap mode also takes
+two draws of the global numpy RNG per loaded block; `rng_draws=True`
+takes those draws alone (`sim` needs them for its seeded outputs).
 """
 import logging
 from collections import OrderedDict
@@ -35,6 +37,13 @@ class Table:
 
     def __len__(self):
         return len(next(iter(self.columns.values()))) if self.columns else 0
+
+    def take(self, rows):
+        """The table's rows `rows` (an index array or a boolean mask)."""
+        return Table((n, v[rows]) for n, v in self.columns.items())
+
+    def copy(self):
+        return self.take(slice(None))
 
     def to_tsv(self, path):
         """Write a tab-separated file with a header row (pandas
@@ -74,6 +83,61 @@ def _floats(values):
 
 def _str_array(values):
     return np.array(values, dtype=object)
+
+
+def _typed(values):
+    """(kind, array) of a text column, typed as pandas.read_csv infers
+    it: 'int' when every field parses as an integer, 'float' when every
+    field parses as a number, else 'str'."""
+    try:
+        return 'int', np.array([int(v) for v in values], dtype=np.int64)
+    except ValueError:
+        pass
+    try:
+        return 'float', np.array([float(v) for v in values])
+    except ValueError:
+        return 'str', _str_array(values)
+
+
+def concat_columns(parts):
+    """pandas.concat of typed columns ((kind, array) pairs): int stays
+    int, int with float becomes float, and anything with text becomes an
+    object column whose values keep their own types."""
+    kinds = {k for k, _ in parts}
+    if kinds <= {'int'}:
+        return np.concatenate([a for _, a in parts]).astype(np.int64)
+    if kinds <= {'int', 'float'}:
+        return np.concatenate([a.astype(np.float64) for _, a in parts])
+    out = []
+    for kind, a in parts:
+        out.extend(int(v) if kind == 'int' else float(v) if kind == 'float'
+                   else v for v in a)
+    return _str_array(out)
+
+
+def concat_tables(tables):
+    """Row-wise concatenation of tables with the same columns."""
+    names = list(tables[0].columns)
+    return Table((n, np.concatenate([t[n] for t in tables]))
+                 for n in names)
+
+
+def read_var_table(var_paths):
+    """The .var files of a schema as one typed table (columns ID, CHROM,
+    BP, CM, A1, A2), each column typed as pandas.read_csv followed by
+    pandas.concat types it: an integer-valued CM column stays int and
+    prints as `0`, a fractional one prints as `0.0`."""
+    names = ['ID', 'CHROM', 'BP', 'CM', 'A1', 'A2']
+    parts = {n: [] for n in names}
+    for path in var_paths:
+        _, rows = _read_table(path, header=False, names=names)
+        if not rows:
+            continue
+        for j, n in enumerate(names):
+            parts[n].append(_typed([r[j] for r in rows]))
+    if not parts['ID']:
+        return Table((n, _str_array([])) for n in names)
+    return Table((n, concat_columns(parts[n])) for n in names)
 
 
 def load_variant_list(variant_filename):
@@ -308,17 +372,37 @@ def load_entry_factor(entry, ldthresh):
                                 check_symmetric=False)
 
 
+def consume_mmap_rng_draws(num_blocks=1):
+    """Take the reference's two random-dataset-name draws per block.
+
+    The reference's HDF5 spill path draws two random 100-character
+    dataset names per block from the global numpy RNG (reference
+    matrix_structures.py:31-35,120-135), which shifts every later seeded
+    draw (all `sim` outputs: sim hardcodes mmap=True, reference
+    sim.py:218-224)."""
+    import string
+    chars = list(string.ascii_letters + string.digits)
+    for _ in range(num_blocks):
+        np.random.choice(chars, size=100)
+        np.random.choice(chars, size=100)
+
+
 def load_ld_from_schema(schema_path, variants, denylist, ldthresh,
-                        dtype=torch.float64, u_dtype=None, device='cpu'):
+                        dtype=torch.float64, u_dtype=None, device='cpu',
+                        rng_draws=False):
     """Load a block LD matrix from a schema, matched to `variants`
     (reference load.py:237-354). Returns (PackedLD ordered like
-    `variants`, list of variant positions missing LD info)."""
+    `variants`, list of variant positions missing LD info). rng_draws
+    takes the JAX package's mmap-mode RNG draws, two per loaded block
+    (consume_mmap_rng_draws), without its disk spill."""
     factors, block_indices = [], []
     total_flipped = 0
     for entry in matched_schema_entries(schema_path, variants, denylist):
         total_flipped += entry['num_flipped']
         factors.append(load_entry_factor(entry, ldthresh))
         block_indices.append(entry['idx'])
+        if rng_draws:
+            consume_mmap_rng_draws()
     n = len(variants)
     packed = blocks_mod.pack(factors, block_indices, n, dtype=dtype,
                              u_dtype=u_dtype, device=device)

@@ -15,12 +15,14 @@ gather from and one scatter-add into genome-ordered vectors of n+1 slots
 (the last slot absorbs every pad read and write and is sliced off; real
 genome indices never collide, so the scatter is deterministic on the
 card too). The bucket matvec runs the hand-written CUDA kernel
-(ops/cuda/block_matvec.py) on CUDA tensors.
+(ops/cuda/block_matvec.py) on CUDA tensors. `matrix_power` keeps the
+reference's dropped permutation through each bucket's `seq` map.
 
 Not ported: the TPU-only 128-row gather/scatter path (`_dot_rows`,
 `grows`/`srows`, `row_aligned`), the shard-local layout and its
 shard_map bodies, and the `--mmap` spill (ROADMAP queue 1).
 """
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -52,6 +54,12 @@ class BlockBucket:
     inv_s: torch.Tensor   # [B, Rmax]
     d: torch.Tensor       # [B, Pmax]
     perm: torch.Tensor    # [B, Pmax] int64, pads -> n
+    seq: torch.Tensor = None  # [B, Pmax] int64 sequential (block-order)
+    #   positions, pads -> n: matrix_power's scatter map. The reference
+    #   builds its powered matrix without the permutation
+    #   (matrix_structures.py:410-416), so block results land at
+    #   sequential offsets with the missing indices at the end; the
+    #   reference's seeded sim outputs depend on this
 
     @property
     def num_blocks(self):
@@ -110,13 +118,15 @@ def pack(factors, block_indices, n, dtype=torch.float64, u_dtype=None,
         raise ValueError('block index out of range')
     missing = tuple(sorted(set(range(n)) - set(covered.tolist())))
 
+    # sequential (insertion-order) offsets, matrix_power's scatter map
+    seq_starts = np.concatenate([[0], np.cumsum([f.n for f in factors])])
     groups = {}
-    for f, ix in zip(factors, block_indices):
+    for pos, (f, ix) in enumerate(zip(factors, block_indices)):
         ix = np.asarray(ix, dtype=np.int64)
         if f.n != ix.shape[0]:
             raise ValueError('factor size does not match its index list')
         key = (_pad_to_tier(f.n), _pad_rank(f.r))
-        groups.setdefault(key, []).append((f, ix))
+        groups.setdefault(key, []).append((f, ix, int(seq_starts[pos])))
 
     np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
     buckets = []
@@ -130,7 +140,8 @@ def pack(factors, block_indices, n, dtype=torch.float64, u_dtype=None,
         inv_s = np.zeros((B, rmax), dtype=np_dtype)
         d = np.zeros((B, pmax), dtype=np_dtype)
         perm = np.full((B, pmax), n, dtype=np.int64)
-        for b, (f, ix) in enumerate(items):
+        seq = np.full((B, pmax), n, dtype=np.int64)
+        for b, (f, ix, start) in enumerate(items):
             u[b, :f.n, :f.r] = f.u
             s[b, :f.r] = f.s
             # reference inv_s (matrix_structures.py:140-145): 1/s for
@@ -140,12 +151,14 @@ def pack(factors, block_indices, n, dtype=torch.float64, u_dtype=None,
                     f.s > 0, 1.0 / np.where(f.s > 0, f.s, 1.0), 0.0)
             d[b, :f.n] = f.d
             perm[b, :f.n] = ix
+            seq[b, :f.n] = np.arange(start, start + f.n)
         buckets.append(BlockBucket(
             u=torch.from_numpy(u).to(device=device, dtype=u_dtype),
             s=torch.from_numpy(s).to(device),
             inv_s=torch.from_numpy(inv_s).to(device),
             d=torch.from_numpy(d).to(device),
-            perm=torch.from_numpy(perm).to(device)))
+            perm=torch.from_numpy(perm).to(device),
+            seq=torch.from_numpy(seq).to(device)))
 
     has_diag = any(not np.allclose(f.d, 0) for f in factors)
     rank = float(sum(f.rank for f in factors))
@@ -317,12 +330,94 @@ def ridge_inverse_dot(ld, vector, regularizer):
 
 
 def diag(ld):
-    """Diagonal of the matrix (reference matrix_structures.py:426-440)."""
+    """Diagonal of the matrix (reference matrix_structures.py:426-440).
+    The sum over the rank is a fixed pairwise tree of elementwise adds
+    (zero-padded to a power of two), so every device gives the same
+    bits."""
     parts = []
     dtype = torch.float64
     for bk in ld.buckets:
         u = _u_as(bk, bk.s.dtype)
-        parts.append((bk.perm,
-                      torch.einsum('bpr,br,bpr->bp', u, bk.s, u) + bk.d))
+        terms = (u * u) * bk.s[:, None, :]                   # [B, P, R]
+        rank = terms.shape[-1]
+        width = 1 << max(rank - 1, 0).bit_length()
+        if width > rank:
+            terms = torch.nn.functional.pad(terms, (0, width - rank))
+        while terms.shape[-1] > 1:
+            half = terms.shape[-1] // 2
+            terms = terms[..., :half] + terms[..., half:]
+        parts.append((bk.perm, terms[..., 0] + bk.d))
         dtype = bk.s.dtype
     return _scatter_accumulate(parts, ld.n, dtype, ld.device or 'cpu')
+
+
+def matrix_power(ld, power):
+    """Elementwise power of the eigenvalues (reference
+    matrix_structures.py:205-211), as a new PackedLD.
+
+    Reference-faithful quirk: the reference rebuilds the powered matrix
+    WITHOUT its permutation (matrix_structures.py:410-416 omits perm=),
+    so block results map to sequential offsets with the missing indices
+    at the end. The powered buckets therefore gather from and scatter to
+    the `seq` positions (the reference's sim noise, matrix_power(0.5),
+    depends on this)."""
+    if ld.has_diag:
+        raise NotImplementedError('Matrix powers where the diagonal '
+                                  'approximation is not zero have '
+                                  'not yet been implemented.')
+    out = []
+    for bk in ld.buckets:
+        if bk.seq is None:
+            raise ValueError('matrix_power needs the buckets\' seq maps '
+                             '(built by pack)')
+        live = bk.s > 0
+        s_new = torch.where(live, bk.s, torch.ones_like(bk.s)) ** power
+        s_new = s_new * live
+        inv_s = torch.where(s_new > 0, 1.0 / torch.where(
+            s_new > 0, s_new, torch.ones_like(s_new)),
+            torch.zeros_like(s_new))
+        out.append(dataclasses.replace(bk, s=s_new.to(bk.s.dtype),
+                                       inv_s=inv_s.to(bk.s.dtype),
+                                       perm=bk.seq))
+    return dataclasses.replace(ld, buckets=tuple(out))
+
+
+def dot_i(ld, vector, i):
+    """(Matrix @ vector)[i], touching only the block that holds i
+    (reference matrix_structures.py:154-157,333-347): O(block size x
+    rank) host work."""
+    i = int(i)
+    if i in set(ld.missing):
+        return 0.
+    vec = vector.detach().cpu().double().numpy() if torch.is_tensor(
+        vector) else np.asarray(vector)
+    for bk in ld.buckets:
+        perm = bk.perm.cpu().numpy()
+        hit_b, hit_p = np.nonzero(perm == i)
+        if hit_b.size == 0:
+            continue
+        b, p = int(hit_b[0]), int(hit_p[0])
+        live = perm[b] < ld.n
+        xb = np.zeros(perm.shape[1], dtype=vec.dtype)
+        xb[live] = vec[perm[b][live]]
+        u = bk.u[b].double().cpu().numpy()
+        s = bk.s[b].double().cpu().numpy()
+        d = bk.d[b].double().cpu().numpy()
+        return float(u[p] @ (s * (u.T @ xb)) + d[p] * xb[p])
+    raise IndexError(f'index {i} not covered by any block')
+
+
+def to_dense(ld):
+    """The full dense [n, n] matrix as float64 numpy (testing only)."""
+    out = np.zeros((ld.n, ld.n))
+    for bk in ld.buckets:
+        u = bk.u.double().cpu().numpy()
+        s = bk.s.double().cpu().numpy()
+        d = bk.d.double().cpu().numpy()
+        perm = bk.perm.cpu().numpy()
+        for b in range(u.shape[0]):
+            rows = perm[b] < ld.n
+            ix = perm[b][rows]
+            dense = (u[b][rows] * s[b]) @ u[b][rows].T + np.diag(d[b][rows])
+            out[np.ix_(ix, ix)] += dense
+    return out
