@@ -13,7 +13,10 @@ Phases:
      each kernel's cluster size and what ptxas reported for it. The
      matvec in bf16 and f32 U (the cluster route) and at four oversize
      buckets (the group route: 128 and 4 blocks of [2048, 1024] f32, 128
-     of [2048, 512] f32, 64 of [2048, 1024] bf16); the epoch prologue at
+     of [2048, 512] f32, 64 of [2048, 1024] bf16), and at the widths of
+     phase 13 (beside cuBLAS in turns, no bar): 4 and 8 cohorts a launch
+     (the traits of a --trait fit: 977 and 88 bf16 blocks, 4 f32
+     blocks at 4) and one (977 bf16 blocks); the epoch prologue at
      2 and 1 live epochs and on a clamp-heavy input; the [P, I] sums at a
      K·A past one shared-memory group. Bars required, each side measured
      in this run: the bf16 matvec and the group route at the two 128-block
@@ -67,6 +70,24 @@ Phases:
      against their plain versions at this shape, then MultiPopVI.optimize
      (the initialization and 2 timed outer steps); seconds and peak
      device memory of each; the [P, I] kernels must launch.
+ 13. the materialized path (P >= 4), its ELBO finite, no compact kernel:
+     a. `fit --trait` of 4 traits on one ~90K-variant panel (phase 4's
+        schema size, bf16 U), -K 3 --drop-non-psd (~1,953 components),
+        f32, 5 steps, --no-save-vi-sigma: seconds and host syncs per
+        step, peak device memory, where the seconds go (time_calls);
+        the matvec must launch at 4 cohorts;
+     b. 4 ancestries at genome scale through MultiPopVI: 1,000,448 SNPs,
+        a bf16 panel each (phase 5's generator, 4 seeds), -K 2
+        --drop-non-psd (216 components), f32: the initialization and 2
+        steps, seconds and peak memory;
+     c. a 4-trait fit of 4 blocks, -K 2: the card's f32 fit within
+        BAND_TRAIT_FACTOR x the host's own f32 error of the host's f64
+        fit; resumed through --load-checkpoint from its own checkpoint,
+        the ELBO within BAND_RESUME;
+     d. 8 traits on one panel through MultiPopVI: the matvec at 8
+        cohorts a launch.
+     Phase 13 takes ~2 minutes of the ~8 the phases take on an H100
+     80GB HBM3 at 700 W.
 
 The next-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failed phase exits
@@ -75,6 +96,7 @@ nonzero before those lines are printed. Imports nothing of JAX.
 import json
 import math
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -137,6 +159,13 @@ BAND_RESUME = 1e-6
 RESUME_STEPS = 3
 # phase 12: PSD components of the -K 12 grid at 3 cohorts
 CHUNKED_K = 42_999
+# phase 13: `fit --trait` of TRAITS traits (13a: STEPS_TRAIT steps); 13c:
+# the card's f32 fit of 4 traits within BAND_TRAIT_FACTOR times the host's
+# own f32 fit's error of the host's f64 fit (per column, of its scale)
+TRAITS = 4
+STEPS_TRAIT = 5
+TRAIT_NAMES = ('t1', 't2', 't3', 't4', 't5', 't6', 't7', 't8')
+BAND_TRAIT_FACTOR = 10
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): HBM
 # bytes/s, FP32 and bf16 tensor operations/s
@@ -159,6 +188,14 @@ KERNELS = {
         source='vilma_tpu_torch/csrc/block_matvec.cu',
         replaces='vilma_tpu/ops/pallas/block_matvec.py:88',
         ptxas=r'group_matvec_kernel<float, \(int\)2, \(bool\)1>'),
+    'bucket_matvec_multi_c4': dict(
+        source='vilma_tpu_torch/csrc/block_matvec.cu',
+        replaces='vilma_tpu/ops/pallas/block_matvec.py:88',
+        ptxas=r'cluster_matvec_kernel<__nv_bfloat16, \(int\)4>'),
+    'bucket_matvec_multi_c8': dict(
+        source='vilma_tpu_torch/csrc/block_matvec.cu',
+        replaces='vilma_tpu/ops/pallas/block_matvec.py:88',
+        ptxas=r'cluster_matvec_kernel<__nv_bfloat16, \(int\)8>'),
     'prologue': dict(
         source='vilma_tpu_torch/csrc/compact_obj.cu',
         replaces='vilma_tpu/ops/pallas/compact_obj.py:414',
@@ -332,6 +369,10 @@ def cublas_matvec(u, s, d, x):
 # read from device memory in both products, one block at a time)
 MATVEC_SHAPE = (977, 1024, 512, 2)
 GROUP_SHAPE = (128, 2048, 1024, 2)
+# the matvec of the materialized phases: 4 and 8 traits on one panel per
+# launch (the 1M bucket, and the 90K one of phases 13a and 13d; phase
+# 13c's 4 blocks in f32 U), one cohort per panel (phase 13b's 4
+# ancestries)
 # (kernels-line key or None, U's type, (B, P, R, C), route, required no
 # slower than cuBLAS in turns)
 MATVEC_CASES = (
@@ -342,6 +383,14 @@ MATVEC_CASES = (
     (None, 'float32', (4, 2048, 1024, 2), 'group', False),
     (None, 'bfloat16', (64, 2048, 1024, 2), 'group', False),
     (None, 'bfloat16', (8, 4096, 4096, 2), 'group', False),
+    ('bucket_matvec_multi_c4', 'bfloat16', (977, 1024, 512, 4), 'cluster',
+     False),
+    ('bucket_matvec_multi_c8', 'bfloat16', (977, 1024, 512, 8), 'cluster',
+     False),
+    (None, 'bfloat16', (88, 1024, 512, 4), 'cluster', False),
+    (None, 'bfloat16', (88, 1024, 512, 8), 'cluster', False),
+    (None, 'bfloat16', (977, 1024, 512, 1), 'cluster', False),
+    (None, 'float32', (4, 1024, 512, 4), 'cluster', False),
 )
 
 
@@ -843,15 +892,18 @@ def check_small_fit(out_dir):
 
 
 def run_fit(paths, prefix, device, extra=()):
-    """Zero the launch counters, run the CLI fit on a written schema,
-    read the counters. Returns (counts, seconds per outer step, host
-    syncs, EM scalings)."""
+    """run_argv of the 2-cohort CLI fit on a written schema."""
+    schema, sumstats, extract, _ = paths
+    return run_argv(fit_argv(schema, sumstats, extract, prefix, device)
+                    + list(extra), device)
+
+
+def run_argv(argv, device):
+    """Zero the launch counters, run a CLI fit, read the counters.
+    Returns (counts, seconds per outer step, host syncs, EM scalings)."""
     from vilma_tpu_torch import frontend
     from vilma_tpu_torch.inference import engine
-    from vilma_tpu_torch.ops.cuda import block_matvec, compact_obj
 
-    schema, sumstats, extract, _ = paths
-    argv = fit_argv(schema, sumstats, extract, prefix, device) + list(extra)
     step_s = []
     real_step = engine.outer_step
 
@@ -881,16 +933,21 @@ def run_fit(paths, prefix, device, extra=()):
 def zero_counts():
     from vilma_tpu_torch.ops.cuda import block_matvec, compact_obj
     block_matvec.launches = block_matvec.launches_group = 0
+    block_matvec.launches_by_cohorts.clear()
     for key in compact_obj.launches:
         compact_obj.launches[key] = 0
 
 
 def read_counts():
     """Launches by kernel; the matvec's cluster route counts under
-    bucket_matvec_multi whatever U's type."""
+    bucket_matvec_multi whatever U's type, and its launches of 4 and 8
+    cohorts (either route) also under the _c4 and _c8 keys."""
     from vilma_tpu_torch.ops.cuda import block_matvec, compact_obj
+    by_c = block_matvec.launches_by_cohorts
     return dict(bucket_matvec_multi=block_matvec.launches,
                 bucket_matvec_multi_group=block_matvec.launches_group,
+                bucket_matvec_multi_c4=by_c.get(4, 0),
+                bucket_matvec_multi_c8=by_c.get(8, 0),
                 **compact_obj.launches)
 
 
@@ -906,11 +963,14 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
-def check_fit_outputs(prefix, n, K, P=2):
+def check_fit_outputs(prefix, n, K, names=('pop1', 'pop2'), vi_sigma=True):
+    P = len(names)
     z = np.load(prefix + '.npz')
     require(z['vi_mu'].shape == (K, P, n), f'vi_mu shape {z["vi_mu"].shape}')
     require(z['vi_delta'].shape == (n, K), 'vi_delta shape')
-    require(z['vi_sigma'].shape == (K, P, P, n), 'vi_sigma shape')
+    require(('vi_sigma' in z.files) == vi_sigma, 'vi_sigma written or not')
+    if vi_sigma:
+        require(z['vi_sigma'].shape == (K, P, P, n), 'vi_sigma shape')
     for key in z.files:
         require(np.all(np.isfinite(z[key])), f'non-finite {key}')
     require(np.allclose(z['vi_delta'].sum(axis=1), 1.0, atol=1e-3),
@@ -919,15 +979,15 @@ def check_fit_outputs(prefix, n, K, P=2):
         header = fh.readline().rstrip('\n').split('\t')
         rows = [line.rstrip('\n').split('\t') for line in fh]
     require(len(rows) == n, f'{len(rows)} estimate rows for {n} variants')
-    want = ['ID', 'A1', 'A2', 'posterior_pop1', 'posterior_pop2',
-            'posterior_variance_pop1', 'posterior_variance_pop2',
-            'missing_sumstats_pop1', 'missing_LD_pop1',
-            'missing_sumstats_pop2', 'missing_LD_pop2']
+    want = (['ID', 'A1', 'A2'] + [f'posterior_{m}' for m in names]
+            + [f'posterior_variance_{m}' for m in names]
+            + [f'missing_{w}_{m}' for m in names
+               for w in ('sumstats', 'LD')])
     require(header == want, f'estimates columns {header}')
-    post = np.array([[float(v) for v in r[3:7]] for r in rows])
+    post = np.array([[float(v) for v in r[3:3 + 2 * P]] for r in rows])
     require(np.all(np.isfinite(post)), 'non-finite posterior estimates')
-    require(np.all(post[:, 2:] >= 0), 'negative posterior variance')
-    return float(np.max(np.abs(post[:, :2]))), z['error_scaling']
+    require(np.all(post[:, P:] >= 0), 'negative posterior variance')
+    return float(np.max(np.abs(post[:, :P]))), z['error_scaling']
 
 
 def remove_outputs(prefix):
@@ -1511,8 +1571,26 @@ def run_chunked_shape(device, num_blocks=98, steps=2):
     K = vi.num_mix
     require(K == CHUNKED_K, f'the -K 12 grid at 3 cohorts has {K} PSD '
             f'components, not {CHUNKED_K}')
-    out = dict(K=K, kt_prologue=kt_p, kt_sums=kt_s, kg_sums=kg_s)
-    step_s, finite = [], []
+    st, out = timed_optimize(vi, device)
+    out.update(K=K, kt_prologue=kt_p, kt_sums=kt_s, kg_sums=kg_s)
+    require(len(out['step_s']) == steps,
+            f'{len(out["step_s"])} outer steps, not {steps}')
+    require(st.vi_mu is None, 'the [K, P, I] outputs were materialized')
+    require_launched(out['counts'], ('bucket_matvec_multi', 'prologue',
+                                     'delta_sums'), 'the K-chunked shape')
+    return out
+
+
+def timed_optimize(vi, device):
+    """MultiPopVI.optimize from its initialization, its outer steps and
+    initialization timed on the host clock (the card synchronized), the
+    launch counters zeroed just before. Returns (state, dict: init_s and
+    init_peak, the initialization's seconds and peak device memory;
+    step_s, s_per_iter and step_peak, the steps'; syncs, host syncs per
+    step; counts, launches; elbo)."""
+    import torch
+    from vilma_tpu_torch.inference import engine
+    out, step_s, finite = {}, [], []
     real_step, real_init = engine.outer_step, vi._initialize
 
     def timed_step(*a, **k):
@@ -1534,6 +1612,7 @@ def run_chunked_shape(device, num_blocks=98, steps=2):
         return st
 
     _sync(device)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     engine.host_syncs = 0
@@ -1543,16 +1622,227 @@ def run_chunked_shape(device, num_blocks=98, steps=2):
     finally:
         engine.outer_step = real_step
         del vi._initialize
-    counts = read_counts()
-    require(len(step_s) == steps, f'{len(step_s)} outer steps, not {steps}')
     require(math.isfinite(st.elbo), 'non-finite ELBO')
-    require(all(finite), 'non-finite posterior mean')
-    require(st.vi_mu is None, 'the [K, P, I] outputs were materialized')
-    require_launched(counts, ('bucket_matvec_multi', 'prologue',
-                              'delta_sums'), 'the K-chunked shape')
-    out.update(step_s=step_s, s_per_iter=sum(step_s) / steps,
-               step_peak=torch.cuda.max_memory_allocated(), counts=counts,
-               syncs=engine.host_syncs / steps, elbo=st.elbo)
+    require(step_s and all(finite), 'non-finite posterior mean')
+    out.update(step_s=step_s, s_per_iter=sum(step_s) / len(step_s),
+               step_peak=torch.cuda.max_memory_allocated(),
+               counts=read_counts(), syncs=engine.host_syncs / len(step_s),
+               elbo=st.elbo)
+    return st, out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the materialized path (P >= 4 cohorts or traits)
+# ---------------------------------------------------------------------------
+
+def trait_argv(paths, prefix, device, K, its):
+    """`fit --trait` of every sumstats file of a written schema on its
+    one panel, the -K grid with its non-PSD components dropped."""
+    schema, sumstats, extract, _ = paths
+    T = len(sumstats)
+    return ['fit', '--trait', '--ld-schema', schema,
+            '--sumstats', ','.join(sumstats), '--extract', extract,
+            '--names', ','.join(TRAIT_NAMES[:T]),
+            '--samplesizes', ','.join(['1e5'] * T),
+            '--init-hg', ','.join(['0.3'] * T), '--seed', '42',
+            '--num-its', str(its), '-K', str(K), '--drop-non-psd',
+            '--output', prefix, '--device', device]
+
+
+def materialized_targets():
+    """time_calls targets of a materialized fit: the P x P Cholesky
+    solves and inverses, the [K, P, I] and [K, I] elementwise passes, the
+    matvec (none calls another)."""
+    from vilma_tpu_torch.models import sigma
+    from vilma_tpu_torch.ops import blocks, kernels
+    return dict(
+        pxp_solves=(sigma, 'apply_sigma'),
+        pxp_inverses=(sigma, 'make_summaries'),
+        pxp_init=(sigma, 'sigma_weighted_sum'),
+        kpi_precision=(sigma, 'apply_precision'),
+        kpi_step=(kernels, 'sum_betas'),
+        kpi_vi_delta=(kernels, 'fast_invert_nat_vi_delta'),
+        kpi_mean=(kernels, 'fast_posterior_mean'),
+        kpi_variance=(kernels, 'fast_pmv'),
+        kpi_quadform=(kernels, 'fast_inner_product_comp'),
+        ki_delta_kl=(kernels, 'fast_delta_kl'),
+        matvec=(blocks, 'dot_multi'))
+
+
+def run_trait_fit(out_dir, device='cuda', num_blocks=88, K=3):
+    """Phase 13a: `fit --trait` of TRAITS traits on one ~90K-variant panel
+    (88 blocks of 1024 at half rank, bf16 U), -K 3 --drop-non-psd, f32,
+    STEPS_TRAIT steps, no vi_sigma output; the materialized state. The
+    matvec must launch with 4 cohorts and no compact kernel at all; the
+    ELBO stays finite and does not fall by more than the line search's
+    relative tolerance. Returns what it measured."""
+    import torch
+    paths = write_schema(out_dir, num_blocks=num_blocks, num_pops=TRAITS)
+    prefix = os.path.join(out_dir, 'trait')
+    argv = (trait_argv(paths, prefix, device, K, STEPS_TRAIT) + F32_BF16
+            + ['--no-save-vi-sigma'])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    from vilma_tpu_torch.utils import npz_stream
+    with time_calls(**load_targets(), **materialized_targets(),
+                    write_npz=(npz_stream, 'save_npz_stream')) as split, \
+            record_elbos() as rec:
+        counts, step_s, syncs, _ = run_argv(argv, device)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    with open(prefix + '.covariance.pkl', 'rb') as fh:
+        K = len(pickle.load(fh)[0])
+    top, _ = check_fit_outputs(prefix, paths[3], K,
+                               names=TRAIT_NAMES[:TRAITS], vi_sigma=False)
+    require(len(step_s) == STEPS_TRAIT, f'{len(step_s)} outer steps')
+    v = rec.values
+    require(len(v) == STEPS_TRAIT and all(math.isfinite(e) for e in v)
+            and all(b >= a - 1e-6 * abs(a) for a, b in zip(v, v[1:])),
+            f'phase 13a ELBOs {v}')
+    if device == 'cuda':
+        require_launched(counts, ('bucket_matvec_multi',
+                                  'bucket_matvec_multi_c4'), 'phase 13a')
+    require(all(counts[k] == 0 for k in counts
+                if not k.startswith('bucket')),
+            f'phase 13a ran a compact kernel: {counts}')
+    remove_outputs(prefix)
+    return dict(K=K, n=paths[3], seconds=seconds, step_s=step_s,
+                syncs=syncs / len(step_s), peak=peak, counts=counts,
+                elbos=v, top=top, split=split.split(seconds))
+
+
+def run_ancestry_fit(device, num_blocks=977, steps=2):
+    """Phase 13b: 4 ancestries at genome scale, through MultiPopVI:
+    1,000,448 SNPs (977 blocks of 1024 at half rank), each cohort with its
+    own bf16 panel (phase 5's generator, 4 seeds: the matvec at one cohort
+    per panel), the -K 2 --drop-non-psd grid at 4 cohorts, f32, the
+    materialized state; the initialization and `steps` steps."""
+    import torch
+    from vilma_tpu_torch.inference import engine
+    from vilma_tpu_torch.models import mixture
+    t0 = time.perf_counter()
+    lds = [device_ld(num_blocks, 1024, 512, device, seed=5 + p)
+           for p in range(4)]
+    _sync(device)
+    setup_s = time.perf_counter() - t0
+    n = lds[0].n
+    rng = np.random.default_rng(13)
+    std_errs = rng.uniform(0.01, 0.05, (4, n)).astype(np.float32)
+    betas = (rng.standard_normal((4, n)) * std_errs * 2).astype(np.float32)
+    np.random.seed(42)
+    covs = mixture.make_simple(
+        4, 2, *mixture.effect_size_ranges(betas, std_errs, False),
+        drop_non_psd=True)
+    vi = engine.MultiPopVI(
+        marginal_effects=betas, std_errs=std_errs, ld_mats=lds,
+        annotations=np.ones((n, 1)), mixture_covs=covs, checkpoint=False,
+        gwas_N=np.full(4, 1e5), init_hg=np.full(4, 0.3), num_its=steps,
+        dtype=torch.float32, device=device)
+    require(not vi._compact, 'phase 13b did not take the materialized state')
+    st, out = timed_optimize(vi, device)
+    require(len(out['step_s']) == steps, f'{len(out["step_s"])} steps')
+    require(st.vi_mu is not None and st.nat_mu is None,
+            'phase 13b state is not materialized')
+    require_launched(out['counts'], ('bucket_matvec_multi',), 'phase 13b')
+    require(out['counts']['bucket_matvec_multi_c4'] == 0,
+            'phase 13b shares a panel')
+    out.update(K=vi.num_mix, n=n, setup_s=setup_s)
+    return out
+
+
+def run_trait_references(out_dir, card='cuda'):
+    """Phase 13c: a small 4-trait fit (4 blocks, 4,096 variants, the -K 2
+    --drop-non-psd grid, 5 steps) on the card at f32 (f32 U) against the
+    host's f64 fit: posterior means and variances within
+    BAND_TRAIT_FACTOR times the host's own f32 fit's error (per column,
+    relative to its scale). Then the card's fit resumed through
+    --load-checkpoint from its own materialized checkpoint at step 4: the
+    ELBO of the restored state within BAND_RESUME of the original run's
+    there. Returns (card errors, host f32 errors, resume error, K)."""
+    from vilma_tpu_torch.inference import engine
+    paths = write_schema(out_dir, num_blocks=4, num_pops=TRAITS, seed=4)
+    P = TRAITS
+    runs, elbos = {}, {}
+    for tag, device, precision in (('card', card, 'f32'),
+                                   ('cpu_f64', 'cpu', 'f64'),
+                                   ('cpu_f32', 'cpu', 'f32')):
+        prefix = os.path.join(out_dir, f'small_{tag}')
+        extra = ['--precision', precision, '--ld-precision',
+                 'f32' if precision == 'f32' else 'auto']
+        if tag == 'card':
+            extra += ['--checkpoint-freq', '2']
+        with record_elbos() as rec:
+            counts, _, _, _ = run_argv(
+                trait_argv(paths, prefix, device, 2, 5) + extra, device)
+        elbos[tag] = rec.values
+        runs[tag] = np.loadtxt(prefix + '.estimates.tsv', skiprows=1,
+                               usecols=range(3, 3 + 2 * P))
+        if tag == 'card' and card == 'cuda':
+            require_launched(counts, ('bucket_matvec_multi_c4',),
+                             'phase 13c')
+
+    def scaled(tag):
+        return (np.abs(runs[tag] - runs['cpu_f64']).max(axis=0)
+                / np.abs(runs['cpu_f64']).max(axis=0))
+
+    err, host = scaled('card'), scaled('cpu_f32')
+    require(np.all(np.isfinite(runs['card'])), 'non-finite card fit')
+    require(np.all(err <= BAND_TRAIT_FACTOR * host.max()),
+            f'4-trait card f32 fit vs host f64 fit: scaled errors {err} '
+            f'exceed {BAND_TRAIT_FACTOR} x the host f32 fit\'s {host.max():.2e}')
+    # resume the card's fit from its checkpoint at step 4
+    c = 4
+    first = []
+    cls = engine.MultiPopVI
+    real_elbo = cls.elbo_value
+
+    def elbo_value(vi, *a):
+        value = real_elbo(vi, *a)
+        first.append(value)
+        return value
+
+    prefix = os.path.join(out_dir, 'small_card')
+    cls.elbo_value = elbo_value
+    try:
+        counts, _, _, _ = run_argv(
+            trait_argv(paths, os.path.join(out_dir, 'resumed'), card, 2, 2)
+            + ['--precision', 'f32', '--ld-precision', 'f32',
+               '--load-checkpoint', f'{prefix}-checkpoint.{c}.npz',
+               prefix + '.covariance.pkl'], card)
+    finally:
+        cls.elbo_value = real_elbo
+    want = elbos['card'][c - 1]
+    r_err = abs(first[0] / want - 1)
+    require(r_err <= BAND_RESUME,
+            f'ELBO after resuming the 4-trait fit at step {c}: {first[0]!r} '
+            f'vs {want!r} ({r_err:.2e} > {BAND_RESUME:.0e})')
+    if card == 'cuda':
+        require_launched(counts, ('bucket_matvec_multi_c4',), 'the resume')
+    z = np.load(prefix + '.npz')
+    return err, host, r_err, z['vi_mu'].shape[0]
+
+
+def run_eight_traits(device, num_blocks=88, steps=2):
+    """Phase 13d: 8 traits on one panel (88 blocks of 1024 at half rank,
+    bf16 U), 6 synthetic components, f32, through MultiPopVI: the
+    initialization and `steps` steps, the matvec at 8 cohorts a launch."""
+    import torch
+    from vilma_tpu_torch.inference import engine
+    ld = device_ld(num_blocks, 1024, 512, device, seed=8)
+    n = ld.n
+    rng = np.random.default_rng(17)
+    std_errs = rng.uniform(0.01, 0.05, (8, n)).astype(np.float32)
+    betas = (rng.standard_normal((8, n)) * std_errs * 2).astype(np.float32)
+    np.random.seed(42)
+    vi = engine.MultiPopVI(
+        marginal_effects=betas, std_errs=std_errs, ld_mats=[ld] * 8,
+        annotations=np.ones((n, 1)), mixture_covs=synthetic_covs(8, 6, 8),
+        checkpoint=False, gwas_N=np.full(8, 1e5), init_hg=np.full(8, 0.3),
+        num_its=steps, dtype=torch.float32, device=device)
+    _, out = timed_optimize(vi, device)
+    require(len(out['step_s']) == steps, f'{len(out["step_s"])} steps')
+    require_launched(out['counts'], ('bucket_matvec_multi_c8',), 'phase 13d')
     return out
 
 
@@ -1743,6 +2033,51 @@ def main():
         f's/iter ({c["syncs"]:.1f} host syncs per step), peak device '
         f'memory {c["step_peak"] / 2**30:.2f} GiB; ELBO {c["elbo"]!r}; '
         f'launches {c["counts"]}; {smi}')
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        phase(f'phase 13a: fit --trait, {TRAITS} traits on one ~90K-variant '
+              'panel, -K 3 --drop-non-psd, f32, the materialized state')
+        a = run_trait_fit(tmp)
+        timings['trait_s_per_iter'] = sum(a['step_s']) / len(a['step_s'])
+        launches['bucket_matvec_multi_c4'] = a['counts'][
+            'bucket_matvec_multi_c4']
+        log(f'  K = {a["K"]} components, {a["n"]} variants; {a["seconds"]:.1f} '
+            f's in all; steps {[round(t, 3) for t in a["step_s"]]} s '
+            f'({a["syncs"]:.1f} host syncs per step); peak device memory '
+            f'{a["peak"] / 2**30:.2f} GiB; ELBOs {a["elbos"]}; max '
+            f'|posterior| {a["top"]:.3e}; launches {a["counts"]}; {smi}')
+        log(f'  card split: {a["split"]}')
+
+        phase('phase 13c: 4-trait fit, card f32 against host f64, and its '
+              'resume')
+        err, host, r_err, K = run_trait_references(tmp)
+        log(f'  -K 2 --drop-non-psd: K = {K}; card f32 vs host f64, scaled '
+            f'errors (means, variances) {err} (band {BAND_TRAIT_FACTOR} x '
+            f'the host f32 fit\'s {host.max():.2e}; host f32 {host}); the '
+            f'resumed ELBO within {r_err:.2e} (band {BAND_RESUME:.0e})')
+
+    phase('phase 13b: 4 ancestries, 1,000,448 SNPs, a bf16 panel each, '
+          '-K 2 --drop-non-psd, f32, the materialized state')
+    b = run_ancestry_fit(device)
+    timings['ancestry_init_s'] = b['init_s']
+    timings['ancestry_s_per_iter'] = b['s_per_iter']
+    log(f'  K = {b["K"]}, {b["n"]} SNPs; 4 panels factored in '
+        f'{b["setup_s"]:.1f} s; initialization {b["init_s"]:.3f} s, peak '
+        f'device memory {b["init_peak"] / 2**30:.2f} GiB; steps '
+        f'{[round(t, 3) for t in b["step_s"]]} s ({b["syncs"]:.1f} host '
+        f'syncs per step), peak device memory {b["step_peak"] / 2**30:.2f} '
+        f'GiB; ELBO {b["elbo"]!r}; launches {b["counts"]}; {smi}')
+    del b
+    torch.cuda.empty_cache()
+
+    phase('phase 13d: 8 traits on one panel, ~90K variants, 6 components, '
+          'f32: the matvec at 8 cohorts a launch')
+    d = run_eight_traits(device)
+    launches['bucket_matvec_multi_c8'] = d['counts']['bucket_matvec_multi_c8']
+    log(f'  initialization {d["init_s"]:.3f} s; steps '
+        f'{[round(t, 3) for t in d["step_s"]]} s; peak device memory '
+        f'{d["step_peak"] / 2**30:.2f} GiB; launches {d["counts"]}; {smi}')
     log(f'  timings {json.dumps(timings)}')
     log(f'  all phases: {time.perf_counter() - t_start:.1f} s')
 

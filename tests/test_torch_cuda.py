@@ -31,10 +31,11 @@ def _scaled_err(got, want):
 
 @pytest.mark.parametrize('u_dtype,band', [(torch.float32, 1e-5),
                                           (torch.bfloat16, 2.0 ** -8)])
-@pytest.mark.parametrize('C', [1, 2, 3])
+@pytest.mark.parametrize('C', [1, 2, 3, 4, 5, 6, 7, 8])
 def test_matvec_kernel_matches_plain(cuda, u_dtype, band, C):
     """f32: accumulation order only; bf16: one bf16 ulp, where an f32
-    sum on a rounding boundary rounds t the other way."""
+    sum on a rounding boundary rounds t the other way. Every cohort count
+    a launch takes (5-7 run the 8-cohort kernel), counted by C."""
     gen = torch.Generator(device=cuda).manual_seed(C)
     B, P, R = 5, 256, 136
     u = (torch.randn(B, P, R, generator=gen, device=cuda)
@@ -43,11 +44,13 @@ def test_matvec_kernel_matches_plain(cuda, u_dtype, band, C):
     d = torch.rand(B, P, generator=gen, device=cuda)
     x = torch.randn(B, C, P, generator=gen, device=cuda)
     before = bm.launches + bm.launches_group
+    by_c = bm.launches_by_cohorts.get(C, 0)
     y = bm.bucket_matvec_multi(u, s, d, x)
     y2 = bm.bucket_matvec_multi(u, s, d, x)
     torch.cuda.synchronize()
     assert bm.launches + bm.launches_group == before + 2
-    assert torch.equal(y, y2)
+    assert bm.launches_by_cohorts[C] == by_c + 2
+    assert y.shape == x.shape and torch.equal(y, y2)
     ref = bm.bucket_matvec_multi_plain(u, s, d, x)
     err = _scaled_err(y, ref)
     assert err <= band
@@ -74,7 +77,7 @@ def _check_route(u, s, d, x, route):
     bit repeatability and its band of the plain version (bf16 U: also
     closer to it than a product that skips rounding x or t)."""
     B, P, R = u.shape
-    pl = bm.plan(P, R, u.element_size(), x.shape[1])
+    pl = bm.plan(P, R, u.element_size(), bm.width(x.shape[1]))
     assert (pl.route, pl.cluster) == route
     before = (bm.launches, bm.launches_group)
     y = bm.bucket_matvec_multi(u, s, d, x)
@@ -111,6 +114,33 @@ def test_matvec_routes_match_plain(cuda, P, R, u_dtype, route, C):
     bit-for-bit repeatable, counted on its own launch counter. 40 blocks
     on the cluster route: more than the card holds clusters at once, so
     the clusters walk several."""
+    B = 40 if route[0] == 'cluster' else 4
+    _check_route(*_matvec_operands(cuda, B, P, R, C, u_dtype, P + C), route)
+
+
+@pytest.mark.parametrize('P,R,u_dtype,C,route', [
+    # the main bucket: the ring keeps 12 slots at 4 cohorts, 10 at 8
+    (1024, 512, torch.bfloat16, 4, ('cluster', 8)),
+    (1024, 512, torch.bfloat16, 8, ('cluster', 8)),
+    (1024, 512, torch.bfloat16, 6, ('cluster', 8)),
+    (1024, 512, torch.float32, 4, ('cluster', 16)),
+    # 8 cohorts: f32 [1024, 512] no longer fits 16 CTAs (group route);
+    # [1024, 288] takes a larger cluster
+    (1024, 512, torch.float32, 8, ('group', 128)),
+    (1024, 288, torch.float32, 8, ('cluster', 16)),
+    (256, 136, torch.bfloat16, 8, ('cluster', 1)),
+    (256, 128, torch.float32, 8, ('cluster', 1)),
+    # two slice buffers at 4 cohorts, none at 8 (U read twice)
+    (2048, 1024, torch.float32, 4, ('group', 128)),
+    (2048, 1024, torch.float32, 8, ('group', 128)),
+    (2048, 1024, torch.bfloat16, 8, ('group', 128)),
+    (8, 8, torch.bfloat16, 5, ('group', 1)),
+])
+def test_matvec_routes_match_plain_wide_cohorts(cuda, P, R, u_dtype, C,
+                                                route):
+    """4 to 8 cohorts per launch on both routes, at the plans the wider
+    x, t and partial-y buffers give (blocks.dot_multi takes the traits
+    of a --trait fit in groups of 8)."""
     B = 40 if route[0] == 'cluster' else 4
     _check_route(*_matvec_operands(cuda, B, P, R, C, u_dtype, P + C), route)
 

@@ -62,17 +62,14 @@ def test_import_guard():
 @pytest.mark.parametrize('flags', [
     ['--mesh', 'snp=4'], ['--distributed'], ['--mmap'],
     ['--factor-cache', '/nonexistent'],
-    ['--sumstats', 'a,b,c,d']])
+    ['--mmap', '--sumstats', 'a,b,c,d']])
 def test_unported_fit_flags_raise(flags, tmp_path):
     """Each unported fit option raises before any file is read, naming
-    its ROADMAP item."""
+    its ROADMAP item, at any cohort count (the last case has four: P >= 4
+    itself runs, tests/test_torch_materialized.py)."""
     argv = ['fit', '--ld-schema', 'x.schema', '--sumstats', 'a.tsv',
             '--extract', 'e.tsv', '--output', str(tmp_path / 'o'),
-            '--device', 'cpu']
-    if flags[0] == '--sumstats':
-        argv[argv.index('--sumstats') + 1] = flags[1]
-    else:
-        argv += flags
+            '--device', 'cpu'] + flags
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
         frontend.main(argv)
 
@@ -143,10 +140,21 @@ def test_cuda_device_never_falls_back(tmp_path, monkeypatch):
 
 
 def test_p4_and_kdim_raise():
-    prec = torch.eye(4, dtype=torch.float64)[None].repeat(2, 1, 1)
-    with pytest.raises(NotImplementedError, match='P >= 4'):
-        sigma.make_summaries(prec, torch.zeros(2, dtype=torch.float64),
-                             torch.ones(4, 5, dtype=torch.float64))
+    """make_summaries at P = 4 (the generic route, which used to raise)
+    equals the JAX package's; the kdim wrapper's operand checks raise."""
+    from vilma_tpu.models import sigma as jsigma
+    rng = np.random.default_rng(4)
+    a = rng.standard_normal((2, 4, 4))
+    prec = a @ np.swapaxes(a, 1, 2) + 4 * np.eye(4)
+    log_det, dterm = rng.standard_normal(2), rng.uniform(0, 2, (4, 5))
+    got = sigma.make_summaries(torch.as_tensor(prec),
+                               torch.as_tensor(log_det),
+                               torch.as_tensor(dterm))
+    want = jsigma.make_summaries(prec, log_det, dterm)
+    for field in ('log_det_sigma', 'sigma_summary', 'diag', 'matches'):
+        np.testing.assert_allclose(getattr(got, field).numpy(),
+                                   np.asarray(getattr(want, field)),
+                                   rtol=1e-12, atol=1e-14)
     # the kdim wrapper takes [K, P, I] and checks its K against the tables
     coeffs = torch.zeros(3, 4)
     args = (coeffs, torch.zeros(3, 1), torch.zeros(5, dtype=torch.int32),

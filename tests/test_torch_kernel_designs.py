@@ -115,6 +115,39 @@ def test_plan_routes_bucket_shapes(P, R, itemsize, route, G, C):
         assert pl.slots == (2 if fits else 0)
 
 
+@pytest.mark.parametrize('P,R,itemsize,C,route,G,slots', [
+    # the main bf16 bucket keeps 8 CTAs: 12 ring slots at 4 cohorts (as at
+    # 3), 10 at 8
+    (1024, 512, 2, 4, 'cluster', 8, 12),
+    (1024, 512, 2, 8, 'cluster', 8, 10),
+    # f32: 16 CTAs at 4 cohorts; at 8 the wider buffers leave no room for
+    # the 16 slices: the group route
+    (1024, 512, 4, 4, 'cluster', 16, 1),
+    (1024, 512, 4, 8, 'group', 128, 2),
+    # a larger cluster where 8 no longer fits
+    (1024, 288, 4, 4, 'cluster', 8, 1),
+    (1024, 288, 4, 8, 'cluster', 16, 1),
+    # the group route holds two slices and x [C, P] at 4 cohorts; at 8
+    # f32 it reads U from device memory
+    (2048, 1024, 4, 4, 'group', 128, 2),
+    (2048, 1024, 4, 8, 'group', 128, 0),
+    (2048, 1024, 2, 8, 'group', 128, 2),
+])
+def test_plan_wide_cohorts(P, R, itemsize, C, route, G, slots):
+    """The plans at 4 and 8 cohorts per launch count the wider x, t and
+    y-partial buffers: fewer ring slots, a larger cluster or the group
+    route where the C <= 3 plan no longer fits. 5-7 cohorts run the
+    8-cohort kernel."""
+    pl = tbm.plan(P, R, itemsize, C)
+    assert (pl.route, pl.cluster, pl.slots) == (route, G, slots)
+    assert pl.smem <= 227 * 1024
+    if route == 'cluster':
+        assert pl.smem == tbm.cluster_smem(P, R, C, itemsize, G, slots)
+    else:
+        assert pl.smem == tbm.group_smem(P, R, C, itemsize, G, slots)
+    assert [tbm.width(c) for c in range(1, 9)] == [1, 2, 3, 4, 8, 8, 8, 8]
+
+
 @pytest.mark.parametrize('P,R,itemsize,held,groups', [
     # one CTA per SM on 132 SMs: one group at a time
     (2048, 1024, 4, 132, 1),
@@ -179,7 +212,7 @@ def _scaled(got, want):
 
 
 @pytest.mark.parametrize('u_dtype', ['f32', 'bf16'])
-@pytest.mark.parametrize('C', [1, 2, 3])
+@pytest.mark.parametrize('C', [1, 2, 3, 4, 8])
 @pytest.mark.parametrize('G', [1, 4, 16])
 def test_cluster_matvec_arithmetic(u_dtype, C, G):
     """Within the kernel's bands of the plain version and of the Pallas
@@ -298,7 +331,7 @@ def _group_matvec(u, s, d, x, G):
     return y
 
 
-@pytest.mark.parametrize('C', [1, 2, 3])
+@pytest.mark.parametrize('C', [1, 2, 3, 4, 8])
 @pytest.mark.parametrize('G', [1, 8, 64])
 @pytest.mark.parametrize('u_dtype', ['f32', 'bf16'])
 def test_group_matvec_f64_matches_plain_and_pallas(C, G, u_dtype):
@@ -326,7 +359,7 @@ def test_group_matvec_f64_matches_plain_and_pallas(C, G, u_dtype):
 
 
 @pytest.mark.parametrize('u_dtype', ['f32', 'bf16'])
-@pytest.mark.parametrize('C', [1, 2, 3])
+@pytest.mark.parametrize('C', [1, 2, 3, 4, 8])
 @pytest.mark.parametrize('G', [1, 8, 64])
 def test_group_matvec_arithmetic(u_dtype, C, G):
     """In U's type: within the kernel's bands of the plain version and of

@@ -29,18 +29,26 @@ def data_to_torch(data):
 
 
 def state_to_torch(st):
-    """A JAX compact VIState (shared, kdim or epoch-history) as the port's
-    VIState."""
-    epoch = {}
+    """A JAX VIState (compact: shared, kdim or epoch-history; or
+    materialized) as the port's VIState."""
+    extra = {}
     if st.nat_hist is not None:
-        epoch = dict(nat_hist=np.asarray(st.nat_hist),
+        extra = dict(nat_hist=np.asarray(st.nat_hist),
                      nat_hist_scale=np.asarray(st.nat_hist_scale),
                      nat_hist_c=np.asarray(st.nat_hist_c),
                      nat_hist_n=int(st.nat_hist_n))
+    if st.nat_mu is None:
+        extra = dict(
+            vi_mu=np.asarray(st.vi_mu), vi_delta=np.asarray(st.vi_delta),
+            nat_grad_vi_delta=np.asarray(st.nat_grad_vi_delta),
+            sigma={f: np.asarray(getattr(st.sigma, f))
+                   for f in ('log_det_sigma', 'sigma_summary', 'diag',
+                             'matches')})
     return convert.state_from_numpy(
-        np.asarray(st.nat_mu), np.asarray(st.hyper_delta),
-        np.asarray(st.error_scaling), np.asarray(st.L), float(st.elbo),
-        float(st.running_elbo_delta), int(st.num_err), **epoch)
+        None if st.nat_mu is None else np.asarray(st.nat_mu),
+        np.asarray(st.hyper_delta), np.asarray(st.error_scaling),
+        np.asarray(st.L), float(st.elbo), float(st.running_elbo_delta),
+        int(st.num_err), **extra)
 
 
 def t2n(x):

@@ -157,10 +157,6 @@ def _check_supported(args):
         if getattr(args, attr):
             raise NotImplementedError(
                 f'{flag} is not ported yet (ROADMAP.md queue 1, "{item}")')
-    if args.sumstats.count(',') + 1 > 3:
-        raise NotImplementedError(
-            'P >= 4 cohorts need the materialized path, which is not '
-            'ported yet (ROADMAP.md queue 1, "Materialized path, P >= 4")')
 
 
 def _resolve_device(args):

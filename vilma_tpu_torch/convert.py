@@ -5,12 +5,14 @@ leaf) and build the port's objects on `device`, so both packages can be
 fed the same point. bfloat16 eigenvectors arrive as ml_dtypes arrays;
 their bits are reinterpreted without importing ml_dtypes.
 """
+import dataclasses
 import math
 
 import numpy as np
 import torch
 
 from vilma_tpu_torch.inference.engine import ModelData, VIState
+from vilma_tpu_torch.models.sigma import SigmaSummaries
 from vilma_tpu_torch.ops.blocks import BlockBucket, PackedLD
 
 
@@ -68,23 +70,33 @@ def model_data_from_numpy(fields, ld, num_annotations, scale_se, ld_index,
 def state_from_numpy(nat_mu, hyper_delta, error_scaling, L, elbo,
                      running_elbo_delta, num_err, nat_hist=None,
                      nat_hist_scale=None, nat_hist_c=None, nat_hist_n=None,
-                     device='cpu'):
-    """A compact VIState from numpy: nat_mu is the shared [P, I] or the
-    kdim [K, P, I] natural mean, or, with the nat_hist* arrays, the
-    current-epoch accumulator of an epoch-history state."""
-    epoch = {}
+                     vi_mu=None, vi_delta=None, nat_grad_vi_delta=None,
+                     sigma=None, device='cpu'):
+    """A VIState from numpy. Compact states: nat_mu is the shared [P, I]
+    or the kdim [K, P, I] natural mean, or, with the nat_hist* arrays,
+    the current-epoch accumulator of an epoch-history state. The
+    materialized state: nat_mu is None and vi_mu [K, P, I], vi_delta
+    [K, I], nat_grad_vi_delta [K-1, I] and `sigma` (a mapping of the
+    SigmaSummaries fields) are given."""
+    def t(x):
+        return None if x is None else tensor_from_numpy(x, device)
+
+    extra = {}
     if nat_hist is not None:
-        epoch = dict(nat_hist=tensor_from_numpy(nat_hist, device),
-                     nat_hist_scale=tensor_from_numpy(nat_hist_scale,
-                                                      device),
-                     nat_hist_c=tensor_from_numpy(nat_hist_c, device),
-                     nat_hist_n=int(nat_hist_n))
+        extra = dict(nat_hist=t(nat_hist), nat_hist_scale=t(nat_hist_scale),
+                     nat_hist_c=t(nat_hist_c), nat_hist_n=int(nat_hist_n))
+    if nat_mu is None:
+        extra = dict(vi_mu=t(vi_mu), vi_delta=t(vi_delta),
+                     nat_grad_vi_delta=t(nat_grad_vi_delta),
+                     sigma=SigmaSummaries(**{
+                         f.name: t(sigma[f.name])
+                         for f in dataclasses.fields(SigmaSummaries)}))
     return VIState(
-        nat_mu=tensor_from_numpy(nat_mu, device),
-        hyper_delta=tensor_from_numpy(hyper_delta, device),
-        error_scaling=tensor_from_numpy(error_scaling, device),
+        nat_mu=t(nat_mu),
+        hyper_delta=t(hyper_delta),
+        error_scaling=t(error_scaling),
         L=tuple(float(x) for x in np.asarray(L)),
         elbo=float(elbo),
         running_elbo_delta=(math.nan if running_elbo_delta is None
                             else float(running_elbo_delta)),
-        num_err=int(num_err), **epoch)
+        num_err=int(num_err), **extra)

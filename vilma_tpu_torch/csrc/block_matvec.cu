@@ -5,7 +5,9 @@
 //
 //     y[b, c] = U_b (s_b * (U_b^T x[b, c])) + d_b * x[b, c]
 //
-// for B padded [P, R] LD blocks and C <= 3 cohorts sharing the panel.
+// for B padded [P, R] LD blocks and C cohorts sharing the panel, C one of
+// kCohorts (1, 2, 3, 4, 8; the wrapper runs 5-7 cohorts as 8, the extra
+// rows of x zero, and more as several launches).
 // x is rounded to U's type before the first contraction and t = s * U^T x
 // before the second; products accumulate in f32 (the semantics of
 // block_matvec.py:52-61 and blocks.py:480-490).
@@ -67,8 +69,8 @@
 //      both products read U from device memory, the second from L2, and one
 //      group (the whole card) works on one block at a time;
 //   1. t_g = round(s_g * U_g^T round(x)) on the CUDA cores (each element of
-//      U feeds 2C multiply-adds: 3 operations per byte of f32 U at C = 3,
-//      far below the card's ~20 per HBM byte);
+//      U feeds 2C multiply-adds: 8 operations per byte of f32 U at C = 8,
+//      below the card's ~20 per HBM byte);
 //   2. its partial y_g = U_g t_g [C][P], written to a workspace past L1,
 //      then an arrival on the group's barrier (counters in device memory,
 //      release/acquire);
@@ -92,6 +94,12 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+
+// the cohort counts C the kernels are built for (the bf16 tensor-core
+// steps hold up to 8 cohorts in an m16n8k16 tile's rows or columns)
+__host__ __device__ constexpr bool cohorts_ok(int C) {
+  return C == 1 || C == 2 || C == 3 || C == 4 || C == 8;
+}
 
 // cluster route
 constexpr int kMaxCluster = 16;     // non-portable above 8 on H100
@@ -1349,7 +1357,7 @@ cudaError_t group_capacity(size_t smem, int* count) {
 bool group_shape_ok(int P, int R, int C, int G, int itemsize, int nbuf,
                     size_t smem) {
   const int vec = 16 / itemsize;
-  if (!(G >= 1 && (G & (G - 1)) == 0 && C >= 1 && C <= 3 && R >= vec &&
+  if (!(G >= 1 && (G & (G - 1)) == 0 && cohorts_ok(C) && R >= vec &&
         R % vec == 0 && G <= R / vec && P >= 1 &&
         (nbuf == 0 || (nbuf == 2 && P % 4 == 0))))
     return false;
@@ -1389,6 +1397,12 @@ cudaError_t dispatch_group(const void* u, const void* s, const void* d,
     case 3:
       return dispatch_hold<TU, 3>(hold, u, s, d, x, y, ws, parity, B, P, R, G,
                                   nbuf, ngroups, smem, stream, count);
+    case 4:
+      return dispatch_hold<TU, 4>(hold, u, s, d, x, y, ws, parity, B, P, R, G,
+                                  nbuf, ngroups, smem, stream, count);
+    case 8:
+      return dispatch_hold<TU, 8>(hold, u, s, d, x, y, ws, parity, B, P, R, G,
+                                  nbuf, ngroups, smem, stream, count);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1404,8 +1418,8 @@ bool cluster_shape_ok(int P, int R, int C, int G, int itemsize, int slots,
                            : slots == 1;
   const int rows_cap = itemsize == 2 ? 256 : P;  // a tensor copy's box
   return G >= 1 && G <= kMaxCluster && P % G == 0 && (P / G) % 16 == 0 &&
-         P / G <= rows_cap && R % 8 == 0 && R <= rank_cap && C >= 1 &&
-         C <= 3 && ring_ok &&
+         P / G <= rows_cap && R % 8 == 0 && R <= rank_cap &&
+         cohorts_ok(C) && ring_ok &&
          smem == cluster_layout(P, R, C, G, itemsize, slots).total;
 }
 
@@ -1424,6 +1438,12 @@ cudaError_t dispatch_cluster(const void* u, const void* s, const void* d,
     case 3:
       return launch_cluster<TU, 3>(u, s, d, x, y, B, P, R, G, slots,
                                    nclusters, smem, stream);
+    case 4:
+      return launch_cluster<TU, 4>(u, s, d, x, y, B, P, R, G, slots,
+                                   nclusters, smem, stream);
+    case 8:
+      return launch_cluster<TU, 8>(u, s, d, x, y, B, P, R, G, slots,
+                                   nclusters, smem, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1438,6 +1458,10 @@ cudaError_t placeable_c(int C, int G, size_t smem, int* count) {
       return clusters_placeable<TU, 2>(G, smem, count);
     case 3:
       return clusters_placeable<TU, 3>(G, smem, count);
+    case 4:
+      return clusters_placeable<TU, 4>(G, smem, count);
+    case 8:
+      return clusters_placeable<TU, 8>(G, smem, count);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,13 +1,17 @@
 """Coordinate-ascent variational inference engine.
 
-Port of vilma_tpu/inference/engine.py for the compact states of P <= 3
-cohorts: the shared [P, I] natural mean of fits without --learn-scaling,
-and, with --learn-scaling (scale_se), the per-component [K, P, I]
-natural mean (kdim) or, above _EPOCH_STATE_BYTES, the epoch-history
-state. One outer step runs up to MAX_NUM_ITERS natural-gradient
-updates, each a backtracking line search whose trials are objective
-evaluations (fused prologue -> block LD matvec -> likelihood reduction),
-then the closed-form hyper-delta update and, for scale_se fits, the
+Port of vilma_tpu/inference/engine.py. Fits of P <= 3 cohorts carry a
+compact state: the shared [P, I] natural mean of fits without
+--learn-scaling, and, with --learn-scaling (scale_se), the per-component
+[K, P, I] natural mean (kdim) or, above _EPOCH_STATE_BYTES, the
+epoch-history state. Fits of P >= 4 cohorts (or traits) carry the
+materialized state: vi_mu [K, P, I], vi_delta [K, I], its natural
+parameter and the sigma summaries. One outer step runs up to
+MAX_NUM_ITERS natural-gradient updates, each a backtracking line search
+whose trials are objective evaluations (compact: fused prologue -> block
+LD matvec -> likelihood reduction; materialized: the P x P solves of the
+new means, the [K, P, I] moments, the matvec, the reduction), then the
+closed-form hyper-delta update and, for scale_se fits, the
 error-scaling EM.
 
 The JAX engine runs a whole step on the device inside lax.while_loop.
@@ -22,8 +26,7 @@ their [K, chunk] temporaries) and the initialization forms its
 [K, I] terms in SNP chunks. Checkpoint resume (`optimize(checkpoint)`)
 restores all three states, genome-scale ones in bounded K-chunks.
 
-Not ported (each raises, naming its ROADMAP item): the materialized
-P >= 4 path and mesh execution.
+Not ported (it raises, naming its ROADMAP item): mesh execution.
 """
 import dataclasses
 import logging
@@ -110,10 +113,10 @@ class ModelData:
 
 @dataclass(frozen=True)
 class VIState:
-    """Optimization state of the compact representations (see the JAX
-    VIState docstring): the beta family is carried as its natural
+    """Optimization state (see the JAX VIState docstring). In the compact
+    representations (P <= 3) the beta family is carried as its natural
     mean(s), and vi_delta and every vi_sigma summary are closed forms of
-    (natural mean, hyper_delta, error_scaling).
+    (natural mean, hyper_delta, error_scaling):
 
     * shared: nat_mu [P, I], vi_mu[k] = vi_sigma[k] @ nat_mu for every k
       (fits without --learn-scaling);
@@ -124,10 +127,12 @@ class VIState:
       history (sigma.compact_exprs_epochs). Slots >= nat_hist_n are
       inert (nat_hist_c == 0, zero vectors, scale 1).
 
-    Scalars the host loop reads (nat_hist_n among them) live on the
-    host. vi_mu/vi_delta/sigma/nat_grad_vi_delta are filled only by
-    `materialize_state`, for outputs and tests."""
-    nat_mu: torch.Tensor          # [P, I] or [K, P, I]
+    There vi_mu/vi_delta/sigma/nat_grad_vi_delta are filled only by
+    `materialize_state`, for outputs and tests. In the MATERIALIZED
+    representation (nat_mu None; P >= 4) those four fields are the
+    state. Scalars the host loop reads (nat_hist_n among them) live on
+    the host."""
+    nat_mu: torch.Tensor          # [P, I], [K, P, I] or None
     hyper_delta: torch.Tensor     # [A, K]
     error_scaling: torch.Tensor   # [P]
     L: tuple                      # 3 per-paramset Lipschitz estimates
@@ -205,17 +210,23 @@ def _epoch_operands(data, st, nat_u, hist_c, hyper_delta):
 
 
 # The beta parameters of a state: (nat_mu,) for the shared and kdim
-# states, (nat_u, hist_c) for the epoch state. A natural-gradient step
-# nat <- (1-s) nat + s grad becomes u <- (1-s) u + s grad, c <- (1-s) c
-# on the epoch state (the gradient is K-constant).
+# states, (nat_u, hist_c) for the epoch state, (vi_mu, vi_delta) for the
+# materialized one. A natural-gradient step nat <- (1-s) nat + s grad
+# becomes u <- (1-s) u + s grad, c <- (1-s) c on the epoch state (the
+# gradient is K-constant); the materialized state steps its natural mean
+# and solves for the new vi_mu and vi_delta.
 
 def _params(st):
+    if st.nat_mu is None:
+        return (st.vi_mu, st.vi_delta)
     if st.nat_hist is None:
         return (st.nat_mu,)
     return (st.nat_mu, st.nat_hist_c)
 
 
 def _with_params(st, params):
+    if st.nat_mu is None:
+        return dataclasses.replace(st, vi_mu=params[0], vi_delta=params[1])
     if st.nat_hist is None:
         return dataclasses.replace(st, nat_mu=params[0])
     return dataclasses.replace(st, nat_mu=params[0], nat_hist_c=params[1])
@@ -240,7 +251,11 @@ def _fused(data, st, params, hyper_delta, sums=False):
 def _objective(data, st, params, hyper_delta):
     """(objective tensor, post_means, linked) of a parameter point: the
     fused prologue, the LD matvec and the likelihood reduction (reference
-    variational_inference.py:452-490, 632-641, 868-885)."""
+    variational_inference.py:452-490, 632-641, 868-885); on the
+    materialized state its unfused twin, _beta_objective_terms."""
+    if st.nat_mu is None:
+        return _beta_objective_terms(data, st.sigma, st.error_scaling,
+                                     *params, hyper_delta)
     post_means, post_vars, beta_kl = _fused(data, st, params, hyper_delta)
     scaled_mu, linked_ests = _ld_scaled_dot(data, post_means)
     ll = kernels.fast_likelihood(
@@ -248,6 +263,57 @@ def _objective(data, st, params, hyper_delta):
         linked_ests, data.adj_marginal_effects, data.chi_stat,
         data.ld_ranks, st.error_scaling)
     return ll - beta_kl, post_means, linked_ests
+
+
+# ---------------------------------------------------------------------------
+# The objective of the materialized state (P >= 4): the same terms from
+# the stored [K, P, I] and [K, I] arrays (JAX package engine.py:195-366)
+# ---------------------------------------------------------------------------
+
+def log_likelihood_terms(data, sigma, error_scaling, vi_mu, vi_delta):
+    """(expected log likelihood, post_means, linked) with linked =
+    LD.(post_means / SE) (variational_inference.py:452-470)."""
+    post_means = kernels.fast_posterior_mean(vi_mu, vi_delta)
+    post_vars = kernels.fast_pmv(post_means, vi_mu, vi_delta, sigma.diag)
+    scaled_mu, linked = _ld_scaled_dot(data, post_means)
+    ll = kernels.fast_likelihood(
+        post_means, post_vars, scaled_mu, data.scaled_ld_diags, linked,
+        data.adj_marginal_effects, data.chi_stat, data.ld_ranks,
+        error_scaling)
+    return ll, post_means, linked
+
+
+def beta_KL(data, sigma, vi_mu, vi_delta, hyper_delta):
+    """KL of the effect-size family (variational_inference.py:873-885);
+    SNPs of the pad annotation id add no covariance term."""
+    delta_comp = kernels.fast_delta_kl(vi_delta, hyper_delta,
+                                       data.annotations)
+    inner = kernels.fast_inner_product_comp(vi_mu, data.mixture_prec,
+                                            vi_delta)
+    real = (data.annotations < data.num_annotations)[None, :]
+    fast_comp = 0.5 * torch.sum(torch.where(
+        real, sigma.sigma_summary * vi_delta, torch.zeros_like(vi_delta)))
+    return delta_comp + inner + fast_comp
+
+
+def _beta_objective_terms(data, sigma, error_scaling, vi_mu, vi_delta,
+                          hyper_delta):
+    """(beta objective, post_means, linked); the beta objective is the
+    ELBO of MultiPopVI (its annotation KL is 0)."""
+    ll, post_means, linked = log_likelihood_terms(
+        data, sigma, error_scaling, vi_mu, vi_delta)
+    obj = ll - beta_KL(data, sigma, vi_mu, vi_delta, hyper_delta)
+    return obj, post_means, linked
+
+
+def nat_to_not_vi_delta(data, sigma, error_scaling, vi_mu,
+                        nat_grad_vi_delta):
+    """Closed-form vi_delta from the natural parameters
+    (variational_inference.py:632-641)."""
+    nat = sigma_mod.apply_precision(data.mixture_prec,
+                                    _diag_term(data, error_scaling), vi_mu)
+    return kernels.fast_invert_nat_vi_delta(vi_mu, nat, sigma.log_det_sigma,
+                                            nat_grad_vi_delta)
 
 
 def _objective_compact(data, st, nat_mu, hyper_delta):
@@ -263,6 +329,43 @@ def _nat_grad_resid(data, error_scaling, post_mean, linked_raw):
     return (data.adj_marginal_effects - linked) / error_scaling[:, None]
 
 
+def _stepper(data, st, params, grad):
+    """s -> (the beta parameters a natural-gradient step of size s takes
+    from `params`, the trial's Cholesky failure counts). The [P, I]
+    gradient is constant in K and broadcasts; the materialized state
+    steps its natural mean (prec_k + diag) @ vi_mu_k and solves back for
+    vi_mu and vi_delta (variational_inference.py:762-802)."""
+    if st.nat_mu is not None:
+        def step(s):
+            return (kernels.sum_betas(params[0], grad, s),) + tuple(
+                (1. - s) * c for c in params[1:]), []
+        return step
+    dterm = _diag_term(data, st.error_scaling)
+    old_nat = sigma_mod.apply_precision(data.mixture_prec, dterm, params[0])
+
+    def step(s):
+        failures = []
+        nat = kernels.sum_betas(old_nat, grad, s)
+        new_mu = sigma_mod.apply_sigma(data.mixture_prec, dterm, nat,
+                                       failures)
+        new_vd = kernels.fast_invert_nat_vi_delta(
+            new_mu, nat, st.sigma.log_det_sigma, st.nat_grad_vi_delta)
+        return (new_mu, new_vd), failures
+    return step
+
+
+def _sync_trial(obj, failures):
+    """A trial's objective on the host, fetched in one synchronization
+    with its Cholesky failure count (raising if there were any)."""
+    if not failures:
+        return _sync_float(obj)
+    global host_syncs
+    host_syncs += 1
+    value, bad = torch.stack([obj, sum(failures).to(obj.dtype)]).tolist()
+    sigma_mod.check_cholesky(bad)
+    return value
+
+
 def _update_beta(data, st, orig_obj, cur_post_mean, cur_linked,
                  line_search_rate):
     """One natural-gradient step with backtracking line search
@@ -273,22 +376,22 @@ def _update_beta(data, st, orig_obj, cur_post_mean, cur_linked,
                            cur_linked)
     threshold = orig_obj - REL_TOL * abs(orig_obj) - ABS_TOL
     params = _params(st)
+    step = _stepper(data, st, params, grad)
 
     def trial(L0):
-        s = 1. / L0
-        new = (kernels.sum_betas(params[0], grad, s),) + tuple(
-            (1. - s) * c for c in params[1:])
+        new, failures = step(1. / L0)
         obj, pm, lk = _objective(data, st, new, st.hyper_delta)
-        return new, _sync_float(obj), pm, lk
+        return new, _sync_trial(obj, failures), pm, lk
 
     L0 = st.L[0]
     new, new_obj, pm, lk = trial(L0)
     while new_obj < threshold and L0 <= L_MAX:
         L0 = L0 * line_search_rate
+        new = pm = lk = None    # free the rejected trial before the next
         new, new_obj, pm, lk = trial(L0)
 
     err = int(L0 > L_MAX and not _isclose(
-        orig_obj, new_obj, rtol=_err_rtol(st.nat_mu.dtype)))
+        orig_obj, new_obj, rtol=_err_rtol(st.hyper_delta.dtype)))
     if new_obj >= threshold:
         return new, L0, new_obj, pm, lk, err
     return params, L0, orig_obj, cur_post_mean, cur_linked, err
@@ -322,13 +425,25 @@ def _beta_loop(data, st, conv_tol, line_search_rate):
 
 def _update_hyper_delta(data, st, orig_obj):
     """Closed-form per-annotation mixture-weight update
-    (variational_inference.py:825-860), from the fused annotation sums of
-    the derived vi_delta."""
-    eps = epsilon(st.nat_mu.dtype)
-    new_hd = _fused(data, st, _params(st), st.hyper_delta, sums=True)
+    (variational_inference.py:825-860), from the annotation sums of
+    vi_delta (fused on a compact state, where vi_delta is derived). On
+    the materialized state the new weights also move vi_delta and its
+    natural parameter."""
+    eps = epsilon(st.hyper_delta.dtype)
+    if st.nat_mu is None:
+        new_hd = kernels.sum_annotations(st.vi_delta, data.annotations,
+                                         data.num_annotations)
+    else:
+        new_hd = _fused(data, st, _params(st), st.hyper_delta, sums=True)
     new_hd = torch.clamp(new_hd / (data.annotation_counts[:, None] + eps),
                          min=eps)
     new_hd = new_hd / new_hd.sum(dim=1, keepdim=True)
+    if st.nat_mu is None:
+        nat_vd = kernels.fast_vi_delta_grad(new_hd, data.log_det,
+                                            data.annotations)
+        st = dataclasses.replace(
+            st, nat_grad_vi_delta=nat_vd, vi_delta=nat_to_not_vi_delta(
+                data, st.sigma, st.error_scaling, st.vi_mu, nat_vd))
     obj, pm, lk = _objective(data, st, _params(st), new_hd)
     new_obj = _sync_float(obj)
     st = dataclasses.replace(st, hyper_delta=new_hd)
@@ -340,16 +455,22 @@ def _update_error_scaling(data, st, orig_obj, post_means, linked):
     (variational_inference.py:472-486, 735-738), from the posterior
     moments and the LD matvec of the current parameters.
 
-    The reference keeps vi_mu fixed while the scaling moves, so the
-    natural means re-base k-dependently: nat'_k = (prec_k + d_new) @
-    sigma_old_k @ nat_k. The kdim state applies that map; the epoch
-    state appends an epoch instead (the maps telescope, see
-    sigma.compact_exprs_epochs): the accumulator goes into the history
-    with coefficient 1 under the old scaling, and a zero accumulator
-    starts under the new one. An epoch state freezes (no change) when the
-    relative scaling change is below _EPOCH_SKIP_TOL or its buffer is
-    full. Returns (state, objective delta, post_mean)."""
-    post_vars = _fused(data, st, _params(st), st.hyper_delta)[1]
+    The reference keeps vi_mu fixed while the scaling moves: the
+    materialized state refreshes its sigma summaries and vi_delta under
+    the new scaling. On a compact state the natural means re-base
+    k-dependently: nat'_k = (prec_k + d_new) @ sigma_old_k @ nat_k. The
+    kdim state applies that map; the epoch state appends an epoch
+    instead (the maps telescope, see sigma.compact_exprs_epochs): the
+    accumulator goes into the history with coefficient 1 under the old
+    scaling, and a zero accumulator starts under the new one. An epoch
+    state freezes (no change) when the relative scaling change is below
+    _EPOCH_SKIP_TOL or its buffer is full. Returns (state, objective
+    delta, post_mean)."""
+    if st.nat_mu is None:
+        post_vars = kernels.fast_pmv(post_means, st.vi_mu, st.vi_delta,
+                                     st.sigma.diag)
+    else:
+        post_vars = _fused(data, st, _params(st), st.hyper_delta)[1]
     scaled_mu = post_means / data.std_errs
     quad = torch.einsum('pi,pi->p', scaled_mu, linked)
     new_scaling = (
@@ -359,7 +480,14 @@ def _update_error_scaling(data, st, orig_obj, post_means, linked):
         + quad
         + torch.sum(data.ld_diags * post_vars * data.std_errs ** -2, dim=1)
     ) / data.ld_ranks
-    if st.nat_hist is None:
+    if st.nat_mu is None:
+        sigma = sigma_mod.make_summaries(data.mixture_prec, data.log_det,
+                                         _diag_term(data, new_scaling))
+        st = dataclasses.replace(
+            st, error_scaling=new_scaling, sigma=sigma,
+            vi_delta=nat_to_not_vi_delta(data, sigma, new_scaling,
+                                         st.vi_mu, st.nat_grad_vi_delta))
+    elif st.nat_hist is None:
         vi_mu = sigma_mod.apply_sigma(
             data.mixture_prec, _diag_term(data, st.error_scaling),
             st.nat_mu)
@@ -388,18 +516,20 @@ def _update_error_scaling(data, st, orig_obj, post_means, linked):
 
 
 def outer_step(data, st, line_search_rate=2.0):
-    """One full coordinate-ascent iteration of a compact state
+    """One full coordinate-ascent iteration
     (reference _optimize_step/_nat_grad_step,
     variational_inference.py:396-450). Returns (state, posterior mean in
     output scale)."""
-    if data.scale_se and st.nat_hist is None and st.nat_mu.dim() != 3:
-        raise ValueError('compact scale_se fits carry a per-component '
-                         '[K, P, I] natural mean (the error-scaling EM '
-                         'makes natural means K-dependent); got a shared '
-                         '[P, I] state')
-    # materialized fields would go stale the moment the parameters move
-    st = dataclasses.replace(st, vi_mu=None, vi_delta=None, sigma=None,
-                             nat_grad_vi_delta=None)
+    if st.nat_mu is not None:
+        if data.scale_se and st.nat_hist is None and st.nat_mu.dim() != 3:
+            raise ValueError('compact scale_se fits carry a per-component '
+                             '[K, P, I] natural mean (the error-scaling EM '
+                             'makes natural means K-dependent); got a '
+                             'shared [P, I] state')
+        # a compact state's derived fields would go stale the moment the
+        # parameters move
+        st = dataclasses.replace(st, vi_mu=None, vi_delta=None, sigma=None,
+                                 nat_grad_vi_delta=None)
     red = st.running_elbo_delta
     conv_tol = math.inf if math.isnan(red) else 0.1 * red
     st, delta_beta, obj, pm, lk = _beta_loop(data, st, conv_tol,
@@ -473,7 +603,10 @@ def _derive_params(data, st):
 
 def materialize_state(data, st):
     """Fill a compact VIState's derived fields (vi_mu, vi_delta, sigma,
-    nat_grad_vi_delta) for outputs and tests."""
+    nat_grad_vi_delta) for outputs and tests; the identity on a
+    materialized state."""
+    if st.nat_mu is None:
+        return st
     sigma, vi_mu, vi_delta = _derive_params(data, st)
     nat_vd = kernels.fast_vi_delta_grad(st.hyper_delta, data.log_det,
                                         data.annotations)
@@ -546,13 +679,15 @@ def make_fake_mu(inverse_betas, std_errs, ld_diags):
     return fake_mu
 
 
-def initialize_from_fake_mu(data, error_scaling, fake_mu):
+def initialize_from_fake_mu(data, error_scaling, fake_mu, sigma=None):
     """Device-side remainder of _initialize
-    (variational_inference.py:658-700) for the compact state: returns
-    (hyper_delta [A, K], the shared natural mean [P, I]). Every step is
-    per SNP but the annotation sums, so the [K, I] temporaries are formed
-    in SNP chunks of _INIT_CHUNK_BYTES per [K, chunk] array and the sums
-    added over chunks."""
+    (variational_inference.py:658-700): returns (hyper_delta [A, K], the
+    shared natural mean [P, I]). Every step is per SNP but the annotation
+    sums, so the [K, I] temporaries are formed in SNP chunks of
+    _INIT_CHUNK_BYTES per [K, chunk] array and the sums added over
+    chunks. Given the sigma summaries of the materialized state, also
+    returns its vi_mu [K, P, I] (sigma_k @ the shared natural mean),
+    vi_delta [K, I] and the natural parameter [K-1, I] of hyper_delta."""
     eps = epsilon(fake_mu.dtype)
     K, I = data.log_det.shape[0], fake_mu.shape[1]
     chunk_i = max(1, _INIT_CHUNK_BYTES // (K * fake_mu.element_size()))
@@ -578,7 +713,16 @@ def initialize_from_fake_mu(data, error_scaling, fake_mu):
     hyper = sums + 1.
     hyper = hyper / torch.sum(hyper, dim=1, keepdim=True)
     hyper = torch.clamp(hyper, min=eps)
-    return hyper, torch.cat(nats, dim=1)
+    temp_nat = torch.cat(nats, dim=1)
+    if sigma is None:
+        return hyper, temp_nat
+    nat_vd = kernels.fast_vi_delta_grad(hyper, data.log_det,
+                                        data.annotations)
+    vi_mu = sigma_mod.apply_sigma(data.mixture_prec, dterm,
+                                  _nat_k(data, temp_nat))
+    vi_delta = nat_to_not_vi_delta(data, sigma, error_scaling, vi_mu,
+                                   nat_vd)
+    return hyper, temp_nat, vi_mu, vi_delta, nat_vd
 
 
 # ---------------------------------------------------------------------------
@@ -761,9 +905,10 @@ def _np(x):
 
 class MultiPopVI:
     """Equivalent of the reference MultiPopVI
-    (variational_inference.py:567-889) for P <= 3 cohorts: same
-    constructor surface plus `dtype` and `device` (the card unless
-    device='cpu'), same optimize() and output arrays."""
+    (variational_inference.py:567-889): same constructor surface plus
+    `dtype` and `device` (the card unless device='cpu'), same optimize()
+    and output arrays. Fits of P <= 3 cohorts carry a compact state,
+    P >= 4 the materialized one (VIState)."""
 
     def __init__(self, marginal_effects=None, std_errs=None, ld_mats=None,
                  annotations=None, mixture_covs=None, checkpoint=True,
@@ -779,8 +924,6 @@ class MultiPopVI:
             if val is None:
                 raise ValueError(f'{name} must be specified when calling '
                                  'MultiPopVI()')
-        if np.asarray(marginal_effects).shape[0] > 3:
-            raise NotImplementedError(sigma_mod._P4_MESSAGE)
         self.data = build_model_data(
             marginal_effects, std_errs, ld_mats, annotations, mixture_covs,
             scaled, scale_se, gwas_N, init_hg, dtype=dtype, device=device)
@@ -793,13 +936,17 @@ class MultiPopVI:
         self.num_pops, self.num_loci = self.data.marginal_effects.shape
         self.num_mix = self.data.mixture_prec.shape[0]
         self.num_annotations = self.data.num_annotations
-        # scale_se fits carry a per-component [K, P, I] natural mean; when
-        # that state would be too large (the production mixture grid at
-        # genome scale: 582 x 2 x 1M f32 is 4.66 GB) they switch to the
-        # epoch-history representation, exact and bounded
+        # the compact states need the closed-form sigma algebra (P <= 3);
+        # beyond it the fit carries the materialized state
+        self._compact = self.num_pops <= 3
+        # compact scale_se fits carry a per-component [K, P, I] natural
+        # mean; when that state would be too large (the production mixture
+        # grid at genome scale: 582 x 2 x 1M f32 is 4.66 GB) they switch
+        # to the epoch-history representation, exact and bounded
         kdim_bytes = (self.num_mix * self.num_pops * self.num_loci
                       * self._np_dtype.itemsize)
-        self._epoch = bool(scale_se and kdim_bytes > _EPOCH_STATE_BYTES)
+        self._epoch = bool(self._compact and scale_se
+                           and kdim_bytes > _EPOCH_STATE_BYTES)
         self._hist_cap_warned = False
         if self._epoch:
             logging.info(
@@ -906,7 +1053,7 @@ class MultiPopVI:
         vi_mu (component chunks) and vi_delta (variant chunks) for
         utils/npz_stream.save_npz_stream."""
         st = st or self.state
-        if not self._stream_big():
+        if st.nat_mu is None or not self._stream_big():
             return self.create_dump_dict(st), []
         arrays = {
             'hyper_delta': _np(st.hyper_delta),
@@ -1004,16 +1151,23 @@ class MultiPopVI:
             device=self.data.marginal_effects.device)
 
     def _fresh_state(self, error_scaling=None):
+        """The state before initialization or resume. The materialized
+        one holds its sigma summaries; its caller sets vi_mu, vi_delta
+        and nat_grad_vi_delta."""
         zeros = dict(dtype=self._dtype,
                      device=self.data.marginal_effects.device)
         P, I, K = self.num_pops, self.num_loci, self.num_mix
         st = VIState(
-            nat_mu=torch.zeros(P, I, **zeros),
+            nat_mu=torch.zeros(P, I, **zeros) if self._compact else None,
             hyper_delta=torch.zeros(self.num_annotations, K, **zeros),
             error_scaling=(torch.ones(P, **zeros) if error_scaling is None
                            else self._tensor(error_scaling)),
             L=(1., 1., 1.), elbo=0., running_elbo_delta=math.nan,
             num_err=0)
+        if not self._compact:
+            st = dataclasses.replace(st, sigma=sigma_mod.make_summaries(
+                self.data.mixture_prec, self.data.log_det,
+                _diag_term(self.data, st.error_scaling)))
         if self._epoch:
             B0 = _EPOCH_BUCKETS[0]
             st = dataclasses.replace(
@@ -1032,6 +1186,12 @@ class MultiPopVI:
             device=data.marginal_effects.device)
         logging.info('Max |inverse_beta| at initialization: %f',
                      float(torch.max(torch.abs(data.inverse_betas))))
+        if not self._compact:
+            hyper, _, vi_mu, vi_delta, nat_vd = initialize_from_fake_mu(
+                data, st.error_scaling, fake_mu, sigma=st.sigma)
+            return dataclasses.replace(st, vi_mu=vi_mu, vi_delta=vi_delta,
+                                       hyper_delta=hyper,
+                                       nat_grad_vi_delta=nat_vd)
         hyper, temp_nat = initialize_from_fake_mu(data, st.error_scaling,
                                                   fake_mu)
         if self.scale_se and not self._epoch:
@@ -1048,9 +1208,9 @@ class MultiPopVI:
         of either package, or a mapping of its arrays) resumes (reference
         MultiPopVI._state_from_checkpoint). The shared and kdim natural
         means are recovered from vi_mu (exact given the checkpoint's
-        error_scaling); the epoch state is restored from its own keys.
-        The port does not pad loci, so the checkpoint's variant order is
-        the fit's."""
+        error_scaling); the epoch state is restored from its own keys and
+        the materialized one from vi_mu and vi_delta. The port does not
+        pad loci, so the checkpoint's variant order is the fit's."""
         files = getattr(loaded_checkpoint, 'files', loaded_checkpoint)
         error_scaling = None
         if 'error_scaling' in files:
@@ -1079,6 +1239,14 @@ class MultiPopVI:
                 nat_hist_c=self._tensor(loaded_checkpoint['nat_hist_c']),
                 nat_hist_n=int(loaded_checkpoint['nat_hist_n']),
                 hyper_delta=hyper)
+        if not self._compact:
+            return dataclasses.replace(
+                st, vi_mu=self._tensor(loaded_checkpoint['vi_mu']),
+                vi_delta=self._tensor(
+                    np.asarray(loaded_checkpoint['vi_delta']).T),
+                hyper_delta=hyper,
+                nat_grad_vi_delta=kernels.fast_vi_delta_grad(
+                    hyper, self.data.log_det, self.data.annotations))
         if self._stream_big():
             # genome-scale resume: the vi_mu member can be tens of GB;
             # recover the natural mean(s) in bounded chunks straight off
@@ -1120,7 +1288,11 @@ class MultiPopVI:
         return nat
 
     def _posterior_mean(self, st):
-        _, pm, _ = _objective(self.data, st, _params(st), st.hyper_delta)
+        if st.nat_mu is None:
+            pm = kernels.fast_posterior_mean(st.vi_mu, st.vi_delta)
+        else:
+            _, pm, _ = _objective(self.data, st, _params(st),
+                                  st.hyper_delta)
         return pm * self.data.scalings
 
     def optimize(self, loaded_checkpoint=None):

@@ -1,13 +1,22 @@
-"""Closed-form algebra for the variational covariances vi_sigma (P <= 3).
+"""Algebra of the variational covariances vi_sigma.
 
 Port of vilma_tpu/models/sigma.py. The per-SNP, per-component covariance
 
     vi_sigma[k,:,:,i] = inv(mixture_prec[k] + diag(diag_term[:, i]))
 
-is never materialized in compute: every contraction against it is a
-closed-form PxP inverse, P = 1..3 cohorts. The JAX package also has a
-chunked batched-solve path for P >= 4; the port raises for it (ROADMAP
-queue 1, "Materialized path, P >= 4").
+is never materialized in compute. For P = 1..3 cohorts every contraction
+against it is a closed-form PxP inverse. For P >= 4 the precision
+blocks, which are symmetric positive definite, are factored by Cholesky
+in I-chunks whose [K, chunk, P, P] temporaries stay under
+_GENERIC_CHUNK_BYTES; solves, inverses and log-determinants come from
+the factor (the JAX package uses LU there: at f64 the two agree to
+~1e-13). A block whose factorization fails raises LinAlgError.
+
+The factor is written out entry by entry over [K, chunk] planes, each
+step one elementwise pass: for millions of 4x4 blocks the library's
+batched torch.linalg.cholesky_ex / cholesky_solve / cholesky_inverse
+took 17-140x longer on an H100 (profile_torch_sigma.py, K = 1,953,
+P = 4, 90,112 SNPs: apply_sigma 6.2-7.9 s a call against 53-58 ms).
 
 Functions take `diag_term` = scaled_ld_diags / error_scaling[:, None]
 ([P, I]) and `mixture_prec` ([K, P, P]).
@@ -16,14 +25,9 @@ from dataclasses import dataclass
 
 import torch
 
-_P4_MESSAGE = ('P >= 4 cohorts need the materialized path, which is not '
-               'ported yet (ROADMAP.md queue 1, "Materialized path, '
-               'P >= 4")')
-
-
-def _require_closed_form(P):
-    if P > 3:
-        raise NotImplementedError(_P4_MESSAGE)
+# byte budget of one [K, chunk, P, P] temporary of the generic P >= 4
+# path; tests shrink it to a ragged tail
+_GENERIC_CHUNK_BYTES = 256 << 20
 
 
 @dataclass(frozen=True)
@@ -39,7 +43,6 @@ class SigmaSummaries:
 def _precision_parts(mixture_prec, diag_term):
     """Split the per-(k,i) precision into reusable [K, I] components."""
     P = mixture_prec.shape[1]
-    _require_closed_form(P)
     if P == 1:
         return (mixture_prec[:, 0, 0][:, None] + diag_term[0][None, :],)
     if P == 2:
@@ -71,15 +74,124 @@ def _adjugate3(parts):
     return A, B, C, D, E, F, det
 
 
+# ---------------------------------------------------------------------------
+# P >= 4: Cholesky factors of the precision blocks, entry by entry over
+# [K, chunk] planes (each step one elementwise pass over the chunk)
+# ---------------------------------------------------------------------------
+
+def _use_closed_form(P):
+    return P <= 3
+
+
+def _chunk_len(mixture_prec, I):
+    """SNPs per I-chunk: one [K, chunk, P, P] temporary within
+    _GENERIC_CHUNK_BYTES."""
+    K, P, _ = mixture_prec.shape
+    per_snp = K * P * P * mixture_prec.element_size()
+    return max(1, min(I, _GENERIC_CHUNK_BYTES // per_snp))
+
+
+def _i_chunks(mixture_prec, diag_term, failures):
+    """Yield (columns, lower Cholesky factor) over I-chunks of
+    M[k, i] = mixture_prec[k] + diag(diag_term[:, i]). The factor is a
+    nested list, L[i][j] ([K, chunk]) for j <= i. Appends to `failures`
+    each chunk's count (0-dim, on the device) of the blocks whose pivots
+    were not positive (or not a number)."""
+    P, I = diag_term.shape
+    chunk = _chunk_len(mixture_prec, I)
+    for i0 in range(0, I, chunk):
+        cols = slice(i0, i0 + chunk)
+        dt = diag_term[:, cols]
+        L = [[None] * P for _ in range(P)]
+        ok = True
+        for j in range(P):
+            pivot = mixture_prec[:, j, j][:, None] + dt[j][None, :]
+            for t in range(j):
+                pivot = pivot - L[j][t] * L[j][t]
+            ok = (pivot > 0) & ok
+            L[j][j] = torch.sqrt(pivot)
+            for i in range(j + 1, P):
+                s = mixture_prec[:, i, j][:, None]
+                for t in range(j):
+                    s = s - L[i][t] * L[j][t]
+                L[i][j] = s / L[j][j]
+        failures.append(torch.count_nonzero(~ok))
+        yield cols, L
+
+
+def check_cholesky(bad):
+    """Raise if `bad`, a count of failed factorizations (on the device or
+    the host), is not zero."""
+    if int(bad):
+        raise torch.linalg.LinAlgError(
+            f'{int(bad)} precision blocks mixture_prec[k] + diag(d_i) are '
+            'not positive definite in this precision (Cholesky failed)')
+
+
+def _cholesky_solve(L, x):
+    """M^{-1} x for x a list of P [K, chunk] rows: L y = x, L^T z = y."""
+    P = len(L)
+    y = []
+    for i in range(P):
+        s = x[i]
+        for t in range(i):
+            s = s - L[i][t] * y[t]
+        y.append(s / L[i][i])
+    z = [None] * P
+    for i in reversed(range(P)):
+        s = y[i]
+        for t in range(i + 1, P):
+            s = s - L[t][i] * z[t]
+        z[i] = s / L[i][i]
+    return z
+
+
+def _cholesky_inverse(L):
+    """sigma = M^{-1} = W^T W with W = L^{-1}: the symmetric entries
+    sigma[p][q] ([K, chunk]) as a nested list, and log det sigma."""
+    P = len(L)
+    W = [[None] * P for _ in range(P)]
+    for i in range(P):
+        W[i][i] = 1.0 / L[i][i]
+        for j in range(i):
+            s = L[i][j] * W[j][j]
+            for t in range(j + 1, i):
+                s = s + L[i][t] * W[t][j]
+            W[i][j] = -s * W[i][i]
+    sigma = [[None] * P for _ in range(P)]
+    for p in range(P):
+        for q in range(p, P):
+            s = W[q][p] * W[q][q]
+            for t in range(q + 1, P):
+                s = s + W[t][p] * W[t][q]
+            sigma[p][q] = sigma[q][p] = s
+    log_det_sigma = 2 * sum(torch.log(W[j][j]) for j in range(P))
+    return sigma, log_det_sigma
+
+
 def apply_precision(mixture_prec, diag_term, x):
     """(mixture_prec[k] + diag(diag_term[:,i])) @ x[k,:,i] -> [K,P,I]."""
     return (torch.einsum('kpq,kqi->kpi', mixture_prec, x)
             + diag_term[None, :, :] * x)
 
 
-def apply_sigma(mixture_prec, diag_term, x):
-    """vi_sigma[k,:,:,i] @ x[k,:,i] -> [K,P,I] via closed-form solves."""
+def apply_sigma(mixture_prec, diag_term, x, failures=None):
+    """vi_sigma[k,:,:,i] @ x[k,:,i] -> [K,P,I]: closed-form solves for
+    P <= 3, chunked Cholesky solves beyond. Given a `failures` list, the
+    factorizations' failure counts go there (for a caller that fetches
+    them with a synchronization it makes anyway), else they are checked
+    here."""
     P = mixture_prec.shape[1]
+    if not _use_closed_form(P):
+        out = x.new_empty((mixture_prec.shape[0], P, x.shape[-1]))
+        fails = [] if failures is None else failures
+        for cols, L in _i_chunks(mixture_prec, diag_term, fails):
+            z = _cholesky_solve(L, [x[:, p, cols] for p in range(P)])
+            for p in range(P):
+                out[:, p, cols] = z[p]
+        if failures is None:
+            check_cholesky(sum(fails))
+        return out
     parts = _precision_parts(mixture_prec, diag_term)
     if P == 1:
         (a,) = parts
@@ -109,6 +221,27 @@ def make_summaries(mixture_prec, log_det_prior, diag_term):
     """Build the O(K*I) vi_sigma summaries. log_det_prior: [K]
     log-determinants of the prior covariances (-logdet(mixture_prec))."""
     P = mixture_prec.shape[1]
+    if not _use_closed_form(P):
+        K, I = mixture_prec.shape[0], diag_term.shape[1]
+        log_det_sigma = diag_term.new_empty((K, I))
+        diag = diag_term.new_empty((K, P, I))
+        matches = diag_term.new_empty((K, I))
+        fails = []
+        for cols, L in _i_chunks(mixture_prec, diag_term, fails):
+            sigma, log_det = _cholesky_inverse(L)
+            log_det_sigma[:, cols] = log_det
+            # trace(prec @ sigma)
+            mt = 0.
+            for p in range(P):
+                diag[:, p, cols] = sigma[p][p]
+                for q in range(P):
+                    mt = mt + mixture_prec[:, q, p][:, None] * sigma[p][q]
+            matches[:, cols] = mt
+        check_cholesky(sum(fails))
+        sigma_summary = log_det_prior[:, None] - log_det_sigma + matches
+        return SigmaSummaries(log_det_sigma=log_det_sigma,
+                              sigma_summary=sigma_summary, diag=diag,
+                              matches=matches)
     parts = _precision_parts(mixture_prec, diag_term)
     if P == 1:
         (a,) = parts
@@ -163,6 +296,9 @@ def compact_exprs(mixture_prec, diag_term, nat_mu):
     """CompactExprs of a natural mean: the shared [P, I] state or the
     per-component [K, P, I] one (see `_nat_row`)."""
     P = mixture_prec.shape[1]
+    if not _use_closed_form(P):
+        raise NotImplementedError('compact expressions need the closed-'
+                                  'form sigma algebra (P <= 3)')
     parts = _precision_parts(mixture_prec, diag_term)
     n = [_nat_row(nat_mu, p) for p in range(P)]
     if P == 1:
@@ -246,10 +382,22 @@ def sigma_weighted_sum(mixture_prec, diag_term, vi_delta):
     """sum_k vi_delta[k,i] * vi_sigma[k,:,:,i] -> [I,P,P] (used only at
     initialization, reference variational_inference.py:681-684)."""
     P = mixture_prec.shape[1]
-    parts = _precision_parts(mixture_prec, diag_term)
 
-    def w(x):
-        return torch.einsum('ki,ki->i', vi_delta, x)
+    def w(x, delta=vi_delta):
+        return torch.einsum('ki,ki->i', delta, x)
+
+    if not _use_closed_form(P):
+        out = diag_term.new_empty((diag_term.shape[1], P, P))
+        fails = []
+        for cols, L in _i_chunks(mixture_prec, diag_term, fails):
+            sigma = _cholesky_inverse(L)[0]
+            for p in range(P):
+                for q in range(p, P):
+                    out[cols, p, q] = out[cols, q, p] = w(
+                        sigma[p][q], vi_delta[:, cols])
+        check_cholesky(sum(fails))
+        return out
+    parts = _precision_parts(mixture_prec, diag_term)
 
     if P == 1:
         (a,) = parts
@@ -270,10 +418,22 @@ def sigma_weighted_sum(mixture_prec, diag_term, vi_delta):
 
 def materialize_sigma(mixture_prec, diag_term):
     """Dense [K,P,P,I] vi_sigma, for output parity with the reference's
-    saved `vi_sigma` array (vi_options.py:264) only."""
-    _require_closed_form(mixture_prec.shape[1])
-    P = mixture_prec.shape[1]
-    eye = torch.eye(P, dtype=mixture_prec.dtype, device=mixture_prec.device)
-    prec = (mixture_prec[:, None, :, :]
-            + eye * diag_term.T[None, :, :, None])       # [K, I, P, P]
-    return torch.linalg.inv(prec).permute(0, 2, 3, 1)
+    saved `vi_sigma` array (vi_options.py:264) only: each precision
+    block's inverse for P <= 3, as the JAX package takes it, the chunked
+    Cholesky inverse beyond."""
+    K, P, _ = mixture_prec.shape
+    if _use_closed_form(P):
+        eye = torch.eye(P, dtype=mixture_prec.dtype,
+                        device=mixture_prec.device)
+        prec = (mixture_prec[:, None, :, :]
+                + eye * diag_term.T[None, :, :, None])       # [K, I, P, P]
+        return torch.linalg.inv(prec).permute(0, 2, 3, 1)
+    out = diag_term.new_empty((K, P, P, diag_term.shape[1]))
+    fails = []
+    for cols, L in _i_chunks(mixture_prec, diag_term, fails):
+        sigma = _cholesky_inverse(L)[0]
+        for p in range(P):
+            for q in range(P):
+                out[:, p, q, cols] = sigma[p][q]
+    check_cholesky(sum(fails))
+    return out

@@ -192,15 +192,20 @@ def _u_as(bk, dtype):
 
 
 def dot_multi(ld, vectors):
-    """Matrix @ each of C vectors in ONE pass over the LD factors:
-    [C, n] -> [C, n]. Cohorts sharing one LD panel read U once per
-    evaluation instead of once per cohort."""
+    """Matrix @ each of C vectors: [C, n] -> [C, n]. Cohorts sharing one
+    LD panel read U once per evaluation per group of at most
+    block_matvec.MAX_COHORTS, one kernel launch each, instead of once per
+    cohort."""
     C, n = vectors.shape
     xs_ext = _extend(vectors)                               # [C, n+1]
     out = torch.zeros(n + 1, C, dtype=vectors.dtype, device=vectors.device)
+    step = block_matvec.MAX_COHORTS
     for bk in ld.buckets:
-        xb = xs_ext[:, bk.perm].permute(1, 0, 2).contiguous()  # [B, C, P]
-        yb = block_matvec.bucket_matvec_multi(bk.u, bk.s, bk.d, xb)
+        xb = xs_ext[:, bk.perm].permute(1, 0, 2)            # [B, C, P]
+        parts = [block_matvec.bucket_matvec_multi(
+            bk.u, bk.s, bk.d, xb[:, c0:c0 + step].contiguous())
+            for c0 in range(0, C, step)]
+        yb = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
         out.index_add_(0, bk.perm.reshape(-1),
                        yb.permute(0, 2, 1).reshape(-1, C))
     return out[:n].T

@@ -7,10 +7,12 @@ Replaces vilma_tpu/ops/pallas/block_matvec.py::bucket_matvec_multi
 
     y[b, c] = U_b (s_b * (U_b^T x[b, c])) + d_b * x[b, c]
 
-for B padded [Pmax, Rmax] LD blocks and C cohorts sharing the panel.
-x and t are rounded to U's dtype before each contraction and the sums
-accumulate in f32 (the semantics of block_matvec.py:52-61 and
-blocks.py:480-490).
+for B padded [Pmax, Rmax] LD blocks and C <= MAX_COHORTS cohorts sharing
+the panel (blocks.dot_multi hands it more as several launches). The
+kernels are built for the cohort counts of WIDTHS; a launch of another C
+runs the next wider one, the extra rows of x zero. x and t are rounded
+to U's dtype before each contraction and the sums accumulate in f32 (the
+semantics of block_matvec.py:52-61 and blocks.py:480-490).
 
 Two routes, chosen by the bucket's shape alone (`plan`):
 
@@ -36,10 +38,17 @@ import torch
 
 from vilma_tpu_torch.ops.cuda import build
 
-#: launches of the cluster route and of the group route (plain-version
-#: calls do not count)
+#: launches of the cluster route and of the group route, and of either
+#: route by cohort count (plain-version calls do not count)
 launches = 0
 launches_group = 0
+launches_by_cohorts = {}
+
+#: the most cohorts one launch takes
+MAX_COHORTS = 8
+# the cohort counts the kernels are built for
+# (csrc/block_matvec.cu::cohorts_ok)
+WIDTHS = (1, 2, 3, 4, 8)
 
 # dynamic shared memory one CTA may use on Hopper (232,448 bytes)
 _SMEM_MAX = 227 * 1024
@@ -251,6 +260,11 @@ def _group_workspace(device, stream, P, C, G, groups):
     return _workspace[key]
 
 
+def width(C):
+    """The cohort count of the kernel a launch of C cohorts runs."""
+    return next(w for w in WIDTHS if w >= C)
+
+
 def bucket_matvec_multi(u, s, d, x):
     """y[b, c] = u[b] @ (s[b] * (u[b].T @ x[b, c])) + d[b] * x[b, c]."""
     global launches, launches_group
@@ -270,35 +284,41 @@ def bucket_matvec_multi(u, s, d, x):
         _require(t.is_cuda and t.device == x.device,
                  f'{name} must be on {x.device}')
         _require(t.is_contiguous(), f'{name} must be contiguous')
-    _require(1 <= C <= 3, f'C = {C} cohorts per panel (kernel takes 1..3)')
+    _require(1 <= C <= MAX_COHORTS,
+             f'C = {C} cohorts per launch (the kernel takes 1..'
+             f'{MAX_COHORTS})')
     vec = 16 // u.element_size()
     _require(R % vec == 0 and u.data_ptr() % 16 == 0,
              f'rank axis {R} must be a multiple of {vec} and u 16-byte '
              'aligned (16-byte row loads)')
-    pl = plan(P, R, u.element_size(), C)
+    W = width(C)
+    pl = plan(P, R, u.element_size(), W)
     _require(pl.smem <= _SMEM_MAX,
-             f'C * R = {C * R} floats exceed the shared-memory budget')
+             f'C * R = {W * R} floats exceed the shared-memory budget')
+    if W != C:
+        x = torch.cat([x, x.new_zeros(B, W - C, P)], dim=1)
     y = torch.empty_like(x)
     if B == 0:
-        return y
+        return y[:, :C]
     lib = build.library()
     bf16 = int(u.dtype == torch.bfloat16)
     stream = build.stream_handle(x.device)
-    held = _capacity(lib, x.device, P, R, C, bf16, pl)
+    held = _capacity(lib, x.device, P, R, W, bf16, pl)
     if pl.route == 'cluster':
         build.check(lib.vilma_block_matvec_cluster(
             u.data_ptr(), s.data_ptr(), d.data_ptr(), x.data_ptr(),
-            y.data_ptr(), B, P, R, C, bf16, pl.cluster, pl.slots,
+            y.data_ptr(), B, P, R, W, bf16, pl.cluster, pl.slots,
             min(B, held), pl.smem, stream), 'vilma_block_matvec_cluster')
         launches += 1
     else:
         groups = group_count(B, held, pl)
-        ws = _group_workspace(x.device, stream, P, C, pl.cluster, groups)
+        ws = _group_workspace(x.device, stream, P, W, pl.cluster, groups)
         build.check(lib.vilma_block_matvec_group(
             u.data_ptr(), s.data_ptr(), d.data_ptr(), x.data_ptr(),
-            y.data_ptr(), ws[0].data_ptr(), ws[1], B, P, R, C, bf16,
+            y.data_ptr(), ws[0].data_ptr(), ws[1], B, P, R, W, bf16,
             pl.cluster, pl.slots, groups, pl.smem, stream),
             'vilma_block_matvec_group')
         ws[1] ^= 1
         launches_group += 1
-    return y
+    launches_by_cohorts[C] = launches_by_cohorts.get(C, 0) + 1
+    return y if W == C else y[:, :C]

@@ -40,22 +40,31 @@ def fast_likelihood(post_means, post_vars, scaled_mu, scaled_ld_diags,
                      - 0.5 * ld_ranks * torch.log(error_scaling))
 
 
+# The [K, P, I] contractions below are products summed over an axis, not
+# einsums: torch lowers einsum('kpi,ki->pi') and ('kpi,kpi->ki') to
+# batched matrix products with one batch per SNP (or per SNP and
+# component), which took 9 ms and 160 ms a call on an H100 at K = 1,953,
+# P = 4 and 90,112 SNPs (chip_smoke.py phase 13a, PERF.md).
+
 def fast_posterior_mean(vi_mu, vi_delta):
     """Mixture-weighted mean: einsum('kpi,ki->pi')."""
-    return torch.einsum('kpi,ki->pi', vi_mu, vi_delta)
+    return torch.sum(vi_mu * vi_delta[:, None, :], dim=0)
 
 
 def fast_pmv(mean, vi_mu, vi_delta, vi_sigma_diag):
     """Posterior marginal variance E[beta^2] - E[beta]^2
     (numerics.py:60-65); vi_sigma_diag is [K, P, I]."""
-    second_moment = torch.einsum('kpi,ki->pi', vi_sigma_diag + vi_mu ** 2,
-                                 vi_delta)
-    return second_moment - mean ** 2
+    second = (vi_mu ** 2).add_(vi_sigma_diag).mul_(vi_delta[:, None, :])
+    return torch.sum(second, dim=0) - mean ** 2
 
 
 def fast_inner_product_comp(vi_mu, mixture_prec, vi_delta):
-    """0.5 * einsum('kpi,kqi,kqp,ik->') (numerics.py:98-115)."""
-    quad = torch.einsum('kpi,kqi,kqp->ki', vi_mu, vi_mu, mixture_prec)
+    """0.5 * einsum('kpi,kqi,kqp,ik->') (numerics.py:98-115), with
+    prec_k @ mu_k formed first: a [K, P, I] product, where the three-way
+    einsum, contracted left to right (torch without opt_einsum), forms a
+    [K, P, P, I] one."""
+    quad = torch.sum(vi_mu * torch.einsum('kqp,kpi->kqi', mixture_prec,
+                                          vi_mu), dim=1)
     return 0.5 * torch.einsum('ki,ki->', quad, vi_delta)
 
 
@@ -131,7 +140,7 @@ def invert_nat_cat_2D(nat_probs):
 
 def fast_invert_nat_vi_delta(new_mu, nat_mu, const_part, nat_vi_delta):
     """Closed-form vi_delta from natural parameters (numerics.py:198-213)."""
-    quad = torch.einsum('kpi,kpi->ki', new_mu, nat_mu)       # [K, I]
+    quad = torch.sum(new_mu * nat_mu, dim=1)                 # [K, I]
     addenda = const_part + quad
     to_invert = 0.5 * (addenda[:-1] - addenda[-1:]) + nat_vi_delta
     return invert_nat_cat_2D(to_invert)
