@@ -24,7 +24,10 @@ Phases:
      K = 582, the epoch sums (1 live epoch) at most 2.0x the epoch
      prologue, the [P, I] prologue no slower than the epoch prologue, and
      the [P, I] sums at most 2.0x the [P, I] prologue; at 90,112 SNPs the
-     kdim sums at most 2.0x the kdim prologue.
+     kdim sums at most 2.0x the kdim prologue. The matvec's backward
+     (the forward's kernel on the gradient, under autograd) at phase 4's
+     bucket against the plain matvec on the gradient, timed through
+     torch.autograd.grad against the plain version's own autograd.
   4. fit: `vilma-tpu-torch fit` in-process on a synthetic on-disk schema
      the size of a per-chromosome HapMap3 fit (~90K variants in
      1024-SNP AR(1) blocks at half rank, 2 cohorts sharing the panel) at
@@ -88,6 +91,26 @@ Phases:
         cohorts a launch.
      Phase 13 takes ~2 minutes of the ~8 the phases take on an H100
      80GB HBM3 at 700 W.
+ 14. bounded-memory loading and the validation tools, on phase 4's
+     panel:
+     a-c. phase 4's fit (FACTOR_ITS steps), each in a process of its own:
+        a. with --factor-cache in a fresh directory: a miss for every
+           block, no hit;
+        b. the same command again: a hit for every block, no miss, every
+           output file (.npz members, .estimates.tsv, .covariance.pkl)
+           bit for bit 14a's; load seconds beside 14a's;
+        c. again with --mmap (the disk spill), the reference's mmap RNG
+           draws switched off so the grid is 14a's: hits only, 14a's
+           outputs bit for bit; peak host RSS (VmHWM) and the peak
+           anonymous RSS of the load beside 14b's;
+     d. the gradient tool (inference/gradient.py) from phase 4's
+        initialized state (P = 2, K = 582, 90,112 SNPs, bf16 U): the ELBO
+        gradient through the kernel and its backward against the plain
+        version's within BAND_BF16, then GRAD_STEPS Adam steps: the ELBO
+        rises, the backward launches; seconds a step, peak memory;
+     e. SMC and a short NUTS chain (inference/mcmc.py) on the 8-SNP
+        blocks of tests/test_validation.py, densities on the card: finite
+        draws, posterior means within BAND_SAMPLER of the VI answer.
 
 The next-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failed phase exits
@@ -196,6 +219,10 @@ KERNELS = {
         source='vilma_tpu_torch/csrc/block_matvec.cu',
         replaces='vilma_tpu/ops/pallas/block_matvec.py:88',
         ptxas=r'cluster_matvec_kernel<__nv_bfloat16, \(int\)8>'),
+    'bucket_matvec_multi_backward': dict(
+        source='vilma_tpu_torch/csrc/block_matvec.cu',
+        replaces='vilma_tpu/ops/pallas/block_matvec.py:88',
+        ptxas=r'cluster_matvec_kernel<__nv_bfloat16, \(int\)2>'),
     'prologue': dict(
         source='vilma_tpu_torch/csrc/compact_obj.cu',
         replaces='vilma_tpu/ops/pallas/compact_obj.py:414',
@@ -395,10 +422,14 @@ MATVEC_CASES = (
 
 
 def matvec_plan(name):
-    """The planner's route for a MATVEC_CASES entry."""
+    """The planner's route for a MATVEC_CASES entry, or for the backward
+    (the forward's route at BACKWARD_SHAPE, bf16 U)."""
     from vilma_tpu_torch.ops.cuda import block_matvec as bm
-    _, dtype, (_, P, R, C), _, _ = next(c for c in MATVEC_CASES
-                                        if c[0] == name)
+    if name == 'bucket_matvec_multi_backward':
+        dtype, (_, P, R, C) = 'bfloat16', BACKWARD_SHAPE
+    else:
+        _, dtype, (_, P, R, C), _, _ = next(c for c in MATVEC_CASES
+                                            if c[0] == name)
     return bm.plan(P, R, 2 if dtype == 'bfloat16' else 4, C)
 
 
@@ -469,6 +500,92 @@ def check_matvec(device, results):
             results[key] = entry(err, ms, plain_ms, b, lib_ms)
         del u, x, s, d, y, y2, ref
         torch.cuda.empty_cache()
+
+
+# the matvec's backward (phase 14d): the forward's kernel on the
+# incoming gradient, at phase 4's bucket (88 blocks of 1024 SNPs at rank
+# 512, bf16 U, 2 cohorts)
+BACKWARD_SHAPE = (88, 1024, 512, 2)
+
+
+def check_matvec_backward(device, results):
+    """The matvec under autograd: the gradient with respect to x is the
+    forward's kernel on the incoming gradient g, held against its plain
+    version (the plain matvec on g) within the bf16 band and closer to it
+    than a product skipping a rounding; timed through torch.autograd.grad
+    against the plain version's own autograd, in turns, and the
+    backward's launch beside the plain matvec on g and cuBLAS on g. The
+    gap to the plain version's autograd, whose backward rounds at other
+    places, is logged."""
+    import torch
+    from vilma_tpu_torch.ops.cuda import block_matvec as bm
+    B, P, R, C = BACKWARD_SHAPE
+    gen = torch.Generator(device=device).manual_seed(4)
+    x = torch.randn(B, C, P, generator=gen, device=device)
+    g = torch.randn(B, C, P, generator=gen, device=device)
+    s = torch.rand(B, R, generator=gen, device=device) * 1.9 + 0.1
+    d = torch.rand(B, P, generator=gen, device=device)
+    u = (torch.randn(B, P, R, generator=gen, device=device)
+         / math.sqrt(P)).to(torch.bfloat16)
+    x.requires_grad_(True)
+    y = bm.bucket_matvec_multi(u, s, d, x)
+    y_plain = bm.bucket_matvec_multi_plain(u, s, d, x)
+
+    def kernel():
+        return torch.autograd.grad(y, x, g, retain_graph=True)[0]
+
+    def plain():
+        return torch.autograd.grad(y_plain, x, g, retain_graph=True)[0]
+
+    before = bm.launches_backward
+    got, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    require(bm.launches_backward == before + 2,
+            'the backward did not launch the kernel once a call')
+    with torch.no_grad():
+        ref = bm.bucket_matvec_multi_plain(u, s, d, g)
+        err, rel = max_err(got, ref)
+        auto = max_err(plain(), ref)[1]
+        half = [max_err(half_rounded_matvec(u, s, d, g, rx), ref)[1]
+                for rx in (True, False)]
+    repeat = bool(torch.equal(got, again))
+    # the backward's launch as autograd makes it, against the function it
+    # computes (the plain matvec on g) and cuBLAS on g; then the whole
+    # torch.autograd.grad call of each version, host overhead included
+    count = bm.launches_backward
+
+    def launch():
+        return bm._launch(u, s, d, g, backward=True)
+
+    ms, plain_ms = paired_ms(launch, lambda: bm.bucket_matvec_multi_plain(
+        u, s, d, g))
+    k_ms, lib_ms = paired_ms(launch, lambda: cublas_matvec(u, s, d, g), 10)
+    grad_ms, plain_grad_ms = paired_ms(kernel, plain)
+    with torch.no_grad():
+        fwd_ms, bwd_ms = paired_ms(
+            lambda: bm.bucket_matvec_multi(u, s, d, x), launch)
+    bm.launches_backward = count
+    ubytes = u.numel() * u.element_size()
+    b = bound(ubytes + 4 * B * R + 4 * B * P + 2 * 4 * B * C * P,
+              4 * B * P * R * C, BF16_OPS_S)
+    log(f'  matvec backward u=bfloat16 B={B} P={P} R={R} C={C}: scaled '
+        f'error {rel:.3e} of the plain matvec on g (band {BAND_BF16:.1e}; '
+        f'products rounding only g {half[0]:.3e}, only t {half[1]:.3e}; '
+        f'the plain version\'s own autograd {auto:.3e}) repeatable '
+        f'{repeat}; the backward\'s launch {ms:.4f} ms, the plain matvec '
+        f'on g {plain_ms:.4f} ms; in turns with cuBLAS on g {k_ms:.4f} vs '
+        f'{lib_ms:.4f} ms; in turns with the forward on x {bwd_ms:.4f} vs '
+        f'{fwd_ms:.4f} ms; bound {b[0]:.4f} ms ({b[1]}); a whole '
+        f'torch.autograd.grad call {grad_ms:.4f} ms, the plain version\'s '
+        f'{plain_grad_ms:.4f} ms')
+    require(rel <= BAND_BF16, 'the matvec backward outside its band')
+    require(rel < min(half), 'the matvec backward is no closer to the plain '
+            'version than a product that skips a bf16 rounding')
+    require(repeat, 'the matvec backward is not bit-for-bit repeatable')
+    results['bucket_matvec_multi_backward'] = entry(err, ms, plain_ms, b,
+                                                    lib_ms)
+    del u, x, g, y, y_plain
+    torch.cuda.empty_cache()
 
 
 def print_kernel_resources():
@@ -1846,7 +1963,424 @@ def run_eight_traits(device, num_blocks=88, steps=2):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: bounded-memory loading (--factor-cache, --mmap) and the
+# validation tools (the gradient ELBO fit, NUTS and SMC)
+# ---------------------------------------------------------------------------
+
+# 14a-c: phase 4's fit, FACTOR_ITS steps, each run in a process of its
+# own so that its host memory is its own
+FACTOR_ITS = '3'
+# 14d: Adam steps of the gradient tool from phase 4's initialized state,
+# and their rate. Adam moves every parameter by about the rate a step,
+# whatever its scale, so the components of the 582-point grid with the
+# smallest prior variances bound it: a rate of 1e-5 loses ELBO over the
+# first steps of this state
+GRAD_STEPS = 20
+GRAD_LR = 5e-7
+# 14e: the samplers on tests/test_validation.py's 8-SNP blocks; their
+# posterior means within BAND_SAMPLER of the largest |beta_hat| of the VI
+# answer (that test's band); NUTS at fewer draws than that test's
+# 500 + 1500
+BAND_SAMPLER = 0.1
+NUTS_WARMUP, NUTS_SAMPLES = 200, 300
+
+# one fit of phase 14a-c: argv (JSON), the device, and '1' to switch off
+# the reference's mmap-mode RNG draws. Prints RESULT and a JSON object:
+# factor-cache hits and misses, the load's seconds, the process's RSS
+# (VmRSS) and anonymous RSS (RssAnon) before the load and their peaks
+# during it (sampled every 2 ms), its peak RSS (VmHWM) just after the
+# load and at the end, launches. A field /proc does not report is None
+# (the card's sandbox reports VmRSS alone; getrusage's ru_maxrss is no
+# stand-in: it keeps the parent's RSS over the fork and exec)
+_FIT_WORKER = r'''
+import json, sys, threading, time
+sys.path.insert(0, sys.argv[4])
+import torch
+from vilma_tpu_torch import frontend
+from vilma_tpu_torch.io import load
+from vilma_tpu_torch.ops.cuda import block_matvec, compact_obj
+
+argv, device = json.loads(sys.argv[1]), sys.argv[2]
+if sys.argv[3] == '1':
+    load.consume_mmap_rng_draws = lambda num_blocks=1: None
+
+
+def status():
+    """The kB fields of /proc/self/status."""
+    with open('/proc/self/status') as fh:
+        return {f[0].rstrip(':'): int(f[1]) for f in map(str.split, fh)
+                if len(f) == 3 and f[2] == 'kB'}
+
+
+out = {}
+real = load.load_ld_from_schema
+
+
+def measured(*a, **k):
+    first = status()
+    peak = {key: first.get(key) for key in ('VmRSS', 'RssAnon')}
+    out['rss_before_kb'], out['anon_before_kb'] = (peak['VmRSS'],
+                                                   peak['RssAnon'])
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(0.002):
+            now = status()
+            for key, value in peak.items():
+                if value is not None:
+                    peak[key] = max(value, now.get(key, value))
+
+    watcher = threading.Thread(target=sample)
+    watcher.start()
+    t = time.perf_counter()
+    try:
+        res = real(*a, **k)
+        if device == 'cuda':
+            torch.cuda.synchronize()
+    finally:
+        done.set()
+        watcher.join()
+    out['load_s'] = out.get('load_s', 0.0) + time.perf_counter() - t
+    out['rss_peak_kb'], out['anon_peak_kb'] = peak['VmRSS'], peak['RssAnon']
+    out['hwm_load_kb'] = status().get('VmHWM')
+    return res
+
+
+load.load_ld_from_schema = measured
+if device == 'cuda':
+    torch.zeros(1, device=device)       # the context, before any load
+t = time.perf_counter()
+frontend.main(argv)
+out.update(fit_s=time.perf_counter() - t, hwm_kb=status().get('VmHWM'),
+           hits=load.factor_cache_hits, misses=load.factor_cache_misses,
+           bucket_matvec_multi=block_matvec.launches,
+           prologue=compact_obj.launches['prologue'],
+           delta_sums=compact_obj.launches['delta_sums'])
+print('RESULT', json.dumps(out))
+'''
+
+
+def _gib(kb):
+    return 'not reported' if kb is None else f'{kb / 2**20:.3f} GiB'
+
+
+def rise(r, field):
+    """How far a 14a-c run's `field` (rss, anon) rose during the load."""
+    before, peak = r[f'{field}_before_kb'], r[f'{field}_peak_kb']
+    return None if before is None else peak - before
+
+
+def run_fit_process(argv, device, draws=True):
+    """One CLI fit in a fresh process (_FIT_WORKER); returns its RESULT."""
+    proc = subprocess.run(
+        [sys.executable, '-c', _FIT_WORKER, json.dumps(argv), device,
+         '0' if draws else '1', REPO], capture_output=True, text=True,
+        timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith('RESULT ')]
+    require(proc.returncode == 0 and lines,
+            f'fit process failed ({proc.returncode}): '
+            f'{proc.stderr[-3000:]}')
+    return json.loads(lines[-1][len('RESULT '):])
+
+
+def differing_outputs(a, b):
+    """The output files (.npz members by their bits, .estimates.tsv and
+    .covariance.pkl by their bytes) in which two fit prefixes differ."""
+    diff = []
+    with np.load(a + '.npz') as za, np.load(b + '.npz') as zb:
+        if sorted(za.files) != sorted(zb.files):
+            return ['the .npz members']
+        for key in za.files:
+            x, y = za[key], zb[key]
+            if (x.dtype, x.shape) != (y.dtype, y.shape) or (
+                    x.tobytes() != y.tobytes()):
+                diff.append(key)
+    for ext in ('.estimates.tsv', '.covariance.pkl'):
+        with open(a + ext, 'rb') as fa, open(b + ext, 'rb') as fb:
+            if fa.read() != fb.read():
+                diff.append(ext)
+    return diff
+
+
+def run_factor_cache(paths, out_dir, device, num_blocks):
+    """Phases 14a-c: phase 4's fit with --factor-cache in a fresh
+    directory (cold: a miss for every block), the same command again
+    (warm: a hit for every block), and warm with --mmap (the spill). 14b
+    and 14c write the same bits as 14a. The reference's mmap-mode RNG
+    draws would move the mixture grid (its draws follow the load), so
+    14c runs with them switched off and its grid is 14a's: the spill
+    alone differs. Returns {run: RESULT}."""
+    cache = os.path.join(out_dir, 'factor_cache')
+    runs, prefixes = {}, {}
+    for run, flags in (('14a', []), ('14b', []), ('14c', ['--mmap'])):
+        prefixes[run] = os.path.join(out_dir, f'cache_{run}')
+        argv = (fit_argv(*paths[:3], prefixes[run], device) + F32_BF16
+                + ['--num-its', FACTOR_ITS, '--factor-cache', cache]
+                + flags)
+        runs[run] = r = run_fit_process(argv, device, draws=run != '14c')
+        want = ((0, num_blocks) if run == '14a' else (num_blocks, 0))
+        require((r['hits'], r['misses']) == want,
+                f'{run}: {r["hits"]} factor-cache hits and {r["misses"]} '
+                f'misses, expected {want}')
+        if device == 'cuda':
+            require_launched(r, ('bucket_matvec_multi', 'prologue',
+                                 'delta_sums'), run)
+        if run != '14a':
+            diff = differing_outputs(prefixes['14a'], prefixes[run])
+            require(not diff, f'{run}: outputs differ from 14a\'s: {diff}')
+            remove_outputs(prefixes[run])
+    check_fit_outputs(prefixes['14a'], paths[3], K=582)
+    return runs, prefixes['14a'] + '.covariance.pkl'
+
+
+class plain_matvec:
+    """Context manager running the matvec's plain version (on the card's
+    tensors) wherever the port calls the kernel. Its backward is, by
+    default, the plain version on the incoming gradient (what the
+    kernel's backward computes: the operator is symmetric); with
+    own_autograd=True it is torch's autograd of the plain version, which
+    rounds to bf16 at other places (U^T g and the product, where the
+    kernel rounds g and s U^T g)."""
+
+    def __init__(self, own_autograd=False):
+        self.own_autograd = own_autograd
+
+    def __enter__(self):
+        import torch
+        from vilma_tpu_torch.ops.cuda import block_matvec as bm
+        self.bm, self.real = bm, bm.bucket_matvec_multi
+        plain = bm.bucket_matvec_multi_plain
+
+        class Plain(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, u, s, d, x):
+                ctx.save_for_backward(u, s, d)
+                return plain(u, s, d, x)
+
+            @staticmethod
+            def backward(ctx, grad):
+                u, s, d = ctx.saved_tensors
+                return None, None, None, plain(u, s, d, grad)
+
+        bm.bucket_matvec_multi = plain if self.own_autograd else Plain.apply
+        return self
+
+    def __exit__(self, *exc):
+        self.bm.bucket_matvec_multi = self.real
+
+
+def elbo_gradients(data, st):
+    """The gradient of -ELBO with respect to the gradient tool's three
+    parameter leaves, at a state's materialized parameters."""
+    import torch
+    from vilma_tpu_torch.inference import gradient
+    params, sigma, scaling = gradient.initial_params(data, st)
+    loss = -gradient.elbo_of(data, sigma, scaling, params)
+    leaves = (params.vi_mu, params.delta_logits, params.hyper_logits)
+    return [g.detach() for g in torch.autograd.grad(loss, leaves)]
+
+
+def run_gradient_tool(paths, cache, cov_path, device, steps=GRAD_STEPS):
+    """Phase 14d: the gradient tool from phase 4's initialized state (the
+    LD from the warm cache): its ELBO gradient through the kernel and its
+    autograd backward against the plain version's on the same state
+    (each leaf, relative to its largest element; plain_matvec), the gap
+    between that and torch's autograd of the plain version logged, then
+    `steps` Adam steps. Returns a dict."""
+    import torch
+    from vilma_tpu_torch.inference import engine, gradient
+    from vilma_tpu_torch.io import load
+    from vilma_tpu_torch.ops.cuda import block_matvec as bm
+    schema, sumstats, extract, n = paths
+    variants = load.load_variant_list(extract)
+    ld, _ = load.load_ld_from_schema(
+        schema, variants, [], 1.0, dtype=torch.float32,
+        u_dtype=torch.bfloat16, cache_dir=cache, device=device)
+    tables = [load.load_sumstats(p, variants)[0] for p in sumstats]
+    with open(cov_path, 'rb') as fh:
+        covs = pickle.load(fh)[0]
+    np.random.seed(42)
+    vi = engine.MultiPopVI(
+        marginal_effects=np.array([t['BETA'] for t in tables], np.float32),
+        std_errs=np.array([t['SE'] for t in tables], np.float32),
+        ld_mats=[ld, ld], mixture_covs=covs, annotations=np.ones((n, 1)),
+        checkpoint=False, gwas_N=np.full(2, 1e5), init_hg=np.full(2, 0.3),
+        num_its=1, dtype=torch.float32, device=device)
+    st0 = vi._initialize()
+    out = dict(K=vi.num_mix, n=n)
+    got = elbo_gradients(vi.data, st0)
+    with plain_matvec():
+        want = elbo_gradients(vi.data, st0)
+    out['grad_err'] = [max_err(g, w)[1] for g, w in zip(got, want)]
+    require(all(e <= BAND_BF16 for e in out['grad_err']),
+            f'ELBO gradient through the kernel vs the plain version: '
+            f'scaled errors {out["grad_err"]} (band {BAND_BF16:.1e})')
+    with plain_matvec(own_autograd=True):
+        auto = elbo_gradients(vi.data, st0)
+    out['autograd_gap'] = [max_err(a, w)[1] for a, w in zip(auto, want)]
+    del got, want, auto
+    _sync(device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    bm.launches_backward = 0
+    # each step ends in the trace's fetch, so the host clock at each
+    # step's start splits the run into steps without more syncs
+    starts, real = [], gradient.elbo_of
+
+    def stamped(*a):
+        starts.append(time.perf_counter())
+        return real(*a)
+
+    gradient.elbo_of = stamped
+    t = time.perf_counter()
+    try:
+        _, trace = gradient.fit_elbo_gradient(vi.data, st0, num_steps=steps,
+                                              learning_rate=GRAD_LR)
+        _sync(device)
+    finally:
+        gradient.elbo_of = real
+    step_s = np.diff(starts + [time.perf_counter()])
+    out.update(setup_s=starts[0] - t, step_s=step_s.tolist(),
+               s_per_step=float(np.median(step_s[1:])), trace=trace,
+               peak=torch.cuda.max_memory_allocated(),
+               counts=read_counts(), backward=bm.launches_backward)
+    require(all(math.isfinite(v) for v in trace), 'non-finite ELBO trace')
+    require(trace[-1] > trace[0], f'the ELBO trace did not rise: {trace}')
+    require(out['backward'] > 0, 'no matvec launch in the backward')
+    if device == 'cuda':
+        require_launched(out['counts'], ('bucket_matvec_multi',),
+                         'phase 14d')
+    return out
+
+
+def validation_problem(n, seed, covs, spike):
+    """tests/test_validation.py's 8-SNP blocks: the AR(1) LD, effects,
+    marginal estimates and the port's VI answer (host, f64), as
+    (ld, betas, se, covs, VI posterior means, VI weights)."""
+    from vilma_tpu_torch.inference import engine
+    from vilma_tpu_torch.ops import blocks
+    rng = np.random.default_rng(seed)
+    ld = 0.4 ** np.abs(np.subtract.outer(np.arange(n), np.arange(n)))
+    se = np.full((1, n), 0.05)
+    if spike:
+        true_beta = np.where(rng.random(n) < 0.3,
+                             rng.standard_normal(n) * 0.1, 0.0)
+    else:
+        true_beta = rng.standard_normal(n) * 0.1
+    betas = (ld @ true_beta + rng.standard_normal(n) * 0.05)[None]
+    vi = engine.MultiPopVI(
+        marginal_effects=betas, std_errs=se,
+        ld_mats=[blocks.from_dense_blocks([ld], [np.arange(n)], n)],
+        mixture_covs=covs, annotations=np.ones((n, 1)), checkpoint=False,
+        gwas_N=np.array([1e4]), init_hg=np.array([0.3]), num_its=60,
+        device='cpu')
+    np.random.seed(0 if spike else 1)
+    st = vi.optimize()
+    return (ld, betas, se, np.asarray(covs), vi.real_posterior_mean(st),
+            st.hyper_delta.numpy())
+
+
+def run_samplers(device):
+    """Phase 14e: annealed SMC on the spike-and-slab block (1500
+    particles, 25 temperatures, as tests/test_validation.py) and a short
+    NUTS chain on the spike-free one, their densities on the card; the
+    means within BAND_SAMPLER of the VI answer. Returns a dict."""
+    from vilma_tpu_torch.inference import mcmc
+    out = {}
+    ann = np.zeros(8, dtype=int)
+    ld, betas, se, covs, vi_mean, w = validation_problem(
+        8, 0, [np.eye(1) * 1e-6, np.eye(1) * 0.01, np.eye(1) * 0.05], True)
+    t = time.perf_counter()
+    smc = mcmc.smc_sample(
+        mcmc.make_block_log_posterior(ld, betas, se, covs, w, ann,
+                                      device=device),
+        mcmc.mixture_prior_sampler(covs, w, ann, 1, device=device),
+        num_particles=1500, num_steps=25, num_mcmc=5, seed=2,
+        device=device)
+    out['smc_s'] = time.perf_counter() - t
+    out['smc_err'] = float(np.abs(smc.mean(0) - vi_mean).max()
+                           / np.abs(betas).max())
+    require(np.all(np.isfinite(smc)), 'non-finite SMC particles')
+    ld, betas, se, covs, vi_mean, w = validation_problem(
+        8, 3, [np.eye(1) * 0.01, np.eye(1) * 0.05], False)
+    t = time.perf_counter()
+    nuts = mcmc.nuts_sample(
+        mcmc.make_block_log_posterior(ld, betas, se, covs, w, ann,
+                                      device=device),
+        np.zeros((1, 8)), num_samples=NUTS_SAMPLES, num_warmup=NUTS_WARMUP,
+        seed=1, device=device)
+    out['nuts_s'] = time.perf_counter() - t
+    out['nuts_err'] = float(np.abs(nuts.mean(0) - vi_mean).max()
+                            / np.abs(betas).max())
+    require(np.all(np.isfinite(nuts)), 'non-finite NUTS draws')
+    for name in ('smc', 'nuts'):
+        require(out[f'{name}_err'] <= BAND_SAMPLER,
+                f'{name} posterior means {out[f"{name}_err"]:.3f} of scale '
+                f'from the VI answer (band {BAND_SAMPLER})')
+    return out
+
+
 F32_BF16 = ['--precision', 'f32', '--ld-precision', 'bf16']
+
+
+def run_phase14(paths, device, launches, timings, smi):
+    """Phase 14 on phase 4's panel (`paths`): 14a-c, 14d and 14e, adding
+    the backward's launches to `launches` and the seconds to
+    `timings`."""
+    with tempfile.TemporaryDirectory() as tmp:
+        phase('phase 14a-c: phase 4\'s fit with --factor-cache, cold, warm '
+              'and warm with --mmap, a process each')
+        with open(paths[0]) as fh:
+            num_blocks = sum(1 for line in fh if line.strip())
+        runs, cov_path = run_factor_cache(paths, tmp, device, num_blocks)
+        for run, r in runs.items():
+            log(f'  {run}: {r["hits"]} hits, {r["misses"]} misses; load '
+                f'{r["load_s"]:.2f} s, fit {r["fit_s"]:.1f} s in all; RSS '
+                f'before the load {_gib(r["rss_before_kb"])}, peak during '
+                f'it {_gib(r["rss_peak_kb"])} (+{_gib(rise(r, "rss"))}); '
+                f'anonymous RSS before {_gib(r["anon_before_kb"])}, peak '
+                f'{_gib(r["anon_peak_kb"])}; VmHWM after the load '
+                f'{_gib(r["hwm_load_kb"])}, at the end {_gib(r["hwm_kb"])}; '
+                f'launches matvec {r["bucket_matvec_multi"]}, prologue '
+                f'{r["prologue"]}, sums {r["delta_sums"]}')
+        log(f'  load seconds cold {runs["14a"]["load_s"]:.2f}, warm '
+            f'{runs["14b"]["load_s"]:.2f}, warm --mmap '
+            f'{runs["14c"]["load_s"]:.2f}; 14b and 14c outputs equal 14a\'s '
+            f'bit for bit; peak host RSS during the load 14b '
+            f'{_gib(runs["14b"]["rss_peak_kb"])} (VmHWM '
+            f'{_gib(runs["14b"]["hwm_load_kb"])}), 14c (--mmap) '
+            f'{_gib(runs["14c"]["rss_peak_kb"])} (VmHWM '
+            f'{_gib(runs["14c"]["hwm_load_kb"])}); {smi}')
+        timings['load_cold_s'] = runs['14a']['load_s']
+        timings['load_warm_s'] = runs['14b']['load_s']
+        timings['load_warm_mmap_s'] = runs['14c']['load_s']
+
+        phase('phase 14d: the gradient tool from phase 4\'s initialized '
+              f'state, {GRAD_STEPS} Adam steps')
+        g = run_gradient_tool(paths, os.path.join(tmp, 'factor_cache'),
+                              cov_path, device)
+        launches['bucket_matvec_multi_backward'] = g['backward']
+        timings['gradient_s_per_step'] = g['s_per_step']
+        log(f'  K = {g["K"]}, {g["n"]} SNPs; ELBO gradient through the '
+            f'kernel vs the plain version, scaled errors (vi_mu, vi_delta '
+            f'logits, hyper_delta logits) {g["grad_err"]} (band '
+            f'{BAND_BF16:.1e}; the plain version\'s own autograd differs '
+            f'from it by {g["autograd_gap"]}); set-up {g["setup_s"]:.3f} s, '
+            f'steps {[round(x, 4) for x in g["step_s"]]} s (median after '
+            f'the first {g["s_per_step"]:.4f} s); peak device '
+            f'memory {g["peak"] / 2**30:.2f} GiB; ELBO {g["trace"][0]!r} -> '
+            f'{g["trace"][-1]!r}; launches {g["counts"]}, backward '
+            f'{g["backward"]}; {smi}')
+
+    phase('phase 14e: SMC and NUTS on 8-SNP blocks, densities on the card')
+    e = run_samplers(device)
+    log(f'  SMC 1500 particles {e["smc_s"]:.1f} s, means within '
+        f'{e["smc_err"]:.3f} of scale of the VI answer; NUTS '
+        f'{NUTS_WARMUP} + {NUTS_SAMPLES} draws {e["nuts_s"]:.1f} s, within '
+        f'{e["nuts_err"]:.3f} (band {BAND_SAMPLER})')
 
 
 def main():
@@ -1879,6 +2413,7 @@ def main():
     phase('phase 3: kernels against their plain versions')
     t0 = time.perf_counter()
     check_matvec(device, results)
+    check_matvec_backward(device, results)
     shared_ms = check_compact(device, results)
     kdim_ms = check_kdim(device, results)
     check_bars(shared_ms, kdim_ms, check_epochs(device, results))
@@ -1890,7 +2425,9 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         phase('phase 4: CLI fit, ~90K variants, -K 12 (582 components)')
         t0 = time.perf_counter()
-        paths = write_schema(tmp, num_blocks=88)
+        # phase 4's panel lives until phase 14
+        panel = tempfile.TemporaryDirectory()
+        paths = write_schema(panel.name, num_blocks=88)
         n = paths[3]
         log(f'  schema: {n} variants in 88 blocks written in '
             f'{time.perf_counter() - t0:.1f} s')
@@ -2078,6 +2615,11 @@ def main():
     log(f'  initialization {d["init_s"]:.3f} s; steps '
         f'{[round(t, 3) for t in d["step_s"]]} s; peak device memory '
         f'{d["step_peak"] / 2**30:.2f} GiB; launches {d["counts"]}; {smi}')
+    del d
+    torch.cuda.empty_cache()
+
+    run_phase14(paths, device, launches, timings, smi)
+    panel.cleanup()
     log(f'  timings {json.dumps(timings)}')
     log(f'  all phases: {time.perf_counter() - t_start:.1f} s')
 

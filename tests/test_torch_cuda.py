@@ -164,6 +164,78 @@ def test_group_route_matches_plain(cuda, P, R, u_dtype, G, B, C):
                  ('group', G))
 
 
+@pytest.mark.parametrize('P,R,u_dtype,C,route', [
+    (1024, 512, torch.bfloat16, 2, ('cluster', 8)),
+    (1024, 512, torch.float32, 1, ('cluster', 16)),
+    (1024, 512, torch.bfloat16, 5, ('cluster', 8)),
+    (2048, 1024, torch.float32, 3, ('group', 128)),
+])
+def test_matvec_backward_is_the_kernel_on_the_gradient(cuda, P, R, u_dtype,
+                                                       C, route):
+    """Under autograd the gradient with respect to x is the forward's
+    kernel on the incoming gradient (the same bits as a forward launch on
+    it), counted in launches_backward alone, within the forward's band
+    of the plain version on the gradient; a u that requires grad raises."""
+    B = 40 if route[0] == 'cluster' else 4
+    u, s, d, x = _matvec_operands(cuda, B, P, R, C, u_dtype, P * C)
+    g = torch.randn_like(x)
+    x.requires_grad_(True)
+    before = (bm.launches, bm.launches_group, bm.launches_backward)
+    y = bm.bucket_matvec_multi(u, s, d, x)
+    y.backward(g)
+    torch.cuda.synchronize()
+    group = route[0] == 'group'
+    assert (bm.launches, bm.launches_group, bm.launches_backward) == (
+        before[0] + (not group), before[1] + group, before[2] + 1)
+    with torch.no_grad():
+        assert torch.equal(y, bm.bucket_matvec_multi(u, s, d, x))
+        assert torch.equal(x.grad, bm.bucket_matvec_multi(u, s, d, g))
+        err = _scaled_err(x.grad, bm.bucket_matvec_multi_plain(u, s, d, g))
+    assert err <= (2.0 ** -8 if u_dtype == torch.bfloat16 else 1e-5)
+    with pytest.raises(ValueError, match='must not require grad'):
+        bm.bucket_matvec_multi(u.float().requires_grad_(True), s, d, x)
+
+
+@pytest.mark.parametrize('u_dtype', [torch.bfloat16, torch.float32])
+def test_spilled_load_on_the_card_equals_the_unspilled_one(
+        cuda, u_dtype, tmp_path, monkeypatch):
+    """A --mmap load fills the card's buckets in slices through the
+    pinned staging buffer (several slices here) with the unspilled
+    load's bits."""
+    from vilma_tpu_torch.io import load
+    from vilma_tpu_torch.ops import blocks
+    rng = np.random.default_rng(0)
+    lag = np.abs(np.subtract.outer(np.arange(64), np.arange(64)))
+    names, rows = [], []
+    for b in range(5):
+        np.save(tmp_path / f'b{b}.npy', rng.uniform(0.3, 0.9) ** lag)
+        with open(tmp_path / f'b{b}.var', 'w') as fh:
+            for i in range(64):
+                names.append(f's{b}_{i}')
+                fh.write(f'{names[-1]}\t1\t{64 * b + i + 1}\t0\tA\tT\n')
+        rows.append(f'b{b}.var\tb{b}.npy')
+    (tmp_path / 'p.schema').write_text('\n'.join(rows) + '\n')
+    (tmp_path / 'x.tsv').write_text(
+        'ID\tA1\tA2\n' + ''.join(f'{v}\tA\tT\n' for v in names))
+    variants = load.load_variant_list(str(tmp_path / 'x.tsv'))
+    kw = dict(denylist=[], ldthresh=1.0, dtype=torch.float32,
+              u_dtype=u_dtype, device=cuda)
+    plain, _ = load.load_ld_from_schema(str(tmp_path / 'p.schema'),
+                                        variants, **kw)
+    block_bytes = 64 * 64 * torch.empty(0, dtype=u_dtype).element_size()
+    monkeypatch.setattr(blocks, 'STAGING_BYTES', 2 * block_bytes)
+    made = []
+    real = blocks._staging_slices
+    monkeypatch.setattr(blocks, '_staging_slices',
+                        lambda *a: made.append(real(*a)) or made[-1])
+    spilled, _ = load.load_ld_from_schema(str(tmp_path / 'p.schema'),
+                                          variants, mmap=True, **kw)
+    assert [len(m) for m in made] == [3]
+    for x, y in zip(plain.buckets, spilled.buckets):
+        for f in ('u', 's', 'inv_s', 'd', 'perm', 'seq'):
+            assert torch.equal(getattr(x, f), getattr(y, f)), f
+
+
 def test_group_route_workspace_per_stream(cuda):
     """Each stream has its own group-route workspace (partials and the two
     sets of barrier counters a launch alternates between), so launches on

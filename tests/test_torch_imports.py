@@ -1,4 +1,4 @@
-"""The port imports neither jax, pandas nor ml_dtypes, its unported
+"""The port imports neither jax, optax, pandas nor ml_dtypes, its unported
 surface raises with the ROADMAP item it waits for, and its entry points
 run on the card unless the caller asks for the CPU."""
 import os
@@ -22,6 +22,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GUARD = """
 import sys
 sys.modules['jax'] = sys.modules['pandas'] = sys.modules['ml_dtypes'] = None
+sys.modules['optax'] = None
 import vilma_tpu_torch
 import vilma_tpu_torch.frontend
 import vilma_tpu_torch.commands.fit
@@ -31,6 +32,8 @@ import vilma_tpu_torch.commands.sim
 import vilma_tpu_torch.io.plink
 import vilma_tpu_torch.ops.blocks
 import vilma_tpu_torch.inference.engine
+import vilma_tpu_torch.inference.gradient
+import vilma_tpu_torch.inference.mcmc
 import vilma_tpu_torch.models.sigma
 import vilma_tpu_torch.ops.cuda.block_matvec
 import vilma_tpu_torch.ops.cuda.build
@@ -41,16 +44,17 @@ import profile_torch_step
 import vilma_tpu_torch.io.load
 import vilma_tpu_torch.utils.npz_stream
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
-                and m.split('.')[0] in ('jax', 'jaxlib', 'pandas',
+                and m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'pandas',
                                        'ml_dtypes', 'vilma_tpu'))
 print('LOADED', loaded)
 """
 
 
 def test_import_guard():
-    """Every module of the port, chip_smoke.py and profile_torch_step.py
-    import with jax, pandas and ml_dtypes blocked, and none of them (nor
-    the JAX package) gets loaded."""
+    """Every module of the port (the validation tools among them),
+    chip_smoke.py and profile_torch_step.py import with jax, optax,
+    pandas and ml_dtypes blocked, and none of them (nor the JAX package)
+    gets loaded."""
     env = dict(os.environ)
     env['PYTHONPATH'] = REPO + os.pathsep + env.get('PYTHONPATH', '')
     out = subprocess.run([sys.executable, '-c', GUARD], env=env, cwd=REPO,
@@ -60,13 +64,14 @@ def test_import_guard():
 
 
 @pytest.mark.parametrize('flags', [
-    ['--mesh', 'snp=4'], ['--distributed'], ['--mmap'],
-    ['--factor-cache', '/nonexistent'],
-    ['--mmap', '--sumstats', 'a,b,c,d']])
+    ['--mesh', 'snp=4'], ['--distributed'], ['--mesh', 'snp=4', '--mmap'],
+    ['--distributed', '--factor-cache', '/nonexistent'],
+    ['--mesh', 'snp=2', '--sumstats', 'a,b,c,d']])
 def test_unported_fit_flags_raise(flags, tmp_path):
     """Each unported fit option raises before any file is read, naming
-    its ROADMAP item, at any cohort count (the last case has four: P >= 4
-    itself runs, tests/test_torch_materialized.py)."""
+    its ROADMAP item, beside the ported --mmap and --factor-cache and at
+    any cohort count (the last case has four: P >= 4 itself runs,
+    tests/test_torch_materialized.py)."""
     argv = ['fit', '--ld-schema', 'x.schema', '--sumstats', 'a.tsv',
             '--extract', 'e.tsv', '--output', str(tmp_path / 'o'),
             '--device', 'cpu'] + flags
@@ -85,6 +90,42 @@ def test_subcommands_need_a_card_by_default(argv, monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='--device cpu'):
         frontend.main(argv)
+
+
+@pytest.mark.parametrize('flags', [
+    ['--mmap'], ['--factor-cache', 'cache'],
+    ['--mmap', '--factor-cache', 'cache']])
+def test_bounded_memory_flags_are_accepted(flags, tmp_path):
+    """--mmap and --factor-cache pass the flag checks: the fit goes on to
+    read its inputs (absent here). _NOT_PORTED holds only the multi-GPU
+    flags."""
+    assert sorted(fit_cmd._NOT_PORTED) == ['distributed', 'mesh']
+    argv = ['fit', '--ld-schema', 'x.schema', '--sumstats', 'a.tsv',
+            '--extract', str(tmp_path / 'e.tsv'), '--output',
+            str(tmp_path / 'o'), '--device', 'cpu'] + flags
+    fit_cmd._check_supported(frontend.build_parser()[0].parse_args(argv))
+    with pytest.raises(FileNotFoundError, match='e.tsv'):
+        frontend.main(argv)
+
+
+@pytest.mark.parametrize('constant', ['u', 's', 'd'])
+def test_matvec_autograd_refuses_grad_of_the_factors(constant):
+    """The matvec's autograd Function differentiates x alone: a u, s or d
+    that requires grad raises before any launch (the LD factors are
+    constants; nothing in the JAX package differentiates them)."""
+    ops = dict(u=torch.zeros(1, 16, 8), s=torch.ones(1, 8),
+               d=torch.zeros(1, 16), x=torch.ones(1, 2, 16))
+    ops[constant].requires_grad_(True)
+    before = (block_matvec.launches, block_matvec.launches_backward)
+    with pytest.raises(ValueError, match='must not require grad'):
+        block_matvec.BucketMatvec.apply(ops['u'], ops['s'], ops['d'],
+                                        ops['x'])
+    assert (block_matvec.launches,
+            block_matvec.launches_backward) == before
+    # the CPU path stays the plain version under ordinary autograd
+    y = block_matvec.bucket_matvec_multi(ops['u'], ops['s'], ops['d'],
+                                         ops['x'])
+    assert y.requires_grad and block_matvec.launches == before[0]
 
 
 def test_learn_scaling_is_accepted(tmp_path):

@@ -148,6 +148,25 @@ def test_plan_wide_cohorts(P, R, itemsize, C, route, G, slots):
     assert [tbm.width(c) for c in range(1, 9)] == [1, 2, 3, 4, 8, 8, 8, 8]
 
 
+def test_chip_smoke_resource_report_covers_every_kernel(monkeypatch,
+                                                        capsys):
+    """chip_smoke.py's ptxas summary, which runs right after a fresh
+    build, names every kernel of its kernels line with its cluster size
+    (each matvec entry, the backward's among them, has a plan)."""
+    import chip_smoke
+    from vilma_tpu_torch.ops.cuda import build
+    monkeypatch.setattr(build, 'ptxas_report', (
+        "ptxas info    : Compiling entry function '_Z6kernelv' for "
+        "'sm_90a'\nptxas info    : Used 40 registers, 0 bytes smem"))
+    chip_smoke.print_kernel_resources()
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == len(chip_smoke.KERNELS)
+    for name, line in zip(chip_smoke.KERNELS, lines):
+        cluster = (chip_smoke.matvec_plan(name).cluster
+                   if name.startswith('bucket') else 1)
+        assert line.startswith(f'  {name}: cluster {cluster};'), line
+
+
 @pytest.mark.parametrize('P,R,itemsize,held,groups', [
     # one CTA per SM on 132 SMs: one group at a time
     (2048, 1024, 4, 132, 1),

@@ -43,8 +43,8 @@ def args(super_parser):
     parser.add_argument('--ld-schema', required=True, type=str,
                         help='Path to LD panel schema.')
     parser.add_argument('--trace-mmap', dest='mmap', action='store_true',
-                        help='Accepted for compatibility and ignored (see fit '
-                             '--mmap).')
+                        help='Stage the trace\'s LD load through disk, '
+                             'as fit --mmap does.')
     parser.add_argument('--trace-extract', required=False, type=str,
                         default='',
                         help='List of SNPs to include in trace analysis, '
@@ -119,7 +119,7 @@ def _run_trace(args, all_vars, device):
                                                   variants)
     ld_mat, _ = load.load_ld_from_schema(
         args.ld_schema, variants=variants, denylist=denylist,
-        ldthresh=args.trace_ldthresh, device=device)
+        ldthresh=args.trace_ldthresh, mmap=args.mmap, device=device)
     compute_trace(ld_mat, annotations).to_tsv(args.trace)
 
 

@@ -1,9 +1,9 @@
 """The `fit` command: variational inference on GWAS summary statistics.
 
 Port of vilma_tpu/commands/fit.py with the same flags and output files
-(.npz, .covariance.pkl, .estimates.tsv), plus --device. Flags whose
-machinery is not ported yet raise NotImplementedError naming their
-ROADMAP item.
+(.npz, .covariance.pkl, .estimates.tsv), plus --device. --mesh and
+--distributed are not ported yet: they raise NotImplementedError naming
+their ROADMAP item.
 """
 import logging
 import os
@@ -18,8 +18,6 @@ from vilma_tpu_torch.models import mixture
 _NOT_PORTED = {
     'mesh': ('--mesh', 'Multi-GPU'),
     'distributed': ('--distributed', 'Multi-GPU'),
-    'mmap': ('--mmap', 'Bounded-memory I/O'),
-    'factor_cache': ('--factor-cache', 'Bounded-memory I/O'),
 }
 
 
@@ -65,10 +63,16 @@ def args(super_parser):
                         help='Seed for random number generation.')
     parser.add_argument('--mmap', dest='mmap', action='store_true',
                         help='Stage LD factor payloads through disk '
-                             '(not ported yet).')
+                             '(memory-mapped temporary files) instead of '
+                             'holding them in host RAM; bounds peak host '
+                             'memory for whole-genome schemas.')
     parser.add_argument('--factor-cache', type=str, default='',
                         help='Directory memoizing per-block LD '
-                             'eigendecompositions (not ported yet).')
+                             'eigendecompositions: refits of the same LD '
+                             'panel (new sumstats or hyperparameters, a '
+                             'resume, more traits) skip them. Entries are '
+                             'keyed by file identity, threshold and '
+                             'variant match, and shared with vilma-tpu.')
     parser.add_argument('--learn-scaling', dest='scale_se',
                         action='store_true',
                         help='Learn a scaling factor for the standard '
@@ -257,7 +261,8 @@ def main(args):
         if ld_key not in ld_cache:
             ld_cache[ld_key] = load.load_ld_from_schema(
                 ld_schema_path, variants=variants, denylist=missing,
-                ldthresh=args.ldthresh, dtype=dtype, u_dtype=u_dtype,
+                ldthresh=args.ldthresh, mmap=args.mmap, dtype=dtype,
+                u_dtype=u_dtype, cache_dir=args.factor_cache or None,
                 device=device)
         else:
             logging.info('Population %d shares the LD panel of an '

@@ -12,7 +12,8 @@ reference's order of global-RNG draws:
 1. np.random.seed;
 2. the fill-in draw for unannotated variants;
 3. per cohort, two draws per loaded LD block (the reference's mmap
-   mode, which sim hardcodes; load.consume_mmap_rng_draws);
+   mode, which sim hardcodes: its LD loads stage through the disk
+   spill, load.load_ld_from_schema(mmap=True));
 4. one categorical draw per SNP (or, with --fast-rng, one vectorized
    inverse-CDF draw: same distribution, different stream);
 5. the latent normals;
@@ -223,8 +224,7 @@ def main(args):
         else:
             ld_mat, this_missing_ld = load.load_ld_from_schema(
                 ld_schema_path, variants=all_vars, denylist=missing,
-                ldthresh=0.999999, dtype=dtype, device=device,
-                rng_draws=True)
+                ldthresh=0.999999, mmap=True, dtype=dtype, device=device)
             ld_cache[key] = (ld_mat, this_missing_ld)
         ld_mats.append(ld_mat)
         keep_bool = np.ones(n, dtype=bool)

@@ -270,17 +270,32 @@ def _objective(data, st, params, hyper_delta):
 # the stored [K, P, I] and [K, I] arrays (JAX package engine.py:195-366)
 # ---------------------------------------------------------------------------
 
+def posterior_mean(vi_mu, vi_delta):
+    return kernels.fast_posterior_mean(vi_mu, vi_delta)
+
+
+def posterior_marginal_variance(mean, vi_mu, vi_delta, sigma):
+    return kernels.fast_pmv(mean, vi_mu, vi_delta, sigma.diag)
+
+
 def log_likelihood_terms(data, sigma, error_scaling, vi_mu, vi_delta):
     """(expected log likelihood, post_means, linked) with linked =
     LD.(post_means / SE) (variational_inference.py:452-470)."""
-    post_means = kernels.fast_posterior_mean(vi_mu, vi_delta)
-    post_vars = kernels.fast_pmv(post_means, vi_mu, vi_delta, sigma.diag)
+    post_means = posterior_mean(vi_mu, vi_delta)
+    post_vars = posterior_marginal_variance(post_means, vi_mu, vi_delta,
+                                            sigma)
     scaled_mu, linked = _ld_scaled_dot(data, post_means)
     ll = kernels.fast_likelihood(
         post_means, post_vars, scaled_mu, data.scaled_ld_diags, linked,
         data.adj_marginal_effects, data.chi_stat, data.ld_ranks,
         error_scaling)
     return ll, post_means, linked
+
+
+def log_likelihood(data, sigma, error_scaling, vi_mu, vi_delta):
+    """Expected log likelihood (variational_inference.py:452-470)."""
+    return log_likelihood_terms(data, sigma, error_scaling, vi_mu,
+                                vi_delta)[0]
 
 
 def beta_KL(data, sigma, vi_mu, vi_delta, hyper_delta):
@@ -304,6 +319,14 @@ def _beta_objective_terms(data, sigma, error_scaling, vi_mu, vi_delta,
         data, sigma, error_scaling, vi_mu, vi_delta)
     obj = ll - beta_KL(data, sigma, vi_mu, vi_delta, hyper_delta)
     return obj, post_means, linked
+
+
+def elbo(data, sigma, error_scaling, vi_mu, vi_delta, hyper_delta):
+    """Evidence lower bound of materialized parameters
+    (variational_inference.py:412-417): differentiable in vi_mu,
+    vi_delta and hyper_delta (inference/gradient.py)."""
+    return _beta_objective_terms(data, sigma, error_scaling, vi_mu,
+                                 vi_delta, hyper_delta)[0]
 
 
 def nat_to_not_vi_delta(data, sigma, error_scaling, vi_mu,

@@ -6,12 +6,18 @@ rules, allele flip/mismatch detection and missing-data semantics as the
 reference (reference load.py:21-354). LD blocks are packed into the
 port's device tensors (vilma_tpu_torch.ops.blocks).
 
-Not ported: --mmap disk staging and the --factor-cache memo (ROADMAP
-queue 1, "Bounded-memory I/O"). The JAX package's mmap mode also takes
-two draws of the global numpy RNG per loaded block; `rng_draws=True`
-takes those draws alone (`sim` needs them for its seeded outputs).
+Bounded memory: with `mmap` the factors and the packed eigenvector
+tensors are staged through disk (blocks.FactorSpill), and mmap mode
+takes the reference's two draws of the global numpy RNG per loaded
+block. With `cache_dir` each block's eigendecomposition is memoized on
+disk under the JAX package's key and file layout, so a cache written by
+either package serves the other.
 """
+import hashlib
 import logging
+import os
+import tempfile
+import zipfile
 from collections import OrderedDict
 from pathlib import Path
 
@@ -363,13 +369,80 @@ def matched_schema_entries(schema_path, variants, denylist):
         }
 
 
-def load_entry_factor(entry, ldthresh):
+#: factor-cache lookups served from disk and computed (and stored) anew
+#: by load_entry_factor; loads without a cache directory count neither
+factor_cache_hits = 0
+factor_cache_misses = 0
+
+
+def load_entry_factor(entry, ldthresh, cache_dir=None):
     """Load one matched entry's .npy and eigendecompose it (the
-    per-block O(n^3) load step)."""
+    per-block O(n^3) load step).
+
+    With `cache_dir` the factorization is memoized on disk, keyed by the
+    .npy file's identity (path, size, mtime), the threshold and the
+    exact variant match (kept rows, mismatches, flip signs), so a refit
+    of the same panel skips every eigendecomposition whose inputs are
+    unchanged and a changed match misses only the blocks it touches."""
+    global factor_cache_hits, factor_cache_misses
+    key = _factor_cache_key(entry, ldthresh) if cache_dir else None
+    if key is not None:
+        cached = _factor_cache_get(cache_dir, key)
+        if cached is not None:
+            factor_cache_hits += 1
+            return cached
+        factor_cache_misses += 1
     accepted = load_ld_mat(entry['ld_path'], entry['variant_indices'],
                            entry['mismatch'], entry['signs'])
-    return lowrank.factor_block(X=accepted, t=ldthresh,
-                                check_symmetric=False)
+    factor = lowrank.factor_block(X=accepted, t=ldthresh,
+                                  check_symmetric=False)
+    if key is not None:
+        _factor_cache_put(cache_dir, key, factor)
+    return factor
+
+
+def _factor_cache_key(entry, ldthresh):
+    """sha256 of the JAX package's key fields, in its dtypes and order."""
+    st = os.stat(entry['ld_path'])
+    h = hashlib.sha256()
+    h.update(os.path.realpath(entry['ld_path']).encode())
+    h.update(np.array([st.st_size, st.st_mtime_ns], dtype=np.int64))
+    h.update(np.float64(ldthresh))
+    h.update(np.ascontiguousarray(entry['variant_indices'], dtype=bool))
+    h.update(np.ascontiguousarray(entry['mismatch'], dtype=bool))
+    h.update(np.ascontiguousarray(entry['signs'], dtype=np.float64))
+    return h.hexdigest()
+
+
+def _factor_cache_get(cache_dir, key):
+    path = Path(cache_dir) / (key + '.npz')
+    if not path.exists():
+        return None
+    try:
+        with np.load(path) as z:
+            return lowrank.LowRankFactor(u=z['u'], s=z['s'], d=z['d'],
+                                         rank=int(z['rank']))
+    except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+        # a torn or foreign file: refactorize, and the put replaces it
+        logging.warning('Ignoring unreadable factor-cache entry %s', path)
+        return None
+
+
+def _factor_cache_put(cache_dir, key, factor):
+    """Publish one entry atomically: concurrent fits sharing a cache see
+    either nothing or a complete entry, never a torn file."""
+    path = Path(cache_dir)
+    path.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=path, suffix='.tmp')
+    try:
+        with os.fdopen(fd, 'wb') as f:
+            np.savez(f, u=factor.u, s=factor.s, d=factor.d,
+                     rank=factor.rank)
+        os.replace(tmp, path / (key + '.npz'))
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
 
 
 def consume_mmap_rng_draws(num_blocks=1):
@@ -388,24 +461,32 @@ def consume_mmap_rng_draws(num_blocks=1):
 
 
 def load_ld_from_schema(schema_path, variants, denylist, ldthresh,
-                        dtype=torch.float64, u_dtype=None, device='cpu',
-                        rng_draws=False):
+                        mmap=False, dtype=torch.float64, spill_dir=None,
+                        u_dtype=None, cache_dir=None, device='cpu'):
     """Load a block LD matrix from a schema, matched to `variants`
     (reference load.py:237-354). Returns (PackedLD ordered like
-    `variants`, list of variant positions missing LD info). rng_draws
-    takes the JAX package's mmap-mode RNG draws, two per loaded block
-    (consume_mmap_rng_draws), without its disk spill."""
+    `variants`, list of variant positions missing LD info).
+
+    With `mmap` the factors and the packed eigenvector tensors are
+    staged through disk-backed memmaps under `spill_dir` (a tempdir by
+    default) instead of host RAM (blocks.FactorSpill), and the
+    reference's mmap-mode RNG draws are taken, two per loaded block
+    (consume_mmap_rng_draws). `cache_dir` memoizes the per-block
+    eigendecompositions (load_entry_factor)."""
     factors, block_indices = [], []
     total_flipped = 0
+    spill = blocks_mod.FactorSpill(spill_dir) if mmap else None
     for entry in matched_schema_entries(schema_path, variants, denylist):
         total_flipped += entry['num_flipped']
-        factors.append(load_entry_factor(entry, ldthresh))
-        block_indices.append(entry['idx'])
-        if rng_draws:
+        factor = load_entry_factor(entry, ldthresh, cache_dir=cache_dir)
+        if spill is not None:
+            factor = spill.store(factor)
             consume_mmap_rng_draws()
+        factors.append(factor)
+        block_indices.append(entry['idx'])
     n = len(variants)
     packed = blocks_mod.pack(factors, block_indices, n, dtype=dtype,
-                             u_dtype=u_dtype, device=device)
+                             u_dtype=u_dtype, device=device, spill=spill)
     missing = list(packed.missing)
     logging.info('Schema load complete: %d variants.', n)
     logging.warning('%d variants have no LD information and will be '

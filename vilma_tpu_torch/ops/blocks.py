@@ -18,16 +18,25 @@ card too). The bucket matvec runs the hand-written CUDA kernel
 (ops/cuda/block_matvec.py) on CUDA tensors. `matrix_power` keeps the
 reference's dropped permutation through each bucket's `seq` map.
 
+`fit --mmap` packs through a FactorSpill: factors and the eigenvector
+buckets are staged in disk-backed memmaps, and a bucket reaches the card
+in slices of blocks through one bounded pinned buffer.
+
 Not ported: the TPU-only 128-row gather/scatter path (`_dot_rows`,
-`grows`/`srows`, `row_aligned`), the shard-local layout and its
-shard_map bodies, and the `--mmap` spill (ROADMAP queue 1).
+`grows`/`srows`, `row_aligned`) and the shard-local layout and its
+shard_map bodies (ROADMAP queue 1, "Multi-GPU").
 """
 import dataclasses
+import os
+import shutil
+import tempfile
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from vilma_tpu_torch.ops import lowrank
 from vilma_tpu_torch.ops.cuda import block_matvec
 
 # block sizes pad up to one of these tiers (as in the JAX package)
@@ -98,14 +107,130 @@ class PackedLD:
         return self.rank
 
 
+class _SpilledFactor:
+    """A lowrank.LowRankFactor whose u lives on disk: duck-typed for
+    everything pack() reads. `.u` opens a short-lived memmap of the
+    spill's one payload file, so a schema of thousands of blocks holds
+    one file descriptor at a time."""
+
+    def __init__(self, spill, offset, shape, dtype, s, d, rank):
+        self._spill = spill
+        self._offset = offset
+        self._shape = shape
+        self._dtype = dtype
+        self.s = s
+        self.d = d
+        self.rank = rank
+
+    @property
+    def u(self):
+        return np.memmap(self._spill.payload_path, mode='r',
+                         dtype=self._dtype, shape=self._shape,
+                         offset=self._offset)
+
+    @property
+    def n(self):
+        return self._shape[0]
+
+    @property
+    def r(self):
+        return self._shape[1]
+
+
+class FactorSpill:
+    """Disk-backed staging of factor payloads (`fit --mmap`; the JAX
+    package's FactorSpill, the reference's HDF5 spill,
+    matrix_structures.py:120-135).
+
+    `store()` appends a freshly factored block's u to one payload file,
+    and `pack(spill=...)` assembles the bucket tensors in disk-backed
+    memmaps, so the peak anonymous host memory of a load stays one block
+    (plus one staging slice on the way to the card) instead of the
+    factors and the packed tensors side by side. The files live in a
+    private tempdir removed when the spill is collected; on Linux a
+    memmap stays readable after the unlink, so a host PackedLD built
+    from the spill stays valid."""
+
+    def __init__(self, spill_dir=None):
+        self.dir = tempfile.mkdtemp(prefix='vilma_tpu_torch_spill_',
+                                    dir=spill_dir)
+        self.payload_path = os.path.join(self.dir, 'factors.bin')
+        self._payload = open(self.payload_path, 'wb')
+        self._buckets = 0
+        self._finalizer = weakref.finalize(
+            self, _remove_spill, self._payload, self.dir)
+
+    def store(self, factor):
+        """Move a LowRankFactor's u onto disk."""
+        u = np.ascontiguousarray(factor.u)
+        offset = self._payload.tell()
+        self._payload.write(u.tobytes())
+        self._payload.flush()
+        return _SpilledFactor(self, offset, u.shape, u.dtype,
+                              s=factor.s, d=factor.d, rank=factor.rank)
+
+    def bucket_array(self, shape, dtype):
+        """A writable disk-backed array of zeros for one bucket's u."""
+        path = os.path.join(self.dir, f'bucket{self._buckets}.npy')
+        self._buckets += 1
+        return np.lib.format.open_memmap(path, mode='w+', shape=shape,
+                                         dtype=dtype)
+
+
+def _remove_spill(payload, path):
+    payload.close()
+    shutil.rmtree(path, ignore_errors=True)
+
+
+#: the most bytes of the pinned host buffer through which a spilled
+#: bucket reaches the card
+STAGING_BYTES = 64 << 20
+
+
+def _u_from_spill(u, u_dtype, device):
+    """A spilled bucket's u [B, Pmax, Rmax] (a disk-backed memmap in the
+    staging float type) as a tensor of u_dtype on `device`.
+
+    On the card the bucket moves in slices of whole blocks of at most
+    STAGING_BYTES through one pinned buffer, reused once its asynchronous
+    copy has finished; each slice is converted to u_dtype on the host by
+    the conversion the unspilled path's `.to` makes, so the bits agree.
+    On the host the memmap itself is the tensor (converted whole where
+    u_dtype differs)."""
+    src = torch.from_numpy(u)
+    if torch.device(device).type == 'cpu':
+        return src if src.dtype == u_dtype else src.to(u_dtype)
+    out = torch.empty(u.shape, dtype=u_dtype, device=device)
+    slices = _staging_slices(u.shape[0],
+                             out[0].numel() * out.element_size())
+    staging = torch.empty((slices[0].stop,) + tuple(u.shape[1:]),
+                          dtype=u_dtype, pin_memory=True)
+    for rows in slices:
+        buf = staging[:rows.stop - rows.start]
+        buf.copy_(src[rows])
+        out[rows].copy_(buf, non_blocking=True)
+        torch.cuda.current_stream(out.device).synchronize()
+    return out
+
+
+def _staging_slices(num_blocks, block_bytes):
+    """Slices of whole blocks, each at most STAGING_BYTES (one block at
+    the least)."""
+    per = max(1, min(num_blocks, STAGING_BYTES // block_bytes))
+    return [slice(b0, min(num_blocks, b0 + per))
+            for b0 in range(0, num_blocks, per)]
+
+
 def pack(factors, block_indices, n, dtype=torch.float64, u_dtype=None,
-         device='cpu'):
+         device='cpu', spill=None):
     """Pack per-block lowrank.LowRankFactor objects into a PackedLD.
 
     block_indices[b] gives the genome index of each row of block b;
     indices covered by no block are `missing`. u_dtype (e.g.
     torch.bfloat16) is the storage type of the eigenvector tensors alone:
-    they dominate device traffic ~400x over s/d. Defaults to `dtype`."""
+    they dominate device traffic ~400x over s/d. Defaults to `dtype`.
+    With `spill` (a FactorSpill) each bucket's u is assembled in a
+    disk-backed memmap and moved by _u_from_spill."""
     if u_dtype is None:
         u_dtype = dtype
     if len(factors) != len(block_indices):
@@ -133,9 +258,11 @@ def pack(factors, block_indices, n, dtype=torch.float64, u_dtype=None,
     for (pmax, rmax), items in sorted(groups.items()):
         B = len(items)
         # u is staged in the float type and rounded once on conversion
-        u = np.zeros((B, pmax, rmax),
-                     dtype=np.float64 if dtype == torch.float64
-                     else np.float32)
+        u_stage = np.float64 if dtype == torch.float64 else np.float32
+        if spill is not None:
+            u = spill.bucket_array((B, pmax, rmax), u_stage)
+        else:
+            u = np.zeros((B, pmax, rmax), dtype=u_stage)
         s = np.zeros((B, rmax), dtype=np_dtype)
         inv_s = np.zeros((B, rmax), dtype=np_dtype)
         d = np.zeros((B, pmax), dtype=np_dtype)
@@ -152,8 +279,13 @@ def pack(factors, block_indices, n, dtype=torch.float64, u_dtype=None,
             d[b, :f.n] = f.d
             perm[b, :f.n] = ix
             seq[b, :f.n] = np.arange(start, start + f.n)
+        if spill is not None:
+            u.flush()
+            u_t = _u_from_spill(u, u_dtype, device)
+        else:
+            u_t = torch.from_numpy(u).to(device=device, dtype=u_dtype)
         buckets.append(BlockBucket(
-            u=torch.from_numpy(u).to(device=device, dtype=u_dtype),
+            u=u_t,
             s=torch.from_numpy(s).to(device),
             inv_s=torch.from_numpy(inv_s).to(device),
             d=torch.from_numpy(d).to(device),
@@ -164,6 +296,13 @@ def pack(factors, block_indices, n, dtype=torch.float64, u_dtype=None,
     rank = float(sum(f.rank for f in factors))
     return PackedLD(buckets=tuple(buckets), n=n, has_diag=has_diag,
                     rank=rank, missing=missing)
+
+
+def from_dense_blocks(blocks, block_indices, n, t=1.0,
+                      dtype=torch.float64, device='cpu'):
+    """Factor dense symmetric blocks on the host, then pack them."""
+    factors = [lowrank.factor_block(X=b, t=t) for b in blocks]
+    return pack(factors, block_indices, n, dtype=dtype, device=device)
 
 
 # ---------------------------------------------------------------------------

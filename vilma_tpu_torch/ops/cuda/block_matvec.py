@@ -29,6 +29,13 @@ On a CUDA tensor the wrapper launches the kernel of the planned route or
 raises (also when the card cannot place the planned cluster or group);
 on a CPU tensor it runs `bucket_matvec_multi_plain`. There is no
 fallback.
+
+Under autograd (a CUDA x that requires grad) the launch goes through
+`BucketMatvec`: each block's operator U diag(s) U^T + diag(d) is
+symmetric, so the gradient with respect to x is the same kernel launched
+on the incoming gradient, the same route and plan. The LD factors are
+constants: nothing differentiates them, and a u, s or d that requires
+grad raises.
 """
 import ctypes
 import functools
@@ -39,10 +46,12 @@ import torch
 from vilma_tpu_torch.ops.cuda import build
 
 #: launches of the cluster route and of the group route, and of either
-#: route by cohort count (plain-version calls do not count)
+#: route by cohort count (plain-version calls do not count); the
+#: backward's launches (either route) count apart, in launches_backward
 launches = 0
 launches_group = 0
 launches_by_cohorts = {}
+launches_backward = 0
 
 #: the most cohorts one launch takes
 MAX_COHORTS = 8
@@ -267,9 +276,37 @@ def width(C):
 
 def bucket_matvec_multi(u, s, d, x):
     """y[b, c] = u[b] @ (s[b] * (u[b].T @ x[b, c])) + d[b] * x[b, c]."""
-    global launches, launches_group
     if not x.is_cuda:
         return bucket_matvec_multi_plain(u, s, d, x)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (u, s, d, x)):
+        return BucketMatvec.apply(u, s, d, x)
+    return _launch(u, s, d, x)
+
+
+class BucketMatvec(torch.autograd.Function):
+    """bucket_matvec_multi as a differentiable function of x: the
+    backward is the forward's kernel on the gradient (the operator is
+    symmetric per block)."""
+
+    @staticmethod
+    def forward(ctx, u, s, d, x):
+        _require(not any(t.requires_grad for t in (u, s, d)),
+                 'u, s and d are constants here and must not require '
+                 'grad (only x is differentiated)')
+        ctx.save_for_backward(u, s, d)
+        return _launch(u, s, d, x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        u, s, d = ctx.saved_tensors
+        return None, None, None, _launch(u, s, d, grad.contiguous(),
+                                         backward=True)
+
+
+def _launch(u, s, d, x, backward=False):
+    """Check the operands, launch the planned route, count the launch."""
+    global launches, launches_group, launches_backward
     B, P, R = u.shape
     C = x.shape[1] if x.dim() == 3 else -1
     _require(u.dtype in (torch.float32, torch.bfloat16),
@@ -309,7 +346,6 @@ def bucket_matvec_multi(u, s, d, x):
             u.data_ptr(), s.data_ptr(), d.data_ptr(), x.data_ptr(),
             y.data_ptr(), B, P, R, W, bf16, pl.cluster, pl.slots,
             min(B, held), pl.smem, stream), 'vilma_block_matvec_cluster')
-        launches += 1
     else:
         groups = group_count(B, held, pl)
         ws = _group_workspace(x.device, stream, P, W, pl.cluster, groups)
@@ -319,6 +355,12 @@ def bucket_matvec_multi(u, s, d, x):
             pl.cluster, pl.slots, groups, pl.smem, stream),
             'vilma_block_matvec_group')
         ws[1] ^= 1
-        launches_group += 1
-    launches_by_cohorts[C] = launches_by_cohorts.get(C, 0) + 1
+    if backward:
+        launches_backward += 1
+    else:
+        if pl.route == 'cluster':
+            launches += 1
+        else:
+            launches_group += 1
+        launches_by_cohorts[C] = launches_by_cohorts.get(C, 0) + 1
     return y if W == C else y[:, :C]
