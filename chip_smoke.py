@@ -111,6 +111,27 @@ Phases:
      e. SMC and a short NUTS chain (inference/mcmc.py) on the 8-SNP
         blocks of tests/test_validation.py, densities on the card: finite
         draws, posterior means within BAND_SAMPLER of the VI answer.
+ 15. sharded fits (parallel/), the shards co-located on cuda:0 unless
+     said otherwise; each sharded run's launches are zeroed just before
+     and read just after it:
+     a. phase 4's fit through commands/fit.main at --mesh snp=SHARDS:
+        every output file within BAND_SHARD of phase 4's, the same
+        evaluations of the objective and host syncs per step, each
+        kernel launched SHARDS times as often;
+     b. the same with phase 6's flags (--learn-scaling, the kdim
+        kernels) for KDIM_STEPS steps, against the same command
+        unsharded (over phase 6's 150 steps the two f32 trajectories
+        part: the EM events fire at other steps); then phase 7's epoch
+        state at 1M SNPs on EPOCH_SHARDS shards for EPOCH_STEPS steps
+        against the same steps unsharded: seconds a step of both;
+     and a 2-block fit at --mesh snp=2 on the card (f32) against the
+     host's unsharded f64 fit, without and with --learn-scaling, within
+     the bands of the unsharded card fit (BAND_FIT, BAND_FIT_SE);
+     c. fit --distributed in one fresh process (NCCL, --mesh snp=1):
+        the process group's backend; its outputs phase 4's bit for bit;
+     d. with two cards or more, two processes over NCCL, one card each,
+        at --mesh snp=2, outputs against 15c's; with one card it prints
+        `phase 15d not run: 1 card`.
 
 The next-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failed phase exits
@@ -189,6 +210,22 @@ TRAITS = 4
 STEPS_TRAIT = 5
 TRAIT_NAMES = ('t1', 't2', 't3', 't4', 't5', 't6', 't7', 't8')
 BAND_TRAIT_FACTOR = 10
+
+# phase 15: sharded fits. 15a and 15b's kdim fit (KDIM_STEPS steps) put
+# SHARDS shards on cuda:0, 15b's epoch state EPOCH_SHARDS for EPOCH_STEPS
+# steps. A sharded f32 fit against the unsharded one, each output
+# relative to its scale: the shards' partial sums add in another order
+# than one sum over every SNP, and the f32 steps carry that difference
+# on (at f64 the two agree to ~1e-13, tests/test_torch_parallel.py). The
+# first readings on the H100: 1.97e-3 (15a) and 2.45e-3 (15b kdim), the
+# posterior variances the farthest; the band leaves 2x room. The 2-block
+# fit sharded on the card meets the unsharded card fit's bands against
+# the host's f64 fit (BAND_FIT, BAND_FIT_SE).
+SHARDS = 4
+KDIM_STEPS = 10
+EPOCH_SHARDS = 2
+EPOCH_STEPS = 2
+BAND_SHARD = 5e-3
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): HBM
 # bytes/s, FP32 and bf16 tensor operations/s
@@ -933,19 +970,19 @@ class count_em:
     def __enter__(self):
         from vilma_tpu_torch.inference import engine
         self.engine, self.real, self.events = (
-            engine, engine._update_error_scaling, [])
+            engine, engine._error_scaling, [])
 
         def counted(*a, **k):
             out = self.real(*a, **k)
             self.events.append((self.step(),
-                                out[0].error_scaling.tolist()))
+                                out[0][0].error_scaling.tolist()))
             return out
 
-        engine._update_error_scaling = counted
+        engine._error_scaling = counted
         return self
 
     def __exit__(self, *exc):
-        self.engine._update_error_scaling = self.real
+        self.engine._error_scaling = self.real
 
 
 def check_small_fit(out_dir):
@@ -1008,17 +1045,19 @@ def check_small_fit(out_dir):
     return errs
 
 
-def run_fit(paths, prefix, device, extra=()):
+def run_fit(paths, prefix, device, extra=(), devices=None):
     """run_argv of the 2-cohort CLI fit on a written schema."""
     schema, sumstats, extract, _ = paths
     return run_argv(fit_argv(schema, sumstats, extract, prefix, device)
-                    + list(extra), device)
+                    + list(extra), device, devices)
 
 
-def run_argv(argv, device):
+def run_argv(argv, device, devices=None):
     """Zero the launch counters, run a CLI fit, read the counters.
+    `devices` places the shards of a --mesh fit (commands/fit.main).
     Returns (counts, seconds per outer step, host syncs, EM scalings)."""
     from vilma_tpu_torch import frontend
+    from vilma_tpu_torch.commands import fit as fit_cmd
     from vilma_tpu_torch.inference import engine
 
     step_s = []
@@ -1038,7 +1077,11 @@ def run_argv(argv, device):
     t0 = time.perf_counter()
     try:
         with count_em(step=lambda: len(step_s) + 1) as em:
-            frontend.main(argv)
+            if devices is None:
+                frontend.main(argv)
+            else:
+                fit_cmd.main(frontend.build_parser()[0].parse_args(argv),
+                             devices=devices)
     finally:
         engine.outer_step = real_step
     counts = read_counts()
@@ -1140,11 +1183,11 @@ def device_ld(num_blocks, block_size, rank, device, seed=5, u_dtype=None):
     u = torch.cat(us).contiguous()
     s = torch.cat(ss)
     n = num_blocks * block_size
+    perm = torch.arange(n, device=device).reshape(num_blocks, block_size)
     bucket = BlockBucket(
         u=u, s=s, inv_s=torch.where(s > 0, 1.0 / s, torch.zeros_like(s)),
-        d=torch.zeros(num_blocks, block_size, device=device),
-        perm=torch.arange(n, device=device).reshape(num_blocks,
-                                                    block_size))
+        d=torch.zeros(num_blocks, block_size, device=device), perm=perm,
+        seq=perm)
     return PackedLD(buckets=(bucket,), n=n, has_diag=False,
                     rank=float(num_blocks * rank), missing=())
 
@@ -1179,6 +1222,8 @@ def build_engine(device, ld=None, num_blocks=977, block_size=1024, K=18,
         annotations=np.ones((n, 1)), mixture_covs=covs, checkpoint=False,
         gwas_N=np.full(2, 1e5), init_hg=np.full(2, 0.3), num_its=1,
         scale_se=scale_se, dtype=torch.float32, device=device)
+    # the inputs, for the sharded run of phase 15b
+    vi.inputs = dict(betas=betas, std_errs=std_errs, covs=covs)
     st = vi._initialize()
     st = engine.dataclasses.replace(st, elbo=vi.elbo_value(st))
     _sync(device)
@@ -1203,15 +1248,17 @@ def timed_steps(data, st, steps):
     _sync('cuda')
     dt = time.perf_counter() - t0
     require(math.isfinite(st.elbo), 'non-finite ELBO')
-    require(bool(torch.isfinite(pm).all()), 'non-finite posterior mean')
-    return st, steps / dt, (engine.host_syncs - syncs0) / steps
+    require(all(bool(torch.isfinite(p).all())
+                for p in (pm if isinstance(pm, tuple) else (pm,))),
+            'non-finite posterior mean')
+    return st, steps / dt, (engine.host_syncs - syncs0) / steps, pm
 
 
 def run_engine(device, steps=3):
     from vilma_tpu_torch.inference import engine
     vi, st, ld = build_engine(device)
     st, _ = engine.outer_step(vi.data, st)             # warm-up
-    st, ips, syncs = timed_steps(vi.data, st, steps)
+    st, ips, syncs, _ = timed_steps(vi.data, st, steps)
     return ips, syncs, st.elbo, ld
 
 
@@ -1232,7 +1279,7 @@ def run_engine_se(device, ld, steps=3):
         st, _, _ = engine._update_error_scaling(
             data, st, engine._sync_float(obj), pm, lk)
     require(st.nat_hist_n >= 1, 'the EM update appended no epoch')
-    st, ips, syncs = timed_steps(data, st, steps)
+    st, ips, syncs, _ = timed_steps(data, st, steps)
     counts = read_counts()
     return counts, ips, syncs, st, em.events, vi
 
@@ -2104,15 +2151,15 @@ def differing_outputs(a, b):
     return diff
 
 
-def run_factor_cache(paths, out_dir, device, num_blocks):
+def run_factor_cache(paths, out_dir, device, num_blocks, cache):
     """Phases 14a-c: phase 4's fit with --factor-cache in a fresh
     directory (cold: a miss for every block), the same command again
     (warm: a hit for every block), and warm with --mmap (the spill). 14b
     and 14c write the same bits as 14a. The reference's mmap-mode RNG
     draws would move the mixture grid (its draws follow the load), so
     14c runs with them switched off and its grid is 14a's: the spill
-    alone differs. Returns {run: RESULT}."""
-    cache = os.path.join(out_dir, 'factor_cache')
+    alone differs. `cache` is the cache directory, not made yet.
+    Returns {run: RESULT}."""
     runs, prefixes = {}, {}
     for run, flags in (('14a', []), ('14b', []), ('14c', ['--mmap'])):
         prefixes[run] = os.path.join(out_dir, f'cache_{run}')
@@ -2326,16 +2373,408 @@ def run_samplers(device):
 F32_BF16 = ['--precision', 'f32', '--ld-precision', 'bf16']
 
 
-def run_phase14(paths, device, launches, timings, smi):
+# ---------------------------------------------------------------------------
+# phase 15: sharded fits (--mesh, --distributed) on the card
+# ---------------------------------------------------------------------------
+
+class count_calls:
+    """Context manager counting the calls of owner.name while active."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name, self.calls = owner, name, 0
+
+    def __enter__(self):
+        self.real = real = getattr(self.owner, self.name)
+
+        def counted(*a, **k):
+            self.calls += 1
+            return real(*a, **k)
+        setattr(self.owner, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.real)
+
+
+def counted_fit(paths, prefix, extra, devices=None):
+    """run_fit on the card, counting the shard evaluations of the
+    objective (engine._objective_terms calls: one per shard of each
+    evaluation). Returns (counts, step seconds, host syncs, EM events,
+    shard evaluations)."""
+    from vilma_tpu_torch.inference import engine
+    with count_calls(engine, '_objective_terms') as terms:
+        out = run_fit(paths, prefix, 'cuda', extra, devices)
+    return out + (terms.calls,)
+
+
+def keep_outputs(prefix, out_dir):
+    """Move a fit's output files into out_dir; returns their new
+    prefix."""
+    kept = os.path.join(out_dir, os.path.basename(prefix))
+    for ext in ('.npz', '.estimates.tsv', '.covariance.pkl'):
+        os.replace(prefix + ext, kept + ext)
+    return kept
+
+
+def output_errors(got, want):
+    """Per output of two fit prefixes, max |got - want| over max |want|:
+    each .npz member and the posterior columns of .estimates.tsv; the
+    .covariance.pkl bytes and the other columns must be equal."""
+    errs = {}
+    with np.load(got + '.npz') as zg, np.load(want + '.npz') as zw:
+        require(sorted(zg.files) == sorted(zw.files),
+                f'.npz members {zg.files} vs {zw.files}')
+        for key in zw.files:
+            g, w = zg[key], zw[key]
+            require(g.shape == w.shape and g.dtype == w.dtype,
+                    f'{key}: {g.shape} {g.dtype} vs {w.shape} {w.dtype}')
+            errs[key] = float(np.max(np.abs(g.astype(np.float64) - w))
+                              / max(float(np.max(np.abs(w))), 1e-30))
+    with open(got + '.estimates.tsv') as fg, open(want + '.estimates.tsv') \
+            as fw:
+        rows_g = [ln.rstrip('\n').split('\t') for ln in fg]
+        rows_w = [ln.rstrip('\n').split('\t') for ln in fw]
+    require(rows_g[0] == rows_w[0] and len(rows_g) == len(rows_w),
+            'estimates headers or lengths differ')
+    for j, col in enumerate(rows_w[0]):
+        if col.startswith('posterior'):
+            g = np.array([float(r[j]) for r in rows_g[1:]])
+            w = np.array([float(r[j]) for r in rows_w[1:]])
+            errs[col] = float(np.max(np.abs(g - w)) / np.max(np.abs(w)))
+        else:
+            require([r[j] for r in rows_g] == [r[j] for r in rows_w],
+                    f'estimates column {col} differs')
+    with open(got + '.covariance.pkl', 'rb') as fg, \
+            open(want + '.covariance.pkl', 'rb') as fw:
+        require(fg.read() == fw.read(), '.covariance.pkl differs')
+    return errs
+
+
+def check_sharded_fit(name, run, ref, shards, band):
+    """A sharded CLI fit (`run`, counted_fit's result and its prefix)
+    against the unsharded one (`ref`, the same) of the same command:
+    every output within `band` of its scale, the same evaluations of the
+    objective and host syncs per step, and each kernel launched `shards`
+    times as often (once per shard where the unsharded fit launches once:
+    the precompute's matvecs, every evaluation, every step's sums).
+    Returns a dict of the readings."""
+    (counts, step_s, syncs, em, terms), prefix = run
+    (counts0, step0, syncs0, em0, terms0), prefix0 = ref
+    errs = output_errors(prefix, prefix0)
+    worst = max(errs.values())
+    per_step, per_step0 = syncs / len(step_s), syncs0 / len(step0)
+    evals, evals0 = terms / shards, terms0
+    per_eval = {key: (counts[key] / evals, counts0[key] / evals0)
+                for key in ('bucket_matvec_multi', 'prologue', 'delta_sums',
+                            'prologue_kdim', 'delta_sums_kdim')
+                if counts0[key]}
+    log(f'  {name}: outputs against the unsharded run, of their scale: '
+        + ', '.join(f'{k} {v:.2e}' for k, v in errs.items())
+        + f' (band {band:.0e}); evaluations {evals} (unsharded {evals0}); '
+        f'host syncs a step {per_step} ({per_step0}); launches {counts} '
+        f'({counts0})')
+    require(worst <= band, f'{name}: an output {worst:.2e} of its scale '
+            f'from the unsharded run\'s (band {band:.0e})')
+    require(per_step == per_step0,
+            f'{name}: {per_step} host syncs a step, unsharded {per_step0}')
+    require(evals == evals0, f'{name}: {evals} evaluations of the '
+            f'objective, unsharded {evals0}')
+    for key in ('bucket_matvec_multi', 'prologue', 'delta_sums',
+                'prologue_kdim', 'delta_sums_kdim'):
+        require(counts[key] == shards * counts0[key],
+                f'{name}: {key} launched {counts[key]} times, unsharded '
+                f'{counts0[key]} (x{shards} expected)')
+    return dict(errs=errs, per=per_eval, syncs=(per_step, per_step0),
+                em=(em, em0), step_s=(float(np.median(step_s)),
+                                      float(np.median(step0))),
+                counts=counts)
+
+
+def check_sharded_small_fit(out_dir):
+    """check_small_fit's 2-block schema fitted on the card at --mesh
+    snp=2 (a block a shard, co-located, f32) against the host's
+    unsharded f64 fit, without and with --learn-scaling (kdim): the
+    sharded card fit must land within the band the unsharded card fit
+    meets (BAND_FIT, BAND_FIT_SE). Returns {route: scaled errors}."""
+    schema, sumstats, extract, _ = write_schema(out_dir, num_blocks=2)
+    errs = {}
+    for route, flags, band in (
+            ('plain', [], BAND_FIT),
+            ('kdim', ['--learn-scaling', '--num-its', SMALL_ITS_SE],
+             BAND_FIT_SE)):
+        runs = {}
+        for tag, device, precision, devices in (
+                ('host', 'cpu', 'f64', None),
+                ('card', 'cuda', 'f32', ['cuda:0'] * 2)):
+            prefix = os.path.join(out_dir, f'small_{route}_{tag}')
+            run_argv(fit_argv(schema, sumstats, extract, prefix, device)
+                     + ['-K', '3', '--precision', precision,
+                        '--ld-precision', 'f32' if precision == 'f32'
+                        else 'auto'] + flags
+                     + (['--mesh', 'snp=2'] if devices else []),
+                     device, devices)
+            runs[tag] = read_posteriors(prefix)
+        err = (np.abs(runs['card'] - runs['host']).max(axis=0)
+               / np.abs(runs['host']).max(axis=0))
+        require(np.all(err <= band),
+                f'{route}: sharded card fit vs host f64 fit: scaled errors '
+                f'{err} exceed {band:.0e}')
+        errs[route] = err
+    return errs
+
+
+def run_sharded_epoch(vi, st, ld, steps=EPOCH_STEPS, shards=EPOCH_SHARDS):
+    """Phase 15b's epoch state: phase 7's state at 1M SNPs stepped
+    `steps` times unsharded and on `shards` shards co-located on cuda:0
+    (the LD relaid out in the shard-local layout, the state carried into
+    it); ELBO and posterior means against each other, seconds a step of
+    each, the sharded run's launches."""
+    import torch
+    from vilma_tpu_torch.inference import engine
+    from vilma_tpu_torch.parallel import alignment, mesh as mesh_mod
+    out = {}
+    zero_counts()
+    stU, ips0, syncs0, pmU = timed_steps(vi.data, st, steps)
+    counts0 = read_counts()
+    t0 = time.perf_counter()
+    mesh = mesh_mod.make_mesh(shards, devices=['cuda:0'] * shards)
+    n = ld.n
+    lmap, L, ok = alignment.compute_layout([ld], n, n_shards=shards)
+    require(ok, 'no shard-local layout for phase 7\'s LD')
+    ld_s = alignment.relayout_ld(ld, lmap, L, dtype=torch.float32,
+                                 u_dtype=torch.bfloat16, n_shards=shards,
+                                 device=list(mesh.devices))
+    inp = vi.inputs
+    vi_s = engine.MultiPopVI(
+        marginal_effects=alignment.relayout_rows(inp['betas'], lmap, L),
+        std_errs=alignment.relayout_rows(inp['std_errs'], lmap, L,
+                                         fill=1.0),
+        ld_mats=[ld_s, ld_s],
+        annotations=alignment.relayout_annotations(np.ones((n, 1)), lmap,
+                                                   L),
+        mixture_covs=inp['covs'], checkpoint=False, gwas_N=np.full(2, 1e5),
+        init_hg=np.full(2, 0.3), num_its=1, scale_se=True,
+        dtype=torch.float32, mesh=mesh, out_index=lmap)
+    require(vi_s._epoch, 'the sharded fit did not take the epoch state')
+
+    def spread(x):
+        full = x.new_zeros(tuple(x.shape[:-1]) + (L,))
+        full[..., torch.as_tensor(lmap, device=x.device)] = x
+        return full
+
+    st_s = mesh_mod.shard_state(engine.dataclasses.replace(
+        st, nat_mu=spread(st.nat_mu), nat_hist=spread(st.nat_hist)), mesh)
+    _sync('cuda')
+    out['setup_s'] = time.perf_counter() - t0
+    zero_counts()
+    stS, ips, syncs, pmS = timed_steps(vi_s.data, st_s, steps)
+    out['counts'] = read_counts()
+    pmS = mesh.gather(pmS).cpu().numpy()[:, lmap]
+    pmU = pmU.cpu().numpy()
+    out['pm_err'] = float(np.max(np.abs(pmS - pmU)) / np.max(np.abs(pmU)))
+    out['elbo_err'] = abs(stS.elbo / stU.elbo - 1)
+    out.update(s_step=1 / ips, s_step0=1 / ips0, syncs=syncs, syncs0=syncs0,
+               counts0=counts0, L=L, nat_hist_n=(stS.nat_hist_n,
+                                                 stU.nat_hist_n))
+    for key in ('pm_err', 'elbo_err'):
+        require(out[key] <= BAND_SHARD, f'phase 15b epoch: {key} '
+                f'{out[key]:.2e} (band {BAND_SHARD:.0e})')
+    require(syncs == syncs0, f'phase 15b epoch: {syncs} host syncs a step, '
+            f'unsharded {syncs0}')
+    for key in ('bucket_matvec_multi', 'prologue_epochs',
+                'delta_sums_epochs'):
+        require(out['counts'][key] == shards * counts0[key] > 0,
+                f'phase 15b epoch: {key} launched {out["counts"][key]} '
+                f'times, unsharded {counts0[key]} (x{shards} expected)')
+    del vi_s, st_s, stS, ld_s
+    torch.cuda.empty_cache()
+    return out
+
+
+# phase 15c-d: `fit --distributed` in fresh processes (argv JSON, the
+# repo); prints RESULT and a JSON object: the process group's backend,
+# world size and rank, the launches
+_DIST_WORKER = r'''
+import json, sys
+sys.path.insert(0, sys.argv[2])
+import torch
+import torch.distributed as dist
+from vilma_tpu_torch import frontend
+from vilma_tpu_torch.ops.cuda import block_matvec, compact_obj
+
+frontend.main(json.loads(sys.argv[1]))
+out = dict(backend=dist.get_backend(), world=dist.get_world_size(),
+           rank=dist.get_rank(), bucket_matvec_multi=block_matvec.launches,
+           **compact_obj.launches)
+dist.destroy_process_group()
+print('RESULT', json.dumps(out))
+'''
+
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        return sock.getsockname()[1]
+
+
+def run_distributed(argv, nproc, n_snp):
+    """`fit --distributed` in nproc processes over NCCL on localhost, one
+    card each; returns their RESULTs (a failed process fails the
+    phase)."""
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, '-c', _DIST_WORKER, json.dumps(
+            argv + ['--distributed', '--coordinator', f'localhost:{port}',
+                    '--num-processes', str(nproc), '--process-id',
+                    str(rank), '--mesh', f'snp={n_snp}']), REPO],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(nproc)]
+    results = []
+    for proc in procs:
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            out, err = proc.communicate()
+        lines = [ln for ln in out.splitlines() if ln.startswith('RESULT ')]
+        require(proc.returncode == 0 and lines,
+                f'fit --distributed process failed ({proc.returncode}): '
+                f'{err[-3000:]}')
+        results.append(json.loads(lines[-1][len('RESULT '):]))
+    return results
+
+
+def run_phase15(paths, p4, vi7, st7, ld7, out_dir, cache, launches, smi):
+    """Phase 15: sharded fits on the card. p4 is phase 4's (counted_fit
+    result, kept output prefix); vi7, st7 and ld7 phase 7's engine, final
+    state and LD; `cache` the factor cache of phase 4's panel (phase 14
+    fills it; a load through it writes the uncached load's bits, phase
+    14b). Adds the sharded runs' launches to `launches`; returns the
+    readings."""
+    import torch
+    out = {}
+    devices = ['cuda:0'] * SHARDS
+    phase(f'phase 15a: phase 4\'s fit at --mesh snp={SHARDS}, the shards '
+          'co-located on cuda:0')
+    prefix = os.path.join(out_dir, 'mesh_fit')
+    t0 = time.perf_counter()
+    run = counted_fit(paths, prefix, F32_BF16 + [
+        '--factor-cache', cache, '--mesh', f'snp={SHARDS}'], devices)
+    out['15a'] = r = check_sharded_fit('15a', (run, prefix), p4, SHARDS,
+                                       BAND_SHARD)
+    out['15a']['seconds'] = time.perf_counter() - t0
+    log(f'  launches {r["counts"]}; per evaluation of the objective, '
+        f'sharded vs unsharded {r["per"]}; host syncs a step '
+        f'{r["syncs"]}; median seconds a step sharded / unsharded '
+        f'{r["step_s"][0]:.4f} / {r["step_s"][1]:.4f}; {smi}')
+    for key in ('bucket_matvec_multi', 'prologue', 'delta_sums'):
+        launches[key] += r['counts'][key]
+    remove_outputs(prefix)
+    with tempfile.TemporaryDirectory() as small:
+        out['small'] = errs = check_sharded_small_fit(small)
+    log('  2-block fit at --mesh snp=2, card f32 vs host f64 unsharded, '
+        'scaled errors (pm1, pm2, pv1, pv2): '
+        + '; '.join(f'{k} {v}' for k, v in errs.items())
+        + f' (bands {BAND_FIT:.0e}, {BAND_FIT_SE:.0e}, as for the '
+        'unsharded card fit)')
+
+    phase(f'phase 15b: phase 6\'s --learn-scaling fit, {KDIM_STEPS} '
+          f'steps, unsharded and at --mesh snp={SHARDS} (kdim), then '
+          f'phase 7\'s epoch state at {EPOCH_SHARDS} shards')
+    flags = F32_BF16 + ['--learn-scaling', '--num-its', str(KDIM_STEPS),
+                        '--factor-cache', cache]
+    runs = {}
+    for tag, extra, where in (('fit_se', [], None),
+                              ('mesh_fit_se', ['--mesh', f'snp={SHARDS}'],
+                               devices)):
+        prefix = os.path.join(out_dir, tag)
+        with record_elbos() as rec:
+            runs[tag] = ((counted_fit(paths, prefix, flags + extra, where),
+                          prefix), rec.values)
+    out['15b'] = r = check_sharded_fit(
+        '15b kdim', runs['mesh_fit_se'][0], runs['fit_se'][0], SHARDS,
+        BAND_SHARD)
+    gaps = [abs(a / b - 1) for a, b in zip(runs['mesh_fit_se'][1],
+                                           runs['fit_se'][1])]
+    log(f'  kdim: per evaluation, sharded vs unsharded {r["per"]}; host '
+        f'syncs a step {r["syncs"]}; ELBO gap each step '
+        f'{[float(f"{g:.1e}") for g in gaps]}; median seconds a step '
+        f'sharded / unsharded {r["step_s"][0]:.4f} / {r["step_s"][1]:.4f}; '
+        f'{smi}')
+    for key in ('bucket_matvec_multi', 'prologue_kdim', 'delta_sums_kdim'):
+        launches[key] += r['counts'][key]
+    for tag in runs:
+        remove_outputs(os.path.join(out_dir, tag))
+    e = run_sharded_epoch(vi7, st7, ld7)
+    out['15b_epoch'] = e
+    log(f'  epoch: 1,000,448 SNPs in {e["L"]} slots on {EPOCH_SHARDS} '
+        f'shards (set-up {e["setup_s"]:.1f} s); {EPOCH_STEPS} steps from '
+        f'phase 7\'s state: posterior means {e["pm_err"]:.2e} of scale, '
+        f'ELBO {e["elbo_err"]:.2e} from the unsharded steps (band '
+        f'{BAND_SHARD:.0e}); seconds a step sharded {e["s_step"]:.4f}, '
+        f'unsharded {e["s_step0"]:.4f}; host syncs a step {e["syncs"]} '
+        f'and {e["syncs0"]}; live epochs {e["nat_hist_n"]}; launches '
+        f'{e["counts"]} (unsharded {e["counts0"]}); {smi}')
+    for key in ('bucket_matvec_multi', 'prologue_epochs',
+                'delta_sums_epochs'):
+        launches[key] += e['counts'][key]
+
+    phase('phase 15c: fit --distributed, one process, --mesh snp=1, NCCL')
+    schema, sumstats, extract, _ = paths
+    prefix = os.path.join(out_dir, 'dist_fit')
+    argv = fit_argv(schema, sumstats, extract, prefix, 'cuda') + F32_BF16 \
+        + ['--factor-cache', cache]
+    t0 = time.perf_counter()
+    (res,) = run_distributed(argv, 1, 1)
+    out['15c'] = res
+    differ = differing_outputs(prefix, p4[1])
+    log(f'  process group backend {res["backend"]}, world {res["world"]}; '
+        f'{time.perf_counter() - t0:.1f} s; launches {res}; outputs '
+        f'against phase 4\'s: '
+        f'{"bit for bit" if not differ else f"{differ} differ"}')
+    require(res['backend'] == 'nccl', f'backend {res["backend"]}')
+    # one shard: the layout is the identity, the LD the unsharded load's
+    # bits, every sum the unsharded fit's
+    require(not differ, f'phase 15c: {differ} differ from phase 4\'s')
+    for key in ('bucket_matvec_multi', 'prologue', 'delta_sums'):
+        require(res[key] > 0, f'phase 15c never launched {key}')
+
+    if torch.cuda.device_count() >= 2:
+        phase('phase 15d: fit --distributed, two processes over NCCL, one '
+              'card each, --mesh snp=2')
+        prefix2 = os.path.join(out_dir, 'dist_fit2')
+        argv2 = fit_argv(schema, sumstats, extract, prefix2, 'cuda') \
+            + F32_BF16 + ['--factor-cache', cache]
+        res2 = run_distributed(argv2, 2, 2)
+        errs = output_errors(prefix2, prefix)
+        worst = max(errs.values())
+        log(f'  ranks {[(r["rank"], r["backend"]) for r in res2]}; '
+            f'outputs against 15c\'s, of their scale: max {worst:.2e} '
+            f'(band {BAND_SHARD:.0e}); launches {res2}')
+        require(worst <= BAND_SHARD, f'phase 15d: outputs {worst:.2e} '
+                'from 15c\'s')
+        out['15d'] = dict(errs=errs, results=res2)
+        remove_outputs(prefix2)
+    else:
+        print('phase 15d not run: 1 card', flush=True)
+    remove_outputs(prefix)
+    return out
+
+
+def run_phase14(paths, device, launches, timings, smi, cache):
     """Phase 14 on phase 4's panel (`paths`): 14a-c, 14d and 14e, adding
     the backward's launches to `launches` and the seconds to
-    `timings`."""
+    `timings`. `cache`, a directory not made yet, is the factor cache
+    14a fills (phase 15 reads it)."""
     with tempfile.TemporaryDirectory() as tmp:
         phase('phase 14a-c: phase 4\'s fit with --factor-cache, cold, warm '
               'and warm with --mmap, a process each')
         with open(paths[0]) as fh:
             num_blocks = sum(1 for line in fh if line.strip())
-        runs, cov_path = run_factor_cache(paths, tmp, device, num_blocks)
+        runs, cov_path = run_factor_cache(paths, tmp, device, num_blocks,
+                                          cache)
         for run, r in runs.items():
             log(f'  {run}: {r["hits"]} hits, {r["misses"]} misses; load '
                 f'{r["load_s"]:.2f} s, fit {r["fit_s"]:.1f} s in all; RSS '
@@ -2360,8 +2799,7 @@ def run_phase14(paths, device, launches, timings, smi):
 
         phase('phase 14d: the gradient tool from phase 4\'s initialized '
               f'state, {GRAD_STEPS} Adam steps')
-        g = run_gradient_tool(paths, os.path.join(tmp, 'factor_cache'),
-                              cov_path, device)
+        g = run_gradient_tool(paths, cache, cov_path, device)
         launches['bucket_matvec_multi_backward'] = g['backward']
         timings['gradient_s_per_step'] = g['s_per_step']
         log(f'  K = {g["K"]}, {g["n"]} SNPs; ELBO gradient through the '
@@ -2432,8 +2870,8 @@ def main():
         log(f'  schema: {n} variants in 88 blocks written in '
             f'{time.perf_counter() - t0:.1f} s')
         fit_prefix = os.path.join(tmp, 'fit')
-        counts, step_s, syncs, _ = run_fit(paths, fit_prefix, device,
-                                           F32_BF16)
+        p4 = counted_fit(paths, fit_prefix, F32_BF16)
+        counts, step_s, syncs, _, _ = p4
         top, _ = check_fit_outputs(fit_prefix, n, K=582)
         log(f'  launches {counts}; host syncs {syncs} '
             f'({syncs / max(len(step_s), 1):.1f} per step); seconds per '
@@ -2539,7 +2977,8 @@ def main():
             f'equal to the host\'s; BETA within {errs["cuda"]:.2e} of '
             f'scale of the host f64 run (band {BAND_SIM:.0e}; the host\'s '
             f'own f32 run: {errs["cpu_f32"]:.2e})')
-        remove_outputs(fit_prefix)
+        # phase 15 compares its sharded fits with phases 4 and 6
+        p4 = (p4, keep_outputs(fit_prefix, panel.name))
 
         phase('phase 11: resume, kdim (phase 6\'s checkpoint) and epoch '
               '(phase 7\'s state)')
@@ -2556,7 +2995,6 @@ def main():
         log(f'  epoch: {secs:.1f} s for {RESUME_STEPS} steps; first ELBO '
             f'within {err:.2e} of a step from the dumped state; launches '
             f'{counts}')
-    del ld, vi7, st7
     torch.cuda.empty_cache()
 
     phase('phase 12: K-chunked shape, ~100K SNPs, 3 cohorts, -K 12 '
@@ -2618,7 +3056,15 @@ def main():
     del d
     torch.cuda.empty_cache()
 
-    run_phase14(paths, device, launches, timings, smi)
+    cache = os.path.join(panel.name, 'factor_cache')
+    run_phase14(paths, device, launches, timings, smi, cache)
+    t0 = time.perf_counter()
+    p15 = run_phase15(paths, p4, vi7, st7, ld, panel.name, cache, launches,
+                      smi)
+    del ld, vi7, st7
+    timings['phase15_s'] = time.perf_counter() - t0
+    timings['epoch_sharded_s_per_step'] = p15['15b_epoch']['s_step']
+    timings['epoch_unsharded_s_per_step'] = p15['15b_epoch']['s_step0']
     panel.cleanup()
     log(f'  timings {json.dumps(timings)}')
     log(f'  all phases: {time.perf_counter() - t_start:.1f} s')

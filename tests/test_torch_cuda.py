@@ -592,3 +592,96 @@ def test_ld_diagonal_same_bits_on_card_and_host(cuda, dtype):
     card = blocks.diag(blocks.pack(factors, indices, n, dtype=dtype,
                                    device=cuda))
     assert torch.equal(card.cpu(), host)
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip('needs two CUDA devices (operands on the second while '
+                    'the first is current)')
+    return torch.device('cuda', 1)
+
+
+@pytest.mark.parametrize('kernel', ['matvec_cluster', 'matvec_group',
+                                    'compact', 'kdim', 'epochs'])
+def test_kernels_launch_on_their_operands_card(two_cards, kernel):
+    """With cuda:0 current, each launcher runs its kernel on the card of
+    its operands (cuda:1): results there, equal to the plain versions'
+    (the shared-memory grants and occupancy queries act on cuda:1)."""
+    torch.cuda.set_device(0)
+    dev = two_cards
+    if kernel.startswith('matvec'):
+        P, R = (2048, 1024) if kernel == 'matvec_group' else (1024, 512)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        u = torch.randn(3, P, R, generator=gen, device=dev) / math.sqrt(P)
+        s = torch.rand(3, R, generator=gen, device=dev) + 0.1
+        d = torch.rand(3, P, generator=gen, device=dev)
+        x = torch.randn(3, 2, P, generator=gen, device=dev)
+        got = bm.bucket_matvec_multi(u, s, d, x)
+        pairs = [(got, bm.bucket_matvec_multi_plain(u, s, d, x))]
+    else:
+        A = 3
+        if kernel == 'epochs':
+            args = _epoch_args(dev, 2, 600, 20_000, A, 4, 2, seed=5)
+            kw = dict(num_annotations=A, num_live=2)
+            run = (co.prologue_epochs, co.delta_sums_epochs)
+            plain = (co.prologue_epochs_plain, co.delta_sums_epochs_plain)
+        else:
+            args = list(_compact_args(dev, 2, 600, 20_000, A, seed=5))
+            if kernel == 'kdim':
+                args[4] = torch.randn(600, 2, 20_000, device=dev) * 0.5
+            kw = dict(num_annotations=A)
+            run = (co.prologue, co.delta_sums)
+            plain = (co.prologue_plain, co.delta_sums_plain)
+        pairs = [(run[0](*args, **kw)[0], plain[0](*args, **kw)[0]),
+                 (run[1](*args, **kw), plain[1](*args, **kw))]
+    torch.cuda.synchronize(dev)
+    assert torch.cuda.current_device() == 0
+    for got, want in pairs:
+        assert got.device == dev
+        assert _scaled_err(got, want) <= 1e-5
+
+
+def test_sharded_step_on_one_card(cuda):
+    """An outer step on 4 shards co-located on the card equals the
+    unsharded step on the card (f32): the kernels run per shard and the
+    sums reduce across shards."""
+    from vilma_tpu_torch.inference import engine
+    from vilma_tpu_torch.ops import blocks, lowrank
+    from vilma_tpu_torch.parallel import alignment, mesh as mesh_mod
+    rng = np.random.default_rng(0)
+    n, P = 2048, 2
+    factors, idx = [], []
+    for a in range(0, n, 256):
+        lag = np.abs(np.subtract.outer(np.arange(256), np.arange(256)))
+        factors.append(lowrank.factor_block(X=0.6 ** lag, t=1.0))
+        idx.append(np.arange(a, a + 256))
+    se = rng.uniform(0.01, 0.05, (P, n))
+    betas = rng.standard_normal((P, n)) * se * 2
+    kw = dict(annotations=np.ones((n, 1)),
+              mixture_covs=[np.eye(P) * s for s in (1e-6, 1e-4, 1e-2)],
+              scaled=False, scale_se=False, gwas_N=np.full(P, 1e5),
+              init_hg=np.full(P, 0.3), dtype=torch.float32)
+    ld = blocks.pack(factors, idx, n, dtype=torch.float32, device=cuda)
+    plain = engine.build_model_data(betas, se, [ld, ld], device=cuda, **kw)
+    mesh = mesh_mod.make_mesh(4, devices=['cuda:0'] * 4)
+    lds = blocks.pack(factors, idx, n, dtype=torch.float32,
+                      device=list(mesh.devices), n_shards=4)
+    sharded = engine.build_model_data(betas, se, [lds, lds], mesh=mesh, **kw)
+    nat = torch.as_tensor(rng.standard_normal((P, n)) * 1e-2,
+                          dtype=torch.float32, device=cuda)
+    hyper = torch.full((1, 3), 1 / 3, device=cuda)
+    st = engine.VIState(nat_mu=nat, hyper_delta=hyper,
+                        error_scaling=torch.ones(P, device=cuda),
+                        L=(1., 1., 1.), elbo=0., running_elbo_delta=math.nan,
+                        num_err=0)
+    engine.host_syncs = 0
+    a, pm = engine.outer_step(plain, st)
+    syncs = engine.host_syncs
+    before = dict(co.launches)
+    b, pms = engine.outer_step(sharded, mesh_mod.shard_state(st, mesh))
+    assert engine.host_syncs == 2 * syncs
+    assert co.launches['prologue'] - before['prologue'] == 4 * syncs
+    assert _scaled_err(torch.cat(pms, dim=-1), pm) <= 1e-5
+    assert abs(b.elbo / a.elbo - 1) <= 1e-5
+    assert alignment.compute_layout([ld], n, n_shards=4)[1] == n

@@ -39,6 +39,10 @@ import vilma_tpu_torch.ops.cuda.block_matvec
 import vilma_tpu_torch.ops.cuda.build
 import vilma_tpu_torch.ops.cuda.compact_obj
 import vilma_tpu_torch.convert
+import vilma_tpu_torch.parallel
+import vilma_tpu_torch.parallel.alignment
+import vilma_tpu_torch.parallel.mesh
+import vilma_tpu_torch.parallel.distributed
 import chip_smoke
 import profile_torch_step
 import vilma_tpu_torch.io.load
@@ -64,13 +68,15 @@ def test_import_guard():
 
 
 @pytest.mark.parametrize('flags', [
-    ['--mesh', 'snp=4'], ['--distributed'], ['--mesh', 'snp=4', '--mmap'],
-    ['--distributed', '--factor-cache', '/nonexistent'],
-    ['--mesh', 'snp=2', '--sumstats', 'a,b,c,d']])
+    ['--mesh', 'comp=2'], ['--mesh', 'snp=2,comp=2'],
+    ['--mesh', 'comp=2', '--mmap'],
+    ['--mesh', 'comp=4', '--distributed', '--factor-cache', '/nonexistent'],
+    ['--mesh', 'snp=2,comp=2', '--sumstats', 'a,b,c,d']])
 def test_unported_fit_flags_raise(flags, tmp_path):
-    """Each unported fit option raises before any file is read, naming
-    its ROADMAP item, beside the ported --mmap and --factor-cache and at
-    any cohort count (the last case has four: P >= 4 itself runs,
+    """The unported fit option (component sharding, --mesh comp=N) raises
+    before any file is read, naming its ROADMAP item, beside the snp axis,
+    --distributed, --mmap and --factor-cache and at any cohort count (the
+    last case has four: P >= 4 itself runs,
     tests/test_torch_materialized.py)."""
     argv = ['fit', '--ld-schema', 'x.schema', '--sumstats', 'a.tsv',
             '--extract', 'e.tsv', '--output', str(tmp_path / 'o'),
@@ -97,9 +103,9 @@ def test_subcommands_need_a_card_by_default(argv, monkeypatch):
     ['--mmap', '--factor-cache', 'cache']])
 def test_bounded_memory_flags_are_accepted(flags, tmp_path):
     """--mmap and --factor-cache pass the flag checks: the fit goes on to
-    read its inputs (absent here). _NOT_PORTED holds only the multi-GPU
-    flags."""
-    assert sorted(fit_cmd._NOT_PORTED) == ['distributed', 'mesh']
+    read its inputs (absent here). _NOT_PORTED holds only the component
+    axis of --mesh."""
+    assert sorted(fit_cmd._NOT_PORTED) == ['comp']
     argv = ['fit', '--ld-schema', 'x.schema', '--sumstats', 'a.tsv',
             '--extract', str(tmp_path / 'e.tsv'), '--output',
             str(tmp_path / 'o'), '--device', 'cpu'] + flags

@@ -1,9 +1,18 @@
 """The `fit` command: variational inference on GWAS summary statistics.
 
 Port of vilma_tpu/commands/fit.py with the same flags and output files
-(.npz, .covariance.pkl, .estimates.tsv), plus --device. --mesh and
---distributed are not ported yet: they raise NotImplementedError naming
-their ROADMAP item.
+(.npz, .covariance.pkl, .estimates.tsv), plus --device.
+
+`--mesh snp=N` shards the fit over N shards (parallel/mesh.py), one card
+each on cuda; the inputs are relaid out in the shard-local layout
+(parallel/alignment.py) and the outputs come back in the original
+variant order. `--distributed` joins N processes over torch.distributed
+(NCCL on cuda, gloo on cpu): the layout is planned from the schemas'
+metadata before any load, each process factorizes only its own shards'
+blocks, and process 0 writes the files. Still raising, with their
+ROADMAP items: `--mesh comp=N` for N > 1, and cohorts whose schemas
+disagree on the order of shared variants (the JAX package's global-gather
+layout).
 """
 import logging
 import os
@@ -15,9 +24,9 @@ from vilma_tpu_torch.commands import resolve_device
 from vilma_tpu_torch.io import load
 from vilma_tpu_torch.models import mixture
 
+# mesh axes that are not ported: --mesh <axis>=N with N > 1 raises
 _NOT_PORTED = {
-    'mesh': ('--mesh', 'Multi-GPU'),
-    'distributed': ('--distributed', 'Multi-GPU'),
+    'comp': ('--mesh comp=N', 'Component sharding'),
 }
 
 
@@ -117,10 +126,18 @@ def args(super_parser):
                              'device is present; cpu runs their plain '
                              'PyTorch versions.')
     parser.add_argument('--mesh', type=str, default='',
-                        help='Shard the fit over a device mesh (not '
-                             'ported yet).')
+                        help='Shard the fit over a mesh of devices, e.g. '
+                             '"snp=4": the LD blocks and every per-SNP '
+                             'array split into 4 spans, one card each '
+                             '(with --distributed, over all processes). '
+                             'comp=N > 1 (component sharding) is not '
+                             'ported.')
     parser.add_argument('--distributed', action='store_true',
-                        help='Multi-host execution (not ported yet).')
+                        help='Join a multi-process fit over '
+                             'torch.distributed (NCCL on cuda, gloo on '
+                             'cpu) before loading; needs --mesh. Pass '
+                             '--coordinator/--num-processes/--process-id, '
+                             'or launch with torchrun (env://).')
     parser.add_argument('--coordinator', type=str, default='',
                         help='coordinator host:port for --distributed.')
     parser.add_argument('--num-processes', type=int, default=None,
@@ -157,10 +174,26 @@ def args(super_parser):
 
 
 def _check_supported(args):
-    for attr, (flag, item) in _NOT_PORTED.items():
-        if getattr(args, attr):
+    """The --mesh axes ({'snp': N, 'comp': M}), checked before any file
+    is read: unknown axes and sizes raise ValueError, the unported ones
+    NotImplementedError naming their ROADMAP item, and so does a
+    mesh-less --distributed."""
+    axes = {'snp': 1, 'comp': 1}
+    if args.mesh:
+        for kv in args.mesh.split(','):
+            name, _, size = kv.partition('=')
+            if name not in axes or not size.isdigit() or int(size) < 1:
+                raise ValueError(f'--mesh {args.mesh}: expected '
+                                 'snp=N[,comp=M] with positive sizes')
+            axes[name] = int(size)
+    for axis, (flag, item) in _NOT_PORTED.items():
+        if axes[axis] > 1:
             raise NotImplementedError(
                 f'{flag} is not ported yet (ROADMAP.md queue 1, "{item}")')
+    if args.distributed and not args.mesh:
+        raise ValueError('--distributed needs a device mesh: pass --mesh '
+                         'snp=<total shards across all processes>')
+    return axes
 
 
 def _resolve_device(args):
@@ -178,11 +211,27 @@ def _resolve_device(args):
     return device
 
 
-def main(args):
+def main(args, devices=None):
+    """Run the fit. `devices` (for Python callers: tests, chip_smoke.py)
+    places this process's shards of --mesh explicitly, one entry per
+    shard (co-located shards on one card, say); the CLI gives one card
+    per shard."""
     import torch
     np.random.seed(args.seed)
-    _check_supported(args)
+    axes = _check_supported(args)
     device = _resolve_device(args)
+    # a multi-process fit joins its process group and builds its mesh
+    # before loading, so that each process loads only its own blocks
+    if args.distributed:
+        from vilma_tpu_torch.parallel import distributed
+        distributed.initialize(args.coordinator or None, args.num_processes,
+                               args.process_id, device=device)
+    mesh = None
+    if args.mesh:
+        from vilma_tpu_torch.parallel import mesh as mesh_mod
+        mesh = mesh_mod.make_mesh(n_snp=axes['snp'], devices=devices,
+                                  device=device)
+    multiproc = mesh is not None and mesh.world > 1
 
     if (not args.trait
             and args.ld_schema.count(',') != 1
@@ -249,8 +298,23 @@ def main(args):
         combined_errors.append(np.array(sumstats['SE']).reshape((1, -1))
                                * stderr_mult[idx])
 
+    # a multi-process fit plans the shard-local layout from the schemas'
+    # metadata before any load, so that each process factorizes only the
+    # blocks of its own shards
+    plan = None
+    if multiproc:
+        from vilma_tpu_torch.parallel import distributed
+        plan = distributed.plan_sharded_load(
+            list(zip(args.ld_schema.split(','), cohort_missing)), variants,
+            mesh.n_snp)
+        if plan is None:
+            _conflicting_schemas()
+
     # pass 2: LD per cohort; cohorts sharing a panel (same path, same
-    # masked variants) get ONE loaded matrix, and so one matvec pass
+    # masked variants) get ONE loaded matrix, and so one matvec pass. A
+    # single-process mesh loads the factors on the host at f64 and relays
+    # them out onto the shards below, where they are packed as the
+    # unsharded load packs them (the same bits of u, s and inv_s)
     combined_ld = []
     ld_cache = {}
     for idx, (ld_schema_path, missing) in enumerate(
@@ -258,15 +322,23 @@ def main(args):
         logging.info('Loading LD for population %d...', idx + 1)
         ld_key = (os.path.realpath(ld_schema_path),
                   tuple(sorted(set(missing))))
-        if ld_key not in ld_cache:
-            ld_cache[ld_key] = load.load_ld_from_schema(
+        if ld_key in ld_cache:
+            logging.info('Population %d shares the LD panel of an '
+                         'earlier population; reusing it.', idx + 1)
+        elif multiproc:
+            ld_cache[ld_key] = distributed.load_ld_sharded(
                 ld_schema_path, variants=variants, denylist=missing,
                 ldthresh=args.ldthresh, mmap=args.mmap, dtype=dtype,
                 u_dtype=u_dtype, cache_dir=args.factor_cache or None,
-                device=device)
+                mesh=mesh, plan=plan)
         else:
-            logging.info('Population %d shares the LD panel of an '
-                         'earlier population; reusing it.', idx + 1)
+            ld_cache[ld_key] = load.load_ld_from_schema(
+                ld_schema_path, variants=variants, denylist=missing,
+                ldthresh=args.ldthresh, mmap=args.mmap,
+                dtype=torch.float64 if mesh is not None else dtype,
+                u_dtype=None if mesh is not None else u_dtype,
+                cache_dir=args.factor_cache or None,
+                device='cpu' if mesh is not None else device)
         ld_mat, this_missing_ld = ld_cache[ld_key]
         combined_ld.append(ld_mat)
         missing_ld_info[this_missing_ld, idx] = True
@@ -285,8 +357,41 @@ def main(args):
         cross_pop_covs = mixture.make_simple(
             num_pops, args.components, mins, maxes,
             drop_non_psd=args.drop_non_psd)
-        with open('%s.covariance.pkl' % args.output, 'wb') as ofile:
-            pickle.dump([cross_pop_covs], ofile)
+        if mesh is None or mesh.rank == 0:
+            with open('%s.covariance.pkl' % args.output, 'wb') as ofile:
+                pickle.dump([cross_pop_covs], ofile)
+
+    # the layout comes after the grid, which reads the unpadded inputs
+    out_index = None
+    if mesh is not None:
+        from vilma_tpu_torch.parallel import alignment
+        if multiproc:
+            layout_map, L = plan.layout_map, plan.L
+        else:
+            layout_map, L, ok = alignment.compute_layout(
+                combined_ld, len(variants), n_shards=mesh.n_snp)
+            if not ok:
+                _conflicting_schemas()
+            from vilma_tpu_torch.ops import blocks as blocks_mod
+            spill = blocks_mod.FactorSpill() if args.mmap else None
+            # by identity: cohorts sharing a loaded panel keep sharing it
+            relayouted = {}
+            for ld in combined_ld:
+                if id(ld) not in relayouted:
+                    relayouted[id(ld)] = alignment.relayout_ld(
+                        ld, layout_map, L, dtype=dtype, spill=spill,
+                        u_dtype=u_dtype, n_shards=mesh.n_snp,
+                        device=list(mesh.devices),
+                        shards=list(mesh.local_shards))
+            combined_ld = [relayouted[id(ld)] for ld in combined_ld]
+        logging.info('Shard-local layout: %d variants -> %d slots in %d '
+                     'spans', len(variants), L, mesh.n_snp)
+        betas = alignment.relayout_rows(betas, layout_map, L, fill=0.0)
+        std_errs = alignment.relayout_rows(std_errs, layout_map, L,
+                                           fill=1.0)
+        annotations = alignment.relayout_annotations(annotations,
+                                                     layout_map, L)
+        out_index = layout_map
 
     logging.info('Fitting...')
     from vilma_tpu_torch.inference import MultiPopVI
@@ -307,6 +412,8 @@ def main(args):
         num_its=args.num_its,
         dtype=dtype,
         device=device,
+        mesh=mesh,
+        out_index=out_index,
     )
     checkpoint = None
     if args.load_checkpoint:
@@ -317,7 +424,9 @@ def main(args):
         state = elbo.optimize(checkpoint)
 
     # genome-scale fits stream the [K, *, I]-shaped members (vi_mu,
-    # vi_delta, vi_sigma) into the .npz in bounded chunks
+    # vi_delta, vi_sigma) into the .npz in bounded chunks. Every process
+    # of a multi-process fit computes them (their chunks gather across
+    # processes); process 0 alone writes the files
     to_save, streams = elbo.dump_spec(state)
     posterior_means = elbo.real_posterior_mean(state)
     posterior_vars = elbo.real_posterior_variance(state)
@@ -326,8 +435,10 @@ def main(args):
             ('vi_sigma',
              (elbo.num_mix, elbo.num_pops, elbo.num_pops, elbo.num_loci),
              np_dtype, elbo.vi_sigma_chunks())]
-    from vilma_tpu_torch.utils.npz_stream import save_npz_stream
-    save_npz_stream(args.output, to_save, streams)
+    from vilma_tpu_torch.inference.engine import write_npz_all_ranks
+    write_npz_all_ranks(args.output, to_save, streams, elbo.rank)
+    if elbo.rank != 0:
+        return
 
     for name, posterior in zip(names, posterior_means):
         variants['posterior_' + name] = posterior
@@ -339,6 +450,14 @@ def main(args):
         variants['missing_sumstats_' + name] = missing_sumstats[:, idx]
         variants['missing_LD_' + name] = missing_ld_info[:, idx]
     variants.to_tsv(args.output + '.estimates.tsv')
+
+
+def _conflicting_schemas():
+    raise NotImplementedError(
+        'the LD schemas disagree on the relative order of shared '
+        'variants, so no shard-local layout exists; the JAX package\'s '
+        'global-gather mesh layout is not ported yet (ROADMAP.md queue '
+        '1, "Global-gather mesh layout")')
 
 
 def _profiled(elbo, trace_dir, checkpoint=None):

@@ -26,7 +26,15 @@ their [K, chunk] temporaries) and the initialization forms its
 [K, I] terms in SNP chunks. Checkpoint resume (`optimize(checkpoint)`)
 restores all three states, genome-scale ones in bounded K-chunks.
 
-Not ported (it raises, naming its ROADMAP item): mesh execution.
+A sharded fit (parallel/mesh.py) runs the same host loop over the
+shards of its process: ShardedData and ShardedState hold one ModelData
+and one VIState per shard, every per-SNP step (the kernels among them)
+runs on each shard's own operands, and the sums the JAX package gets
+from psum or from XLA (the objective's likelihood sums and beta-KL, the
+[A, K] annotation sums, the EM's statistics, the convergence statistics,
+the initialization's and the precompute's sums) are added across shards
+by the mesh before the one host fetch each evaluation already makes. An
+unsharded fit is the one-shard case with no mesh.
 """
 import dataclasses
 import logging
@@ -149,6 +157,60 @@ class VIState:
     nat_hist_n: int = None                # live epoch count
 
 
+@dataclass(frozen=True)
+class ShardedData:
+    """The ModelData of a sharded fit: one ModelData per shard of this
+    process (its span of every [*, I] array, its shard of each LD matrix,
+    copies of the small tables and of the global chi_stat, ld_ranks and
+    annotation_counts), and the mesh that reduces across shards."""
+    shards: tuple
+    mesh: object
+
+
+# VIState fields that are the same on every shard: host scalars and
+# small replicated tensors (each shard holds a copy on its device)
+_SHARED_FIELDS = ('L', 'elbo', 'running_elbo_delta', 'num_err',
+                  'nat_hist_n', 'hyper_delta', 'error_scaling',
+                  'nat_hist_scale', 'nat_hist_c')
+
+
+@dataclass(frozen=True)
+class ShardedState:
+    """The VIState of a sharded fit: one per shard of this process. The
+    fields every shard shares read through (the first shard's copy)."""
+    shards: tuple
+
+    def __getattr__(self, name):
+        if name in _SHARED_FIELDS:
+            return getattr(self.shards[0], name)
+        raise AttributeError(name)
+
+
+def _unpack(data, st):
+    """(per-shard ModelData list, VIState list, mesh) of a fit: one shard
+    and no mesh when unsharded."""
+    if isinstance(data, ShardedData):
+        return list(data.shards), list(st.shards), data.mesh
+    return [data], [st], None
+
+
+def _repack(data, states):
+    """The per-shard states in the form of `data`'s fit."""
+    if isinstance(data, ShardedData):
+        return ShardedState(tuple(states))
+    return states[0]
+
+
+def _reduce(mesh, parts):
+    """The sum over every shard of one partial per local shard."""
+    return parts[0] if mesh is None else mesh.sum(parts)
+
+
+def _replicas(mesh, x):
+    """x (a value every shard shares) on each local shard's device."""
+    return [x] if mesh is None else list(mesh.replicate(x))
+
+
 def _isclose(a, b, rtol=1e-5, atol=1e-8):
     return abs(a - b) <= atol + rtol * abs(b)
 
@@ -248,21 +310,66 @@ def _fused(data, st, params, hyper_delta, sums=False):
               num_annotations=A, num_live=st.nat_hist_n)
 
 
-def _objective(data, st, params, hyper_delta):
-    """(objective tensor, post_means, linked) of a parameter point: the
-    fused prologue, the LD matvec and the likelihood reduction (reference
+def _objective_terms(data, st, params, hyper_delta):
+    """(the [P] likelihood sums over this shard's SNPs, its beta-KL,
+    post_means, linked) of a parameter point: the fused prologue, the LD
+    matvec and the likelihood's per-SNP part (reference
     variational_inference.py:452-490, 632-641, 868-885); on the
-    materialized state its unfused twin, _beta_objective_terms."""
+    materialized state their unfused twins."""
     if st.nat_mu is None:
-        return _beta_objective_terms(data, st.sigma, st.error_scaling,
-                                     *params, hyper_delta)
-    post_means, post_vars, beta_kl = _fused(data, st, params, hyper_delta)
+        post_means = posterior_mean(*params)
+        post_vars = posterior_marginal_variance(post_means, *params,
+                                                st.sigma)
+        beta_kl = beta_KL(data, st.sigma, *params, hyper_delta)
+    else:
+        post_means, post_vars, beta_kl = _fused(data, st, params,
+                                                hyper_delta)
     scaled_mu, linked_ests = _ld_scaled_dot(data, post_means)
-    ll = kernels.fast_likelihood(
+    ll = kernels.likelihood_partial(
         post_means, post_vars, scaled_mu, data.scaled_ld_diags,
-        linked_ests, data.adj_marginal_effects, data.chi_stat,
-        data.ld_ranks, st.error_scaling)
-    return ll - beta_kl, post_means, linked_ests
+        linked_ests, data.adj_marginal_effects)
+    return ll, beta_kl, post_means, linked_ests
+
+
+def _finish(data, st, ll, beta_kl):
+    """The objective from the sums over every shard."""
+    return kernels.likelihood_finish(ll, data.chi_stat, data.ld_ranks,
+                                     st.error_scaling) - beta_kl
+
+
+def _objective(data, st, params, hyper_delta):
+    """(objective tensor, post_means, linked) of a parameter point of an
+    unsharded fit."""
+    ll, beta_kl, post_means, linked = _objective_terms(data, st, params,
+                                                       hyper_delta)
+    return _finish(data, st, ll, beta_kl), post_means, linked
+
+
+def _evaluate(ds, ss, mesh, params, hyper_deltas, failures=None):
+    """The objective of a parameter point (one entry of `params` and
+    `hyper_deltas` per shard) on the host, with its post_means and linked
+    per shard. The shards' [P + 2] partials (likelihood sums, beta-KL,
+    Cholesky failures of the trial) are added across shards and fetched
+    in one synchronization; a failure raises (sigma.check_cholesky)."""
+    global host_syncs
+    failures = failures or [[] for _ in ds]
+    parts, pms, lks = [], [], []
+    for d, s, p, h, f in zip(ds, ss, params, hyper_deltas, failures):
+        ll, kl, pm, lk = _objective_terms(d, s, p, h)
+        bad = (sum(f).to(ll.dtype) if f else ll.new_zeros(()))
+        parts.append(torch.cat([ll, kl.reshape(1).to(ll.dtype),
+                                bad.reshape(1)]))
+        pms.append(pm)
+        lks.append(lk)
+    vec = _reduce(mesh, parts)
+    P = vec.shape[0] - 2
+    obj = _finish(ds[0], ss[0], vec[:P], vec[P])
+    if not any(failures):
+        return _sync_float(obj), pms, lks
+    host_syncs += 1
+    value, bad = torch.stack([obj, vec[P + 1]]).tolist()
+    sigma_mod.check_cholesky(bad)
+    return value, pms, lks
 
 
 # ---------------------------------------------------------------------------
@@ -377,36 +484,29 @@ def _stepper(data, st, params, grad):
     return step
 
 
-def _sync_trial(obj, failures):
-    """A trial's objective on the host, fetched in one synchronization
-    with its Cholesky failure count (raising if there were any)."""
-    if not failures:
-        return _sync_float(obj)
-    global host_syncs
-    host_syncs += 1
-    value, bad = torch.stack([obj, sum(failures).to(obj.dtype)]).tolist()
-    sigma_mod.check_cholesky(bad)
-    return value
-
-
-def _update_beta(data, st, orig_obj, cur_post_mean, cur_linked,
+def _update_beta(ds, ss, mesh, orig_obj, cur_post_means, cur_linked,
                  line_search_rate):
     """One natural-gradient step with backtracking line search
-    (variational_inference.py:762-802) on the state's beta parameters.
-    orig_obj is a host float. Returns (params, L0, new_obj, post_mean,
-    linked, err) for the accepted (or kept) parameters."""
-    grad = _nat_grad_resid(data, st.error_scaling, cur_post_mean,
-                           cur_linked)
+    (variational_inference.py:762-802) on the state's beta parameters,
+    on every shard. orig_obj is a host float. Returns (params, L0,
+    new_obj, post_means, linked, err) for the accepted (or kept)
+    parameters, the tensors one per shard."""
     threshold = orig_obj - REL_TOL * abs(orig_obj) - ABS_TOL
-    params = _params(st)
-    step = _stepper(data, st, params, grad)
+    params = [_params(st) for st in ss]
+    steps = [_stepper(d, st, p, _nat_grad_resid(d, st.error_scaling, pm,
+                                                lk))
+             for d, st, p, pm, lk in zip(ds, ss, params, cur_post_means,
+                                         cur_linked)]
+    hds = [st.hyper_delta for st in ss]
 
     def trial(L0):
-        new, failures = step(1. / L0)
-        obj, pm, lk = _objective(data, st, new, st.hyper_delta)
-        return new, _sync_trial(obj, failures), pm, lk
+        out = [step(1. / L0) for step in steps]
+        new = [o[0] for o in out]
+        obj, pm, lk = _evaluate(ds, ss, mesh, new, hds,
+                                [o[1] for o in out])
+        return new, obj, pm, lk
 
-    L0 = st.L[0]
+    L0 = ss[0].L[0]
     new, new_obj, pm, lk = trial(L0)
     while new_obj < threshold and L0 <= L_MAX:
         L0 = L0 * line_search_rate
@@ -414,27 +514,32 @@ def _update_beta(data, st, orig_obj, cur_post_mean, cur_linked,
         new, new_obj, pm, lk = trial(L0)
 
     err = int(L0 > L_MAX and not _isclose(
-        orig_obj, new_obj, rtol=_err_rtol(st.hyper_delta.dtype)))
+        orig_obj, new_obj, rtol=_err_rtol(ss[0].hyper_delta.dtype)))
     if new_obj >= threshold:
         return new, L0, new_obj, pm, lk, err
-    return params, L0, orig_obj, cur_post_mean, cur_linked, err
+    return params, L0, orig_obj, cur_post_means, cur_linked, err
 
 
-def _beta_loop(data, st, conv_tol, line_search_rate):
+def _set(ss, **fields):
+    """Every shard's state with the shared `fields` replaced."""
+    return [dataclasses.replace(st, **fields) for st in ss]
+
+
+def _beta_loop(ds, ss, mesh, conv_tol, line_search_rate):
     """Up to MAX_NUM_ITERS beta updates (variational_inference.py:427-439),
     stopping once the objective gain is below conv_tol or L hits its
-    bounds. Returns (state, objective delta, final objective, post_mean,
-    linked)."""
-    obj, pm, lk = _objective(data, st, _params(st), st.hyper_delta)
-    orig_obj = _sync_float(obj)
-    L0, num_err = st.L[0], st.num_err
+    bounds. Returns (states, objective delta, final objective,
+    post_means, linked)."""
+    orig_obj, pm, lk = _evaluate(ds, ss, mesh, [_params(st) for st in ss],
+                                 [st.hyper_delta for st in ss])
+    L0, num_err = ss[0].L[0], ss[0].num_err
     delta = 0.0
     for _ in range(MAX_NUM_ITERS):
         L0 = max(1., L0 / 1.25)
-        st = dataclasses.replace(st, L=(L0,) + st.L[1:])
+        ss = _set(ss, L=(L0,) + ss[0].L[1:])
         params, L0, new_obj, pm, lk, err = _update_beta(
-            data, st, orig_obj, pm, lk, line_search_rate)
-        st = _with_params(st, params)
+            ds, ss, mesh, orig_obj, pm, lk, line_search_rate)
+        ss = [_with_params(st, p) for st, p in zip(ss, params)]
         delta = delta + new_obj - orig_obj
         done = (abs(new_obj - orig_obj) <= conv_tol
                 or L0 == 1. or L0 > L_MAX)
@@ -442,41 +547,61 @@ def _beta_loop(data, st, conv_tol, line_search_rate):
         orig_obj = new_obj
         if done:
             break
-    st = dataclasses.replace(st, L=(L0,) + st.L[1:], num_err=num_err)
-    return st, delta, orig_obj, pm, lk
+    ss = _set(ss, L=(L0,) + ss[0].L[1:], num_err=num_err)
+    return ss, delta, orig_obj, pm, lk
 
 
-def _update_hyper_delta(data, st, orig_obj):
+def _update_hyper_delta(ds, ss, mesh, orig_obj):
     """Closed-form per-annotation mixture-weight update
     (variational_inference.py:825-860), from the annotation sums of
-    vi_delta (fused on a compact state, where vi_delta is derived). On
-    the materialized state the new weights also move vi_delta and its
-    natural parameter."""
-    eps = epsilon(st.hyper_delta.dtype)
-    if st.nat_mu is None:
-        new_hd = kernels.sum_annotations(st.vi_delta, data.annotations,
-                                         data.num_annotations)
+    vi_delta over every shard (fused on a compact state, where vi_delta
+    is derived). On the materialized state the new weights also move
+    vi_delta and its natural parameter."""
+    st0 = ss[0]
+    eps = epsilon(st0.hyper_delta.dtype)
+    if st0.nat_mu is None:
+        sums = [kernels.sum_annotations(st.vi_delta, d.annotations,
+                                        d.num_annotations)
+                for d, st in zip(ds, ss)]
     else:
-        new_hd = _fused(data, st, _params(st), st.hyper_delta, sums=True)
-    new_hd = torch.clamp(new_hd / (data.annotation_counts[:, None] + eps),
-                         min=eps)
+        sums = [_fused(d, st, _params(st), st.hyper_delta, sums=True)
+                for d, st in zip(ds, ss)]
+    new_hd = _reduce(mesh, sums)
+    new_hd = torch.clamp(
+        new_hd / (ds[0].annotation_counts[:, None] + eps), min=eps)
     new_hd = new_hd / new_hd.sum(dim=1, keepdim=True)
-    if st.nat_mu is None:
-        nat_vd = kernels.fast_vi_delta_grad(new_hd, data.log_det,
-                                            data.annotations)
-        st = dataclasses.replace(
+    hds = _replicas(mesh, new_hd)
+    if st0.nat_mu is None:
+        ss = [dataclasses.replace(
             st, nat_grad_vi_delta=nat_vd, vi_delta=nat_to_not_vi_delta(
-                data, st.sigma, st.error_scaling, st.vi_mu, nat_vd))
-    obj, pm, lk = _objective(data, st, _params(st), new_hd)
-    new_obj = _sync_float(obj)
-    st = dataclasses.replace(st, hyper_delta=new_hd)
-    return st, new_obj - orig_obj, new_obj, pm, lk
+                d, st.sigma, st.error_scaling, st.vi_mu, nat_vd))
+            for d, st, nat_vd in zip(ds, ss, [
+                kernels.fast_vi_delta_grad(h, d.log_det, d.annotations)
+                for d, h in zip(ds, hds)])]
+    new_obj, pm, lk = _evaluate(ds, ss, mesh, [_params(st) for st in ss],
+                                hds)
+    ss = [dataclasses.replace(st, hyper_delta=h) for st, h in zip(ss, hds)]
+    return ss, new_obj - orig_obj, new_obj, pm, lk
 
 
 def _update_error_scaling(data, st, orig_obj, post_means, linked):
     """The error-scaling EM of --learn-scaling fits
     (variational_inference.py:472-486, 735-738), from the posterior
-    moments and the LD matvec of the current parameters.
+    moments and the LD matvec of the current parameters (of a sharded
+    fit: one post_means and linked per shard). Returns (state, objective
+    delta, post_means)."""
+    ds, ss, mesh = _unpack(data, st)
+    if mesh is None:
+        post_means, linked = [post_means], [linked]
+    ss, delta, pms = _error_scaling(ds, ss, mesh, orig_obj, post_means,
+                                    linked)
+    return (_repack(data, ss), delta,
+            tuple(pms) if mesh is not None else pms[0])
+
+
+def _error_scaling(ds, ss, mesh, orig_obj, post_means, linked):
+    """`_update_error_scaling` on per-shard lists. The [P] statistics are
+    summed over every shard, then:
 
     The reference keeps vi_mu fixed while the scaling moves: the
     materialized state refreshes its sigma summaries and vi_delta under
@@ -487,90 +612,107 @@ def _update_error_scaling(data, st, orig_obj, post_means, linked):
     accumulator goes into the history with coefficient 1 under the old
     scaling, and a zero accumulator starts under the new one. An epoch
     state freezes (no change) when the relative scaling change is below
-    _EPOCH_SKIP_TOL or its buffer is full. Returns (state, objective
-    delta, post_mean)."""
-    if st.nat_mu is None:
-        post_vars = kernels.fast_pmv(post_means, st.vi_mu, st.vi_delta,
-                                     st.sigma.diag)
+    _EPOCH_SKIP_TOL or its buffer is full; the change is one value over
+    every shard, so all take the same decision."""
+    stats = []
+    for d, st, pm, lk in zip(ds, ss, post_means, linked):
+        if st.nat_mu is None:
+            post_vars = kernels.fast_pmv(pm, st.vi_mu, st.vi_delta,
+                                         st.sigma.diag)
+        else:
+            post_vars = _fused(d, st, _params(st), st.hyper_delta)[1]
+        stats.append(torch.stack([
+            torch.einsum('pi,pi->p', pm, d.adj_marginal_effects),
+            torch.einsum('pi,pi->p', pm / d.std_errs, lk),
+            torch.sum(d.ld_diags * post_vars * d.std_errs ** -2, dim=1)]))
+    cross, quad, var = _reduce(mesh, stats)
+    d0, st0 = ds[0], ss[0]
+    new_scaling = (d0.chi_stat - 2 * cross + quad + var) / d0.ld_ranks
+    scalings = _replicas(mesh, new_scaling)
+    if st0.nat_mu is None:
+        out = []
+        for d, st, sc in zip(ds, ss, scalings):
+            sigma = sigma_mod.make_summaries(d.mixture_prec, d.log_det,
+                                             _diag_term(d, sc))
+            out.append(dataclasses.replace(
+                st, error_scaling=sc, sigma=sigma,
+                vi_delta=nat_to_not_vi_delta(d, sigma, sc, st.vi_mu,
+                                             st.nat_grad_vi_delta)))
+        ss = out
+    elif st0.nat_hist is None:
+        ss = [dataclasses.replace(
+            st, error_scaling=sc, nat_mu=sigma_mod.apply_precision(
+                d.mixture_prec, _diag_term(d, sc), sigma_mod.apply_sigma(
+                    d.mixture_prec, _diag_term(d, st.error_scaling),
+                    st.nat_mu)))
+            for d, st, sc in zip(ds, ss, scalings)]
     else:
-        post_vars = _fused(data, st, _params(st), st.hyper_delta)[1]
-    scaled_mu = post_means / data.std_errs
-    quad = torch.einsum('pi,pi->p', scaled_mu, linked)
-    new_scaling = (
-        data.chi_stat
-        - 2 * torch.einsum('pi,pi->p', post_means,
-                           data.adj_marginal_effects)
-        + quad
-        + torch.sum(data.ld_diags * post_vars * data.std_errs ** -2, dim=1)
-    ) / data.ld_ranks
-    if st.nat_mu is None:
-        sigma = sigma_mod.make_summaries(data.mixture_prec, data.log_det,
-                                         _diag_term(data, new_scaling))
-        st = dataclasses.replace(
-            st, error_scaling=new_scaling, sigma=sigma,
-            vi_delta=nat_to_not_vi_delta(data, sigma, new_scaling,
-                                         st.vi_mu, st.nat_grad_vi_delta))
-    elif st.nat_hist is None:
-        vi_mu = sigma_mod.apply_sigma(
-            data.mixture_prec, _diag_term(data, st.error_scaling),
-            st.nat_mu)
-        nat_new = sigma_mod.apply_precision(
-            data.mixture_prec, _diag_term(data, new_scaling), vi_mu)
-        st = dataclasses.replace(st, error_scaling=new_scaling,
-                                 nat_mu=nat_new)
-    else:
-        n = st.nat_hist_n
+        n = st0.nat_hist_n
         change = _sync_float(torch.max(torch.abs(
-            new_scaling / st.error_scaling - 1.0)))
-        if not (change > _EPOCH_SKIP_TOL and n < st.nat_hist.shape[0]):
-            return st, 0.0, post_means
-        hist = st.nat_hist.clone()
-        hist[n] = st.nat_mu
-        scale = st.nat_hist_scale.clone()
-        scale[n] = st.error_scaling
-        coef = st.nat_hist_c.clone()
-        coef[n] = 1.0
-        st = dataclasses.replace(
-            st, error_scaling=new_scaling,
-            nat_mu=torch.zeros_like(st.nat_mu), nat_hist=hist,
-            nat_hist_scale=scale, nat_hist_c=coef, nat_hist_n=n + 1)
-    obj, pm, _ = _objective(data, st, _params(st), st.hyper_delta)
-    return st, _sync_float(obj) - orig_obj, pm
+            new_scaling / st0.error_scaling - 1.0)))
+        if not (change > _EPOCH_SKIP_TOL and n < st0.nat_hist.shape[0]):
+            return ss, 0.0, post_means
+        out = []
+        for st, sc in zip(ss, scalings):
+            hist = st.nat_hist.clone()
+            hist[n] = st.nat_mu
+            scale = st.nat_hist_scale.clone()
+            scale[n] = st.error_scaling
+            coef = st.nat_hist_c.clone()
+            coef[n] = 1.0
+            out.append(dataclasses.replace(
+                st, error_scaling=sc, nat_mu=torch.zeros_like(st.nat_mu),
+                nat_hist=hist, nat_hist_scale=scale, nat_hist_c=coef,
+                nat_hist_n=n + 1))
+        ss = out
+    obj, pm, _ = _evaluate(ds, ss, mesh, [_params(st) for st in ss],
+                           [st.hyper_delta for st in ss])
+    return ss, obj - orig_obj, pm
 
 
 def outer_step(data, st, line_search_rate=2.0):
     """One full coordinate-ascent iteration
     (reference _optimize_step/_nat_grad_step,
     variational_inference.py:396-450). Returns (state, posterior mean in
-    output scale)."""
-    if st.nat_mu is not None:
-        if data.scale_se and st.nat_hist is None and st.nat_mu.dim() != 3:
+    output scale); of a sharded fit (ShardedData, ShardedState), the
+    ShardedState and one posterior mean per shard."""
+    ds, ss, mesh = _unpack(data, st)
+    ss, pms = _outer_step(ds, ss, mesh, line_search_rate)
+    return (_repack(data, ss),
+            tuple(pms) if mesh is not None else pms[0])
+
+
+def _outer_step(ds, ss, mesh, line_search_rate):
+    """`outer_step` on per-shard lists."""
+    st0 = ss[0]
+    if st0.nat_mu is not None:
+        if ds[0].scale_se and st0.nat_hist is None \
+                and st0.nat_mu.dim() != 3:
             raise ValueError('compact scale_se fits carry a per-component '
                              '[K, P, I] natural mean (the error-scaling EM '
                              'makes natural means K-dependent); got a '
                              'shared [P, I] state')
         # a compact state's derived fields would go stale the moment the
         # parameters move
-        st = dataclasses.replace(st, vi_mu=None, vi_delta=None, sigma=None,
-                                 nat_grad_vi_delta=None)
-    red = st.running_elbo_delta
+        ss = _set(ss, vi_mu=None, vi_delta=None, sigma=None,
+                  nat_grad_vi_delta=None)
+    red = st0.running_elbo_delta
     conv_tol = math.inf if math.isnan(red) else 0.1 * red
-    st, delta_beta, obj, pm, lk = _beta_loop(data, st, conv_tol,
+    ss, delta_beta, obj, pm, lk = _beta_loop(ds, ss, mesh, conv_tol,
                                              line_search_rate)
-    st, delta_hyper, obj, pm, lk = _update_hyper_delta(data, st, obj)
+    ss, delta_hyper, obj, pm, lk = _update_hyper_delta(ds, ss, mesh, obj)
     new_elbo_delta = delta_beta + delta_hyper
-    if (data.scale_se or st.nat_hist is not None) \
+    if (ds[0].scale_se or ss[0].nat_hist is not None) \
             and new_elbo_delta < EM_TOL:
-        st, em_delta, pm = _update_error_scaling(data, st, obj, pm, lk)
+        ss, em_delta, pm = _error_scaling(ds, ss, mesh, obj, pm, lk)
         new_elbo_delta = new_elbo_delta + em_delta
     red = new_elbo_delta if math.isnan(red) else red
     red = red * ELBO_MOMENTUM + (1 - ELBO_MOMENTUM) * max(new_elbo_delta,
                                                           0.0)
-    st = dataclasses.replace(st, elbo=st.elbo + new_elbo_delta,
-                             running_elbo_delta=red)
+    ss = _set(ss, elbo=ss[0].elbo + new_elbo_delta, running_elbo_delta=red)
     # pm belongs to the final parameters (the hyper-delta evaluation, or
     # the post-EM one)
-    return st, pm * data.scalings
+    return ss, [p * d.scalings for p, d in zip(pm, ds)]
 
 
 # ---------------------------------------------------------------------------
@@ -653,23 +795,34 @@ def compact_nat_mu_k(data, error_scaling, vi_mu):
                                      _diag_term(data, error_scaling), vi_mu)
 
 
-def _conv_stats(new_pm, old_pm, ckp_pm, st):
+def _conv_stats(new_pms, old_pms, ckp_pms, st, mesh=None):
     """Per-iteration convergence/telemetry scalars, reduced on the device
-    and fetched in ONE synchronization: [num_err, elbo, running delta,
+    (over every shard: one posterior mean per shard in each list) and
+    fetched in ONE synchronization: [num_err, elbo, running delta,
     allclose, max|pm|, max rel diff, max abs diff, checkpoint RMSE,
     error_scaling...]."""
     global host_syncs
-    eps = epsilon(new_pm.dtype)
-    diff = torch.abs(new_pm - old_pm)
-    # np.allclose(new, old, atol=ABS_TOL, rtol=REL_TOL) semantics
-    allclose = torch.all(diff <= ABS_TOL + REL_TOL * torch.abs(old_pm))
-    dev = torch.cat([torch.stack([
-        allclose.to(new_pm.dtype),
-        torch.max(torch.abs(new_pm)),
-        torch.max(torch.abs(diff / (old_pm + eps))),
-        torch.max(diff),
-        torch.sqrt(torch.mean((new_pm - ckp_pm) ** 2)),
-    ]), st.error_scaling.to(new_pm.dtype)])
+    maxima, squares = [], []
+    count = 0
+    for new_pm, old_pm, ckp_pm in zip(new_pms, old_pms, ckp_pms):
+        eps = epsilon(new_pm.dtype)
+        diff = torch.abs(new_pm - old_pm)
+        # np.allclose(new, old, atol=ABS_TOL, rtol=REL_TOL) semantics
+        apart = torch.any(~(diff <= ABS_TOL + REL_TOL * torch.abs(old_pm)))
+        maxima.append(torch.stack([
+            apart.to(new_pm.dtype),
+            torch.max(torch.abs(new_pm)),
+            torch.max(torch.abs(diff / (old_pm + eps))),
+            torch.max(diff)]))
+        squares.append(torch.sum((new_pm - ckp_pm) ** 2).reshape(1))
+        count += new_pm.numel()
+    top = maxima[0] if mesh is None else mesh.max(maxima)
+    if mesh is not None:
+        count *= mesh.world
+    dev = torch.cat([
+        1 - top[:1], top[1:],
+        torch.sqrt(_reduce(mesh, squares) / count),
+        st.error_scaling.to(top.dtype)])
     host_syncs += 1
     dev = dev.cpu().numpy().astype(np.float64)
     return np.concatenate([[st.num_err, st.elbo, st.running_elbo_delta],
@@ -711,6 +864,39 @@ def initialize_from_fake_mu(data, error_scaling, fake_mu, sigma=None):
     chunks. Given the sigma summaries of the materialized state, also
     returns its vi_mu [K, P, I] (sigma_k @ the shared natural mean),
     vi_delta [K, I] and the natural parameter [K-1, I] of hyper_delta."""
+    sums, temp_nat = _init_shard(data, error_scaling, fake_mu)
+    hyper = _init_hyper(sums)
+    if sigma is None:
+        return hyper, temp_nat
+    return (hyper, temp_nat) + _init_materialized(
+        data, sigma, error_scaling, temp_nat, hyper)
+
+
+def _init_hyper(sums):
+    """hyper_delta from the annotation sums of the initial vi_delta over
+    every SNP."""
+    eps = epsilon(sums.dtype)
+    hyper = sums + 1.
+    hyper = hyper / torch.sum(hyper, dim=1, keepdim=True)
+    return torch.clamp(hyper, min=eps)
+
+
+def _init_materialized(data, sigma, error_scaling, temp_nat, hyper):
+    """(vi_mu, vi_delta, nat_grad_vi_delta) of the materialized state at
+    the initialization (one shard's)."""
+    nat_vd = kernels.fast_vi_delta_grad(hyper, data.log_det,
+                                        data.annotations)
+    vi_mu = sigma_mod.apply_sigma(data.mixture_prec,
+                                  _diag_term(data, error_scaling),
+                                  _nat_k(data, temp_nat))
+    vi_delta = nat_to_not_vi_delta(data, sigma, error_scaling, vi_mu,
+                                   nat_vd)
+    return vi_mu, vi_delta, nat_vd
+
+
+def _init_shard(data, error_scaling, fake_mu):
+    """(the [A, K] annotation sums of the initial vi_delta over this
+    shard's SNPs, its shared natural mean [P, I])."""
     eps = epsilon(fake_mu.dtype)
     K, I = data.log_det.shape[0], fake_mu.shape[1]
     chunk_i = max(1, _INIT_CHUNK_BYTES // (K * fake_mu.element_size()))
@@ -733,19 +919,7 @@ def initialize_from_fake_mu(data, error_scaling, fake_mu, sigma=None):
                                                 vi_delta)        # [i,P,P]
         nats.append(torch.einsum('pi,iqp->qi', mu,
                                  torch.linalg.inv(avg_mats)))    # [P,i]
-    hyper = sums + 1.
-    hyper = hyper / torch.sum(hyper, dim=1, keepdim=True)
-    hyper = torch.clamp(hyper, min=eps)
-    temp_nat = torch.cat(nats, dim=1)
-    if sigma is None:
-        return hyper, temp_nat
-    nat_vd = kernels.fast_vi_delta_grad(hyper, data.log_det,
-                                        data.annotations)
-    vi_mu = sigma_mod.apply_sigma(data.mixture_prec, dterm,
-                                  _nat_k(data, temp_nat))
-    vi_delta = nat_to_not_vi_delta(data, sigma, error_scaling, vi_mu,
-                                   nat_vd)
-    return hyper, temp_nat, vi_mu, vi_delta, nat_vd
+    return sums, torch.cat(nats, dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -753,8 +927,11 @@ def initialize_from_fake_mu(data, error_scaling, fake_mu, sigma=None):
 # variational_inference.py:96-259)
 # ---------------------------------------------------------------------------
 
-def _precompute_stats(ld, ld_index, marginal_effects, std_errs, gwas_N,
-                      init_hg, real_mask):
+def _precompute_sums(ld, ld_index, marginal_effects, std_errs,
+                     real_mask):
+    """The precompute's per-SNP part on one shard: (ld_diags, adj, the
+    [2, P] sums over its SNPs of chi_stat's terms and of the prior's
+    SE^-2). ld holds the shard's LD matrices."""
     P = marginal_effects.shape[0]
     lds = [ld[ld_index[p]] for p in range(P)]
     ld_diags = torch.stack([blocks_mod.diag(lds[p]).to(std_errs.dtype)
@@ -762,17 +939,27 @@ def _precompute_stats(ld, ld_index, marginal_effects, std_errs, gwas_N,
     z_scores = marginal_effects / std_errs
     mle = torch.stack([blocks_mod.inverse_dot(lds[p], z_scores[p])
                        for p in range(P)])
-    chi_stat = torch.einsum('pi,pi->p', z_scores, mle)
     adj = torch.stack([blocks_mod.dot(lds[p], mle[p]) for p in range(P)])
     adj = adj / std_errs
     # layout-pad slots must not inflate the LDpred-style prior's SE^-2 sum
-    prior = (2 * gwas_N * init_hg) / torch.sum(
-        std_errs ** -2 * real_mask[None, :], dim=1)
+    sums = torch.stack([torch.einsum('pi,pi->p', z_scores, mle),
+                        torch.sum(std_errs ** -2 * real_mask[None, :],
+                                  dim=1)])
+    return ld_diags, adj, sums
+
+
+def _precompute_inverse_betas(ld, ld_index, adj, std_errs, gwas_N, init_hg,
+                              se_sum):
+    """The LDpred-inf initialization on one shard, given the prior's
+    SE^-2 sum over every SNP."""
+    P = adj.shape[0]
+    lds = [ld[ld_index[p]] for p in range(P)]
+    prior = (2 * gwas_N * init_hg) / se_sum
     inv_z = torch.stack([
         blocks_mod.ridge_inverse_dot(lds[p], adj[p] * std_errs[p],
                                      std_errs[p] ** 2 / prior[p])
         for p in range(P)])
-    return ld_diags, chi_stat, adj, inv_z * std_errs
+    return inv_z * std_errs
 
 
 def _floor_mixture_covs(mixture_covs, rel_floor=1e-10):
@@ -807,11 +994,16 @@ def resolve_device(device=None):
 
 def build_model_data(marginal_effects, std_errs, ld_mats, annotations,
                      mixture_covs, scaled, scale_se, gwas_N, init_hg,
-                     dtype=torch.float64, device=None):
+                     dtype=torch.float64, device=None, mesh=None):
     """Assemble ModelData with the same validations as VIScheme.__init__;
     every tensor lives on `device` (the card by default, see
-    `resolve_device`)."""
-    device = resolve_device(device)
+    `resolve_device`). With a mesh (parallel/mesh.py) the LD matrices are
+    sharded PackedLDs of mesh.n_snp spans over the whole layout axis of
+    the (host, every process alike) inputs, and a ShardedData comes back:
+    each local shard builds its part on its own device, and the global
+    sums are added across shards."""
+    if mesh is None:
+        device = resolve_device(device)
     marginal_effects = np.asarray(marginal_effects)
     std_errs = np.asarray(std_errs)
     eps = epsilon(dtype)
@@ -830,6 +1022,9 @@ def build_model_data(marginal_effects, std_errs, ld_mats, annotations,
         if ld.shape != (num_loci, num_loci):
             raise ValueError('An LD matrix has a different variant '
                              'count than the GWAS effect sizes.')
+        if ld.shard_count != (1 if mesh is None else mesh.n_snp):
+            raise ValueError(f'An LD matrix of {ld.shard_count} shards in '
+                             f'a fit of {1 if mesh is None else mesh.n_snp}')
     annotations = np.asarray(annotations)
     row_sums = annotations.sum(axis=1)
     # all-zero rows are pad sentinels; anything else must be one-hot
@@ -862,9 +1057,6 @@ def build_model_data(marginal_effects, std_errs, ld_mats, annotations,
         use_std_errs = np.copy(std_errs)
         scalings = np.ones_like(std_errs)
 
-    def dev(x, dt=dtype):
-        return torch.as_tensor(np.asarray(x), device=device).to(dt)
-
     # deduplicate by identity: cohorts sharing one LD matrix share its
     # tensors and one matvec pass
     uniq, ld_index = [], []
@@ -875,42 +1067,73 @@ def build_model_data(marginal_effects, std_errs, ld_mats, annotations,
         else:
             ld_index.append(len(uniq))
             uniq.append(m)
-    ld_tuple, ld_index = tuple(uniq), tuple(ld_index)
+    ld_index = tuple(ld_index)
+    num_annotations = annotations.shape[1]
+    annot_idx = np.where(row_sums > 0, np.argmax(annotations, axis=1),
+                         num_annotations).astype(np.int32)
+    real = (row_sums > 0).astype(np.float64)
 
-    marginal_t = dev(marginal)
-    std_errs_t = dev(use_std_errs)
-    ld_diags, chi_stat, adj, inverse_betas = _precompute_stats(
-        ld_tuple, ld_index, marginal_t, std_errs_t, dev(gwas_N),
-        dev(init_hg), dev((row_sums > 0).astype(np.float64)))
+    if mesh is None:
+        devices, spans, lds = [device], [slice(None)], [tuple(uniq)]
+    else:
+        rows = num_loci // mesh.n_snp
+        devices = list(mesh.devices)
+        spans = [slice(s * rows, (s + 1) * rows) for s in mesh.local_shards]
+        lds = [tuple(m.shards[j] for m in uniq)
+               for j in range(len(devices))]
 
-    ld_diags_np = ld_diags.cpu().numpy()
-    if not np.allclose(adj.cpu().numpy()[np.isclose(ld_diags_np, 0)], 0):
+    # per shard: its span of the per-SNP inputs and the sums over it
+    parts = []
+    for dv, sl, ld in zip(devices, spans, lds):
+        def dev(x, dt=dtype, dv=dv):
+            return torch.as_tensor(np.asarray(x), device=dv).to(dt)
+        marginal_t = dev(marginal[:, sl])
+        std_errs_t = dev(use_std_errs[:, sl])
+        ld_diags, adj, sums = _precompute_sums(ld, ld_index, marginal_t,
+                                               std_errs_t, dev(real[sl]))
+        # np.allclose(adj[isclose(ld_diags, 0)], 0) fails where this
+        # count is positive (NaN included)
+        bad = torch.sum((ld_diags.abs() <= 1e-8)
+                        & ~(adj.abs() <= 1e-8)).to(dtype).reshape(1)
+        parts.append(dict(dev=dev, sl=sl, ld=ld, marginal=marginal_t,
+                          std_errs=std_errs_t, ld_diags=ld_diags, adj=adj,
+                          sums=torch.cat([sums.reshape(-1), bad])))
+    sums = _reduce(mesh, [p['sums'] for p in parts])
+    P = num_pops
+    chi_stat, se_sum = sums[:P], sums[P:2 * P]
+    if float(sums[2 * P]) > 0:
         raise ValueError('SNPs absent from the LD matrix have nonzero '
                          'adjusted marginal effects; they should have '
                          'been marked missing upstream.')
 
-    num_annotations = annotations.shape[1]
-    annot_idx = np.where(row_sums > 0, np.argmax(annotations, axis=1),
-                         num_annotations).astype(np.int32)
-    return ModelData(
-        marginal_effects=marginal_t,
-        std_errs=std_errs_t,
-        scalings=dev(scalings),
-        ld_diags=ld_diags,
-        scaled_ld_diags=std_errs_t ** -2 * ld_diags,
-        adj_marginal_effects=adj,
-        chi_stat=chi_stat,
-        ld_ranks=dev([ld.get_rank() for ld in ld_mats]),
-        inverse_betas=inverse_betas,
-        annotations=dev(annot_idx, torch.int32),
-        annotation_counts=dev(annotations.sum(axis=0)),
-        mixture_prec=dev(mixture_prec),
-        log_det=dev(log_det),
-        ld=ld_tuple,
-        num_annotations=int(num_annotations),
-        scale_se=bool(scale_se),
-        ld_index=ld_index,
-    )
+    shards = []
+    for p, chi, se in zip(parts, _replicas(mesh, chi_stat),
+                          _replicas(mesh, se_sum)):
+        dev, sl = p['dev'], p['sl']
+        shards.append(ModelData(
+            marginal_effects=p['marginal'],
+            std_errs=p['std_errs'],
+            scalings=dev(scalings[:, sl]),
+            ld_diags=p['ld_diags'],
+            scaled_ld_diags=p['std_errs'] ** -2 * p['ld_diags'],
+            adj_marginal_effects=p['adj'],
+            chi_stat=chi,
+            ld_ranks=dev([ld.get_rank() for ld in ld_mats]),
+            inverse_betas=_precompute_inverse_betas(
+                p['ld'], ld_index, p['adj'], p['std_errs'], dev(gwas_N),
+                dev(init_hg), se),
+            annotations=dev(annot_idx[sl], torch.int32),
+            annotation_counts=dev(annotations.sum(axis=0)),
+            mixture_prec=dev(mixture_prec),
+            log_det=dev(log_det),
+            ld=p['ld'],
+            num_annotations=int(num_annotations),
+            scale_se=bool(scale_se),
+            ld_index=ld_index,
+        ))
+    if mesh is None:
+        return shards[0]
+    return ShardedData(shards=tuple(shards), mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -926,18 +1149,61 @@ def _np(x):
     return x.detach().cpu().numpy()
 
 
+def write_npz_all_ranks(path, arrays, streams, rank=0):
+    """Write an .npz whose streamed members are computed chunk by chunk.
+    In a multi-process fit every process consumes the streams (each chunk
+    gathers across processes) and process 0 alone writes the file (the
+    JAX package's _write_npz_all_ranks)."""
+    if rank == 0:
+        from vilma_tpu_torch.utils.npz_stream import save_npz_stream
+        save_npz_stream(path, arrays, streams)
+        return
+    for _, _, _, chunks in streams:
+        for _ in chunks:
+            pass
+
+
+def _derived_cols(data, st, cols):
+    """(vi_delta [K, c], post_mean [P, c], post_var [P, c]) of a compact
+    state at SNP columns `cols` (a slice or an index tensor)."""
+    natvd = kernels.fast_vi_delta_grad(st.hyper_delta, data.log_det,
+                                       data.annotations[cols])
+    if st.nat_hist is not None:
+        ex = _epoch_exprs(data.mixture_prec, data.scaled_ld_diags,
+                          st.error_scaling, st, cols)
+    else:
+        dt_c = data.scaled_ld_diags[:, cols] / st.error_scaling[:, None]
+        ex = sigma_mod.compact_exprs(data.mixture_prec, dt_c,
+                                     st.nat_mu[..., cols])
+    addenda = ex.log_det_sigma + ex.quad
+    li = 0.5 * (addenda[:-1] - addenda[-1:]) + natvd
+    vi_delta = kernels.invert_nat_cat_2D(li)                     # [K, c]
+    pm = torch.einsum('kpc,kc->pc', ex.mu, vi_delta)
+    second = torch.einsum('kpc,kc->pc', ex.diag + ex.mu ** 2, vi_delta)
+    return vi_delta, pm, second - pm ** 2
+
+
 class MultiPopVI:
     """Equivalent of the reference MultiPopVI
     (variational_inference.py:567-889): same constructor surface plus
     `dtype` and `device` (the card unless device='cpu'), same optimize()
     and output arrays. Fits of P <= 3 cohorts carry a compact state,
-    P >= 4 the materialized one (VIState)."""
+    P >= 4 the materialized one (VIState).
+
+    With `mesh` (parallel/mesh.py) the fit is sharded: the inputs come in
+    the shard-local layout (parallel/alignment.py) with sharded LD
+    matrices, `out_index` maps each original variant to its layout slot,
+    and every output, checkpoint and resume is in the original variant
+    order. In a multi-process fit every process runs the same calls
+    (the outputs gather across processes) and process 0 writes the
+    checkpoints."""
 
     def __init__(self, marginal_effects=None, std_errs=None, ld_mats=None,
                  annotations=None, mixture_covs=None, checkpoint=True,
                  checkpoint_freq=5, scaled=False, scale_se=False,
                  output='vilma_output', gwas_N=None, init_hg=None,
-                 num_its=None, dtype=torch.float64, device=None):
+                 num_its=None, dtype=torch.float64, device=None, mesh=None,
+                 out_index=None):
         for name, val in [('marginal_effects', marginal_effects),
                           ('std_errs', std_errs), ('ld_mats', ld_mats),
                           ('annotations', annotations),
@@ -947,18 +1213,30 @@ class MultiPopVI:
             if val is None:
                 raise ValueError(f'{name} must be specified when calling '
                                  'MultiPopVI()')
+        self.mesh = mesh
         self.data = build_model_data(
             marginal_effects, std_errs, ld_mats, annotations, mixture_covs,
-            scaled, scale_se, gwas_N, init_hg, dtype=dtype, device=device)
+            scaled, scale_se, gwas_N, init_hg, dtype=dtype, device=device,
+            mesh=mesh)
+        self._ds = (list(self.data.shards) if mesh is not None
+                    else [self.data])
+        self.rank = mesh.rank if mesh is not None else 0
         self.scaled = scaled
         self.scale_se = scale_se
         self.checkpoint = checkpoint
         self.checkpoint_freq = checkpoint_freq
         self.checkpoint_path = '%s-checkpoint' % output
         self.num_its = num_its
-        self.num_pops, self.num_loci = self.data.marginal_effects.shape
-        self.num_mix = self.data.mixture_prec.shape[0]
-        self.num_annotations = self.data.num_annotations
+        d0 = self._ds[0]
+        self.num_pops = d0.marginal_effects.shape[0]
+        # layout slots, and the original variants they hold
+        self._padded_loci = int(np.asarray(marginal_effects).shape[1])
+        self._out_index = (None if out_index is None
+                           else np.asarray(out_index, dtype=np.int64))
+        self.num_loci = (self._padded_loci if out_index is None
+                         else int(self._out_index.shape[0]))
+        self.num_mix = d0.mixture_prec.shape[0]
+        self.num_annotations = d0.num_annotations
         # the compact states need the closed-form sigma algebra (P <= 3);
         # beyond it the fit carries the materialized state
         self._compact = self.num_pops <= 3
@@ -966,7 +1244,7 @@ class MultiPopVI:
         # mean; when that state would be too large (the production mixture
         # grid at genome scale: 582 x 2 x 1M f32 is 4.66 GB) they switch
         # to the epoch-history representation, exact and bounded
-        kdim_bytes = (self.num_mix * self.num_pops * self.num_loci
+        kdim_bytes = (self.num_mix * self.num_pops * self._padded_loci
                       * self._np_dtype.itemsize)
         self._epoch = bool(self._compact and scale_se
                            and kdim_bytes > _EPOCH_STATE_BYTES)
@@ -980,19 +1258,55 @@ class MultiPopVI:
 
     @property
     def _dtype(self):
-        return self.data.marginal_effects.dtype
+        return self._ds[0].marginal_effects.dtype
 
     @property
     def _np_dtype(self):
         return np.dtype(str(self._dtype).replace('torch.', ''))
 
+    # -- the state of each shard, and arrays in the original order --------
+    def _states(self, st):
+        """The per-shard VIStates of a state of this fit."""
+        return list(st.shards) if isinstance(st, ShardedState) else [st]
+
+    def _state(self, ss):
+        """Per-shard VIStates as a state of this fit."""
+        return ShardedState(tuple(ss)) if self.mesh is not None else ss[0]
+
+    def _full(self, parts):
+        """One tensor per shard as a host array over every variant, in
+        the original order (the last axis gathered over the shards)."""
+        x = _np(parts[0] if self.mesh is None else self.mesh.gather(parts))
+        return x if self._out_index is None else x[..., self._out_index]
+
+    def _place(self, x, fill=0.0):
+        """A host array [..., n] in the original variant order as one
+        tensor per shard in the fit's dtype (the layout's pad slots
+        `fill`)."""
+        x = np.array(x, dtype=self._np_dtype)
+        if self._out_index is not None:
+            full = np.full(x.shape[:-1] + (self._padded_loci,), fill,
+                           dtype=x.dtype)
+            full[..., self._out_index] = x
+            x = full
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if self.mesh is None:
+            return [t.to(self._ds[0].marginal_effects.device)]
+        return list(self.mesh.split(t))
+
+    def _shared(self, x):
+        """A small host array (the same on every shard) as one tensor per
+        shard in the fit's dtype."""
+        t = torch.as_tensor(np.array(x, dtype=self._np_dtype))
+        return [t.to(d.marginal_effects.device) for d in self._ds]
+
     @property
     def error_scaling(self):
-        return _np(self.state.error_scaling)
+        return _np(self._states(self.state)[0].error_scaling)
 
     @property
     def scalings(self):
-        return _np(self.data.scalings)
+        return self._full([d.scalings for d in self._ds])
 
     def vi_sigma_chunks(self, chunk_k=None):
         """Yield vi_sigma in [<=chunk_k, P, P, I] component chunks
@@ -1001,65 +1315,78 @@ class MultiPopVI:
         if chunk_k is None:
             per_k = max(self.num_loci * P * P * self._np_dtype.itemsize, 1)
             chunk_k = max(1, min(K, (256 << 20) // per_k))
-        dterm = _diag_term(self.data, self.state.error_scaling)
+        ss = self._states(self.state)
         for k0 in range(0, K, chunk_k):
-            yield _np(sigma_mod.materialize_sigma(
-                self.data.mixture_prec[k0:k0 + chunk_k], dterm))
+            yield self._full([sigma_mod.materialize_sigma(
+                d.mixture_prec[k0:k0 + chunk_k],
+                _diag_term(d, st.error_scaling))
+                for d, st in zip(self._ds, ss)])
 
     # -- genome-scale output streaming (see dump_spec) ---------------------
     def _stream_big(self):
         """Whether derived [K, *, I] outputs exceed the in-memory budget."""
-        return (self.num_mix * self.num_pops * self.num_loci
+        return (self.num_mix * self.num_pops * self._padded_loci
                 * self._np_dtype.itemsize > _STREAM_OUTPUT_BYTES)
 
     def vi_mu_chunks(self, st=None, chunk_k=None):
         """Yield vi_mu in [<=chunk_k, P, I] component chunks derived from
         the state (vi_mu_k = sigma_k @ nat_k; epoch states sum their
         history, sigma.compact_exprs_epochs)."""
-        st = st or self.state
+        ss = self._states(st or self.state)
         K, P = self.num_mix, self.num_pops
         if chunk_k is None:
-            per_k = max(self.num_loci * P * self._np_dtype.itemsize, 1)
+            per_k = max(self._padded_loci * P * self._np_dtype.itemsize, 1)
             chunk_k = max(1, min(K, (256 << 20) // per_k))
-        data = self.data
-        dterm = _diag_term(data, st.error_scaling)
         for k0 in range(0, K, chunk_k):
-            prec = data.mixture_prec[k0:k0 + chunk_k]
-            if st.nat_hist is not None:
-                yield _np(_epoch_exprs(prec, data.scaled_ld_diags,
-                                       st.error_scaling, st).mu)
-                continue
-            nat = (st.nat_mu[k0:k0 + chunk_k] if st.nat_mu.dim() == 3
-                   else st.nat_mu[None].expand((prec.shape[0],)
-                                               + tuple(st.nat_mu.shape)))
-            yield _np(sigma_mod.apply_sigma(prec, dterm, nat))
+            parts = []
+            for d, st in zip(self._ds, ss):
+                prec = d.mixture_prec[k0:k0 + chunk_k]
+                if st.nat_hist is not None:
+                    parts.append(_epoch_exprs(prec, d.scaled_ld_diags,
+                                              st.error_scaling, st).mu)
+                    continue
+                nat = (st.nat_mu[k0:k0 + chunk_k] if st.nat_mu.dim() == 3
+                       else st.nat_mu[None].expand(
+                           (prec.shape[0],) + tuple(st.nat_mu.shape)))
+                parts.append(sigma_mod.apply_sigma(
+                    prec, _diag_term(d, st.error_scaling), nat))
+            yield self._full(parts)
 
     def _derived_col_chunks(self, st, chunk_i=None):
-        """Yield (vi_delta [c, K], pm [P, c], pv [P, c]) over variant
-        chunks (bounded device memory)."""
-        st = st or self.state
+        """Yield (vi_delta [c, K], pm [P, c], pv [P, c]) over chunks of
+        the original variant order (bounded device memory). Each shard
+        derives the columns it holds; a sharded fit joins them on its
+        first device and across processes."""
+        ss = self._states(st or self.state)
         K, P, n = self.num_mix, self.num_pops, self.num_loci
         if chunk_i is None:
             chunk_i = max(1024, (64 << 20) // max(K * P * 4, 1))
-        data = self.data
+        if self._out_index is None:
+            d, st = self._ds[0], ss[0]
+            for i0 in range(0, n, chunk_i):
+                vd, pm, pv = _derived_cols(d, st, slice(i0, i0 + chunk_i))
+                yield _np(vd.T), _np(pm), _np(pv)
+            return
+        n_shards = self.mesh.n_snp if self.mesh is not None else 1
+        first = self.mesh.first_shard if self.mesh is not None else 0
+        rows = self._padded_loci // n_shards
+        dev0 = self._ds[0].marginal_effects.device
         for i0 in range(0, n, chunk_i):
-            sl = slice(i0, i0 + chunk_i)
-            natvd = kernels.fast_vi_delta_grad(
-                st.hyper_delta, data.log_det, data.annotations[sl])
-            if st.nat_hist is not None:
-                ex = _epoch_exprs(data.mixture_prec, data.scaled_ld_diags,
-                                  st.error_scaling, st, sl)
-            else:
-                dt_c = data.scaled_ld_diags[:, sl] / st.error_scaling[:, None]
-                ex = sigma_mod.compact_exprs(data.mixture_prec, dt_c,
-                                             st.nat_mu[..., sl])
-            addenda = ex.log_det_sigma + ex.quad
-            li = 0.5 * (addenda[:-1] - addenda[-1:]) + natvd
-            vi_delta = kernels.invert_nat_cat_2D(li)             # [K, c]
-            pm = torch.einsum('kpc,kc->pc', ex.mu, vi_delta)
-            second = torch.einsum('kpc,kc->pc', ex.diag + ex.mu ** 2,
-                                  vi_delta)
-            yield _np(vi_delta.T), _np(pm), _np(second - pm ** 2)
+            idx = self._out_index[i0:i0 + chunk_i]
+            out = torch.zeros((K + 2 * P, idx.shape[0]), dtype=self._dtype,
+                              device=dev0)
+            for j, (d, st) in enumerate(zip(self._ds, ss)):
+                pos = np.flatnonzero(idx // rows == first + j)
+                if pos.size == 0:
+                    continue
+                cols = torch.as_tensor(idx[pos] - (first + j) * rows,
+                                       device=d.marginal_effects.device)
+                out[:, torch.as_tensor(pos, device=dev0)] = torch.cat(
+                    _derived_cols(d, st, cols)).to(dev0)
+            if self.mesh is not None:
+                out = self.mesh.join(out)
+            out = _np(out)
+            yield out[:K].T, out[K:K + P], out[K + P:]
 
     def vi_delta_chunks(self, st=None, chunk_i=None):
         """Yield the [I, K] (reference-layout) vi_delta in row chunks."""
@@ -1076,12 +1403,13 @@ class MultiPopVI:
         vi_mu (component chunks) and vi_delta (variant chunks) for
         utils/npz_stream.save_npz_stream."""
         st = st or self.state
-        if st.nat_mu is None or not self._stream_big():
+        st0 = self._states(st)[0]
+        if st0.nat_mu is None or not self._stream_big():
             return self.create_dump_dict(st), []
         arrays = {
-            'hyper_delta': _np(st.hyper_delta),
-            'error_scaling': _np(st.error_scaling),
-            'scalings': _np(self.data.scalings),
+            'hyper_delta': _np(st0.hyper_delta),
+            'error_scaling': _np(st0.error_scaling),
+            'scalings': self.scalings,
         }
         arrays.update(self._epoch_dump_arrays(st))
         K, P, n = self.num_mix, self.num_pops, self.num_loci
@@ -1092,22 +1420,26 @@ class MultiPopVI:
         ]
         return arrays, streams
 
+    def _materialized(self, st):
+        ss = self._states(st)
+        return [s if s.vi_mu is not None else materialize_state(d, s)
+                for d, s in zip(self._ds, ss)]
+
     def create_dump_dict(self, st=None):
         st = st or self.state
-        if st.vi_mu is None and self._stream_big():
+        if self._states(st)[0].vi_mu is None and self._stream_big():
             raise MemoryError(
                 'materializing the derived vi_mu/vi_delta of this '
                 'problem needs tens of GB; use dump_spec() + '
                 'utils/npz_stream.save_npz_stream (fit does this '
                 'automatically)')
-        mat = st if st.vi_mu is not None else materialize_state(self.data,
-                                                                 st)
+        mats = self._materialized(st)
         out = {
-            'vi_mu': _np(mat.vi_mu),
-            'vi_delta': _np(mat.vi_delta).T,
-            'hyper_delta': _np(mat.hyper_delta),
-            'error_scaling': _np(mat.error_scaling),
-            'scalings': _np(self.data.scalings),
+            'vi_mu': self._full([m.vi_mu for m in mats]),
+            'vi_delta': self._full([m.vi_delta for m in mats]).T,
+            'hyper_delta': _np(mats[0].hyper_delta),
+            'error_scaling': _np(mats[0].error_scaling),
+            'scalings': self.scalings,
         }
         out.update(self._epoch_dump_arrays(st))
         return out
@@ -1115,14 +1447,15 @@ class MultiPopVI:
     def _epoch_dump_arrays(self, st):
         """Extra checkpoint keys of an epoch-history state: the state
         itself, which a genome-scale resume restores directly."""
-        if st.nat_hist is None:
+        ss = self._states(st)
+        if ss[0].nat_hist is None:
             return {}
         return {
-            'nat_u': _np(st.nat_mu),
-            'nat_hist': _np(st.nat_hist),
-            'nat_hist_scale': _np(st.nat_hist_scale),
-            'nat_hist_c': _np(st.nat_hist_c),
-            'nat_hist_n': np.asarray(st.nat_hist_n, dtype=np.int32),
+            'nat_u': self._full([s.nat_mu for s in ss]),
+            'nat_hist': self._full([s.nat_hist for s in ss]),
+            'nat_hist_scale': _np(ss[0].nat_hist_scale),
+            'nat_hist_c': _np(ss[0].nat_hist_c),
+            'nat_hist_n': np.asarray(ss[0].nat_hist_n, dtype=np.int32),
         }
 
     def _streamed_moments(self, st):
@@ -1141,99 +1474,103 @@ class MultiPopVI:
 
     def real_posterior_mean(self, st=None):
         st = st or self.state
-        if st.vi_mu is None and self._stream_big():
+        if self._states(st)[0].vi_mu is None and self._stream_big():
             return self._streamed_moments(st)[0]
-        mat = st if st.vi_mu is not None else materialize_state(self.data,
-                                                                 st)
-        return _np(kernels.fast_posterior_mean(mat.vi_mu, mat.vi_delta)
-                   * self.data.scalings)
+        return self._full([
+            kernels.fast_posterior_mean(m.vi_mu, m.vi_delta) * d.scalings
+            for d, m in zip(self._ds, self._materialized(st))])
 
     def real_posterior_variance(self, st=None):
         st = st or self.state
-        if st.vi_mu is None and self._stream_big():
+        if self._states(st)[0].vi_mu is None and self._stream_big():
             return self._streamed_moments(st)[1]
-        mat = st if st.vi_mu is not None else materialize_state(self.data,
-                                                                 st)
-        mean = kernels.fast_posterior_mean(mat.vi_mu, mat.vi_delta)
-        return _np(kernels.fast_pmv(mean, mat.vi_mu, mat.vi_delta,
-                                    mat.sigma.diag)
-                   * self.data.scalings ** 2)
+        parts = []
+        for d, m in zip(self._ds, self._materialized(st)):
+            mean = kernels.fast_posterior_mean(m.vi_mu, m.vi_delta)
+            parts.append(kernels.fast_pmv(mean, m.vi_mu, m.vi_delta,
+                                          m.sigma.diag)
+                         * d.scalings ** 2)
+        return self._full(parts)
 
     def elbo_value(self, st=None):
         """The ELBO of a state (the beta objective equals the ELBO in
         MultiPopVI: the annotation KL is 0)."""
-        st = st or self.state
-        obj, _, _ = _objective(self.data, st, _params(st), st.hyper_delta)
-        return _sync_float(obj)
-
-    def _tensor(self, x, dtype=None):
-        """A host array (a read-only memmap slice, say) copied into a
-        tensor on the fit's device, in its dtype."""
-        return torch.as_tensor(
-            np.array(x, dtype=dtype or self._np_dtype),
-            device=self.data.marginal_effects.device)
+        ss = self._states(st or self.state)
+        return _evaluate(self._ds, ss, self.mesh, [_params(s) for s in ss],
+                         [s.hyper_delta for s in ss])[0]
 
     def _fresh_state(self, error_scaling=None):
         """The state before initialization or resume. The materialized
         one holds its sigma summaries; its caller sets vi_mu, vi_delta
         and nat_grad_vi_delta."""
-        zeros = dict(dtype=self._dtype,
-                     device=self.data.marginal_effects.device)
-        P, I, K = self.num_pops, self.num_loci, self.num_mix
-        st = VIState(
-            nat_mu=torch.zeros(P, I, **zeros) if self._compact else None,
-            hyper_delta=torch.zeros(self.num_annotations, K, **zeros),
-            error_scaling=(torch.ones(P, **zeros) if error_scaling is None
-                           else self._tensor(error_scaling)),
-            L=(1., 1., 1.), elbo=0., running_elbo_delta=math.nan,
-            num_err=0)
-        if not self._compact:
-            st = dataclasses.replace(st, sigma=sigma_mod.make_summaries(
-                self.data.mixture_prec, self.data.log_det,
-                _diag_term(self.data, st.error_scaling)))
-        if self._epoch:
-            B0 = _EPOCH_BUCKETS[0]
-            st = dataclasses.replace(
-                st, nat_hist=torch.zeros(B0, P, I, **zeros),
-                nat_hist_scale=torch.ones(B0, P, **zeros),
-                nat_hist_c=torch.zeros(B0, **zeros), nat_hist_n=0)
-        return st
+        P, K = self.num_pops, self.num_mix
+        scalings = (self._shared(np.ones(P)) if error_scaling is None
+                    else self._shared(error_scaling))
+        ss = []
+        for d, sc in zip(self._ds, scalings):
+            zeros = dict(dtype=self._dtype, device=sc.device)
+            I = d.marginal_effects.shape[1]
+            st = VIState(
+                nat_mu=torch.zeros(P, I, **zeros) if self._compact else None,
+                hyper_delta=torch.zeros(self.num_annotations, K, **zeros),
+                error_scaling=sc, L=(1., 1., 1.), elbo=0.,
+                running_elbo_delta=math.nan, num_err=0)
+            if not self._compact:
+                st = dataclasses.replace(st, sigma=sigma_mod.make_summaries(
+                    d.mixture_prec, d.log_det, _diag_term(d, sc)))
+            if self._epoch:
+                B0 = _EPOCH_BUCKETS[0]
+                st = dataclasses.replace(
+                    st, nat_hist=torch.zeros(B0, P, I, **zeros),
+                    nat_hist_scale=torch.ones(B0, P, **zeros),
+                    nat_hist_c=torch.zeros(B0, **zeros), nat_hist_n=0)
+            ss.append(st)
+        return self._state(ss)
 
     def _initialize(self):
-        st = self._fresh_state()
-        data = self.data
-        fake = make_fake_mu(_np(data.inverse_betas), _np(data.std_errs),
-                            _np(data.ld_diags))
-        fake_mu = torch.as_tensor(
-            fake.astype(self._np_dtype),
-            device=data.marginal_effects.device)
+        ss = self._states(self._fresh_state())
+        ds = self._ds
+        inverse_betas = self._full([d.inverse_betas for d in ds])
+        fake = make_fake_mu(inverse_betas,
+                            self._full([d.std_errs for d in ds]),
+                            self._full([d.ld_diags for d in ds]))
+        fake_mu = self._place(fake)
         logging.info('Max |inverse_beta| at initialization: %f',
-                     float(torch.max(torch.abs(data.inverse_betas))))
-        if not self._compact:
-            hyper, _, vi_mu, vi_delta, nat_vd = initialize_from_fake_mu(
-                data, st.error_scaling, fake_mu, sigma=st.sigma)
-            return dataclasses.replace(st, vi_mu=vi_mu, vi_delta=vi_delta,
-                                       hyper_delta=hyper,
-                                       nat_grad_vi_delta=nat_vd)
-        hyper, temp_nat = initialize_from_fake_mu(data, st.error_scaling,
-                                                  fake_mu)
-        if self.scale_se and not self._epoch:
-            # initialization is K-constant (error_scaling all ones): the
-            # per-component state starts as a broadcast, copied so that
-            # every component owns its row (the epoch state instead starts
-            # with temp_nat as its accumulator and an empty history)
-            temp_nat = temp_nat[None].expand(
-                (self.num_mix,) + tuple(temp_nat.shape)).contiguous()
-        return dataclasses.replace(st, nat_mu=temp_nat, hyper_delta=hyper)
+                     float(np.max(np.abs(inverse_betas))))
+        parts = [_init_shard(d, st.error_scaling, f)
+                 for d, st, f in zip(ds, ss, fake_mu)]
+        hypers = _replicas(self.mesh, _init_hyper(
+            _reduce(self.mesh, [p[0] for p in parts])))
+        out = []
+        for d, st, (_, temp_nat), hyper in zip(ds, ss, parts, hypers):
+            if not self._compact:
+                vi_mu, vi_delta, nat_vd = _init_materialized(
+                    d, st.sigma, st.error_scaling, temp_nat, hyper)
+                out.append(dataclasses.replace(
+                    st, vi_mu=vi_mu, vi_delta=vi_delta, hyper_delta=hyper,
+                    nat_grad_vi_delta=nat_vd))
+                continue
+            if self.scale_se and not self._epoch:
+                # initialization is K-constant (error_scaling all ones):
+                # the per-component state starts as a broadcast, copied so
+                # that every component owns its row (the epoch state
+                # instead starts with temp_nat as its accumulator and an
+                # empty history)
+                temp_nat = temp_nat[None].expand(
+                    (self.num_mix,) + tuple(temp_nat.shape)).contiguous()
+            out.append(dataclasses.replace(st, nat_mu=temp_nat,
+                                           hyper_delta=hyper))
+        return self._state(out)
 
     def _state_from_checkpoint(self, loaded_checkpoint):
         """The state a checkpoint (np.load of a checkpoint or output .npz
-        of either package, or a mapping of its arrays) resumes (reference
-        MultiPopVI._state_from_checkpoint). The shared and kdim natural
-        means are recovered from vi_mu (exact given the checkpoint's
-        error_scaling); the epoch state is restored from its own keys and
-        the materialized one from vi_mu and vi_delta. The port does not
-        pad loci, so the checkpoint's variant order is the fit's."""
+        of either package, sharded or not, or a mapping of its arrays)
+        resumes (reference MultiPopVI._state_from_checkpoint). Checkpoints
+        are in the original variant order; a sharded fit places them in
+        its layout. The shared and kdim natural means are recovered from
+        vi_mu (exact given the checkpoint's error_scaling); the epoch
+        state is restored from its own keys and the materialized one from
+        vi_mu and vi_delta."""
         files = getattr(loaded_checkpoint, 'files', loaded_checkpoint)
         error_scaling = None
         if 'error_scaling' in files:
@@ -1241,8 +1578,8 @@ class MultiPopVI:
         else:
             logging.warning('The checkpoint carries no "error_scaling" '
                             'entry; defaulting all error scalings to 1.')
-        st = self._fresh_state(error_scaling)
-        hyper = self._tensor(loaded_checkpoint['hyper_delta'])
+        ss = self._states(self._fresh_state(error_scaling))
+        hypers = self._shared(loaded_checkpoint['hyper_delta'])
         if self._epoch:
             if 'nat_u' not in files:
                 raise ValueError(
@@ -1254,41 +1591,55 @@ class MultiPopVI:
                     'problem below the epoch threshold.')
             # the history keeps the checkpoint's length B, one of
             # _EPOCH_BUCKETS; _maybe_grow_hist grows it from there
-            return dataclasses.replace(
-                st, nat_mu=self._tensor(loaded_checkpoint['nat_u']),
-                nat_hist=self._tensor(loaded_checkpoint['nat_hist']),
-                nat_hist_scale=self._tensor(
-                    loaded_checkpoint['nat_hist_scale']),
-                nat_hist_c=self._tensor(loaded_checkpoint['nat_hist_c']),
+            scales = self._shared(loaded_checkpoint['nat_hist_scale'])
+            coefs = self._shared(loaded_checkpoint['nat_hist_c'])
+            return self._state([dataclasses.replace(
+                st, nat_mu=u, nat_hist=hist, nat_hist_scale=scale,
+                nat_hist_c=coef,
                 nat_hist_n=int(loaded_checkpoint['nat_hist_n']),
-                hyper_delta=hyper)
+                hyper_delta=h)
+                for st, u, hist, scale, coef, h in zip(
+                    ss, self._place(loaded_checkpoint['nat_u']),
+                    self._place(loaded_checkpoint['nat_hist']), scales,
+                    coefs, hypers)])
         if not self._compact:
-            return dataclasses.replace(
-                st, vi_mu=self._tensor(loaded_checkpoint['vi_mu']),
-                vi_delta=self._tensor(
-                    np.asarray(loaded_checkpoint['vi_delta']).T),
-                hyper_delta=hyper,
+            # uniform pad columns keep log(vi_delta) finite; pads add
+            # nothing to any sum and the first update rewrites them
+            vi_delta = self._place(
+                np.asarray(loaded_checkpoint['vi_delta']).T,
+                fill=1.0 / self.num_mix)
+            return self._state([dataclasses.replace(
+                st, vi_mu=vm, vi_delta=vd, hyper_delta=h,
                 nat_grad_vi_delta=kernels.fast_vi_delta_grad(
-                    hyper, self.data.log_det, self.data.annotations))
+                    h, d.log_det, d.annotations))
+                for d, st, vm, vd, h in zip(
+                    self._ds, ss, self._place(loaded_checkpoint['vi_mu']),
+                    vi_delta, hypers)])
         if self._stream_big():
             # genome-scale resume: the vi_mu member can be tens of GB;
             # recover the natural mean(s) in bounded chunks straight off
             # the uncompressed zip member
-            nat = self._nat_from_checkpoint_streamed(loaded_checkpoint,
-                                                     st)
-            return dataclasses.replace(st, nat_mu=nat, hyper_delta=hyper)
-        vi_mu = self._tensor(loaded_checkpoint['vi_mu'])
-        recover = compact_nat_mu_k if self.scale_se else compact_nat_mu
-        nat = recover(self.data, st.error_scaling, vi_mu).contiguous()
-        return dataclasses.replace(st, nat_mu=nat, hyper_delta=hyper)
+            nats = self._nat_from_checkpoint_streamed(loaded_checkpoint,
+                                                      self._state(ss))
+        else:
+            recover = compact_nat_mu_k if self.scale_se else compact_nat_mu
+            nats = [recover(d, st.error_scaling, vm).contiguous()
+                    for d, st, vm in zip(
+                        self._ds, ss,
+                        self._place(loaded_checkpoint['vi_mu']))]
+        return self._state([dataclasses.replace(st, nat_mu=nat,
+                                                hyper_delta=h)
+                            for st, nat, h in zip(ss, nats, hypers)])
 
     def _nat_from_checkpoint_streamed(self, loaded_checkpoint, st):
         """Bounded-memory natural-mean recovery (see
-        _state_from_checkpoint): the shared state needs only vi_mu[0];
-        the kdim state is recovered in K-chunks of at most
-        _RESUME_CHUNK_BYTES, each written straight into the [K, P, I]
-        tensor on the device, so the host holds one chunk at a time."""
+        _state_from_checkpoint), one natural mean per shard: the shared
+        state needs only vi_mu[0]; the kdim state is recovered in K-chunks
+        of at most _RESUME_CHUNK_BYTES, each written straight into the
+        [K, P, I] tensors on the devices, so the host holds one chunk at
+        a time."""
         from vilma_tpu_torch.utils.npz_stream import npz_member_memmap
+        ss = self._states(st)
         mm = npz_member_memmap(loaded_checkpoint, 'vi_mu')
         if mm is None:
             logging.warning('checkpoint vi_mu member is not mappable '
@@ -1296,40 +1647,45 @@ class MultiPopVI:
                             'materialized read')
             mm = loaded_checkpoint['vi_mu']
         if not self.scale_se:
-            return compact_nat_mu(self.data, st.error_scaling,
-                                  self._tensor(mm[0])[None]).contiguous()
-        K, P, I = self.num_mix, self.num_pops, self.num_loci
+            return [compact_nat_mu(d, s.error_scaling, v[None]).contiguous()
+                    for d, s, v in zip(self._ds, ss, self._place(mm[0]))]
+        K, P = self.num_mix, self.num_pops
         chunk = max(1, _RESUME_CHUNK_BYTES
-                    // max(P * I * self._np_dtype.itemsize, 1))
-        dterm = _diag_term(self.data, st.error_scaling)
-        nat = torch.empty((K, P, I), dtype=self._dtype,
-                          device=self.data.marginal_effects.device)
+                    // max(P * self._padded_loci
+                           * self._np_dtype.itemsize, 1))
+        nats = [torch.empty((K, P, d.marginal_effects.shape[1]),
+                            dtype=self._dtype,
+                            device=d.marginal_effects.device)
+                for d in self._ds]
         for k0 in range(0, K, chunk):
-            part = self._tensor(mm[k0:k0 + chunk])
-            nat[k0:k0 + part.shape[0]] = sigma_mod.apply_precision(
-                self.data.mixture_prec[k0:k0 + chunk], dterm, part)
-        return nat
+            for d, s, nat, part in zip(self._ds, ss, nats,
+                                       self._place(mm[k0:k0 + chunk])):
+                nat[k0:k0 + part.shape[0]] = sigma_mod.apply_precision(
+                    d.mixture_prec[k0:k0 + chunk],
+                    _diag_term(d, s.error_scaling), part)
+        return nats
 
     def _posterior_mean(self, st):
-        if st.nat_mu is None:
-            pm = kernels.fast_posterior_mean(st.vi_mu, st.vi_delta)
-        else:
-            _, pm, _ = _objective(self.data, st, _params(st),
-                                  st.hyper_delta)
-        return pm * self.data.scalings
+        """The posterior mean in output scale, one tensor per shard."""
+        out = []
+        for d, s in zip(self._ds, self._states(st)):
+            if s.nat_mu is None:
+                pm = kernels.fast_posterior_mean(s.vi_mu, s.vi_delta)
+            else:
+                pm = _objective_terms(d, s, _params(s), s.hyper_delta)[2]
+            out.append(pm * d.scalings)
+        return out
 
     def optimize(self, loaded_checkpoint=None):
         """Coordinate ascent until convergence (reference optimize(),
         variational_inference.py:340-394), from the initialization or,
         given `loaded_checkpoint` (np.load of a checkpoint .npz), from
         the state it holds; a resumed fit may converge before step 10."""
-        from vilma_tpu_torch.utils.npz_stream import save_npz_stream
-        data = self.data
         if loaded_checkpoint is None:
             st = self._initialize()
         else:
             st = self._state_from_checkpoint(loaded_checkpoint)
-        st = dataclasses.replace(st, elbo=self.elbo_value(st))
+        st = self._state(_set(self._states(st), elbo=self.elbo_value(st)))
         converged = False
         num_its = 0
         post_mean = self._posterior_mean(st)
@@ -1338,15 +1694,20 @@ class MultiPopVI:
         while num_its < self.num_its and not converged:
             if num_its % self.checkpoint_freq == 0 and self.checkpoint:
                 arrays, streams = self.dump_spec(st)
-                save_npz_stream('{}.{}'.format(self.checkpoint_path,
-                                               num_its), arrays, streams)
+                write_npz_all_ranks('{}.{}'.format(self.checkpoint_path,
+                                                   num_its),
+                                    arrays, streams, self.rank)
                 ckp_post_mean = self._posterior_mean(st)
-            st, new_post_mean = outer_step(data, st, line_search_rate=2.0)
+            st, new_post_mean = outer_step(self.data, st,
+                                           line_search_rate=2.0)
             if self._epoch:
                 # keep a free epoch slot ahead of the next EM event, so
                 # the append never freezes before the hard cap
                 st = self._maybe_grow_hist(st)
-            stats = _conv_stats(new_post_mean, post_mean, ckp_post_mean, st)
+            if self.mesh is None:
+                new_post_mean = [new_post_mean]
+            stats = _conv_stats(new_post_mean, post_mean, ckp_post_mean,
+                                self._states(st)[0], self.mesh)
             num_err = int(stats[0])
             if num_err > prev_err:
                 raise RuntimeError('Encountered a numerical error.')
@@ -1372,14 +1733,17 @@ class MultiPopVI:
         # outputs go through the chunked paths (dump_spec,
         # _streamed_moments, vi_sigma_chunks)
         self.state = (st if self._stream_big()
-                      else materialize_state(data, st))
+                      else self._state(self._materialized(st)))
         return self.state
 
     def _maybe_grow_hist(self, st):
         """Grow the epoch buffer to the next bucket once nearly full; at
-        the hard cap, warn once that further EM updates are frozen."""
-        B = st.nat_hist.shape[0]
-        n = st.nat_hist_n
+        the hard cap, warn once that further EM updates are frozen. The
+        live count is a host value every shard shares, so all shards
+        take the same decision."""
+        ss = self._states(st)
+        B = ss[0].nat_hist.shape[0]
+        n = ss[0].nat_hist_n
         if n < B - 1:
             return st
         if B >= _EPOCH_CAP:
@@ -1394,15 +1758,16 @@ class MultiPopVI:
         nb = next(b for b in _EPOCH_BUCKETS if b > B)
         pad = nb - B
         logging.info('epoch history grown %d -> %d slots', B, nb)
-        return dataclasses.replace(
-            st,
-            nat_hist=torch.cat([st.nat_hist, st.nat_hist.new_zeros(
-                (pad,) + tuple(st.nat_hist.shape[1:]))]),
-            nat_hist_scale=torch.cat([st.nat_hist_scale,
-                                      st.nat_hist_scale.new_ones(
+        return self._state([dataclasses.replace(
+            s,
+            nat_hist=torch.cat([s.nat_hist, s.nat_hist.new_zeros(
+                (pad,) + tuple(s.nat_hist.shape[1:]))]),
+            nat_hist_scale=torch.cat([s.nat_hist_scale,
+                                      s.nat_hist_scale.new_ones(
                                           (pad, self.num_pops))]),
-            nat_hist_c=torch.cat([st.nat_hist_c,
-                                  st.nat_hist_c.new_zeros(pad)]))
+            nat_hist_c=torch.cat([s.nat_hist_c,
+                                  s.nat_hist_c.new_zeros(pad)]))
+            for s in ss])
 
     def _dump_info(self, num_its, stats):
         """Per-iteration telemetry (reference _dump_info,

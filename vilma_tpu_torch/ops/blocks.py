@@ -22,9 +22,16 @@ reference's dropped permutation through each bucket's `seq` map.
 buckets are staged in disk-backed memmaps, and a bucket reaches the card
 in slices of blocks through one bounded pinned buffer.
 
+A sharded PackedLD (`pack(n_shards=N)`, `shard`) splits the layout axis
+into N equal spans (parallel/alignment.py plans them) and holds one
+PackedLD per span in span-local coordinates, each on its shard's device.
+Its ops take and return one vector per shard (`split` makes them) and
+act on each shard alone: no data crosses shards (the JAX package's
+_dot_sharded and _dot_multi_sharded). A process of a multi-process fit
+holds only its own shards.
+
 Not ported: the TPU-only 128-row gather/scatter path (`_dot_rows`,
-`grows`/`srows`, `row_aligned`) and the shard-local layout and its
-shard_map bodies (ROADMAP queue 1, "Multi-GPU").
+`grows`/`srows`, `row_aligned`).
 """
 import dataclasses
 import os
@@ -94,13 +101,25 @@ class PackedLD:
     has_diag: bool            # any block has a nonzero diagonal part
     rank: float               # sum of per-block ranks (reference get_rank)
     missing: tuple            # genome indices with no LD block
+    # a sharded matrix has no buckets of its own: `shards` holds one
+    # PackedLD per span of n // shard_count slots (this process's shards,
+    # the first of them global shard `first_shard`), in span coordinates
+    shards: tuple = ()
+    shard_count: int = 1
+    first_shard: int = 0
 
     @property
     def shape(self):
         return (self.n, self.n)
 
     @property
+    def shard_rows(self):
+        return self.n // self.shard_count
+
+    @property
     def device(self):
+        if self.shards:
+            return self.shards[0].device
         return self.buckets[0].u.device if self.buckets else None
 
     def get_rank(self):
@@ -222,7 +241,7 @@ def _staging_slices(num_blocks, block_bytes):
 
 
 def pack(factors, block_indices, n, dtype=torch.float64, u_dtype=None,
-         device='cpu', spill=None):
+         device='cpu', spill=None, n_shards=1, shards=None):
     """Pack per-block lowrank.LowRankFactor objects into a PackedLD.
 
     block_indices[b] gives the genome index of each row of block b;
@@ -230,7 +249,18 @@ def pack(factors, block_indices, n, dtype=torch.float64, u_dtype=None,
     torch.bfloat16) is the storage type of the eigenvector tensors alone:
     they dominate device traffic ~400x over s/d. Defaults to `dtype`.
     With `spill` (a FactorSpill) each bucket's u is assembled in a
-    disk-backed memmap and moved by _u_from_spill."""
+    disk-backed memmap and moved by _u_from_spill.
+
+    n_shards > 1 (or a list of `shards`) packs a sharded PackedLD
+    (module docstring): n must split into n_shards spans of a multiple of
+    128 slots and no block may straddle a span boundary
+    (parallel/alignment.py plans such layouts); both raise, as in the JAX
+    package. `shards` lists the global shards to pack (all by default; a
+    process of a multi-process fit packs its own) and `device` is one
+    device or one per packed shard."""
+    if n_shards > 1 or shards is not None:
+        return _pack_sharded(factors, block_indices, n, dtype, u_dtype,
+                             device, spill, n_shards, shards)
     if u_dtype is None:
         u_dtype = dtype
     if len(factors) != len(block_indices):
@@ -298,6 +328,115 @@ def pack(factors, block_indices, n, dtype=torch.float64, u_dtype=None,
                     rank=rank, missing=missing)
 
 
+def _shard_devices(device, count):
+    """One device per shard from a device or a sequence of them."""
+    if isinstance(device, (list, tuple)):
+        if len(device) != count:
+            raise ValueError(f'{len(device)} devices for {count} shards')
+        return [torch.device(d) for d in device]
+    return [torch.device(device)] * count
+
+
+def _span_rows(n, n_shards):
+    """The slots of each of n_shards spans; raises unless they divide n
+    in multiples of 128 (the JAX package's shard-local contract)."""
+    rows = n // n_shards
+    if n % n_shards or rows % 128:
+        raise ValueError('shard-local packing needs n to divide into '
+                         'n_shards spans of 128-multiple length')
+    return rows
+
+
+def _pack_sharded(factors, block_indices, n, dtype, u_dtype, device, spill,
+                  n_shards, shards):
+    """pack(n_shards > 1): each requested shard packs its own blocks in
+    span coordinates on its device."""
+    rows = _span_rows(n, n_shards)
+    shards = list(range(n_shards)) if shards is None else list(shards)
+    devices = _shard_devices(device, len(shards))
+    owned = {s: ([], []) for s in shards}
+    for f, ix in zip(factors, block_indices):
+        ix = np.asarray(ix, dtype=np.int64)
+        s = int(ix[0]) // rows
+        if int(ix.min()) // rows != s or int(ix.max()) // rows != s:
+            raise ValueError('an LD block straddles a shard-span boundary; '
+                             'the layout planner must keep blocks whole '
+                             'per shard')
+        if s not in owned:
+            raise ValueError(f'a block of shard {s}, which is not packed '
+                             'here')
+        owned[s][0].append(f)
+        owned[s][1].append(ix - s * rows)
+    parts = tuple(pack(owned[s][0], owned[s][1], rows, dtype=dtype,
+                       u_dtype=u_dtype, device=dev, spill=spill)
+                  for s, dev in zip(shards, devices))
+    missing = tuple(s * rows + m for s, part in zip(shards, parts)
+                    for m in part.missing)
+    return PackedLD(buckets=(), n=n,
+                    has_diag=any(p.has_diag for p in parts),
+                    rank=float(sum(f.rank for f in factors)),
+                    missing=missing, shards=parts, shard_count=n_shards,
+                    first_shard=shards[0] if shards else 0)
+
+
+def shard(ld, n_shards, device='cpu', shards=None):
+    """An unsharded PackedLD regrouped into n_shards spans (the sharded
+    form `pack(n_shards)` gives), its blocks moved to `device` (one, or
+    one per shard in `shards`, all by default). Raises as pack does."""
+    rows = _span_rows(ld.n, n_shards)
+    shards = list(range(n_shards)) if shards is None else list(shards)
+    devices = _shard_devices(device, len(shards))
+    per_shard = {s: [] for s in shards}
+    for bk in ld.buckets:
+        perm = bk.perm.cpu()
+        live = perm < ld.n
+        first = torch.where(live, perm, ld.n).amin(dim=1) // rows
+        last = torch.where(live, perm, -1).amax(dim=1) // rows
+        if bool((first != last).any()):
+            raise ValueError('an LD block straddles a shard-span boundary')
+        for s in shards:
+            sel = torch.nonzero(first == s)[:, 0]
+            if sel.numel():
+                per_shard[s].append((bk, sel))
+    parts = []
+    for s, dev in zip(shards, devices):
+        buckets = []
+        covered = np.zeros(rows, dtype=bool)
+        for bk, sel in per_shard[s]:
+            perm = bk.perm.cpu()[sel]
+            local = torch.where(perm < ld.n, perm - s * rows, rows)
+            covered[local[local < rows].numpy()] = True
+            buckets.append(BlockBucket(
+                u=bk.u[sel.to(bk.u.device)].to(dev),
+                s=bk.s[sel.to(bk.s.device)].to(dev),
+                inv_s=bk.inv_s[sel.to(bk.s.device)].to(dev),
+                d=bk.d[sel.to(bk.d.device)].to(dev),
+                perm=local.to(dev)))
+        parts.append(PackedLD(
+            buckets=tuple(buckets), n=rows,
+            has_diag=any(bool((b.d != 0).any()) for b in buckets),
+            rank=float(sum(int((b.s > 0).sum()) for b in buckets)),
+            missing=tuple(np.flatnonzero(~covered).tolist())))
+    return dataclasses.replace(ld, buckets=(), shards=tuple(parts),
+                               shard_count=n_shards,
+                               first_shard=shards[0] if shards else 0)
+
+
+def split(ld, x):
+    """The last axis of x (all n layout slots) as one tensor per shard of
+    a sharded PackedLD, each on its shard's device."""
+    rows = ld.shard_rows
+    return tuple(
+        x[..., (ld.first_shard + j) * rows:(ld.first_shard + j + 1) * rows]
+        .to(part.device).contiguous() for j, part in enumerate(ld.shards))
+
+
+def _per_shard(fn, ld, *args):
+    """fn on each shard of a sharded PackedLD with its own entries of the
+    per-shard sequences `args`."""
+    return tuple(fn(part, *a) for part, *a in zip(ld.shards, *args))
+
+
 def from_dense_blocks(blocks, block_indices, n, t=1.0,
                       dtype=torch.float64, device='cpu'):
     """Factor dense symmetric blocks on the host, then pack them."""
@@ -334,7 +473,10 @@ def dot_multi(ld, vectors):
     """Matrix @ each of C vectors: [C, n] -> [C, n]. Cohorts sharing one
     LD panel read U once per evaluation per group of at most
     block_matvec.MAX_COHORTS, one kernel launch each, instead of once per
-    cohort."""
+    cohort. On a sharded matrix `vectors` holds one [C, span] tensor per
+    shard, and so does the result."""
+    if ld.shards:
+        return _per_shard(dot_multi, ld, vectors)
     C, n = vectors.shape
     xs_ext = _extend(vectors)                               # [C, n+1]
     out = torch.zeros(n + 1, C, dtype=vectors.dtype, device=vectors.device)
@@ -351,7 +493,10 @@ def dot_multi(ld, vectors):
 
 
 def dot(ld, vector):
-    """Matrix @ vector (reference matrix_structures.py:389-408)."""
+    """Matrix @ vector (reference matrix_structures.py:389-408); per
+    shard on a sharded matrix."""
+    if ld.shards:
+        return _per_shard(dot, ld, vector)
     return dot_multi(ld, vector[None, :])[0]
 
 
@@ -359,7 +504,10 @@ def inverse_dot(ld, vector):
     """PseudoInverse(Matrix) @ vector (reference matrix_structures.py:
     159-196). Schema-loaded LD always has d == 0, the batched
     u @ (inv_s * (u.T @ v)) branch; blocks with a nonzero diagonal take
-    the reference's host-side per-block branches."""
+    the reference's host-side per-block branches. Per shard on a
+    sharded matrix."""
+    if ld.shards:
+        return _per_shard(inverse_dot, ld, vector)
     if ld.has_diag:
         return _inverse_dot_host(ld, vector)
     x_ext = _extend(vector)
@@ -454,7 +602,13 @@ def _woodbury_mid(bk, u, inv_dp, ut_xd):
 def ridge_inverse_dot(ld, vector, regularizer):
     """Inverse(Matrix + diag(regularizer)) @ vector via per-block Woodbury
     (reference matrix_structures.py:349-387 and 187-196, with the
-    reference's diag(inv_s)). regularizer > 0 keeps it well-posed."""
+    reference's diag(inv_s)). regularizer > 0 keeps it well-posed. Per
+    shard on a sharded matrix, where a per-SNP regularizer is given per
+    shard too."""
+    if ld.shards:
+        regs = (regularizer if isinstance(regularizer, (list, tuple))
+                else [regularizer] * len(ld.shards))
+        return _per_shard(ridge_inverse_dot, ld, vector, regs)
     reg = torch.zeros_like(vector) + regularizer
     x_ext = _extend(vector)
     # pad slots read regularizer 1.0 so divisions stay finite; their u
@@ -477,7 +631,9 @@ def diag(ld):
     """Diagonal of the matrix (reference matrix_structures.py:426-440).
     The sum over the rank is a fixed pairwise tree of elementwise adds
     (zero-padded to a power of two), so every device gives the same
-    bits."""
+    bits. Per shard on a sharded matrix."""
+    if ld.shards:
+        return tuple(diag(part) for part in ld.shards)
     parts = []
     dtype = torch.float64
     for bk in ld.buckets:

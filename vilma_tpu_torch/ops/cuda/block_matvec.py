@@ -304,6 +304,7 @@ class BucketMatvec(torch.autograd.Function):
                                          backward=True)
 
 
+@build.on_operands_device
 def _launch(u, s, d, x, backward=False):
     """Check the operands, launch the planned route, count the launch."""
     global launches, launches_group, launches_backward

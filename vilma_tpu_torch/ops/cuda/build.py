@@ -178,3 +178,22 @@ def check(status, name):
 def stream_handle(device):
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def on_operands_device(launcher):
+    """Run a kernel launcher on the card of its first CUDA tensor
+    operand: the C entry points and the occupancy and shared-memory
+    queries act on the runtime's current device, which need not be the
+    operands' (a shard on cuda:1 while cuda:0 is current)."""
+    import functools
+    import torch
+
+    @functools.wraps(launcher)
+    def launch(*args, **kwargs):
+        dev = next((a.device for a in args
+                    if isinstance(a, torch.Tensor) and a.is_cuda), None)
+        if dev is None:
+            return launcher(*args, **kwargs)
+        with torch.cuda.device(dev):
+            return launcher(*args, **kwargs)
+    return launch

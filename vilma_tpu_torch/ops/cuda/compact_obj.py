@@ -432,6 +432,7 @@ def _sums_scratch(nblocks, K, A, I, kg, dev):
     return part, norm
 
 
+@build.on_operands_device
 def prologue(coeffs, scores_t, annotations, dterm, nat_mu, *,
              num_annotations):
     """Fused (post_means [P, I], post_vars [P, I], beta_kl scalar) of a
@@ -471,6 +472,7 @@ def prologue(coeffs, scores_t, annotations, dterm, nat_mu, *,
     return pm, pv, kl
 
 
+@build.on_operands_device
 def delta_sums(coeffs, scores_t, annotations, dterm, nat_mu, *,
                num_annotations):
     """Per-annotation sums of the derived vi_delta: [A, K]. nat_mu as in
@@ -499,6 +501,7 @@ def delta_sums(coeffs, scores_t, annotations, dterm, nat_mu, *,
     return out.T
 
 
+@build.on_operands_device
 def prologue_epochs(coeffs, scores_t, annotations, sld, nat_u, hist_v,
                     inv_scales, hist_c, *, num_annotations, num_live=None):
     """Fused (post_means, post_vars, beta_kl) of an epoch-history
@@ -537,6 +540,7 @@ def prologue_epochs(coeffs, scores_t, annotations, sld, nat_u, hist_v,
     return pm, pv, kl
 
 
+@build.on_operands_device
 def delta_sums_epochs(coeffs, scores_t, annotations, sld, nat_u, hist_v,
                       inv_scales, hist_c, *, num_annotations, num_live=None):
     """Per-annotation sums of the derived vi_delta for the epoch state:

@@ -2,9 +2,10 @@
 
 Port of vilma_tpu/ops/kernels.py: the same 14 functions with the same
 signatures and shapes (K = mixture components, P = populations,
-I = SNPs, A = annotations; [K, *] genome arrays are K-major). These are
-plain tensor expressions, not hand-written kernels: the JAX package left
-them to XLA fusion too.
+I = SNPs, A = annotations; [K, *] genome arrays are K-major), and
+fast_likelihood split into a per-SNP partial and a finish for sharded
+fits. These are plain tensor expressions, not hand-written kernels: the
+JAX package left them to XLA fusion too.
 """
 import torch
 
@@ -30,11 +31,26 @@ def fast_likelihood(post_means, post_vars, scaled_mu, scaled_ld_diags,
                     linked_ests, adj_marginal, chi_stat, ld_ranks,
                     error_scaling):
     """Expected log likelihood of the RSS model (numerics.py:31-46)."""
-    per_pop = torch.sum(
+    return likelihood_finish(
+        likelihood_partial(post_means, post_vars, scaled_mu,
+                           scaled_ld_diags, linked_ests, adj_marginal),
+        chi_stat, ld_ranks, error_scaling)
+
+
+def likelihood_partial(post_means, post_vars, scaled_mu, scaled_ld_diags,
+                       linked_ests, adj_marginal):
+    """The per-SNP part of fast_likelihood summed over the SNPs given:
+    [P]. A sharded fit adds the shards' partials before the finish."""
+    return torch.sum(
         -0.5 * (scaled_ld_diags * post_vars + linked_ests * scaled_mu)
         + post_means * adj_marginal,
         dim=1,
     )
+
+
+def likelihood_finish(per_pop, chi_stat, ld_ranks, error_scaling):
+    """fast_likelihood from the [P] sums over every SNP: the global
+    terms (chi_stat, the ld_ranks log-scaling term) are added once."""
     per_pop = per_pop - 0.5 * chi_stat
     return torch.sum(per_pop / error_scaling
                      - 0.5 * ld_ranks * torch.log(error_scaling))
