@@ -27,7 +27,13 @@ Phases:
      kdim sums at most 2.0x the kdim prologue. The matvec's backward
      (the forward's kernel on the gradient, under autograd) at phase 4's
      bucket against the plain matvec on the gradient, timed through
-     torch.autograd.grad against the plain version's own autograd.
+     torch.autograd.grad against the plain version's own autograd. The
+     K-split kernels of component sharding at phase 16's shapes (2 slices
+     of 291 components: the shared and kdim state on 45,056 slots, the
+     epoch state on 1,000,448): each partial, pass 1 and pass 2 against
+     its plain version, the prologue and normalizer merges on the
+     kernels' partials, and the whole split path against the whole-K
+     kernels and plain versions; repeatable bit for bit.
   4. fit: `vilma-tpu-torch fit` in-process on a synthetic on-disk schema
      the size of a per-chromosome HapMap3 fit (~90K variants in
      1024-SNP AR(1) blocks at half rank, 2 cohorts sharing the panel) at
@@ -132,6 +138,23 @@ Phases:
      d. with two cards or more, two processes over NCCL, one card each,
         at --mesh snp=2, outputs against 15c's; with one card it prints
         `phase 15d not run: 1 card`.
+ 16. component sharding (--mesh comp=M), the shards co-located on
+     cuda:0; each run's launches zeroed just before and read just after:
+     a. phase 4's fit at --mesh comp=2,snp=2 and phase 6's flags for
+        KDIM_STEPS steps (kdim) at the same mesh: every output within
+        BAND_SHARD of phase 4's (of 15b's unsharded kdim run), the same
+        evaluations and host syncs a step, the matvec 4x, no whole-K
+        compact kernel, each K-split kernel and merge 4x the whole-K
+        kernel's launches; seconds a step;
+     b. phase 12's shape at --mesh comp=4: the K-split path against the
+        whole-K kernels and plain versions at one point (K = 42,999, 4
+        slices), then the initialization and 2 steps, the ELBO against
+        phase 12's;
+     c. phase 13a's fit --trait of 4 traits at --mesh comp=2: outputs
+        within BAND_SHARD of 13a's, each shard's vi_mu, vi_delta and
+        sigma-summary bytes against 13a's (half, of K = 1,953);
+     d. phase 7's epoch state at --mesh comp=2 for 3 steps against the
+        same steps unsharded: seconds a step of both.
 
 The next-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failed phase exits
@@ -284,7 +307,62 @@ KERNELS = {
         source='vilma_tpu_torch/csrc/compact_obj_epochs.cu',
         replaces='vilma_tpu/ops/pallas/compact_obj.py:603',
         ptxas=r'compact_kernel<\(int\)2, \(bool\)1, \(int\)2, \(int\)[12]>'),
+    # the K-split forms of component sharding (phase 16)
+    'prologue_partial': dict(
+        source='vilma_tpu_torch/csrc/compact_obj.cu',
+        replaces='vilma_tpu/ops/pallas/compact_obj.py:414',
+        ptxas=r'compact_kernel<\(int\)2, \(bool\)0, \(int\)0, .*1>'),
+    'prologue_kdim_partial': dict(
+        source='vilma_tpu_torch/csrc/compact_obj.cu',
+        replaces='vilma_tpu/ops/pallas/compact_obj.py:257',
+        ptxas=r'compact_kernel<\(int\)2, \(bool\)0, \(int\)1, .*1>'),
+    'prologue_epochs_partial': dict(
+        source='vilma_tpu_torch/csrc/compact_obj_epochs.cu',
+        replaces='vilma_tpu/ops/pallas/compact_obj.py:562',
+        ptxas=r'compact_kernel<\(int\)2, \(bool\)0, \(int\)2, \(int\)1, .*1>'),
+    'prologue_merge': dict(
+        source='vilma_tpu_torch/csrc/compact_obj.cu',
+        replaces='vilma_tpu/ops/pallas/compact_obj.py:414',
+        ptxas=r'merge_kernel<\(int\)2>'),
+    'delta_norm': dict(
+        source='vilma_tpu_torch/csrc/compact_obj.cu',
+        replaces='vilma_tpu/ops/pallas/compact_obj.py:653',
+        ptxas=r'compact_kernel<\(int\)2, \(bool\)1, \(int\)0, .*1>'),
+    'delta_norm_kdim': dict(
+        source='vilma_tpu_torch/csrc/compact_obj.cu',
+        replaces='vilma_tpu/ops/pallas/compact_obj.py:257',
+        ptxas=r'compact_kernel<\(int\)2, \(bool\)1, \(int\)1, .*1>'),
+    'delta_norm_epochs': dict(
+        source='vilma_tpu_torch/csrc/compact_obj_epochs.cu',
+        replaces='vilma_tpu/ops/pallas/compact_obj.py:603',
+        ptxas=r'compact_kernel<\(int\)2, \(bool\)1, \(int\)2, \(int\)1, .*1>'),
+    'norm_merge': dict(
+        source='vilma_tpu_torch/csrc/compact_obj.cu',
+        replaces='vilma_tpu/ops/pallas/compact_obj.py:653',
+        ptxas=r'norm_merge_kernel'),
+    'delta_sums_given': dict(
+        source='vilma_tpu_torch/csrc/compact_obj.cu',
+        replaces='vilma_tpu/ops/pallas/compact_obj.py:653',
+        ptxas=r'compact_kernel<\(int\)2, \(bool\)1, \(int\)0, .*2>'),
+    'delta_sums_kdim_given': dict(
+        source='vilma_tpu_torch/csrc/compact_obj.cu',
+        replaces='vilma_tpu/ops/pallas/compact_obj.py:257',
+        ptxas=r'compact_kernel<\(int\)2, \(bool\)1, \(int\)1, .*2>'),
+    'delta_sums_epochs_given': dict(
+        source='vilma_tpu_torch/csrc/compact_obj_epochs.cu',
+        replaces='vilma_tpu/ops/pallas/compact_obj.py:603',
+        ptxas=r'compact_kernel<\(int\)2, \(bool\)1, \(int\)2, \(int\)1, .*2>'),
 }
+# the K-split kernels of each state form (phases 3 and 16):
+# (prologue partial, sums pass 1, sums pass 2); the merges serve all three
+SPLIT_KEYS = {
+    'shared': ('prologue_partial', 'delta_norm', 'delta_sums_given'),
+    'kdim': ('prologue_kdim_partial', 'delta_norm_kdim',
+             'delta_sums_kdim_given'),
+    'epochs': ('prologue_epochs_partial', 'delta_norm_epochs',
+               'delta_sums_epochs_given'),
+}
+MERGE_KEYS = ('prologue_merge', 'norm_merge')
 
 
 class SmokeFailure(RuntimeError):
@@ -374,6 +452,33 @@ def compact_cost(P, K, I, A, sums, live=None):
     else:
         flops = (20 * (live + 1) + (30 + 2 * A if sums else 40)) * K * I
     return tables + per_snp * I + out, flops + 3 * K * I
+
+
+def split_cost(kind, P, K, I, A, live=None, M=2):
+    """(bytes, operations) of one K-split kernel call over a slice of K
+    components (compact_cost's counting): 'partial' the prologue partial
+    (its [3 + 2P, I] accumulators out), 'norm' the sums' pass 1 ([2, I]
+    out; the sums' z-only flops halved, two transcendentals per pair),
+    'given' pass 2 ([2, I] normalizer in, [K, A] out), 'merge' and
+    'norm_merge' the merges of M partials (one exponential per partial
+    and SNP, bytes-bound)."""
+    if kind == 'merge':
+        rows = 3 + 2 * P
+        return (4 * M * rows * I + 4 * I + 4 * 2 * P * I + 4,
+                I * (M * (2 * rows + 3) + 4 * P + 8))
+    if kind == 'norm_merge':
+        return 4 * M * 2 * I + 4 * 2 * I, I * (M * 4 + 2)
+    nbytes, _ = compact_cost(P, K, I, A, sums=kind == 'given', live=live)
+    if live is None or live == 'kdim':
+        z = 25 * K * I
+    else:
+        z = (20 * (live + 1) + 15) * K * I
+    if kind == 'partial':
+        return (nbytes - 4 * 2 * P * I - 4 + 4 * (3 + 2 * P) * I,
+                compact_cost(P, K, I, A, sums=False, live=live)[1])
+    if kind == 'norm':
+        return nbytes - 4 * 2 * P * I - 4 + 4 * 2 * I, z + 2 * K * I
+    return nbytes + 4 * 2 * I, z + 2 * A * K * I + 2 * K * I
 
 
 def max_err(got, want):
@@ -869,6 +974,182 @@ def check_epochs(device, results, A=4, B=4, cases=EPOCH_CASES):
             times[(P, I, live)] = ms
         del hist, kw
     return times
+
+
+# (form, P, K of the grid, I, live epochs): phase 16's shapes at comp = 2
+# (K = 291 a slice): 16a's shared state and kdim state on a snp span of
+# phase 4's 90,112 variants (45,056 slots), 16d's epoch state at 1M SNPs
+SPLIT_SHAPES = (('shared', 2, 582, 45_056, None),
+                ('kdim', 2, 582, 45_056, 'kdim'),
+                ('epochs', 2, 582, 1_000_448, 1))
+
+
+def split_operands(device, form, P, K, I, A, live, B=4):
+    """Whole-K operands of a form's kernels (keyword arguments)."""
+    import torch
+    coeffs, scores_t, ann, dterm, nat = compact_inputs(device, P, K, I, A,
+                                                       seed=5 * P + K + I)
+    kw = dict(coeffs=coeffs, scores_t=scores_t, annotations=ann,
+              num_annotations=A)
+    gen = torch.Generator(device=device).manual_seed(K + I)
+    if form == 'shared':
+        return dict(kw, dterm=dterm, nat_mu=nat)
+    if form == 'kdim':
+        return dict(kw, dterm=dterm, nat_mu=torch.randn(
+            K, P, I, generator=gen, device=device) * 0.5)
+    rng = np.random.default_rng(P + live)
+    hist = torch.zeros(B, P, I, device=device)
+    hist[:live] = torch.randn(live, P, I, generator=gen,
+                              device=device) * 0.5
+    isc = np.ones((B + 1, P))
+    isc[:live + 1] = 1 / rng.uniform(0.7, 1.4, (live + 1, P))
+    hc = np.zeros(B)
+    hc[:live] = rng.uniform(0.1, 1.0, live)
+    return dict(kw, sld=dterm, nat_u=nat, hist_v=hist,
+                inv_scales=torch.as_tensor(isc, dtype=torch.float32,
+                                           device=device),
+                hist_c=torch.as_tensor(hc, dtype=torch.float32,
+                                       device=device), num_live=live)
+
+
+def split_fns(form):
+    """(whole prologue, whole sums, partial, pass 1, pass 2) kernels and
+    their plain versions of a form."""
+    from vilma_tpu_torch.ops.cuda import compact_obj as co
+    if form == 'epochs':
+        names = ('prologue_epochs', 'delta_sums_epochs',
+                 'prologue_epochs_partial', 'delta_norm_epochs',
+                 'delta_sums_epochs_given')
+    else:
+        names = ('prologue', 'delta_sums', 'prologue_partial', 'delta_norm',
+                 'delta_sums_given')
+    return ([getattr(co, n) for n in names],
+            [getattr(co, n + '_plain') for n in names])
+
+
+def slice_kw(kw, ks):
+    """The operands of the components `ks`: their coefficient and score
+    rows, and a kdim natural mean's rows."""
+    out = dict(kw, coeffs=kw['coeffs'][ks].contiguous(),
+               scores_t=kw['scores_t'][ks].contiguous())
+    if 'nat_mu' in kw and kw['nat_mu'].dim() == 3:
+        out['nat_mu'] = kw['nat_mu'][ks].contiguous()
+    return out
+
+
+def run_split(kw, fns, M):
+    """(pm, pv, kl, [A, K] sums) of the K-split path over M comp
+    slices: partials, their merge, pass 1, the normalizer merge, pass 2
+    (kernels or plain versions, `fns` as split_fns gives them)."""
+    import torch
+    from vilma_tpu_torch.ops.cuda import compact_obj as co
+    from vilma_tpu_torch.parallel.mesh import k_slices
+    plain = fns[0] is co.prologue_plain or fns[0] is co.prologue_epochs_plain
+    merge = co.prologue_merge_plain if plain else co.prologue_merge
+    nmerge = co.norm_merge_plain if plain else co.norm_merge
+    kss = [slice(a, b) for a, b in k_slices(kw['scores_t'].shape[0], M)]
+    accs = torch.stack([fns[2](**slice_kw(kw, ks)) for ks in kss])
+    pm, pv, kl = merge(accs, kw['annotations'],
+                       num_annotations=kw['num_annotations'])
+    parts = torch.stack([fns[3](**slice_kw(kw, ks)) for ks in kss])
+    norm = nmerge(parts)
+    sums = torch.cat([fns[4](**slice_kw(kw, ks), norm=norm)
+                      for ks in kss], dim=1)
+    return pm, pv, kl, sums, accs, norm, parts
+
+
+def check_split(device, results, A=4, M=2, shapes=SPLIT_SHAPES, timed=True):
+    """The K-split kernels (component sharding) at phase 16's shapes
+    (SPLIT_SHAPES), each against its plain version on the same inputs and
+    repeatable bit for bit: the partial (both sides finished alone by the
+    plain merge), pass 1, pass 2 with the kernels' merged normalizer, the
+    two merges on the kernels' partials; then the whole split path of
+    kernels against the whole-K kernels and the whole-K plain versions
+    (BAND_F32, BAND_KL). Times the slice-0 call of each kernel beside its
+    plain version."""
+    import torch
+    from vilma_tpu_torch.ops.cuda import compact_obj as co
+    from vilma_tpu_torch.parallel.mesh import k_slices
+    for form, P, K, I, live in shapes:
+        kw = split_operands(device, form, P, K, I, A, live)
+        kern, plain = split_fns(form)
+        got = run_split(kw, kern, M)
+        again = run_split(kw, kern, M)
+        want = run_split(kw, plain, M)
+        rep = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+        whole = kern[0](**kw) + (kern[1](**kw),)
+        wplain = plain[0](**kw) + (plain[1](**kw),)
+        torch.cuda.synchronize()
+        errs = {}
+        for tag, ref in (('whole kernel', whole), ('whole plain', wplain),
+                         ('split plain', want)):
+            errs[tag] = [max_err(a, b)[1] for a, b in zip(got[:4], ref)]
+        ks = slice(*k_slices(K, M)[0])
+        kw0 = slice_kw(kw, ks)
+        Kc = ks.stop - ks.start
+        finish = co.prologue_merge_plain
+        acc_k, acc_p = kern[2](**kw0), plain[2](**kw0)
+        per = {
+            'partial': [max_err(a, b) for a, b in zip(
+                finish(acc_k[None], kw['annotations'], num_annotations=A),
+                finish(acc_p[None], kw['annotations'], num_annotations=A))],
+            'norm': [max_err(kern[3](**kw0), plain[3](**kw0))],
+            'given': [max_err(kern[4](**kw0, norm=got[5]),
+                              plain[4](**kw0, norm=got[5]))],
+            'merge': [max_err(a, b) for a, b in zip(
+                co.prologue_merge(got[4], kw['annotations'],
+                                  num_annotations=A),
+                co.prologue_merge_plain(got[4], kw['annotations'],
+                                        num_annotations=A))],
+            'norm_merge': [max_err(co.norm_merge(got[6]),
+                                   co.norm_merge_plain(got[6]))]}
+        name = f'K-split {form} P={P} K={K} ({M} slices of {Kc}) I={I}'
+        log(f'  {name}: split path of kernels vs ' + '; '.join(
+            f'{t} (pm, pv, kl, sums) {[float(f"{e:.2e}") for e in v]}'
+            for t, v in errs.items()) + f'; repeatable {rep}')
+        for t, v in errs.items():
+            require(max(v[0], v[1], v[3]) <= BAND_F32 and v[2] <= BAND_KL,
+                    f'{name}: against the {t} outside the band: {v}')
+        require(rep, f'{name}: not bit-for-bit repeatable')
+        keys = dict(zip(('partial', 'norm', 'given'), SPLIT_KEYS[form]))
+        if form == 'shared' and timed:
+            keys.update(merge='prologue_merge', norm_merge='norm_merge')
+        runs = {
+            'partial': ((lambda: kern[2](**kw0)), (lambda: plain[2](**kw0)),
+                        split_cost('partial', P, Kc, I, A, live)),
+            'norm': ((lambda: kern[3](**kw0)), (lambda: plain[3](**kw0)),
+                     split_cost('norm', P, Kc, I, A, live)),
+            'given': ((lambda: kern[4](**kw0, norm=got[5])),
+                      (lambda: plain[4](**kw0, norm=got[5])),
+                      split_cost('given', P, Kc, I, A, live)),
+            'merge': ((lambda: co.prologue_merge(
+                got[4], kw['annotations'], num_annotations=A)),
+                (lambda: co.prologue_merge_plain(
+                    got[4], kw['annotations'], num_annotations=A)),
+                split_cost('merge', P, Kc, I, A, M=M)),
+            'norm_merge': ((lambda: co.norm_merge(got[6])),
+                           (lambda: co.norm_merge_plain(got[6])),
+                           split_cost('norm_merge', P, Kc, I, A, M=M))}
+        for kind, key in keys.items():
+            # (pm, pv, kl) of the prologue's two; one result elsewhere
+            bands = (BAND_F32, BAND_F32, BAND_KL)
+            rel = max(e[1] for e in per[kind])
+            require(all(e[1] <= band for e, band in zip(per[kind], bands)),
+                    f'{name}: {kind} kernel {per[kind]} (abs, of scale) '
+                    f'from its plain version (bands {bands})')
+            if not timed:
+                log(f'    {key}: {rel:.2e} of scale from plain')
+                continue
+            run, ref, cost = runs[kind]
+            ms, plain_ms = paired_ms(run, ref, reps=10, plain_reps=2)
+            b = bound(*cost)
+            results[key] = entry(max(e[0] for e in per[kind]), ms, plain_ms,
+                                 b)
+            log(f'    {key}: {rel:.2e} of scale from plain; {ms:.4f} ms '
+                f'(plain {plain_ms:.4f}); bound {b[0]:.4f} ms ({b[1]}), '
+                f'{b[0] / ms:.1%} of it reached')
+        del kw, got, again, want, whole, wplain
+        torch.cuda.empty_cache()
 
 
 def check_bars(shared_ms, kdim_ms, epoch_ms):
@@ -1763,7 +2044,8 @@ def timed_optimize(vi, device):
         st, pm = real_step(*a, **k)
         _sync(device)
         step_s.append(time.perf_counter() - t)
-        finite.append(bool(torch.isfinite(pm).all()))
+        finite.append(all(bool(torch.isfinite(p).all()) for p in (
+            pm if isinstance(pm, tuple) else (pm,))))
         return st, pm
 
     def timed_init():
@@ -1833,13 +2115,14 @@ def materialized_targets():
         matvec=(blocks, 'dot_multi'))
 
 
-def run_trait_fit(out_dir, device='cuda', num_blocks=88, K=3):
+def run_trait_fit(out_dir, device='cuda', num_blocks=88, K=3, keep=False):
     """Phase 13a: `fit --trait` of TRAITS traits on one ~90K-variant panel
     (88 blocks of 1024 at half rank, bf16 U), -K 3 --drop-non-psd, f32,
     STEPS_TRAIT steps, no vi_sigma output; the materialized state. The
     matvec must launch with 4 cohorts and no compact kernel at all; the
     ELBO stays finite and does not fall by more than the line search's
-    relative tolerance. Returns what it measured."""
+    relative tolerance. Returns what it measured (with `keep`, the
+    schema's paths and the outputs' prefix, which stay, for phase 16c)."""
     import torch
     paths = write_schema(out_dir, num_blocks=num_blocks, num_pops=TRAITS)
     prefix = os.path.join(out_dir, 'trait')
@@ -1870,8 +2153,10 @@ def run_trait_fit(out_dir, device='cuda', num_blocks=88, K=3):
     require(all(counts[k] == 0 for k in counts
                 if not k.startswith('bucket')),
             f'phase 13a ran a compact kernel: {counts}')
-    remove_outputs(prefix)
+    if not keep:
+        remove_outputs(prefix)
     return dict(K=K, n=paths[3], seconds=seconds, step_s=step_s,
+                paths=paths, prefix=prefix,
                 syncs=syncs / len(step_s), peak=peak, counts=counts,
                 elbos=v, top=top, split=split.split(seconds))
 
@@ -2523,12 +2808,15 @@ def check_sharded_small_fit(out_dir):
     return errs
 
 
-def run_sharded_epoch(vi, st, ld, steps=EPOCH_STEPS, shards=EPOCH_SHARDS):
-    """Phase 15b's epoch state: phase 7's state at 1M SNPs stepped
-    `steps` times unsharded and on `shards` shards co-located on cuda:0
-    (the LD relaid out in the shard-local layout, the state carried into
-    it); ELBO and posterior means against each other, seconds a step of
-    each, the sharded run's launches."""
+def run_sharded_epoch(vi, st, ld, steps=EPOCH_STEPS, shards=EPOCH_SHARDS,
+                      n_comp=1, name='phase 15b epoch'):
+    """Phase 15b's epoch state (16d's with n_comp > 1): phase 7's state
+    at 1M SNPs stepped `steps` times unsharded and on `shards` snp shards
+    by n_comp comp shards co-located on cuda:0 (the LD relaid out in the
+    shard-local layout, the state carried into it); ELBO and posterior
+    means against each other, seconds a step of each, the sharded run's
+    launches: each epoch kernel (its K-split forms and merges under comp)
+    once per shard where the unsharded run launches it once."""
     import torch
     from vilma_tpu_torch.inference import engine
     from vilma_tpu_torch.parallel import alignment, mesh as mesh_mod
@@ -2537,13 +2825,16 @@ def run_sharded_epoch(vi, st, ld, steps=EPOCH_STEPS, shards=EPOCH_SHARDS):
     stU, ips0, syncs0, pmU = timed_steps(vi.data, st, steps)
     counts0 = read_counts()
     t0 = time.perf_counter()
-    mesh = mesh_mod.make_mesh(shards, devices=['cuda:0'] * shards)
+    total = shards * n_comp
+    mesh = mesh_mod.make_mesh(shards, n_comp=n_comp,
+                              devices=['cuda:0'] * total)
     n = ld.n
     lmap, L, ok = alignment.compute_layout([ld], n, n_shards=shards)
     require(ok, 'no shard-local layout for phase 7\'s LD')
     ld_s = alignment.relayout_ld(ld, lmap, L, dtype=torch.float32,
                                  u_dtype=torch.bfloat16, n_shards=shards,
-                                 device=list(mesh.devices))
+                                 device=list(mesh.devices),
+                                 shards=list(mesh.snp_shards))
     inp = vi.inputs
     vi_s = engine.MultiPopVI(
         marginal_effects=alignment.relayout_rows(inp['betas'], lmap, L),
@@ -2569,7 +2860,7 @@ def run_sharded_epoch(vi, st, ld, steps=EPOCH_STEPS, shards=EPOCH_SHARDS):
     zero_counts()
     stS, ips, syncs, pmS = timed_steps(vi_s.data, st_s, steps)
     out['counts'] = read_counts()
-    pmS = mesh.gather(pmS).cpu().numpy()[:, lmap]
+    pmS = mesh.gather_spans(pmS).cpu().numpy()[:, lmap]
     pmU = pmU.cpu().numpy()
     out['pm_err'] = float(np.max(np.abs(pmS - pmU)) / np.max(np.abs(pmU)))
     out['elbo_err'] = abs(stS.elbo / stU.elbo - 1)
@@ -2577,15 +2868,18 @@ def run_sharded_epoch(vi, st, ld, steps=EPOCH_STEPS, shards=EPOCH_SHARDS):
                counts0=counts0, L=L, nat_hist_n=(stS.nat_hist_n,
                                                  stU.nat_hist_n))
     for key in ('pm_err', 'elbo_err'):
-        require(out[key] <= BAND_SHARD, f'phase 15b epoch: {key} '
+        require(out[key] <= BAND_SHARD, f'{name}: {key} '
                 f'{out[key]:.2e} (band {BAND_SHARD:.0e})')
-    require(syncs == syncs0, f'phase 15b epoch: {syncs} host syncs a step, '
+    require(syncs == syncs0, f'{name}: {syncs} host syncs a step, '
             f'unsharded {syncs0}')
-    for key in ('bucket_matvec_multi', 'prologue_epochs',
-                'delta_sums_epochs'):
-        require(out['counts'][key] == shards * counts0[key] > 0,
-                f'phase 15b epoch: {key} launched {out["counts"][key]} '
-                f'times, unsharded {counts0[key]} (x{shards} expected)')
+    pairs = ([('bucket_matvec_multi', 'bucket_matvec_multi')]
+             + comp_pairs('epochs') if n_comp > 1 else
+             [(k, k) for k in ('bucket_matvec_multi', 'prologue_epochs',
+                               'delta_sums_epochs')])
+    for key, key0 in pairs:
+        require(out['counts'][key] == total * counts0[key0] > 0,
+                f'{name}: {key} launched {out["counts"][key]} times, '
+                f'unsharded {key0} {counts0[key0]} (x{total} expected)')
     del vi_s, st_s, stS, ld_s
     torch.cuda.empty_cache()
     return out
@@ -2705,8 +2999,9 @@ def run_phase15(paths, p4, vi7, st7, ld7, out_dir, cache, launches, smi):
         f'{smi}')
     for key in ('bucket_matvec_multi', 'prologue_kdim', 'delta_sums_kdim'):
         launches[key] += r['counts'][key]
-    for tag in runs:
-        remove_outputs(os.path.join(out_dir, tag))
+    # phase 16a compares its comp-sharded kdim fit with the unsharded one
+    remove_outputs(os.path.join(out_dir, 'mesh_fit_se'))
+    out['kdim_ref'] = runs['fit_se'][0]
     e = run_sharded_epoch(vi7, st7, ld7)
     out['15b_epoch'] = e
     log(f'  epoch: 1,000,448 SNPs in {e["L"]} slots on {EPOCH_SHARDS} '
@@ -2760,6 +3055,232 @@ def run_phase15(paths, p4, vi7, st7, ld7, out_dir, cache, launches, smi):
     else:
         print('phase 15d not run: 1 card', flush=True)
     remove_outputs(prefix)
+    return out
+
+
+def comp_pairs(form):
+    """(K-split kernel, the whole-K kernel it stands in for) of a form:
+    under comp each shard launches the first as often as an unsharded
+    fit launches the second."""
+    whole = {'shared': ('prologue', 'delta_sums'),
+             'kdim': ('prologue_kdim', 'delta_sums_kdim'),
+             'epochs': ('prologue_epochs', 'delta_sums_epochs')}[form]
+    part, norm, given = SPLIT_KEYS[form]
+    return [(part, whole[0]), ('prologue_merge', whole[0]),
+            (norm, whole[1]), ('norm_merge', whole[1]), (given, whole[1])]
+
+
+def check_comp_fit(name, run, ref, shards, form, band=BAND_SHARD):
+    """A comp-sharded CLI fit (`run`, counted_fit's result and its
+    prefix) against the unsharded one (`ref`) of the same command: every
+    output within `band` of its scale, the same evaluations of the
+    objective and host syncs per step, the matvec launched `shards` times
+    as often, no whole-K compact kernel, and each K-split kernel and
+    merge once per shard where the unsharded fit launches the whole-K
+    kernel it stands in for. Returns the readings."""
+    (counts, step_s, syncs, em, terms), prefix = run
+    (counts0, step0, syncs0, em0, terms0), prefix0 = ref
+    errs = output_errors(prefix, prefix0)
+    worst = max(errs.values())
+    per_step, per_step0 = syncs / len(step_s), syncs0 / len(step0)
+    evals = terms / shards
+    pairs = [('bucket_matvec_multi', 'bucket_matvec_multi')] + comp_pairs(
+        form)
+    log(f'  {name}: outputs against the unsharded run, of their scale: '
+        + ', '.join(f'{k} {v:.2e}' for k, v in errs.items())
+        + f' (band {band:.0e}); evaluations {evals} (unsharded {terms0}); '
+        f'host syncs a step {per_step} ({per_step0}); launches per shard '
+        + str({k: counts[k] / shards for k, _ in pairs})
+        + f' (unsharded {dict((k0, counts0[k0]) for _, k0 in pairs)})')
+    require(worst <= band, f'{name}: an output {worst:.2e} of its scale '
+            f'from the unsharded run\'s (band {band:.0e})')
+    require(per_step == per_step0,
+            f'{name}: {per_step} host syncs a step, unsharded {per_step0}')
+    require(evals == terms0, f'{name}: {evals} evaluations of the '
+            f'objective, unsharded {terms0}')
+    for key, key0 in pairs:
+        require(counts[key] == shards * counts0[key0] > 0,
+                f'{name}: {key} launched {counts[key]} times, unsharded '
+                f'{key0} {counts0[key0]} (x{shards} expected)')
+    whole = [k for k in ('prologue', 'delta_sums', 'prologue_kdim',
+                         'delta_sums_kdim', 'prologue_epochs',
+                         'delta_sums_epochs') if counts[k]]
+    require(not whole, f'{name} launched whole-K kernels {whole}')
+    return dict(errs=errs, syncs=(per_step, per_step0),
+                step_s=(float(np.median(step_s)), float(np.median(step0))),
+                counts=counts)
+
+
+class capture_fit:
+    """The MultiPopVI of the fits run inside (its optimize wrapped)."""
+
+    def __enter__(self):
+        from vilma_tpu_torch.inference import engine
+        self.owner, self.real = engine.MultiPopVI, engine.MultiPopVI.optimize
+        self.fits = []
+        real, fits = self.real, self.fits
+
+        def optimize(vi, *a, **k):
+            fits.append(vi)
+            return real(vi, *a, **k)
+        self.owner.optimize = optimize
+        return self
+
+    def __exit__(self, *exc):
+        self.owner.optimize = self.real
+
+
+def run_comp_chunked(device, c12, M=4, num_blocks=98, steps=2):
+    """Phase 16b: phase 12's shape (100,352 SNPs, 3 cohorts, 42,999
+    components) at comp = M, the shards co-located on cuda:0: the K-split
+    kernels against the whole-K kernels and the plain versions at one
+    point, then MultiPopVI.optimize's initialization and `steps` steps;
+    the ELBO against phase 12's (`c12`)."""
+    import torch
+    from vilma_tpu_torch.inference import engine
+    from vilma_tpu_torch.models import mixture
+    from vilma_tpu_torch.parallel import alignment, mesh as mesh_mod
+    ld = device_ld(num_blocks, 1024, 512, device)
+    n = ld.n
+    check_split(device, {}, A=1, M=M,
+                shapes=(('shared', 3, CHUNKED_K, n, None),), timed=False)
+    rng = np.random.default_rng(11)
+    std_errs = rng.uniform(0.01, 0.05, (3, n)).astype(np.float32)
+    betas = (rng.standard_normal((3, n)) * std_errs * 2).astype(np.float32)
+    np.random.seed(42)
+    covs = mixture.make_simple(
+        3, 12, *mixture.effect_size_ranges(betas, std_errs, False),
+        drop_non_psd=True)
+    mesh = mesh_mod.make_mesh(1, n_comp=M, devices=['cuda:0'] * M)
+    lmap, L, ok = alignment.compute_layout([ld], n, n_shards=1)
+    require(ok and L == n, f'phase 16b layout: {L} slots for {n} SNPs')
+    ld_s = alignment.relayout_ld(ld, lmap, L, dtype=torch.float32,
+                                 u_dtype=torch.bfloat16, n_shards=1,
+                                 device=list(mesh.devices),
+                                 shards=list(mesh.snp_shards))
+    del ld
+    vi = engine.MultiPopVI(
+        marginal_effects=alignment.relayout_rows(betas, lmap, L),
+        std_errs=alignment.relayout_rows(std_errs, lmap, L, fill=1.0),
+        ld_mats=[ld_s] * 3,
+        annotations=alignment.relayout_annotations(np.ones((n, 1)), lmap,
+                                                   L),
+        mixture_covs=covs, checkpoint=False, gwas_N=np.full(3, 1e5),
+        init_hg=np.full(3, 0.3), num_its=steps, dtype=torch.float32,
+        mesh=mesh, out_index=lmap)
+    st, out = timed_optimize(vi, device)
+    out['slices'] = [s.hyper_delta.shape[1] for s in st.shards]
+    out['elbo_err'] = abs(out['elbo'] / c12['elbo'] - 1)
+    require(len(out['step_s']) == steps, f'{len(out["step_s"])} steps')
+    require(out['elbo_err'] <= BAND_SHARD, f'phase 16b: ELBO '
+            f'{out["elbo"]!r} against phase 12\'s {c12["elbo"]!r}')
+    require_launched(out['counts'], ('bucket_matvec_multi',)
+                     + SPLIT_KEYS['shared'] + MERGE_KEYS, 'phase 16b')
+    del vi, st, ld_s
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_phase16(paths, p4, kdim_ref, trait, c12, vi7, st7, ld7, out_dir,
+                cache, launches, smi):
+    """Phase 16: component sharding, the shards co-located on cuda:0.
+    p4 and kdim_ref are phase 4's and 15b's unsharded kdim run
+    (counted_fit result, kept output prefix); `trait` phase 13a's
+    (schema paths, kept output prefix, K); c12 phase 12's readings; vi7,
+    st7 and ld7 phase 7's engine, state and LD. Adds the runs' launches
+    to `launches`; returns the readings."""
+    import torch
+    from vilma_tpu_torch.ops.cuda import compact_obj
+    out = {}
+    for key in list(SPLIT_KEYS['shared'] + SPLIT_KEYS['kdim']
+                    + SPLIT_KEYS['epochs'] + MERGE_KEYS):
+        launches.setdefault(key, 0)
+    devices = ['cuda:0'] * 4
+    phase('phase 16a: phase 4\'s fit at --mesh comp=2,snp=2, then phase '
+          f'6\'s flags for {KDIM_STEPS} steps (kdim)')
+    for tag, form, extra, ref in (
+            ('16a', 'shared', [], p4),
+            ('16a kdim', 'kdim', ['--learn-scaling', '--num-its',
+                                  str(KDIM_STEPS)], kdim_ref)):
+        prefix = os.path.join(out_dir, 'comp_fit')
+        run = counted_fit(paths, prefix, F32_BF16 + extra + [
+            '--factor-cache', cache, '--mesh', 'comp=2,snp=2'], devices)
+        out[tag] = r = check_comp_fit(tag, (run, prefix), ref, 4, form)
+        log(f'  {tag}: median seconds a step comp / unsharded '
+            f'{r["step_s"][0]:.4f} / {r["step_s"][1]:.4f}; the K-split '
+            f'kernels at 291 components a slice; {smi}')
+        for key in SPLIT_KEYS[form] + MERGE_KEYS + ('bucket_matvec_multi',):
+            launches[key] += r['counts'][key]
+        remove_outputs(prefix)
+
+    phase('phase 16b: phase 12\'s shape (42,999 components, 3 cohorts) at '
+          '--mesh comp=4')
+    b = out['16b'] = run_comp_chunked('cuda', c12)
+    log(f'  slices {b["slices"]}; initialization {b["init_s"]:.3f} s, peak '
+        f'{b["init_peak"] / 2**30:.2f} GiB (phase 12: {c12["init_s"]:.3f} '
+        f's); steps {[round(t, 4) for t in b["step_s"]]} s, '
+        f'{b["s_per_iter"]:.3f} s/iter (phase 12: {c12["s_per_iter"]:.3f}) '
+        f'({b["syncs"]:.1f} host syncs per step; phase 12 '
+        f'{c12["syncs"]:.1f}), peak {b["step_peak"] / 2**30:.2f} GiB; ELBO '
+        f'{b["elbo"]!r} within {b["elbo_err"]:.2e} of phase 12\'s; '
+        f'launches {b["counts"]}; {smi}')
+    for key in SPLIT_KEYS['shared'] + MERGE_KEYS:
+        launches[key] += b['counts'][key]
+
+    phase('phase 16c: phase 13a\'s fit --trait of 4 traits at --mesh '
+          'comp=2, 5 steps (the materialized state)')
+    tpaths, tref, K = trait
+    prefix = os.path.join(out_dir, 'comp_trait')
+    argv = (trait_argv(tpaths, prefix, 'cuda', 3, STEPS_TRAIT) + F32_BF16
+            + ['--no-save-vi-sigma', '--mesh', 'comp=2'])
+    with capture_fit() as cap:
+        counts, step_s, syncs, _ = run_argv(argv, 'cuda', ['cuda:0'] * 2)
+    errs = output_errors(prefix, tref)
+    vi = cap.fits[-1]
+    shards = vi.state.shards
+    I, P = shards[0].vi_mu.shape[2], shards[0].vi_mu.shape[1]
+
+    def nbytes(st):
+        sig = sum(getattr(st.sigma, f).numel() for f in (
+            'log_det_sigma', 'sigma_summary', 'diag', 'matches'))
+        return (st.vi_mu.numel() * 4, st.vi_delta.numel() * 4, sig * 4)
+
+    whole = (K * P * I * 4, K * I * 4, K * (3 + P) * I * 4)
+    per = [nbytes(st) for st in shards]
+    ratios = [[a / w for a, w in zip(p, whole)] for p in per]
+    out['16c'] = dict(errs=errs, step_s=step_s, per_shard=per, whole=whole)
+    log(f'  outputs against 13a\'s, of their scale: '
+        + ', '.join(f'{k} {v:.2e}' for k, v in errs.items())
+        + f' (band {BAND_SHARD:.0e}); steps {[round(t, 3) for t in step_s]} '
+        f's ({syncs / len(step_s):.1f} host syncs per step); bytes of '
+        f'(vi_mu, vi_delta, sigma summaries) per shard {per}, 13a\'s '
+        f'{whole}: ratios {[[round(x, 4) for x in r] for r in ratios]}; '
+        f'launches {counts}; {smi}')
+    require(max(errs.values()) <= BAND_SHARD, f'phase 16c: outputs '
+            f'{max(errs.values()):.2e} from 13a\'s')
+    require(all(max(r) <= (K // 2 + 1) / K for r in ratios)
+            and sum(p[0] for p in per) == whole[0],
+            f'phase 16c: shard bytes {per} are not halves of {whole}')
+    require(all(counts[k] == 0 for k in compact_obj.launches),
+            f'phase 16c ran a compact kernel: {counts}')
+    require_launched(counts, ('bucket_matvec_multi',
+                              'bucket_matvec_multi_c4'), 'phase 16c')
+    remove_outputs(prefix)
+    del vi, shards, cap
+    torch.cuda.empty_cache()
+
+    phase('phase 16d: phase 7\'s epoch state (1M SNPs) at --mesh comp=2, '
+          '3 steps')
+    e = out['16d'] = run_sharded_epoch(vi7, st7, ld7, steps=3, shards=1,
+                                       n_comp=2, name='phase 16d')
+    log(f'  posterior means {e["pm_err"]:.2e} of scale, ELBO '
+        f'{e["elbo_err"]:.2e} from the unsharded steps (band '
+        f'{BAND_SHARD:.0e}); seconds a step comp {e["s_step"]:.4f}, '
+        f'unsharded {e["s_step0"]:.4f}; host syncs a step {e["syncs"]} and '
+        f'{e["syncs0"]}; launches {e["counts"]} (unsharded '
+        f'{e["counts0"]}); {smi}')
+    for key in SPLIT_KEYS['epochs'] + MERGE_KEYS:
+        launches[key] += e['counts'][key]
     return out
 
 
@@ -2856,6 +3377,7 @@ def main():
     kdim_ms = check_kdim(device, results)
     check_bars(shared_ms, kdim_ms, check_epochs(device, results))
     torch.cuda.empty_cache()
+    check_split(device, results)
     log(f'  phase 3: {time.perf_counter() - t0:.1f} s')
 
     launches = {}
@@ -3013,7 +3535,10 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         phase(f'phase 13a: fit --trait, {TRAITS} traits on one ~90K-variant '
               'panel, -K 3 --drop-non-psd, f32, the materialized state')
-        a = run_trait_fit(tmp)
+        # its panel and outputs stay for phase 16c
+        trait_dir = os.path.join(panel.name, 'trait')
+        os.makedirs(trait_dir)
+        a = run_trait_fit(trait_dir, keep=True)
         timings['trait_s_per_iter'] = sum(a['step_s']) / len(a['step_s'])
         launches['bucket_matvec_multi_c4'] = a['counts'][
             'bucket_matvec_multi_c4']
@@ -3061,10 +3586,19 @@ def main():
     t0 = time.perf_counter()
     p15 = run_phase15(paths, p4, vi7, st7, ld, panel.name, cache, launches,
                       smi)
-    del ld, vi7, st7
     timings['phase15_s'] = time.perf_counter() - t0
     timings['epoch_sharded_s_per_step'] = p15['15b_epoch']['s_step']
     timings['epoch_unsharded_s_per_step'] = p15['15b_epoch']['s_step0']
+    t0 = time.perf_counter()
+    p16 = run_phase16(paths, p4, p15['kdim_ref'],
+                      (a['paths'], a['prefix'], a['K']), c, vi7, st7, ld,
+                      panel.name, cache, launches, smi)
+    del ld, vi7, st7
+    timings['phase16_s'] = time.perf_counter() - t0
+    for tag in ('16a', '16a kdim'):
+        timings[f'{tag.replace(" ", "_")}_s_per_step'] = p16[tag]['step_s']
+    timings['16d_s_per_step'] = (p16['16d']['s_step'],
+                                 p16['16d']['s_step0'])
     panel.cleanup()
     log(f'  timings {json.dumps(timings)}')
     log(f'  all phases: {time.perf_counter() - t_start:.1f} s')

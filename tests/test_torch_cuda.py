@@ -685,3 +685,143 @@ def test_sharded_step_on_one_card(cuda):
     assert _scaled_err(torch.cat(pms, dim=-1), pm) <= 1e-5
     assert abs(b.elbo / a.elbo - 1) <= 1e-5
     assert alignment.compute_layout([ld], n, n_shards=4)[1] == n
+
+
+def _split_ops(args, form, ks):
+    """The operands of the components `ks`: coefficient and score rows,
+    and a kdim natural mean's rows."""
+    out = list(args)
+    out[0], out[1] = args[0][ks].contiguous(), args[1][ks].contiguous()
+    if form == 'kdim':
+        out[4] = args[4][ks].contiguous()
+    return out
+
+
+@pytest.mark.parametrize('M', [2, 3])
+@pytest.mark.parametrize('K', [7, 600, 2500])
+@pytest.mark.parametrize('form', ['shared', 'kdim', 'epochs'])
+def test_split_kernels_match_plain(cuda, form, K, M):
+    """The K-split kernels (component sharding) against their plain
+    versions on the same inputs: each partial finished alone by the plain
+    merge, pass 1, pass 2 with the kernels' merged normalizer, and the
+    two merges on the kernels' partials, within the f32 bands (1e-4 for
+    the KL); the whole split path against the whole-K kernels; every
+    launch counted under its own key and repeatable bit for bit."""
+    from vilma_tpu_torch.parallel.mesh import k_slices
+    P, A, I = 2, 3, 20_000
+    if form == 'epochs':
+        args = _epoch_args(cuda, P, K, I, A, B=4, live=2, seed=K + M)
+        kw = dict(num_annotations=A, num_live=2)
+        fns = (co.prologue_epochs_partial, co.delta_norm_epochs,
+               co.delta_sums_epochs_given, co.prologue_epochs,
+               co.delta_sums_epochs)
+    else:
+        args = list(_compact_args(cuda, P, K, I, A, seed=K + M))
+        if form == 'kdim':
+            gen = torch.Generator(device=cuda).manual_seed(K)
+            args[4] = torch.randn(K, P, I, generator=gen, device=cuda) * 0.5
+        kw = dict(num_annotations=A)
+        fns = (co.prologue_partial, co.delta_norm, co.delta_sums_given,
+               co.prologue, co.delta_sums)
+    plain = [getattr(co, f.__name__ + '_plain') for f in fns]
+    kss = [slice(a, b) for a, b in k_slices(K, M)]
+    ann = args[2]
+
+    def split():
+        accs = torch.stack([fns[0](*_split_ops(args, form, ks), **kw)
+                            for ks in kss])
+        parts = torch.stack([fns[1](*_split_ops(args, form, ks), **kw)
+                             for ks in kss])
+        norm = co.norm_merge(parts)
+        sums = torch.cat([fns[2](*_split_ops(args, form, ks), norm, **kw)
+                          for ks in kss], dim=1)
+        return (co.prologue_merge(accs, ann, num_annotations=A)
+                + (sums, accs, parts, norm))
+
+    before = dict(co.launches)
+    got = split()
+    again = split()
+    torch.cuda.synchronize()
+    suffix = {'shared': '', 'kdim': '_kdim', 'epochs': '_epochs'}[form]
+    for key, n in ((f'prologue{suffix}_partial', M),
+                   (f'delta_norm{suffix}', M), ('prologue_merge', 1),
+                   ('norm_merge', 1), (f'delta_sums{suffix}_given', M)):
+        assert co.launches[key] == before[key] + 2 * n, key
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    pm, pv, kl, sums, accs, parts, norm = got
+    finish = co.prologue_merge_plain
+    for j, ks in enumerate(kss):
+        ops = _split_ops(args, form, ks)
+        k_out = finish(accs[j][None], ann, num_annotations=A)
+        p_out = finish(plain[0](*ops, **kw)[None], ann, num_annotations=A)
+        assert _scaled_err(k_out[0], p_out[0]) <= 1e-5
+        assert _scaled_err(k_out[1], p_out[1]) <= 1e-5
+        assert abs(float(k_out[2]) / float(p_out[2]) - 1) <= 1e-4
+        assert _scaled_err(parts[j], plain[1](*ops, **kw)) <= 1e-5
+        assert _scaled_err(fns[2](*ops, norm, **kw),
+                           plain[2](*ops, norm, **kw)) <= 1e-5
+    for a, b in zip(co.prologue_merge(accs, ann, num_annotations=A)[:2],
+                    co.prologue_merge_plain(accs, ann,
+                                            num_annotations=A)[:2]):
+        assert _scaled_err(a, b) <= 1e-5
+    assert _scaled_err(norm, co.norm_merge_plain(parts)) <= 1e-5
+    wpm, wpv, wkl = fns[3](*args, **kw)
+    assert _scaled_err(pm, wpm) <= 1e-5 and _scaled_err(pv, wpv) <= 1e-5
+    assert abs(float(kl) / float(wkl) - 1) <= 1e-4
+    assert _scaled_err(sums, fns[4](*args, **kw)) <= 1e-5
+
+
+@pytest.mark.parametrize('placement', ['one_card', 'two_cards'])
+def test_comp_sharded_step_on_one_card(cuda, placement):
+    """An outer step on a comp = 2, snp = 2 mesh equals the unsharded
+    step on the card (f32) with the host syncs of the unsharded step: the
+    K-split kernels and the merges run per shard, the whole-K kernels not
+    at all. The shards co-located on the card, or each comp row on a card
+    of its own (the comp gathers cross cards; skips with one card)."""
+    from vilma_tpu_torch.inference import engine
+    from vilma_tpu_torch.ops import blocks, lowrank
+    from vilma_tpu_torch.parallel import mesh as mesh_mod
+    if placement == 'two_cards' and torch.cuda.device_count() < 2:
+        pytest.skip('needs two CUDA devices (a comp row on each)')
+    devices = (['cuda:0'] * 4 if placement == 'one_card'
+               else ['cuda:0', 'cuda:0', 'cuda:1', 'cuda:1'])
+    rng = np.random.default_rng(0)
+    n, P = 2048, 2
+    factors, idx = [], []
+    for a in range(0, n, 256):
+        lag = np.abs(np.subtract.outer(np.arange(256), np.arange(256)))
+        factors.append(lowrank.factor_block(X=0.6 ** lag, t=1.0))
+        idx.append(np.arange(a, a + 256))
+    se = rng.uniform(0.01, 0.05, (P, n))
+    betas = rng.standard_normal((P, n)) * se * 2
+    kw = dict(annotations=np.ones((n, 1)),
+              mixture_covs=[np.eye(P) * s for s in (1e-6, 1e-5, 1e-4, 1e-3,
+                                                     1e-2)],
+              scaled=False, scale_se=False, gwas_N=np.full(P, 1e5),
+              init_hg=np.full(P, 0.3), dtype=torch.float32)
+    ld = blocks.pack(factors, idx, n, dtype=torch.float32, device=cuda)
+    plain = engine.build_model_data(betas, se, [ld, ld], device=cuda, **kw)
+    mesh = mesh_mod.make_mesh(2, n_comp=2, devices=devices)
+    lds = blocks.pack(factors, idx, n, dtype=torch.float32,
+                      device=list(mesh.devices), n_shards=2,
+                      shards=list(mesh.snp_shards))
+    sharded = engine.build_model_data(betas, se, [lds, lds], mesh=mesh, **kw)
+    nat = torch.as_tensor(rng.standard_normal((P, n)) * 1e-2,
+                          dtype=torch.float32, device=cuda)
+    st = engine.VIState(nat_mu=nat, hyper_delta=torch.full((1, 5), 0.2,
+                                                           device=cuda),
+                        error_scaling=torch.ones(P, device=cuda),
+                        L=(1., 1., 1.), elbo=0., running_elbo_delta=math.nan,
+                        num_err=0)
+    engine.host_syncs = 0
+    a, pm = engine.outer_step(plain, st)
+    syncs = engine.host_syncs
+    before = dict(co.launches)
+    b, pms = engine.outer_step(sharded, mesh_mod.shard_state(st, mesh))
+    assert engine.host_syncs == 2 * syncs
+    assert co.launches['prologue_partial'] - before['prologue_partial'] == \
+        4 * syncs
+    assert co.launches['prologue'] == before['prologue']
+    assert _scaled_err(mesh.gather_spans(pms).to(pm.device), pm) <= 1e-5
+    assert abs(b.elbo / a.elbo - 1) <= 1e-5
+    assert [s.hyper_delta.shape[1] for s in b.shards] == [3, 3, 2, 2]

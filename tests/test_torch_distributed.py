@@ -2,8 +2,10 @@
 CPU (gloo): the metadata plan and the per-process sharded load against
 vilma_tpu's and against the port's plain loader, `fit --distributed` in
 2 (and, marked slow as in tests/test_distributed.py, 4 and
-shuffled-extract) processes against the single-process fit, and how the
-process group is joined."""
+shuffled-extract) processes against the single-process fit, with
+component sharding (--mesh comp=2,snp=1 and comp=2,snp=2 in 2 processes;
+marked slow, comp=2,snp=2 in 4, on the column and row subgroups), and
+how the process group is joined."""
 import os
 import re
 import socket
@@ -87,15 +89,16 @@ def _env():
     return env
 
 
-def _run_ranks(argv, nproc, n_snp):
-    """`fit --distributed` in nproc processes on localhost (gloo), each
-    under its own timeout. Returns their (return code, stderr)."""
+def _run_ranks(argv, nproc, mesh):
+    """`fit --distributed --mesh <mesh>` in nproc processes on localhost
+    (gloo), each under its own timeout. Returns their (return code,
+    stderr)."""
     port = _free_port()
     procs = [subprocess.Popen(
         [sys.executable, '-m', 'vilma_tpu_torch.frontend'] + argv
         + ['--device', 'cpu', '--distributed', '--coordinator',
            f'localhost:{port}', '--num-processes', str(nproc),
-           '--process-id', str(rank), '--mesh', f'snp={n_snp}',
+           '--process-id', str(rank), '--mesh', mesh,
            '--logfile', '-', '--verbose'],
         env=_env(), cwd=REPO, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for rank in range(nproc)]
@@ -111,10 +114,13 @@ def _run_ranks(argv, nproc, n_snp):
     return outs
 
 
-def _check_cluster_fit(tmp_path, nproc, n_snp, extra=(), shuffled=False):
-    """nproc processes of n_snp shards against the single-process fit:
-    rank 0 writes the unsharded fit's outputs; each process factorized
-    only its own blocks."""
+def _check_cluster_fit(tmp_path, nproc, mesh, extra=(), shuffled=False,
+                       comp=1):
+    """nproc processes on a mesh ('snp=N' or 'comp=M,snp=N') against the
+    single-process fit: rank 0 writes the unsharded fit's outputs; each
+    process factorized only its own blocks: with `comp` rows, the
+    processes of each row (a contiguous run of nproc / comp) load every
+    block between them, as every other row's do."""
     case = _write_case(str(tmp_path))
     if shuffled:
         schema, sumstats, extract, annot = case
@@ -126,15 +132,19 @@ def _check_cluster_fit(tmp_path, nproc, n_snp, extra=(), shuffled=False):
     single = str(tmp_path / 'single')
     tfrontend.main(_argv(case, single) + list(extra) + ['--device', 'cpu'])
     multi = str(tmp_path / 'multi')
-    outs = _run_ranks(_argv(case, multi) + list(extra), nproc, n_snp)
+    outs = _run_ranks(_argv(case, multi) + list(extra), nproc, mesh)
     for rc, out in outs:
         assert rc == 0, out[-3000:]
     counts = [re.search(r'(\d+) of (\d+) LD blocks factorized here', out)
               for _, out in outs]
     assert all(counts), [out[-2000:] for _, out in outs]
     owned = [int(c.group(1)) for c in counts]
-    assert sum(owned) == int(counts[0].group(2))
-    assert max(owned) < int(counts[0].group(2))
+    total = int(counts[0].group(2))
+    per_row = nproc // comp
+    rows = [owned[r * per_row:(r + 1) * per_row] for r in range(comp)]
+    assert all(row == rows[0] for row in rows) and sum(rows[0]) == total
+    if per_row > 1:
+        assert max(owned) < total
     sh, scols = _read_tsv(single + '.estimates.tsv')
     mh, mcols = _read_tsv(multi + '.estimates.tsv')
     assert sh == mh
@@ -159,20 +169,38 @@ def test_two_process_fit_matches_single_process(tmp_path, extra):
     the single-process fit's .estimates.tsv and .npz; each process
     eigendecomposed only its own shard's blocks (with --mmap through the
     spill, every process taking the reference's RNG draws)."""
-    _check_cluster_fit(tmp_path, nproc=2, n_snp=2, extra=extra)
+    _check_cluster_fit(tmp_path, nproc=2, mesh='snp=2', extra=extra)
+
+
+@pytest.mark.parametrize('mesh', ['comp=2,snp=1', 'comp=2,snp=2'])
+def test_two_process_comp_fit_matches_single_process(tmp_path, mesh):
+    """fit --distributed --mesh comp=2[,snp=...] in 2 processes (gloo):
+    each process holds one comp row, so both load every span's blocks;
+    rank 0 writes the single-process fit's files (--learn-scaling: the
+    kdim state split over comp)."""
+    _check_cluster_fit(tmp_path, nproc=2, mesh=mesh,
+                       extra=['--learn-scaling'], comp=2)
+
+
+@pytest.mark.slow
+def test_four_process_comp_fit_on_subgroups(tmp_path):
+    """comp=2,snp=2 in 4 processes of one shard each: the comp columns
+    and rows reduce on torch.distributed subgroups of 2 processes."""
+    _check_cluster_fit(tmp_path, nproc=4, mesh='comp=2,snp=2', comp=2)
 
 
 @pytest.mark.slow
 def test_four_process_fit_matches_single_process(tmp_path):
     """4 processes of two shards each (an 8-shard mesh)."""
-    _check_cluster_fit(tmp_path, nproc=4, n_snp=8, extra=['--learn-scaling'])
+    _check_cluster_fit(tmp_path, nproc=4, mesh='snp=8',
+                       extra=['--learn-scaling'])
 
 
 @pytest.mark.slow
 def test_two_process_fit_shuffled_extract(tmp_path):
     """An extract not in genome order plans through the virtual order in
     every process and still equals the single-process fit."""
-    _check_cluster_fit(tmp_path, nproc=2, n_snp=4, shuffled=True)
+    _check_cluster_fit(tmp_path, nproc=2, mesh='snp=4', shuffled=True)
 
 
 class _Group:

@@ -1,6 +1,7 @@
-"""The port imports neither jax, optax, pandas nor ml_dtypes, its unported
-surface raises with the ROADMAP item it waits for, and its entry points
-run on the card unless the caller asks for the CPU."""
+"""The port imports neither jax, optax, pandas nor ml_dtypes, its flags
+parse (component sharding among them) or raise before any file is read,
+and its entry points run on the card unless the caller asks for the
+CPU."""
 import os
 import subprocess
 import sys
@@ -14,6 +15,7 @@ from vilma_tpu_torch.commands import fit as fit_cmd
 from vilma_tpu_torch.inference import engine
 from vilma_tpu_torch.models import sigma
 from vilma_tpu_torch.ops.cuda import block_matvec, compact_obj
+from vilma_tpu_torch.parallel import mesh as mesh_mod
 
 torch.set_num_threads(1)
 
@@ -73,15 +75,41 @@ def test_import_guard():
     ['--mesh', 'comp=4', '--distributed', '--factor-cache', '/nonexistent'],
     ['--mesh', 'snp=2,comp=2', '--sumstats', 'a,b,c,d']])
 def test_unported_fit_flags_raise(flags, tmp_path):
-    """The unported fit option (component sharding, --mesh comp=N) raises
-    before any file is read, naming its ROADMAP item, beside the snp axis,
-    --distributed, --mmap and --factor-cache and at any cohort count (the
-    last case has four: P >= 4 itself runs,
-    tests/test_torch_materialized.py)."""
+    """The once-unported fit option, component sharding (--mesh comp=M),
+    now parses and plans a (comp, snp) mesh on the host, beside the snp
+    axis, --distributed, --mmap and --factor-cache and at any cohort count
+    (the last case has four): the fit goes on to read its inputs, and
+    raises only on the absent extract. (--distributed would join a
+    process group first: its case stops at the plan.)"""
+    cohorts = (flags[flags.index('--sumstats') + 1].count(',') + 1
+               if '--sumstats' in flags else 1)
+    argv = ['fit', '--ld-schema', ','.join(['x.schema'] * cohorts),
+            '--sumstats', 'a.tsv', '--extract', str(tmp_path / 'e.tsv'),
+            '--output', str(tmp_path / 'o'), '--device', 'cpu'] + flags
+    args = frontend.build_parser()[0].parse_args(argv)
+    axes = fit_cmd._check_supported(args)
+    assert axes['comp'] == int(args.mesh.split('comp=')[1].split(',')[0])
+    mesh = mesh_mod.make_mesh(axes['snp'], n_comp=axes['comp'],
+                              device='cpu')
+    assert (mesh.n_comp, mesh.n_snp) == (axes['comp'], axes['snp'])
+    assert len(mesh.devices) == axes['comp'] * axes['snp']
+    assert [mesh.coords(j) for j in range(len(mesh.devices))] == [
+        (c, s) for c in range(axes['comp']) for s in range(axes['snp'])]
+    if '--distributed' not in flags:
+        with pytest.raises(FileNotFoundError, match='e.tsv'):
+            frontend.main(argv)
+
+
+@pytest.mark.parametrize('mesh', ['comp=0', 'comp=0,snp=2', 'comp=-1',
+                                  'comp=x', 'comp=', 'comp=2,rows=2',
+                                  'snp=2;comp=2'])
+def test_bad_mesh_axes_raise(mesh, tmp_path):
+    """comp=0 and malformed --mesh axes raise ValueError before any file
+    is read."""
     argv = ['fit', '--ld-schema', 'x.schema', '--sumstats', 'a.tsv',
-            '--extract', 'e.tsv', '--output', str(tmp_path / 'o'),
-            '--device', 'cpu'] + flags
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
+            '--extract', str(tmp_path / 'e.tsv'), '--output',
+            str(tmp_path / 'o'), '--device', 'cpu', '--mesh', mesh]
+    with pytest.raises(ValueError, match='--mesh'):
         frontend.main(argv)
 
 
@@ -103,9 +131,9 @@ def test_subcommands_need_a_card_by_default(argv, monkeypatch):
     ['--mmap', '--factor-cache', 'cache']])
 def test_bounded_memory_flags_are_accepted(flags, tmp_path):
     """--mmap and --factor-cache pass the flag checks: the fit goes on to
-    read its inputs (absent here). _NOT_PORTED holds only the component
-    axis of --mesh."""
-    assert sorted(fit_cmd._NOT_PORTED) == ['comp']
+    read its inputs (absent here). No --mesh axis is refused any more
+    (the fit module keeps no table of unported axes)."""
+    assert not hasattr(fit_cmd, '_NOT_PORTED')
     argv = ['fit', '--ld-schema', 'x.schema', '--sumstats', 'a.tsv',
             '--extract', str(tmp_path / 'e.tsv'), '--output',
             str(tmp_path / 'o'), '--device', 'cpu'] + flags

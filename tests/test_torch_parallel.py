@@ -4,7 +4,8 @@ simulated 8-device mesh (tests/conftest.py): the shard-local layout
 planner, pack(n_shards) and the per-shard LD ops, outer steps of every
 state form (shared, kdim, epoch history, P = 4 materialized), host
 syncs per step, `fit --mesh snp=8`, checkpoints across the two layouts,
-the refusals of what is not ported, and the launchers' device guard."""
+the refusals (the global-gather layout, what component sharding
+refuses), and the launchers' device guard."""
 import dataclasses
 import os
 import pickle
@@ -697,14 +698,19 @@ def test_jax_checkpoint_resumes_sharded(tmp_path):
 
 
 def test_component_sharding_raises(tmp_path):
-    """--mesh comp=N (N > 1) raises NotImplementedError with its ROADMAP
-    title, in make_mesh and through the CLI."""
-    with pytest.raises(NotImplementedError, match='Component sharding'):
-        tmesh.make_mesh(2, n_comp=2, device='cpu')
+    """What component sharding still refuses: comp=0 in make_mesh, and
+    through the CLI a grid of fewer components than comp shards (-K 1 at
+    2 cohorts makes a grid of fewer than 100 components), each with a
+    ValueError; a mesh that divides no process run evenly raises too."""
+    with pytest.raises(ValueError, match='comp=0'):
+        tmesh.make_mesh(2, n_comp=0, device='cpu')
+    with pytest.raises(ValueError, match='unevenly'):
+        tmesh.Mesh(3, ['cpu'] * 2, rank=0, world=3, n_comp=2)
     case = _write_case(str(tmp_path))
-    with pytest.raises(NotImplementedError, match='Component sharding'):
-        tfrontend.main(_argv(case, str(tmp_path / 'o'))
-                       + ['--device', 'cpu', '--mesh', 'snp=2,comp=2'])
+    argv = _argv(case, str(tmp_path / 'o'))
+    argv[argv.index('-K') + 1] = '1'
+    with pytest.raises(ValueError, match='comp=100'):
+        tfrontend.main(argv + ['--device', 'cpu', '--mesh', 'comp=100'])
 
 
 def test_conflicting_schemas_raise(tmp_path):

@@ -6,13 +6,15 @@ Port of vilma_tpu/commands/fit.py with the same flags and output files
 `--mesh snp=N` shards the fit over N shards (parallel/mesh.py), one card
 each on cuda; the inputs are relaid out in the shard-local layout
 (parallel/alignment.py) and the outputs come back in the original
-variant order. `--distributed` joins N processes over torch.distributed
-(NCCL on cuda, gloo on cpu): the layout is planned from the schemas'
-metadata before any load, each process factorizes only its own shards'
-blocks, and process 0 writes the files. Still raising, with their
-ROADMAP items: `--mesh comp=N` for N > 1, and cohorts whose schemas
-disagree on the order of shared variants (the JAX package's global-gather
-layout).
+variant order. `--mesh comp=M[,snp=N]` also splits the K mixture
+components over M comp shards (M x N shards in all, one card each on
+cuda): each holds a slice of the [K, ...] state, and the softmax over K
+is reduced across them. `--distributed` joins processes over
+torch.distributed (NCCL on cuda, gloo on cpu): the layout is planned from
+the schemas' metadata before any load, each process factorizes only the
+blocks of its shards' snp spans, and process 0 writes the files. Still
+raising, with its ROADMAP item: cohorts whose schemas disagree on the
+order of shared variants (the JAX package's global-gather layout).
 """
 import logging
 import os
@@ -23,11 +25,6 @@ import numpy as np
 from vilma_tpu_torch.commands import resolve_device
 from vilma_tpu_torch.io import load
 from vilma_tpu_torch.models import mixture
-
-# mesh axes that are not ported: --mesh <axis>=N with N > 1 raises
-_NOT_PORTED = {
-    'comp': ('--mesh comp=N', 'Component sharding'),
-}
 
 
 def args(super_parser):
@@ -129,9 +126,9 @@ def args(super_parser):
                         help='Shard the fit over a mesh of devices, e.g. '
                              '"snp=4": the LD blocks and every per-SNP '
                              'array split into 4 spans, one card each '
-                             '(with --distributed, over all processes). '
-                             'comp=N > 1 (component sharding) is not '
-                             'ported.')
+                             '(with --distributed, over all processes); '
+                             '"comp=2,snp=4" also splits the mixture '
+                             'components in 2 slices, 8 shards in all.')
     parser.add_argument('--distributed', action='store_true',
                         help='Join a multi-process fit over '
                              'torch.distributed (NCCL on cuda, gloo on '
@@ -175,9 +172,8 @@ def args(super_parser):
 
 def _check_supported(args):
     """The --mesh axes ({'snp': N, 'comp': M}), checked before any file
-    is read: unknown axes and sizes raise ValueError, the unported ones
-    NotImplementedError naming their ROADMAP item, and so does a
-    mesh-less --distributed."""
+    is read: unknown axes, sizes below 1 and a mesh-less --distributed
+    raise ValueError."""
     axes = {'snp': 1, 'comp': 1}
     if args.mesh:
         for kv in args.mesh.split(','):
@@ -186,10 +182,6 @@ def _check_supported(args):
                 raise ValueError(f'--mesh {args.mesh}: expected '
                                  'snp=N[,comp=M] with positive sizes')
             axes[name] = int(size)
-    for axis, (flag, item) in _NOT_PORTED.items():
-        if axes[axis] > 1:
-            raise NotImplementedError(
-                f'{flag} is not ported yet (ROADMAP.md queue 1, "{item}")')
     if args.distributed and not args.mesh:
         raise ValueError('--distributed needs a device mesh: pass --mesh '
                          'snp=<total shards across all processes>')
@@ -229,8 +221,8 @@ def main(args, devices=None):
     mesh = None
     if args.mesh:
         from vilma_tpu_torch.parallel import mesh as mesh_mod
-        mesh = mesh_mod.make_mesh(n_snp=axes['snp'], devices=devices,
-                                  device=device)
+        mesh = mesh_mod.make_mesh(n_snp=axes['snp'], n_comp=axes['comp'],
+                                  devices=devices, device=device)
     multiproc = mesh is not None and mesh.world > 1
 
     if (not args.trait
@@ -382,7 +374,7 @@ def main(args, devices=None):
                         ld, layout_map, L, dtype=dtype, spill=spill,
                         u_dtype=u_dtype, n_shards=mesh.n_snp,
                         device=list(mesh.devices),
-                        shards=list(mesh.local_shards))
+                        shards=list(mesh.snp_shards))
             combined_ld = [relayouted[id(ld)] for ld in combined_ld]
         logging.info('Shard-local layout: %d variants -> %d slots in %d '
                      'spans', len(variants), L, mesh.n_snp)

@@ -25,13 +25,24 @@
 // every load coalesces. The sums make two passes of the logit alone (2 x
 // 420 MB of kdim state at the per-chromosome size) and add the weights by
 // annotation through the sorted per-CTA reduction of the epoch sums.
+//
+// K-split forms (fit --mesh comp=M; the JAX package gets them from XLA
+// partitioning its [K, ...] arrays, vilma_tpu/parallel/mesh.py:53-101,
+// with the algebra of its K-chunked route, vilma_tpu/inference/
+// engine.py:873-1004): the prologue partial and the sums' two passes over
+// a shard's slice of K, and the two merges (merge_kernel,
+// norm_merge_kernel in compact_obj.cuh) that join the M slices of one SNP
+// column. The partials are the whole-K kernels' own bodies, so they are
+// bound as those are, by the per-(SNP, component) derivation, over K / M
+// components; the merges read (3 + 2P) M or 2M floats per SNP and are
+// bound by bytes.
 #include "compact_obj.cuh"
 
 namespace {
 
 using namespace vilma;
 
-template <int FORM, bool SUMS>
+template <int FORM, bool SUMS, int SPLIT = kWhole>
 cudaError_t dispatch(int P, const void* coeffs, const void* scores_t,
                      const void* ann, const void* dterm, const void* nat,
                      void* pm, void* pv, void* part, void* norm, void* out,
@@ -42,17 +53,17 @@ cudaError_t dispatch(int P, const void* coeffs, const void* scores_t,
                     I, 0};
   switch (P) {
     case 1:
-      return launch<1, SUMS, FORM>(op, coeffs, scores_t, ann, pm, pv, part,
-                                   norm, out, I, K, A, kt, kg, nblocks, eps,
-                                   stream);
+      return launch<1, SUMS, FORM, -1, SPLIT>(op, coeffs, scores_t, ann, pm,
+                                               pv, part, norm, out, I, K, A,
+                                               kt, kg, nblocks, eps, stream);
     case 2:
-      return launch<2, SUMS, FORM>(op, coeffs, scores_t, ann, pm, pv, part,
-                                   norm, out, I, K, A, kt, kg, nblocks, eps,
-                                   stream);
+      return launch<2, SUMS, FORM, -1, SPLIT>(op, coeffs, scores_t, ann, pm,
+                                               pv, part, norm, out, I, K, A,
+                                               kt, kg, nblocks, eps, stream);
     case 3:
-      return launch<3, SUMS, FORM>(op, coeffs, scores_t, ann, pm, pv, part,
-                                   norm, out, I, K, A, kt, kg, nblocks, eps,
-                                   stream);
+      return launch<3, SUMS, FORM, -1, SPLIT>(op, coeffs, scores_t, ann, pm,
+                                               pv, part, norm, out, I, K, A,
+                                               kt, kg, nblocks, eps, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -108,4 +119,113 @@ extern "C" int vilma_compact_delta_sums_kdim(
   return (int)dispatch<kKdim, true>(
       P, coeffs, scores_t, ann, dterm, nat, nullptr, nullptr, part, norm, out,
       I, K, A, kt, kg, nblocks, eps, static_cast<cudaStream_t>(stream));
+}
+
+// K-split prologue over a slice of K (its coeffs and scores_t rows; nat
+// [P, I], or [K, P, I] for the kdim entry point): writes acc
+// [3 + 2P, I] = (m, s0, q, sy[P], ssec[P]) per SNP, unnormalized.
+extern "C" int vilma_compact_prologue_partial(
+    const void* coeffs, const void* scores_t, const void* ann,
+    const void* dterm, const void* nat, void* acc, int I, int K, int A,
+    int P, int kt, int nblocks, float eps, void* stream) {
+  return (int)dispatch<kShared, false, kPartial>(
+      P, coeffs, scores_t, ann, dterm, nat, acc, nullptr, nullptr, nullptr,
+      nullptr, I, K, A, kt, K, nblocks, eps,
+      static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int vilma_compact_prologue_kdim_partial(
+    const void* coeffs, const void* scores_t, const void* ann,
+    const void* dterm, const void* nat, void* acc, int I, int K, int A,
+    int P, int kt, int nblocks, float eps, void* stream) {
+  return (int)dispatch<kKdim, false, kPartial>(
+      P, coeffs, scores_t, ann, dterm, nat, acc, nullptr, nullptr, nullptr,
+      nullptr, I, K, A, kt, K, nblocks, eps,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The sums' pass 1 over a slice of K: norm [2, I] = (m, s) per SNP.
+extern "C" int vilma_compact_delta_norm(const void* coeffs,
+                                        const void* scores_t, const void* ann,
+                                        const void* dterm, const void* nat,
+                                        void* norm, int I, int K, int A,
+                                        int P, int kt, int nblocks, float eps,
+                                        void* stream) {
+  return (int)dispatch<kShared, true, kPartial>(
+      P, coeffs, scores_t, ann, dterm, nat, nullptr, nullptr, nullptr, norm,
+      nullptr, I, K, A, kt, K, nblocks, eps,
+      static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int vilma_compact_delta_norm_kdim(
+    const void* coeffs, const void* scores_t, const void* ann,
+    const void* dterm, const void* nat, void* norm, int I, int K, int A,
+    int P, int kt, int nblocks, float eps, void* stream) {
+  return (int)dispatch<kKdim, true, kPartial>(
+      P, coeffs, scores_t, ann, dterm, nat, nullptr, nullptr, nullptr, norm,
+      nullptr, I, K, A, kt, K, nblocks, eps,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The sums' pass 2 over a slice of K with the global normalizer norm
+// [2, I] = (m, 1/S) given: out [K, A] as vilma_compact_delta_sums.
+extern "C" int vilma_compact_delta_sums_given(
+    const void* coeffs, const void* scores_t, const void* ann,
+    const void* dterm, const void* nat, void* part, void* norm, void* out,
+    int I, int K, int A, int P, int kt, int kg, int nblocks, float eps,
+    void* stream) {
+  return (int)dispatch<kShared, true, kGiven>(
+      P, coeffs, scores_t, ann, dterm, nat, nullptr, nullptr, part, norm, out,
+      I, K, A, kt, kg, nblocks, eps, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int vilma_compact_delta_sums_kdim_given(
+    const void* coeffs, const void* scores_t, const void* ann,
+    const void* dterm, const void* nat, void* part, void* norm, void* out,
+    int I, int K, int A, int P, int kt, int kg, int nblocks, float eps,
+    void* stream) {
+  return (int)dispatch<kKdim, true, kGiven>(
+      P, coeffs, scores_t, ann, dterm, nat, nullptr, nullptr, part, norm, out,
+      I, K, A, kt, kg, nblocks, eps, static_cast<cudaStream_t>(stream));
+}
+
+// The merge of M prologue partials [M, 3 + 2P, I] of one SNP column:
+// pm, pv [P, I] and kl_out (a scalar); part holds nblocks floats.
+extern "C" int vilma_compact_merge(const void* parts, const void* ann,
+                                   void* pm, void* pv, void* part,
+                                   void* kl_out, int I, int M, int A, int P,
+                                   int nblocks, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* x = static_cast<const float*>(parts);
+  const int* a = static_cast<const int*>(ann);
+  float* o1 = static_cast<float*>(pm);
+  float* o2 = static_cast<float*>(pv);
+  float* pt = static_cast<float*>(part);
+  switch (P) {
+    case 1:
+      merge_kernel<1><<<nblocks, kThreads, 0, st>>>(x, a, o1, o2, pt, I, M, A);
+      break;
+    case 2:
+      merge_kernel<2><<<nblocks, kThreads, 0, st>>>(x, a, o1, o2, pt, I, M, A);
+      break;
+    case 3:
+      merge_kernel<3><<<nblocks, kThreads, 0, st>>>(x, a, o1, o2, pt, I, M, A);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  reduce_scalar<<<1, kThreads, 0, st>>>(pt, nblocks,
+                                        static_cast<float*>(kl_out));
+  return (int)cudaGetLastError();
+}
+
+// The merge of M sums pass-1 partials [M, 2, I]: norm [2, I] = (m, 1/S).
+extern "C" int vilma_compact_norm_merge(const void* parts, void* norm, int I,
+                                        int M, int nblocks, void* stream) {
+  norm_merge_kernel<<<nblocks, kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(parts), static_cast<float*>(norm), I, M);
+  return (int)cudaGetLastError();
 }

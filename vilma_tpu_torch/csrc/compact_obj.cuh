@@ -58,6 +58,26 @@
 // leaves each SNP's max and 1/normalizer in a [2, I] workspace for the
 // later groups. So any K·A runs whose single component row fits.
 //
+// K-split forms (--mesh comp=M: each shard holds a slice of the K
+// components; the softmax over K is reduced across shards):
+//   prologue partial  the one-pass body over the slice, writing each SNP's
+//                     online-softmax accumulators unnormalized, against the
+//                     slice's own reference m: acc[kAccRows(P)][I] = m, s0,
+//                     q = sz + sg, sy[P], ssec[P] (SPLIT = kPartial);
+//   merge             merge_kernel: the M partials of one SNP column, each
+//                     rescaled by exp(m_j - max_j m_j), finished as the
+//                     whole-K prologue finishes (pm, pv, the KL per CTA);
+//   sums pass 1       the online max and normalizer over the slice alone,
+//                     written as (m, s) into a [2, I] array (kPartial);
+//   norm merge        norm_merge_kernel: (max_j m_j, 1 / sum_j s_j e^(m_j -
+//                     max)), the global normalizer;
+//   sums pass 2       the whole-K sums body with the global normalizer read
+//                     from its [2, I] workspace for every group (kGiven).
+// The dropped clamp stays valid under the split: each slice accumulates
+// against its own reference and the merge only rescales, so every weight
+// is the unclamped one, and the KL subtracts log S once per SNP, in the
+// merge.
+//
 // The TPU accumulates the KL and the sums across its sequential grid; here
 // each CTA writes a partial in fixed order and a second kernel adds the
 // partials in fixed order. No float atomics touch device memory, so every
@@ -70,6 +90,13 @@
 namespace vilma {
 
 enum Form { kShared = 0, kKdim = 1, kEpochs = 2 };
+
+// whole K, the K-split partial over a slice, or (sums) pass 2 with the
+// global normalizer given
+enum Split { kWhole = 0, kPartial = 1, kGiven = 2 };
+
+// rows of a prologue partial per SNP: m, s0, q, sy[P], ssec[P]
+__host__ __device__ inline int acc_rows(int P) { return 3 + 2 * P; }
 
 // The per-SNP operands of a form (pointers into device memory).
 struct Operands {
@@ -538,14 +565,17 @@ __host__ __device__ inline int extra_floats(bool sums, int kg, int A) {
 }
 
 // SUMS = false: prologue (pm, pv, per-CTA KL partial in part[blockIdx]),
-// one pass over K.
+// one pass over K; SPLIT = kPartial: the accumulators of the slice into
+// pm_out as [acc_rows(P)][I], nothing else.
+// SUMS = true, SPLIT = kPartial: pass 1 alone, (m, s) into norm[2][I].
+// SUMS = true, SPLIT = kGiven: every group reads (m, 1/s) from norm.
 // SUMS = true: per-CTA annotation sums in part[blockIdx][K][A], written
 // once, component group by component group (kg components, a multiple of
 // kt, or all K). The first group's pass 1 leaves each SNP's (m, 1/s) in
 // norm[2][I] for the later groups (unused when kg == K).
 // NL: the live epochs held in registers (-1: read at run time; the
 // kShared and kKdim kernels ignore it).
-template <int P, bool SUMS, int FORM, int NL = -1>
+template <int P, bool SUMS, int FORM, int NL = -1, int SPLIT = kWhole>
 __global__ void __launch_bounds__(kThreads)
     compact_kernel(Operands op, const float* __restrict__ coeffs,
                    const float* __restrict__ scores_t,
@@ -554,11 +584,13 @@ __global__ void __launch_bounds__(kThreads)
                    float* __restrict__ norm, int I, int K, int A, int kt,
                    int kg, float eps) {
   constexpr int NCOL = ncol<P>();
+  // the sorted per-CTA reduction (the sums' pass 2)
+  constexpr bool kSorted = SUMS && SPLIT != kPartial;
   extern __shared__ float smem[];
   float* coef_s = smem;                 // [kt][NCOL]
   float* score_s = coef_s + kt * NCOL;  // [kt][A]
   float* extra = score_s + kt * A;      // see extra_floats
-  float* tab = extra + extra_floats(SUMS, kg, A);
+  float* tab = extra + extra_floats(kSorted, kg, A);
   float* part_s = extra;                // sums: [kg][A]
   float* w_s = part_s + kg * A;         // sums: [kChunk][kWStride]
   int* cnt_s = reinterpret_cast<int*>(w_s + kChunk * kWStride);
@@ -628,7 +660,16 @@ __global__ void __launch_bounds__(kThreads)
           acc.fold();
         }
       }
-      if (live) {
+      if (live && SPLIT == kPartial) {
+        pm_out[i] = acc.m;
+        pm_out[(size_t)I + i] = acc.s0;
+        pm_out[2 * (size_t)I + i] = acc.sz + acc.sg;
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          pm_out[(size_t)(3 + p) * I + i] = acc.sy[p];
+          pm_out[(size_t)(3 + P + p) * I + i] = acc.ssec[p];
+        }
+      } else if (live) {
         const float inv = 1.0f / acc.s0;  // one reciprocal per SNP
 #pragma unroll
         for (int p = 0; p < P; ++p) {
@@ -639,6 +680,7 @@ __global__ void __launch_bounds__(kThreads)
         if (a < A) kl += (acc.sz + acc.sg) * inv - logf(acc.s0);
       }
     }
+    if (SPLIT == kPartial) return;
     const float v = warp_sum(kl);
     if (lane == 0) extra[warp] = v;
     __syncthreads();
@@ -646,6 +688,43 @@ __global__ void __launch_bounds__(kThreads)
       float tot = 0.f;
       for (int w = 0; w < kWarps; ++w) tot += extra[w];
       part[blockIdx.x] = tot;
+    }
+  } else if constexpr (SPLIT == kPartial) {
+    // pass 1 alone over the slice: each SNP's max and normalizer
+    for (int base = blockIdx.x * kThreads; base < I;
+         base += gridDim.x * kThreads) {
+      const int i = base + tid;
+      const bool live = i < I;
+      Snp<P> snp;
+      load_snp<P, FORM>(op, snp, i, live);
+      const int asel = min(live ? ann[i] : A, A - 1);
+      EpochRegs<P, NL> er;
+      if constexpr (FORM == kEpochs) load_epochs<P, NL>(op, snp, tab, er);
+      float s = 0.f, m = -INFINITY;
+      for (int t = 0; t < ntiles; ++t) {
+        next_tile(t);
+        const int cnt = min(kt, K - t * kt);
+#pragma unroll 4
+        for (int kl_ = 0; kl_ < cnt; ++kl_) {
+          const float* c = coef_s + kl_ * NCOL;
+          const float sel = score_s[kl_ * A + asel];
+          float z;
+          if constexpr (FORM == kEpochs)
+            z = z_epochs<P, NL>(op, snp, er, tab, c, sel);
+          else
+            z = z_form<P, FORM>(op, snp, c, t * kt + kl_, sel);
+          if (z > m) {
+            s = s * __expf(m - z) + 1.0f;
+            m = z;
+          } else {
+            s += __expf(z - m);
+          }
+        }
+      }
+      if (live) {
+        norm[i] = m;
+        norm[(size_t)I + i] = s;
+      }
     }
   } else {
     for (int g0 = 0; g0 < K; g0 += kg) {
@@ -696,7 +775,7 @@ __global__ void __launch_bounds__(kThreads)
 
         // pass 1 (first group): online max and normalizer of z over K
         float m, inv_s;
-        if (g0 == 0) {
+        if (SPLIT == kWhole && g0 == 0) {
           float s = 0.f;
           m = -INFINITY;
           for (int t = 0; t < ntiles; ++t) {
@@ -720,7 +799,8 @@ __global__ void __launch_bounds__(kThreads)
             norm[i] = m;
             norm[(size_t)I + i] = inv_s;
           }
-        } else {  // this thread's own writes of the first group
+        } else {  // this thread's own writes of the first group, or
+                  // (kGiven) the global normalizer
           m = live ? norm[i] : 0.f;
           inv_s = live ? norm[(size_t)I + i] : 0.f;
         }
@@ -811,20 +891,96 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Merge of the K-split prologue: parts [M][acc_rows(P)][I] (the M comp
+// slices' partials of one SNP column, in comp order) -> pm, pv [P, I] and
+// the per-CTA KL partial in part[blockIdx]. Each partial j is rescaled by
+// a_j = exp(m_j - mx), mx = max_j m_j; its q_j, taken against m_j, also
+// takes the shift (m_j - mx) s0_j, so that q = sum_k w_k (z_k - mx + g_k)
+// and kl_i = q / S - log S with S = sum_j a_j s0_j: the log-normalizer is
+// subtracted once per SNP. Fixed order over j: bit-for-bit repeatable.
+template <int P>
+__global__ void __launch_bounds__(kThreads)
+    merge_kernel(const float* __restrict__ parts, const int* __restrict__ ann,
+                 float* __restrict__ pm_out, float* __restrict__ pv_out,
+                 float* __restrict__ part, int I, int M, int A) {
+  __shared__ float warp_kl[kWarps];
+  const size_t stride = (size_t)acc_rows(P) * I;
+  float kl = 0.f;
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < I;
+       i += gridDim.x * kThreads) {
+    float mx = -INFINITY;
+    for (int j = 0; j < M; ++j) mx = fmaxf(mx, parts[j * stride + i]);
+    float s0 = 0.f, q = 0.f, sy[P], ssec[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) sy[p] = ssec[p] = 0.f;
+    for (int j = 0; j < M; ++j) {
+      const float* pj = parts + j * stride;
+      const float mj = pj[i];
+      const float a = expf(mj - mx);
+      const float sj = pj[(size_t)I + i];
+      s0 += a * sj;
+      q += a * (pj[2 * (size_t)I + i] + (mj - mx) * sj);
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        sy[p] += a * pj[(size_t)(3 + p) * I + i];
+        ssec[p] += a * pj[(size_t)(3 + P + p) * I + i];
+      }
+    }
+    const float inv = 1.0f / s0;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const float pm = sy[p] * inv;
+      pm_out[(size_t)p * I + i] = pm;
+      pv_out[(size_t)p * I + i] = ssec[p] * inv - pm * pm;
+    }
+    if (ann[i] < A) kl += q * inv - logf(s0);
+  }
+  const float v = warp_sum(kl);
+  if ((threadIdx.x & 31) == 0) warp_kl[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float tot = 0.f;
+    for (int w = 0; w < kWarps; ++w) tot += warp_kl[w];
+    part[blockIdx.x] = tot;
+  }
+}
+
+// Merge of the sums' pass-1 partials: parts [M][2][I] of (m_j, s_j) ->
+// norm [2][I] = (mx, 1 / sum_j s_j exp(m_j - mx)), the global normalizer
+// pass 2 reads (kGiven), in fixed order over j.
+__global__ void __launch_bounds__(kThreads)
+    norm_merge_kernel(const float* __restrict__ parts,
+                      float* __restrict__ norm, int I, int M) {
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < I;
+       i += gridDim.x * kThreads) {
+    float mx = -INFINITY;
+    for (int j = 0; j < M; ++j) mx = fmaxf(mx, parts[2 * (size_t)j * I + i]);
+    float s = 0.f;
+    for (int j = 0; j < M; ++j)
+      s += parts[(2 * (size_t)j + 1) * I + i] *
+           expf(parts[2 * (size_t)j * I + i] - mx);
+    norm[i] = mx;
+    norm[(size_t)I + i] = 1.0f / s;
+  }
+}
+
 // Launch the compact kernel of form FORM, then the fixed-order reduction
 // of its partials: out is the KL scalar (prologue) or the [K, A] sums.
 // norm: [2, I] floats of scratch for the sums when kg < K (else unused).
-template <int P, bool SUMS, int FORM, int NL = -1>
+// SPLIT = kPartial writes the partial alone (pm: the prologue's
+// accumulators; norm: the sums' (m, s)), with no reduction launched.
+template <int P, bool SUMS, int FORM, int NL = -1, int SPLIT = kWhole>
 cudaError_t launch(const Operands& op, const void* coeffs,
                    const void* scores_t, const void* ann, void* pm, void* pv,
                    void* part, void* norm, void* out, int I, int K, int A,
                    int kt, int kg, int nblocks, float eps,
                    cudaStream_t stream) {
   const size_t smem =
-      sizeof(float) * ((size_t)kt * (ncol<P>() + A) +
-                       (size_t)extra_floats(SUMS, kg, A) +
-                       (size_t)table_floats(FORM, P, op.nlive));
-  auto kernel = compact_kernel<P, SUMS, FORM, NL>;
+      sizeof(float) *
+      ((size_t)kt * (ncol<P>() + A) +
+       (size_t)extra_floats(SUMS && SPLIT != kPartial, kg, A) +
+       (size_t)table_floats(FORM, P, op.nlive));
+  auto kernel = compact_kernel<P, SUMS, FORM, NL, SPLIT>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -837,7 +993,7 @@ cudaError_t launch(const Operands& op, const void* coeffs,
       static_cast<float*>(part), static_cast<float*>(norm), I, K, A, kt, kg,
       eps);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || SPLIT == kPartial) return err;
   if (SUMS) {
     const int m = K * A;
     reduce_rows<<<(m + 31) / 32, kThreads, 0, stream>>>(

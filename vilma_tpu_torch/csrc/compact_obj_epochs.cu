@@ -45,21 +45,26 @@ namespace {
 
 using namespace vilma;
 
+// K-split forms (fit --mesh comp=M): the prologue partial and the sums'
+// two passes over a shard's slice of K, as in compact_obj.cu; the merges
+// are compact_obj.cu's, whatever the form.
+
 // live epochs the kernels hold in registers (more: read through L1);
 // 1 and 2 are the counts a fit runs at and the ones timed
 constexpr int kMaxRegEpochs = 2;
 
 // the prologue (SUMS false) or the sums at P cohorts, with the live-epoch
 // count as NL (or -1)
-template <int P, bool SUMS>
+template <int P, bool SUMS, int SPLIT = kWhole>
 cudaError_t launch_epochs(const Operands& op, const void* coeffs,
                           const void* scores_t, const void* ann, void* pm,
                           void* pv, void* part, void* norm, void* out, int I,
                           int K, int A, int kt, int kg, int nblocks,
                           float eps, cudaStream_t stream) {
-#define VILMA_EPOCHS(NL)                                                     \
-  launch<P, SUMS, kEpochs, NL>(op, coeffs, scores_t, ann, pm, pv, part, norm, \
-                               out, I, K, A, kt, kg, nblocks, eps, stream)
+#define VILMA_EPOCHS(NL)                                                    \
+  launch<P, SUMS, kEpochs, NL, SPLIT>(op, coeffs, scores_t, ann, pm, pv,    \
+                                      part, norm, out, I, K, A, kt, kg,     \
+                                      nblocks, eps, stream)
   static_assert(kMaxRegEpochs == 2, "one case per register epoch count");
   switch (op.nlive) {
     case 0:
@@ -74,7 +79,7 @@ cudaError_t launch_epochs(const Operands& op, const void* coeffs,
 #undef VILMA_EPOCHS
 }
 
-template <bool SUMS>
+template <bool SUMS, int SPLIT = kWhole>
 cudaError_t dispatch(int P, const void* coeffs, const void* scores_t,
                      const void* ann, const void* sld, const void* u,
                      const void* hist, const void* inv_scales,
@@ -89,17 +94,17 @@ cudaError_t dispatch(int P, const void* coeffs, const void* scores_t,
                     static_cast<const float*>(hist_c), I, nlive};
   switch (P) {
     case 1:
-      return launch_epochs<1, SUMS>(op, coeffs, scores_t, ann, pm, pv, part,
-                                    norm, out, I, K, A, kt, kg, nblocks, eps,
-                                    stream);
+      return launch_epochs<1, SUMS, SPLIT>(op, coeffs, scores_t, ann, pm,
+                                            pv, part, norm, out, I, K, A, kt,
+                                            kg, nblocks, eps, stream);
     case 2:
-      return launch_epochs<2, SUMS>(op, coeffs, scores_t, ann, pm, pv, part,
-                                    norm, out, I, K, A, kt, kg, nblocks, eps,
-                                    stream);
+      return launch_epochs<2, SUMS, SPLIT>(op, coeffs, scores_t, ann, pm,
+                                            pv, part, norm, out, I, K, A, kt,
+                                            kg, nblocks, eps, stream);
     case 3:
-      return launch_epochs<3, SUMS>(op, coeffs, scores_t, ann, pm, pv, part,
-                                    norm, out, I, K, A, kt, kg, nblocks, eps,
-                                    stream);
+      return launch_epochs<3, SUMS, SPLIT>(op, coeffs, scores_t, ann, pm,
+                                            pv, part, norm, out, I, K, A, kt,
+                                            kg, nblocks, eps, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -136,4 +141,42 @@ extern "C" int vilma_compact_delta_sums_epochs(
                              inv_scales, hist_c, nullptr, nullptr, part, norm,
                              out, I, K, A, nlive, kt, kg, nblocks, eps,
                              static_cast<cudaStream_t>(stream));
+}
+
+// K-split prologue over a slice of K: acc [3 + 2P, I] as
+// vilma_compact_prologue_partial.
+extern "C" int vilma_compact_prologue_epochs_partial(
+    const void* coeffs, const void* scores_t, const void* ann,
+    const void* sld, const void* u, const void* hist, const void* inv_scales,
+    const void* hist_c, void* acc, int I, int K, int A, int P, int nlive,
+    int kt, int nblocks, float eps, void* stream) {
+  return (int)dispatch<false, kPartial>(
+      P, coeffs, scores_t, ann, sld, u, hist, inv_scales, hist_c, acc,
+      nullptr, nullptr, nullptr, nullptr, I, K, A, nlive, kt, K, nblocks, eps,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The sums' pass 1 over a slice of K: norm [2, I] = (m, s).
+extern "C" int vilma_compact_delta_norm_epochs(
+    const void* coeffs, const void* scores_t, const void* ann,
+    const void* sld, const void* u, const void* hist, const void* inv_scales,
+    const void* hist_c, void* norm, int I, int K, int A, int P, int nlive,
+    int kt, int nblocks, float eps, void* stream) {
+  return (int)dispatch<true, kPartial>(
+      P, coeffs, scores_t, ann, sld, u, hist, inv_scales, hist_c, nullptr,
+      nullptr, nullptr, norm, nullptr, I, K, A, nlive, kt, K, nblocks, eps,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The sums' pass 2 with the global normalizer norm [2, I] = (m, 1/S).
+extern "C" int vilma_compact_delta_sums_epochs_given(
+    const void* coeffs, const void* scores_t, const void* ann,
+    const void* sld, const void* u, const void* hist, const void* inv_scales,
+    const void* hist_c, void* part, void* norm, void* out, int I, int K,
+    int A, int P, int nlive, int kt, int kg, int nblocks, float eps,
+    void* stream) {
+  return (int)dispatch<true, kGiven>(
+      P, coeffs, scores_t, ann, sld, u, hist, inv_scales, hist_c, nullptr,
+      nullptr, part, norm, out, I, K, A, nlive, kt, kg, nblocks, eps,
+      static_cast<cudaStream_t>(stream));
 }

@@ -35,6 +35,19 @@ from psum or from XLA (the objective's likelihood sums and beta-KL, the
 the initialization's and the precompute's sums) are added across shards
 by the mesh before the one host fetch each evaluation already makes. An
 unsharded fit is the one-shard case with no mesh.
+
+Under component sharding (mesh.n_comp = M > 1) each shard holds a slice
+of the K components of its [K, ...] tables and state. An evaluation then
+runs the K-split prologue on every shard, gathers the M partials of each
+snp column, merges them (replicated over comp), and runs the matvec and
+the likelihood on every comp replica; the values the comp shards of a
+column hold alike (the likelihood, the compact KL, the EM and
+convergence statistics, the precompute's sums) are added by the comp-0
+shard alone (`Mesh.counts_once`). The materialized state reduces its
+posterior moments and the softmax over K (vi_delta) over comp; its KL
+terms are the slice's own and add on every shard. The annotation sums
+add over the snp shards of each comp row, their normalization over the
+comp shards. At M = 1 none of this runs: the whole-K kernels do.
 """
 import dataclasses
 import logging
@@ -168,7 +181,8 @@ class ShardedData:
 
 
 # VIState fields that are the same on every shard: host scalars and
-# small replicated tensors (each shard holds a copy on its device)
+# small replicated tensors (each shard holds a copy on its device);
+# hyper_delta only without comp, which splits its columns
 _SHARED_FIELDS = ('L', 'elbo', 'running_elbo_delta', 'num_err',
                   'nat_hist_n', 'hyper_delta', 'error_scaling',
                   'nat_hist_scale', 'nat_hist_c')
@@ -179,8 +193,12 @@ class ShardedState:
     """The VIState of a sharded fit: one per shard of this process. The
     fields every shard shares read through (the first shard's copy)."""
     shards: tuple
+    n_comp: int = 1
 
     def __getattr__(self, name):
+        if name == 'hyper_delta' and self.n_comp > 1:
+            raise AttributeError('hyper_delta is split over the comp '
+                                 'shards: gather it (MultiPopVI outputs)')
         if name in _SHARED_FIELDS:
             return getattr(self.shards[0], name)
         raise AttributeError(name)
@@ -197,8 +215,21 @@ def _unpack(data, st):
 def _repack(data, states):
     """The per-shard states in the form of `data`'s fit."""
     if isinstance(data, ShardedData):
-        return ShardedState(tuple(states))
+        return ShardedState(tuple(states), n_comp=data.mesh.n_comp)
     return states[0]
+
+
+def _comp(mesh):
+    """Whether the fit's K components are split over comp shards."""
+    return mesh is not None and mesh.n_comp > 1
+
+
+def _once(mesh, j, x):
+    """x where local shard j adds values its column's comp shards hold
+    alike, else zeros (the comp-0 shard adds them, once)."""
+    if mesh is None or mesh.counts_once(j):
+        return x
+    return torch.zeros_like(x)
 
 
 def _reduce(mesh, parts):
@@ -310,20 +341,82 @@ def _fused(data, st, params, hyper_delta, sums=False):
               num_annotations=A, num_live=st.nat_hist_n)
 
 
-def _objective_terms(data, st, params, hyper_delta):
-    """(the [P] likelihood sums over this shard's SNPs, its beta-KL,
-    post_means, linked) of a parameter point: the fused prologue, the LD
-    matvec and the likelihood's per-SNP part (reference
-    variational_inference.py:452-490, 632-641, 868-885); on the
-    materialized state their unfused twins."""
+def _fused_split(data, st, params, hyper_delta, norm=None, sums=False):
+    """The K-split kernels of the state's form over the shard's slice of
+    K: the prologue's [3 + 2P, I] partial; with sums=True the sums' pass
+    1 [2, I] partial, or, given the merged normalizer `norm`, pass 2's
+    [A, K_slice] sums."""
+    A = data.num_annotations
+    if st.nat_hist is None:
+        ops = _fused_operands(data, st.error_scaling, params[0],
+                              hyper_delta)
+        kw = dict(num_annotations=A)
+        fns = (compact_obj.prologue_partial, compact_obj.delta_norm,
+               compact_obj.delta_sums_given)
+    else:
+        ops = _epoch_operands(data, st, *params, hyper_delta)
+        kw = dict(num_annotations=A, num_live=st.nat_hist_n)
+        fns = (compact_obj.prologue_epochs_partial,
+               compact_obj.delta_norm_epochs,
+               compact_obj.delta_sums_epochs_given)
+    if not sums:
+        return fns[0](*ops, **kw)
+    if norm is None:
+        return fns[1](*ops, **kw)
+    return fns[2](*ops, norm, **kw)
+
+
+def _moments(data, st, params, hyper_delta):
+    """(post_means, post_vars, beta_kl) of a parameter point on one
+    shard holding all K: the fused prologue, or on the materialized state
+    its unfused twins."""
     if st.nat_mu is None:
         post_means = posterior_mean(*params)
         post_vars = posterior_marginal_variance(post_means, *params,
                                                 st.sigma)
-        beta_kl = beta_KL(data, st.sigma, *params, hyper_delta)
-    else:
-        post_means, post_vars, beta_kl = _fused(data, st, params,
-                                                hyper_delta)
+        return (post_means, post_vars,
+                beta_KL(data, st.sigma, *params, hyper_delta))
+    return _fused(data, st, params, hyper_delta)
+
+
+def _moments_all(ds, ss, mesh, params, hyper_deltas):
+    """`_moments` on every shard. Under comp: a compact state runs the
+    K-split prologue per shard, gathers each column's partials and merges
+    them (replicated over comp: the KL too); the materialized state adds
+    its [P] moments over comp and keeps its slice's own KL terms."""
+    if not _comp(mesh):
+        return [_moments(d, s, p, h)
+                for d, s, p, h in zip(ds, ss, params, hyper_deltas)]
+    if ss[0].nat_mu is not None:
+        stacks = mesh.comp_gather([_fused_split(d, s, p, h) for d, s, p, h
+                                   in zip(ds, ss, params, hyper_deltas)])
+        return [compact_obj.prologue_merge(
+            st, d.annotations, num_annotations=d.num_annotations)
+            for d, st in zip(ds, stacks)]
+    parts = [torch.cat([kernels.fast_posterior_mean(mu, vd),
+                        torch.sum((mu ** 2 + s.sigma.diag) * vd[:, None, :],
+                                  dim=0)])
+             for s, (mu, vd) in zip(ss, params)]
+    out = []
+    for d, s, p, h, tot in zip(ds, ss, params, hyper_deltas,
+                               mesh.comp_sum(parts)):
+        P = tot.shape[0] // 2
+        pm = tot[:P]
+        out.append((pm, tot[P:] - pm ** 2,
+                    beta_KL(d, s.sigma, *p, h)))
+    return out
+
+
+def _objective_terms(data, st, params, hyper_delta, moments=None):
+    """(the [P] likelihood sums over this shard's SNPs, its beta-KL,
+    post_means, linked) of a parameter point: the fused prologue, the LD
+    matvec and the likelihood's per-SNP part (reference
+    variational_inference.py:452-490, 632-641, 868-885); on the
+    materialized state their unfused twins. `moments` (post_means,
+    post_vars, beta_kl) may be given (a comp-sharded fit's)."""
+    if moments is None:
+        moments = _moments(data, st, params, hyper_delta)
+    post_means, post_vars, beta_kl = moments
     scaled_mu, linked_ests = _ld_scaled_dot(data, post_means)
     ll = kernels.likelihood_partial(
         post_means, post_vars, scaled_mu, data.scaled_ld_diags,
@@ -353,9 +446,18 @@ def _evaluate(ds, ss, mesh, params, hyper_deltas, failures=None):
     in one synchronization; a failure raises (sigma.check_cholesky)."""
     global host_syncs
     failures = failures or [[] for _ in ds]
+    moments = (_moments_all(ds, ss, mesh, params, hyper_deltas)
+               if _comp(mesh) else [None] * len(ds))
+    # the materialized KL terms are each comp slice's own
+    kl_once = ss[0].nat_mu is not None
     parts, pms, lks = [], [], []
-    for d, s, p, h, f in zip(ds, ss, params, hyper_deltas, failures):
-        ll, kl, pm, lk = _objective_terms(d, s, p, h)
+    for j, (d, s, p, h, f, mo) in enumerate(zip(ds, ss, params,
+                                                hyper_deltas, failures,
+                                                moments)):
+        ll, kl, pm, lk = _objective_terms(d, s, p, h, mo)
+        if _comp(mesh):
+            ll = _once(mesh, j, ll)
+            kl = _once(mesh, j, kl) if kl_once else kl
         bad = (sum(f).to(ll.dtype) if f else ll.new_zeros(()))
         parts.append(torch.cat([ll, kl.reshape(1).to(ll.dtype),
                                 bad.reshape(1)]))
@@ -446,6 +548,38 @@ def nat_to_not_vi_delta(data, sigma, error_scaling, vi_mu,
                                             nat_grad_vi_delta)
 
 
+def _comp_vi_delta(ds, mesh, vi_mus, nats, log_det_sigmas, hyper_deltas):
+    """vi_delta [K_slice, I] of the materialized state of a comp-sharded
+    fit, one per shard: the softmax over all K of z_k = 0.5
+    (log_det_sigma_k + vi_mu_k . nat_k) + log hyper[a_i, k] - 0.5
+    log_det_k (`nat_to_not_vi_delta`'s, its last-component baseline
+    cancelling), its max and normalizer reduced over comp, clamped at
+    eps."""
+    zs = []
+    for d, mu, nat, lds, h in zip(ds, vi_mus, nats, log_det_sigmas,
+                                  hyper_deltas):
+        sel = kernels._annotation_rows(
+            (torch.log(h) - 0.5 * d.log_det).T, d.annotations)
+        zs.append(0.5 * (lds + torch.sum(mu * nat, dim=1)) + sel)
+    tops = mesh.comp_max([z.amax(dim=0) for z in zs])
+    ws = [torch.exp(z - t) for z, t in zip(zs, tops)]
+    tots = mesh.comp_sum([w.sum(dim=0) for w in ws])
+    eps = epsilon(zs[0].dtype)
+    return [torch.clamp(w / t, min=eps) for w, t in zip(ws, tots)]
+
+
+def _comp_nat_vi_delta(ds, mesh, ss):
+    """`nat_to_not_vi_delta` of each state's vi_mu under comp: its
+    vi_delta at the state's error_scaling, sigma summaries and
+    hyper_delta (`_comp_vi_delta`)."""
+    return _comp_vi_delta(
+        ds, mesh, [st.vi_mu for st in ss],
+        [sigma_mod.apply_precision(d.mixture_prec,
+                                   _diag_term(d, st.error_scaling),
+                                   st.vi_mu) for d, st in zip(ds, ss)],
+        [st.sigma.log_det_sigma for st in ss], [st.hyper_delta for st in ss])
+
+
 def _objective_compact(data, st, nat_mu, hyper_delta):
     """`_objective` of a shared or kdim natural mean."""
     return _objective(data, st, (nat_mu,), hyper_delta)
@@ -459,12 +593,13 @@ def _nat_grad_resid(data, error_scaling, post_mean, linked_raw):
     return (data.adj_marginal_effects - linked) / error_scaling[:, None]
 
 
-def _stepper(data, st, params, grad):
+def _stepper(data, st, params, grad, comp=False):
     """s -> (the beta parameters a natural-gradient step of size s takes
     from `params`, the trial's Cholesky failure counts). The [P, I]
     gradient is constant in K and broadcasts; the materialized state
     steps its natural mean (prec_k + diag) @ vi_mu_k and solves back for
-    vi_mu and vi_delta (variational_inference.py:762-802)."""
+    vi_mu and vi_delta (variational_inference.py:762-802); under comp
+    (`comp`) it returns (vi_mu, the natural mean) for `_comp_vi_delta`."""
     if st.nat_mu is not None:
         def step(s):
             return (kernels.sum_betas(params[0], grad, s),) + tuple(
@@ -478,6 +613,8 @@ def _stepper(data, st, params, grad):
         nat = kernels.sum_betas(old_nat, grad, s)
         new_mu = sigma_mod.apply_sigma(data.mixture_prec, dterm, nat,
                                        failures)
+        if comp:
+            return (new_mu, nat), failures
         new_vd = kernels.fast_invert_nat_vi_delta(
             new_mu, nat, st.sigma.log_det_sigma, st.nat_grad_vi_delta)
         return (new_mu, new_vd), failures
@@ -493,8 +630,9 @@ def _update_beta(ds, ss, mesh, orig_obj, cur_post_means, cur_linked,
     parameters, the tensors one per shard."""
     threshold = orig_obj - REL_TOL * abs(orig_obj) - ABS_TOL
     params = [_params(st) for st in ss]
+    split_vd = _comp(mesh) and ss[0].nat_mu is None
     steps = [_stepper(d, st, p, _nat_grad_resid(d, st.error_scaling, pm,
-                                                lk))
+                                                lk), split_vd)
              for d, st, p, pm, lk in zip(ds, ss, params, cur_post_means,
                                          cur_linked)]
     hds = [st.hyper_delta for st in ss]
@@ -502,6 +640,11 @@ def _update_beta(ds, ss, mesh, orig_obj, cur_post_means, cur_linked,
     def trial(L0):
         out = [step(1. / L0) for step in steps]
         new = [o[0] for o in out]
+        if split_vd:
+            vds = _comp_vi_delta(ds, mesh, [n[0] for n in new],
+                                 [n[1] for n in new],
+                                 [st.sigma.log_det_sigma for st in ss], hds)
+            new = [(n[0], vd) for n, vd in zip(new, vds)]
         obj, pm, lk = _evaluate(ds, ss, mesh, new, hds,
                                 [o[1] for o in out])
         return new, obj, pm, lk
@@ -563,15 +706,37 @@ def _update_hyper_delta(ds, ss, mesh, orig_obj):
         sums = [kernels.sum_annotations(st.vi_delta, d.annotations,
                                         d.num_annotations)
                 for d, st in zip(ds, ss)]
+    elif _comp(mesh):
+        # pass 1 over each slice, the merged normalizer, pass 2
+        norms = mesh.comp_gather([
+            _fused_split(d, st, _params(st), st.hyper_delta, sums=True)
+            for d, st in zip(ds, ss)])
+        sums = [_fused_split(d, st, _params(st), st.hyper_delta,
+                             compact_obj.norm_merge(n), sums=True)
+                for d, st, n in zip(ds, ss, norms)]
     else:
         sums = [_fused(d, st, _params(st), st.hyper_delta, sums=True)
                 for d, st in zip(ds, ss)]
-    new_hd = _reduce(mesh, sums)
-    new_hd = torch.clamp(
-        new_hd / (ds[0].annotation_counts[:, None] + eps), min=eps)
-    new_hd = new_hd / new_hd.sum(dim=1, keepdim=True)
-    hds = _replicas(mesh, new_hd)
-    if st0.nat_mu is None:
+    if _comp(mesh):
+        # each comp row adds its [A, K_slice] sums over its snp shards;
+        # the normalization over K adds the rows' [A] sums over comp
+        hds = [torch.clamp(h / (d.annotation_counts[:, None] + eps),
+                           min=eps)
+               for h, d in zip(mesh.snp_sum(sums), ds)]
+        hds = [h / t for h, t in zip(hds, mesh.comp_sum(
+            [h.sum(dim=1, keepdim=True) for h in hds]))]
+    else:
+        new_hd = _reduce(mesh, sums)
+        new_hd = torch.clamp(
+            new_hd / (ds[0].annotation_counts[:, None] + eps), min=eps)
+        new_hd = new_hd / new_hd.sum(dim=1, keepdim=True)
+        hds = _replicas(mesh, new_hd)
+    if st0.nat_mu is None and _comp(mesh):
+        vds = _comp_nat_vi_delta(ds, mesh, [
+            dataclasses.replace(st, hyper_delta=h) for st, h in zip(ss, hds)])
+        ss = [dataclasses.replace(st, vi_delta=vd)
+              for st, vd in zip(ss, vds)]
+    elif st0.nat_mu is None:
         ss = [dataclasses.replace(
             st, nat_grad_vi_delta=nat_vd, vi_delta=nat_to_not_vi_delta(
                 d, st.sigma, st.error_scaling, st.vi_mu, nat_vd))
@@ -615,16 +780,22 @@ def _error_scaling(ds, ss, mesh, orig_obj, post_means, linked):
     _EPOCH_SKIP_TOL or its buffer is full; the change is one value over
     every shard, so all take the same decision."""
     stats = []
-    for d, st, pm, lk in zip(ds, ss, post_means, linked):
-        if st.nat_mu is None:
+    merged = (_moments_all(ds, ss, mesh, [_params(st) for st in ss],
+                           [st.hyper_delta for st in ss])
+              if _comp(mesh) else None)
+    for j, (d, st, pm, lk) in enumerate(zip(ds, ss, post_means, linked)):
+        if merged is not None:
+            post_vars = merged[j][1]
+        elif st.nat_mu is None:
             post_vars = kernels.fast_pmv(pm, st.vi_mu, st.vi_delta,
                                          st.sigma.diag)
         else:
             post_vars = _fused(d, st, _params(st), st.hyper_delta)[1]
-        stats.append(torch.stack([
+        stats.append(_once(mesh, j, torch.stack([
             torch.einsum('pi,pi->p', pm, d.adj_marginal_effects),
             torch.einsum('pi,pi->p', pm / d.std_errs, lk),
-            torch.sum(d.ld_diags * post_vars * d.std_errs ** -2, dim=1)]))
+            torch.sum(d.ld_diags * post_vars * d.std_errs ** -2,
+                      dim=1)])))
     cross, quad, var = _reduce(mesh, stats)
     d0, st0 = ds[0], ss[0]
     new_scaling = (d0.chi_stat - 2 * cross + quad + var) / d0.ld_ranks
@@ -636,8 +807,11 @@ def _error_scaling(ds, ss, mesh, orig_obj, post_means, linked):
                                              _diag_term(d, sc))
             out.append(dataclasses.replace(
                 st, error_scaling=sc, sigma=sigma,
-                vi_delta=nat_to_not_vi_delta(d, sigma, sc, st.vi_mu,
-                                             st.nat_grad_vi_delta)))
+                vi_delta=None if _comp(mesh) else nat_to_not_vi_delta(
+                    d, sigma, sc, st.vi_mu, st.nat_grad_vi_delta)))
+        if _comp(mesh):
+            out = [dataclasses.replace(st, vi_delta=vd) for st, vd in zip(
+                out, _comp_nat_vi_delta(ds, mesh, out))]
         ss = out
     elif st0.nat_hist is None:
         ss = [dataclasses.replace(
@@ -804,7 +978,8 @@ def _conv_stats(new_pms, old_pms, ckp_pms, st, mesh=None):
     global host_syncs
     maxima, squares = [], []
     count = 0
-    for new_pm, old_pm, ckp_pm in zip(new_pms, old_pms, ckp_pms):
+    for j, (new_pm, old_pm, ckp_pm) in enumerate(zip(new_pms, old_pms,
+                                                      ckp_pms)):
         eps = epsilon(new_pm.dtype)
         diff = torch.abs(new_pm - old_pm)
         # np.allclose(new, old, atol=ABS_TOL, rtol=REL_TOL) semantics
@@ -814,11 +989,13 @@ def _conv_stats(new_pms, old_pms, ckp_pms, st, mesh=None):
             torch.max(torch.abs(new_pm)),
             torch.max(torch.abs(diff / (old_pm + eps))),
             torch.max(diff)]))
-        squares.append(torch.sum((new_pm - ckp_pm) ** 2).reshape(1))
+        # the comp shards of a column hold one posterior mean
+        squares.append(_once(mesh, j, torch.sum(
+            (new_pm - ckp_pm) ** 2).reshape(1)))
         count += new_pm.numel()
     top = maxima[0] if mesh is None else mesh.max(maxima)
     if mesh is not None:
-        count *= mesh.world
+        count = new_pms[0].numel() * mesh.n_snp
     dev = torch.cat([
         1 - top[:1], top[1:],
         torch.sqrt(_reduce(mesh, squares) / count),
@@ -864,8 +1041,9 @@ def initialize_from_fake_mu(data, error_scaling, fake_mu, sigma=None):
     chunks. Given the sigma summaries of the materialized state, also
     returns its vi_mu [K, P, I] (sigma_k @ the shared natural mean),
     vi_delta [K, I] and the natural parameter [K-1, I] of hyper_delta."""
-    sums, temp_nat = _init_shard(data, error_scaling, fake_mu)
-    hyper = _init_hyper(sums)
+    sums, temps = _init_shards([data], None, [error_scaling], [fake_mu],
+                               data.log_det.shape[0])
+    hyper, temp_nat = _init_hyper(sums[0]), temps[0]
     if sigma is None:
         return hyper, temp_nat
     return (hyper, temp_nat) + _init_materialized(
@@ -894,32 +1072,60 @@ def _init_materialized(data, sigma, error_scaling, temp_nat, hyper):
     return vi_mu, vi_delta, nat_vd
 
 
-def _init_shard(data, error_scaling, fake_mu):
-    """(the [A, K] annotation sums of the initial vi_delta over this
-    shard's SNPs, its shared natural mean [P, I])."""
-    eps = epsilon(fake_mu.dtype)
-    K, I = data.log_det.shape[0], fake_mu.shape[1]
-    chunk_i = max(1, _INIT_CHUNK_BYTES // (K * fake_mu.element_size()))
-    dterm = _diag_term(data, error_scaling)
-    sums, nats = 0., []
-    for i0 in range(0, I, chunk_i):
+def _init_shards(ds, mesh, scalings, fake_mus, K):
+    """(per shard: the [A, K_slice] annotation sums of the initial
+    vi_delta over its SNPs, its shared natural mean [P, I]). Every step is
+    per SNP but the annotation sums and, under comp, the
+    responsibilities' min and normalizer over K and the sigma-weighted
+    sum, which reduce over the comp shards of a column. The [K, I]
+    temporaries are formed in lockstep SNP chunks, each [K_slice, chunk]
+    array within _INIT_CHUNK_BYTES at the largest slice, the same chunks
+    on every shard."""
+    mu0 = fake_mus[0]
+    eps = epsilon(mu0.dtype)
+    comp = _comp(mesh)
+    top = -(-K // mesh.n_comp) if comp else K
+    chunk_i = max(1, _INIT_CHUNK_BYTES // (top * mu0.element_size()))
+    sums = [0.] * len(ds)
+    nats = [[] for _ in ds]
+    dterms = [_diag_term(d, sc) for d, sc in zip(ds, scalings)]
+    for i0 in range(0, mu0.shape[1], chunk_i):
         cols = slice(i0, i0 + chunk_i)
-        dt, mu = dterm[:, cols], fake_mu[:, cols]
-        matches = sigma_mod.make_summaries(data.mixture_prec, data.log_det,
-                                           dt).matches
-        probs = torch.einsum('pi,oi,kpo->ki', 1.6 * mu, 1.6 * mu,
-                             data.mixture_prec)
-        probs = probs + matches - data.log_det[:, None]
-        probs = torch.exp(-0.5 * (probs - probs.amin(dim=0, keepdim=True)))
-        vi_delta = torch.clamp(probs / probs.sum(dim=0, keepdim=True),
-                               min=eps)
-        sums = sums + kernels.sum_annotations(
-            vi_delta, data.annotations[cols], data.num_annotations)
-        avg_mats = sigma_mod.sigma_weighted_sum(data.mixture_prec, dt,
-                                                vi_delta)        # [i,P,P]
-        nats.append(torch.einsum('pi,iqp->qi', mu,
-                                 torch.linalg.inv(avg_mats)))    # [P,i]
-    return sums, torch.cat(nats, dim=1)
+        dts = [dt[:, cols] for dt in dterms]
+        probs = []
+        for d, dt, mu in zip(ds, dts, fake_mus):
+            mu = mu[:, cols]
+            matches = sigma_mod.make_summaries(d.mixture_prec, d.log_det,
+                                               dt).matches
+            pr = torch.einsum('pi,oi,kpo->ki', 1.6 * mu, 1.6 * mu,
+                              d.mixture_prec)
+            probs.append(pr + matches - d.log_det[:, None])
+        lows = [-pr.amin(dim=0) for pr in probs]
+        lows = mesh.comp_max(lows) if comp else lows
+        probs = [torch.exp(-0.5 * (pr + low)) for pr, low in zip(probs,
+                                                                 lows)]
+        tots = [pr.sum(dim=0) for pr in probs]
+        tots = mesh.comp_sum(tots) if comp else tots
+        vds = [torch.clamp(pr / t, min=eps) for pr, t in zip(probs, tots)]
+        avg = [sigma_mod.sigma_weighted_sum(d.mixture_prec, dt, vd)
+               for d, dt, vd in zip(ds, dts, vds)]
+        avg = mesh.comp_sum(avg) if comp else avg
+        for j, (d, vd, mu, a) in enumerate(zip(ds, vds, fake_mus, avg)):
+            sums[j] = sums[j] + kernels.sum_annotations(
+                vd, d.annotations[cols], d.num_annotations)
+            nats[j].append(torch.einsum('pi,iqp->qi', mu[:, cols],
+                                        torch.linalg.inv(a)))
+    return sums, [torch.cat(n, dim=1) for n in nats]
+
+
+def _init_hyper_comp(mesh, sums):
+    """`_init_hyper` of a comp-sharded fit: each row's sums over its snp
+    shards, normalized by their [A] sums over comp; [A, K_slice] a
+    shard."""
+    eps = epsilon(sums[0].dtype)
+    hyper = [h + 1. for h in mesh.snp_sum(sums)]
+    tots = mesh.comp_sum([h.sum(dim=1, keepdim=True) for h in hyper])
+    return [torch.clamp(h / t, min=eps) for h, t in zip(hyper, tots)]
 
 
 # ---------------------------------------------------------------------------
@@ -1073,14 +1279,17 @@ def build_model_data(marginal_effects, std_errs, ld_mats, annotations,
                          num_annotations).astype(np.int32)
     real = (row_sums > 0).astype(np.float64)
 
+    K = mixture_prec.shape[0]
     if mesh is None:
         devices, spans, lds = [device], [slice(None)], [tuple(uniq)]
+        k_spans = [slice(None)]
     else:
         rows = num_loci // mesh.n_snp
         devices = list(mesh.devices)
-        spans = [slice(s * rows, (s + 1) * rows) for s in mesh.local_shards]
+        spans = [slice(s * rows, (s + 1) * rows) for s in mesh.snp_shards]
         lds = [tuple(m.shards[j] for m in uniq)
                for j in range(len(devices))]
+        k_spans = [mesh.k_slice(j, K) for j in range(len(devices))]
 
     # per shard: its span of the per-SNP inputs and the sums over it
     parts = []
@@ -1097,7 +1306,8 @@ def build_model_data(marginal_effects, std_errs, ld_mats, annotations,
                         & ~(adj.abs() <= 1e-8)).to(dtype).reshape(1)
         parts.append(dict(dev=dev, sl=sl, ld=ld, marginal=marginal_t,
                           std_errs=std_errs_t, ld_diags=ld_diags, adj=adj,
-                          sums=torch.cat([sums.reshape(-1), bad])))
+                          sums=_once(mesh, len(parts),
+                                     torch.cat([sums.reshape(-1), bad]))))
     sums = _reduce(mesh, [p['sums'] for p in parts])
     P = num_pops
     chi_stat, se_sum = sums[:P], sums[P:2 * P]
@@ -1107,8 +1317,8 @@ def build_model_data(marginal_effects, std_errs, ld_mats, annotations,
                          'been marked missing upstream.')
 
     shards = []
-    for p, chi, se in zip(parts, _replicas(mesh, chi_stat),
-                          _replicas(mesh, se_sum)):
+    for p, chi, se, ks in zip(parts, _replicas(mesh, chi_stat),
+                              _replicas(mesh, se_sum), k_spans):
         dev, sl = p['dev'], p['sl']
         shards.append(ModelData(
             marginal_effects=p['marginal'],
@@ -1124,8 +1334,8 @@ def build_model_data(marginal_effects, std_errs, ld_mats, annotations,
                 dev(init_hg), se),
             annotations=dev(annot_idx[sl], torch.int32),
             annotation_counts=dev(annotations.sum(axis=0)),
-            mixture_prec=dev(mixture_prec),
-            log_det=dev(log_det),
+            mixture_prec=dev(mixture_prec[ks]),
+            log_det=dev(log_det[ks]),
             ld=p['ld'],
             num_annotations=int(num_annotations),
             scale_se=bool(scale_se),
@@ -1235,7 +1445,8 @@ class MultiPopVI:
                            else np.asarray(out_index, dtype=np.int64))
         self.num_loci = (self._padded_loci if out_index is None
                          else int(self._out_index.shape[0]))
-        self.num_mix = d0.mixture_prec.shape[0]
+        # a comp shard holds a slice of the components
+        self.num_mix = int(np.asarray(mixture_covs).shape[0])
         self.num_annotations = d0.num_annotations
         # the compact states need the closed-form sigma algebra (P <= 3);
         # beyond it the fit carries the materialized state
@@ -1255,6 +1466,22 @@ class MultiPopVI:
                 '(the per-component [K, P, I] state would be %.1f GiB)',
                 kdim_bytes / 2 ** 30)
         self.state = None
+        # outputs: one full-K ModelData per snp column this process holds
+        # (the shards' own without comp), gathered through _omesh
+        self._omesh = mesh.columns() if mesh is not None else None
+        self._ods = self._ds
+        self._col = list(range(len(self._ds)))
+        if _comp(mesh):
+            K = self.num_mix
+            precs = mesh.comp_cat([d.mixture_prec for d in self._ds], 0, K)
+            lds = mesh.comp_cat([d.log_det for d in self._ds], 0, K)
+            self._ods = [dataclasses.replace(self._ds[js[0]],
+                                             mixture_prec=precs[js[0]],
+                                             log_det=lds[js[0]])
+                         for js in self._omesh.lines]
+            for ci, js in enumerate(self._omesh.lines):
+                for j in js:
+                    self._col[j] = ci
 
     @property
     def _dtype(self):
@@ -1271,12 +1498,48 @@ class MultiPopVI:
 
     def _state(self, ss):
         """Per-shard VIStates as a state of this fit."""
-        return ShardedState(tuple(ss)) if self.mesh is not None else ss[0]
+        return (ShardedState(tuple(ss), n_comp=self.mesh.n_comp)
+                if self.mesh is not None else ss[0])
+
+    def _out_states(self, st):
+        """One VIState per snp column of `_ods`: the shards' own without
+        comp; under comp each column's state gathered over its comp
+        shards (the [K, ...] fields and hyper_delta's columns whole, the
+        materialized state's nat_grad_vi_delta derived)."""
+        ss = self._states(st)
+        if not _comp(self.mesh):
+            return ss
+        K, mesh, s0 = self.num_mix, self.mesh, ss[0]
+
+        def cat(get, dim=0):
+            return mesh.comp_cat([get(s) for s in ss], dim, K)
+
+        upd = {'hyper_delta': cat(lambda s: s.hyper_delta, 1)}
+        if s0.nat_mu is not None and s0.nat_mu.dim() == 3:
+            upd['nat_mu'] = cat(lambda s: s.nat_mu)
+        sig = {}
+        if s0.vi_mu is not None:
+            upd['vi_mu'] = cat(lambda s: s.vi_mu)
+            upd['vi_delta'] = cat(lambda s: s.vi_delta)
+            sig = {f.name: cat(lambda s, n=f.name: getattr(s.sigma, n))
+                   for f in dataclasses.fields(sigma_mod.SigmaSummaries)}
+        out = []
+        for od, js in zip(self._ods, self._omesh.lines):
+            u = {k: v[js[0]] for k, v in upd.items()}
+            if sig:
+                u['sigma'] = sigma_mod.SigmaSummaries(
+                    **{k: v[js[0]] for k, v in sig.items()})
+                u['nat_grad_vi_delta'] = kernels.fast_vi_delta_grad(
+                    u['hyper_delta'], od.log_det, od.annotations)
+            out.append(dataclasses.replace(ss[js[0]], **u))
+        return out
 
     def _full(self, parts):
-        """One tensor per shard as a host array over every variant, in
-        the original order (the last axis gathered over the shards)."""
-        x = _np(parts[0] if self.mesh is None else self.mesh.gather(parts))
+        """One tensor per output column (`_ods`) as a host array over
+        every variant, in the original order (the last axis gathered over
+        the columns)."""
+        x = _np(parts[0] if self.mesh is None
+                else self._omesh.gather(parts))
         return x if self._out_index is None else x[..., self._out_index]
 
     def _place(self, x, fill=0.0):
@@ -1306,7 +1569,7 @@ class MultiPopVI:
 
     @property
     def scalings(self):
-        return self._full([d.scalings for d in self._ds])
+        return self._full([d.scalings for d in self._ods])
 
     def vi_sigma_chunks(self, chunk_k=None):
         """Yield vi_sigma in [<=chunk_k, P, P, I] component chunks
@@ -1315,12 +1578,12 @@ class MultiPopVI:
         if chunk_k is None:
             per_k = max(self.num_loci * P * P * self._np_dtype.itemsize, 1)
             chunk_k = max(1, min(K, (256 << 20) // per_k))
-        ss = self._states(self.state)
+        ss = self._out_states(self.state)
         for k0 in range(0, K, chunk_k):
             yield self._full([sigma_mod.materialize_sigma(
                 d.mixture_prec[k0:k0 + chunk_k],
                 _diag_term(d, st.error_scaling))
-                for d, st in zip(self._ds, ss)])
+                for d, st in zip(self._ods, ss)])
 
     # -- genome-scale output streaming (see dump_spec) ---------------------
     def _stream_big(self):
@@ -1332,14 +1595,14 @@ class MultiPopVI:
         """Yield vi_mu in [<=chunk_k, P, I] component chunks derived from
         the state (vi_mu_k = sigma_k @ nat_k; epoch states sum their
         history, sigma.compact_exprs_epochs)."""
-        ss = self._states(st or self.state)
+        ss = self._out_states(st or self.state)
         K, P = self.num_mix, self.num_pops
         if chunk_k is None:
             per_k = max(self._padded_loci * P * self._np_dtype.itemsize, 1)
             chunk_k = max(1, min(K, (256 << 20) // per_k))
         for k0 in range(0, K, chunk_k):
             parts = []
-            for d, st in zip(self._ds, ss):
+            for d, st in zip(self._ods, ss):
                 prec = d.mixture_prec[k0:k0 + chunk_k]
                 if st.nat_hist is not None:
                     parts.append(_epoch_exprs(prec, d.scaled_ld_diags,
@@ -1357,34 +1620,35 @@ class MultiPopVI:
         the original variant order (bounded device memory). Each shard
         derives the columns it holds; a sharded fit joins them on its
         first device and across processes."""
-        ss = self._states(st or self.state)
+        ss = self._out_states(st or self.state)
         K, P, n = self.num_mix, self.num_pops, self.num_loci
         if chunk_i is None:
             chunk_i = max(1024, (64 << 20) // max(K * P * 4, 1))
         if self._out_index is None:
-            d, st = self._ds[0], ss[0]
+            d, st = self._ods[0], ss[0]
             for i0 in range(0, n, chunk_i):
                 vd, pm, pv = _derived_cols(d, st, slice(i0, i0 + chunk_i))
                 yield _np(vd.T), _np(pm), _np(pv)
             return
-        n_shards = self.mesh.n_snp if self.mesh is not None else 1
-        first = self.mesh.first_shard if self.mesh is not None else 0
+        om = self._omesh
+        n_shards = om.n_snp if om is not None else 1
+        first = om.first_shard if om is not None else 0
         rows = self._padded_loci // n_shards
-        dev0 = self._ds[0].marginal_effects.device
+        dev0 = self._ods[0].marginal_effects.device
         for i0 in range(0, n, chunk_i):
             idx = self._out_index[i0:i0 + chunk_i]
             out = torch.zeros((K + 2 * P, idx.shape[0]), dtype=self._dtype,
                               device=dev0)
-            for j, (d, st) in enumerate(zip(self._ds, ss)):
+            for j, (d, st) in enumerate(zip(self._ods, ss)):
                 pos = np.flatnonzero(idx // rows == first + j)
-                if pos.size == 0:
+                if pos.size == 0 or (om is not None and not om.writes(j)):
                     continue
                 cols = torch.as_tensor(idx[pos] - (first + j) * rows,
                                        device=d.marginal_effects.device)
                 out[:, torch.as_tensor(pos, device=dev0)] = torch.cat(
                     _derived_cols(d, st, cols)).to(dev0)
-            if self.mesh is not None:
-                out = self.mesh.join(out)
+            if om is not None:
+                out = om.join(out)
             out = _np(out)
             yield out[:K].T, out[K:K + P], out[K + P:]
 
@@ -1403,9 +1667,9 @@ class MultiPopVI:
         vi_mu (component chunks) and vi_delta (variant chunks) for
         utils/npz_stream.save_npz_stream."""
         st = st or self.state
-        st0 = self._states(st)[0]
-        if st0.nat_mu is None or not self._stream_big():
+        if self._states(st)[0].nat_mu is None or not self._stream_big():
             return self.create_dump_dict(st), []
+        st0 = self._out_states(st)[0]
         arrays = {
             'hyper_delta': _np(st0.hyper_delta),
             'error_scaling': _np(st0.error_scaling),
@@ -1421,9 +1685,10 @@ class MultiPopVI:
         return arrays, streams
 
     def _materialized(self, st):
-        ss = self._states(st)
+        """The states of the output columns with their derived fields."""
+        ss = self._out_states(st)
         return [s if s.vi_mu is not None else materialize_state(d, s)
-                for d, s in zip(self._ds, ss)]
+                for d, s in zip(self._ods, ss)]
 
     def create_dump_dict(self, st=None):
         st = st or self.state
@@ -1447,7 +1712,7 @@ class MultiPopVI:
     def _epoch_dump_arrays(self, st):
         """Extra checkpoint keys of an epoch-history state: the state
         itself, which a genome-scale resume restores directly."""
-        ss = self._states(st)
+        ss = self._out_states(st)
         if ss[0].nat_hist is None:
             return {}
         return {
@@ -1478,14 +1743,14 @@ class MultiPopVI:
             return self._streamed_moments(st)[0]
         return self._full([
             kernels.fast_posterior_mean(m.vi_mu, m.vi_delta) * d.scalings
-            for d, m in zip(self._ds, self._materialized(st))])
+            for d, m in zip(self._ods, self._materialized(st))])
 
     def real_posterior_variance(self, st=None):
         st = st or self.state
         if self._states(st)[0].vi_mu is None and self._stream_big():
             return self._streamed_moments(st)[1]
         parts = []
-        for d, m in zip(self._ds, self._materialized(st)):
+        for d, m in zip(self._ods, self._materialized(st)):
             mean = kernels.fast_posterior_mean(m.vi_mu, m.vi_delta)
             parts.append(kernels.fast_pmv(mean, m.vi_mu, m.vi_delta,
                                           m.sigma.diag)
@@ -1512,7 +1777,8 @@ class MultiPopVI:
             I = d.marginal_effects.shape[1]
             st = VIState(
                 nat_mu=torch.zeros(P, I, **zeros) if self._compact else None,
-                hyper_delta=torch.zeros(self.num_annotations, K, **zeros),
+                hyper_delta=torch.zeros(self.num_annotations,
+                                        d.log_det.shape[0], **zeros),
                 error_scaling=sc, L=(1., 1., 1.), elbo=0.,
                 running_elbo_delta=math.nan, num_err=0)
             if not self._compact:
@@ -1529,20 +1795,31 @@ class MultiPopVI:
 
     def _initialize(self):
         ss = self._states(self._fresh_state())
-        ds = self._ds
-        inverse_betas = self._full([d.inverse_betas for d in ds])
+        ds, ods = self._ds, self._ods
+        inverse_betas = self._full([d.inverse_betas for d in ods])
         fake = make_fake_mu(inverse_betas,
-                            self._full([d.std_errs for d in ds]),
-                            self._full([d.ld_diags for d in ds]))
+                            self._full([d.std_errs for d in ods]),
+                            self._full([d.ld_diags for d in ods]))
         fake_mu = self._place(fake)
         logging.info('Max |inverse_beta| at initialization: %f',
                      float(np.max(np.abs(inverse_betas))))
-        parts = [_init_shard(d, st.error_scaling, f)
-                 for d, st, f in zip(ds, ss, fake_mu)]
-        hypers = _replicas(self.mesh, _init_hyper(
-            _reduce(self.mesh, [p[0] for p in parts])))
+        comp = _comp(self.mesh)
+        sums, temps = _init_shards(ds, self.mesh,
+                                   [st.error_scaling for st in ss], fake_mu,
+                                   self.num_mix)
+        hypers = (_init_hyper_comp(self.mesh, sums) if comp else _replicas(
+            self.mesh, _init_hyper(_reduce(self.mesh, sums))))
+        if comp and not self._compact:
+            ss = [dataclasses.replace(
+                st, hyper_delta=h, vi_mu=sigma_mod.apply_sigma(
+                    d.mixture_prec, _diag_term(d, st.error_scaling),
+                    _nat_k(d, t)))
+                for d, st, t, h in zip(ds, ss, temps, hypers)]
+            return self._state([dataclasses.replace(st, vi_delta=vd)
+                                for st, vd in zip(ss, _comp_nat_vi_delta(
+                                    ds, self.mesh, ss))])
         out = []
-        for d, st, (_, temp_nat), hyper in zip(ds, ss, parts, hypers):
+        for d, st, temp_nat, hyper in zip(ds, ss, temps, hypers):
             if not self._compact:
                 vi_mu, vi_delta, nat_vd = _init_materialized(
                     d, st.sigma, st.error_scaling, temp_nat, hyper)
@@ -1557,7 +1834,8 @@ class MultiPopVI:
                 # instead starts with temp_nat as its accumulator and an
                 # empty history)
                 temp_nat = temp_nat[None].expand(
-                    (self.num_mix,) + tuple(temp_nat.shape)).contiguous()
+                    (d.log_det.shape[0],) + tuple(temp_nat.shape)
+                ).contiguous()
             out.append(dataclasses.replace(st, nat_mu=temp_nat,
                                            hyper_delta=hyper))
         return self._state(out)
@@ -1570,7 +1848,8 @@ class MultiPopVI:
         its layout. The shared and kdim natural means are recovered from
         vi_mu (exact given the checkpoint's error_scaling); the epoch
         state is restored from its own keys and the materialized one from
-        vi_mu and vi_delta."""
+        vi_mu and vi_delta. A comp shard takes its slice of the [K, ...]
+        arrays and of hyper_delta's columns."""
         files = getattr(loaded_checkpoint, 'files', loaded_checkpoint)
         error_scaling = None
         if 'error_scaling' in files:
@@ -1579,7 +1858,9 @@ class MultiPopVI:
             logging.warning('The checkpoint carries no "error_scaling" '
                             'entry; defaulting all error scalings to 1.')
         ss = self._states(self._fresh_state(error_scaling))
-        hypers = self._shared(loaded_checkpoint['hyper_delta'])
+        kss = self._k_slices()
+        hypers = [h[:, ks].contiguous() for h, ks in zip(
+            self._shared(loaded_checkpoint['hyper_delta']), kss)]
         if self._epoch:
             if 'nat_u' not in files:
                 raise ValueError(
@@ -1609,23 +1890,29 @@ class MultiPopVI:
                 np.asarray(loaded_checkpoint['vi_delta']).T,
                 fill=1.0 / self.num_mix)
             return self._state([dataclasses.replace(
-                st, vi_mu=vm, vi_delta=vd, hyper_delta=h,
-                nat_grad_vi_delta=kernels.fast_vi_delta_grad(
-                    h, d.log_det, d.annotations))
-                for d, st, vm, vd, h in zip(
+                st, vi_mu=vm[ks].contiguous(), vi_delta=vd[ks].contiguous(),
+                hyper_delta=h,
+                nat_grad_vi_delta=None if _comp(self.mesh) else
+                kernels.fast_vi_delta_grad(h, d.log_det, d.annotations))
+                for d, st, vm, vd, h, ks in zip(
                     self._ds, ss, self._place(loaded_checkpoint['vi_mu']),
-                    vi_delta, hypers)])
+                    vi_delta, hypers, kss)])
         if self._stream_big():
             # genome-scale resume: the vi_mu member can be tens of GB;
             # recover the natural mean(s) in bounded chunks straight off
             # the uncompressed zip member
             nats = self._nat_from_checkpoint_streamed(loaded_checkpoint,
                                                       self._state(ss))
-        else:
-            recover = compact_nat_mu_k if self.scale_se else compact_nat_mu
-            nats = [recover(d, st.error_scaling, vm).contiguous()
-                    for d, st, vm in zip(
+        elif self.scale_se:
+            nats = [compact_nat_mu_k(d, st.error_scaling,
+                                     vm[ks]).contiguous()
+                    for d, st, vm, ks in zip(
                         self._ds, ss,
+                        self._place(loaded_checkpoint['vi_mu']), kss)]
+        else:
+            nats = [compact_nat_mu(d, st.error_scaling, vm).contiguous()
+                    for d, st, vm in zip(
+                        self._full_k_data(), ss,
                         self._place(loaded_checkpoint['vi_mu']))]
         return self._state([dataclasses.replace(st, nat_mu=nat,
                                                 hyper_delta=h)
@@ -1648,25 +1935,60 @@ class MultiPopVI:
             mm = loaded_checkpoint['vi_mu']
         if not self.scale_se:
             return [compact_nat_mu(d, s.error_scaling, v[None]).contiguous()
-                    for d, s, v in zip(self._ds, ss, self._place(mm[0]))]
+                    for d, s, v in zip(self._full_k_data(), ss,
+                                       self._place(mm[0]))]
         K, P = self.num_mix, self.num_pops
         chunk = max(1, _RESUME_CHUNK_BYTES
                     // max(P * self._padded_loci
                            * self._np_dtype.itemsize, 1))
-        nats = [torch.empty((K, P, d.marginal_effects.shape[1]),
+        kss = self._k_slices()
+        nats = [torch.empty((d.log_det.shape[0], P,
+                             d.marginal_effects.shape[1]),
                             dtype=self._dtype,
                             device=d.marginal_effects.device)
                 for d in self._ds]
         for k0 in range(0, K, chunk):
-            for d, s, nat, part in zip(self._ds, ss, nats,
-                                       self._place(mm[k0:k0 + chunk])):
-                nat[k0:k0 + part.shape[0]] = sigma_mod.apply_precision(
-                    d.mixture_prec[k0:k0 + chunk],
-                    _diag_term(d, s.error_scaling), part)
+            for d, s, nat, part, ks in zip(self._ds, ss, nats,
+                                           self._place(mm[k0:k0 + chunk]),
+                                           kss):
+                # the chunk's components within this shard's slice
+                a, b = ks.start or 0, K if ks.stop is None else ks.stop
+                lo, hi = max(a, k0), min(b, k0 + part.shape[0])
+                if lo < hi:
+                    nat[lo - a:hi - a] = sigma_mod.apply_precision(
+                        d.mixture_prec[lo - a:hi - a],
+                        _diag_term(d, s.error_scaling),
+                        part[lo - k0:hi - k0])
         return nats
+
+    def _k_slices(self):
+        """The slice of the K components each shard holds."""
+        if not _comp(self.mesh):
+            return [slice(None)] * len(self._ds)
+        return [self.mesh.k_slice(j, self.num_mix)
+                for j in range(len(self._ds))]
+
+    def _full_k_data(self):
+        """Each shard's ModelData with the whole K of its column's
+        tables (the shared natural mean's recovery reads component 0)."""
+        if not _comp(self.mesh):
+            return self._ds
+        return [dataclasses.replace(d, mixture_prec=self._ods[c].mixture_prec
+                                    .to(d.mixture_prec.device))
+                for d, c in zip(self._ds, self._col)]
 
     def _posterior_mean(self, st):
         """The posterior mean in output scale, one tensor per shard."""
+        if _comp(self.mesh):
+            # through _objective_terms, as the unsharded fit, so that its
+            # evaluations and launches per shard are the same
+            ss = self._states(st)
+            params = [_params(s) for s in ss]
+            hds = [s.hyper_delta for s in ss]
+            return [_objective_terms(d, s, p, h, mo)[2] * d.scalings
+                    for d, s, p, h, mo in zip(
+                        self._ds, ss, params, hds,
+                        _moments_all(self._ds, ss, self.mesh, params, hds))]
         out = []
         for d, s in zip(self._ds, self._states(st)):
             if s.nat_mu is None:
@@ -1732,7 +2054,9 @@ class MultiPopVI:
         # production grids at genome scale keep the compact state; their
         # outputs go through the chunked paths (dump_spec,
         # _streamed_moments, vi_sigma_chunks)
-        self.state = (st if self._stream_big()
+        # a comp-sharded fit keeps its sharded state and derives the
+        # outputs from it per column (_out_states)
+        self.state = (st if self._stream_big() or _comp(self.mesh)
                       else self._state(self._materialized(st)))
         return self.state
 

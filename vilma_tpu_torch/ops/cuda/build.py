@@ -39,11 +39,26 @@ SIGNATURES = {
     'vilma_compact_prologue_epochs': [_P] * 12 + [_I] * 7 + [_F, _P],
     'vilma_compact_delta_sums_epochs': [_P] * 11 + [_I] * 8 + [_F, _P],
 }
+# the K-split forms (component sharding) and their merges
+SIGNATURES.update({
+    'vilma_compact_prologue_partial': [_P] * 6 + [_I] * 6 + [_F, _P],
+    'vilma_compact_delta_norm': [_P] * 6 + [_I] * 6 + [_F, _P],
+    'vilma_compact_delta_sums_given': [_P] * 8 + [_I] * 7 + [_F, _P],
+    'vilma_compact_prologue_epochs_partial': [_P] * 9 + [_I] * 7 + [_F, _P],
+    'vilma_compact_delta_norm_epochs': [_P] * 9 + [_I] * 7 + [_F, _P],
+    'vilma_compact_delta_sums_epochs_given': [_P] * 11 + [_I] * 8
+    + [_F, _P],
+    'vilma_compact_merge': [_P] * 6 + [_I] * 5 + [_P],
+    'vilma_compact_norm_merge': [_P] * 2 + [_I] * 3 + [_P],
+})
 # the kdim forms take the same arguments as the shared-state entry points
-SIGNATURES['vilma_compact_prologue_kdim'] = SIGNATURES[
-    'vilma_compact_prologue']
-SIGNATURES['vilma_compact_delta_sums_kdim'] = SIGNATURES[
-    'vilma_compact_delta_sums']
+for _kdim, _shared in (
+        ('prologue_kdim', 'prologue'), ('delta_sums_kdim', 'delta_sums'),
+        ('prologue_kdim_partial', 'prologue_partial'),
+        ('delta_norm_kdim', 'delta_norm'),
+        ('delta_sums_kdim_given', 'delta_sums_given')):
+    SIGNATURES['vilma_compact_' + _kdim] = SIGNATURES[
+        'vilma_compact_' + _shared]
 
 _lib = None
 #: wall seconds the last build took (None until a build ran here)

@@ -21,6 +21,27 @@ Three forms of the state feed them:
 * epochs: the epoch-history state of large --learn-scaling fits
   (`prologue_epochs`/`delta_sums_epochs`).
 
+Under component sharding (fit --mesh comp=M) each shard holds a slice of
+the K components and the softmax over K is reduced across shards, as the
+JAX package's K-chunked route reduces it over chunks
+(vilma_tpu/inference/engine.py:873-1004, `_chunked_moments` and
+`_delta_sums_chunked`). The K-split forms:
+
+* `prologue_partial` / `prologue_epochs_partial`: each SNP's
+  online-softmax accumulators over the slice, unnormalized, against the
+  slice's own reference m: [3 + 2P, I] = (m, s0, q, sy[P], ssec[P]) with
+  w_k = exp(z_k - m), s0 = sum w, q = sum w (z - m + g) (g the KL terms
+  past the entropy), sy = sum w y, ssec = sum w (diag + y^2);
+* `prologue_merge`: the M partials of one SNP column [M, 3 + 2P, I] ->
+  (post_means, post_vars, beta_kl), each partial rescaled by
+  exp(m_j - max m) and log S subtracted once per SNP;
+* `delta_norm` / `delta_norm_epochs`: the sums' pass 1 over the slice,
+  [2, I] = (m, s); `norm_merge`: [M, 2, I] -> the global (m, 1/S);
+* `delta_sums_given` / `delta_sums_epochs_given`: the sums' pass 2 over
+  the slice with that normalizer: [A, K_slice].
+
+An unsharded fit (M = 1) launches the whole-K kernels alone.
+
 Pad SNPs (annotation id == A) stay out of the KL and the sums. Their
 selected scores read the last annotation column, as in the staged XLA
 route (kernels.fast_vi_delta_grad); their moments are inert downstream.
@@ -38,7 +59,13 @@ from vilma_tpu_torch.utils.config import epsilon
 #: launches of each CUDA kernel (plain-version calls do not count)
 launches = {'prologue': 0, 'delta_sums': 0, 'prologue_kdim': 0,
             'delta_sums_kdim': 0, 'prologue_epochs': 0,
-            'delta_sums_epochs': 0}
+            'delta_sums_epochs': 0,
+            # the K-split forms (component sharding)
+            'prologue_partial': 0, 'prologue_kdim_partial': 0,
+            'prologue_epochs_partial': 0, 'prologue_merge': 0,
+            'delta_norm': 0, 'delta_norm_kdim': 0, 'delta_norm_epochs': 0,
+            'norm_merge': 0, 'delta_sums_given': 0,
+            'delta_sums_kdim_given': 0, 'delta_sums_epochs_given': 0}
 
 _THREADS = 256
 _WARPS = _THREADS // 32
@@ -172,9 +199,11 @@ def _finish(P, c, dt, y, quad, sel, eps):
                            + c[4] * y[1] * y[2]))
         matches = (c[0] * A3 + c[3] * D3 + c[5] * F3
                    + 2 * (c[1] * B3 + c[2] * C3 + c[4] * E3)) * inv
-    vd, log_vd = _softmax(0.5 * (quad - logdet) + sel, eps)
+    z = 0.5 * (quad - logdet) + sel
+    vd, log_vd = _softmax(z, eps)
     return dict(sel=sel, y=y, diag=diag, logdet=logdet, ldp=ldp,
-                quadform=quadform, matches=matches, vd=vd, log_vd=log_vd)
+                quadform=quadform, matches=matches, z=z, vd=vd,
+                log_vd=log_vd)
 
 
 def _dot(u, v):
@@ -260,6 +289,89 @@ def _sums_plain(derive, I, K, annotations, num_annotations, like):
     return sums.T
 
 
+def acc_rows(P):
+    """Rows of a prologue partial per SNP: m, s0, q, sy[P], ssec[P]."""
+    return 3 + 2 * P
+
+
+def _partial_plain(derive, P, I, K, like):
+    """The [3 + 2P, I] accumulators of a K slice from a per-chunk derive
+    (against each SNP's max over the slice)."""
+    acc = like.new_empty((acc_rows(P), I))
+    for i0, i1 in _plain_chunks(K, I):
+        d = derive(i0, i1)
+        z = d['z']
+        m = torch.amax(z, dim=0, keepdim=True)
+        w = torch.exp(z - m)
+        log_hd = d['sel'] + 0.5 * d['ldp']
+        ss = d['ldp'] + d['logdet'] + d['matches']
+        g = (z - m) + 0.5 * d['quadform'] + 0.5 * ss - log_hd
+        acc[0, i0:i1] = m[0]
+        acc[1, i0:i1] = torch.sum(w, dim=0)
+        acc[2, i0:i1] = torch.sum(w * g, dim=0)
+        for p in range(P):
+            y = d['y'][p]
+            acc[3 + p, i0:i1] = torch.sum(w * y, dim=0)
+            acc[3 + P + p, i0:i1] = torch.sum(w * (d['diag'][p] + y * y),
+                                              dim=0)
+    return acc
+
+
+def _norm_plain(derive, I, K, like):
+    """[2, I] = (max, sum exp(z - max)) of a K slice's logits."""
+    out = like.new_empty((2, I))
+    for i0, i1 in _plain_chunks(K, I):
+        z = derive(i0, i1)['z']
+        m = torch.amax(z, dim=0, keepdim=True)
+        out[0, i0:i1] = m[0]
+        out[1, i0:i1] = torch.sum(torch.exp(z - m), dim=0)
+    return out
+
+
+def _sums_given_plain(derive, I, K, annotations, num_annotations, norm,
+                      like):
+    """[A, K] sums of the weights clamp(exp(z - m) / S, eps) with the
+    global normalizer norm [2, I] = (m, 1/S)."""
+    A = num_annotations
+    eps = epsilon(like.dtype)
+    sums = like.new_zeros((K, A))
+    ids = torch.arange(A, device=annotations.device)
+    for i0, i1 in _plain_chunks(K, I):
+        z = derive(i0, i1)['z']
+        vd = torch.clamp(torch.exp(z - norm[0:1, i0:i1]) * norm[1:2, i0:i1],
+                         min=eps)
+        onehot = (annotations[i0:i1, None] == ids[None, :]).to(vd.dtype)
+        sums = sums + vd @ onehot
+    return sums.T
+
+
+def prologue_merge_plain(parts, annotations, *, num_annotations):
+    """Plain PyTorch version of `prologue_merge`: [M, 3 + 2P, I]
+    partials -> (post_means, post_vars, beta_kl)."""
+    P = (parts.shape[1] - 3) // 2
+    m = parts[:, 0]
+    mx = torch.amax(m, dim=0)
+    a = torch.exp(m - mx)                                   # [M, I]
+    s0 = torch.sum(a * parts[:, 1], dim=0)
+    q = torch.sum(a * (parts[:, 2] + (m - mx) * parts[:, 1]), dim=0)
+    sy = torch.sum(a[:, None] * parts[:, 3:3 + P], dim=0)
+    ssec = torch.sum(a[:, None] * parts[:, 3 + P:], dim=0)
+    pm = sy / s0
+    pv = ssec / s0 - pm * pm
+    real = annotations < num_annotations
+    kl = torch.sum(torch.where(real, q / s0 - torch.log(s0),
+                               torch.zeros_like(s0)))
+    return pm, pv, kl
+
+
+def norm_merge_plain(parts):
+    """Plain PyTorch version of `norm_merge`: [M, 2, I] -> [2, I] =
+    (max m_j, 1 / sum_j s_j exp(m_j - max))."""
+    mx = torch.amax(parts[:, 0], dim=0)
+    s = torch.sum(parts[:, 1] * torch.exp(parts[:, 0] - mx), dim=0)
+    return torch.stack([mx, 1.0 / s])
+
+
 def prologue_plain(coeffs, scores_t, annotations, dterm, nat_mu, *,
                    num_annotations):
     """Plain PyTorch version of `prologue`, in SNP chunks."""
@@ -287,6 +399,42 @@ def delta_sums_plain(coeffs, scores_t, annotations, dterm, nat_mu, *,
                              dterm[:, i0:i1], nat_mu[..., i0:i1], eps)
 
     return _sums_plain(derive, I, K, annotations, num_annotations, nat_mu)
+
+
+def _deriver(coeffs, scores_t, annotations, dterm, nat_mu):
+    eps = epsilon(nat_mu.dtype)
+
+    def derive(i0, i1):
+        return _derive_plain(coeffs, scores_t, annotations[i0:i1],
+                             dterm[:, i0:i1], nat_mu[..., i0:i1], eps)
+
+    return derive
+
+
+def prologue_partial_plain(coeffs, scores_t, annotations, dterm, nat_mu, *,
+                           num_annotations):
+    """Plain PyTorch version of `prologue_partial`: [3 + 2P, I]."""
+    P, I = nat_mu.shape[-2:]
+    return _partial_plain(
+        _deriver(coeffs, scores_t, annotations, dterm, nat_mu), P, I,
+        scores_t.shape[0], nat_mu)
+
+
+def delta_norm_plain(coeffs, scores_t, annotations, dterm, nat_mu, *,
+                     num_annotations):
+    """Plain PyTorch version of `delta_norm`: [2, I] = (m, s)."""
+    return _norm_plain(
+        _deriver(coeffs, scores_t, annotations, dterm, nat_mu),
+        nat_mu.shape[-1], scores_t.shape[0], nat_mu)
+
+
+def delta_sums_given_plain(coeffs, scores_t, annotations, dterm, nat_mu,
+                           norm, *, num_annotations):
+    """Plain PyTorch version of `delta_sums_given`: [A, K]."""
+    return _sums_given_plain(
+        _deriver(coeffs, scores_t, annotations, dterm, nat_mu),
+        nat_mu.shape[-1], scores_t.shape[0], annotations, num_annotations,
+        norm, nat_mu)
 
 
 def _epoch_deriver(coeffs, scores_t, annotations, sld, nat_u, hist_v,
@@ -325,6 +473,38 @@ def delta_sums_epochs_plain(coeffs, scores_t, annotations, sld, nat_u,
     derive = _epoch_deriver(coeffs, scores_t, annotations, sld, nat_u,
                             hist_v, inv_scales, hist_c, num_live)
     return _sums_plain(derive, I, K, annotations, num_annotations, nat_u)
+
+
+def prologue_epochs_partial_plain(coeffs, scores_t, annotations, sld, nat_u,
+                                  hist_v, inv_scales, hist_c, *,
+                                  num_annotations, num_live=None):
+    """Plain PyTorch version of `prologue_epochs_partial`."""
+    num_live = hist_v.shape[0] if num_live is None else num_live
+    derive = _epoch_deriver(coeffs, scores_t, annotations, sld, nat_u,
+                            hist_v, inv_scales, hist_c, num_live)
+    return _partial_plain(derive, nat_u.shape[0], nat_u.shape[1],
+                          scores_t.shape[0], nat_u)
+
+
+def delta_norm_epochs_plain(coeffs, scores_t, annotations, sld, nat_u,
+                            hist_v, inv_scales, hist_c, *, num_annotations,
+                            num_live=None):
+    """Plain PyTorch version of `delta_norm_epochs`: [2, I]."""
+    num_live = hist_v.shape[0] if num_live is None else num_live
+    derive = _epoch_deriver(coeffs, scores_t, annotations, sld, nat_u,
+                            hist_v, inv_scales, hist_c, num_live)
+    return _norm_plain(derive, nat_u.shape[1], scores_t.shape[0], nat_u)
+
+
+def delta_sums_epochs_given_plain(coeffs, scores_t, annotations, sld, nat_u,
+                                  hist_v, inv_scales, hist_c, norm, *,
+                                  num_annotations, num_live=None):
+    """Plain PyTorch version of `delta_sums_epochs_given`: [A, K]."""
+    num_live = hist_v.shape[0] if num_live is None else num_live
+    derive = _epoch_deriver(coeffs, scores_t, annotations, sld, nat_u,
+                            hist_v, inv_scales, hist_c, num_live)
+    return _sums_given_plain(derive, nat_u.shape[1], scores_t.shape[0],
+                             annotations, num_annotations, norm, nat_u)
 
 
 def _require(name, cond, msg):
@@ -567,4 +747,236 @@ def delta_sums_epochs(coeffs, scores_t, annotations, sld, nat_u, hist_v,
         P, num_live, kt, kg, nblocks, eps, build.stream_handle(dev))
     build.check(status, 'vilma_compact_delta_sums_epochs')
     launches['delta_sums_epochs'] += 1
+    return out.T
+
+
+# ---------------------------------------------------------------------------
+# K-split forms (component sharding): see the module docstring
+# ---------------------------------------------------------------------------
+
+def _nblocks(I):
+    return max(1, min(-(-I // _THREADS), _MAX_BLOCKS))
+
+
+@build.on_operands_device
+def prologue_partial(coeffs, scores_t, annotations, dterm, nat_mu, *,
+                     num_annotations):
+    """The [3 + 2P, I] prologue accumulators of a slice of K (coeffs and
+    scores_t hold the slice's rows; a kdim nat_mu its [K_slice, P, I]
+    rows), for `prologue_merge`. Operands as in `prologue`."""
+    if not nat_mu.is_cuda:
+        return prologue_partial_plain(coeffs, scores_t, annotations, dterm,
+                                      nat_mu, num_annotations=num_annotations)
+    P, I, K, A, ncol = _check_operands('prologue_partial', coeffs, scores_t,
+                                       annotations, dterm, nat_mu,
+                                       num_annotations)
+    kdim = nat_mu.dim() == 3
+    kt, _, nblocks = _launch_shape(I, K, A, ncol, sums=False)
+    dev = nat_mu.device
+    acc = torch.empty((acc_rows(P), I), dtype=torch.float32, device=dev)
+    entry = ('vilma_compact_prologue_kdim_partial' if kdim
+             else 'vilma_compact_prologue_partial')
+    status = getattr(build.library(), entry)(
+        coeffs.data_ptr(), scores_t.data_ptr(), annotations.data_ptr(),
+        dterm.data_ptr(), nat_mu.data_ptr(), acc.data_ptr(), I, K, A, P, kt,
+        nblocks, epsilon(torch.float32), build.stream_handle(dev))
+    build.check(status, entry)
+    launches['prologue_kdim_partial' if kdim else 'prologue_partial'] += 1
+    return acc
+
+
+@build.on_operands_device
+def prologue_epochs_partial(coeffs, scores_t, annotations, sld, nat_u,
+                            hist_v, inv_scales, hist_c, *, num_annotations,
+                            num_live=None):
+    """The [3 + 2P, I] prologue accumulators of a slice of K on the epoch
+    state (operands as in `prologue_epochs`)."""
+    num_live = hist_v.shape[0] if num_live is None else int(num_live)
+    if not nat_u.is_cuda:
+        return prologue_epochs_partial_plain(
+            coeffs, scores_t, annotations, sld, nat_u, hist_v, inv_scales,
+            hist_c, num_annotations=num_annotations, num_live=num_live)
+    P, I, K, A, ncol, _ = _check_epoch_operands(
+        'prologue_epochs_partial', coeffs, scores_t, annotations, sld, nat_u,
+        hist_v, inv_scales, hist_c, num_annotations, num_live)
+    kt, _, nblocks = _launch_shape(I, K, A, ncol, sums=False,
+                                   table_floats=(num_live + 1) * P + num_live)
+    dev = nat_u.device
+    acc = torch.empty((acc_rows(P), I), dtype=torch.float32, device=dev)
+    status = build.library().vilma_compact_prologue_epochs_partial(
+        coeffs.data_ptr(), scores_t.data_ptr(), annotations.data_ptr(),
+        sld.data_ptr(), nat_u.data_ptr(), hist_v.data_ptr(),
+        inv_scales.data_ptr(), hist_c.data_ptr(), acc.data_ptr(), I, K, A, P,
+        num_live, kt, nblocks, epsilon(torch.float32),
+        build.stream_handle(dev))
+    build.check(status, 'vilma_compact_prologue_epochs_partial')
+    launches['prologue_epochs_partial'] += 1
+    return acc
+
+
+@build.on_operands_device
+def prologue_merge(parts, annotations, *, num_annotations):
+    """(post_means [P, I], post_vars [P, I], beta_kl) from the M prologue
+    partials [M, 3 + 2P, I] of one SNP column, in comp order."""
+    if not parts.is_cuda:
+        return prologue_merge_plain(parts, annotations,
+                                    num_annotations=num_annotations)
+    _require('prologue_merge', parts.dim() == 3,
+             'parts must be [M, 3 + 2P, I]')
+    M, rows, I = parts.shape
+    P = (rows - 3) // 2
+    _require('prologue_merge', P in (1, 2, 3) and rows == acc_rows(P),
+             f'{rows} accumulator rows (3 + 2P for P in 1..3)')
+    _check_f32('prologue_merge', (('parts', parts, (M, rows, I)),
+                                  ('annotations', annotations, (I,))),
+               parts.device)
+    nblocks = _nblocks(I)
+    dev = parts.device
+    pm = torch.empty((P, I), dtype=torch.float32, device=dev)
+    pv = torch.empty((P, I), dtype=torch.float32, device=dev)
+    part = torch.empty(nblocks, dtype=torch.float32, device=dev)
+    kl = torch.empty((), dtype=torch.float32, device=dev)
+    status = build.library().vilma_compact_merge(
+        parts.data_ptr(), annotations.data_ptr(), pm.data_ptr(),
+        pv.data_ptr(), part.data_ptr(), kl.data_ptr(), I, M,
+        num_annotations, P, nblocks, build.stream_handle(dev))
+    build.check(status, 'vilma_compact_merge')
+    launches['prologue_merge'] += 1
+    return pm, pv, kl
+
+
+@build.on_operands_device
+def delta_norm(coeffs, scores_t, annotations, dterm, nat_mu, *,
+               num_annotations):
+    """The sums' pass 1 over a slice of K: [2, I] = (max, normalizer) of
+    each SNP's logits over the slice (operands as in `prologue_partial`)."""
+    if not nat_mu.is_cuda:
+        return delta_norm_plain(coeffs, scores_t, annotations, dterm, nat_mu,
+                                num_annotations=num_annotations)
+    P, I, K, A, ncol = _check_operands('delta_norm', coeffs, scores_t,
+                                       annotations, dterm, nat_mu,
+                                       num_annotations)
+    kdim = nat_mu.dim() == 3
+    kt, _, nblocks = _launch_shape(I, K, A, ncol, sums=False)
+    dev = nat_mu.device
+    norm = torch.empty((2, I), dtype=torch.float32, device=dev)
+    entry = ('vilma_compact_delta_norm_kdim' if kdim
+             else 'vilma_compact_delta_norm')
+    status = getattr(build.library(), entry)(
+        coeffs.data_ptr(), scores_t.data_ptr(), annotations.data_ptr(),
+        dterm.data_ptr(), nat_mu.data_ptr(), norm.data_ptr(), I, K, A, P, kt,
+        nblocks, epsilon(torch.float32), build.stream_handle(dev))
+    build.check(status, entry)
+    launches['delta_norm_kdim' if kdim else 'delta_norm'] += 1
+    return norm
+
+
+@build.on_operands_device
+def delta_norm_epochs(coeffs, scores_t, annotations, sld, nat_u, hist_v,
+                      inv_scales, hist_c, *, num_annotations, num_live=None):
+    """`delta_norm` on the epoch state: [2, I]."""
+    num_live = hist_v.shape[0] if num_live is None else int(num_live)
+    if not nat_u.is_cuda:
+        return delta_norm_epochs_plain(
+            coeffs, scores_t, annotations, sld, nat_u, hist_v, inv_scales,
+            hist_c, num_annotations=num_annotations, num_live=num_live)
+    P, I, K, A, ncol, _ = _check_epoch_operands(
+        'delta_norm_epochs', coeffs, scores_t, annotations, sld, nat_u,
+        hist_v, inv_scales, hist_c, num_annotations, num_live)
+    kt, _, nblocks = _launch_shape(I, K, A, ncol, sums=False,
+                                   table_floats=(num_live + 1) * P + num_live)
+    dev = nat_u.device
+    norm = torch.empty((2, I), dtype=torch.float32, device=dev)
+    status = build.library().vilma_compact_delta_norm_epochs(
+        coeffs.data_ptr(), scores_t.data_ptr(), annotations.data_ptr(),
+        sld.data_ptr(), nat_u.data_ptr(), hist_v.data_ptr(),
+        inv_scales.data_ptr(), hist_c.data_ptr(), norm.data_ptr(), I, K, A, P,
+        num_live, kt, nblocks, epsilon(torch.float32),
+        build.stream_handle(dev))
+    build.check(status, 'vilma_compact_delta_norm_epochs')
+    launches['delta_norm_epochs'] += 1
+    return norm
+
+
+@build.on_operands_device
+def norm_merge(parts):
+    """The global normalizer [2, I] = (m, 1/S) from the M pass-1 partials
+    [M, 2, I] of one SNP column, in comp order."""
+    if not parts.is_cuda:
+        return norm_merge_plain(parts)
+    _require('norm_merge', parts.dim() == 3 and parts.shape[1] == 2,
+             'parts must be [M, 2, I]')
+    M, _, I = parts.shape
+    _check_f32('norm_merge', (('parts', parts, (M, 2, I)),), parts.device)
+    dev = parts.device
+    norm = torch.empty((2, I), dtype=torch.float32, device=dev)
+    status = build.library().vilma_compact_norm_merge(
+        parts.data_ptr(), norm.data_ptr(), I, M, _nblocks(I),
+        build.stream_handle(dev))
+    build.check(status, 'vilma_compact_norm_merge')
+    launches['norm_merge'] += 1
+    return norm
+
+
+def _check_norm(name, norm, I, device):
+    _check_f32(name, (('norm', norm, (2, I)),), device)
+
+
+@build.on_operands_device
+def delta_sums_given(coeffs, scores_t, annotations, dterm, nat_mu, norm, *,
+                     num_annotations):
+    """The sums' pass 2 over a slice of K with the global normalizer norm
+    [2, I] = (m, 1/S) (`norm_merge`): [A, K_slice]."""
+    if not nat_mu.is_cuda:
+        return delta_sums_given_plain(coeffs, scores_t, annotations, dterm,
+                                      nat_mu, norm,
+                                      num_annotations=num_annotations)
+    P, I, K, A, ncol = _check_operands('delta_sums_given', coeffs, scores_t,
+                                       annotations, dterm, nat_mu,
+                                       num_annotations)
+    _check_norm('delta_sums_given', norm, I, nat_mu.device)
+    kdim = nat_mu.dim() == 3
+    kt, kg, nblocks = _launch_shape(I, K, A, ncol, sums=True)
+    dev = nat_mu.device
+    part, _ = _sums_scratch(nblocks, K, A, I, K, dev)
+    out = torch.empty((K, A), dtype=torch.float32, device=dev)
+    entry = ('vilma_compact_delta_sums_kdim_given' if kdim
+             else 'vilma_compact_delta_sums_given')
+    status = getattr(build.library(), entry)(
+        coeffs.data_ptr(), scores_t.data_ptr(), annotations.data_ptr(),
+        dterm.data_ptr(), nat_mu.data_ptr(), part.data_ptr(),
+        norm.data_ptr(), out.data_ptr(), I, K, A, P, kt, kg, nblocks,
+        epsilon(torch.float32), build.stream_handle(dev))
+    build.check(status, entry)
+    launches['delta_sums_kdim_given' if kdim else 'delta_sums_given'] += 1
+    return out.T
+
+
+@build.on_operands_device
+def delta_sums_epochs_given(coeffs, scores_t, annotations, sld, nat_u,
+                            hist_v, inv_scales, hist_c, norm, *,
+                            num_annotations, num_live=None):
+    """`delta_sums_given` on the epoch state: [A, K_slice]."""
+    num_live = hist_v.shape[0] if num_live is None else int(num_live)
+    if not nat_u.is_cuda:
+        return delta_sums_epochs_given_plain(
+            coeffs, scores_t, annotations, sld, nat_u, hist_v, inv_scales,
+            hist_c, norm, num_annotations=num_annotations, num_live=num_live)
+    P, I, K, A, ncol, _ = _check_epoch_operands(
+        'delta_sums_epochs_given', coeffs, scores_t, annotations, sld, nat_u,
+        hist_v, inv_scales, hist_c, num_annotations, num_live)
+    _check_norm('delta_sums_epochs_given', norm, I, nat_u.device)
+    kt, kg, nblocks = _launch_shape(
+        I, K, A, ncol, sums=True, table_floats=(num_live + 1) * P + num_live)
+    dev = nat_u.device
+    part, _ = _sums_scratch(nblocks, K, A, I, K, dev)
+    out = torch.empty((K, A), dtype=torch.float32, device=dev)
+    status = build.library().vilma_compact_delta_sums_epochs_given(
+        coeffs.data_ptr(), scores_t.data_ptr(), annotations.data_ptr(),
+        sld.data_ptr(), nat_u.data_ptr(), hist_v.data_ptr(),
+        inv_scales.data_ptr(), hist_c.data_ptr(), part.data_ptr(),
+        norm.data_ptr(), out.data_ptr(), I, K, A, P, num_live, kt, kg,
+        nblocks, epsilon(torch.float32), build.stream_handle(dev))
+    build.check(status, 'vilma_compact_delta_sums_epochs_given')
+    launches['delta_sums_epochs_given'] += 1
     return out.T

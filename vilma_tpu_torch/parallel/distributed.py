@@ -6,12 +6,14 @@ process's own LD blocks (port of vilma_tpu/parallel/distributed.py).
      no .npy payload), so all of them plan the same shard-local layout
      (`plan_sharded_load`, parallel/alignment.py);
   2. process r owns a contiguous run of shards (parallel/mesh.py) and
-     factorizes only the blocks whose spans land on them: the O(n^3)
+     factorizes only the blocks whose spans land on them (under --mesh
+     comp=M, the spans of its shards' snp columns): the O(n^3)
      eigendecompositions, the load's dominant cost, are split across
      processes (`load_ld_sharded`), through the factor cache and --mmap
      where asked for;
   3. the processes agree on the matrix's rank (the sum of every block's,
-     the likelihood's ld_ranks term) with one all_gather_object. Each
+     the likelihood's ld_ranks term, each span counted by the owner of
+     its comp-0 shard) with one all_gather_object. Each
      shard's buckets are its own, so no bucket shape needs agreeing.
 """
 import dataclasses
@@ -124,9 +126,10 @@ def load_ld_sharded(schema_path, variants, denylist, ldthresh, mesh, plan,
                          f'{mesh.n_snp}')
     entries = plan.entries(schema_path, denylist)
     rows = plan.L // plan.n_shards
-    local = set(mesh.local_shards)
+    local = set(mesh.snp_shards)
     spill = blocks_mod.FactorSpill(spill_dir) if mmap else None
     factors, indices = [], []
+    local_rank = 0.0
     covered = np.zeros(plan.L, dtype=bool)
     total_flipped = 0
     for entry in entries:
@@ -145,6 +148,8 @@ def load_ld_sharded(schema_path, variants, denylist, ldthresh, mesh, plan,
         u[rel] = f.u
         d[rel] = f.d
         factor = lowrank.LowRankFactor(u=u, s=f.s, d=d, rank=f.rank)
+        if mesh.counts_span(start // rows):
+            local_rank += float(f.rank)
         if spill is not None:
             factor = spill.store(factor)
         factors.append(factor)
@@ -152,8 +157,7 @@ def load_ld_sharded(schema_path, variants, denylist, ldthresh, mesh, plan,
     packed = blocks_mod.pack(factors, indices, plan.L, dtype=dtype,
                              u_dtype=u_dtype, device=list(mesh.devices),
                              spill=spill, n_shards=plan.n_shards,
-                             shards=list(mesh.local_shards))
-    local_rank = float(sum(f.rank for f in factors))
+                             shards=list(mesh.snp_shards))
     ranks = [local_rank]
     if mesh.world > 1:
         import torch.distributed as dist
