@@ -137,7 +137,8 @@ Phases:
         the process group's backend; its outputs phase 4's bit for bit;
      d. with two cards or more, two processes over NCCL, one card each,
         at --mesh snp=2, outputs against 15c's; with one card it prints
-        `phase 15d not run: 1 card`.
+        `phase 15d not run: 1 card`. Every process of 15c-d must leave
+        its process group once, after a barrier.
  16. component sharding (--mesh comp=M), the shards co-located on
      cuda:0; each run's launches zeroed just before and read just after:
      a. phase 4's fit at --mesh comp=2,snp=2 and phase 6's flags for
@@ -155,6 +156,26 @@ Phases:
         sigma-summary bytes against 13a's (half, of K = 1,953);
      d. phase 7's epoch state at --mesh comp=2 for 3 steps against the
         same steps unsharded: seconds a step of both.
+ 17. the global-gather layout (schemas that disagree on the order of
+     shared variants): phase 4's fit with cohort 2 on a copy of its
+     panel whose blocks list their variants in reverse (no shard-local
+     layout exists), f32 with bf16 LD, --no-save-vi-sigma; each run's
+     launches zeroed just before and read just after:
+     a. at --mesh snp=3 on cuda:0 (90,112 variants padded to 90,114):
+        every output within BAND_SHARD of the same two-panel fit run
+        unsharded here, the same evaluations and host syncs a step,
+        each kernel launched 3x; every LD matrix in the gathered
+        layout, the pad slots' vi_mu and posterior means exactly 0, the
+        outputs of n rows; each shard's blocks per bucket, the mesh's
+        gather and sum bytes in one evaluation, seconds a step of both;
+     b. at --mesh comp=2,snp=2 with phase 6's flags for KDIM_STEPS steps
+        (the kdim state): as 16a against the unsharded kdim run of the
+        same command, with 17a's readings;
+     c. the same command as 17a's reference in one fresh process,
+        --distributed --mesh snp=1 over NCCL (the per-process gathered
+        loader): the process group left once, after a barrier; outputs
+        within BAND_SHARD of the unsharded run's (bit for bit is
+        reported).
 
 The next-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failed phase exits
@@ -2686,9 +2707,16 @@ def counted_fit(paths, prefix, extra, devices=None):
     objective (engine._objective_terms calls: one per shard of each
     evaluation). Returns (counts, step seconds, host syncs, EM events,
     shard evaluations)."""
+    schema, sumstats, extract, _ = paths
+    return counted_argv(fit_argv(schema, sumstats, extract, prefix, 'cuda')
+                        + list(extra), devices)
+
+
+def counted_argv(argv, devices=None):
+    """counted_fit of a CLI fit's argv."""
     from vilma_tpu_torch.inference import engine
     with count_calls(engine, '_objective_terms') as terms:
-        out = run_fit(paths, prefix, 'cuda', extra, devices)
+        out = run_argv(argv, 'cuda', devices)
     return out + (terms.calls,)
 
 
@@ -2885,9 +2913,10 @@ def run_sharded_epoch(vi, st, ld, steps=EPOCH_STEPS, shards=EPOCH_SHARDS,
     return out
 
 
-# phase 15c-d: `fit --distributed` in fresh processes (argv JSON, the
-# repo); prints RESULT and a JSON object: the process group's backend,
-# world size and rank, the launches
+# phase 15c-d and 17c: `fit --distributed` in fresh processes (argv JSON,
+# the repo); prints RESULT and a JSON object: the process group's backend,
+# world size and rank as the fit leaves the group (distributed.shutdown,
+# with its barrier), whether it is gone after the fit, the launches
 _DIST_WORKER = r'''
 import json, sys
 sys.path.insert(0, sys.argv[2])
@@ -2895,12 +2924,21 @@ import torch
 import torch.distributed as dist
 from vilma_tpu_torch import frontend
 from vilma_tpu_torch.ops.cuda import block_matvec, compact_obj
+from vilma_tpu_torch.parallel import distributed
 
+left, leave = [], distributed.shutdown
+
+
+def shutdown(barrier=True):
+    left.append(dict(backend=dist.get_backend(), world=dist.get_world_size(),
+                     rank=dist.get_rank(), barrier=barrier))
+    leave(barrier)
+
+
+distributed.shutdown = shutdown
 frontend.main(json.loads(sys.argv[1]))
-out = dict(backend=dist.get_backend(), world=dist.get_world_size(),
-           rank=dist.get_rank(), bucket_matvec_multi=block_matvec.launches,
-           **compact_obj.launches)
-dist.destroy_process_group()
+out = dict(left[0], shutdowns=len(left), destroyed=not dist.is_initialized(),
+           bucket_matvec_multi=block_matvec.launches, **compact_obj.launches)
 print('RESULT', json.dumps(out))
 '''
 
@@ -3030,6 +3068,9 @@ def run_phase15(paths, p4, vi7, st7, ld7, out_dir, cache, launches, smi):
         f'against phase 4\'s: '
         f'{"bit for bit" if not differ else f"{differ} differ"}')
     require(res['backend'] == 'nccl', f'backend {res["backend"]}')
+    require(res['shutdowns'] == 1 and res['barrier'] and res['destroyed'],
+            f'phase 15c: the fit did not leave its process group once '
+            f'after a barrier: {res}')
     # one shard: the layout is the identity, the LD the unsharded load's
     # bits, every sum the unsharded fit's
     require(not differ, f'phase 15c: {differ} differ from phase 4\'s')
@@ -3281,6 +3322,162 @@ def run_phase16(paths, p4, kdim_ref, trait, c12, vi7, st7, ld7, out_dir,
         f'{e["counts0"]}); {smi}')
     for key in SPLIT_KEYS['epochs'] + MERGE_KEYS:
         launches[key] += e['counts'][key]
+    return out
+
+
+def write_reversed_panel(schema):
+    """Phase 17's second panel: a copy of `schema`'s blocks with the
+    variant order reversed inside every block (the .var lines and the
+    eigenvector rows of the .npy; its last row, the eigenvalues, stays).
+    The two panels disagree on the order of shared variants, so no
+    shard-local layout exists. Returns its .schema path."""
+    root = os.path.dirname(schema)
+    with open(schema) as fh:
+        entries = [ln.split('\t') for ln in fh.read().splitlines() if ln]
+    manifest = []
+    for var, npy in entries:
+        a = np.load(os.path.join(root, npy))
+        np.save(os.path.join(root, 'rev_' + npy),
+                np.vstack([a[:-1][::-1], a[-1:]]))
+        with open(os.path.join(root, var)) as fh:
+            rows = fh.read().splitlines()
+        with open(os.path.join(root, 'rev_' + var), 'w') as fh:
+            fh.write('\n'.join(rows[::-1]) + '\n')
+        manifest.append(f'rev_{var}\trev_{npy}')
+    rev = os.path.join(root, 'rev.schema')
+    with open(rev, 'w') as fh:
+        fh.write('\n'.join(manifest) + '\n')
+    return rev
+
+
+def gathered_argv(paths, rev, prefix, extra):
+    """Phase 4's fit command with cohort 2 on the reversed panel."""
+    schema, sumstats, extract, _ = paths
+    argv = fit_argv(schema, sumstats, extract, prefix, 'cuda')
+    argv[argv.index('--ld-schema') + 1] = f'{schema},{rev}'
+    return argv + F32_BF16 + list(extra)
+
+
+def gathered_readings(vi, n):
+    """What phase 17 reads from a gathered fit's MultiPopVI: each shard's
+    blocks per bucket of each panel, the bytes the mesh's gather and sum
+    move in one evaluation (elbo_value), the pad slots' posterior means
+    and vi_mu (materialized per column; zero where inert)."""
+    from vilma_tpu_torch.inference import engine
+    layouts = {ld.layout for d in vi._ds for ld in d.ld}
+    blocks = [[[bk.num_blocks for bk in ld.buckets] for ld in d.ld]
+              for d in vi._ds]
+    traffic = vi.mesh.traffic
+    for key in traffic:
+        traffic[key] = 0
+    vi.elbo_value()
+    per_eval = dict(traffic)
+    rows = vi._padded_loci // vi.mesh.n_snp
+    om = vi._omesh
+    # each output column's snp index and first local shard
+    cols = (list(zip(om.columns, (js[0] for js in om.lines)))
+            if om is not vi.mesh else
+            [(s, j) for j, s in enumerate(vi.mesh.snp_shards)])
+    pads = []
+    pms = vi._posterior_mean(vi.state)
+    for od, st, (s, j) in zip(vi._ods, vi._out_states(vi.state), cols):
+        lo = max(0, n - s * rows)
+        if lo >= rows:
+            continue
+        mu = engine.materialize_state(od, st).vi_mu[..., lo:]
+        pads.append(float(max(mu.abs().max(), pms[j][..., lo:].abs().max())))
+    return dict(layouts=layouts, blocks=blocks, per_eval=per_eval,
+                pads=pads, L=vi._padded_loci)
+
+
+def run_phase17(paths, out_dir, cache, launches, smi):
+    """Phase 17: the global-gather layout at full width. Cohort 2 fits on
+    a copy of phase 4's panel with the variant order reversed inside
+    every block (no shard-local layout exists); 17a at --mesh snp=3
+    (90,112 variants padded to 90,114), 17b at --mesh comp=2,snp=2 with
+    --learn-scaling (the kdim state, the K-split kernels), the shards
+    co-located on cuda:0, each against the unsharded fit of the same
+    two-panel command run here; 17c the same command in one NCCL process
+    (--distributed --mesh snp=1: the per-process gathered loader).
+    Adds the runs' launches to `launches`; returns the readings."""
+    out = {}
+    n = paths[3]
+    t0 = time.perf_counter()
+    rev = write_reversed_panel(paths[0])
+    log(f'  reversed panel written in {time.perf_counter() - t0:.1f} s')
+    common = ['--factor-cache', cache, '--no-save-vi-sigma']
+    for tag, mesh, shards, form, extra in (
+            ('17a', 'snp=3', 3, 'shared', []),
+            ('17b', 'comp=2,snp=2', 4, 'kdim',
+             ['--learn-scaling', '--num-its', str(KDIM_STEPS)])):
+        phase(f'phase {tag}: phase 4\'s fit, cohort 2 on the reversed panel, '
+              f'at --mesh {mesh} (the global-gather layout) against the '
+              'same fit unsharded')
+        ref_prefix = os.path.join(out_dir, f'gather_ref_{form}')
+        ref = counted_argv(gathered_argv(paths, rev, ref_prefix,
+                                         common + extra))
+        prefix = os.path.join(out_dir, 'gather_fit')
+        with capture_fit() as cap:
+            run = counted_argv(gathered_argv(
+                paths, rev, prefix, common + extra + ['--mesh', mesh]),
+                ['cuda:0'] * shards)
+        if form == 'shared':
+            r = check_sharded_fit(tag, (run, prefix), (ref, ref_prefix),
+                                  shards, BAND_SHARD)
+            keys = ('bucket_matvec_multi', 'prologue', 'delta_sums')
+        else:
+            r = check_comp_fit(tag, (run, prefix), (ref, ref_prefix),
+                               shards, form)
+            keys = ('bucket_matvec_multi',) + SPLIT_KEYS[form] + MERGE_KEYS
+        g = gathered_readings(cap.fits[-1], n)
+        with np.load(prefix + '.npz') as z:
+            rows_out = z['vi_mu'].shape[-1]
+        r.update(g, rows_out=rows_out)
+        log(f'  {tag}: {n} variants in {g["L"]} slots; blocks per bucket '
+            f'of each panel, shard by shard {g["blocks"]}; gather and sum '
+            f'per evaluation {g["per_eval"]}; pad slots\' largest '
+            f'|vi_mu|, |posterior mean| {g["pads"]}; median seconds a '
+            f'step sharded / unsharded {r["step_s"][0]:.4f} / '
+            f'{r["step_s"][1]:.4f}; {smi}')
+        require(g['layouts'] == {'gather'},
+                f'{tag}: LD layouts {g["layouts"]}, not the gathered one')
+        require(rows_out == n, f'{tag}: {rows_out} output rows, {n} '
+                'variants')
+        require(all(v == 0 for v in g['pads']),
+                f'{tag}: pad slots not inert: {g["pads"]}')
+        require(g['per_eval']['gathers'] > 0 and g['per_eval']['sums'] > 0,
+                f'{tag}: an evaluation moved nothing through the mesh')
+        for key in keys:
+            launches[key] += r['counts'][key]
+        out[tag] = r
+        del cap
+        remove_outputs(prefix)
+        if form == 'kdim':
+            remove_outputs(ref_prefix)
+
+    phase('phase 17c: the same fit in one NCCL process, --distributed '
+          '--mesh snp=1 (the gathered per-process loader)')
+    prefix = os.path.join(out_dir, 'gather_dist')
+    t0 = time.perf_counter()
+    (res,) = run_distributed(gathered_argv(paths, rev, prefix, common), 1, 1)
+    ref_prefix = os.path.join(out_dir, 'gather_ref_shared')
+    errs = output_errors(prefix, ref_prefix)
+    differ = differing_outputs(prefix, ref_prefix)
+    log(f'  {time.perf_counter() - t0:.1f} s; left the group {res}; outputs '
+        'against 17a\'s unsharded run: '
+        + ('bit for bit' if not differ else
+           ', '.join(f'{k} {v:.2e}' for k, v in errs.items())))
+    require(res['backend'] == 'nccl' and res['shutdowns'] == 1
+            and res['barrier'] and res['destroyed'],
+            f'phase 17c: the process group was not left once: {res}')
+    require(max(errs.values()) <= BAND_SHARD,
+            f'phase 17c: outputs {max(errs.values()):.2e} from the '
+            'unsharded run\'s')
+    for key in ('bucket_matvec_multi', 'prologue', 'delta_sums'):
+        require(res[key] > 0, f'phase 17c never launched {key}')
+    out['17c'] = dict(errs=errs, result=res, bitwise=not differ)
+    remove_outputs(prefix)
+    remove_outputs(ref_prefix)
     return out
 
 
@@ -3599,6 +3796,12 @@ def main():
         timings[f'{tag.replace(" ", "_")}_s_per_step'] = p16[tag]['step_s']
     timings['16d_s_per_step'] = (p16['16d']['s_step'],
                                  p16['16d']['s_step0'])
+    t0 = time.perf_counter()
+    p17 = run_phase17(paths, panel.name, cache, launches, smi)
+    timings['phase17_s'] = time.perf_counter() - t0
+    for tag in ('17a', '17b'):
+        timings[f'{tag}_s_per_step'] = p17[tag]['step_s']
+        timings[f'{tag}_bytes_per_eval'] = p17[tag]['per_eval']
     panel.cleanup()
     log(f'  timings {json.dumps(timings)}')
     log(f'  all phases: {time.perf_counter() - t_start:.1f} s')

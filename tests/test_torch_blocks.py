@@ -133,3 +133,86 @@ def test_ridge_inverse_dot_is_an_inverse():
     covered = np.setdiff1d(np.arange(N), tld.missing)
     np.testing.assert_allclose(t2n(back)[covered], t2n(x)[covered],
                                rtol=1e-9, atol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# the reference class's API (PackedLD methods, vilma_tpu/ops/blocks.py:
+# 126-160) against vilma_tpu's, on tests/test_blocks.py's inputs
+# ---------------------------------------------------------------------------
+
+def _api_pair(seed, sizes):
+    from tests.test_blocks import _make_packed
+    jld, dense, _ = _make_packed(np.random.default_rng(seed), sizes)
+    return jld, ld_to_torch(jld), dense
+
+
+def test_api_inverse_round_trip_matches_jax():
+    """`.inverse.dot` is the pseudo-inverse (rank-deficient blocks
+    included), `.inverse.inverse.dot` is `.dot`, `.diag()` the diagonal,
+    as vilma_tpu's (tests/test_blocks.py:130-137, 268-271)."""
+    jld, tld, dense = _api_pair(8, [5, 4])
+    v = np.random.default_rng(1).standard_normal(dense.shape[0])
+    assert not tld.inverted and tld.inverse.inverted
+    got = t2n(tld.inverse.dot(torch.as_tensor(v)))
+    np.testing.assert_allclose(
+        got, np.asarray(jld.inverse.dot(jnp.asarray(v))), rtol=RTOL,
+        atol=1e-12 * np.abs(got).max())
+    np.testing.assert_allclose(got, np.linalg.pinv(dense, hermitian=True) @ v,
+                               atol=1e-8)
+    np.testing.assert_allclose(t2n(tld.inverse.inverse.dot(
+        torch.as_tensor(v))), t2n(tld.dot(torch.as_tensor(v))), rtol=0,
+        atol=0)
+    np.testing.assert_allclose(t2n(tld.dot(torch.as_tensor(v))), dense @ v,
+                               atol=1e-12)
+    np.testing.assert_allclose(t2n(tld.diag()), np.diag(dense), atol=1e-12)
+    assert tld.get_rank() == float(jld.get_rank())
+
+
+def test_api_inverse_of_a_singular_block_matches_jax():
+    """The pseudo-inverse of one singular block (rank 2 of 5), as
+    vilma_tpu's (tests/test_blocks.py:140-146)."""
+    from tests.test_blocks import random_symmetric
+    rng = np.random.default_rng(9)
+    x = random_symmetric(5, rng, rank=2)
+    jld = jblocks.from_dense_blocks([x], [np.arange(5)], 5)
+    tld = tblocks.from_dense_blocks([x], [np.arange(5)], 5)
+    v = rng.standard_normal(5)
+    got = t2n(tld.inverse.dot(torch.as_tensor(v)))
+    np.testing.assert_allclose(got, np.asarray(jld.inverse.dot(
+        jnp.asarray(v))), rtol=RTOL, atol=1e-12 * np.abs(got).max())
+    np.testing.assert_allclose(got, np.linalg.pinv(x, hermitian=True) @ v,
+                               atol=1e-8)
+
+
+@pytest.mark.parametrize('method', ['dot_i', 'ridge_inverse_dot', 'diag'])
+def test_api_inverted_contracts_match_jax(method):
+    """dot_i, ridge_inverse_dot and diag of an inverted matrix raise
+    vilma_tpu's NotImplementedError, message for message
+    (tests/test_blocks.py:259-267); on the matrix itself they answer."""
+    jld, tld, dense = _api_pair(15, [4])
+    n = dense.shape[0]
+    args = {'dot_i': (np.ones(n), 0), 'ridge_inverse_dot': (np.ones(n), 1.0),
+            'diag': ()}[method]
+    with pytest.raises(NotImplementedError) as jerr:
+        getattr(jld.inverse, method)(*args)
+    with pytest.raises(NotImplementedError) as terr:
+        getattr(tld.inverse, method)(
+            *[torch.as_tensor(a) if isinstance(a, np.ndarray) else a
+              for a in args])
+    assert str(terr.value) == str(jerr.value)
+    got = getattr(tld, method)(*[torch.as_tensor(a) if isinstance(
+        a, np.ndarray) else a for a in args])
+    want = getattr(jld, method)(*[jnp.asarray(a) if isinstance(
+        a, np.ndarray) else a for a in args])
+    np.testing.assert_allclose(t2n(got) if torch.is_tensor(got) else got,
+                               np.asarray(want), rtol=RTOL)
+
+
+def test_api_matrix_power_matches_jax():
+    """`.matrix_power` as vilma_tpu's, applied through `.dot`."""
+    jld, tld, dense = _api_pair(4, [5, 3])
+    v = np.random.default_rng(2).standard_normal(dense.shape[0])
+    np.testing.assert_allclose(
+        t2n(tld.matrix_power(0.5).dot(torch.as_tensor(v))),
+        np.asarray(jld.matrix_power(0.5).dot(jnp.asarray(v))), rtol=RTOL,
+        atol=1e-13)

@@ -4,8 +4,10 @@ vilma_tpu's and against the port's plain loader, `fit --distributed` in
 2 (and, marked slow as in tests/test_distributed.py, 4 and
 shuffled-extract) processes against the single-process fit, with
 component sharding (--mesh comp=2,snp=1 and comp=2,snp=2 in 2 processes;
-marked slow, comp=2,snp=2 in 4, on the column and row subgroups), and
-how the process group is joined."""
+marked slow, comp=2,snp=2 in 4, on the column and row subgroups), on
+schemas that disagree on the order of shared variants (the global-gather
+layout, at snp=2 and comp=2,snp=2), how the process group is joined, and
+that every rank leaves it."""
 import os
 import re
 import socket
@@ -26,6 +28,7 @@ from vilma_tpu_torch.parallel import mesh as mesh_mod
 
 from tests.test_distributed import _build_schema
 from tests.test_torch_cli import _argv, _read_tsv, _write_case
+from tests.test_torch_parallel import conflicting_argv
 
 import tests.torch_parity  # noqa: F401  (one torch thread per worker)
 
@@ -115,13 +118,21 @@ def _run_ranks(argv, nproc, mesh):
 
 
 def _check_cluster_fit(tmp_path, nproc, mesh, extra=(), shuffled=False,
-                       comp=1):
+                       comp=1, conflicting=False):
     """nproc processes on a mesh ('snp=N' or 'comp=M,snp=N') against the
     single-process fit: rank 0 writes the unsharded fit's outputs; each
-    process factorized only its own blocks: with `comp` rows, the
-    processes of each row (a contiguous run of nproc / comp) load every
-    block between them, as every other row's do."""
-    case = _write_case(str(tmp_path))
+    process factorized only its own blocks of every LD matrix it loaded:
+    with `comp` rows, the processes of each row (a contiguous run of
+    nproc / comp) load every block between them, as every other row's
+    do. `conflicting` fits two schemas that disagree on the order of
+    shared variants (the global-gather layout)."""
+    if conflicting:
+        argv = conflicting_argv(str(tmp_path))
+    else:
+        case = _write_case(str(tmp_path))
+
+        def argv(prefix):
+            return _argv(case, prefix)
     if shuffled:
         schema, sumstats, extract, annot = case
         with open(extract) as fh:
@@ -130,21 +141,26 @@ def _check_cluster_fit(tmp_path, nproc, mesh, extra=(), shuffled=False,
         with open(extract, 'w') as fh:
             fh.write('\n'.join([header] + [rows[i] for i in order]) + '\n')
     single = str(tmp_path / 'single')
-    tfrontend.main(_argv(case, single) + list(extra) + ['--device', 'cpu'])
+    tfrontend.main(argv(single) + list(extra) + ['--device', 'cpu'])
     multi = str(tmp_path / 'multi')
-    outs = _run_ranks(_argv(case, multi) + list(extra), nproc, mesh)
+    outs = _run_ranks(argv(multi) + list(extra), nproc, mesh)
     for rc, out in outs:
         assert rc == 0, out[-3000:]
-    counts = [re.search(r'(\d+) of (\d+) LD blocks factorized here', out)
-              for _, out in outs]
-    assert all(counts), [out[-2000:] for _, out in outs]
-    owned = [int(c.group(1)) for c in counts]
-    total = int(counts[0].group(2))
-    per_row = nproc // comp
-    rows = [owned[r * per_row:(r + 1) * per_row] for r in range(comp)]
-    assert all(row == rows[0] for row in rows) and sum(rows[0]) == total
-    if per_row > 1:
-        assert max(owned) < total
+    loads = [re.findall(r'(\d+) of (\d+) LD blocks factorized here '
+                        r'\(\d+ slots in \d+ shards, layout (\w+)\)', out)
+             for _, out in outs]
+    assert all(loads) and len({len(ld) for ld in loads}) == 1, \
+        [out[-2000:] for _, out in outs]
+    for k in range(len(loads[0])):
+        owned = [int(ld[k][0]) for ld in loads]
+        total = int(loads[0][k][1])
+        assert {ld[k][2] for ld in loads} == {
+            'gather' if conflicting else 'local'}
+        per_row = nproc // comp
+        rows = [owned[r * per_row:(r + 1) * per_row] for r in range(comp)]
+        assert all(row == rows[0] for row in rows) and sum(rows[0]) == total
+        if per_row > 1 and total > 1:
+            assert max(owned) < total
     sh, scols = _read_tsv(single + '.estimates.tsv')
     mh, mcols = _read_tsv(multi + '.estimates.tsv')
     assert sh == mh
@@ -182,6 +198,18 @@ def test_two_process_comp_fit_matches_single_process(tmp_path, mesh):
                        extra=['--learn-scaling'], comp=2)
 
 
+@pytest.mark.parametrize('mesh', ['snp=2', 'comp=2,snp=2'])
+def test_two_process_gathered_fit_matches_single_process(tmp_path, mesh):
+    """fit --distributed on schemas that disagree on the order of shared
+    variants (the layout=gather leg of tests/distributed_worker.py): 2
+    processes take the global-gather layout, each factorizing only the
+    blocks dealt to its shards (at comp=2,snp=2 each process holds a comp
+    row and loads all), and rank 0 writes the single-process fit's
+    files."""
+    _check_cluster_fit(tmp_path, nproc=2, mesh=mesh, conflicting=True,
+                       comp=2 if mesh.startswith('comp') else 1)
+
+
 @pytest.mark.slow
 def test_four_process_comp_fit_on_subgroups(tmp_path):
     """comp=2,snp=2 in 4 processes of one shard each: the comp columns
@@ -204,21 +232,46 @@ def test_two_process_fit_shuffled_extract(tmp_path):
 
 
 class _Group:
-    """torch.distributed stand-ins recording init_process_group."""
+    """torch.distributed stand-ins recording init_process_group (in
+    `calls`) and, in `events`, each barrier and destroy_process_group.
+    With `joins` the group is initialized once init runs, and its
+    collectives act as if the other process held what this one does (a
+    fit runs through them alone, as process `rank` of 2)."""
 
-    def __init__(self, monkeypatch, initialized=False, error=None):
+    def __init__(self, monkeypatch, initialized=False, error=None,
+                 joins=False, rank=0):
         import torch.distributed as dist
-        self.calls = []
-        monkeypatch.setattr(dist, 'is_initialized', lambda: initialized)
+        self.calls, self.events = [], []
+        self.initialized = initialized
+        monkeypatch.setattr(dist, 'is_initialized',
+                            lambda: self.initialized)
         monkeypatch.setattr(dist, 'get_backend', lambda: 'gloo')
-        monkeypatch.setattr(dist, 'get_rank', lambda: 0)
+        monkeypatch.setattr(dist, 'get_rank', lambda: rank)
         monkeypatch.setattr(dist, 'get_world_size', lambda: 2)
 
         def init(**kw):
             if error is not None:
                 raise error
             self.calls.append(kw)
+            self.initialized = joins
+
+        def destroy():
+            self.events.append('destroy')
+            self.initialized = False
+
+        def all_gather(outs, x, group=None):
+            for out in outs:
+                out.copy_(x)
+
+        def all_gather_object(outs, obj):
+            outs[:] = [obj] * len(outs)
         monkeypatch.setattr(dist, 'init_process_group', init)
+        monkeypatch.setattr(dist, 'barrier',
+                            lambda: self.events.append('barrier'))
+        monkeypatch.setattr(dist, 'destroy_process_group', destroy)
+        monkeypatch.setattr(dist, 'all_reduce', lambda x, **kw: None)
+        monkeypatch.setattr(dist, 'all_gather', all_gather)
+        monkeypatch.setattr(dist, 'all_gather_object', all_gather_object)
 
 
 @pytest.mark.parametrize('device,backend', [('cpu', 'gloo'),
@@ -245,3 +298,35 @@ def test_initialize_errors_propagate(monkeypatch):
     group = _Group(monkeypatch, initialized=True)
     distributed.initialize('localhost:1', 2, 0, device='cpu')
     assert group.calls == []
+
+
+@pytest.mark.parametrize('case', ['rank0', 'rank1', 'raises'])
+def test_fit_leaves_the_group_on_every_rank(monkeypatch, tmp_path, case):
+    """fit --distributed leaves its process group on every rank: process
+    0 after writing the files, process 1 from its early return (before
+    process 0 has written them: without the barrier and
+    destroy_process_group the interpreter tore down live gloo threads at
+    exit, an abort), each once, with a barrier first; a fit that raises
+    destroys the group without the barrier (a peer may never reach it)
+    and the error propagates. The group is the stand-ins', the fit the
+    port's own at --mesh snp=2."""
+    from vilma_tpu_torch.inference import engine
+    group = _Group(monkeypatch, joins=True, rank=int(case == 'rank1'))
+    if case == 'raises':
+        def fail(*a, **k):
+            raise RuntimeError('the fit failed')
+        monkeypatch.setattr(engine.MultiPopVI, 'optimize', fail)
+    prefix = str(tmp_path / 'fit')
+    argv = _argv(_write_case(str(tmp_path)), prefix) + [
+        '--device', 'cpu', '--distributed', '--coordinator',
+        'localhost:1', '--num-processes', '2', '--process-id',
+        str(int(case == 'rank1')), '--mesh', 'snp=2']
+    if case == 'raises':
+        with pytest.raises(RuntimeError, match='the fit failed'):
+            tfrontend.main(argv)
+    else:
+        tfrontend.main(argv)
+    assert len(group.calls) == 1
+    assert group.events == (['destroy'] if case == 'raises'
+                            else ['barrier', 'destroy'])
+    assert os.path.exists(prefix + '.estimates.tsv') == (case == 'rank0')

@@ -4,8 +4,9 @@ simulated 8-device mesh (tests/conftest.py): the shard-local layout
 planner, pack(n_shards) and the per-shard LD ops, outer steps of every
 state form (shared, kdim, epoch history, P = 4 materialized), host
 syncs per step, `fit --mesh snp=8`, checkpoints across the two layouts,
-the refusals (the global-gather layout, what component sharding
-refuses), and the launchers' device guard."""
+the global-gather layout's CLI fit on schemas that disagree on the
+order of shared variants, what component sharding refuses, and the
+launchers' device guard."""
 import dataclasses
 import os
 import pickle
@@ -713,14 +714,13 @@ def test_component_sharding_raises(tmp_path):
         tfrontend.main(argv + ['--device', 'cpu', '--mesh', 'comp=100'])
 
 
-def test_conflicting_schemas_raise(tmp_path):
-    """Two cohorts whose schemas disagree on the order of shared variants
-    have no shard-local layout: --mesh raises NotImplementedError naming
-    the global-gather layout (the JAX package falls back to it)."""
-    case = _write_case(str(tmp_path))
-    schema, sumstats, extract, annot = case
-    # a second panel listing the first block's variants in reverse order
-    root = os.path.dirname(schema)
+def conflicting_argv(root):
+    """The tests/test_torch_cli.py case under `root` with a second panel
+    that lists the first block's variants in reverse order: the two
+    schemas disagree on the order of shared variants, so no shard-local
+    layout exists. Returns argv(prefix), the CLI fit's argv."""
+    case = _write_case(root)
+    schema = case[0]
     with open(os.path.join(root, 'block0.var')) as fh:
         rows = fh.read().splitlines()
     u = np.load(os.path.join(root, 'block0.npy'))
@@ -728,15 +728,38 @@ def test_conflicting_schemas_raise(tmp_path):
         fh.write('\n'.join(rows[::-1]) + '\n')
     np.save(os.path.join(root, 'rev0.npy'),
             np.vstack([u[:-1][::-1], u[-1:]]))
-    with open(os.path.join(root, 'rev.schema'), 'w') as fh:
+    rev = os.path.join(root, 'rev.schema')
+    with open(rev, 'w') as fh:
         fh.write('rev0.var\trev0.npy\n')
-    argv = _argv((os.path.join(root, 'rev.schema'), sumstats, extract,
-                  annot), str(tmp_path / 'o'))
-    argv[argv.index('--ld-schema') + 1] = (
-        f'{schema},{os.path.join(root, "rev.schema")}')
-    with pytest.raises(NotImplementedError,
-                       match='Global-gather mesh layout'):
-        tfrontend.main(argv + ['--device', 'cpu', '--mesh', 'snp=2'])
+
+    def argv(prefix):
+        out = _argv(case, prefix)
+        out[out.index('--ld-schema') + 1] = f'{schema},{rev}'
+        return out
+    return argv
+
+
+def test_conflicting_schemas_raise(tmp_path):
+    """Two cohorts whose schemas disagree on the order of shared variants
+    have no shard-local layout: --mesh snp=2 and comp=2,snp=2 no longer
+    raise but take the global-gather layout (129 variants padded to 130
+    slots), and write vilma_tpu's fallback fit (its --mesh snp=2; at
+    comp=2 vilma_tpu needs K divisible by 2, and this grid has 69
+    components) at tests/test_cli_mesh.py's tolerance: .estimates.tsv
+    and every .npz member."""
+    argv = conflicting_argv(str(tmp_path))
+    jax_prefix = str(tmp_path / 'jax')
+    jfrontend.main(argv(jax_prefix) + ['--mesh', 'snp=2'])
+    for mesh in ('snp=2', 'comp=2,snp=2'):
+        prefix = str(tmp_path / mesh.replace(',', '_').replace('=', ''))
+        tfrontend.main(argv(prefix) + ['--device', 'cpu', '--mesh', mesh])
+        _assert_estimates(prefix, jax_prefix, rtol=1e-4, atol=1e-10)
+        t, j = np.load(prefix + '.npz'), np.load(jax_prefix + '.npz')
+        assert sorted(t.files) == sorted(j.files)
+        for key in j.files:
+            assert t[key].shape == j[key].shape, key
+            np.testing.assert_allclose(t[key], j[key], rtol=1e-4,
+                                       atol=1e-10, err_msg=key)
 
 
 def test_too_few_cards_raise(monkeypatch, tmp_path):

@@ -12,9 +12,12 @@ cuda): each holds a slice of the [K, ...] state, and the softmax over K
 is reduced across them. `--distributed` joins processes over
 torch.distributed (NCCL on cuda, gloo on cpu): the layout is planned from
 the schemas' metadata before any load, each process factorizes only the
-blocks of its shards' snp spans, and process 0 writes the files. Still
-raising, with its ROADMAP item: cohorts whose schemas disagree on the
-order of shared variants (the JAX package's global-gather layout).
+blocks of its shards' snp spans, and process 0 writes the files. Cohorts
+whose schemas disagree on the order of shared variants have no
+shard-local layout: their fits take the global-gather layout (the JAX
+package's fallback; ops/blocks.py), the variants padded to a multiple of
+the snp shards, the blocks dealt to the shards, and every LD op gathering
+and summing O(I) values across the shards of a comp row.
 """
 import logging
 import os
@@ -208,16 +211,29 @@ def main(args, devices=None):
     places this process's shards of --mesh explicitly, one entry per
     shard (co-located shards on one card, say); the CLI gives one card
     per shard."""
-    import torch
     np.random.seed(args.seed)
     axes = _check_supported(args)
     device = _resolve_device(args)
-    # a multi-process fit joins its process group and builds its mesh
-    # before loading, so that each process loads only its own blocks
-    if args.distributed:
-        from vilma_tpu_torch.parallel import distributed
-        distributed.initialize(args.coordinator or None, args.num_processes,
-                               args.process_id, device=device)
+    if not args.distributed:
+        return _fit(args, axes, device, devices)
+    # a multi-process fit joins its process group before loading, so that
+    # each process loads only its own blocks; every rank leaves it again,
+    # after process 0 has written the files (without the barrier when
+    # the fit raised: the error propagates)
+    from vilma_tpu_torch.parallel import distributed
+    distributed.initialize(args.coordinator or None, args.num_processes,
+                           args.process_id, device=device)
+    ok = False
+    try:
+        _fit(args, axes, device, devices)
+        ok = True
+    finally:
+        distributed.shutdown(barrier=ok)
+
+
+def _fit(args, axes, device, devices):
+    """main() after the process group is joined."""
+    import torch
     mesh = None
     if args.mesh:
         from vilma_tpu_torch.parallel import mesh as mesh_mod
@@ -300,7 +316,10 @@ def main(args, devices=None):
             list(zip(args.ld_schema.split(','), cohort_missing)), variants,
             mesh.n_snp)
         if plan is None:
-            _conflicting_schemas()
+            _warn_gathered()
+    # the global-gather layout's padded variant count
+    n_pad = (-(-len(variants) // mesh.n_snp) * mesh.n_snp
+             if mesh is not None else None)
 
     # pass 2: LD per cohort; cohorts sharing a panel (same path, same
     # masked variants) get ONE loaded matrix, and so one matvec pass. A
@@ -322,7 +341,7 @@ def main(args, devices=None):
                 ld_schema_path, variants=variants, denylist=missing,
                 ldthresh=args.ldthresh, mmap=args.mmap, dtype=dtype,
                 u_dtype=u_dtype, cache_dir=args.factor_cache or None,
-                mesh=mesh, plan=plan)
+                mesh=mesh, plan=plan, n_total=n_pad)
         else:
             ld_cache[ld_key] = load.load_ld_from_schema(
                 ld_schema_path, variants=variants, denylist=missing,
@@ -358,26 +377,36 @@ def main(args, devices=None):
     if mesh is not None:
         from vilma_tpu_torch.parallel import alignment
         if multiproc:
-            layout_map, L = plan.layout_map, plan.L
+            ok = plan is not None
+            layout_map, L = ((plan.layout_map, plan.L) if ok else
+                             (np.arange(len(variants)), n_pad))
         else:
             layout_map, L, ok = alignment.compute_layout(
                 combined_ld, len(variants), n_shards=mesh.n_snp)
             if not ok:
-                _conflicting_schemas()
+                _warn_gathered()
+                layout_map, L = np.arange(len(variants)), n_pad
             from vilma_tpu_torch.ops import blocks as blocks_mod
             spill = blocks_mod.FactorSpill() if args.mmap else None
             # by identity: cohorts sharing a loaded panel keep sharing it
             relayouted = {}
             for ld in combined_ld:
-                if id(ld) not in relayouted:
+                if id(ld) in relayouted:
+                    continue
+                if ok:
                     relayouted[id(ld)] = alignment.relayout_ld(
                         ld, layout_map, L, dtype=dtype, spill=spill,
                         u_dtype=u_dtype, n_shards=mesh.n_snp,
                         device=list(mesh.devices),
                         shards=list(mesh.snp_shards))
+                else:
+                    relayouted[id(ld)] = alignment.deal_ld(
+                        ld, L, mesh, dtype=dtype, spill=spill,
+                        u_dtype=u_dtype)
             combined_ld = [relayouted[id(ld)] for ld in combined_ld]
-        logging.info('Shard-local layout: %d variants -> %d slots in %d '
-                     'spans', len(variants), L, mesh.n_snp)
+        logging.info('%s layout: %d variants -> %d slots in %d spans',
+                     'Shard-local' if ok else 'Global-gather',
+                     len(variants), L, mesh.n_snp)
         betas = alignment.relayout_rows(betas, layout_map, L, fill=0.0)
         std_errs = alignment.relayout_rows(std_errs, layout_map, L,
                                            fill=1.0)
@@ -444,12 +473,12 @@ def main(args, devices=None):
     variants.to_tsv(args.output + '.estimates.tsv')
 
 
-def _conflicting_schemas():
-    raise NotImplementedError(
-        'the LD schemas disagree on the relative order of shared '
-        'variants, so no shard-local layout exists; the JAX package\'s '
-        'global-gather mesh layout is not ported yet (ROADMAP.md queue '
-        '1, "Global-gather mesh layout")')
+def _warn_gathered():
+    logging.warning('The LD schemas disagree on the relative order of '
+                    'shared variants; the sharded fit falls back to the '
+                    'global-gather layout (O(I) collectives per '
+                    'evaluation). Rebuild the panels on a consistent '
+                    'genome order to restore full speed.')
 
 
 def _profiled(elbo, trace_dir, checkpoint=None):

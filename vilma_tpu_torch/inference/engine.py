@@ -34,7 +34,10 @@ from psum or from XLA (the objective's likelihood sums and beta-KL, the
 [A, K] annotation sums, the EM's statistics, the convergence statistics,
 the initialization's and the precompute's sums) are added across shards
 by the mesh before the one host fetch each evaluation already makes. An
-unsharded fit is the one-shard case with no mesh.
+unsharded fit is the one-shard case with no mesh. The LD ops of an
+evaluation and of the precompute take every shard's vectors at once
+(`_objective_terms_all`, `_ld_scaled_dots`): on the global-gather
+layout (ops/blocks.py) they join the shards of each snp line.
 
 Under component sharding (mesh.n_comp = M > 1) each shard holds a slice
 of the K components of its [K, ...] tables and state. An evaluation then
@@ -258,20 +261,37 @@ def _diag_term(data, error_scaling):
     return data.scaled_ld_diags / error_scaling[:, None]
 
 
-def _ld_scaled_dot(data, post_means):
-    """linked = LD . (post_means / SE) for each population — the hot block
-    matvec (variational_inference.py:459,812). Populations sharing an LD
-    matrix go through ONE multi-RHS pass."""
-    scaled_mu = post_means / data.std_errs
-    P = scaled_mu.shape[0]
-    outs = [None] * P
-    for m, ld in enumerate(data.ld):
-        pops = [p for p in range(P) if data.ld_index[p] == m]
+def _ld_op(op, lds, m, *args):
+    """blocks op `op` of LD matrix m over the shards whose LD matrices are
+    `lds` (one tuple per shard; one entry per shard in each of `args`),
+    one result per shard: each shard alone, or through the gathered
+    layout's lines (blocks.over_shards)."""
+    return blocks_mod.over_shards(op, [ld[m] for ld in lds], *args)
+
+
+def _ld_scaled_dots(ds, post_means):
+    """(scaled_mu, linked) of every shard, linked = LD . (post_means /
+    SE) for each population — the hot block matvec
+    (variational_inference.py:459,812). Populations sharing an LD matrix
+    go through ONE multi-RHS pass. Every shard's post_means come in at
+    once: a gathered matrix's matvec reads them all."""
+    scaled = [pm / d.std_errs for d, pm in zip(ds, post_means)]
+    P = scaled[0].shape[0]
+    outs = [[None] * P for _ in ds]
+    for m in range(len(ds[0].ld)):
+        pops = [p for p in range(P) if ds[0].ld_index[p] == m]
         if pops:
-            ys = blocks_mod.dot_multi(ld, scaled_mu[pops])
-            for j, p in enumerate(pops):
-                outs[p] = ys[j]
-    return scaled_mu, torch.stack(outs)
+            ys = _ld_op(blocks_mod.dot_multi, [d.ld for d in ds], m,
+                        [sc[pops] for sc in scaled])
+            for out, y in zip(outs, ys):
+                for j, p in enumerate(pops):
+                    out[p] = y[j]
+    return [(sc, torch.stack(out)) for sc, out in zip(scaled, outs)]
+
+
+def _ld_scaled_dot(data, post_means):
+    """`_ld_scaled_dots` of an unsharded fit."""
+    return _ld_scaled_dots([data], [post_means])[0]
 
 
 # ---------------------------------------------------------------------------
@@ -407,21 +427,35 @@ def _moments_all(ds, ss, mesh, params, hyper_deltas):
     return out
 
 
-def _objective_terms(data, st, params, hyper_delta, moments=None):
+def _objective_terms(data, st, params, hyper_delta, moments=None,
+                     dots=None):
     """(the [P] likelihood sums over this shard's SNPs, its beta-KL,
     post_means, linked) of a parameter point: the fused prologue, the LD
     matvec and the likelihood's per-SNP part (reference
     variational_inference.py:452-490, 632-641, 868-885); on the
     materialized state their unfused twins. `moments` (post_means,
-    post_vars, beta_kl) may be given (a comp-sharded fit's)."""
+    post_vars, beta_kl) and the matvec's `dots` (scaled_mu, linked) may
+    be given (a sharded fit's, `_objective_terms_all`)."""
     if moments is None:
         moments = _moments(data, st, params, hyper_delta)
     post_means, post_vars, beta_kl = moments
-    scaled_mu, linked_ests = _ld_scaled_dot(data, post_means)
+    scaled_mu, linked_ests = (_ld_scaled_dot(data, post_means)
+                              if dots is None else dots)
     ll = kernels.likelihood_partial(
         post_means, post_vars, scaled_mu, data.scaled_ld_diags,
         linked_ests, data.adj_marginal_effects)
     return ll, beta_kl, post_means, linked_ests
+
+
+def _objective_terms_all(ds, ss, mesh, params, hyper_deltas):
+    """`_objective_terms` of every shard (one entry of `params` and
+    `hyper_deltas` per shard): the moments of every shard
+    (`_moments_all`), then the LD matvecs of all at once (a gathered
+    matrix reads every shard's vector), then each shard's likelihood."""
+    moments = _moments_all(ds, ss, mesh, params, hyper_deltas)
+    dots = _ld_scaled_dots(ds, [mo[0] for mo in moments])
+    return [_objective_terms(d, s, p, h, mo, dt) for d, s, p, h, mo, dt
+            in zip(ds, ss, params, hyper_deltas, moments, dots)]
 
 
 def _finish(data, st, ll, beta_kl):
@@ -446,15 +480,11 @@ def _evaluate(ds, ss, mesh, params, hyper_deltas, failures=None):
     in one synchronization; a failure raises (sigma.check_cholesky)."""
     global host_syncs
     failures = failures or [[] for _ in ds]
-    moments = (_moments_all(ds, ss, mesh, params, hyper_deltas)
-               if _comp(mesh) else [None] * len(ds))
     # the materialized KL terms are each comp slice's own
     kl_once = ss[0].nat_mu is not None
     parts, pms, lks = [], [], []
-    for j, (d, s, p, h, f, mo) in enumerate(zip(ds, ss, params,
-                                                hyper_deltas, failures,
-                                                moments)):
-        ll, kl, pm, lk = _objective_terms(d, s, p, h, mo)
+    terms = _objective_terms_all(ds, ss, mesh, params, hyper_deltas)
+    for j, (f, (ll, kl, pm, lk)) in enumerate(zip(failures, terms)):
         if _comp(mesh):
             ll = _once(mesh, j, ll)
             kl = _once(mesh, j, kl) if kl_once else kl
@@ -1133,39 +1163,47 @@ def _init_hyper_comp(mesh, sums):
 # variational_inference.py:96-259)
 # ---------------------------------------------------------------------------
 
-def _precompute_sums(ld, ld_index, marginal_effects, std_errs,
-                     real_mask):
-    """The precompute's per-SNP part on one shard: (ld_diags, adj, the
-    [2, P] sums over its SNPs of chi_stat's terms and of the prior's
-    SE^-2). ld holds the shard's LD matrices."""
-    P = marginal_effects.shape[0]
-    lds = [ld[ld_index[p]] for p in range(P)]
-    ld_diags = torch.stack([blocks_mod.diag(lds[p]).to(std_errs.dtype)
+def _per_cohort(rows):
+    """[P][shard] results -> one [P, ...] stack per shard."""
+    return [torch.stack(col) for col in zip(*rows)]
+
+
+def _precompute_sums(lds, ld_index, marginal_effects, std_errs,
+                     real_masks):
+    """The precompute's per-SNP part on every shard (one entry per shard
+    of each list; lds[j] holds shard j's LD matrices): per shard
+    (ld_diags, adj, the [2, P] sums over its SNPs of chi_stat's terms
+    and of the prior's SE^-2)."""
+    P = marginal_effects[0].shape[0]
+    ld_diags = _per_cohort([_ld_op(blocks_mod.diag, lds, ld_index[p])
                             for p in range(P)])
-    z_scores = marginal_effects / std_errs
-    mle = torch.stack([blocks_mod.inverse_dot(lds[p], z_scores[p])
-                       for p in range(P)])
-    adj = torch.stack([blocks_mod.dot(lds[p], mle[p]) for p in range(P)])
-    adj = adj / std_errs
-    # layout-pad slots must not inflate the LDpred-style prior's SE^-2 sum
-    sums = torch.stack([torch.einsum('pi,pi->p', z_scores, mle),
-                        torch.sum(std_errs ** -2 * real_mask[None, :],
-                                  dim=1)])
-    return ld_diags, adj, sums
+    z_scores = [m / s for m, s in zip(marginal_effects, std_errs)]
+    mles = [_ld_op(blocks_mod.inverse_dot, lds, ld_index[p],
+                   [z[p] for z in z_scores]) for p in range(P)]
+    adjs = _per_cohort([_ld_op(blocks_mod.dot, lds, ld_index[p], mles[p])
+                        for p in range(P)])
+    out = []
+    for diag, z, mle, adj, se, real in zip(ld_diags, z_scores,
+                                           _per_cohort(mles), adjs,
+                                           std_errs, real_masks):
+        # layout-pad slots must not inflate the LDpred-style prior's
+        # SE^-2 sum
+        sums = torch.stack([torch.einsum('pi,pi->p', z, mle),
+                            torch.sum(se ** -2 * real[None, :], dim=1)])
+        out.append((diag.to(se.dtype), adj / se, sums))
+    return out
 
 
-def _precompute_inverse_betas(ld, ld_index, adj, std_errs, gwas_N, init_hg,
-                              se_sum):
-    """The LDpred-inf initialization on one shard, given the prior's
-    SE^-2 sum over every SNP."""
-    P = adj.shape[0]
-    lds = [ld[ld_index[p]] for p in range(P)]
-    prior = (2 * gwas_N * init_hg) / se_sum
-    inv_z = torch.stack([
-        blocks_mod.ridge_inverse_dot(lds[p], adj[p] * std_errs[p],
-                                     std_errs[p] ** 2 / prior[p])
+def _precompute_inverse_betas(lds, ld_index, adjs, std_errs, priors):
+    """The LDpred-inf initialization on every shard, given each shard's
+    copy of the prior (2 N h^2 over the SE^-2 sum over every SNP)."""
+    P = adjs[0].shape[0]
+    inv_z = _per_cohort([
+        _ld_op(blocks_mod.ridge_inverse_dot, lds, ld_index[p],
+               [a[p] * se[p] for a, se in zip(adjs, std_errs)],
+               [se[p] ** 2 / pr[p] for se, pr in zip(std_errs, priors)])
         for p in range(P)])
-    return inv_z * std_errs
+    return [z * se for z, se in zip(inv_z, std_errs)]
 
 
 def _floor_mixture_covs(mixture_covs, rel_floor=1e-10):
@@ -1296,18 +1334,20 @@ def build_model_data(marginal_effects, std_errs, ld_mats, annotations,
     for dv, sl, ld in zip(devices, spans, lds):
         def dev(x, dt=dtype, dv=dv):
             return torch.as_tensor(np.asarray(x), device=dv).to(dt)
-        marginal_t = dev(marginal[:, sl])
-        std_errs_t = dev(use_std_errs[:, sl])
-        ld_diags, adj, sums = _precompute_sums(ld, ld_index, marginal_t,
-                                               std_errs_t, dev(real[sl]))
+        parts.append(dict(dev=dev, sl=sl, ld=ld,
+                          marginal=dev(marginal[:, sl]),
+                          std_errs=dev(use_std_errs[:, sl]),
+                          real=dev(real[sl])))
+    pre = _precompute_sums(lds, ld_index, [p['marginal'] for p in parts],
+                           [p['std_errs'] for p in parts],
+                           [p['real'] for p in parts])
+    for j, (p, (ld_diags, adj, sums)) in enumerate(zip(parts, pre)):
         # np.allclose(adj[isclose(ld_diags, 0)], 0) fails where this
         # count is positive (NaN included)
         bad = torch.sum((ld_diags.abs() <= 1e-8)
                         & ~(adj.abs() <= 1e-8)).to(dtype).reshape(1)
-        parts.append(dict(dev=dev, sl=sl, ld=ld, marginal=marginal_t,
-                          std_errs=std_errs_t, ld_diags=ld_diags, adj=adj,
-                          sums=_once(mesh, len(parts),
-                                     torch.cat([sums.reshape(-1), bad]))))
+        p.update(ld_diags=ld_diags, adj=adj, sums=_once(
+            mesh, j, torch.cat([sums.reshape(-1), bad])))
     sums = _reduce(mesh, [p['sums'] for p in parts])
     P = num_pops
     chi_stat, se_sum = sums[:P], sums[P:2 * P]
@@ -1316,9 +1356,14 @@ def build_model_data(marginal_effects, std_errs, ld_mats, annotations,
                          'adjusted marginal effects; they should have '
                          'been marked missing upstream.')
 
+    inverse_betas = _precompute_inverse_betas(
+        lds, ld_index, [p['adj'] for p in parts],
+        [p['std_errs'] for p in parts],
+        [(2 * p['dev'](gwas_N) * p['dev'](init_hg)) / se
+         for p, se in zip(parts, _replicas(mesh, se_sum))])
     shards = []
-    for p, chi, se, ks in zip(parts, _replicas(mesh, chi_stat),
-                              _replicas(mesh, se_sum), k_spans):
+    for p, chi, inv_b, ks in zip(parts, _replicas(mesh, chi_stat),
+                                 inverse_betas, k_spans):
         dev, sl = p['dev'], p['sl']
         shards.append(ModelData(
             marginal_effects=p['marginal'],
@@ -1329,9 +1374,7 @@ def build_model_data(marginal_effects, std_errs, ld_mats, annotations,
             adj_marginal_effects=p['adj'],
             chi_stat=chi,
             ld_ranks=dev([ld.get_rank() for ld in ld_mats]),
-            inverse_betas=_precompute_inverse_betas(
-                p['ld'], ld_index, p['adj'], p['std_errs'], dev(gwas_N),
-                dev(init_hg), se),
+            inverse_betas=inv_b,
             annotations=dev(annot_idx[sl], torch.int32),
             annotation_counts=dev(annotations.sum(axis=0)),
             mixture_prec=dev(mixture_prec[ks]),
@@ -1979,24 +2022,16 @@ class MultiPopVI:
 
     def _posterior_mean(self, st):
         """The posterior mean in output scale, one tensor per shard."""
-        if _comp(self.mesh):
-            # through _objective_terms, as the unsharded fit, so that its
-            # evaluations and launches per shard are the same
-            ss = self._states(st)
-            params = [_params(s) for s in ss]
-            hds = [s.hyper_delta for s in ss]
-            return [_objective_terms(d, s, p, h, mo)[2] * d.scalings
-                    for d, s, p, h, mo in zip(
-                        self._ds, ss, params, hds,
-                        _moments_all(self._ds, ss, self.mesh, params, hds))]
-        out = []
-        for d, s in zip(self._ds, self._states(st)):
-            if s.nat_mu is None:
-                pm = kernels.fast_posterior_mean(s.vi_mu, s.vi_delta)
-            else:
-                pm = _objective_terms(d, s, _params(s), s.hyper_delta)[2]
-            out.append(pm * d.scalings)
-        return out
+        ss = self._states(st)
+        if ss[0].nat_mu is None and not _comp(self.mesh):
+            return [kernels.fast_posterior_mean(s.vi_mu, s.vi_delta)
+                    * d.scalings for d, s in zip(self._ds, ss)]
+        # through _objective_terms, as an evaluation, so that the
+        # evaluations and launches per shard are an unsharded fit's
+        terms = _objective_terms_all(self._ds, ss, self.mesh,
+                                     [_params(s) for s in ss],
+                                     [s.hyper_delta for s in ss])
+        return [t[2] * d.scalings for t, d in zip(terms, self._ds)]
 
     def optimize(self, loaded_checkpoint=None):
         """Coordinate ascent until convergence (reference optimize(),

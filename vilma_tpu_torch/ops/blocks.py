@@ -22,13 +22,28 @@ reference's dropped permutation through each bucket's `seq` map.
 buckets are staged in disk-backed memmaps, and a bucket reaches the card
 in slices of blocks through one bounded pinned buffer.
 
-A sharded PackedLD (`pack(n_shards=N)`, `shard`) splits the layout axis
-into N equal spans (parallel/alignment.py plans them) and holds one
-PackedLD per span in span-local coordinates, each on its shard's device.
-Its ops take and return one vector per shard (`split` makes them) and
-act on each shard alone: no data crosses shards (the JAX package's
-_dot_sharded and _dot_multi_sharded). A process of a multi-process fit
-holds only its own shards.
+A sharded PackedLD holds one PackedLD per shard, each on its shard's
+device; its ops take and return one vector per shard (`split` makes
+them). It has two layouts:
+
+  * 'local' (`pack(n_shards=N)`, `shard`): the layout axis splits into N
+    equal spans (parallel/alignment.py plans them), each shard holds the
+    blocks of its span in span-local coordinates, and its ops act on
+    each shard alone: no data crosses shards (the JAX package's
+    _dot_sharded and _dot_multi_sharded);
+  * 'gather' (`pack_gathered`, the JAX package's global-gather layout,
+    for schemas that disagree on the order of shared variants): the
+    axis of n slots (the variants, padded with inert slots to a multiple
+    of N) splits into N spans of n / N, but the blocks keep their genome
+    indices in [0, n): each size tier's blocks are dealt to the shards in
+    contiguous runs (`deal_blocks`). Its ops gather the spans of a
+    shard's snp line into the full vector, run the unchanged per-shard
+    code on the shard's blocks, and add the line's full-length partial
+    results, keeping each shard's span (`over_shards`). The gather and
+    the sum are the methods `snp_gather` and `snp_sum_span` of the
+    `comm` object the matrix carries (parallel/mesh.Mesh).
+
+A process of a multi-process fit holds only its own shards.
 
 Not ported: the TPU-only 128-row gather/scatter path (`_dot_rows`,
 `grows`/`srows`, `row_aligned`).
@@ -102,15 +117,57 @@ class PackedLD:
     rank: float               # sum of per-block ranks (reference get_rank)
     missing: tuple            # genome indices with no LD block
     # a sharded matrix has no buckets of its own: `shards` holds one
-    # PackedLD per span of n // shard_count slots (this process's shards,
-    # the first of them global shard `first_shard`), in span coordinates
+    # PackedLD per shard (this process's shards, the first of them global
+    # shard `first_shard`), each for a span of n // shard_count slots: in
+    # span coordinates (layout 'local') or in global ones ('gather')
     shards: tuple = ()
     shard_count: int = 1
     first_shard: int = 0
+    # the lazy inverse flag (reference BlockDiagonalMatrix): `.dot` of an
+    # inverted matrix applies the pseudo-inverse
+    inverted: bool = False
+    # a sharded matrix's layout, 'local' or 'gather' (module docstring);
+    # a gathered matrix and each of its shards carry `comm`, the mesh
+    # whose snp_gather and snp_sum_span join the shards of a line
+    layout: str = 'local'
+    comm: object = dataclasses.field(default=None, compare=False,
+                                     repr=False)
 
     @property
     def shape(self):
         return (self.n, self.n)
+
+    # the reference class's API (vilma_tpu/ops/blocks.py:126-160)
+    def dot(self, vector):
+        return (inverse_dot(self, vector) if self.inverted
+                else dot(self, vector))
+
+    def dot_i(self, vector, i):
+        if self.inverted:
+            raise NotImplementedError('dot_i with inverted matrices '
+                                      'has not been implemented yet.')
+        return dot_i(self, vector, i)
+
+    def ridge_inverse_dot(self, vector, regularizer):
+        if self.inverted:
+            raise NotImplementedError('ridge_inverse_dot with inverted '
+                                      'matrices has not been implemented '
+                                      'yet.')
+        return ridge_inverse_dot(self, vector, regularizer)
+
+    def diag(self):
+        if self.inverted:
+            raise NotImplementedError('Getting the diagonal of an '
+                                      'inverted matrix has not been '
+                                      'implemented yet.')
+        return diag(self)
+
+    def matrix_power(self, power):
+        return matrix_power(self, power)
+
+    @property
+    def inverse(self):
+        return dataclasses.replace(self, inverted=not self.inverted)
 
     @property
     def shard_rows(self):
@@ -241,7 +298,8 @@ def _staging_slices(num_blocks, block_bytes):
 
 
 def pack(factors, block_indices, n, dtype=torch.float64, u_dtype=None,
-         device='cpu', spill=None, n_shards=1, shards=None):
+         device='cpu', spill=None, n_shards=1, shards=None,
+         seq_starts=None):
     """Pack per-block lowrank.LowRankFactor objects into a PackedLD.
 
     block_indices[b] gives the genome index of each row of block b;
@@ -257,7 +315,9 @@ def pack(factors, block_indices, n, dtype=torch.float64, u_dtype=None,
     (parallel/alignment.py plans such layouts); both raise, as in the JAX
     package. `shards` lists the global shards to pack (all by default; a
     process of a multi-process fit packs its own) and `device` is one
-    device or one per packed shard."""
+    device or one per packed shard. `seq_starts` gives each block's
+    offset in matrix_power's sequential order (by default the blocks
+    follow each other in the order given)."""
     if n_shards > 1 or shards is not None:
         return _pack_sharded(factors, block_indices, n, dtype, u_dtype,
                              device, spill, n_shards, shards)
@@ -274,7 +334,8 @@ def pack(factors, block_indices, n, dtype=torch.float64, u_dtype=None,
     missing = tuple(sorted(set(range(n)) - set(covered.tolist())))
 
     # sequential (insertion-order) offsets, matrix_power's scatter map
-    seq_starts = np.concatenate([[0], np.cumsum([f.n for f in factors])])
+    if seq_starts is None:
+        seq_starts = np.concatenate([[0], np.cumsum([f.n for f in factors])])
     groups = {}
     for pos, (f, ix) in enumerate(zip(factors, block_indices)):
         ix = np.asarray(ix, dtype=np.int64)
@@ -422,6 +483,66 @@ def shard(ld, n_shards, device='cpu', shards=None):
                                first_shard=shards[0] if shards else 0)
 
 
+def deal_blocks(sizes, n_shards):
+    """The snp shard of each block of the global-gather layout, from the
+    blocks' sizes (kept rows, manifest order) alone, so that every
+    process deals alike before any load: the blocks of each size tier
+    (a bucket's padded size) go to the shards in contiguous runs of
+    ceil(B / n_shards), as the JAX package's multi-process loader deals
+    them to processes (vilma_tpu/parallel/distributed.py:356-367). A
+    shard may hold no block of a tier; none is padded with zero
+    blocks."""
+    owners = np.zeros(len(sizes), dtype=np.int64)
+    tiers = {}
+    for pos, size in enumerate(sizes):
+        tiers.setdefault(_pad_to_tier(int(size)), []).append(pos)
+    for positions in tiers.values():
+        per = -(-len(positions) // n_shards)
+        for k, pos in enumerate(positions):
+            owners[pos] = k // per
+    return owners
+
+
+def pack_gathered(factors, block_indices, owners, n, n_shards, comm,
+                  dtype=torch.float64, u_dtype=None, device='cpu',
+                  spill=None, shards=None, seq_starts=None):
+    """A PackedLD in the global-gather layout (module docstring): block b
+    (factors[b], its genome indices block_indices[b] in [0, n)) on shard
+    owners[b] (`deal_blocks`), each of the listed `shards` (all n_shards
+    by default; one entry per local shard of `comm`, a snp index
+    repeating across comp rows) packing its own blocks in global
+    coordinates on its device (`device`: one, or one per listed shard).
+    Blocks of shards not listed may be left out. n splits into n_shards
+    spans of n / n_shards slots, any length. seq_starts[b] is block b's
+    offset in the whole matrix's sequential order (pack's seq map), so
+    that matrix_power, per shard, is the unsharded matrix's."""
+    if n % n_shards:
+        raise ValueError(f'the gathered layout needs n ({n}) to divide '
+                         f'into {n_shards} spans')
+    shards = list(range(n_shards)) if shards is None else list(shards)
+    devices = _shard_devices(device, len(shards))
+    parts = []
+    for s, dev in zip(shards, devices):
+        own = [b for b, o in enumerate(owners) if o == s]
+        part = pack([factors[b] for b in own],
+                    [block_indices[b] for b in own], n, dtype=dtype,
+                    u_dtype=u_dtype, device=dev, spill=spill,
+                    seq_starts=(None if seq_starts is None else
+                                [seq_starts[b] for b in own]))
+        parts.append(dataclasses.replace(part, layout='gather', comm=comm))
+    covered = (np.concatenate([np.asarray(ix) for ix in block_indices])
+               if len(block_indices) else np.array([], dtype=np.int64))
+    missing = np.ones(n, dtype=bool)
+    missing[covered] = False
+    return PackedLD(buckets=(), n=n,
+                    has_diag=any(p.has_diag for p in parts),
+                    rank=float(sum(f.rank for f in factors)),
+                    missing=tuple(np.flatnonzero(missing).tolist()),
+                    shards=tuple(parts), shard_count=n_shards,
+                    first_shard=shards[0] if shards else 0,
+                    layout='gather', comm=comm)
+
+
 def split(ld, x):
     """The last axis of x (all n layout slots) as one tensor per shard of
     a sharded PackedLD, each on its shard's device."""
@@ -431,10 +552,30 @@ def split(ld, x):
         .to(part.device).contiguous() for j, part in enumerate(ld.shards))
 
 
-def _per_shard(fn, ld, *args):
-    """fn on each shard of a sharded PackedLD with its own entries of the
-    per-shard sequences `args`."""
-    return tuple(fn(part, *a) for part, *a in zip(ld.shards, *args))
+def over_shards(op, parts, *args):
+    """`op` (dot, dot_multi, inverse_dot, ridge_inverse_dot, diag) of the
+    matrix whose local shards are `parts`, with one entry per shard in
+    each of `args`; one result per shard. Shard-local parts (and an
+    unsharded matrix, the one-shard case) act alone. Gathered parts act
+    through their lines: each tensor argument is gathered over the line
+    into the full [.., n] vector (comm.snp_gather), every shard runs `op`
+    on its own blocks at full length, and the line's partial results are
+    added and cut to each shard's span (comm.snp_sum_span)."""
+    if parts[0].layout != 'gather':
+        return tuple(op(part, *a) for part, *a in zip(parts, *args))
+    comm = parts[0].comm
+    full = [comm.snp_gather(a) if torch.is_tensor(a[0]) and a[0].dim()
+            else a for a in args]
+    return tuple(comm.snp_sum_span([op(part, *a)
+                                    for part, *a in zip(parts, *full)]))
+
+
+def _check_length(ld, x):
+    """A shard's op at full length only: a gathered shard given its span
+    (or any matrix a vector of another length) raises."""
+    if x.shape[-1] != ld.n:
+        raise ValueError(f'a vector of {x.shape[-1]} slots for a matrix '
+                         f'of {ld.n}')
 
 
 def from_dense_blocks(blocks, block_indices, n, t=1.0,
@@ -474,9 +615,10 @@ def dot_multi(ld, vectors):
     LD panel read U once per evaluation per group of at most
     block_matvec.MAX_COHORTS, one kernel launch each, instead of once per
     cohort. On a sharded matrix `vectors` holds one [C, span] tensor per
-    shard, and so does the result."""
+    shard, and so does the result (`over_shards`)."""
     if ld.shards:
-        return _per_shard(dot_multi, ld, vectors)
+        return over_shards(dot_multi, ld.shards, vectors)
+    _check_length(ld, vectors)
     C, n = vectors.shape
     xs_ext = _extend(vectors)                               # [C, n+1]
     out = torch.zeros(n + 1, C, dtype=vectors.dtype, device=vectors.device)
@@ -493,10 +635,10 @@ def dot_multi(ld, vectors):
 
 
 def dot(ld, vector):
-    """Matrix @ vector (reference matrix_structures.py:389-408); per
-    shard on a sharded matrix."""
+    """Matrix @ vector (reference matrix_structures.py:389-408); on a
+    sharded matrix one span per shard (`over_shards`)."""
     if ld.shards:
-        return _per_shard(dot, ld, vector)
+        return over_shards(dot, ld.shards, vector)
     return dot_multi(ld, vector[None, :])[0]
 
 
@@ -504,10 +646,11 @@ def inverse_dot(ld, vector):
     """PseudoInverse(Matrix) @ vector (reference matrix_structures.py:
     159-196). Schema-loaded LD always has d == 0, the batched
     u @ (inv_s * (u.T @ v)) branch; blocks with a nonzero diagonal take
-    the reference's host-side per-block branches. Per shard on a
-    sharded matrix."""
+    the reference's host-side per-block branches. On a sharded matrix
+    one span per shard (`over_shards`)."""
     if ld.shards:
-        return _per_shard(inverse_dot, ld, vector)
+        return over_shards(inverse_dot, ld.shards, vector)
+    _check_length(ld, vector)
     if ld.has_diag:
         return _inverse_dot_host(ld, vector)
     x_ext = _extend(vector)
@@ -602,13 +745,14 @@ def _woodbury_mid(bk, u, inv_dp, ut_xd):
 def ridge_inverse_dot(ld, vector, regularizer):
     """Inverse(Matrix + diag(regularizer)) @ vector via per-block Woodbury
     (reference matrix_structures.py:349-387 and 187-196, with the
-    reference's diag(inv_s)). regularizer > 0 keeps it well-posed. Per
-    shard on a sharded matrix, where a per-SNP regularizer is given per
-    shard too."""
+    reference's diag(inv_s)). regularizer > 0 keeps it well-posed. On a
+    sharded matrix one span per shard (`over_shards`), a per-SNP
+    regularizer too."""
     if ld.shards:
         regs = (regularizer if isinstance(regularizer, (list, tuple))
                 else [regularizer] * len(ld.shards))
-        return _per_shard(ridge_inverse_dot, ld, vector, regs)
+        return over_shards(ridge_inverse_dot, ld.shards, vector, regs)
+    _check_length(ld, vector)
     reg = torch.zeros_like(vector) + regularizer
     x_ext = _extend(vector)
     # pad slots read regularizer 1.0 so divisions stay finite; their u
@@ -631,9 +775,9 @@ def diag(ld):
     """Diagonal of the matrix (reference matrix_structures.py:426-440).
     The sum over the rank is a fixed pairwise tree of elementwise adds
     (zero-padded to a power of two), so every device gives the same
-    bits. Per shard on a sharded matrix."""
+    bits. On a sharded matrix one span per shard (`over_shards`)."""
     if ld.shards:
-        return tuple(diag(part) for part in ld.shards)
+        return over_shards(diag, ld.shards)
     parts = []
     dtype = torch.float64
     for bk in ld.buckets:
@@ -660,11 +804,16 @@ def matrix_power(ld, power):
     so block results map to sequential offsets with the missing indices
     at the end. The powered buckets therefore gather from and scatter to
     the `seq` positions (the reference's sim noise, matrix_power(0.5),
-    depends on this)."""
+    depends on this). A sharded matrix powers each shard's blocks: a
+    gathered one's carry the whole matrix's sequential offsets
+    (pack_gathered), a shard-local one's those of their own span."""
     if ld.has_diag:
         raise NotImplementedError('Matrix powers where the diagonal '
                                   'approximation is not zero have '
                                   'not yet been implemented.')
+    if ld.shards:
+        return dataclasses.replace(ld, shards=tuple(
+            matrix_power(part, power) for part in ld.shards))
     out = []
     for bk in ld.buckets:
         if bk.seq is None:
@@ -685,10 +834,22 @@ def matrix_power(ld, power):
 def dot_i(ld, vector, i):
     """(Matrix @ vector)[i], touching only the block that holds i
     (reference matrix_structures.py:154-157,333-347): O(block size x
-    rank) host work."""
+    rank) host work. On a sharded matrix `vector` has all n slots, and
+    i must lie in a block of this process's shards."""
     i = int(i)
     if i in set(ld.missing):
         return 0.
+    if ld.shards:
+        rows = ld.shard_rows
+        for j, part in enumerate(ld.shards):
+            if ld.layout == 'gather':
+                if any(bool((bk.perm == i).any()) for bk in part.buckets):
+                    return dot_i(part, vector, i)
+            elif (ld.first_shard + j) == i // rows:
+                lo = i // rows * rows
+                return dot_i(part, vector[lo:lo + rows], i - lo)
+        raise IndexError(f'index {i} lies in no block of this process\'s '
+                         'shards')
     vec = vector.detach().cpu().double().numpy() if torch.is_tensor(
         vector) else np.asarray(vector)
     for bk in ld.buckets:

@@ -19,8 +19,10 @@ inserted rows are zero, and the original variant order is restored at
 output time through the layout map (MultiPopVI's out_index). Extract
 files in any order plan through a virtual genome order merged from the
 cohorts' manifests; only schemas that disagree on the order of shared
-variants fail to plan (ok=False).
+variants fail to plan (ok=False); their fits take the global-gather
+layout instead (`deal_ld`, ops/blocks.py).
 """
+import dataclasses
 import heapq
 
 import numpy as np
@@ -339,6 +341,38 @@ def relayout_ld(ld, layout_map, L, dtype=None, spill=None, u_dtype=None,
     return blocks_mod.pack(factors, indices, L, dtype=dtype,
                            u_dtype=u_dtype, device=device, spill=spill,
                            n_shards=n_shards, shards=shards)
+
+
+def deal_ld(ld, n, mesh, dtype=None, spill=None, u_dtype=None):
+    """An unsharded PackedLD in the global-gather layout over the mesh's
+    snp shards (blocks.pack_gathered), for schemas that have no
+    shard-local layout: its blocks keep their genome indices, dealt to
+    the shards by size tier (blocks.deal_blocks), the axis padded to n
+    slots (a multiple of mesh.n_snp; the pads are covered by no block).
+    Each of the mesh's local shards packs its own on its device, as
+    `relayout_ld` packs (the same bits of u, s and inv_s); `spill` as
+    there."""
+    if dtype is None:
+        dtype = ld.buckets[0].s.dtype if ld.buckets else torch.float64
+    listed = _block_list(ld)
+    owners = blocks_mod.deal_blocks([ix.size for ix, _, _ in listed],
+                                    mesh.n_snp)
+    starts = np.cumsum([0] + [ix.size for ix, _, _ in listed])
+    local = set(mesh.snp_shards)
+    factors, indices, own, seq = [], [], [], []
+    for (ix, bucket_idx, block_idx), s, start in zip(listed, owners, starts):
+        if s not in local:
+            continue
+        f = _block_factor(ld, bucket_idx, block_idx, ix.size)
+        factors.append(spill.store(f) if spill is not None else f)
+        indices.append(ix)
+        own.append(s)
+        seq.append(int(start))
+    packed = blocks_mod.pack_gathered(
+        factors, indices, own, n, mesh.n_snp, mesh, dtype=dtype,
+        u_dtype=u_dtype, device=list(mesh.devices), spill=spill,
+        shards=list(mesh.snp_shards), seq_starts=seq)
+    return dataclasses.replace(packed, rank=ld.rank)
 
 
 def relayout_rows(arr, layout_map, L, fill=0.0):

@@ -15,6 +15,13 @@ process's own LD blocks (port of vilma_tpu/parallel/distributed.py).
      the likelihood's ld_ranks term, each span counted by the owner of
      its comp-0 shard) with one all_gather_object. Each
      shard's buckets are its own, so no bucket shape needs agreeing.
+
+Where the schemas disagree on the order of shared variants no layout
+plans (`plan_sharded_load` gives None) and the load takes the
+global-gather layout (ops/blocks.py): the variants padded to n_total
+slots, the blocks keep their genome indices and are dealt to the snp
+shards by size tier from the metadata (blocks.deal_blocks), and steps 2
+and 3 run as above over the dealt blocks.
 """
 import dataclasses
 import logging
@@ -52,6 +59,22 @@ def initialize(coordinator_address=None, num_processes=None,
         dist.init_process_group(backend=backend, init_method='env://')
     logging.info('process %d of %d joined the %s process group',
                  dist.get_rank(), dist.get_world_size(), backend)
+
+
+def shutdown(barrier=True):
+    """Leave the default process group: a barrier on it (skipped with
+    barrier=False, on an error, since a peer may never reach it), then
+    destroy_process_group, which tears down the subgroups too. Every
+    rank of a --distributed fit calls it, rank != 0 too, which is done
+    before process 0 has written its files: without it, the interpreter
+    would tear down live gloo threads at exit (an abort) and NCCL would
+    warn. Does nothing without a group."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        return
+    if barrier:
+        dist.barrier()
+    dist.destroy_process_group()
 
 
 class ShardedLoadPlan:
@@ -113,14 +136,19 @@ def plan_sharded_load(specs, variants, n_shards):
 
 def load_ld_sharded(schema_path, variants, denylist, ldthresh, mesh, plan,
                     mmap=False, dtype=torch.float64, u_dtype=None,
-                    cache_dir=None, spill_dir=None):
+                    cache_dir=None, spill_dir=None, n_total=None):
     """Load an LD schema in the plan's layout, factorizing only the blocks
     of this process's shards (see the module docstring). Returns (a
     sharded PackedLD holding this process's shards on its devices, the
     variant positions missing LD information in the original order), as
     io/load.load_ld_from_schema does: the same matching, allele flips,
     thresholds and mmap-mode RNG draws (two per loaded block, on every
-    process alike)."""
+    process alike). With plan None the matrix takes the global-gather
+    layout over n_total slots (a multiple of mesh.n_snp)."""
+    if plan is None:
+        return _load_gathered(schema_path, variants, denylist, ldthresh,
+                              mesh, n_total, mmap, dtype, u_dtype,
+                              cache_dir, spill_dir)
     if plan.n_shards != mesh.n_snp:
         raise ValueError(f'the plan has {plan.n_shards} shards, the mesh '
                          f'{mesh.n_snp}')
@@ -158,6 +186,52 @@ def load_ld_sharded(schema_path, variants, denylist, ldthresh, mesh, plan,
                              u_dtype=u_dtype, device=list(mesh.devices),
                              spill=spill, n_shards=plan.n_shards,
                              shards=list(mesh.snp_shards))
+    return _finish_load(packed, covered, local_rank, entries, variants,
+                        mesh, len(factors), total_flipped)
+
+
+def _load_gathered(schema_path, variants, denylist, ldthresh, mesh, n,
+                   mmap, dtype, u_dtype, cache_dir, spill_dir):
+    """load_ld_sharded in the global-gather layout over n slots: this
+    process factorizes the blocks dealt to its shards' snp indices."""
+    entries = list(load_mod.matched_schema_entries(schema_path, variants,
+                                                   denylist))
+    owners = blocks_mod.deal_blocks([len(e['idx']) for e in entries],
+                                    mesh.n_snp)
+    starts = np.cumsum([0] + [len(e['idx']) for e in entries])
+    local = set(mesh.snp_shards)
+    spill = blocks_mod.FactorSpill(spill_dir) if mmap else None
+    factors, indices, own, seq = [], [], [], []
+    local_rank = 0.0
+    covered = np.zeros(n, dtype=bool)
+    total_flipped = 0
+    for entry, s, start in zip(entries, owners, starts):
+        total_flipped += entry['num_flipped']
+        if mmap:
+            load_mod.consume_mmap_rng_draws()
+        covered[entry['idx']] = True
+        if s not in local:
+            continue
+        f = load_mod.load_entry_factor(entry, ldthresh, cache_dir=cache_dir)
+        if mesh.counts_span(s):
+            local_rank += float(f.rank)
+        factors.append(spill.store(f) if spill is not None else f)
+        indices.append(np.asarray(entry['idx']))
+        own.append(s)
+        seq.append(int(start))
+    packed = blocks_mod.pack_gathered(
+        factors, indices, own, n, mesh.n_snp, mesh, dtype=dtype,
+        u_dtype=u_dtype, device=list(mesh.devices), spill=spill,
+        shards=list(mesh.snp_shards), seq_starts=seq)
+    return _finish_load(packed, covered, local_rank, entries, variants,
+                        mesh, len(factors), total_flipped)
+
+
+def _finish_load(packed, covered, local_rank, entries, variants, mesh,
+                 loaded, total_flipped):
+    """The loaders' phase 3 (the rank agreed across processes) and their
+    logs; (the PackedLD with the global rank and missing slots, the
+    variants missing LD information in the original order)."""
     ranks = [local_rank]
     if mesh.world > 1:
         import torch.distributed as dist
@@ -170,8 +244,9 @@ def load_ld_sharded(schema_path, variants, denylist, ldthresh, mesh, plan,
             else np.array([], dtype=np.int64))
     missing_orig = sorted(set(range(len(variants))) - set(kept.tolist()))
     logging.info('process %d of %d: %d of %d LD blocks factorized here '
-                 '(%d slots in %d shards)', mesh.rank, mesh.world,
-                 len(factors), len(entries), plan.L, plan.n_shards)
+                 '(%d slots in %d shards, layout %s)', mesh.rank,
+                 mesh.world, loaded, len(entries), packed.n,
+                 packed.shard_count, packed.layout)
     logging.warning('%d variants have no LD information and will be '
                     'treated as missing during optimization.',
                     len(missing_orig))

@@ -29,6 +29,15 @@ K), `snp_sum` over the snp shards of one comp row (the [A, K_slice]
 annotation sums), `sum` over all. Across processes they run on
 torch.distributed subgroups of the processes owning a column or a row.
 
+The global-gather layout (ops/blocks.py, for LD schemas that disagree on
+the order of shared variants) moves per-SNP data across the snp shards
+of each comp row in every LD op: `snp_gather` joins the row's spans into
+the full vector, `snp_sum_span` adds the row's full-length partial
+results and keeps each shard's span. Co-located shards join on the
+first shard's device in shard order (repeatable bit for bit); across
+processes they run all_gather and all_reduce on the row's subgroup.
+`traffic` counts the bytes each moves.
+
 Shard (c, s) has the flat index c * N + s (the JAX package's order,
 process-major and reshaped (M, N)); a process owns a contiguous run of
 M * N / world flat indices, one card each by default (the counterpart
@@ -98,6 +107,10 @@ class Mesh:
         self.first_shard = self.rank * per
         # {ranks: process group} of the column and row subgroups
         self._groups = groups or {}
+        # the global-gather layout's bytes: the full vectors snp_gather
+        # hands the local shards, the partials they give snp_sum_span
+        self.traffic = dict(gather_bytes=0, sum_bytes=0, gathers=0,
+                            sums=0)
 
     @property
     def device(self):
@@ -154,13 +167,18 @@ class Mesh:
         return [(key, [j for _, j in sorted(v)])
                 for key, v in sorted(by_key.items())]
 
+    def _group(self, ranks):
+        """The process group of `ranks` (the default group for all)."""
+        return (None if ranks is None or len(ranks) == self.world
+                else self._groups[ranks])
+
     def _all_reduce(self, x, op, ranks=None):
         """x reduced by `op` ('SUM', 'MAX') across the processes (those
         of `ranks` only, where given)."""
         if self.world > 1 and (ranks is None or len(ranks) > 1):
             import torch.distributed as dist
-            group = None if ranks is None else self._groups[ranks]
-            dist.all_reduce(x, op=getattr(dist.ReduceOp, op), group=group)
+            dist.all_reduce(x, op=getattr(dist.ReduceOp, op),
+                            group=self._group(ranks))
         return x
 
     def _line_reduce(self, parts, axis, combine, op):
@@ -187,6 +205,41 @@ class Mesh:
     def snp_sum(self, parts):
         """The sum over the snp shards of each shard's comp row."""
         return self._line_reduce(parts, 'snp', _add, 'SUM')
+
+    def snp_gather(self, parts):
+        """One [.., span] tensor per local shard in, one [.., n_snp *
+        span] out: the spans of every snp shard of each shard's comp row
+        joined in snp order (the gathered layout's input, ops/blocks.py).
+        A row split over processes joins their runs by all_gather on the
+        row's group."""
+        out = [None] * len(parts)
+        for key, js in self._lines('snp'):
+            dev = self.devices[js[0]]
+            full = torch.cat([parts[j].to(dev) for j in js], dim=-1)
+            ranks = self._ranks('snp', key)
+            if self.world > 1 and len(ranks) > 1:
+                import torch.distributed as dist
+                full = full.contiguous()
+                runs = [torch.empty_like(full) for _ in ranks]
+                dist.all_gather(runs, full, group=self._group(ranks))
+                full = torch.cat(runs, dim=-1)
+            for j in js:
+                out[j] = full.to(self.devices[j])
+                self.traffic['gather_bytes'] += (full.numel()
+                                                 * full.element_size())
+            self.traffic['gathers'] += 1
+        return out
+
+    def snp_sum_span(self, parts):
+        """One full-length [.., n_snp * span] partial per local shard in,
+        one [.., span] out: each shard's span of the sum over the snp
+        shards of its comp row (the gathered layout's output)."""
+        for p in parts:
+            self.traffic['sum_bytes'] += p.numel() * p.element_size()
+        self.traffic['sums'] += len(self._lines('snp'))
+        rows = parts[0].shape[-1] // self.n_snp
+        return [tot[..., s * rows:(s + 1) * rows].contiguous()
+                for tot, s in zip(self.snp_sum(parts), self.snp_shards)]
 
     def comp_gather(self, parts):
         """The [n_comp, ...] stack of the parts of every comp shard of
