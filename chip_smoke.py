@@ -78,7 +78,17 @@ Phases:
      components), f32, the shared state: the [P, I] prologue and sums
      against their plain versions at this shape, then MultiPopVI.optimize
      (the initialization and 2 timed outer steps); seconds and peak
-     device memory of each; the [P, I] kernels must launch.
+     device memory of each; the [P, I] kernels must launch. Then the
+     fit's outputs into a temporary directory, where the disk holds
+     vi_mu and vi_delta (~69 GB) plus 20%: the .npz of dump_spec
+     streamed by utils/npz_stream (vi_mu [42999, 3, 100352], vi_delta
+     [100352, 42999]; no vi_sigma, ~155 GB) and the estimates; seconds
+     and peak host RSS of the write; the members read back with their
+     shapes, the last vi_mu chunk equal to vi_mu_chunks' bit for bit;
+     the files deleted. Where the disk is short, the free and needed
+     bytes are printed, nothing is written, and the same chunks and
+     estimates are drained without a file (seconds, peak host RSS, the
+     rows the chunks cover).
  13. the materialized path (P >= 4), its ELBO finite, no compact kernel:
      a. `fit --trait` of 4 traits on one ~90K-variant panel (phase 4's
         schema size, bf16 U), -K 3 --drop-non-psd (~1,953 components),
@@ -176,6 +186,15 @@ Phases:
         loader): the process group left once, after a barrier; outputs
         within BAND_SHARD of the unsharded run's (bit for bit is
         reported).
+ 18. bench_torch.py, bench.py's twin, each run a subprocess on a copy
+     of the script (its LD cache in a temporary directory): a. the
+     default run, both legs (100,000 SNPs, 2 cohorts, K = 18, bf16 U;
+     the host's f64 baseline, then the card leg); b. --accel with
+     BENCH_SCALE_SE=1 BENCH_GRID=cli (582 components, the kdim state);
+     c. the same at BENCH_LOCI=300000 (the epoch-history state). Each
+     bench line carries the expected metric and a finite value > 0; the
+     kernels of its state launch over its timed chains, no other state's
+     compact kernel does; lines, launches and seconds are printed.
 
 The next-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failed phase exits
@@ -2044,7 +2063,162 @@ def run_chunked_shape(device, num_blocks=98, steps=2):
     require(st.vi_mu is None, 'the [K, P, I] outputs were materialized')
     require_launched(out['counts'], ('bucket_matvec_multi', 'prologue',
                                      'delta_sums'), 'the K-chunked shape')
+    out['write'] = write_chunked_outputs(vi, st, device)
     return out
+
+
+class host_rss:
+    """Context manager sampling this process's VmRSS every 5 ms: `before`
+    and `peak`, in bytes."""
+
+    @staticmethod
+    def now():
+        with open('/proc/self/status') as fh:
+            for line in fh:
+                if line.startswith('VmRSS:'):
+                    return int(line.split()[1]) * 1024
+        raise SmokeFailure('/proc/self/status has no VmRSS')
+
+    def __enter__(self):
+        import threading
+        self.before = self.peak = self.now()
+        self._done = threading.Event()
+
+        def sample():
+            while not self._done.wait(0.005):
+                self.peak = max(self.peak, self.now())
+
+        self._watcher = threading.Thread(target=sample, daemon=True)
+        self._watcher.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._done.set()
+        self._watcher.join()
+        self.peak = max(self.peak, self.now())
+        return False
+
+
+def drain(streams):
+    """Consume dump_spec's streams as save_npz_stream would, writing
+    nothing: each chunk's trailing shape and dtype checked, its rows
+    counted. Returns {name: (rows, the first chunk, the last chunk)}."""
+    out = {}
+    for name, shape, dtype, chunks in streams:
+        rows, first, last = 0, None, None
+        for chunk in chunks:
+            require(chunk.shape[1:] == tuple(shape[1:])
+                    and chunk.dtype == np.dtype(dtype),
+                    f'{name} chunk {chunk.shape} {chunk.dtype}')
+            rows += chunk.shape[0]
+            first = chunk if first is None else first
+            last = chunk
+        require(rows == shape[0], f'{name}: chunks cover {rows} of '
+                f'{shape[0]} rows')
+        out[name] = (rows, first, last)
+    return out
+
+
+def write_chunked_outputs(vi, st, device):
+    """Phase 12's outputs, as fit writes them: the .npz of dump_spec
+    (vi_mu [K, P, I] in component chunks, vi_delta [I, K] in variant
+    chunks, streamed by utils/npz_stream; no vi_sigma, ~155 GB at this
+    shape) and the posterior estimates, into a temporary directory,
+    timed on the host clock with the peak host RSS sampled. Read back:
+    the members' shapes, one vi_mu chunk (the last, ragged one) against
+    vi_mu_chunks' output for it, bit for bit. The files are deleted.
+    Where the disk holds less than the two members plus 20%, nothing is
+    written: the free and needed bytes come back, and the same streams
+    and estimates are computed and checked without a file (`drain`)."""
+    import shutil
+    from vilma_tpu_torch.utils.npz_stream import (npz_member_memmap,
+                                                  save_npz_stream)
+    K, P, n = vi.num_mix, vi.num_pops, vi.num_loci
+    itemsize = vi._np_dtype.itemsize
+    members = (K * P * n + n * K) * itemsize
+    out = dict(members_bytes=members, need_bytes=int(members * 1.2))
+    with tempfile.TemporaryDirectory() as tmp:
+        out['free_bytes'] = shutil.disk_usage(tmp).free
+        out['written'] = out['free_bytes'] >= out['need_bytes']
+        prefix = os.path.join(tmp, 'chunked')
+        _sync(device)
+        with host_rss() as rss:
+            t0 = time.perf_counter()
+            arrays, streams = vi.dump_spec(st)
+            require([s[0] for s in streams] == ['vi_mu', 'vi_delta'],
+                    f'dump_spec streams {[s[0] for s in streams]}')
+            if out['written']:
+                save_npz_stream(prefix + '.npz', arrays, streams)
+            else:
+                drained = drain(streams)
+            t1 = time.perf_counter()
+            pm, pv = vi._streamed_moments(st)
+            if out['written']:
+                np.savetxt(prefix + '.estimates.tsv',
+                           np.concatenate([pm, pv]).T, delimiter='\t',
+                           comments='', header='\t'.join(
+                               [f'posterior_pop{p + 1}' for p in range(P)]
+                               + [f'posterior_variance_pop{p + 1}'
+                                  for p in range(P)]))
+            t2 = time.perf_counter()
+        out.update(npz_s=t1 - t0, estimates_s=t2 - t1,
+                   rss_before=rss.before, rss_peak=rss.peak)
+        require(pm.shape == pv.shape == (P, n) and np.all(np.isfinite(pm))
+                and np.all(np.isfinite(pv)) and np.all(pv >= 0),
+                'non-finite or negative estimates')
+        if not out['written']:
+            rows_mu, _, last = drained['vi_mu']
+            rows_i, first_d, last_d = drained['vi_delta']
+            out['vi_mu_shape'] = (rows_mu,) + last.shape[1:]
+            out['vi_delta_shape'] = (rows_i,) + last_d.shape[1:]
+            require(np.all(np.isfinite(last)), 'non-finite vi_mu chunk')
+            for part in (first_d, last_d):
+                require(np.allclose(part.sum(axis=1), 1.0, atol=1e-3),
+                        'vi_delta rows do not sum to 1')
+            return out
+        out['npz_bytes'] = os.path.getsize(prefix + '.npz')
+        with open(prefix + '.estimates.tsv') as fh:
+            rows = sum(1 for _ in fh) - 1
+        require(rows == n, f'{rows} estimate rows for {n} variants')
+        mu = npz_member_memmap(prefix + '.npz', 'vi_mu')
+        delta = npz_member_memmap(prefix + '.npz', 'vi_delta')
+        require(mu is not None and delta is not None,
+                'the streamed members are not mappable')
+        out['vi_mu_shape'], out['vi_delta_shape'] = mu.shape, delta.shape
+        require(mu.shape == (K, P, n) and delta.shape == (n, K),
+                f'read back vi_mu {mu.shape}, vi_delta {delta.shape}')
+        *_, last = vi.vi_mu_chunks(st)
+        k0 = K - last.shape[0]
+        require(np.array_equal(np.asarray(mu[k0:]), last),
+                f'the vi_mu chunk [{k0}, {K}) read back differs from '
+                'vi_mu_chunks\' output for it')
+        rows = np.asarray(delta[:1024]).sum(axis=1)
+        require(np.allclose(rows, 1.0, atol=1e-3),
+                'vi_delta rows read back do not sum to 1')
+        out['checked_chunk'] = (k0, K)
+        del mu, delta
+    return out
+
+
+def log_chunked_write(w, smi):
+    rss = (f'host RSS {w["rss_before"] / 2**30:.2f} GiB before, peak '
+           f'{w["rss_peak"] / 2**30:.2f} GiB during it')
+    if not w['written']:
+        log(f'  outputs NOT written: the disk has {w["free_bytes"]} bytes '
+            f'free, the vi_mu and vi_delta members need {w["need_bytes"]} '
+            f'(their {w["members_bytes"]} bytes plus 20%); streamed '
+            f'without a file instead: vi_mu {list(w["vi_mu_shape"])} and '
+            f'vi_delta {list(w["vi_delta_shape"])} in {w["npz_s"]:.1f} s, '
+            f'the estimates in {w["estimates_s"]:.1f} s; {rss}; {smi}')
+        return
+    log(f'  outputs written: .npz ({w["npz_bytes"]} bytes: vi_mu and '
+        f'vi_delta streamed, hyper_delta, error_scaling, scalings) in '
+        f'{w["npz_s"]:.1f} s ({w["npz_bytes"] / w["npz_s"] / 1e9:.2f} GB/s), '
+        f'estimates in {w["estimates_s"]:.1f} s; {rss}; read back: '
+        f'vi_mu {list(w["vi_mu_shape"])}, vi_delta '
+        f'{list(w["vi_delta_shape"])}, the vi_mu chunk '
+        f'{list(w["checked_chunk"])} equal to vi_mu_chunks\' bit for bit; '
+        f'{w["free_bytes"]} bytes were free; files deleted; {smi}')
 
 
 def timed_optimize(vi, device):
@@ -3481,6 +3655,107 @@ def run_phase17(paths, out_dir, cache, launches, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: bench_torch.py (bench.py's twin) on the card
+# ---------------------------------------------------------------------------
+
+# (tag, arguments, knobs, metric, the kernels of its state)
+BENCH_RUNS = (
+    ('18a', [], {}, 'vi_iterations_per_s_100k_snp_2pop_K18',
+     ('bucket_matvec_multi', 'prologue', 'delta_sums')),
+    ('18b', ['--accel'], {'BENCH_SCALE_SE': '1', 'BENCH_GRID': 'cli'},
+     'vi_iterations_per_s_100k_snp_2pop_cligrid12_scale_se',
+     ('bucket_matvec_multi', 'prologue_kdim', 'delta_sums_kdim')),
+    ('18c', ['--accel'], {'BENCH_SCALE_SE': '1', 'BENCH_GRID': 'cli',
+                          'BENCH_LOCI': '300000'},
+     'vi_iterations_per_s_300000loci_snp_2pop_cligrid12_scale_se',
+     ('bucket_matvec_multi', 'prologue_epochs', 'delta_sums_epochs')),
+)
+# the compact kernels of each state form: a run launches its own alone
+STATE_KERNELS = ('prologue', 'delta_sums', 'prologue_kdim',
+                 'delta_sums_kdim', 'prologue_epochs', 'delta_sums_epochs')
+
+
+def run_bench(tmp, args, knobs, timeout=600):
+    """bench_torch.py, copied into `tmp` (its LD cache lands there),
+    run with `knobs` and no other BENCH_ variable. Returns (the seconds,
+    stdout)."""
+    import shutil
+    script = os.path.join(tmp, 'bench_torch.py')
+    if not os.path.exists(script):
+        shutil.copy(os.path.join(REPO, 'bench_torch.py'), script)
+    env = {k: v for k, v in os.environ.items() if not k.startswith('BENCH_')}
+    env.update(knobs)
+    env['PYTHONPATH'] = REPO + os.pathsep + env.get('PYTHONPATH', '')
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, script, *args], env=env,
+                          cwd=tmp, capture_output=True, text=True,
+                          timeout=timeout)
+    seconds = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f'bench_torch.py {" ".join(args)} with {knobs} failed '
+            f'({proc.returncode}): {proc.stderr[-3000:]}')
+    return seconds, proc.stdout
+
+
+def bench_reading(args, stdout):
+    """(the bench line, the card leg's launches line) of one run: the
+    twin's own last line, or, for --accel, the line composed of its
+    ACCEL_IPS and the metric of its ACCEL_LAUNCHES line."""
+    lines = stdout.strip().splitlines()
+    info = [json.loads(ln.split(' ', 1)[1]) for ln in lines
+            if ln.startswith('ACCEL_LAUNCHES ')]
+    require(len(info) == 1, f'{len(info)} ACCEL_LAUNCHES lines')
+    if args:
+        ips = [float(ln.split()[1]) for ln in lines
+               if ln.startswith('ACCEL_IPS ')]
+        require(len(ips) == 1, f'{len(ips)} ACCEL_IPS lines')
+        line = dict(metric=info[0]['metric'], value=ips[0], unit='iters/s',
+                    vs_baseline=None)
+    else:
+        line = json.loads(lines[-1])
+        require(list(line) == ['metric', 'value', 'unit', 'vs_baseline'],
+                f'bench line keys {list(line)}')
+    return line, info[0]
+
+
+def run_phase18(smi):
+    """Phase 18: bench_torch.py in subprocesses (BENCH_RUNS): each line
+    with the expected metric and a finite value > 0, the kernels of its
+    state launched and no other state's. Returns {tag: (line, launches
+    line, seconds)}."""
+    import torch
+    out = {}
+    kind = torch.cuda.get_device_name(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, args, knobs, metric, kernels in BENCH_RUNS:
+            phase(f'phase {tag}: bench_torch.py {" ".join(args)} '
+                  f'{" ".join(f"{k}={v}" for k, v in knobs.items())}')
+            seconds, stdout = run_bench(tmp, args, knobs)
+            line, info = bench_reading(args, stdout)
+            require(line['metric'] == metric,
+                    f'{tag}: metric {line["metric"]}, not {metric}')
+            require(isinstance(line['value'], float)
+                    and math.isfinite(line['value']) and line['value'] > 0,
+                    f'{tag}: value {line["value"]!r}')
+            require(info['device'] == kind, f'{tag} ran on {info["device"]}')
+            counts = info['launches']
+            require_launched(counts, kernels, f'phase {tag}')
+            others = [k for k in STATE_KERNELS
+                      if k not in kernels and counts[k]]
+            require(not others, f'{tag} launched {others}')
+            for ln in stdout.splitlines():
+                if ln.startswith(('LD ', 'BENCH_GRID', 'scale_se state',
+                                  'baseline leg')):
+                    log(f'  {ln}')
+            log(f'  {json.dumps(line)}')
+            log(f'  launches over the 3 timed chains {counts}; host syncs '
+                f'{info["host_syncs_per_step"]:.2f} a step; '
+                f'{seconds:.1f} s; {smi}')
+            out[tag] = (line, info, seconds)
+    return out
+
+
 def run_phase14(paths, device, launches, timings, smi, cache):
     """Phase 14 on phase 4's panel (`paths`): 14a-c, 14d and 14e, adding
     the backward's launches to `launches` and the seconds to
@@ -3727,6 +4002,9 @@ def main():
         f's/iter ({c["syncs"]:.1f} host syncs per step), peak device '
         f'memory {c["step_peak"] / 2**30:.2f} GiB; ELBO {c["elbo"]!r}; '
         f'launches {c["counts"]}; {smi}')
+    log_chunked_write(c['write'], smi)
+    timings['chunked_write'] = {k: c['write'].get(k) for k in (
+        'written', 'npz_s', 'estimates_s', 'free_bytes', 'need_bytes')}
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -3803,6 +4081,13 @@ def main():
         timings[f'{tag}_s_per_step'] = p17[tag]['step_s']
         timings[f'{tag}_bytes_per_eval'] = p17[tag]['per_eval']
     panel.cleanup()
+    t0 = time.perf_counter()
+    p18 = run_phase18(smi)
+    timings['phase18_s'] = time.perf_counter() - t0
+    for tag, (line, _, seconds) in p18.items():
+        timings[f'{tag}_iters_per_s'] = line['value']
+        timings[f'{tag}_s'] = seconds
+    log(f'  phase 18: {timings["phase18_s"]:.1f} s')
     log(f'  timings {json.dumps(timings)}')
     log(f'  all phases: {time.perf_counter() - t_start:.1f} s')
 

@@ -35,7 +35,8 @@ from vilma_tpu.utils import synthetic
 from vilma_tpu_torch.inference import engine as tengine
 from vilma_tpu_torch.ops.blocks import BlockBucket, PackedLD
 
-from tests.torch_parity import data_to_torch, state_to_torch, t2n
+from tests.torch_parity import data_to_torch, ld_to_torch, state_to_torch
+from tests.torch_parity import t2n
 
 K = 160            # > 128: the JAX package's chunked route
 NUM_LOCI = 384
@@ -206,3 +207,136 @@ def test_initialization_in_snp_chunks(num_pops, monkeypatch):
     jnat = np.asarray(jnat)
     np.testing.assert_allclose(t2n(nat), jnat, rtol=1e-12,
                                atol=1e-14 * np.abs(jnat).max())
+
+
+# ---------------------------------------------------------------------------
+# the [K, ...] output chunks (fit's streamed .npz members)
+# ---------------------------------------------------------------------------
+
+# chunk sizes that divide neither K = 160 nor I = 384: 4 component chunks
+# (the last of 10) and 4 variant chunks (the last of 84)
+CHUNK_K, CHUNK_I = 50, 100
+# f64, the same algebra in both packages: 1e-12 of each array's scale
+CHUNK_TOL = 1e-12
+
+
+def _chunk_problem(form):
+    """(JAX data, JAX state) of a state form at K = 160: the shared and
+    epoch points of _problem, or a kdim [K, P, I] point."""
+    if form != 'kdim':
+        return _problem(form == 'epoch')
+    data = synthetic.synthetic_problem(num_loci=NUM_LOCI, num_pops=2,
+                                       num_components=K, block_size=32,
+                                       num_annotations=3, scale_se=True,
+                                       seed=4)
+    return data, synthetic.synthetic_state(data, seed=9, compact=True)
+
+
+def _vi_inputs(data):
+    """MultiPopVI's inputs for `data`'s fit (genome order)."""
+    A = data.num_annotations
+    return dict(marginal_effects=np.asarray(data.marginal_effects),
+                std_errs=np.asarray(data.std_errs),
+                annotations=np.eye(A)[np.asarray(data.annotations)],
+                mixture_covs=np.linalg.inv(np.asarray(data.mixture_prec)),
+                checkpoint=False, scale_se=data.scale_se,
+                gwas_N=np.full(2, 1e5), init_hg=np.full(2, 0.3), num_its=1)
+
+
+def _chunks(vi, st):
+    """The three streams at CHUNK_K and CHUNK_I, each a list of host
+    arrays."""
+    return dict(
+        vi_mu=[np.asarray(c) for c in vi.vi_mu_chunks(st, chunk_k=CHUNK_K)],
+        vi_sigma=[np.asarray(c) for c in vi.vi_sigma_chunks(chunk_k=CHUNK_K)],
+        vi_delta=[np.asarray(c)
+                  for c in vi.vi_delta_chunks(st, chunk_i=CHUNK_I)])
+
+
+def _assert_chunks(got, want):
+    for key, parts in want.items():
+        assert [p.shape for p in got[key]] == [p.shape for p in parts], key
+        _assert_scaled(np.concatenate(got[key]), np.concatenate(parts), key)
+
+
+def _assert_scaled(got, want, key):
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=CHUNK_TOL * np.abs(want).max(),
+                               err_msg=key)
+
+
+@pytest.fixture(scope='module')
+def output_chunks():
+    """Per state form: the JAX package's streams and its whole vi_sigma,
+    and the port's streams and materialized dump, of one point."""
+    out = {}
+    for form in ('shared', 'kdim', 'epoch'):
+        data, st = _chunk_problem(form)
+        kw = _vi_inputs(data)
+        jvi = jengine.MultiPopVI(ld_mats=[data.ld[0]] * 2, **kw)
+        jvi.state = st
+        tld = ld_to_torch(data.ld[0])
+        tvi = tengine.MultiPopVI(ld_mats=[tld, tld], dtype=torch.float64,
+                                 device='cpu', **kw)
+        tst = state_to_torch(st)
+        tvi.state = tst
+        out[form] = dict(data=data, st=st, kw=kw, tld=tld,
+                         jax=_chunks(jvi, st), jax_sigma=jvi.vi_sigma,
+                         port=_chunks(tvi, tst),
+                         dump=tvi.create_dump_dict(tst))
+    return out
+
+
+@pytest.mark.parametrize('form', ['shared', 'kdim', 'epoch'])
+def test_output_chunks_match_jax(output_chunks, form):
+    """vi_mu, vi_sigma and vi_delta streamed in chunks that divide
+    neither K nor I: the same chunk shapes as the JAX package's and,
+    joined, its arrays within 1e-12 of scale."""
+    r = output_chunks[form]
+    assert len(r['port']['vi_mu']) == len(r['port']['vi_sigma']) == 4
+    assert len(r['port']['vi_delta']) == 4
+    assert r['port']['vi_mu'][-1].shape == (K % CHUNK_K, 2, NUM_LOCI)
+    assert r['port']['vi_delta'][-1].shape == (NUM_LOCI % CHUNK_I, K)
+    _assert_chunks(r['port'], r['jax'])
+
+
+@pytest.mark.parametrize('form', ['shared', 'kdim', 'epoch'])
+def test_output_chunks_join_to_the_materialized_state(output_chunks, form):
+    """The joined chunks equal the port's materialized outputs
+    (create_dump_dict: vi_mu [K, P, I], vi_delta [I, K]) and the JAX
+    package's whole vi_sigma [K, P, P, I]."""
+    r = output_chunks[form]
+    for key in ('vi_mu', 'vi_delta'):
+        _assert_scaled(np.concatenate(r['port'][key]), r['dump'][key], key)
+    _assert_scaled(np.concatenate(r['port']['vi_sigma']),
+                   np.asarray(r['jax_sigma']), 'vi_sigma')
+
+
+@pytest.mark.parametrize('form', ['shared', 'kdim', 'epoch'])
+def test_output_chunks_under_comp(output_chunks, form):
+    """At --mesh comp=2,snp=2 on co-located CPU shards (the shard-local
+    layout, out_index in the original order; K = 160 split 80 / 80, so
+    the component chunks [50, 100) and [100, 150) cross the slices) the
+    streams equal the unsharded fit's chunk for chunk."""
+    from tests.test_torch_parallel import _transplant
+    from vilma_tpu_torch.parallel import alignment as talign
+    from vilma_tpu_torch.parallel import mesh as tmesh
+    r = output_chunks[form]
+    kw, tld = dict(r['kw']), r['tld']
+    mesh = tmesh.make_mesh(2, n_comp=2, device='cpu')
+    lmap, L, ok = talign.compute_layout([tld], NUM_LOCI, n_shards=2)
+    assert ok and L > NUM_LOCI
+    rows = talign.relayout_rows
+    ld = talign.relayout_ld(tld, lmap, L, n_shards=2,
+                            shards=list(mesh.snp_shards))
+    kw.update(marginal_effects=rows(kw['marginal_effects'], lmap, L),
+              std_errs=rows(kw['std_errs'], lmap, L, fill=1.0),
+              annotations=talign.relayout_annotations(kw['annotations'],
+                                                      lmap, L))
+    vi = tengine.MultiPopVI(ld_mats=[ld, ld], dtype=torch.float64,
+                            device='cpu', mesh=mesh, out_index=lmap, **kw)
+    st = tmesh.shard_state(state_to_torch(_transplant(r['st'], lmap, L)),
+                           mesh)
+    vi.state = st
+    assert [s.hyper_delta.shape[1] for s in st.shards] == [80] * 4
+    _assert_chunks(_chunks(vi, st), r['port'])

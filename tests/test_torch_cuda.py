@@ -825,3 +825,20 @@ def test_comp_sharded_step_on_one_card(cuda, placement):
     assert _scaled_err(mesh.gather_spans(pms).to(pm.device), pm) <= 1e-5
     assert abs(b.elbo / a.elbo - 1) <= 1e-5
     assert [s.hyper_delta.shape[1] for s in b.shards] == [3, 3, 2, 2]
+
+
+@pytest.mark.parametrize('rank_frac', [1.0, 0.5])
+def test_synthetic_ld_card_route_matches_host(cuda, rank_frac):
+    """utils/synthetic's card route (batched float64 eigh on the card,
+    ragged last block) packs the host route's matrix: the same ranks and
+    U diag(s) U^T within 1e-12, then the packed matrices' products."""
+    from vilma_tpu_torch.ops import blocks
+    from vilma_tpu_torch.utils import synthetic
+    card = synthetic.synthetic_ld(2500, 1024, rank_frac, seed=3,
+                                  device=cuda)
+    host = synthetic.synthetic_ld(2500, 1024, rank_frac, seed=3,
+                                  device='cpu')
+    assert card.rank == host.rank and card.missing == host.missing == ()
+    assert card.buckets[0].u.device.type == 'cuda'
+    np.testing.assert_allclose(blocks.to_dense(card), blocks.to_dense(host),
+                               rtol=0, atol=1e-12)

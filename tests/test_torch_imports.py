@@ -49,6 +49,8 @@ import chip_smoke
 import profile_torch_step
 import vilma_tpu_torch.io.load
 import vilma_tpu_torch.utils.npz_stream
+import vilma_tpu_torch.utils.synthetic
+import bench_torch
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'pandas',
                                        'ml_dtypes', 'vilma_tpu'))
@@ -57,10 +59,10 @@ print('LOADED', loaded)
 
 
 def test_import_guard():
-    """Every module of the port (the validation tools among them),
-    chip_smoke.py and profile_torch_step.py import with jax, optax,
-    pandas and ml_dtypes blocked, and none of them (nor the JAX package)
-    gets loaded."""
+    """Every module of the port (the validation tools and the synthetic
+    problem generator among them), chip_smoke.py, profile_torch_step.py
+    and bench_torch.py import with jax, optax, pandas and ml_dtypes
+    blocked, and none of them (nor the JAX package) gets loaded."""
     env = dict(os.environ)
     env['PYTHONPATH'] = REPO + os.pathsep + env.get('PYTHONPATH', '')
     out = subprocess.run([sys.executable, '-c', GUARD], env=env, cwd=REPO,

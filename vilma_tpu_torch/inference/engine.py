@@ -874,6 +874,14 @@ def _error_scaling(ds, ss, mesh, orig_obj, post_means, linked):
     return ss, obj - orig_obj, pm
 
 
+def state_elbo(data, st):
+    """The ELBO of a state of any form, sharded or not, on the host: one
+    evaluation of the objective at its parameters."""
+    ds, ss, mesh = _unpack(data, st)
+    return _evaluate(ds, ss, mesh, [_params(s) for s in ss],
+                     [s.hyper_delta for s in ss])[0]
+
+
 def outer_step(data, st, line_search_rate=2.0):
     """One full coordinate-ascent iteration
     (reference _optimize_step/_nat_grad_step,
@@ -1803,9 +1811,7 @@ class MultiPopVI:
     def elbo_value(self, st=None):
         """The ELBO of a state (the beta objective equals the ELBO in
         MultiPopVI: the annotation KL is 0)."""
-        ss = self._states(st or self.state)
-        return _evaluate(self._ds, ss, self.mesh, [_params(s) for s in ss],
-                         [s.hyper_delta for s in ss])[0]
+        return state_elbo(self.data, st or self.state)
 
     def _fresh_state(self, error_scaling=None):
         """The state before initialization or resume. The materialized
