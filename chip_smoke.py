@@ -1,6 +1,8 @@
 """Smoke run of the PyTorch + CUDA port (vilma_tpu_torch) on one GPU.
 
     python3 chip_smoke.py     # every phase, one CUDA device
+    python3 chip_smoke.py --split-only   # phases 1-2, then phase 3's
+                                         # K-split kernels alone; no JSON
 
 Phases:
   1. device: the card's name and power limit; refuses without CUDA.
@@ -31,12 +33,18 @@ Phases:
      K-split kernels of component sharding at phase 16's shapes (2 slices
      of 291 components: the shared and kdim state on 45,056 slots, the
      epoch state on 1,000,448): each partial, pass 1 and pass 2 against
-     its plain version, the prologue and normalizer merges on the
-     kernels' partials, and the whole split path against the whole-K
-     kernels and plain versions; repeatable bit for bit.
+     its plain version (pass 2 given the stacked pass-1 partials, whose
+     normalizers it merges itself), the prologue's merge on the kernels'
+     partials (one device launch a call), and the whole split path
+     against the whole-K kernels and plain versions; repeatable bit for
+     bit. Each K-split row prints, beside the CUDA-event ms, the device ms
+     a call (kernel durations from torch.profiler, the L2 cache flushed
+     before each call) and the host us a call (the enqueue); the merge
+     also at the epoch shape's 1,000,448 SNPs.
   4. fit: `vilma-tpu-torch fit` in-process on a synthetic on-disk schema
      the size of a per-chromosome HapMap3 fit (~90K variants in
-     1024-SNP AR(1) blocks at half rank, 2 cohorts sharing the panel) at
+     1024-SNP AR(1) blocks at half rank, factored for the schema by
+     batched float64 eigh on the card, 2 cohorts sharing the panel) at
      the default -K 12 grid (582 components), f32 with bf16 LD, which
      takes the streamed output route. The kernel launch counters are
      zeroed just before and read just after: every kernel of the path
@@ -66,8 +74,10 @@ Phases:
      on the host: equal text.
  10. sim from phase 4's fit (its .npz and .covariance.pkl) on phase 4's
      schema, 2 cohorts, the default RNG path, on the card (f32), on the
-     host at f64 and at f32: true_beta equal to the host's bit for bit,
-     BETA within BAND_SIM of the host f64 run; the matvec must launch.
+     host at f64 and at f32 (the host runs reuse the card run's host LD
+     factors: the same code on the same blocks): true_beta equal to the
+     host's bit for bit, BETA within BAND_SIM of the host f64 run; the
+     matvec must launch.
  11. resume: phase 6's last checkpoint through fit --load-checkpoint
      (the kdim state, streamed), and phase 7's epoch state dumped and
      resumed through MultiPopVI.optimize; the ELBO after resuming
@@ -92,11 +102,13 @@ Phases:
  13. the materialized path (P >= 4), its ELBO finite, no compact kernel:
      a. `fit --trait` of 4 traits on one ~90K-variant panel (phase 4's
         schema size, bf16 U), -K 3 --drop-non-psd (~1,953 components),
-        f32, 5 steps, --no-save-vi-sigma: seconds and host syncs per
+        f32, 5 steps, --no-save-vi-sigma, its factors cached in a fresh
+        --factor-cache (16c reads them): seconds and host syncs per
         step, peak device memory, where the seconds go (time_calls);
         the matvec must launch at 4 cohorts;
      b. 4 ancestries at genome scale through MultiPopVI: 1,000,448 SNPs,
-        a bf16 panel each (phase 5's generator, 4 seeds), -K 2
+        a bf16 panel each (phase 5's generator, 4 seeds; the first is
+        phase 5's own panel), -K 2
         --drop-non-psd (216 components), f32: the initialization and 2
         steps, seconds and peak memory;
      c. a 4-trait fit of 4 blocks, -K 2: the card's f32 fit within
@@ -156,14 +168,18 @@ Phases:
         BAND_SHARD of phase 4's (of 15b's unsharded kdim run), the same
         evaluations and host syncs a step, the matvec 4x, no whole-K
         compact kernel, each K-split kernel and merge 4x the whole-K
-        kernel's launches; seconds a step;
+        kernel's launches; seconds a step; then 3 more steps of the
+        shared fit traced (torch.profiler): the busy share, each
+        kernel's device ms and launches per evaluation, each K-split
+        launcher's host us a call;
      b. phase 12's shape at --mesh comp=4: the K-split path against the
         whole-K kernels and plain versions at one point (K = 42,999, 4
         slices), then the initialization and 2 steps, the ELBO against
         phase 12's;
-     c. phase 13a's fit --trait of 4 traits at --mesh comp=2: outputs
-        within BAND_SHARD of 13a's, each shard's vi_mu, vi_delta and
-        sigma-summary bytes against 13a's (half, of K = 1,953);
+     c. phase 13a's fit --trait of 4 traits at --mesh comp=2 (13a's
+        factor cache, warm): outputs within BAND_SHARD of 13a's, each
+        shard's vi_mu, vi_delta and sigma-summary bytes against 13a's
+        (half, of K = 1,953);
      d. phase 7's epoch state at --mesh comp=2 for 3 steps against the
         same steps unsharded: seconds a step of both.
  17. the global-gather layout (schemas that disagree on the order of
@@ -363,7 +379,7 @@ KERNELS = {
     'prologue_merge': dict(
         source='vilma_tpu_torch/csrc/compact_obj.cu',
         replaces='vilma_tpu/ops/pallas/compact_obj.py:414',
-        ptxas=r'merge_kernel<\(int\)2>'),
+        ptxas=r'merge_kernel<\(int\)2, \(int\)2>'),
     'delta_norm': dict(
         source='vilma_tpu_torch/csrc/compact_obj.cu',
         replaces='vilma_tpu/ops/pallas/compact_obj.py:653',
@@ -376,25 +392,26 @@ KERNELS = {
         source='vilma_tpu_torch/csrc/compact_obj_epochs.cu',
         replaces='vilma_tpu/ops/pallas/compact_obj.py:603',
         ptxas=r'compact_kernel<\(int\)2, \(bool\)1, \(int\)2, \(int\)1, .*1>'),
-    'norm_merge': dict(
-        source='vilma_tpu_torch/csrc/compact_obj.cu',
-        replaces='vilma_tpu/ops/pallas/compact_obj.py:653',
-        ptxas=r'norm_merge_kernel'),
+    # pass 2 of the sums, given the stacked pass-1 partials: each merges
+    # its SNPs' normalizers itself (merged_norm; no normalizer-merge kernel)
     'delta_sums_given': dict(
         source='vilma_tpu_torch/csrc/compact_obj.cu',
         replaces='vilma_tpu/ops/pallas/compact_obj.py:653',
-        ptxas=r'compact_kernel<\(int\)2, \(bool\)1, \(int\)0, .*2>'),
+        ptxas=r'compact_kernel<\(int\)2, \(bool\)1, \(int\)0, .*2>',
+        note='the normalizer merge folded in'),
     'delta_sums_kdim_given': dict(
         source='vilma_tpu_torch/csrc/compact_obj.cu',
         replaces='vilma_tpu/ops/pallas/compact_obj.py:257',
-        ptxas=r'compact_kernel<\(int\)2, \(bool\)1, \(int\)1, .*2>'),
+        ptxas=r'compact_kernel<\(int\)2, \(bool\)1, \(int\)1, .*2>',
+        note='the normalizer merge folded in'),
     'delta_sums_epochs_given': dict(
         source='vilma_tpu_torch/csrc/compact_obj_epochs.cu',
         replaces='vilma_tpu/ops/pallas/compact_obj.py:603',
-        ptxas=r'compact_kernel<\(int\)2, \(bool\)1, \(int\)2, \(int\)1, .*2>'),
+        ptxas=r'compact_kernel<\(int\)2, \(bool\)1, \(int\)2, \(int\)1, .*2>',
+        note='the normalizer merge folded in'),
 }
 # the K-split kernels of each state form (phases 3 and 16):
-# (prologue partial, sums pass 1, sums pass 2); the merges serve all three
+# (prologue partial, sums pass 1, sums pass 2); the merge serves all three
 SPLIT_KEYS = {
     'shared': ('prologue_partial', 'delta_norm', 'delta_sums_given'),
     'kdim': ('prologue_kdim_partial', 'delta_norm_kdim',
@@ -402,7 +419,7 @@ SPLIT_KEYS = {
     'epochs': ('prologue_epochs_partial', 'delta_norm_epochs',
                'delta_sums_epochs_given'),
 }
-MERGE_KEYS = ('prologue_merge', 'norm_merge')
+MERGE_KEYS = ('prologue_merge',)
 
 
 class SmokeFailure(RuntimeError):
@@ -443,6 +460,111 @@ def cuda_ms(fn, reps=20, warmup=3):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def trace_events(prof):
+    """The events of a torch.profiler trace (its Chrome trace JSON)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'trace.json')
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            return json.load(fh)['traceEvents']
+
+
+def trace_kernels(prof):
+    """[(start us, duration us, name)] of the device kernels in a
+    torch.profiler trace (CUPTI), in start order."""
+    return sorted((e['ts'], e['dur'], e['name']) for e in trace_events(prof)
+                  if e.get('cat') == 'kernel' and e.get('ph') == 'X')
+
+
+DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
+
+
+def timeline(events, span='outer_steps'):
+    """(wall ms, busy ms, {kernel name: [ms, launches]}) of a trace's
+    `span` annotation (record_function) and the device events from its
+    start: busy is the union of the kernel, memcpy and memset intervals,
+    the wall runs to the later of the span's end and the last of them."""
+    marks = [e for e in events if e.get('name') == span
+             and e.get('cat') == 'user_annotation']
+    require(marks, f'the trace has no {span} annotation')
+    t0 = marks[0]['ts']
+    t1 = t0 + marks[0]['dur']
+    dev = sorted((e['ts'], e['ts'] + e['dur'], e['cat'], e['name'])
+                 for e in events if e.get('cat') in DEVICE_CATS
+                 and e.get('ph') == 'X' and e['ts'] >= t0)
+    require(dev, 'the trace holds no device events')
+    t1 = max(t1, dev[-1][1])
+    busy, cur_start, cur_end = 0.0, None, None
+    per_kernel = {}
+    for start, end, cat, name in dev:
+        if cat == 'kernel':
+            entry = per_kernel.setdefault(name, [0.0, 0])
+            entry[0] += (end - start) / 1e3
+            entry[1] += 1
+        if cur_end is None or start > cur_end:
+            if cur_end is not None:
+                busy += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    busy += cur_end - cur_start
+    return (t1 - t0) / 1e3, busy / 1e3, per_kernel
+
+
+# device_ms flushes the card's 50 MB L2 cache before each timed call by
+# filling a buffer of this many bytes (the bound reads every input from
+# device memory once); the fill's kernels are told apart by name
+L2_FLUSH_BYTES = 256 << 20
+FLUSH_KERNEL = 'FillFunctor'
+
+
+def device_ms(fn, reps=10, warmup=2):
+    """(device ms a call, device launches a call, recorded share) of
+    `fn`: the kernels torch.profiler records over `reps` calls after a
+    warm-up, the L2 cache flushed before each call. Per kernel name, its
+    launches a call (the recorded count over `reps`, rounded: the trace
+    can miss a few events) times its mean duration, summed over the
+    names; the share is the events recorded over those expected."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device='cuda')
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.fill_(0.0)
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for _, dur, name in trace_kernels(prof):
+        if FLUSH_KERNEL not in name:
+            by_name.setdefault(name, []).append(dur)
+    require(by_name, 'torch.profiler recorded no device kernel')
+    per_call = {n: max(1, round(len(d) / reps)) for n, d in by_name.items()}
+    ms = sum(float(np.mean(d)) * per_call[n]
+             for n, d in by_name.items()) / 1e3
+    launches = sum(per_call.values())
+    return ms, launches, sum(map(len, by_name.values())) / (reps * launches)
+
+
+def host_us(fn, reps=10, warmup=2):
+    """Host microseconds a call of `fn`: the host clock around `reps`
+    calls with no synchronization in between (the enqueue: checks,
+    allocations, the launch)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
 
 
 def paired_ms(kernel_fn, plain_fn, reps=20, plain_reps=None):
@@ -499,15 +621,14 @@ def split_cost(kind, P, K, I, A, live=None, M=2):
     components (compact_cost's counting): 'partial' the prologue partial
     (its [3 + 2P, I] accumulators out), 'norm' the sums' pass 1 ([2, I]
     out; the sums' z-only flops halved, two transcendentals per pair),
-    'given' pass 2 ([2, I] normalizer in, [K, A] out), 'merge' and
-    'norm_merge' the merges of M partials (one exponential per partial
-    and SNP, bytes-bound)."""
+    'given' pass 2 (the M pass-1 partials [M, 2, I] in, whose normalizers
+    it merges: one exponential per partial and SNP; [K, A] out), 'merge'
+    the prologue's merge of M partials (one exponential per partial and
+    SNP, bytes-bound)."""
     if kind == 'merge':
         rows = 3 + 2 * P
         return (4 * M * rows * I + 4 * I + 4 * 2 * P * I + 4,
                 I * (M * (2 * rows + 3) + 4 * P + 8))
-    if kind == 'norm_merge':
-        return 4 * M * 2 * I + 4 * 2 * I, I * (M * 4 + 2)
     nbytes, _ = compact_cost(P, K, I, A, sums=kind == 'given', live=live)
     if live is None or live == 'kdim':
         z = 25 * K * I
@@ -518,7 +639,8 @@ def split_cost(kind, P, K, I, A, live=None, M=2):
                 compact_cost(P, K, I, A, sums=False, live=live)[1])
     if kind == 'norm':
         return nbytes - 4 * 2 * P * I - 4 + 4 * 2 * I, z + 2 * K * I
-    return nbytes + 4 * 2 * I, z + 2 * A * K * I + 2 * K * I
+    return (nbytes + 4 * M * 2 * I,
+            z + 2 * A * K * I + 2 * K * I + I * (M * 4 + 2))
 
 
 def max_err(got, want):
@@ -797,7 +919,8 @@ def print_kernel_resources():
                 f'{short.group(1) if short else k}: {v.get("registers")} '
                 f'registers, {v.get("smem")} B static shared memory, '
                 f'{v.get("stack")} B stack, spills {v.get("spill_stores")}/'
-                f'{v.get("spill_loads")} B (stores/loads)')
+                f'{v.get("spill_loads")} B (stores/loads)'
+                + (f'; {meta["note"]}' if 'note' in meta else ''))
 
 
 def compact_inputs(device, P, K, I, A, seed, clamp_heavy=False):
@@ -1078,35 +1201,36 @@ def slice_kw(kw, ks):
 
 
 def run_split(kw, fns, M):
-    """(pm, pv, kl, [A, K] sums) of the K-split path over M comp
-    slices: partials, their merge, pass 1, the normalizer merge, pass 2
-    (kernels or plain versions, `fns` as split_fns gives them)."""
+    """(pm, pv, kl, [A, K] sums, prologue partials, pass-1 partials) of
+    the K-split path over M comp slices: partials, their merge, pass 1,
+    pass 2 given the stacked pass-1 partials (kernels or plain versions,
+    `fns` as split_fns gives them)."""
     import torch
     from vilma_tpu_torch.ops.cuda import compact_obj as co
     from vilma_tpu_torch.parallel.mesh import k_slices
     plain = fns[0] is co.prologue_plain or fns[0] is co.prologue_epochs_plain
     merge = co.prologue_merge_plain if plain else co.prologue_merge
-    nmerge = co.norm_merge_plain if plain else co.norm_merge
     kss = [slice(a, b) for a, b in k_slices(kw['scores_t'].shape[0], M)]
     accs = torch.stack([fns[2](**slice_kw(kw, ks)) for ks in kss])
     pm, pv, kl = merge(accs, kw['annotations'],
                        num_annotations=kw['num_annotations'])
     parts = torch.stack([fns[3](**slice_kw(kw, ks)) for ks in kss])
-    norm = nmerge(parts)
-    sums = torch.cat([fns[4](**slice_kw(kw, ks), norm=norm)
+    sums = torch.cat([fns[4](**slice_kw(kw, ks), parts=parts)
                       for ks in kss], dim=1)
-    return pm, pv, kl, sums, accs, norm, parts
+    return pm, pv, kl, sums, accs, parts
 
 
 def check_split(device, results, A=4, M=2, shapes=SPLIT_SHAPES, timed=True):
     """The K-split kernels (component sharding) at phase 16's shapes
     (SPLIT_SHAPES), each against its plain version on the same inputs and
     repeatable bit for bit: the partial (both sides finished alone by the
-    plain merge), pass 1, pass 2 with the kernels' merged normalizer, the
-    two merges on the kernels' partials; then the whole split path of
-    kernels against the whole-K kernels and the whole-K plain versions
-    (BAND_F32, BAND_KL). Times the slice-0 call of each kernel beside its
-    plain version."""
+    plain merge), pass 1, pass 2 given the kernels' stacked pass-1
+    partials, the merge on the kernels' partials; then the whole split
+    path of kernels against the whole-K kernels and the whole-K plain
+    versions (BAND_F32, BAND_KL). Times the slice-0 call of each kernel
+    beside its plain version (CUDA events), its device time and launches
+    (torch.profiler) and its host time a call; the merge must make one
+    device launch a call."""
     import torch
     from vilma_tpu_torch.ops.cuda import compact_obj as co
     from vilma_tpu_torch.parallel.mesh import k_slices
@@ -1134,15 +1258,13 @@ def check_split(device, results, A=4, M=2, shapes=SPLIT_SHAPES, timed=True):
                 finish(acc_k[None], kw['annotations'], num_annotations=A),
                 finish(acc_p[None], kw['annotations'], num_annotations=A))],
             'norm': [max_err(kern[3](**kw0), plain[3](**kw0))],
-            'given': [max_err(kern[4](**kw0, norm=got[5]),
-                              plain[4](**kw0, norm=got[5]))],
+            'given': [max_err(kern[4](**kw0, parts=got[5]),
+                              plain[4](**kw0, parts=got[5]))],
             'merge': [max_err(a, b) for a, b in zip(
                 co.prologue_merge(got[4], kw['annotations'],
                                   num_annotations=A),
                 co.prologue_merge_plain(got[4], kw['annotations'],
-                                        num_annotations=A))],
-            'norm_merge': [max_err(co.norm_merge(got[6]),
-                                   co.norm_merge_plain(got[6]))]}
+                                        num_annotations=A))]}
         name = f'K-split {form} P={P} K={K} ({M} slices of {Kc}) I={I}'
         log(f'  {name}: split path of kernels vs ' + '; '.join(
             f'{t} (pm, pv, kl, sums) {[float(f"{e:.2e}") for e in v]}'
@@ -1152,24 +1274,23 @@ def check_split(device, results, A=4, M=2, shapes=SPLIT_SHAPES, timed=True):
                     f'{name}: against the {t} outside the band: {v}')
         require(rep, f'{name}: not bit-for-bit repeatable')
         keys = dict(zip(('partial', 'norm', 'given'), SPLIT_KEYS[form]))
-        if form == 'shared' and timed:
-            keys.update(merge='prologue_merge', norm_merge='norm_merge')
+        # the merges: reported at the shared shape, also timed at the epoch
+        # shape's I (1,000,448 SNPs), where their bytes matter
+        if form in ('shared', 'epochs') and timed:
+            keys.update(merge='prologue_merge')
         runs = {
             'partial': ((lambda: kern[2](**kw0)), (lambda: plain[2](**kw0)),
                         split_cost('partial', P, Kc, I, A, live)),
             'norm': ((lambda: kern[3](**kw0)), (lambda: plain[3](**kw0)),
                      split_cost('norm', P, Kc, I, A, live)),
-            'given': ((lambda: kern[4](**kw0, norm=got[5])),
-                      (lambda: plain[4](**kw0, norm=got[5])),
-                      split_cost('given', P, Kc, I, A, live)),
+            'given': ((lambda: kern[4](**kw0, parts=got[5])),
+                      (lambda: plain[4](**kw0, parts=got[5])),
+                      split_cost('given', P, Kc, I, A, live, M=M)),
             'merge': ((lambda: co.prologue_merge(
                 got[4], kw['annotations'], num_annotations=A)),
                 (lambda: co.prologue_merge_plain(
                     got[4], kw['annotations'], num_annotations=A)),
-                split_cost('merge', P, Kc, I, A, M=M)),
-            'norm_merge': ((lambda: co.norm_merge(got[6])),
-                           (lambda: co.norm_merge_plain(got[6])),
-                           split_cost('norm_merge', P, Kc, I, A, M=M))}
+                split_cost('merge', P, Kc, I, A, M=M))}
         for kind, key in keys.items():
             # (pm, pv, kl) of the prologue's two; one result elsewhere
             bands = (BAND_F32, BAND_F32, BAND_KL)
@@ -1182,12 +1303,21 @@ def check_split(device, results, A=4, M=2, shapes=SPLIT_SHAPES, timed=True):
                 continue
             run, ref, cost = runs[kind]
             ms, plain_ms = paired_ms(run, ref, reps=10, plain_reps=2)
+            dev_ms, dev_n, seen = device_ms(run)
+            host = host_us(run)
+            require(kind != 'merge' or dev_n == 1,
+                    f'{name}: the merge made {dev_n} device launches a '
+                    'call (one expected)')
             b = bound(*cost)
-            results[key] = entry(max(e[0] for e in per[kind]), ms, plain_ms,
-                                 b)
+            if key not in results:
+                results[key] = entry(max(e[0] for e in per[kind]), ms,
+                                     plain_ms, b)
             log(f'    {key}: {rel:.2e} of scale from plain; {ms:.4f} ms '
                 f'(plain {plain_ms:.4f}); bound {b[0]:.4f} ms ({b[1]}), '
-                f'{b[0] / ms:.1%} of it reached')
+                f'{b[0] / ms:.1%} of it reached; device {dev_ms:.4f} ms a '
+                f'call in {dev_n} launches ({b[0] / dev_ms:.1%} of the '
+                f'bound; {seen:.0%} of the events recorded), host '
+                f'{host:.1f} us a call')
         del kw, got, again, want, whole, wplain
         torch.cuda.empty_cache()
 
@@ -1216,29 +1346,52 @@ def check_bars(shared_ms, kdim_ms, epoch_ms):
 # phase 4: CLI fit on an on-disk schema
 # ---------------------------------------------------------------------------
 
-def ar1_factor(n, rho, rank):
-    """Top-`rank` eigenpairs of an n x n AR(1) correlation block."""
-    idx = np.abs(np.subtract.outer(np.arange(n), np.arange(n)))
-    vals, vecs = np.linalg.eigh(rho ** idx)
-    return vecs[:, -rank:], vals[-rank:]
+def ar1_factors(sizes, rhos, rank_frac, device='cpu'):
+    """[(U, s)]: the top size * rank_frac eigenpairs (float64 numpy) of
+    each AR(1) correlation block, on the host block by block, or on a
+    CUDA device by batched float64 eigh of the blocks of one size."""
+    out = [None] * len(sizes)
+    if device == 'cpu':
+        for b, (n, rho) in enumerate(zip(sizes, rhos)):
+            idx = np.abs(np.subtract.outer(np.arange(n), np.arange(n)))
+            vals, vecs = np.linalg.eigh(rho ** idx)
+            rank = int(n * rank_frac)
+            out[b] = vecs[:, -rank:], vals[-rank:]
+        return out
+    import torch
+    for n in sorted(set(sizes)):
+        which = [b for b, size in enumerate(sizes) if size == n]
+        idx = torch.arange(n, device=device)
+        lag = (idx[:, None] - idx[None, :]).abs().double()
+        rank = int(n * rank_frac)
+        for c0 in range(0, len(which), 64):
+            chunk = which[c0:c0 + 64]
+            rho = torch.as_tensor([rhos[b] for b in chunk],
+                                  dtype=torch.float64, device=device)
+            vals, vecs = torch.linalg.eigh(rho[:, None, None] ** lag[None])
+            vals = vals[:, -rank:].cpu().numpy()
+            vecs = vecs[:, :, -rank:].cpu().numpy()
+            for j, b in enumerate(chunk):
+                out[b] = vecs[j], vals[j]
+    return out
 
 
 def write_schema(out_dir, num_blocks, block_size=1024, rank_frac=0.5,
-                 num_pops=2, seed=1, block_sizes=None):
+                 num_pops=2, seed=1, block_sizes=None, device='cpu'):
     """Stacked-eigendecomposition .npy + .var blocks, a .schema manifest,
     one sumstats TSV per cohort and an extract list (the layout
     tools/export_synthetic_schema.py writes): `num_blocks` blocks of
-    `block_size` SNPs, or one block per entry of `block_sizes`. Returns
-    the paths."""
+    `block_size` SNPs, or one block per entry of `block_sizes`, factored
+    on `device` (ar1_factors). Returns the paths."""
     rng = np.random.default_rng(seed)
     sizes = block_sizes or [block_size] * num_blocks
     n = sum(sizes)
     ids = [f'snp{i}' for i in range(n)]
     manifest = []
     start = 0
-    for b, size in enumerate(sizes):
-        u, s = ar1_factor(size, rng.uniform(0.3, 0.95),
-                          int(size * rank_frac))
+    factors = ar1_factors(sizes, [rng.uniform(0.3, 0.95) for _ in sizes],
+                          rank_frac, device)
+    for b, (size, (u, s)) in enumerate(zip(sizes, factors)):
         base = f'block{b}'
         np.save(os.path.join(out_dir, base + '.npy'),
                 np.vstack([u, s[None, :]]).astype(np.float32))
@@ -1612,11 +1765,13 @@ def run_engine_se(device, ld, steps=3):
 class time_calls:
     """Context manager timing every call of the given module functions
     made while active, on the host clock with the card synchronized
-    around each call: targets are label=(module or class, name), none
-    calling another. `split(total)` says where a phase's seconds went."""
+    around each call (with sync=False: the host's time alone, the
+    enqueue of a launcher): targets are label=(module or class, name),
+    none calling another. `split(total)` says where a phase's seconds
+    went."""
 
-    def __init__(self, **targets):
-        self.targets = targets
+    def __init__(self, sync=True, **targets):
+        self.targets, self.sync = targets, sync
         self.spent = {label: [0.0, 0] for label in targets}
 
     def __enter__(self):
@@ -1625,12 +1780,14 @@ class time_calls:
             self.real[label] = real = getattr(owner, name)
 
             def timed(*a, _real=real, _label=label, **k):
-                _sync('cuda')
+                if self.sync:
+                    _sync('cuda')
                 t = time.perf_counter()
                 try:
                     return _real(*a, **k)
                 finally:
-                    _sync('cuda')
+                    if self.sync:
+                        _sync('cuda')
                     self.spent[_label][0] += time.perf_counter() - t
                     self.spent[_label][1] += 1
             setattr(owner, name, timed)
@@ -1841,43 +1998,72 @@ def read_sim(path):
     return header, rows
 
 
+class memo_factors:
+    """Context manager memoizing the LD loader's per-block host
+    factorization (io/load.load_entry_factor) while active, keyed as the
+    factor cache keys it (the .npy file's identity, the threshold, the
+    variant match): a second load of the same blocks, here the host
+    references of a card run, reuses the first's factors, which the same
+    host code on the same inputs would compute bit for bit."""
+
+    def __enter__(self):
+        from vilma_tpu_torch.io import load
+        self.load, self.real, memo = load, load.load_entry_factor, {}
+
+        def memoized(entry, ldthresh, cache_dir=None):
+            key = load._factor_cache_key(entry, ldthresh)
+            if key not in memo:
+                memo[key] = self.real(entry, ldthresh, cache_dir)
+            return memo[key]
+        load.load_entry_factor = memoized
+        return self
+
+    def __exit__(self, *exc):
+        self.load.load_entry_factor = self.real
+
+
 def run_sim(paths, fit_prefix, out_dir):
     """Phase 10: sim from phase 4's fit (its .npz weights and
     .covariance.pkl) on phase 4's schema, 2 cohorts, default RNG path: on
-    the card (f32), on the host at f64 and, for the band, at f32. Returns
-    (card seconds, matvec launches, card error, host f32 error)."""
+    the card (f32), on the host at f64 and, for the band, at f32. The two
+    host references reuse the card run's host LD factors (memo_factors).
+    Returns (card seconds, matvec launches, card error, host f32
+    error)."""
     from vilma_tpu_torch import frontend
     from vilma_tpu_torch.commands import sim
     schema, sumstats, _, n = paths
     outs, seconds, counts = {}, None, None
     real_dtype = sim.ld_dtype
-    for tag, dev, dtype in (('cuda', 'cuda', None), ('cpu_f64', 'cpu', None),
-                            ('cpu_f32', 'cpu', 'f32')):
-        prefix = os.path.join(out_dir, f'sim_{tag}')
-        if dtype == 'f32':
-            import torch
-            sim.ld_dtype = lambda device: torch.float32
-        zero_counts()
-        t0 = time.perf_counter()
-        try:
-            with time_calls(**load_targets(),
-                            components=(sim, 'sim_components'),
-                            ld_products_noise=(sim, 'sim_gwas')) as split:
-                frontend.main(['sim', '--sumstats', ','.join(sumstats),
-                               '--covariance',
-                               fit_prefix + '.covariance.pkl', '--weights',
-                               fit_prefix + '.npz', '--ld-schema',
-                               f'{schema},{schema}', '--output', prefix,
-                               '--names', 'pop1,pop2', '--seed', '42',
-                               '--device', dev])
-        finally:
-            sim.ld_dtype = real_dtype
-        if tag == 'cuda':
-            seconds = time.perf_counter() - t0
-            counts = read_counts()
-            log(f'  card split: {split.split(seconds)}')
-        outs[tag] = {p: read_sim(f'{prefix}.{p}.simgwas.tsv')
-                     for p in ('pop1', 'pop2')}
+    with memo_factors():
+        for tag, dev, dtype in (('cuda', 'cuda', None),
+                                ('cpu_f64', 'cpu', None),
+                                ('cpu_f32', 'cpu', 'f32')):
+            prefix = os.path.join(out_dir, f'sim_{tag}')
+            if dtype == 'f32':
+                import torch
+                sim.ld_dtype = lambda device: torch.float32
+            zero_counts()
+            t0 = time.perf_counter()
+            try:
+                with time_calls(**load_targets(),
+                                components=(sim, 'sim_components'),
+                                ld_products_noise=(sim, 'sim_gwas')) as split:
+                    frontend.main(['sim', '--sumstats', ','.join(sumstats),
+                                   '--covariance',
+                                   fit_prefix + '.covariance.pkl',
+                                   '--weights', fit_prefix + '.npz',
+                                   '--ld-schema', f'{schema},{schema}',
+                                   '--output', prefix, '--names',
+                                   'pop1,pop2', '--seed', '42',
+                                   '--device', dev])
+            finally:
+                sim.ld_dtype = real_dtype
+            if tag == 'cuda':
+                seconds = time.perf_counter() - t0
+                counts = read_counts()
+                log(f'  card split: {split.split(seconds)}')
+            outs[tag] = {p: read_sim(f'{prefix}.{p}.simgwas.tsv')
+                         for p in ('pop1', 'pop2')}
     errs = {}
     for tag in ('cuda', 'cpu_f32'):
         worst = 0.0
@@ -2310,19 +2496,27 @@ def materialized_targets():
         matvec=(blocks, 'dot_multi'))
 
 
+def trait_cache(paths):
+    """Phase 13a's factor cache, beside its panel (16c reads it warm)."""
+    return os.path.join(os.path.dirname(paths[0]), 'factor_cache')
+
+
 def run_trait_fit(out_dir, device='cuda', num_blocks=88, K=3, keep=False):
     """Phase 13a: `fit --trait` of TRAITS traits on one ~90K-variant panel
-    (88 blocks of 1024 at half rank, bf16 U), -K 3 --drop-non-psd, f32,
+    (88 blocks of 1024 at half rank, bf16 U, its factors cached in a
+    fresh --factor-cache), -K 3 --drop-non-psd, f32,
     STEPS_TRAIT steps, no vi_sigma output; the materialized state. The
     matvec must launch with 4 cohorts and no compact kernel at all; the
     ELBO stays finite and does not fall by more than the line search's
     relative tolerance. Returns what it measured (with `keep`, the
     schema's paths and the outputs' prefix, which stay, for phase 16c)."""
     import torch
-    paths = write_schema(out_dir, num_blocks=num_blocks, num_pops=TRAITS)
+    paths = write_schema(out_dir, num_blocks=num_blocks, num_pops=TRAITS,
+                         device=device)
     prefix = os.path.join(out_dir, 'trait')
     argv = (trait_argv(paths, prefix, device, K, STEPS_TRAIT) + F32_BF16
-            + ['--no-save-vi-sigma'])
+            + ['--no-save-vi-sigma', '--factor-cache',
+               trait_cache(paths)])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2356,17 +2550,19 @@ def run_trait_fit(out_dir, device='cuda', num_blocks=88, K=3, keep=False):
                 elbos=v, top=top, split=split.split(seconds))
 
 
-def run_ancestry_fit(device, num_blocks=977, steps=2):
+def run_ancestry_fit(device, ld5=None, num_blocks=977, steps=2):
     """Phase 13b: 4 ancestries at genome scale, through MultiPopVI:
     1,000,448 SNPs (977 blocks of 1024 at half rank), each cohort with its
     own bf16 panel (phase 5's generator, 4 seeds: the matvec at one cohort
-    per panel), the -K 2 --drop-non-psd grid at 4 cohorts, f32, the
-    materialized state; the initialization and `steps` steps."""
+    per panel; the first, seed 5, is phase 5's panel `ld5` where given),
+    the -K 2 --drop-non-psd grid at 4 cohorts, f32, the materialized
+    state; the initialization and `steps` steps."""
     import torch
     from vilma_tpu_torch.inference import engine
     from vilma_tpu_torch.models import mixture
     t0 = time.perf_counter()
-    lds = [device_ld(num_blocks, 1024, 512, device, seed=5 + p)
+    lds = [ld5 if p == 0 and ld5 is not None
+           else device_ld(num_blocks, 1024, 512, device, seed=5 + p)
            for p in range(4)]
     _sync(device)
     setup_s = time.perf_counter() - t0
@@ -3282,7 +3478,7 @@ def comp_pairs(form):
              'epochs': ('prologue_epochs', 'delta_sums_epochs')}[form]
     part, norm, given = SPLIT_KEYS[form]
     return [(part, whole[0]), ('prologue_merge', whole[0]),
-            (norm, whole[1]), ('norm_merge', whole[1]), (given, whole[1])]
+            (norm, whole[1]), (given, whole[1])]
 
 
 def check_comp_fit(name, run, ref, shards, form, band=BAND_SHARD):
@@ -3343,6 +3539,63 @@ class capture_fit:
 
     def __exit__(self, *exc):
         self.owner.optimize = self.real
+
+
+# the K-split launchers the engine calls under comp (the kdim forms go
+# through prologue_partial, delta_norm and delta_sums_given)
+COMP_WRAPPERS = ('prologue_partial', 'prologue_epochs_partial',
+                 'prologue_merge', 'delta_norm', 'delta_norm_epochs',
+                 'delta_sums_given', 'delta_sums_epochs_given')
+
+
+def kernel_key(name):
+    """A trace's kernel name without its argument list: the port's
+    kernels with their template arguments, others by function name."""
+    name = name.replace('void ', '').replace('(anonymous namespace)::', '')
+    name = name.split('(')[0].strip()
+    if name.startswith('vilma::'):
+        return name[len('vilma::'):]
+    return name.split('<')[0].split('::')[-1]
+
+
+def trace_comp_steps(vi, shards, steps=3):
+    """Phase 16a's trace: from a comp-sharded fit's final state, `steps`
+    outer steps on the host clock with each K-split launcher's host time
+    summed (time_calls, unsynchronized), then `steps` more under
+    torch.profiler (CPU
+    and CUDA). Returns the busy share, the traced wall ms, the
+    evaluations a step, each kernel's device ms and launches per
+    evaluation, and each launcher's host us a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from vilma_tpu_torch.inference import engine
+    from vilma_tpu_torch.ops.cuda import compact_obj
+    data, st = vi.data, vi.state
+    _sync('cuda')
+    with time_calls(sync=False, **{n: (compact_obj, n)
+                                   for n in COMP_WRAPPERS}) as tw:
+        for _ in range(steps):
+            st, _ = engine.outer_step(data, st)
+        _sync('cuda')
+    with count_calls(engine, '_objective_terms') as terms, \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        with record_function('outer_steps'):
+            for _ in range(steps):
+                st, _ = engine.outer_step(data, st)
+            _sync('cuda')
+    wall, busy, per_kernel = timeline(trace_events(prof))
+    evals = terms.calls / shards
+    short = {}
+    for name, (ms, n) in per_kernel.items():
+        k = short.setdefault(kernel_key(name), [0.0, 0])
+        k[0] += ms
+        k[1] += n
+    return dict(
+        busy=busy / wall, wall_ms=wall, evals_per_step=evals / steps,
+        device={k: (ms / evals, n / evals) for k, (ms, n) in short.items()},
+        host_us={k: (t / n * 1e6, n) for k, (t, n) in tw.spent.items()
+                 if n})
 
 
 def run_comp_chunked(device, c12, M=4, num_blocks=98, steps=2):
@@ -3418,8 +3671,9 @@ def run_phase16(paths, p4, kdim_ref, trait, c12, vi7, st7, ld7, out_dir,
             ('16a kdim', 'kdim', ['--learn-scaling', '--num-its',
                                   str(KDIM_STEPS)], kdim_ref)):
         prefix = os.path.join(out_dir, 'comp_fit')
-        run = counted_fit(paths, prefix, F32_BF16 + extra + [
-            '--factor-cache', cache, '--mesh', 'comp=2,snp=2'], devices)
+        with capture_fit() as cap:
+            run = counted_fit(paths, prefix, F32_BF16 + extra + [
+                '--factor-cache', cache, '--mesh', 'comp=2,snp=2'], devices)
         out[tag] = r = check_comp_fit(tag, (run, prefix), ref, 4, form)
         log(f'  {tag}: median seconds a step comp / unsharded '
             f'{r["step_s"][0]:.4f} / {r["step_s"][1]:.4f}; the K-split '
@@ -3427,6 +3681,18 @@ def run_phase16(paths, p4, kdim_ref, trait, c12, vi7, st7, ld7, out_dir,
         for key in SPLIT_KEYS[form] + MERGE_KEYS + ('bucket_matvec_multi',):
             launches[key] += r['counts'][key]
         remove_outputs(prefix)
+        if form == 'shared':
+            t = r['trace'] = trace_comp_steps(cap.fits[-1], 4)
+            top = sorted(t['device'].items(), key=lambda kv: -kv[1][0])
+            log(f'  {tag} traced (3 steps from the fit\'s state): busy share '
+                f'{t["busy"]:.3f} of {t["wall_ms"]:.3f} ms, '
+                f'{t["evals_per_step"]:.2f} evaluations a step; device ms '
+                'and launches per evaluation (4 shards): '
+                + '; '.join(f'{k} {ms:.4f} ({n:.2f}x)' for k, (ms, n) in top)
+                + '; host us a call (calls): '
+                + '; '.join(f'{k} {us:.1f} ({n})'
+                            for k, (us, n) in t['host_us'].items()))
+        del cap
 
     phase('phase 16b: phase 12\'s shape (42,999 components, 3 cohorts) at '
           '--mesh comp=4')
@@ -3447,7 +3713,8 @@ def run_phase16(paths, p4, kdim_ref, trait, c12, vi7, st7, ld7, out_dir,
     tpaths, tref, K = trait
     prefix = os.path.join(out_dir, 'comp_trait')
     argv = (trait_argv(tpaths, prefix, 'cuda', 3, STEPS_TRAIT) + F32_BF16
-            + ['--no-save-vi-sigma', '--mesh', 'comp=2'])
+            + ['--no-save-vi-sigma', '--factor-cache', trait_cache(tpaths),
+               '--mesh', 'comp=2'])
     with capture_fit() as cap:
         counts, step_s, syncs, _ = run_argv(argv, 'cuda', ['cuda:0'] * 2)
     errs = output_errors(prefix, tref)
@@ -3841,6 +4108,11 @@ def main():
     print_kernel_resources()
 
     results = {}
+    if '--split-only' in sys.argv[1:]:
+        phase('phase 3, the K-split kernels alone (--split-only)')
+        check_split(device, results)
+        log(f'  {smi}; no JSON line: --split-only')
+        return
     phase('phase 3: kernels against their plain versions')
     t0 = time.perf_counter()
     check_matvec(device, results)
@@ -3859,7 +4131,7 @@ def main():
         t0 = time.perf_counter()
         # phase 4's panel lives until phase 14
         panel = tempfile.TemporaryDirectory()
-        paths = write_schema(panel.name, num_blocks=88)
+        paths = write_schema(panel.name, num_blocks=88, device=device)
         n = paths[3]
         log(f'  schema: {n} variants in 88 blocks written in '
             f'{time.perf_counter() - t0:.1f} s')
@@ -4034,11 +4306,12 @@ def main():
 
     phase('phase 13b: 4 ancestries, 1,000,448 SNPs, a bf16 panel each, '
           '-K 2 --drop-non-psd, f32, the materialized state')
-    b = run_ancestry_fit(device)
+    b = run_ancestry_fit(device, ld)
     timings['ancestry_init_s'] = b['init_s']
     timings['ancestry_s_per_iter'] = b['s_per_iter']
-    log(f'  K = {b["K"]}, {b["n"]} SNPs; 4 panels factored in '
-        f'{b["setup_s"]:.1f} s; initialization {b["init_s"]:.3f} s, peak '
+    log(f'  K = {b["K"]}, {b["n"]} SNPs; 3 panels factored in '
+        f'{b["setup_s"]:.1f} s (the first is phase 5\'s); initialization '
+        f'{b["init_s"]:.3f} s, peak '
         f'device memory {b["init_peak"] / 2**30:.2f} GiB; steps '
         f'{[round(t, 3) for t in b["step_s"]]} s ({b["syncs"]:.1f} host '
         f'syncs per step), peak device memory {b["step_peak"] / 2**30:.2f} '

@@ -18,55 +18,19 @@ with torch.profiler. With --learn-scaling the fit learns the error
 scaling on the CLI's -K 12 grid (582 components), as chip_smoke.py's
 phase 7 does: at 1M SNPs the size rule selects the epoch-history state,
 and one EM append after the warm-up gives the epoch kernels a live
-epoch (at --blocks 88 the kdim state runs instead). From the trace's timeline it prints the
-traced wall time, the device's busy share (the union of kernel, memcpy
-and memset intervals over that wall time; the rest is idle) and the
-device time of each kernel, largest first. Imports nothing of JAX.
+epoch (at --blocks 88 the kdim state runs instead). From the trace's
+timeline (chip_smoke.timeline) it prints the traced wall time, the
+device's busy share (the union of kernel, memcpy and memset intervals
+over that wall time; the rest is idle) and the device time of each
+kernel, largest first. Imports nothing of JAX.
 """
 import argparse
-import json
 import os
 import sys
-import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 WARMUP, STEPS, TRACED, TOP = 2, 10, 3, 12
-
-
-def timeline(trace_path):
-    """(wall ms, busy ms, {kernel name: [ms, launches]}) of the trace's
-    'outer_steps' annotation and the device events inside it."""
-    with open(trace_path) as fh:
-        events = json.load(fh)['traceEvents']
-    span = [e for e in events if e.get('name') == 'outer_steps'
-            and e.get('cat') == 'user_annotation']
-    if not span:
-        raise SystemExit('the trace has no outer_steps annotation')
-    t0 = span[0]['ts']
-    t1 = t0 + span[0]['dur']
-    dev = sorted((e['ts'], e['ts'] + e['dur'], e['cat'], e['name'])
-                 for e in events if e.get('cat') in DEVICE_CATS
-                 and e.get('ph') == 'X' and e['ts'] >= t0)
-    if not dev:
-        raise SystemExit('the trace holds no device events')
-    t1 = max(t1, dev[-1][1])
-    busy, cur_start, cur_end = 0.0, None, None
-    per_kernel = {}
-    for start, end, cat, name in dev:
-        if cat == 'kernel':
-            entry = per_kernel.setdefault(name, [0.0, 0])
-            entry[0] += (end - start) / 1e3
-            entry[1] += 1
-        if cur_end is None or start > cur_end:
-            if cur_end is not None:
-                busy += cur_end - cur_start
-            cur_start, cur_end = start, end
-        else:
-            cur_end = max(cur_end, end)
-    busy += cur_end - cur_start
-    return (t1 - t0) / 1e3, busy / 1e3, per_kernel
 
 
 def main():
@@ -127,10 +91,8 @@ def main():
             for _ in range(TRACED):
                 st, _ = engine.outer_step(data, st)
             torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, 'trace.json')
-        prof.export_chrome_trace(path)
-        wall, busy, per_kernel = timeline(path)
+    wall, busy, per_kernel = chip_smoke.timeline(
+        chip_smoke.trace_events(prof))
     kernel_ms = sum(v[0] for v in per_kernel.values())
     print(f'  traced {TRACED} steps: wall {wall:.3f} ms, device busy '
           f'{busy:.3f} ms (share {busy / wall:.3f}), kernels '

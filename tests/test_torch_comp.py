@@ -92,9 +92,9 @@ def _split(form, t, M, A):
             for ks in kss]
     pm, pv, kl = tco.prologue_merge(torch.stack(accs), t[2],
                                     num_annotations=A)
-    merged = tco.norm_merge(torch.stack(
-        [norm(*_slice_ops(form, t, ks), num_annotations=A) for ks in kss]))
-    sums = torch.cat([given(*_slice_ops(form, t, ks), merged,
+    parts = torch.stack(
+        [norm(*_slice_ops(form, t, ks), num_annotations=A) for ks in kss])
+    sums = torch.cat([given(*_slice_ops(form, t, ks), parts,
                             num_annotations=A) for ks in kss], dim=1)
     return pm, pv, kl, sums
 
@@ -103,7 +103,8 @@ def _split(form, t, M, A):
 @pytest.mark.parametrize('form', ['shared', 'kdim', 'epoch'])
 def test_split_plain_versions_match_whole_and_pallas(form, M):
     """The K-split prologue partials merged over M uneven slices of K = 5,
-    and the split sums (pass 1 merged, pass 2 per slice), equal the
+    and the split sums (pass 1 per slice, pass 2 per slice merging the
+    stacked pass-1 partials' normalizers), equal the
     whole-K plain versions and the JAX package's Pallas kernels in
     interpret mode at 1e-12 of scale (real SNPs: a pad slot's selected
     scores are a convention, tests/test_torch_fused_kernels.py)."""
@@ -135,6 +136,70 @@ def test_split_plain_versions_match_whole_and_pallas(form, M):
     for want in (t2n(wsums), np.asarray(jsums)):
         np.testing.assert_allclose(t2n(sums), want, rtol=0,
                                    atol=SPLIT_TOL * want.max())
+
+
+def _two_call_sums(form, ops, parts, A):
+    """The split sums' pass 2 as two calls: the plain normalizer merge
+    (norm_merge_plain: [M, 2, I] -> [2, I]), then the weights
+    clamp(exp(z - m) / S, eps) summed by annotation with that normalizer
+    (the route before pass 2 merged the normalizers itself)."""
+    norm = tco.norm_merge_plain(parts)
+    if form == 'epoch':
+        z = tco._epoch_deriver(*ops, ops[5].shape[0])(0, ops[3].shape[1])['z']
+    else:
+        z = tco._deriver(*ops)(0, ops[4].shape[-1])['z']
+    eps = tco.epsilon(z.dtype)
+    vd = torch.clamp(torch.exp(z - norm[0:1]) * norm[1:2], min=eps)
+    onehot = (ops[2][:, None] == torch.arange(A)[None, :]).to(vd.dtype)
+    return (torch.zeros((z.shape[0], A), dtype=z.dtype) + vd @ onehot).T
+
+
+@pytest.mark.parametrize('far', [False, True])
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('M', [1, 2, 3])
+@pytest.mark.parametrize('form', ['shared', 'kdim', 'epoch'])
+def test_given_merges_the_normalizer_as_two_calls(form, M, dtype, far):
+    """Pass 2 given the stacked pass-1 partials [M, 2, I] of M uneven
+    slices of K = 5 equals the two-call route (the normalizer merged
+    first, then pass 2 with it) bit for bit, at f64 and f32; with `far`
+    the last slice's scores sit 2,000 nats below the rest, so its partial
+    max is far below the others and exp(m_j - max) underflows to zero in
+    both types. The split sums, and the prologue partials' merge, still
+    equal the whole-K plain versions at 1e-12 of scale (f64)."""
+    A = 3
+    _, t = _operands(form)
+    t = [x.to(dtype) if x.is_floating_point() else x for x in t]
+    K = t[1].shape[0]
+    kss = [slice(a, b) for a, b in tmesh.k_slices(K, M)]
+    if far:
+        t[1] = t[1].clone()
+        t[1][kss[-1]] -= 2000.0
+    epochs = form == 'epoch'
+    norm = tco.delta_norm_epochs if epochs else tco.delta_norm
+    given = tco.delta_sums_epochs_given if epochs else tco.delta_sums_given
+    slices = [_slice_ops(form, t, ks) for ks in kss]
+    parts = torch.stack([norm(*ops, num_annotations=A) for ops in slices])
+    if far and M > 1:
+        gap = parts[:-1, 0].amax(dim=0) - parts[-1, 0]
+        assert float(gap.min()) > 1000 and torch.all(
+            torch.exp(parts[-1, 0] - parts[:, 0].amax(dim=0)) == 0)
+    got = [given(*ops, parts, num_annotations=A) for ops in slices]
+    for ops, g in zip(slices, got):
+        want = _two_call_sums(form, ops, parts, A)
+        assert g.dtype == dtype and torch.equal(g, want)
+    if dtype == torch.float64:
+        whole = (tco.delta_sums_epochs if epochs else tco.delta_sums)(
+            *t, num_annotations=A)
+        np.testing.assert_allclose(t2n(torch.cat(got, dim=1)), t2n(whole),
+                                   rtol=0, atol=SPLIT_TOL * t2n(whole).max())
+        # the prologue's merge of the same slices
+        pm, pv, kl, _ = _split(form, t, M, A)
+        wpm, wpv, wkl = (tco.prologue_epochs if epochs else tco.prologue)(
+            *t, num_annotations=A)
+        for a, b in ((pm, wpm), (pv, wpv)):
+            np.testing.assert_allclose(t2n(a), t2n(b), rtol=0,
+                                       atol=SPLIT_TOL * t2n(b).max())
+        assert abs(float(kl) - float(wkl)) <= SPLIT_TOL * abs(float(wkl))
 
 
 def test_k_slices_are_contiguous_uneven_and_refuse_k_below_m():

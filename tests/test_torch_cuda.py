@@ -703,10 +703,12 @@ def _split_ops(args, form, ks):
 def test_split_kernels_match_plain(cuda, form, K, M):
     """The K-split kernels (component sharding) against their plain
     versions on the same inputs: each partial finished alone by the plain
-    merge, pass 1, pass 2 with the kernels' merged normalizer, and the
-    two merges on the kernels' partials, within the f32 bands (1e-4 for
-    the KL); the whole split path against the whole-K kernels; every
-    launch counted under its own key and repeatable bit for bit."""
+    merge, pass 1, pass 2 given the kernels' stacked pass-1 partials (it
+    merges the normalizer itself), and the prologue's merge on the
+    kernels' partials, within the f32 bands (1e-4 for the KL); the whole
+    split path against the whole-K kernels; every launch counted under its
+    own key (the merge once a call), none under a normalizer merge, and
+    repeatable bit for bit."""
     from vilma_tpu_torch.parallel.mesh import k_slices
     P, A, I = 2, 3, 20_000
     if form == 'epochs':
@@ -732,23 +734,25 @@ def test_split_kernels_match_plain(cuda, form, K, M):
                             for ks in kss])
         parts = torch.stack([fns[1](*_split_ops(args, form, ks), **kw)
                              for ks in kss])
-        norm = co.norm_merge(parts)
-        sums = torch.cat([fns[2](*_split_ops(args, form, ks), norm, **kw)
+        sums = torch.cat([fns[2](*_split_ops(args, form, ks), parts, **kw)
                           for ks in kss], dim=1)
         return (co.prologue_merge(accs, ann, num_annotations=A)
-                + (sums, accs, parts, norm))
+                + (sums, accs, parts))
 
     before = dict(co.launches)
     got = split()
     again = split()
     torch.cuda.synchronize()
     suffix = {'shared': '', 'kdim': '_kdim', 'epochs': '_epochs'}[form]
-    for key, n in ((f'prologue{suffix}_partial', M),
-                   (f'delta_norm{suffix}', M), ('prologue_merge', 1),
-                   ('norm_merge', 1), (f'delta_sums{suffix}_given', M)):
+    counted = ((f'prologue{suffix}_partial', M), (f'delta_norm{suffix}', M),
+               ('prologue_merge', 1), (f'delta_sums{suffix}_given', M))
+    for key, n in counted:
         assert co.launches[key] == before[key] + 2 * n, key
+    assert 'norm_merge' not in co.launches
+    assert sum(co.launches.values()) == sum(before.values()) + 2 * sum(
+        n for _, n in counted)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
-    pm, pv, kl, sums, accs, parts, norm = got
+    pm, pv, kl, sums, accs, parts = got
     finish = co.prologue_merge_plain
     for j, ks in enumerate(kss):
         ops = _split_ops(args, form, ks)
@@ -758,17 +762,53 @@ def test_split_kernels_match_plain(cuda, form, K, M):
         assert _scaled_err(k_out[1], p_out[1]) <= 1e-5
         assert abs(float(k_out[2]) / float(p_out[2]) - 1) <= 1e-4
         assert _scaled_err(parts[j], plain[1](*ops, **kw)) <= 1e-5
-        assert _scaled_err(fns[2](*ops, norm, **kw),
-                           plain[2](*ops, norm, **kw)) <= 1e-5
+        assert _scaled_err(fns[2](*ops, parts, **kw),
+                           plain[2](*ops, parts, **kw)) <= 1e-5
     for a, b in zip(co.prologue_merge(accs, ann, num_annotations=A)[:2],
                     co.prologue_merge_plain(accs, ann,
                                             num_annotations=A)[:2]):
         assert _scaled_err(a, b) <= 1e-5
-    assert _scaled_err(norm, co.norm_merge_plain(parts)) <= 1e-5
     wpm, wpv, wkl = fns[3](*args, **kw)
     assert _scaled_err(pm, wpm) <= 1e-5 and _scaled_err(pv, wpv) <= 1e-5
     assert abs(float(kl) / float(wkl) - 1) <= 1e-4
     assert _scaled_err(sums, fns[4](*args, **kw)) <= 1e-5
+
+
+@pytest.mark.parametrize('P', [1, 2, 3])
+def test_prologue_merge_repeats_across_sizes_and_streams(cuda, P):
+    """The one-launch merge at I = 20,000 (four SNPs a thread) and
+    I = 4,097 (one at a time: I is no multiple of 4), with pad SNPs,
+    called back to back and on two streams in turn (each stream keeps
+    its own ticket, which each launch leaves at 0): the same bits every
+    time, one launch a call, pm and pv within the f32 band of the plain
+    version and the KL within 1e-4 of it."""
+    M, A = 3, 4
+    gen = torch.Generator(device=cuda).manual_seed(P)
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    for I in (20_000, 4_097):
+        rows = co.acc_rows(P)
+        parts = torch.rand(M, rows, I, generator=gen, device=cuda) + 0.5
+        parts[:, 0] = torch.randn(M, I, generator=gen, device=cuda) * 30
+        ann = torch.randint(0, A + 1, (I,), generator=gen, device=cuda,
+                            dtype=torch.int32)
+        before = co.launches['prologue_merge']
+        outs = [co.prologue_merge(parts, ann, num_annotations=A)
+                for _ in range(3)]
+        for st in streams + streams:
+            st.wait_stream(torch.cuda.current_stream(cuda))
+            with torch.cuda.stream(st):
+                outs.append(co.prologue_merge(parts, ann, num_annotations=A))
+            torch.cuda.current_stream(cuda).wait_stream(st)
+        torch.cuda.synchronize()
+        assert co.launches['prologue_merge'] == before + len(outs)
+        for out in outs[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(outs[0], out))
+        pm, pv, kl = outs[0]
+        want = co.prologue_merge_plain(parts, ann, num_annotations=A)
+        assert pm.shape == pv.shape == (P, I) and kl.dim() == 0
+        assert _scaled_err(pm, want[0]) <= 1e-5
+        assert _scaled_err(pv, want[1]) <= 1e-5
+        assert abs(float(kl) / float(want[2]) - 1) <= 1e-4
 
 
 @pytest.mark.parametrize('placement', ['one_card', 'two_cards'])

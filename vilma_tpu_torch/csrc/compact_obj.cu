@@ -30,12 +30,14 @@
 // partitioning its [K, ...] arrays, vilma_tpu/parallel/mesh.py:53-101,
 // with the algebra of its K-chunked route, vilma_tpu/inference/
 // engine.py:873-1004): the prologue partial and the sums' two passes over
-// a shard's slice of K, and the two merges (merge_kernel,
-// norm_merge_kernel in compact_obj.cuh) that join the M slices of one SNP
-// column. The partials are the whole-K kernels' own bodies, so they are
-// bound as those are, by the per-(SNP, component) derivation, over K / M
-// components; the merges read (3 + 2P) M or 2M floats per SNP and are
-// bound by bytes.
+// a shard's slice of K, and the prologue's merge (merge_kernel in
+// compact_obj.cuh) that joins the M slices of one SNP column. The partials
+// are the whole-K kernels' own bodies, so they are bound as those are, by
+// the per-(SNP, component) derivation, over K / M components. The merge
+// reads (3 + 2P) M floats per SNP and is bound by bytes: one launch, 16-byte
+// loads, the KL scalar added by its last CTA. The sums' normalizers are
+// merged inside pass 2 (merged_norm), from the 2M floats per SNP of the
+// M pass-1 partials.
 #include "compact_obj.cuh"
 
 namespace {
@@ -47,7 +49,7 @@ cudaError_t dispatch(int P, const void* coeffs, const void* scores_t,
                      const void* ann, const void* dterm, const void* nat,
                      void* pm, void* pv, void* part, void* norm, void* out,
                      int I, int K, int A, int kt, int kg, int nblocks,
-                     float eps, cudaStream_t stream) {
+                     float eps, cudaStream_t stream, int nparts = 0) {
   const Operands op{static_cast<const float*>(dterm),
                     static_cast<const float*>(nat), nullptr, nullptr, nullptr,
                     I, 0};
@@ -55,15 +57,18 @@ cudaError_t dispatch(int P, const void* coeffs, const void* scores_t,
     case 1:
       return launch<1, SUMS, FORM, -1, SPLIT>(op, coeffs, scores_t, ann, pm,
                                                pv, part, norm, out, I, K, A,
-                                               kt, kg, nblocks, eps, stream);
+                                               kt, kg, nblocks, eps, stream,
+                                               nparts);
     case 2:
       return launch<2, SUMS, FORM, -1, SPLIT>(op, coeffs, scores_t, ann, pm,
                                                pv, part, norm, out, I, K, A,
-                                               kt, kg, nblocks, eps, stream);
+                                               kt, kg, nblocks, eps, stream,
+                                               nparts);
     case 3:
       return launch<3, SUMS, FORM, -1, SPLIT>(op, coeffs, scores_t, ann, pm,
                                                pv, part, norm, out, I, K, A,
-                                               kt, kg, nblocks, eps, stream);
+                                               kt, kg, nblocks, eps, stream,
+                                               nparts);
     default:
       return cudaErrorInvalidValue;
   }
@@ -167,65 +172,76 @@ extern "C" int vilma_compact_delta_norm_kdim(
       static_cast<cudaStream_t>(stream));
 }
 
-// The sums' pass 2 over a slice of K with the global normalizer norm
-// [2, I] = (m, 1/S) given: out [K, A] as vilma_compact_delta_sums.
+// The sums' pass 2 over a slice of K given the M pass-1 partials parts
+// [M, 2, I] = (m_j, s_j) of the SNP column, in comp order (each thread
+// merges its SNP's normalizer): out [K, A] as vilma_compact_delta_sums.
 extern "C" int vilma_compact_delta_sums_given(
     const void* coeffs, const void* scores_t, const void* ann,
-    const void* dterm, const void* nat, void* part, void* norm, void* out,
-    int I, int K, int A, int P, int kt, int kg, int nblocks, float eps,
-    void* stream) {
+    const void* dterm, const void* nat, void* part, void* parts, void* out,
+    int I, int K, int A, int P, int kt, int kg, int nblocks, int M,
+    float eps, void* stream) {
   return (int)dispatch<kShared, true, kGiven>(
-      P, coeffs, scores_t, ann, dterm, nat, nullptr, nullptr, part, norm, out,
-      I, K, A, kt, kg, nblocks, eps, static_cast<cudaStream_t>(stream));
+      P, coeffs, scores_t, ann, dterm, nat, nullptr, nullptr, part, parts,
+      out, I, K, A, kt, kg, nblocks, eps, static_cast<cudaStream_t>(stream),
+      M);
 }
 
 extern "C" int vilma_compact_delta_sums_kdim_given(
     const void* coeffs, const void* scores_t, const void* ann,
-    const void* dterm, const void* nat, void* part, void* norm, void* out,
-    int I, int K, int A, int P, int kt, int kg, int nblocks, float eps,
-    void* stream) {
+    const void* dterm, const void* nat, void* part, void* parts, void* out,
+    int I, int K, int A, int P, int kt, int kg, int nblocks, int M,
+    float eps, void* stream) {
   return (int)dispatch<kKdim, true, kGiven>(
-      P, coeffs, scores_t, ann, dterm, nat, nullptr, nullptr, part, norm, out,
-      I, K, A, kt, kg, nblocks, eps, static_cast<cudaStream_t>(stream));
+      P, coeffs, scores_t, ann, dterm, nat, nullptr, nullptr, part, parts,
+      out, I, K, A, kt, kg, nblocks, eps, static_cast<cudaStream_t>(stream),
+      M);
 }
 
-// The merge of M prologue partials [M, 3 + 2P, I] of one SNP column:
-// pm, pv [P, I] and kl_out (a scalar); part holds nblocks floats.
+namespace {
+
+// merge_kernel at P cohorts: every row of a group in flight at once for
+// M = 2 (MT = 2), a partial at a time for other M (MT = 0)
+template <int P>
+cudaError_t launch_merge(const float* parts, const int* ann, float* out,
+                         unsigned* ticket, int I, int M, int A, int nvec,
+                         int nblocks, cudaStream_t st) {
+  float* pm = out;
+  float* pv = pm + (size_t)P * I;
+  float* kl = pv + (size_t)P * I;
+  if (M == 2)
+    merge_kernel<P, 2><<<nblocks, kThreads, 0, st>>>(
+        parts, ann, pm, pv, kl, kl + 1, ticket, I, M, A, nvec);
+  else
+    merge_kernel<P, 0><<<nblocks, kThreads, 0, st>>>(
+        parts, ann, pm, pv, kl, kl + 1, ticket, I, M, A, nvec);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The merge of M prologue partials [M, 3 + 2P, I] of one SNP column, in
+// one launch: out holds pm [P, I], pv [P, I], the KL scalar, then nblocks
+// floats of per-CTA partials; ticket is an unsigned count at 0, left at 0
+// (one per stream). The first 4 nvec SNPs go four at a time (16-byte
+// accesses: the wrapper passes nvec = I / 4 only where I is a multiple of
+// 4 and parts and ann are 16-byte aligned, else 0).
 extern "C" int vilma_compact_merge(const void* parts, const void* ann,
-                                   void* pm, void* pv, void* part,
-                                   void* kl_out, int I, int M, int A, int P,
-                                   int nblocks, void* stream) {
+                                   void* out, void* ticket, int I, int M,
+                                   int A, int P, int nvec, int nblocks,
+                                   void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* x = static_cast<const float*>(parts);
   const int* a = static_cast<const int*>(ann);
-  float* o1 = static_cast<float*>(pm);
-  float* o2 = static_cast<float*>(pv);
-  float* pt = static_cast<float*>(part);
+  float* o = static_cast<float*>(out);
+  unsigned* t = static_cast<unsigned*>(ticket);
   switch (P) {
     case 1:
-      merge_kernel<1><<<nblocks, kThreads, 0, st>>>(x, a, o1, o2, pt, I, M, A);
-      break;
+      return (int)launch_merge<1>(x, a, o, t, I, M, A, nvec, nblocks, st);
     case 2:
-      merge_kernel<2><<<nblocks, kThreads, 0, st>>>(x, a, o1, o2, pt, I, M, A);
-      break;
+      return (int)launch_merge<2>(x, a, o, t, I, M, A, nvec, nblocks, st);
     case 3:
-      merge_kernel<3><<<nblocks, kThreads, 0, st>>>(x, a, o1, o2, pt, I, M, A);
-      break;
+      return (int)launch_merge<3>(x, a, o, t, I, M, A, nvec, nblocks, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_scalar<<<1, kThreads, 0, st>>>(pt, nblocks,
-                                        static_cast<float*>(kl_out));
-  return (int)cudaGetLastError();
-}
-
-// The merge of M sums pass-1 partials [M, 2, I]: norm [2, I] = (m, 1/S).
-extern "C" int vilma_compact_norm_merge(const void* parts, void* norm, int I,
-                                        int M, int nblocks, void* stream) {
-  norm_merge_kernel<<<nblocks, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(parts), static_cast<float*>(norm), I, M);
-  return (int)cudaGetLastError();
 }

@@ -66,26 +66,31 @@
 //                     q = sz + sg, sy[P], ssec[P] (SPLIT = kPartial);
 //   merge             merge_kernel: the M partials of one SNP column, each
 //                     rescaled by exp(m_j - max_j m_j), finished as the
-//                     whole-K prologue finishes (pm, pv, the KL per CTA);
+//                     whole-K prologue finishes (pm, pv), and the KL
+//                     scalar, in one launch (see merge_kernel);
 //   sums pass 1       the online max and normalizer over the slice alone,
 //                     written as (m, s) into a [2, I] array (kPartial);
-//   norm merge        norm_merge_kernel: (max_j m_j, 1 / sum_j s_j e^(m_j -
-//                     max)), the global normalizer;
-//   sums pass 2       the whole-K sums body with the global normalizer read
-//                     from its [2, I] workspace for every group (kGiven).
+//   sums pass 2       the whole-K sums body over the slice (kGiven), given
+//                     the M pass-1 partials [M][2][I] of the SNP column:
+//                     each thread merges its SNP's global normalizer (max_j
+//                     m_j, 1 / sum_j s_j e^(m_j - max)) in registers before
+//                     its K loop (merged_norm), so no merged [2, I] array
+//                     is written or read.
 // The dropped clamp stays valid under the split: each slice accumulates
 // against its own reference and the merge only rescales, so every weight
 // is the unclamped one, and the KL subtracts log S once per SNP, in the
 // merge.
 //
 // The TPU accumulates the KL and the sums across its sequential grid; here
-// each CTA writes a partial in fixed order and a second kernel adds the
-// partials in fixed order. No float atomics touch device memory, so every
-// result repeats bit for bit.
+// each CTA writes a partial in fixed order and the partials are added in
+// fixed order (by a second kernel, or by the merge's last CTA). No float
+// atomics touch device memory, so every result repeats bit for bit.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace vilma {
 
@@ -547,6 +552,22 @@ struct Online {
   }
 };
 
+// The global normalizer of SNP i from the M sums pass-1 partials
+// parts[M][2][I] = (m_j, s_j) of its column, in comp order: m = max_j m_j,
+// inv_s = 1 / sum_j s_j exp(m_j - m), fixed order over j.
+__device__ __forceinline__ void merged_norm(const float* __restrict__ parts,
+                                            int M, int I, int i, float& m,
+                                            float& inv_s) {
+  float mx = -INFINITY;
+  for (int j = 0; j < M; ++j) mx = fmaxf(mx, parts[2 * (size_t)j * I + i]);
+  float s = 0.f;
+  for (int j = 0; j < M; ++j)
+    s += parts[(2 * (size_t)j + 1) * I + i] *
+         expf(parts[2 * (size_t)j * I + i] - mx);
+  m = mx;
+  inv_s = 1.0f / s;
+}
+
 // the sums stage the weights of kChunk components per SNP tile, one row of
 // kWStride floats each (the odd stride spreads a warp's rows over the banks)
 constexpr int kChunk = 16;
@@ -568,7 +589,8 @@ __host__ __device__ inline int extra_floats(bool sums, int kg, int A) {
 // one pass over K; SPLIT = kPartial: the accumulators of the slice into
 // pm_out as [acc_rows(P)][I], nothing else.
 // SUMS = true, SPLIT = kPartial: pass 1 alone, (m, s) into norm[2][I].
-// SUMS = true, SPLIT = kGiven: every group reads (m, 1/s) from norm.
+// SUMS = true, SPLIT = kGiven: norm holds the nparts pass-1 partials
+// [nparts][2][I]; every group merges its SNP's (m, 1/s) from them.
 // SUMS = true: per-CTA annotation sums in part[blockIdx][K][A], written
 // once, component group by component group (kg components, a multiple of
 // kt, or all K). The first group's pass 1 leaves each SNP's (m, 1/s) in
@@ -582,7 +604,7 @@ __global__ void __launch_bounds__(kThreads)
                    const int* __restrict__ ann, float* __restrict__ pm_out,
                    float* __restrict__ pv_out, float* __restrict__ part,
                    float* __restrict__ norm, int I, int K, int A, int kt,
-                   int kg, float eps) {
+                   int kg, float eps, int nparts) {
   constexpr int NCOL = ncol<P>();
   // the sorted per-CTA reduction (the sums' pass 2)
   constexpr bool kSorted = SUMS && SPLIT != kPartial;
@@ -734,6 +756,14 @@ __global__ void __launch_bounds__(kThreads)
            base += gridDim.x * kThreads) {
         const int i = base + tid;
         const bool live = i < I;
+        // kGiven: the SNP's global normalizer, merged from the comp
+        // partials where ptxas spills least (-Xptxas -v): the kKdim form
+        // first, before the SNP's other registers load; the others at
+        // its use below
+        constexpr bool kMergeFirst = FORM == kKdim;
+        float given_m = 0.f, given_inv = 0.f;
+        if (SPLIT == kGiven && kMergeFirst && live)
+          merged_norm(norm, nparts, I, i, given_m, given_inv);
         Snp<P> snp;
         load_snp<P, FORM>(op, snp, i, live);
         const int a = live ? ann[i] : A;
@@ -799,8 +829,11 @@ __global__ void __launch_bounds__(kThreads)
             norm[i] = m;
             norm[(size_t)I + i] = inv_s;
           }
-        } else {  // this thread's own writes of the first group, or
-                  // (kGiven) the global normalizer
+        } else if (SPLIT == kGiven) {
+          m = given_m;
+          inv_s = given_inv;
+          if (!kMergeFirst && live) merged_norm(norm, nparts, I, i, m, inv_s);
+        } else {  // this thread's own writes of the first group
           m = live ? norm[i] : 0.f;
           inv_s = live ? norm[(size_t)I + i] : 0.f;
         }
@@ -891,76 +924,189 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Merge of the K-split prologue: parts [M][acc_rows(P)][I] (the M comp
-// slices' partials of one SNP column, in comp order) -> pm, pv [P, I] and
-// the per-CTA KL partial in part[blockIdx]. Each partial j is rescaled by
-// a_j = exp(m_j - mx), mx = max_j m_j; its q_j, taken against m_j, also
-// takes the shift (m_j - mx) s0_j, so that q = sum_k w_k (z_k - mx + g_k)
-// and kl_i = q / S - log S with S = sum_j a_j s0_j: the log-normalizer is
-// subtracted once per SNP. Fixed order over j: bit-for-bit repeatable.
-template <int P>
-__global__ void __launch_bounds__(kThreads)
-    merge_kernel(const float* __restrict__ parts, const int* __restrict__ ann,
-                 float* __restrict__ pm_out, float* __restrict__ pv_out,
-                 float* __restrict__ part, int I, int M, int A) {
-  __shared__ float warp_kl[kWarps];
-  const size_t stride = (size_t)acc_rows(P) * I;
-  float kl = 0.f;
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < I;
-       i += gridDim.x * kThreads) {
-    float mx = -INFINITY;
-    for (int j = 0; j < M; ++j) mx = fmaxf(mx, parts[j * stride + i]);
-    float s0 = 0.f, q = 0.f, sy[P], ssec[P];
-#pragma unroll
-    for (int p = 0; p < P; ++p) sy[p] = ssec[p] = 0.f;
-    for (int j = 0; j < M; ++j) {
-      const float* pj = parts + j * stride;
-      const float mj = pj[i];
-      const float a = expf(mj - mx);
-      const float sj = pj[(size_t)I + i];
-      s0 += a * sj;
-      q += a * (pj[2 * (size_t)I + i] + (mj - mx) * sj);
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        sy[p] += a * pj[(size_t)(3 + p) * I + i];
-        ssec[p] += a * pj[(size_t)(3 + P + p) * I + i];
-      }
-    }
-    const float inv = 1.0f / s0;
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const float pm = sy[p] * inv;
-      pm_out[(size_t)p * I + i] = pm;
-      pv_out[(size_t)p * I + i] = ssec[p] * inv - pm * pm;
-    }
-    if (ann[i] < A) kl += q * inv - logf(s0);
-  }
-  const float v = warp_sum(kl);
-  if ((threadIdx.x & 31) == 0) warp_kl[threadIdx.x >> 5] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float tot = 0.f;
-    for (int w = 0; w < kWarps; ++w) tot += warp_kl[w];
-    part[blockIdx.x] = tot;
+// W consecutive floats or ints (W = 4: one 16-byte load or store, the
+// address 16-byte aligned), loads through the read-only path
+template <int W, typename T>
+__device__ __forceinline__ void load_w(const T* __restrict__ p, T* v) {
+  if constexpr (W == 4) {
+    using V = typename std::conditional<std::is_same<T, int>::value, int4,
+                                        float4>::type;
+    const V x = __ldg(reinterpret_cast<const V*>(p));
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  } else {
+    v[0] = __ldg(p);
   }
 }
 
-// Merge of the sums' pass-1 partials: parts [M][2][I] of (m_j, s_j) ->
-// norm [2][I] = (mx, 1 / sum_j s_j exp(m_j - mx)), the global normalizer
-// pass 2 reads (kGiven), in fixed order over j.
+template <int W>
+__device__ __forceinline__ void store_w(float* __restrict__ p,
+                                        const float* v) {
+  if constexpr (W == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    p[0] = v[0];
+}
+
+// The merge of SNPs i .. i + W - 1 (see merge_kernel); returns their KL
+// terms, added in SNP order. MT > 0: M == MT partials, all of their rows
+// loaded before any is used (one round trip to device memory); MT == 0:
+// any M, a partial at a time.
+template <int P, int W, int MT>
+__device__ __forceinline__ float merge_snps(const float* __restrict__ parts,
+                                            const int* __restrict__ ann,
+                                            float* __restrict__ pm_out,
+                                            float* __restrict__ pv_out,
+                                            int I, int M, int A, size_t i) {
+  constexpr int R = 3 + 2 * P;
+  constexpr int MR = MT > 0 ? MT : 1;
+  const size_t stride = (size_t)R * I;
+  const int nm = MT > 0 ? MT : M;
+  float held[MR][R][W];
+  if constexpr (MT > 0) {
+#pragma unroll
+    for (int j = 0; j < MT; ++j)
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        load_w<W>(parts + j * stride + (size_t)r * I + i, held[j][r]);
+  }
+  float mx[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) mx[w] = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < nm; ++j) {
+    float m[W];
+    if constexpr (MT > 0) {
+#pragma unroll
+      for (int w = 0; w < W; ++w) m[w] = held[j][0][w];
+    } else {
+      load_w<W>(parts + j * stride + i, m);
+    }
+#pragma unroll
+    for (int w = 0; w < W; ++w) mx[w] = fmaxf(mx[w], m[w]);
+  }
+  float s0[W], q[W], sy[P][W], ssec[P][W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    s0[w] = q[w] = 0.f;
+#pragma unroll
+    for (int p = 0; p < P; ++p) sy[p][w] = ssec[p][w] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < nm; ++j) {
+    float x[R][W];
+    if constexpr (MT > 0) {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int w = 0; w < W; ++w) x[r][w] = held[j][r][w];
+    } else {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        load_w<W>(parts + j * stride + (size_t)r * I + i, x[r]);
+    }
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const float a = expf(x[0][w] - mx[w]);
+      s0[w] += a * x[1][w];
+      q[w] += a * (x[2][w] + (x[0][w] - mx[w]) * x[1][w]);
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        sy[p][w] += a * x[3 + p][w];
+        ssec[p][w] += a * x[3 + P + p][w];
+      }
+    }
+  }
+  int an[W];
+  load_w<W>(ann + i, an);
+  float kl = 0.f;
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    const float inv = 1.0f / s0[w];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const float pm = sy[p][w] * inv;
+      sy[p][w] = pm;
+      ssec[p][w] = ssec[p][w] * inv - pm * pm;
+    }
+    if (an[w] < A) kl += q[w] * inv - logf(s0[w]);
+  }
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    store_w<W>(pm_out + (size_t)p * I + i, sy[p]);
+    store_w<W>(pv_out + (size_t)p * I + i, ssec[p]);
+  }
+  return kl;
+}
+
+// Merge of the K-split prologue, in one launch: parts [M][acc_rows(P)][I]
+// (the M comp slices' partials of one SNP column, in comp order) -> pm, pv
+// [P, I] and the KL scalar kl_out[0]. Each partial j is rescaled by a_j =
+// exp(m_j - mx), mx = max_j m_j; its q_j, taken against m_j, also takes
+// the shift (m_j - mx) s0_j, so that q = sum_k w_k (z_k - mx + g_k) and
+// kl_i = q / S - log S with S = sum_j a_j s0_j: the log-normalizer is
+// subtracted once per SNP. Fixed order over j.
+//
+// Bound by bytes: (3 + 2P) M + 1 floats in and 2P out per SNP (76 MB at
+// 1M SNPs, M = P = 2), a few flops and one exponential per partial. So
+// each thread takes 4 consecutive SNPs of the first 4 nvec (nvec = I / 4
+// where I is a multiple of 4 and the operands 16-byte aligned, else 0)
+// with 16-byte loads and stores, and the rest one by one, over a
+// grid-stride loop of a few waves; with MT = M (2, component sharding's
+// usual split) every row of a group is in flight at once. Each CTA writes
+// its KL partial to part[blockIdx] and takes a ticket (an atomic count in
+// ticket[0], after a fence); the CTA that draws the last ticket adds the
+// partials in a fixed order in f64 (each thread a strided run, then the
+// warps' butterflies, then the warps in order), writes kl_out and resets
+// the ticket to 0 for the next launch. Launches on one stream run in
+// order, so the wrapper keeps one ticket per (device, stream). The result
+// repeats bit for bit.
+template <int P, int MT>
 __global__ void __launch_bounds__(kThreads)
-    norm_merge_kernel(const float* __restrict__ parts,
-                      float* __restrict__ norm, int I, int M) {
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < I;
-       i += gridDim.x * kThreads) {
-    float mx = -INFINITY;
-    for (int j = 0; j < M; ++j) mx = fmaxf(mx, parts[2 * (size_t)j * I + i]);
-    float s = 0.f;
-    for (int j = 0; j < M; ++j)
-      s += parts[(2 * (size_t)j + 1) * I + i] *
-           expf(parts[2 * (size_t)j * I + i] - mx);
-    norm[i] = mx;
-    norm[(size_t)I + i] = 1.0f / s;
+    merge_kernel(const float* __restrict__ parts, const int* __restrict__ ann,
+                 float* __restrict__ pm_out, float* __restrict__ pv_out,
+                 float* __restrict__ kl_out, float* __restrict__ part,
+                 unsigned* __restrict__ ticket, int I, int M, int A,
+                 int nvec) {
+  __shared__ float warp_kl[kWarps];
+  __shared__ double warp_tot[kWarps];
+  __shared__ bool last;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int step = gridDim.x * kThreads;
+  float kl = 0.f;
+  for (int v = blockIdx.x * kThreads + tid; v < nvec; v += step)
+    kl += merge_snps<P, 4, MT>(parts, ann, pm_out, pv_out, I, M, A,
+                               4 * (size_t)v);
+  for (int i = 4 * nvec + blockIdx.x * kThreads + tid; i < I; i += step)
+    kl += merge_snps<P, 1, MT>(parts, ann, pm_out, pv_out, I, M, A, i);
+  const float v = warp_sum(kl);
+  if (lane == 0) warp_kl[warp] = v;
+  __syncthreads();
+  if (tid == 0) {
+    float tot = 0.f;
+    for (int w = 0; w < kWarps; ++w) tot += warp_kl[w];
+    part[blockIdx.x] = tot;
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // every other CTA fenced its partial before its ticket: read them past L1
+  double s = 0.0;
+  for (int j = tid; j < gridDim.x; j += kThreads) s += __ldcg(part + j);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
+  if (lane == 0) warp_tot[warp] = s;
+  __syncthreads();
+  if (tid == 0) {
+    double tot = warp_tot[0];
+    for (int w = 1; w < kWarps; ++w) tot += warp_tot[w];
+    kl_out[0] = (float)tot;
+    *ticket = 0u;
   }
 }
 
@@ -969,12 +1115,13 @@ __global__ void __launch_bounds__(kThreads)
 // norm: [2, I] floats of scratch for the sums when kg < K (else unused).
 // SPLIT = kPartial writes the partial alone (pm: the prologue's
 // accumulators; norm: the sums' (m, s)), with no reduction launched.
+// SPLIT = kGiven: norm holds the nparts sums pass-1 partials [nparts][2][I].
 template <int P, bool SUMS, int FORM, int NL = -1, int SPLIT = kWhole>
 cudaError_t launch(const Operands& op, const void* coeffs,
                    const void* scores_t, const void* ann, void* pm, void* pv,
                    void* part, void* norm, void* out, int I, int K, int A,
                    int kt, int kg, int nblocks, float eps,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, int nparts = 0) {
   const size_t smem =
       sizeof(float) *
       ((size_t)kt * (ncol<P>() + A) +
@@ -991,7 +1138,7 @@ cudaError_t launch(const Operands& op, const void* coeffs,
       static_cast<const float*>(scores_t), static_cast<const int*>(ann),
       static_cast<float*>(pm), static_cast<float*>(pv),
       static_cast<float*>(part), static_cast<float*>(norm), I, K, A, kt, kg,
-      eps);
+      eps, nparts);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || SPLIT == kPartial) return err;
   if (SUMS) {

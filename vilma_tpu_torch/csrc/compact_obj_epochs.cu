@@ -46,8 +46,9 @@ namespace {
 using namespace vilma;
 
 // K-split forms (fit --mesh comp=M): the prologue partial and the sums'
-// two passes over a shard's slice of K, as in compact_obj.cu; the merges
-// are compact_obj.cu's, whatever the form.
+// two passes over a shard's slice of K, as in compact_obj.cu (pass 2
+// merges the normalizers itself); the prologue's merge is compact_obj.cu's,
+// whatever the form.
 
 // live epochs the kernels hold in registers (more: read through L1);
 // 1 and 2 are the counts a fit runs at and the ones timed
@@ -60,11 +61,11 @@ cudaError_t launch_epochs(const Operands& op, const void* coeffs,
                           const void* scores_t, const void* ann, void* pm,
                           void* pv, void* part, void* norm, void* out, int I,
                           int K, int A, int kt, int kg, int nblocks,
-                          float eps, cudaStream_t stream) {
+                          float eps, cudaStream_t stream, int nparts) {
 #define VILMA_EPOCHS(NL)                                                    \
   launch<P, SUMS, kEpochs, NL, SPLIT>(op, coeffs, scores_t, ann, pm, pv,    \
                                       part, norm, out, I, K, A, kt, kg,     \
-                                      nblocks, eps, stream)
+                                      nblocks, eps, stream, nparts)
   static_assert(kMaxRegEpochs == 2, "one case per register epoch count");
   switch (op.nlive) {
     case 0:
@@ -86,7 +87,7 @@ cudaError_t dispatch(int P, const void* coeffs, const void* scores_t,
                      const void* hist_c, void* pm, void* pv, void* part,
                      void* norm, void* out, int I, int K, int A, int nlive,
                      int kt, int kg, int nblocks, float eps,
-                     cudaStream_t stream) {
+                     cudaStream_t stream, int nparts = 0) {
   const Operands op{static_cast<const float*>(sld),
                     static_cast<const float*>(u),
                     static_cast<const float*>(hist),
@@ -96,15 +97,15 @@ cudaError_t dispatch(int P, const void* coeffs, const void* scores_t,
     case 1:
       return launch_epochs<1, SUMS, SPLIT>(op, coeffs, scores_t, ann, pm,
                                             pv, part, norm, out, I, K, A, kt,
-                                            kg, nblocks, eps, stream);
+                                            kg, nblocks, eps, stream, nparts);
     case 2:
       return launch_epochs<2, SUMS, SPLIT>(op, coeffs, scores_t, ann, pm,
                                             pv, part, norm, out, I, K, A, kt,
-                                            kg, nblocks, eps, stream);
+                                            kg, nblocks, eps, stream, nparts);
     case 3:
       return launch_epochs<3, SUMS, SPLIT>(op, coeffs, scores_t, ann, pm,
                                             pv, part, norm, out, I, K, A, kt,
-                                            kg, nblocks, eps, stream);
+                                            kg, nblocks, eps, stream, nparts);
     default:
       return cudaErrorInvalidValue;
   }
@@ -168,15 +169,16 @@ extern "C" int vilma_compact_delta_norm_epochs(
       static_cast<cudaStream_t>(stream));
 }
 
-// The sums' pass 2 with the global normalizer norm [2, I] = (m, 1/S).
+// The sums' pass 2 given the M pass-1 partials parts [M, 2, I], as
+// vilma_compact_delta_sums_given.
 extern "C" int vilma_compact_delta_sums_epochs_given(
     const void* coeffs, const void* scores_t, const void* ann,
     const void* sld, const void* u, const void* hist, const void* inv_scales,
-    const void* hist_c, void* part, void* norm, void* out, int I, int K,
-    int A, int P, int nlive, int kt, int kg, int nblocks, float eps,
+    const void* hist_c, void* part, void* parts, void* out, int I, int K,
+    int A, int P, int nlive, int kt, int kg, int nblocks, int M, float eps,
     void* stream) {
   return (int)dispatch<true, kGiven>(
       P, coeffs, scores_t, ann, sld, u, hist, inv_scales, hist_c, nullptr,
-      nullptr, part, norm, out, I, K, A, nlive, kt, kg, nblocks, eps,
-      static_cast<cudaStream_t>(stream));
+      nullptr, part, parts, out, I, K, A, nlive, kt, kg, nblocks, eps,
+      static_cast<cudaStream_t>(stream), M);
 }

@@ -361,10 +361,11 @@ def _fused(data, st, params, hyper_delta, sums=False):
               num_annotations=A, num_live=st.nat_hist_n)
 
 
-def _fused_split(data, st, params, hyper_delta, norm=None, sums=False):
+def _fused_split(data, st, params, hyper_delta, parts=None, sums=False):
     """The K-split kernels of the state's form over the shard's slice of
     K: the prologue's [3 + 2P, I] partial; with sums=True the sums' pass
-    1 [2, I] partial, or, given the merged normalizer `norm`, pass 2's
+    1 [2, I] partial, or, given the column's M pass-1 partials `parts`
+    [M, 2, I] (whose normalizers pass 2 merges itself), pass 2's
     [A, K_slice] sums."""
     A = data.num_annotations
     if st.nat_hist is None:
@@ -381,9 +382,9 @@ def _fused_split(data, st, params, hyper_delta, norm=None, sums=False):
                compact_obj.delta_sums_epochs_given)
     if not sums:
         return fns[0](*ops, **kw)
-    if norm is None:
+    if parts is None:
         return fns[1](*ops, **kw)
-    return fns[2](*ops, norm, **kw)
+    return fns[2](*ops, parts, **kw)
 
 
 def _moments(data, st, params, hyper_delta):
@@ -737,13 +738,14 @@ def _update_hyper_delta(ds, ss, mesh, orig_obj):
                                         d.num_annotations)
                 for d, st in zip(ds, ss)]
     elif _comp(mesh):
-        # pass 1 over each slice, the merged normalizer, pass 2
-        norms = mesh.comp_gather([
+        # pass 1 over each slice, its partials gathered over comp, then
+        # pass 2, which merges each SNP's normalizer from them
+        parts = mesh.comp_gather([
             _fused_split(d, st, _params(st), st.hyper_delta, sums=True)
             for d, st in zip(ds, ss)])
-        sums = [_fused_split(d, st, _params(st), st.hyper_delta,
-                             compact_obj.norm_merge(n), sums=True)
-                for d, st, n in zip(ds, ss, norms)]
+        sums = [_fused_split(d, st, _params(st), st.hyper_delta, p,
+                             sums=True)
+                for d, st, p in zip(ds, ss, parts)]
     else:
         sums = [_fused(d, st, _params(st), st.hyper_delta, sums=True)
                 for d, st in zip(ds, ss)]

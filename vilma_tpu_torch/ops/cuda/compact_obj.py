@@ -34,11 +34,13 @@ JAX package's K-chunked route reduces it over chunks
   past the entropy), sy = sum w y, ssec = sum w (diag + y^2);
 * `prologue_merge`: the M partials of one SNP column [M, 3 + 2P, I] ->
   (post_means, post_vars, beta_kl), each partial rescaled by
-  exp(m_j - max m) and log S subtracted once per SNP;
+  exp(m_j - max m) and log S subtracted once per SNP, in one launch;
 * `delta_norm` / `delta_norm_epochs`: the sums' pass 1 over the slice,
-  [2, I] = (m, s); `norm_merge`: [M, 2, I] -> the global (m, 1/S);
+  [2, I] = (m, s);
 * `delta_sums_given` / `delta_sums_epochs_given`: the sums' pass 2 over
-  the slice with that normalizer: [A, K_slice].
+  the slice, given the M pass-1 partials [M, 2, I] of the column: the
+  kernel merges each SNP's global normalizer (m, 1/S) itself
+  (`norm_merge_plain` is that merge's plain version): [A, K_slice].
 
 An unsharded fit (M = 1) launches the whole-K kernels alone.
 
@@ -49,6 +51,7 @@ route (kernels.fast_vi_delta_grad); their moments are inert downstream.
 On a CUDA tensor the wrappers launch the kernels or raise; on a CPU
 tensor they run the plain versions. There is no fallback.
 """
+import functools
 import math
 
 import torch
@@ -64,8 +67,8 @@ launches = {'prologue': 0, 'delta_sums': 0, 'prologue_kdim': 0,
             'prologue_partial': 0, 'prologue_kdim_partial': 0,
             'prologue_epochs_partial': 0, 'prologue_merge': 0,
             'delta_norm': 0, 'delta_norm_kdim': 0, 'delta_norm_epochs': 0,
-            'norm_merge': 0, 'delta_sums_given': 0,
-            'delta_sums_kdim_given': 0, 'delta_sums_epochs_given': 0}
+            'delta_sums_given': 0, 'delta_sums_kdim_given': 0,
+            'delta_sums_epochs_given': 0}
 
 _THREADS = 256
 _WARPS = _THREADS // 32
@@ -328,12 +331,14 @@ def _norm_plain(derive, I, K, like):
     return out
 
 
-def _sums_given_plain(derive, I, K, annotations, num_annotations, norm,
+def _sums_given_plain(derive, I, K, annotations, num_annotations, parts,
                       like):
     """[A, K] sums of the weights clamp(exp(z - m) / S, eps) with the
-    global normalizer norm [2, I] = (m, 1/S)."""
+    global normalizer [2, I] = (m, 1/S) merged from the M pass-1 partials
+    parts [M, 2, I] (`norm_merge_plain`)."""
     A = num_annotations
     eps = epsilon(like.dtype)
+    norm = norm_merge_plain(parts)
     sums = like.new_zeros((K, A))
     ids = torch.arange(A, device=annotations.device)
     for i0, i1 in _plain_chunks(K, I):
@@ -365,8 +370,10 @@ def prologue_merge_plain(parts, annotations, *, num_annotations):
 
 
 def norm_merge_plain(parts):
-    """Plain PyTorch version of `norm_merge`: [M, 2, I] -> [2, I] =
-    (max m_j, 1 / sum_j s_j exp(m_j - max))."""
+    """The sums' global normalizer from the M pass-1 partials of a SNP
+    column: [M, 2, I] -> [2, I] = (max m_j, 1 / sum_j s_j exp(m_j - max));
+    the plain version of the merge inside the `_given` kernels
+    (csrc/compact_obj.cuh merged_norm)."""
     mx = torch.amax(parts[:, 0], dim=0)
     s = torch.sum(parts[:, 1] * torch.exp(parts[:, 0] - mx), dim=0)
     return torch.stack([mx, 1.0 / s])
@@ -429,12 +436,12 @@ def delta_norm_plain(coeffs, scores_t, annotations, dterm, nat_mu, *,
 
 
 def delta_sums_given_plain(coeffs, scores_t, annotations, dterm, nat_mu,
-                           norm, *, num_annotations):
+                           parts, *, num_annotations):
     """Plain PyTorch version of `delta_sums_given`: [A, K]."""
     return _sums_given_plain(
         _deriver(coeffs, scores_t, annotations, dterm, nat_mu),
         nat_mu.shape[-1], scores_t.shape[0], annotations, num_annotations,
-        norm, nat_mu)
+        parts, nat_mu)
 
 
 def _epoch_deriver(coeffs, scores_t, annotations, sld, nat_u, hist_v,
@@ -497,14 +504,14 @@ def delta_norm_epochs_plain(coeffs, scores_t, annotations, sld, nat_u,
 
 
 def delta_sums_epochs_given_plain(coeffs, scores_t, annotations, sld, nat_u,
-                                  hist_v, inv_scales, hist_c, norm, *,
+                                  hist_v, inv_scales, hist_c, parts, *,
                                   num_annotations, num_live=None):
     """Plain PyTorch version of `delta_sums_epochs_given`: [A, K]."""
     num_live = hist_v.shape[0] if num_live is None else num_live
     derive = _epoch_deriver(coeffs, scores_t, annotations, sld, nat_u,
                             hist_v, inv_scales, hist_c, num_live)
     return _sums_given_plain(derive, nat_u.shape[1], scores_t.shape[0],
-                             annotations, num_annotations, norm, nat_u)
+                             annotations, num_annotations, parts, nat_u)
 
 
 def _require(name, cond, msg):
@@ -514,9 +521,13 @@ def _require(name, cond, msg):
 
 def _check_f32(name, operands, device):
     """Every operand float32 (int32 for annotations), dense row-major,
-    on `device`, with the expected shape."""
+    on `device`, with the expected shape (the message is formatted only
+    for an operand that fails: this runs on every launch)."""
     for arg, t, shape in operands:
         want = torch.int32 if arg == 'annotations' else torch.float32
+        if (t.dtype == want and t.shape == shape and t.device == device
+                and t.is_contiguous()):
+            continue
         _require(name, t.dtype == want,
                  f'{arg} must be {want} on CUDA, got {t.dtype}')
         _require(name, tuple(t.shape) == shape,
@@ -814,10 +825,31 @@ def prologue_epochs_partial(coeffs, scores_t, annotations, sld, nat_u,
     return acc
 
 
+# (device, stream) -> the merge's ticket: an int32 count the kernel leaves
+# at 0; launches on one stream run in order, so they may share it, and no
+# two streams do
+_tickets = {}
+# the merge's grid holds at most this many waves of one CTA per SM
+_MERGE_WAVES = 4
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _ticket(device, stream):
+    key = (device, stream)
+    if key not in _tickets:
+        _tickets[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _tickets[key]
+
+
 @build.on_operands_device
 def prologue_merge(parts, annotations, *, num_annotations):
     """(post_means [P, I], post_vars [P, I], beta_kl) from the M prologue
-    partials [M, 3 + 2P, I] of one SNP column, in comp order."""
+    partials [M, 3 + 2P, I] of one SNP column, in comp order: one launch,
+    the three results views of one allocation."""
     if not parts.is_cuda:
         return prologue_merge_plain(parts, annotations,
                                     num_annotations=num_annotations)
@@ -830,19 +862,22 @@ def prologue_merge(parts, annotations, *, num_annotations):
     _check_f32('prologue_merge', (('parts', parts, (M, rows, I)),
                                   ('annotations', annotations, (I,))),
                parts.device)
-    nblocks = _nblocks(I)
+    # four SNPs a thread (16-byte accesses) where I and the operands allow
+    nvec = (I // 4 if I % 4 == 0 and parts.data_ptr() % 16 == 0
+            and annotations.data_ptr() % 16 == 0 else 0)
     dev = parts.device
-    pm = torch.empty((P, I), dtype=torch.float32, device=dev)
-    pv = torch.empty((P, I), dtype=torch.float32, device=dev)
-    part = torch.empty(nblocks, dtype=torch.float32, device=dev)
-    kl = torch.empty((), dtype=torch.float32, device=dev)
+    nblocks = min(_nblocks(nvec or I), _MERGE_WAVES * _sm_count(dev))
+    stream = build.stream_handle(dev)
+    out = torch.empty(2 * P * I + 1 + nblocks, dtype=torch.float32,
+                      device=dev)
     status = build.library().vilma_compact_merge(
-        parts.data_ptr(), annotations.data_ptr(), pm.data_ptr(),
-        pv.data_ptr(), part.data_ptr(), kl.data_ptr(), I, M,
-        num_annotations, P, nblocks, build.stream_handle(dev))
+        parts.data_ptr(), annotations.data_ptr(), out.data_ptr(),
+        _ticket(dev, stream).data_ptr(), I, M, num_annotations, P, nvec,
+        nblocks, stream)
     build.check(status, 'vilma_compact_merge')
     launches['prologue_merge'] += 1
-    return pm, pv, kl
+    return out[:P * I].view(P, I), out[P * I:2 * P * I].view(P, I), \
+        out[2 * P * I]
 
 
 @build.on_operands_device
@@ -898,43 +933,30 @@ def delta_norm_epochs(coeffs, scores_t, annotations, sld, nat_u, hist_v,
     return norm
 
 
-@build.on_operands_device
-def norm_merge(parts):
-    """The global normalizer [2, I] = (m, 1/S) from the M pass-1 partials
-    [M, 2, I] of one SNP column, in comp order."""
-    if not parts.is_cuda:
-        return norm_merge_plain(parts)
-    _require('norm_merge', parts.dim() == 3 and parts.shape[1] == 2,
-             'parts must be [M, 2, I]')
-    M, _, I = parts.shape
-    _check_f32('norm_merge', (('parts', parts, (M, 2, I)),), parts.device)
-    dev = parts.device
-    norm = torch.empty((2, I), dtype=torch.float32, device=dev)
-    status = build.library().vilma_compact_norm_merge(
-        parts.data_ptr(), norm.data_ptr(), I, M, _nblocks(I),
-        build.stream_handle(dev))
-    build.check(status, 'vilma_compact_norm_merge')
-    launches['norm_merge'] += 1
-    return norm
-
-
-def _check_norm(name, norm, I, device):
-    _check_f32(name, (('norm', norm, (2, I)),), device)
+def _check_parts(name, parts, I, device):
+    """The M sums pass-1 partials [M, 2, I] of a SNP column; returns M."""
+    _require(name, parts.dim() == 3 and parts.shape[1] == 2
+             and parts.shape[0] >= 1, 'parts must be [M, 2, I]')
+    M = parts.shape[0]
+    _check_f32(name, (('parts', parts, (M, 2, I)),), device)
+    return M
 
 
 @build.on_operands_device
-def delta_sums_given(coeffs, scores_t, annotations, dterm, nat_mu, norm, *,
-                     num_annotations):
-    """The sums' pass 2 over a slice of K with the global normalizer norm
-    [2, I] = (m, 1/S) (`norm_merge`): [A, K_slice]."""
+def delta_sums_given(coeffs, scores_t, annotations, dterm, nat_mu, parts,
+                     *, num_annotations):
+    """The sums' pass 2 over a slice of K, given the M pass-1 partials
+    parts [M, 2, I] (`delta_norm` of each comp slice of the SNP column, in
+    comp order), from which the kernel merges each SNP's global
+    normalizer: [A, K_slice]."""
     if not nat_mu.is_cuda:
         return delta_sums_given_plain(coeffs, scores_t, annotations, dterm,
-                                      nat_mu, norm,
+                                      nat_mu, parts,
                                       num_annotations=num_annotations)
     P, I, K, A, ncol = _check_operands('delta_sums_given', coeffs, scores_t,
                                        annotations, dterm, nat_mu,
                                        num_annotations)
-    _check_norm('delta_sums_given', norm, I, nat_mu.device)
+    M = _check_parts('delta_sums_given', parts, I, nat_mu.device)
     kdim = nat_mu.dim() == 3
     kt, kg, nblocks = _launch_shape(I, K, A, ncol, sums=True)
     dev = nat_mu.device
@@ -945,7 +967,7 @@ def delta_sums_given(coeffs, scores_t, annotations, dterm, nat_mu, norm, *,
     status = getattr(build.library(), entry)(
         coeffs.data_ptr(), scores_t.data_ptr(), annotations.data_ptr(),
         dterm.data_ptr(), nat_mu.data_ptr(), part.data_ptr(),
-        norm.data_ptr(), out.data_ptr(), I, K, A, P, kt, kg, nblocks,
+        parts.data_ptr(), out.data_ptr(), I, K, A, P, kt, kg, nblocks, M,
         epsilon(torch.float32), build.stream_handle(dev))
     build.check(status, entry)
     launches['delta_sums_kdim_given' if kdim else 'delta_sums_given'] += 1
@@ -954,18 +976,19 @@ def delta_sums_given(coeffs, scores_t, annotations, dterm, nat_mu, norm, *,
 
 @build.on_operands_device
 def delta_sums_epochs_given(coeffs, scores_t, annotations, sld, nat_u,
-                            hist_v, inv_scales, hist_c, norm, *,
+                            hist_v, inv_scales, hist_c, parts, *,
                             num_annotations, num_live=None):
     """`delta_sums_given` on the epoch state: [A, K_slice]."""
     num_live = hist_v.shape[0] if num_live is None else int(num_live)
     if not nat_u.is_cuda:
         return delta_sums_epochs_given_plain(
             coeffs, scores_t, annotations, sld, nat_u, hist_v, inv_scales,
-            hist_c, norm, num_annotations=num_annotations, num_live=num_live)
+            hist_c, parts, num_annotations=num_annotations,
+            num_live=num_live)
     P, I, K, A, ncol, _ = _check_epoch_operands(
         'delta_sums_epochs_given', coeffs, scores_t, annotations, sld, nat_u,
         hist_v, inv_scales, hist_c, num_annotations, num_live)
-    _check_norm('delta_sums_epochs_given', norm, I, nat_u.device)
+    M = _check_parts('delta_sums_epochs_given', parts, I, nat_u.device)
     kt, kg, nblocks = _launch_shape(
         I, K, A, ncol, sums=True, table_floats=(num_live + 1) * P + num_live)
     dev = nat_u.device
@@ -975,8 +998,8 @@ def delta_sums_epochs_given(coeffs, scores_t, annotations, sld, nat_u,
         coeffs.data_ptr(), scores_t.data_ptr(), annotations.data_ptr(),
         sld.data_ptr(), nat_u.data_ptr(), hist_v.data_ptr(),
         inv_scales.data_ptr(), hist_c.data_ptr(), part.data_ptr(),
-        norm.data_ptr(), out.data_ptr(), I, K, A, P, num_live, kt, kg,
-        nblocks, epsilon(torch.float32), build.stream_handle(dev))
+        parts.data_ptr(), out.data_ptr(), I, K, A, P, num_live, kt, kg,
+        nblocks, M, epsilon(torch.float32), build.stream_handle(dev))
     build.check(status, 'vilma_compact_delta_sums_epochs_given')
     launches['delta_sums_epochs_given'] += 1
     return out.T
