@@ -3,6 +3,10 @@
     python3 chip_smoke.py     # every phase, one CUDA device
     python3 chip_smoke.py --split-only   # phases 1-2, then phase 3's
                                          # K-split kernels alone; no JSON
+    python3 chip_smoke.py --matvec-only  # phases 1-2, then phase 3's
+                                         # matvec cases (bars printed, not
+                                         # required), the group route's
+                                         # B-sweep and stamps; no JSON
 
 Phases:
   1. device: the card's name and power limit; refuses without CUDA.
@@ -13,16 +17,24 @@ Phases:
      repeatable, with CUDA-event times of both (the matvec also beside
      its cuBLAS route) and the least time the card could take (bound);
      each kernel's cluster size and what ptxas reported for it. The
-     matvec in bf16 and f32 U (the cluster route) and at four oversize
+     matvec in bf16 and f32 U (the cluster route) and at five oversize
      buckets (the group route: 128 and 4 blocks of [2048, 1024] f32, 128
-     of [2048, 512] f32, 64 of [2048, 1024] bf16), and at the widths of
-     phase 13 (beside cuBLAS in turns, no bar): 4 and 8 cohorts a launch
-     (the traits of a --trait fit: 977 and 88 bf16 blocks, 4 f32
-     blocks at 4) and one (977 bf16 blocks); the epoch prologue at
+     of [2048, 512] f32, 64 of [2048, 1024] bf16, 8 of [4096, 4096]
+     bf16), and at the widths of phase 13 (beside cuBLAS in turns, no
+     bar): 4 and 8 cohorts a launch (the traits of a --trait fit: 977 and
+     88 bf16 blocks, 4 f32 blocks at 4) and one (977 bf16 blocks). The
+     group route's B-sweep (ms a call at B = 1-128 blocks of [2048, 1024]
+     f32 and bf16 and 1-8 of [4096, 4096] bf16, CUDA events, the L2
+     flushed, the card kept busy past the enqueue; the least-squares us a
+     block and a launch) and its stamps (the measurement build,
+     build.library('stamps'): CTA 0's clock64 at each phase of each panel,
+     the mean offsets and period; its output equal to the main library's
+     bit for bit). The epoch prologue at
      2 and 1 live epochs and on a clamp-heavy input; the [P, I] sums at a
      K·A past one shared-memory group. Bars required, each side measured
      in this run: the bf16 matvec and the group route at the two 128-block
-     f32 buckets no slower than cuBLAS in turns; at 1M SNPs, P = 2,
+     f32 buckets and at 64 [2048, 1024] bf16 blocks no slower than cuBLAS
+     in turns; at 1M SNPs, P = 2,
      K = 582, the epoch sums (1 live epoch) at most 2.0x the epoch
      prologue, the [P, I] prologue no slower than the epoch prologue, and
      the [P, I] sums at most 2.0x the [P, I] prologue; at 90,112 SNPs the
@@ -53,7 +65,8 @@ Phases:
      and with --learn-scaling (kdim and epoch-history routes).
   4b. fit at the default precision (f32 U) on a schema of a 1024-SNP and
      a 2048-SNP block: the f32 cluster route and the group route of the
-     matvec must launch.
+     matvec must launch; then the same fit with bf16 U: the group route
+     must launch with bf16 U (the kernels line's _group_bf16 entry).
   5. engine: 1M SNPs (977 blocks of 1024), 2 cohorts, K = 18, bf16 U;
      3 timed outer steps after one warm-up step.
   6. fit --learn-scaling: phase 4's schema and flags; the kdim
@@ -326,7 +339,11 @@ KERNELS = {
     'bucket_matvec_multi_group': dict(
         source='vilma_tpu_torch/csrc/block_matvec.cu',
         replaces='vilma_tpu/ops/pallas/block_matvec.py:88',
-        ptxas=r'group_matvec_kernel<float, \(int\)2, \(bool\)1>'),
+        ptxas=r'group_matvec_kernel<float, \(int\)2>'),
+    'bucket_matvec_multi_group_bf16': dict(
+        source='vilma_tpu_torch/csrc/block_matvec.cu',
+        replaces='vilma_tpu/ops/pallas/block_matvec.py:88',
+        ptxas=r'group_matvec_kernel<__nv_bfloat16, \(int\)2>'),
     'bucket_matvec_multi_c4': dict(
         source='vilma_tpu_torch/csrc/block_matvec.cu',
         replaces='vilma_tpu/ops/pallas/block_matvec.py:88',
@@ -712,7 +729,8 @@ MATVEC_CASES = (
     ('bucket_matvec_multi_group', 'float32', GROUP_SHAPE, 'group', True),
     (None, 'float32', (128, 2048, 512, 2), 'group', True),
     (None, 'float32', (4, 2048, 1024, 2), 'group', False),
-    (None, 'bfloat16', (64, 2048, 1024, 2), 'group', False),
+    ('bucket_matvec_multi_group_bf16', 'bfloat16', (64, 2048, 1024, 2),
+     'group', True),
     (None, 'bfloat16', (8, 4096, 4096, 2), 'group', False),
     ('bucket_matvec_multi_c4', 'bfloat16', (977, 1024, 512, 4), 'cluster',
      False),
@@ -737,23 +755,19 @@ def matvec_plan(name):
     return bm.plan(P, R, 2 if dtype == 'bfloat16' else 4, C)
 
 
-def check_matvec(device, results):
+def check_matvec(device, results, bars=True):
     """The matvec's routes at their shapes (MATVEC_CASES): bf16 and f32 U
     at the main path's bucket (the cluster route), oversize buckets (the
     group route). Each against its plain version and its cuBLAS route
-    (timed in turns with the kernel), with its bound."""
+    (timed in turns with the kernel), with its bound. bars: require the
+    cases' cuBLAS bars (--matvec-only prints them and goes on, so that a
+    checkout whose kernel misses one is measured all the same)."""
     import torch
     from vilma_tpu_torch.ops.cuda import block_matvec as bm
     for key, dtype, (B, P, R, C), route, vs_cublas in MATVEC_CASES:
-        u_dtype = getattr(torch, dtype)
-        bf16 = u_dtype == torch.bfloat16
+        bf16 = dtype == 'bfloat16'
         band = BAND_BF16 if bf16 else BAND_F32
-        gen = torch.Generator(device=device).manual_seed(3)
-        x = torch.randn(B, C, P, generator=gen, device=device)
-        s = torch.rand(B, R, generator=gen, device=device) * 1.9 + 0.1
-        d = torch.rand(B, P, generator=gen, device=device)
-        u = (torch.randn(B, P, R, generator=gen, device=device)
-             / math.sqrt(P)).to(u_dtype)
+        u, s, d, x = matvec_operands(device, dtype, B, P, R, C)
         pl = bm.plan(P, R, u.element_size(), C)
         require(pl.route == route,
                 f'{key}: the planner chose the {pl.route} route')
@@ -774,9 +788,13 @@ def check_matvec(device, results):
         nbytes = ubytes + 4 * B * R + 4 * B * P + 2 * 4 * B * C * P
         b = bound(nbytes, 4 * B * P * R * C, BF16_OPS_S if bf16 else FP32_OPS_S)
         name = f'{key or "matvec"} u={dtype} B={B} P={P} R={R} C={C}'
-        log(f'  {name}: {pl.route} route, {pl.cluster} CTAs per block, '
-            f'{pl.slots} slot(s)/buffer(s), {pl.smem} B of shared memory '
-            f'each; max_abs_err {err:.3e} '
+        shape = (f'{pl.cluster} CTAs per cluster on {pl.panels(R)} '
+                 f'panels of {pl.panel} columns'
+                 if getattr(pl, 'panel', 0) else
+                 f'{pl.cluster} CTAs per block')
+        log(f'  {name}: {pl.route} route, {shape}, {pl.slots} ring '
+            f'slot(s), {pl.smem} B of shared memory each; max_abs_err '
+            f'{err:.3e} '
             f'scaled {rel:.3e} (band {band:.1e}) repeatable {repeat}; kernel '
             f'{ms:.4f} ms ({ubytes / ms / 1e6:.1f} GB/s of U), plain '
             f'{plain_ms:.4f} ms')
@@ -795,7 +813,7 @@ def check_matvec(device, results):
                 f'{half[0]:.3e}, only t {half[1]:.3e}')
             require(rel < min(half), f'{name} is no closer to the plain '
                     'version than a product that skips a bf16 rounding')
-        if vs_cublas:
+        if vs_cublas and bars:
             # these routes read U once: they must not lose to the library,
             # which reads it twice
             require(k_ms <= lib_ms, f'{name}: {k_ms:.4f} ms, slower than '
@@ -804,6 +822,157 @@ def check_matvec(device, results):
             results[key] = entry(err, ms, plain_ms, b, lib_ms)
         del u, x, s, d, y, y2, ref
         torch.cuda.empty_cache()
+
+
+def matvec_operands(device, dtype, B, P, R, C, seed=3):
+    """u [B, P, R] of U's type, s, d, x f32, from a seeded generator on the
+    card."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(B, C, P, generator=gen, device=device)
+    s = torch.rand(B, R, generator=gen, device=device) * 1.9 + 0.1
+    d = torch.rand(B, P, generator=gen, device=device)
+    u = (torch.randn(B, P, R, generator=gen, device=device)
+         / math.sqrt(P)).to(getattr(torch, dtype))
+    return u, s, d, x
+
+
+# cycles of torch.cuda._sleep before each call flushed_ms times (~0.1 ms
+# at the H100's ~2 GHz): the card stays busy while the host enqueues the
+# call, so that the events time the device alone
+SLEEP_CYCLES = 200_000
+
+
+def flushed_ms(fn, reps=5, warmup=2):
+    """Mean ms a call of `fn` from CUDA events around each call, the L2
+    cache flushed before each (a bucket's U arrives cold, as in a step)
+    and the card kept busy past the host's enqueue (SLEEP_CYCLES)."""
+    import torch
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device='cuda')
+    for _ in range(warmup):
+        fn()
+    pairs = []
+    for _ in range(reps):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        flush.fill_(0.0)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return float(np.mean([a.elapsed_time(b) for a, b in pairs]))
+
+
+# the group route's B-sweep: (U's type, P, R, bucket sizes B), 2 cohorts
+SWEEP_CASES = (
+    ('float32', 2048, 1024, (1, 2, 4, 8, 16, 32, 64, 128)),
+    ('bfloat16', 2048, 1024, (1, 2, 4, 8, 16, 32, 64, 128)),
+    ('bfloat16', 4096, 4096, (1, 2, 4, 8)),
+)
+
+
+def group_sweep(device, cases=SWEEP_CASES):
+    """The group route's time against the bucket size B: ms a call at each
+    B (flushed_ms), and the least-squares line over B, whose slope is the
+    us a block and whose intercept the us a launch. Returns {(dtype, P,
+    R): (slope us, intercept us, {B: ms})}."""
+    import torch
+    from vilma_tpu_torch.ops.cuda import block_matvec as bm
+    out = {}
+    for dtype, P, R, sizes in cases:
+        u, s, d, x = matvec_operands(device, dtype, max(sizes), P, R, 2)
+        ms = {B: flushed_ms(lambda B=B: bm.bucket_matvec_multi(
+            u[:B], s[:B], d[:B], x[:B])) for B in sizes}
+        slope, icpt = np.polyfit(list(ms), [1e3 * v for v in ms.values()], 1)
+        out[(dtype, P, R)] = (float(slope), float(icpt), ms)
+        log(f'  group-route B-sweep u={dtype} P={P} R={R} C=2 (L2 flushed): '
+            + ', '.join(f'B={B} {v:.4f} ms ({1e3 * v / B:.2f} us/block)'
+                        for B, v in ms.items())
+            + f'; fit {slope:.3f} us a block + {icpt:.2f} us a launch')
+        del u, s, d, x
+        torch.cuda.empty_cache()
+    return out
+
+
+# buckets whose group-route launch is split into phases by the stamps
+STAMP_CASES = (
+    ('float32', (128, 2048, 1024, 2)),
+    ('bfloat16', (64, 2048, 1024, 2)),
+    ('bfloat16', (8, 4096, 4096, 2)),
+)
+STAMP_CAP = 4096
+# phase 2 starts the measurement build beside the main one (a thread
+# running its nvcc); group_stamps waits for it
+STAMPS_BUILD = []
+
+
+def group_stamps(device, cases=STAMP_CASES):
+    """Where one work item's time goes on the group route: the
+    measurement build (build.library('stamps'), the same source with
+    -DVILMA_MATVEC_STAMPS) records, in CTA 0, clock64 at the kernel's
+    stamp points of each item (an LD block's panel) it works on, and
+    %globaltimer at the first. Prints each point's mean offset from the
+    item's first stamp (us, clock64 over the SM clock the two timers give)
+    over the items but the first and last, and the mean period between
+    items; the stamped launch's output must equal the main library's bit
+    for bit. Returns {(dtype, B, P, R): (period us, {point: us})}."""
+    import torch
+    from vilma_tpu_torch.ops.cuda import block_matvec as bm
+    from vilma_tpu_torch.ops.cuda import build
+    if 'stamps' not in getattr(build, 'VARIANTS', {}):
+        log('  group-route phase stamps: no measurement build here')
+        return {}
+    for thread in STAMPS_BUILD:
+        thread.join()
+    lib = build.library('stamps')
+    names = lib.vilma_block_matvec_stamp_points().decode().split(',')
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device='cuda')
+    buf = torch.zeros(STAMP_CAP * len(names) * 2, dtype=torch.int64,
+                      device=device)
+    build.check(lib.vilma_block_matvec_stamps(buf.data_ptr(), STAMP_CAP),
+                'vilma_block_matvec_stamps')
+    out = {}
+    try:
+        for dtype, (B, P, R, C) in cases:
+            u, s, d, x = matvec_operands(device, dtype, B, P, R, C)
+            want = bm._launch(u, s, d, x)
+            bm._launch(u, s, d, x, lib=lib)
+            torch.cuda.synchronize()
+            buf.zero_()
+            flush.fill_(0.0)
+            got = bm._launch(u, s, d, x, lib=lib)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want), f'the stamped group route at '
+                    f'u={dtype} B={B} P={P} R={R} differs from the main one')
+            st = buf.view(STAMP_CAP, len(names), 2).cpu().numpy()
+            n = int(np.count_nonzero(st[:, 0, 1]))
+            require(n > 0, 'the stamped group route recorded no stamp')
+            st = st[:n].astype(np.float64)
+            mid = slice(1, n - 1) if n > 3 else slice(0, n)
+            # clock64 at every point, %globaltimer at the first: the SM
+            # clock is their ratio over CTA 0's blocks
+            clk = st[:, :, 1] - st[:, :1, 1]
+            span = st[-1, 0, 1] - st[0, 0, 1]
+            ghz = span / (st[-1, 0, 0] - st[0, 0, 0]) if span else 0.0
+            period = float(np.mean(np.diff(st[:, 0, 0]))) / 1e3 if n > 1 \
+                else 0.0
+            points = {}
+            for k, name in enumerate(names):
+                hit = st[mid, k, 1] > 0
+                if hit.any() and ghz:
+                    points[name] = float(np.mean(clk[mid, k][hit])) / ghz / 1e3
+            out[(dtype, B, P, R)] = (period, points)
+            log(f'  group-route stamps u={dtype} B={B} P={P} R={R} C={C}: '
+                f'CTA 0 took {n} panels, one every {period:.3f} us (SM '
+                f'clock {ghz:.3f} GHz); offsets from the panel\'s start, us: '
+                + ', '.join(f'{k} {a:.3f}' for k, a in points.items()))
+            del u, s, d, x, want, got
+            torch.cuda.empty_cache()
+    finally:
+        lib.vilma_block_matvec_stamps(None, 0)
+    return out
 
 
 # the matvec's backward (phase 14d): the forward's kernel on the
@@ -1567,6 +1736,7 @@ def run_argv(argv, device, devices=None):
 def zero_counts():
     from vilma_tpu_torch.ops.cuda import block_matvec, compact_obj
     block_matvec.launches = block_matvec.launches_group = 0
+    block_matvec.launches_group_bf16 = 0
     block_matvec.launches_by_cohorts.clear()
     for key in compact_obj.launches:
         compact_obj.launches[key] = 0
@@ -1574,12 +1744,16 @@ def zero_counts():
 
 def read_counts():
     """Launches by kernel; the matvec's cluster route counts under
-    bucket_matvec_multi whatever U's type, and its launches of 4 and 8
-    cohorts (either route) also under the _c4 and _c8 keys."""
+    bucket_matvec_multi whatever U's type, its group route under
+    bucket_matvec_multi_group (with bf16 U also under _group_bf16), and
+    its launches of 4 and 8 cohorts (either route) also under the _c4 and
+    _c8 keys."""
     from vilma_tpu_torch.ops.cuda import block_matvec, compact_obj
     by_c = block_matvec.launches_by_cohorts
     return dict(bucket_matvec_multi=block_matvec.launches,
                 bucket_matvec_multi_group=block_matvec.launches_group,
+                bucket_matvec_multi_group_bf16=(
+                    block_matvec.launches_group_bf16),
                 bucket_matvec_multi_c4=by_c.get(4, 0),
                 bucket_matvec_multi_c8=by_c.get(8, 0),
                 **compact_obj.launches)
@@ -4101,6 +4275,12 @@ def main():
     phase('phase 2: build')
     from vilma_tpu_torch.ops.cuda import build
     t0 = time.perf_counter()
+    if ('stamps' in getattr(build, 'VARIANTS', {})
+            and '--split-only' not in sys.argv[1:]):
+        import threading
+        STAMPS_BUILD.append(threading.Thread(
+            target=build.build, kwargs=dict(variant='stamps'), daemon=True))
+        STAMPS_BUILD[0].start()
     build.library()
     log(f'  built {build.library_path().name} in '
         f'{time.perf_counter() - t0:.1f} s (nvcc '
@@ -4108,6 +4288,13 @@ def main():
     print_kernel_resources()
 
     results = {}
+    if '--matvec-only' in sys.argv[1:]:
+        phase('phase 3, the matvec alone (--matvec-only)')
+        group_sweep(device)
+        group_stamps(device)
+        check_matvec(device, results, bars=False)
+        log(f'  {smi}; no JSON line: --matvec-only')
+        return
     if '--split-only' in sys.argv[1:]:
         phase('phase 3, the K-split kernels alone (--split-only)')
         check_split(device, results)
@@ -4116,6 +4303,8 @@ def main():
     phase('phase 3: kernels against their plain versions')
     t0 = time.perf_counter()
     check_matvec(device, results)
+    group_sweep(device)
+    group_stamps(device)
     check_matvec_backward(device, results)
     shared_ms = check_compact(device, results)
     kdim_ms = check_kdim(device, results)
@@ -4156,19 +4345,29 @@ def main():
                 f'within {s_err:.2e} of the host')
 
         phase('phase 4b: CLI fit at the default precision (f32 U), a 1024-SNP '
-            'and a 2048-SNP block')
+            'and a 2048-SNP block; then the same with bf16 U')
         with tempfile.TemporaryDirectory() as mixed:
             paths4b = write_schema(mixed, 2, block_sizes=[1024, 2048])
             prefix = os.path.join(mixed, 'fit')
             counts, step_s, _, _ = run_fit(paths4b, prefix, device)
             check_fit_outputs(prefix, paths4b[3], K=582)
-        log(f'  launches {counts}; {len(step_s)} outer steps')
-        require_launched(counts, ('bucket_matvec_multi',
-                                  'bucket_matvec_multi_group', 'prologue',
-                                  'delta_sums'), 'phase 4b')
-        launches['bucket_matvec_multi_f32'] = counts['bucket_matvec_multi']
-        launches['bucket_matvec_multi_group'] = counts[
-            'bucket_matvec_multi_group']
+            log(f'  f32 U: launches {counts}; {len(step_s)} outer steps')
+            require_launched(counts, ('bucket_matvec_multi',
+                                      'bucket_matvec_multi_group', 'prologue',
+                                      'delta_sums'), 'phase 4b')
+            require(counts['bucket_matvec_multi_group_bf16'] == 0,
+                    'phase 4b (f32 U) launched the bf16 group route')
+            launches['bucket_matvec_multi_f32'] = counts['bucket_matvec_multi']
+            launches['bucket_matvec_multi_group'] = counts[
+                'bucket_matvec_multi_group']
+            prefix = os.path.join(mixed, 'fit_bf16')
+            counts, step_s, _, _ = run_fit(paths4b, prefix, device, F32_BF16)
+            check_fit_outputs(prefix, paths4b[3], K=582)
+            log(f'  bf16 U: launches {counts}; {len(step_s)} outer steps')
+            require_launched(counts, ('bucket_matvec_multi_group_bf16',),
+                             'phase 4b (bf16 U)')
+            launches['bucket_matvec_multi_group_bf16'] = counts[
+                'bucket_matvec_multi_group_bf16']
 
         phase('phase 5: engine, 1M SNPs, 2 cohorts, K=18, bf16 U')
         ips, syncs, elbo, ld = run_engine(device)

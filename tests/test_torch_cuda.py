@@ -104,7 +104,7 @@ def _check_route(u, s, d, x, route):
     (1024, 512, torch.bfloat16, ('cluster', 8)),
     (2048, 512, torch.bfloat16, ('cluster', 16)),
     (1024, 512, torch.float32, ('cluster', 16)),
-    (2048, 1024, torch.float32, ('group', 128)),
+    (2048, 1024, torch.float32, ('group', 8)),
 ])
 @pytest.mark.parametrize('C', [1, 2, 3])
 def test_matvec_routes_match_plain(cuda, P, R, u_dtype, route, C):
@@ -126,14 +126,14 @@ def test_matvec_routes_match_plain(cuda, P, R, u_dtype, route, C):
     (1024, 512, torch.float32, 4, ('cluster', 16)),
     # 8 cohorts: f32 [1024, 512] no longer fits 16 CTAs (group route);
     # [1024, 288] takes a larger cluster
-    (1024, 512, torch.float32, 8, ('group', 128)),
+    (1024, 512, torch.float32, 8, ('group', 4)),
     (1024, 288, torch.float32, 8, ('cluster', 16)),
     (256, 136, torch.bfloat16, 8, ('cluster', 1)),
     (256, 128, torch.float32, 8, ('cluster', 1)),
-    # two slice buffers at 4 cohorts, none at 8 (U read twice)
-    (2048, 1024, torch.float32, 4, ('group', 128)),
-    (2048, 1024, torch.float32, 8, ('group', 128)),
-    (2048, 1024, torch.bfloat16, 8, ('group', 128)),
+    # two ring stages at 4 and 8 cohorts; bf16 panels of 64 at 8
+    (2048, 1024, torch.float32, 4, ('group', 8)),
+    (2048, 1024, torch.float32, 8, ('group', 8)),
+    (2048, 1024, torch.bfloat16, 8, ('group', 8)),
     (8, 8, torch.bfloat16, 5, ('group', 1)),
 ])
 def test_matvec_routes_match_plain_wide_cohorts(cuda, P, R, u_dtype, C,
@@ -146,20 +146,30 @@ def test_matvec_routes_match_plain_wide_cohorts(cuda, P, R, u_dtype, C,
 
 
 @pytest.mark.parametrize('P,R,u_dtype,G', [
-    (2048, 1024, torch.float32, 128),      # two slice buffers
-    (2048, 1024, torch.bfloat16, 128),
-    (4096, 512, torch.float32, 128),
-    (8, 8, torch.bfloat16, 1),             # under 16 rows: one column group
-    (8, 8, torch.float32, 2),
-    (1024, 4096, torch.float32, 128),      # no two slices fit: U read twice
-    (4096, 4096, torch.bfloat16, 128),
+    (2048, 1024, torch.float32, 8),        # 16 panels of 64
+    (2048, 1024, torch.bfloat16, 8),       # 8 panels of 128
+    (4096, 512, torch.float32, 16),        # 16-CTA clusters
+    (8, 8, torch.bfloat16, 1),             # under 16 rows: one panel
+    (8, 8, torch.float32, 1),
+    (1024, 4096, torch.float32, 4),        # 64 panels
+    (4096, 4096, torch.bfloat16, 16),      # 32 panels
+    # the new boundaries: rows not a multiple of the cluster (the last
+    # CTA's share short, its box reading the next block's rows), a last
+    # panel cut by R (TMA's zero fill past R, s zero there), and two TMA
+    # boxes a slice (more than 256 rows a CTA)
+    (2000, 1000, torch.bfloat16, 8),
+    (1000, 1000, torch.float32, 4),
+    (8192, 512, torch.bfloat16, 16),
+    (8192, 256, torch.float32, 16),
 ])
 @pytest.mark.parametrize('B', [1, 4, 33])
 @pytest.mark.parametrize('C', [1, 3])
 def test_group_route_matches_plain(cuda, P, R, u_dtype, G, B, C):
-    """The group route at every bucket size (a bucket of 1 or 4 blocks on
-    the whole card, 33 blocks over several rounds of the resident groups)
-    within its band of the plain version and bit-for-bit repeatable."""
+    """The group route at every bucket size (a bucket of 1 or 4 blocks,
+    33 blocks, whose items are no multiple of the clusters in flight)
+    within its band of the plain version and bit-for-bit repeatable;
+    bucket sizes that take turns on one stream share its workspace and
+    leave its tickets zero."""
     _check_route(*_matvec_operands(cuda, B, P, R, C, u_dtype, B * P + C),
                  ('group', G))
 
@@ -168,7 +178,8 @@ def test_group_route_matches_plain(cuda, P, R, u_dtype, G, B, C):
     (1024, 512, torch.bfloat16, 2, ('cluster', 8)),
     (1024, 512, torch.float32, 1, ('cluster', 16)),
     (1024, 512, torch.bfloat16, 5, ('cluster', 8)),
-    (2048, 1024, torch.float32, 3, ('group', 128)),
+    (2048, 1024, torch.float32, 3, ('group', 8)),
+    (2048, 1024, torch.bfloat16, 2, ('group', 8)),
 ])
 def test_matvec_backward_is_the_kernel_on_the_gradient(cuda, P, R, u_dtype,
                                                        C, route):
@@ -236,12 +247,13 @@ def test_spilled_load_on_the_card_equals_the_unspilled_one(
             assert torch.equal(getattr(x, f), getattr(y, f)), f
 
 
-def test_group_route_workspace_per_stream(cuda):
-    """Each stream has its own group-route workspace (partials and the two
-    sets of barrier counters a launch alternates between), so launches on
-    two streams never share counters: launches taking turns on the two
-    streams equal the one-stream result bit for bit."""
-    u, s, d, x = _matvec_operands(cuda, 4, 2048, 1024, 2, torch.float32, 7)
+@pytest.mark.parametrize('u_dtype', [torch.float32, torch.bfloat16])
+def test_group_route_workspace_per_stream(cuda, u_dtype):
+    """Each stream has its own group-route workspace (the panels' partials
+    and the tickets), so launches on two streams never share tickets:
+    launches taking turns on the two streams equal the one-stream result
+    bit for bit, and every launch leaves its tickets zero."""
+    u, s, d, x = _matvec_operands(cuda, 4, 2048, 1024, 2, u_dtype, 7)
     ref = bm.bucket_matvec_multi(u, s, d, x)
     torch.cuda.synchronize()
     streams = [torch.cuda.Stream(cuda) for _ in range(2)]
@@ -252,6 +264,38 @@ def test_group_route_workspace_per_stream(cuda):
         st.synchronize()
         assert torch.equal(y, ref)
     assert {st.cuda_stream for st in streams} <= {k[1] for k in bm._workspace}
+    for (dev, _, P, C, G, panels), (ws, room) in bm._workspace.items():
+        assert not ws[:room * G].view(torch.int32).any()
+
+
+def test_group_plans_agree_with_kernel_layout(cuda):
+    """Every group plan the Python planner makes over a sweep of oversize
+    bucket shapes and cohort counts that fits a CTA's shared memory is
+    one the kernel library takes (its shape rules hold and its
+    shared-memory layout comes to the planner's byte count,
+    block_matvec.cu::group_shape_ok), and the card places one cluster of
+    it; one that does not fit (8192-row bf16 blocks at 8 cohorts) is
+    refused by the wrapper before any launch."""
+    from vilma_tpu_torch.ops.cuda import build
+    lib = build.library()
+    planned = over = 0
+    for itemsize in (2, 4):
+        for P in (8, 1000, 2048, 4096, 8192):
+            for R in (8, 1000, 1024, 4096):
+                for C in bm.WIDTHS:
+                    pl = bm.plan(P, R, itemsize, C)
+                    if pl.route != 'group':
+                        continue
+                    if pl.smem > bm._SMEM_MAX:
+                        over += 1
+                        continue
+                    assert bm._capacity(lib, cuda, P, R, C,
+                                        int(itemsize == 2), pl) >= 1
+                    planned += 1
+    assert planned > 0 and over > 0
+    u, s, d, x = _matvec_operands(cuda, 1, 8192, 8, 8, torch.bfloat16, 0)
+    with pytest.raises(ValueError, match='shared-memory budget'):
+        bm.bucket_matvec_multi(u, s, d, x)
 
 
 @pytest.mark.parametrize('u_dtype', [torch.bfloat16, torch.float32])

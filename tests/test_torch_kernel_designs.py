@@ -12,9 +12,10 @@ chip_smoke.py hold them against their plain versions there). Here:
   t = U^T x added in cluster-rank order, then scaled and rounded, then
   the second contraction, against the plain version and the JAX
   package's Pallas kernel in interpret mode;
-* the group matvec's arithmetic, emulated in the kernel's order: each
-  CTA's t for its own columns, its partial y, the partials added by row
-  share in rank order; at f64 and in U's type;
+* the group matvec's arithmetic, emulated in the kernel's order: per
+  panel of columns, each CTA's partial t over its rows added in cluster
+  rank order, scaled and rounded, the panel's partial y; the panels'
+  partials added in panel order; at f64 and in U's type;
 * the one-pass prologue's online accumulators (epoch, [P, I] and kdim
   forms), emulated over K, against the two-pass clamped plain version
   (f64 at the JAX package's route-equality tolerances, f32 within
@@ -51,10 +52,6 @@ BAND_KL = 1e-4
 # threads per CTA of the compact kernels (csrc kThreads): SNPs per tile
 THREADS = 256
 WARPS = THREADS // 32
-# threads of a group-route matvec CTA that compute steps 1 and 2 and that
-# reduce (step 3) (csrc/block_matvec.cu kComputeThreads, kReduceThreads)
-COMPUTE_THREADS = 384
-REDUCE_THREADS = 128
 
 
 # ---------------------------------------------------------------------------
@@ -74,13 +71,17 @@ REDUCE_THREADS = 128
     (2048, 512, 2, 'cluster', 16),
     (1024, 1024, 2, 'cluster', 16),
     # too large for 16 slices of shared memory, too wide a rank, or
-    # fewer than 16 rows per CTA: the group route, up to 128 CTAs each
-    # owning 16-byte column groups
-    (2048, 512, 4, 'group', 128),
-    (2048, 1024, 4, 'group', 128),
-    (2048, 1024, 2, 'group', 128),
-    (4096, 4096, 2, 'group', 128),
+    # fewer than 16 rows per CTA: the group route, clusters of up to 16
+    # CTAs on panels of a block's columns
+    (2048, 512, 4, 'group', 8),
+    (2048, 1024, 4, 'group', 8),
+    (2048, 1024, 2, 'group', 8),
+    (4096, 4096, 2, 'group', 16),
     (8, 8, 2, 'group', 1),
+    (8, 8, 4, 'group', 1),
+    (1000, 1000, 4, 'group', 4),
+    (2000, 1000, 2, 'group', 8),
+    (8192, 512, 2, 'group', 16),
 ])
 @pytest.mark.parametrize('C', [1, 2, 3])
 def test_plan_routes_bucket_shapes(P, R, itemsize, route, G, C):
@@ -103,48 +104,67 @@ def test_plan_routes_bucket_shapes(P, R, itemsize, route, G, C):
                                             ncb if itemsize == 2 else 1)
                         > 227 * 1024)
     else:
-        # the slice: all P rows by cgc column groups of 16 bytes, every
-        # column group owned by one CTA; in two buffers where they fit,
-        # else read from device memory (0 buffers)
-        cgc = tbm.group_columns(R, itemsize, G)
-        ncg = R * itemsize // 16
-        assert G <= ncg <= G * cgc < 2 * ncg or cgc == 1
-        assert pl.smem == tbm.group_smem(P, R, C, itemsize, G, pl.slots)
-        assert pl.smem > pl.slots * P * cgc * 16
-        fits = tbm.group_smem(P, R, C, itemsize, G, 2) <= 227 * 1024
-        assert pl.slots == (2 if fits else 0)
+        # the fewest CTAs a cluster (up to 16) that leave each at most 256
+        # of a block's rows
+        rows, rows16 = tbm.group_rows(P, G)
+        assert rows <= 256 or G == 16
+        assert G == 1 or -(-P // (G // 2)) > 256
+        assert rows16 % 16 == 0 and rows <= rows16 <= rows + 24
+        # the panel: the widest power of two times the unit whose slice
+        # stays within 64 KB, at most 512 bf16 or 128 f32 columns, and no
+        # wider than covers R
+        unit, most = (64, 512) if itemsize == 2 else (32, 128)
+        W = pl.panel
+        assert W % unit == 0 and unit <= W <= most
+        assert (W // unit) & (W // unit - 1) == 0
+        assert W == unit or (W // 2 < R
+                             and rows16 * W * itemsize <= 64 * 1024)
+        assert (2 * W > most or W >= R
+                or rows16 * 2 * W * itemsize > 64 * 1024)
+        # as many ring stages (panels in flight) as fit, 2 to 4
+        ncb = W // 64 if itemsize == 2 else 1
+        stages = pl.slots // ncb
+        assert pl.slots == stages * ncb and 2 <= stages <= 4
+        assert pl.smem == tbm.group_smem(P, C, itemsize, G, W, pl.slots)
+        assert pl.smem <= 227 * 1024
+        assert stages == 4 or tbm.group_smem(
+            P, C, itemsize, G, W, pl.slots + ncb) > 227 * 1024
 
 
-@pytest.mark.parametrize('P,R,itemsize,C,route,G,slots', [
+@pytest.mark.parametrize('P,R,itemsize,C,route,G,slots,W', [
     # the main bf16 bucket keeps 8 CTAs: 12 ring slots at 4 cohorts (as at
     # 3), 10 at 8
-    (1024, 512, 2, 4, 'cluster', 8, 12),
-    (1024, 512, 2, 8, 'cluster', 8, 10),
+    (1024, 512, 2, 4, 'cluster', 8, 12, 0),
+    (1024, 512, 2, 8, 'cluster', 8, 10, 0),
     # f32: 16 CTAs at 4 cohorts; at 8 the wider buffers leave no room for
     # the 16 slices: the group route
-    (1024, 512, 4, 4, 'cluster', 16, 1),
-    (1024, 512, 4, 8, 'group', 128, 2),
+    (1024, 512, 4, 4, 'cluster', 16, 1, 0),
+    (1024, 512, 4, 8, 'group', 4, 2, 64),
     # a larger cluster where 8 no longer fits
-    (1024, 288, 4, 4, 'cluster', 8, 1),
-    (1024, 288, 4, 8, 'cluster', 16, 1),
-    # the group route holds two slices and x [C, P] at 4 cohorts; at 8
-    # f32 it reads U from device memory
-    (2048, 1024, 4, 4, 'group', 128, 2),
-    (2048, 1024, 4, 8, 'group', 128, 0),
-    (2048, 1024, 2, 8, 'group', 128, 2),
+    (1024, 288, 4, 4, 'cluster', 8, 1, 0),
+    (1024, 288, 4, 8, 'cluster', 16, 1, 0),
+    # the group route keeps three f32 ring stages at 2 and 3 cohorts, two
+    # at 4 and 8; bf16 three at 2 cohorts, two at 3; at 8 the wider x, t
+    # and receive buffers halve the panel, to four stages of 64 columns
+    (2048, 1024, 4, 3, 'group', 8, 3, 64),
+    (2048, 1024, 4, 4, 'group', 8, 2, 64),
+    (2048, 1024, 4, 8, 'group', 8, 2, 64),
+    (2048, 1024, 2, 2, 'group', 8, 6, 128),
+    (2048, 1024, 2, 3, 'group', 8, 4, 128),
+    (2048, 1024, 2, 8, 'group', 8, 4, 64),
 ])
-def test_plan_wide_cohorts(P, R, itemsize, C, route, G, slots):
+def test_plan_wide_cohorts(P, R, itemsize, C, route, G, slots, W):
     """The plans at 4 and 8 cohorts per launch count the wider x, t and
     y-partial buffers: fewer ring slots, a larger cluster or the group
     route where the C <= 3 plan no longer fits. 5-7 cohorts run the
     8-cohort kernel."""
     pl = tbm.plan(P, R, itemsize, C)
-    assert (pl.route, pl.cluster, pl.slots) == (route, G, slots)
+    assert (pl.route, pl.cluster, pl.slots, pl.panel) == (route, G, slots, W)
     assert pl.smem <= 227 * 1024
     if route == 'cluster':
         assert pl.smem == tbm.cluster_smem(P, R, C, itemsize, G, slots)
     else:
-        assert pl.smem == tbm.group_smem(P, R, C, itemsize, G, slots)
+        assert pl.smem == tbm.group_smem(P, C, itemsize, G, W, slots)
     assert [tbm.width(c) for c in range(1, 9)] == [1, 2, 3, 4, 8, 8, 8, 8]
 
 
@@ -167,28 +187,32 @@ def test_chip_smoke_resource_report_covers_every_kernel(monkeypatch,
         assert line.startswith(f'  {name}: cluster {cluster};'), line
 
 
-@pytest.mark.parametrize('P,R,itemsize,held,groups', [
-    # one CTA per SM on 132 SMs: one group at a time
-    (2048, 1024, 4, 132, 1),
-    # two or three per SM: as many groups
-    (2048, 1024, 2, 264, 2),
-    (2048, 512, 4, 396, 3),
-    # no slice fits: 32 MB blocks, one at a time (the whole card on one
-    # block) however many the card holds
-    (4096, 4096, 2, 1056, 1),
+@pytest.mark.parametrize('P,R,itemsize,held,G,panels', [
+    # 8-CTA clusters at one CTA per SM: 15-16 of them on 132 SMs
+    (2048, 1024, 4, 16, 8, 16),
+    (2048, 1024, 2, 15, 8, 8),
+    (2048, 512, 4, 15, 8, 8),
+    # 16-CTA clusters: 8 of them; 32 panels a 32 MB block
+    (4096, 4096, 2, 8, 16, 32),
 ])
-@pytest.mark.parametrize('B', [1, 4, 128])
+@pytest.mark.parametrize('B', [1, 4, 8, 33, 128])
 def test_group_route_spreads_any_bucket_over_the_card(P, R, itemsize, held,
-                                                      groups, B):
-    """The group route's plan does not depend on B: a bucket of 1 or 4
-    blocks runs on 128 CTAs (on as many SMs) per block all the same; more
-    blocks fill as many groups as the card holds (`held` CTAs at once: the
-    occupancy of the planned shared memory times 132 SMs)."""
+                                                      G, panels, B):
+    """The group route's plan does not depend on B; its launch's cut
+    does (group_split): a bucket of many more blocks than the card holds
+    clusters (`held`) takes whole blocks, one a cluster at a time;
+    a bucket of one block spreads its panels over several clusters, in
+    groups of equal panels whose sums meet by ticket; no cut takes more
+    rounds of `held` clusters than whole blocks do."""
     pl = tbm.plan(P, R, itemsize, 2)
-    assert (pl.route, pl.cluster) == ('group', 128)
-    n = tbm.group_count(B, held, pl)
-    assert n == min(B, groups)
-    assert n * pl.cluster >= 128
+    assert (pl.route, pl.cluster, pl.panels(R)) == ('group', G, panels)
+    ppi, groups, n = tbm.group_split(B, R, held, pl)
+    assert groups == -(-panels // ppi) and n == min(B * groups, held)
+    assert -(-B * groups // held) * ppi <= -(-B // held) * panels
+    if B >= 8 * held:
+        assert (ppi, groups, n) == (panels, 1, held)
+    if B == 1:
+        assert 1 < groups == n <= held
 
 
 # ---------------------------------------------------------------------------
@@ -262,105 +286,64 @@ def test_cluster_matvec_arithmetic(u_dtype, C, G):
 # the group matvec's arithmetic
 # ---------------------------------------------------------------------------
 
-# a rank per group size G that the group route takes: at most 32 column
-# groups of 16 bytes per CTA, and at least one
-GROUP_RANK = {1: 64, 8: 256, 64: 512}
+# the panel layouts the group route's arithmetic is held at: (R, panel
+# width W, panels a work item): one panel (W = R); four panels of 64
+# columns, the last cut by R, in one item; the same in two items of two
+# panels, whose sums meet by ticket
+GROUP_PANELS = {'one': (64, 64, 1), 'panels': (200, 64, 4),
+                'groups': (200, 64, 2)}
 
 
-def _butterfly(v, n=32):
-    """Lane 0 of a butterfly shuffle sum over the first axis (n lanes):
-    v[l] + v[l ^ o] for o = n/2, ..., 2, 1 (warp_sum for n = 32)."""
-    lanes = torch.arange(n)
-    o = n // 2
-    while o >= 1:
-        v = v + v[lanes ^ o]
-        o //= 2
-    return v[0]
-
-
-def _group_matvec(u, s, d, x, G):
+def _group_matvec(u, s, d, x, G, W, ppi):
     """What the group route computes (block_matvec.cu, group_matvec_kernel)
-    in its order. CTA g owns cgc column groups of 16 bytes
-    (block_matvec.group_columns) and rows [g rpc, (g + 1) rpc) of y,
-    rpc = ceil(P / G):
+    in its order. A block's columns are cut into panels of W (the last cut
+    by R), and its panels into work items of ppi panels. On a panel, CTA g
+    of a cluster of G owns rows [g rows, (g + 1) rows), rows = ceil(P / G):
 
-    1. t_g: thread (part, column group) adds rows part, part + nparts, ...
-       (nparts = 384 / cgc) in order; a butterfly over the 32 / cgc parts of
-       each warp, then the 12 warps' sums in warp order; times s, rounded
-       to U's type;
-    2. its partial y_g[c][p] = sum over its columns, in order, of
-       U[p][k] t_g[c][k];
-    3. y[c][p] for CTA g's rows: L lanes per value, lane q adding ranks
-       [q G/L, (q+1) G/L) in order, the lane sums added in lane order;
-       + d x.
-    x is rounded to U's type before step 1."""
+    1. its partial t_g = U[its rows, panel]^T x[its rows], x rounded to
+       U's type;
+    2. t = the G partials added in cluster-rank order, times s, rounded to
+       U's type;
+    3. the item's y += U[:, panel] t, in panel order;
+    4. y = the items' sums added in item order (one item: its sum),
+       + d x."""
     B, P, R = u.shape
-    C = x.shape[1]
     bf16 = u.dtype == torch.bfloat16
-    vec = 8 if bf16 else 4
     uf = u.float().to(x.dtype) if bf16 else u.to(x.dtype)
     xr = x.to(torch.bfloat16).to(x.dtype) if bf16 else x
-    ncg = R // vec
-    cgc = tbm.group_columns(R, u.element_size(), G)
-    nparts = COMPUTE_THREADS // cgc
-    lanes = 32 // cgc
-    parts = []
-    for g in range(G):
-        cg0 = min(ncg, g * cgc)
-        ncl = min(ncg, cg0 + cgc) - cg0
-        cols = slice(cg0 * vec, (cg0 + ncl) * vec)
-        yg = x.new_zeros((B, C, P))
-        if ncl:
-            acc = x.new_zeros((nparts, B, C, ncl * vec))
-            for part in range(min(nparts, P)):
-                for p in range(part, P, nparts):
-                    acc[part] = acc[part] + uf[:, None, p, cols] * xr[:, :, p,
-                                                                     None]
-            warp_sums = [_butterfly(acc[w * lanes:(w + 1) * lanes], lanes)
-                         for w in range(COMPUTE_THREADS // 32)]
-            tot = warp_sums[0]
-            for ws in warp_sums[1:]:
-                tot = tot + ws
-            t = tot * s[:, None, cols]
-            if bf16:
-                t = t.to(torch.bfloat16).to(x.dtype)
-            for k in range(ncl * vec):
-                yg = yg + uf[:, None, :, cols][..., k] * t[..., k, None]
-        parts.append(yg)
-    y = x.new_zeros((B, C, P))
-    rpc = -(-P // G)
-    for g in range(G):
-        r0 = min(P, g * rpc)
-        w = min(P, r0 + rpc) - r0
-        if w == 0:
-            continue
-        L = 1
-        while 2 * L * C * w <= REDUCE_THREADS and 2 * L <= G:
-            L *= 2
-        per = G // L
-        rows = slice(r0, r0 + w)
-        tot = None
-        for q in range(L):
-            acc = None
-            for r in range(q * per, (q + 1) * per):
-                acc = parts[r][..., rows] if acc is None else (
-                    acc + parts[r][..., rows])
-            tot = acc if tot is None else tot + acc
-        y[..., rows] = tot + d[:, None, rows] * x[..., rows]
-    return y
+    rows = -(-P // G)
+    y = item = None
+    for pc, c0 in enumerate(range(0, R, W)):
+        cols = slice(c0, min(R, c0 + W))
+        t = None
+        for g in range(G):
+            rs = slice(min(P, g * rows), min(P, (g + 1) * rows))
+            part = torch.einsum('bpr,bcp->bcr', uf[:, rs, cols], xr[..., rs])
+            t = part if t is None else t + part
+        t = t * s[:, None, cols]
+        if bf16:
+            t = t.to(torch.bfloat16).to(x.dtype)
+        yp = torch.einsum('bpr,bcr->bcp', uf[:, :, cols], t)
+        item = yp if pc % ppi == 0 else item + yp
+        if pc % ppi == ppi - 1 or c0 + W >= R:
+            y = item if y is None else y + item
+    return y + d[:, None, :] * x
 
 
+@pytest.mark.parametrize('layout', sorted(GROUP_PANELS))
 @pytest.mark.parametrize('C', [1, 2, 3, 4, 8])
-@pytest.mark.parametrize('G', [1, 8, 64])
+@pytest.mark.parametrize('G', [1, 8, 16])
 @pytest.mark.parametrize('u_dtype', ['f32', 'bf16'])
-def test_group_matvec_f64_matches_plain_and_pallas(C, G, u_dtype):
+def test_group_matvec_f64_matches_plain_and_pallas(C, G, u_dtype, layout):
     """At f64 (U's values from f32 or bf16) the group route's order equals
     the plain version to the route-equality tolerances, and the Pallas
     kernel (interpret mode), which accumulates in f32 whatever its inputs
     (preferred_element_type), within the f32 band (its own test,
-    tests/test_pallas.py, allows 1e-3)."""
-    rng = np.random.default_rng(100 * C + G + len(u_dtype))
-    B, P, R = 3, 64, GROUP_RANK[G]
+    tests/test_pallas.py, allows 1e-3). P = 100 rows: the last CTAs of a
+    16-CTA cluster own fewer rows or none."""
+    R, W, ppi = GROUP_PANELS[layout]
+    rng = np.random.default_rng(100 * C + G + len(u_dtype) + R + ppi)
+    B, P = 3, 100
     u = rng.standard_normal((B, P, R)) / np.sqrt(P)
     u = np.asarray(jnp.asarray(u, dtype=jnp.float32 if u_dtype == 'f32'
                                else jnp.bfloat16), dtype=np.float64)
@@ -368,7 +351,7 @@ def test_group_matvec_f64_matches_plain_and_pallas(C, G, u_dtype):
     d = rng.uniform(0.0, 1.0, (B, P))
     x = rng.standard_normal((B, C, P))
     t = [torch.as_tensor(a) for a in (u, s, d, x)]
-    got = t2n(_group_matvec(*t, G))
+    got = t2n(_group_matvec(*t, G, W, ppi))
     plain = t2n(tbm.bucket_matvec_multi_plain(*t))
     pallas = np.asarray(jbm.bucket_matvec_multi(
         *[jnp.asarray(a) for a in (u, s, d, x)], interpret=True))
@@ -377,17 +360,19 @@ def test_group_matvec_f64_matches_plain_and_pallas(C, G, u_dtype):
     assert _scaled(got, pallas) <= BAND_F32
 
 
+@pytest.mark.parametrize('layout', sorted(GROUP_PANELS))
 @pytest.mark.parametrize('u_dtype', ['f32', 'bf16'])
 @pytest.mark.parametrize('C', [1, 2, 3, 4, 8])
-@pytest.mark.parametrize('G', [1, 8, 64])
-def test_group_matvec_arithmetic(u_dtype, C, G):
+@pytest.mark.parametrize('G', [1, 8, 16])
+def test_group_matvec_arithmetic(u_dtype, C, G, layout):
     """In U's type: within the kernel's bands of the plain version and of
     the Pallas kernel; with bf16 U also closer to the plain version than a
     product that skips rounding x or t."""
+    R, W, ppi = GROUP_PANELS[layout]
     dt = jnp.float32 if u_dtype == 'f32' else jnp.bfloat16
     band = BAND_F32 if u_dtype == 'f32' else BAND_BF16
-    j, t = _matvec_inputs(dt, C, seed=30 * C + G, R=GROUP_RANK[G])
-    got = t2n(_group_matvec(*t, G))
+    j, t = _matvec_inputs(dt, C, seed=30 * C + G + R + ppi, P=100, R=R)
+    got = t2n(_group_matvec(*t, G, W, ppi))
     plain = t2n(tbm.bucket_matvec_multi_plain(*t))
     pallas = np.asarray(jbm.bucket_matvec_multi(*j, interpret=True))
     assert got.shape == plain.shape == pallas.shape

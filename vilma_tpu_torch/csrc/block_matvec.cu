@@ -53,30 +53,25 @@
 //
 // Group route (group_matvec_kernel), for the blocks the cluster route does
 // not take (too large for 16 CTAs of shared memory, ranks above 1024 bf16
-// or 2048 f32, under 16 rows per CTA). A block is spread over a group of G
-// CTAs on as many SMs (up to 128: even a bucket of one block runs on the
-// whole card), split by COLUMNS of U: CTA g owns a few 16-byte column
-// groups (a [2048, 1024] f32 block: 8 columns, a 64 KB slice of all 2048
-// rows). Then t = s * U^T x needs no sum across CTAs (each owns its t
-// entries) and both products are local: only the second one,
-// y = sum over CTAs of U_g t_g, meets across the group, once per block. A
-// cooperative launch keeps every CTA resident (it is refused, and the
-// wrapper raises, where the card cannot hold the grid); as many groups as
-// fit walk the blocks. Per block, in CTA g:
-//   0. its slice lands in shared memory by TMA tensor copies (two buffers:
-//      the next block's lands while this one is worked on), read from device
-//      memory once; where two slices do not fit (e.g. [4096, 4096] bf16)
-//      both products read U from device memory, the second from L2, and one
-//      group (the whole card) works on one block at a time;
-//   1. t_g = round(s_g * U_g^T round(x)) on the CUDA cores (each element of
-//      U feeds 2C multiply-adds: 8 operations per byte of f32 U at C = 8,
-//      below the card's ~20 per HBM byte);
-//   2. its partial y_g = U_g t_g [C][P], written to a workspace past L1,
-//      then an arrival on the group's barrier (counters in device memory,
-//      release/acquire);
-//   3. an iteration later (the barrier's wait overlaps the next block's
-//      steps 1 and 2), its share of y's rows: the G partials added in rank
-//      order, + d x.
+// or 2048 f32, under 16 rows per CTA): a 4-8 MB block needs 19-37 SMs'
+// shared memory just to be held once, so no one CTA or cluster holds it.
+// Spreading a block over many column-split CTAs makes its partials of y
+// meet across the card every block: a latency, 5.4-5.7 us a block against
+// 1.3-2.5 of bytes (PERF.md section 6). So a block is cut both ways: a
+// thread-block cluster of G CTAs (at most 256 rows each) takes a PANEL of
+// W columns (~64 KB a CTA), splits its rows, and exchanges its partial t
+// through distributed shared memory (bulk copies into every CTA,
+// completing on the receiver's mbarrier); a cluster walks a block's panels
+// in order, adding each panel's product into y in shared memory, with 2-4
+// panels in flight by TMA (one producer thread) and step 1 of the next
+// panel running while the partials arrive. Buckets of many blocks need no
+// sum across clusters; a bucket of fewer blocks than the card holds
+// clusters cuts each block into panel groups whose sums meet by ticket in
+// device memory, no CTA waiting for one outside its cluster (a plain
+// cluster launch). bf16 products run on the tensor cores (mma.sync, as
+// in the cluster route), f32 on the CUDA cores. What bounds it now: the
+// synchronization a panel costs (a cluster barrier, the exchange, the
+// CTA barriers between its steps, 0.6-1.1 us each), not bytes.
 // No float atomics: every sum of both routes runs in a fixed order, so
 // results repeat bit for bit.
 #include <cooperative_groups.h>
@@ -202,6 +197,33 @@ __device__ __forceinline__ void cluster_arrive() {
 
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// an arrival that orders no memory access (the caller's loads have
+// returned their values)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+// the address in CTA `rank` of the cluster of this CTA's shared address a
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t a, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(a), "r"(rank));
+  return out;
+}
+
+// bytes (a multiple of 16) of this CTA's shared memory into another CTA's
+// (dst and bar: cluster addresses), counted on its mbarrier as completed
+// transaction bytes; the copy runs on its own (the async proxy)
+__device__ __forceinline__ void copy_remote(uint32_t dst, const void* src,
+                                            uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(smem_addr(src)), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -895,58 +917,103 @@ cudaError_t clusters_placeable(int G, size_t smem, int* count) {
 // group route
 // ---------------------------------------------------------------------------
 
-constexpr size_t kBarBytes = 128;  // the mbarrier area (unused slots pad it)
-// a group-route CTA: 12 warps work on one block (steps 1 and 2) while 4
-// warps wait for and reduce the block before (step 3)
-constexpr int kComputeWarps = 12;
-constexpr int kReduceWarps = 4;
-constexpr int kComputeThreads = 32 * kComputeWarps;
-constexpr int kReduceThreads = 32 * kReduceWarps;
-constexpr int kGroupThreads = kComputeThreads + kReduceThreads;
-// a group barrier counts arrivals on up to kSub counters (CTA g on counter
-// g % kSub), kSubStride words apart, so that no one address takes more
-// than G / kSub atomics per barrier
-constexpr int kSub = 8;
-constexpr int kSubStride = 32;
-// partial-y buffers and barrier slots in the workspace (block j uses slot
-// j % kYBufs)
-constexpr int kYBufs = 4;
+// Phase stamps, in the measurement build only (nvcc -DVILMA_MATVEC_STAMPS;
+// ops/cuda/build.py VARIANTS): thread 0 of CTA 0 records clock64 at the
+// points kStampNames names, and %globaltimer (ns) at the first, for each
+// panel it works on, into g_stamps[n][kStampPoints][2] (n < g_stamp_cap,
+// its n-th panel; [0] globaltimer, [1] clock64). Elsewhere STAMP compiles
+// to nothing.
+constexpr int kStampPoints = 7;
+#ifdef VILMA_MATVEC_STAMPS
+__device__ unsigned long long* g_stamps;
+__device__ int g_stamp_cap;
+__device__ __forceinline__ void stamp(int n, int k) {
+  if (blockIdx.x != 0 || threadIdx.x != 0 || n >= g_stamp_cap) return;
+  unsigned long long* at = g_stamps + (size_t)(n * kStampPoints + k) * 2;
+  if (k == 0) {
+    unsigned long long ns;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+    at[0] = ns;
+  }
+  at[1] = (unsigned long long)clock64();
+}
+#define STAMP(n, k) stamp(n, k)
+#else
+#define STAMP(n, k) ((void)0)
+#endif
+// a panel's start; step 1 of the next panel done; this panel's partials
+// received; t formed (and the cluster barrier passed); step 2 done (y
+// accumulated); the next panel's partial pushed; at an item's last
+// panel, its y written (or its sums and ticket)
+constexpr const char* kStampNames =
+    "start,next_step1,received,t,step2,pushed,item_end";
 
-// CTA g of a group owns `cgc` column groups of 16 bytes (columns
-// [g cgc vec, (g + 1) cgc vec) of U, vec = 16 / itemsize; cgc a power of
-// two <= 32) and rows [g rpc, (g + 1) rpc) of y. Its shared memory (byte
-// offsets from a 128-byte aligned base): the mbarriers; nbuf slices of U's
-// P rows by its cgc column groups (row pitch 16 cgc bytes) and as many
-// buffers of the block's x [C][P]; three buffers (blocks j - 1, j, j + 1)
-// of its share of s [cgc vec], of d [rpc] and of x [C][rpc]; t [C][cgc
-// vec]; the compute warps' sums of step 1 [kComputeWarps][cgc][vec][C];
-// and the reduce warps' lane sums [kReduceThreads].
-// ops/cuda/block_matvec.py::group_smem computes the same total (with 128
-// bytes to align the base).
+// The group route's shapes (ops/cuda/block_matvec.py::plan makes them):
+// G CTAs per cluster split the rows (rows = ceil(P / G) each), and a
+// block's columns are cut into panels of W (bf16: a multiple of 64, at
+// most kGroupPanelBf16; f32: a multiple of 32, at most kGroupPanelF32); a
+// CTA's slice of a panel lands by TMA in nbox boxes of box_rows rows (a
+// box holds at most 256), as ncb sequences of the ring (bf16: one per 64
+// columns, in the cluster route's swizzled 128-byte rows; f32: one per
+// panel, rows of W * 4 bytes), the panel's s riding on its first.
+constexpr int kGroupPanelBf16 = 512;
+constexpr int kGroupPanelF32 = 128;
+
+// Shared memory of one group-route CTA (byte offsets from a 1024-byte
+// aligned base): the mbarriers (one per ring slot, two for the receive
+// buffers) and the last-arriver flag; the ring of `slots` slots of rows16
+// rows; s [stages][W] (a panel's s with its stage, slots / ncb stages);
+// two buffers of x [C][rows16] and d [rows16] (an item's rows); the
+// partial t [2][C][W] f32 (two panels); what the cluster's CTAs push of
+// theirs, [2][G][C][W] f32 (two panels); the warps' step-1 partials
+// (f32: [8][C][W]; bf16: [8 / ncb][C][W], 512 C floats); the rounded t
+// [C][W + 16 / itemsize] in U's type (padded to 16 bytes); and y
+// [C][rows16] f32 (summed over an item's panels). rows16 = nbox *
+// box_rows rounded up to 16 (the rows past `rows` stay zero or hold rows
+// of the next block, whose x is zero here). `h` holds the slot geometry
+// the step helpers read. ops/cuda/block_matvec.py::group_smem computes
+// the same total.
 struct GroupLayout {
-  int cgc, rpc, vec;
-  size_t slice, xfull, vbuf, vstride, ts, red, redr, total;
+  Layout h;
+  int rows, W, cbw, box_rows, nbox;
+  size_t sbuf, vbuf, vstride, vd, part, recv, wp, ts, ys, flag, total;
 };
 
-__host__ __device__ inline GroupLayout group_layout(int P, int R, int C,
-                                                   int G, int itemsize,
-                                                   int nbuf) {
+__host__ __device__ inline GroupLayout group_layout(int P, int C, int G,
+                                                   int W, int itemsize,
+                                                   int slots) {
   GroupLayout L;
-  L.vec = 16 / itemsize;
-  const int ncg = R / L.vec;
-  const int per = (ncg + G - 1) / G;
-  L.cgc = 1;
-  while (L.cgc < per) L.cgc *= 2;
-  L.rpc = (P + G - 1) / G;
-  // (each rounded up to 128 bytes, where the tensor copies land)
-  L.slice = ((size_t)P * L.cgc * 16 + 127) / 128 * 128;
-  L.xfull = (4 * (size_t)C * P + 127) / 128 * 128;
-  L.vbuf = kBarBytes + nbuf * (L.slice + L.xfull);
-  L.vstride = (4 * ((size_t)L.cgc * L.vec + (C + 1) * L.rpc) + 15) / 16 * 16;
-  L.ts = L.vbuf + 3 * L.vstride;
-  L.red = L.ts + (4 * (size_t)C * L.cgc * L.vec + 15) / 16 * 16;
-  L.redr = L.red + 4 * (size_t)kComputeWarps * L.cgc * L.vec * C;
-  L.total = L.redr + 4 * kReduceThreads + 128;  // room to align the base
+  L.rows = (P + G - 1) / G;
+  L.W = W;
+  L.nbox = (L.rows + 255) / 256;
+  L.box_rows = ((L.rows + L.nbox - 1) / L.nbox + 7) / 8 * 8;
+  L.cbw = itemsize == 2 ? 64 : W;
+  Layout& h = L.h;
+  h.rows16 = (L.nbox * L.box_rows + 15) / 16 * 16;
+  h.r16 = W;
+  h.ncb = W / L.cbw;
+  h.pitch = L.cbw * itemsize;
+  h.tpitch = W + 16 / itemsize;
+  h.slot = (size_t)h.rows16 * h.pitch;
+  h.ubytes = (size_t)slots * h.slot;
+  h.ubuf = ((size_t)(kMaxSlots + 2) * 8 + 1023) / 1024 * 1024;
+  L.flag = 8 * (size_t)(kMaxSlots + 2);  // in the mbarriers' area
+  L.sbuf = h.ubuf + h.ubytes;
+  L.vbuf = L.sbuf + 4 * (size_t)(slots / h.ncb) * W;
+  L.vd = 4 * (size_t)C * h.rows16;
+  L.vstride = L.vd + 4 * (size_t)h.rows16;
+  size_t off = L.vbuf + 2 * L.vstride;
+  L.part = off;
+  off += 2 * 4 * (size_t)C * W;
+  L.recv = off;
+  off += 2 * 4 * (size_t)G * C * W;
+  L.wp = off;
+  off += 4 * (size_t)C * (itemsize == 4 ? kWarps * W : 512);
+  L.ts = off;
+  off += ((size_t)itemsize * C * h.tpitch + 15) / 16 * 16;
+  L.ys = off;
+  off += 4 * (size_t)C * h.rows16;
+  L.total = off + 1024;  // room to align the base
   return L;
 }
 
@@ -964,448 +1031,607 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// a barrier among n threads of the CTA (id 1: the compute warps, 2: the
-// reduce warps; 0 is __syncthreads)
-__device__ __forceinline__ void warps_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-// Split-phase group barrier of one block slot: nsub = min(kSub, G)
-// counters in device memory. Arrive (the compute warps): the CTA's writes
-// are published (fence), then CTA g adds one to counter g % nsub. Wait
-// (the reduce warps): until every counter reads k G / nsub at the slot's
-// k-th use (acquire; reduce thread i polls counter i). The counters start
-// at 0 (the launch before zeroed them) and only grow. A counter sums arrivals of
-// several CTAs, so a slot must not be reused while a CTA may still owe an
-// arrival to its previous use.
-__device__ __forceinline__ void group_arrive(unsigned int* ctrs, int g,
-                                             int nsub) {
-  warps_sync(1, kComputeThreads);
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(ctrs + (g % nsub) * kSubStride, 1u);
-  }
-}
-
-__device__ __forceinline__ void group_wait(unsigned int* ctrs, int nsub,
-                                           unsigned int target) {
-  const int rt = threadIdx.x - kComputeThreads;
-  if (rt < nsub) {
-    const unsigned int* ctr = ctrs + rt * kSubStride;
-    unsigned int seen;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
-                   : "=r"(seen)
-                   : "l"(ctr)
-                   : "memory");
-    } while (seen < target);
-    __threadfence();
-  }
-  warps_sync(2, kReduceThreads);
-}
-
-// Steps 1 and 2 of a block, local to the CTA, by its compute warps. us:
-// its slice (row p at us + p * pitch elements; cgl of the cgc groups at
-// cgl * vec); ncl of its column groups exist (the rest lie past R). xb:
-// the block's x [C][P] (in shared memory with HOLD, else in device
-// memory); sv its share of s.
-// 1. t[c][k] = round(s[k] * sum_p U[p][k] round(x[c][p])): compute thread
-//    (part, cgl), part = tid / cgc of nparts = kComputeThreads / cgc, adds
-//    rows part, part + nparts, ... in order; a butterfly shuffle adds the
-//    parts of a warp (offsets 16, 8, ..., cgc), then one thread sums the
-//    warps in warp order.
-// 2. ypart[c][p] = sum_k U[p][k] t[c][k]: thread p (p = tid, tid +
-//    kComputeThreads, ...) adds its row's column groups in order; written
-//    past L1 to the block's partial-y buffer [C][P].
-template <typename TU, int C, bool HOLD>
-__device__ __forceinline__ void group_local(const GroupLayout& L,
-                                            const TU* us, size_t pitch,
-                                            int ncl, int P, const float* xb,
-                                            const float* sv, float* ts,
-                                            float* red, float* ypart) {
-  constexpr int VEC = 16 / sizeof(TU);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int cgl = tid % L.cgc, part = tid / L.cgc;
-  const int nparts = kComputeThreads / L.cgc;
-  float acc[VEC][C];
+// Group step 1 on the tensor cores (bf16 U): the cluster route's
+// partial_t_mma with the rows split over the warps too, so that all 8
+// work whatever the panel's column blocks ncb (a power of two up to 8):
+// warp w takes column block w % ncb and the k-steps of 16 rows kp, kp +
+// np, ... (kp = w / ncb of np = 8 / ncb row parts), its sums in wp[kp];
+// then the np row parts are added in order into part [C][W] (once every
+// warp has passed the push that may still read it).
+template <int C>
+__device__ __forceinline__ void panel_t_mma(const Layout& L,
+                                            const unsigned char* ring,
+                                            int slots, int q0, const float* xs,
+                                            float* part, float* wp,
+                                            uint64_t* bars) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int np = kWarps / L.ncb, cb = warp % L.ncb, kp = warp / L.ncb;
+  const int W = L.r16;
+  const int seq = q0 + cb, slot = seq % slots;
+  mbar_wait(&bars[slot], (uint32_t)(seq / slots) & 1u);
+  const unsigned char* us = ring + slot * L.slot;
+  float acc[4][2][4];
 #pragma unroll
-  for (int v = 0; v < VEC; ++v)
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][h][e] = 0.f;
+  for (int k0 = 16 * kp; k0 < L.rows16; k0 += 16 * np) {
+    uint32_t a[4] = {0u, 0u, 0u, 0u};
+    if (g < C) {
+      const float* xr = xs + g * L.rows16 + k0 + 2 * q;
+      a[0] = pack_bf16(xr[0], xr[1]);
+      a[2] = pack_bf16(xr[8], xr[9]);
+    }
+    const int r = k0 + (lane & 15);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t bfr[4];
+      ldmatrix_x4_trans(bfr, us + swz(r, 16 * j + 8 * (lane >> 4)));
+      mma_bf16(acc[j][0], a, bfr[0], bfr[1]);
+      mma_bf16(acc[j][1], a, bfr[2], bfr[3]);
+    }
+  }
+  // row g of D is cohort g; a lane holds columns 2q, 2q + 1 of a tile.
+  // Through wp even with one row part: `part` may still be read by the
+  // push of the panel before.
+  float* dst = wp + kp * C * W;
+  if (g < C) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = 64 * cb + 16 * j + 8 * h + 2 * q;
+        *reinterpret_cast<float2*>(dst + g * W + n) =
+            make_float2(acc[j][h][0], acc[j][h][1]);
+      }
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < C * W; j += kThreads) {
+    float v = wp[j];
+    for (int p = 1; p < np; ++p) v += wp[p * C * W + j];
+    part[j] = v;
+  }
+}
+
+// Group step 1 on the CUDA cores (f32 U): lane l of warp w holds the
+// 16-byte chunk ch = l % nch (nch = W / 4) of the rows rg, rg + 8 (32 /
+// nch), ... (rg = w 32 / nch + l / nch), so a quarter warp reads 128
+// contiguous bytes of one row; the lanes of a chunk are added by a
+// butterfly (offsets nch, 2 nch, ..., 16), then the 8 warps in warp order
+// into part [C][W].
+template <int C>
+__device__ __forceinline__ void panel_t_fma(const Layout& L,
+                                            const unsigned char* us,
+                                            const float* xs, float* part,
+                                            float* wp) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int W = L.r16, nch = W / 4, lpw = 32 / nch;
+  const int ch = lane % nch, rg = warp * lpw + lane / nch;
+  float acc[4][C];
+#pragma unroll
+  for (int v = 0; v < 4; ++v)
 #pragma unroll
     for (int c = 0; c < C; ++c) acc[v][c] = 0.f;
-  if (cgl < ncl) {
-    const TU* col = us + cgl * VEC;
 #pragma unroll 4
-    for (int p = part; p < P; p += nparts) {
-      float uv[VEC];
-      load16(col + (size_t)p * pitch, uv);
+  for (int r = rg; r < L.rows16; r += kWarps * lpw) {
+    float uv[4];
+    load16(reinterpret_cast<const float*>(us + (size_t)r * L.pitch) + 4 * ch,
+           uv);
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float xr = round_to<TU>(HOLD ? xb[(size_t)c * P + p]
-                                           : __ldg(xb + (size_t)c * P + p));
+    for (int c = 0; c < C; ++c) {
+      const float xr = xs[c * L.rows16 + r];
 #pragma unroll
-        for (int v = 0; v < VEC; ++v) acc[v][c] += uv[v] * xr;
-      }
+      for (int v = 0; v < 4; ++v) acc[v][c] += uv[v] * xr;
     }
   }
+  for (int o = nch; o < 32; o <<= 1)
 #pragma unroll
-  for (int v = 0; v < VEC; ++v)
+    for (int v = 0; v < 4; ++v)
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        acc[v][c] += __shfl_xor_sync(0xffffffffu, acc[v][c], o);
+  if (lane < nch) {
 #pragma unroll
     for (int c = 0; c < C; ++c)
-      for (int o = 16; o >= L.cgc; o >>= 1)
-        acc[v][c] += __shfl_xor_sync(0xffffffffu, acc[v][c], o);
-  if (lane < L.cgc) {
-#pragma unroll
-    for (int v = 0; v < VEC; ++v)
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        red[((warp * L.cgc + lane) * VEC + v) * C + c] = acc[v][c];
+      *reinterpret_cast<float4*>(wp + (warp * C + c) * W + 4 * ch) =
+          make_float4(acc[0][c], acc[1][c], acc[2][c], acc[3][c]);
   }
-  warps_sync(1, kComputeThreads);
-  const int nt = L.cgc * VEC * C;  // t values of the CTA
-  for (int e = tid; e < nt; e += kComputeThreads) {
-    float tot = red[e];
-    for (int w = 1; w < kComputeWarps; ++w) tot += red[w * nt + e];
-    const int c = e % C, k = e / C;  // k = cgl * VEC + v
-    ts[c * L.cgc * VEC + k] =
-        k < ncl * VEC ? round_to<TU>(tot * sv[k]) : 0.f;
-  }
-  warps_sync(1, kComputeThreads);
-  for (int p = tid; p < P; p += kComputeThreads) {
-    const TU* row = us + (size_t)p * pitch;
-    float y[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) y[c] = 0.f;
-    for (int g = 0; g < ncl; ++g) {
-      float uv[VEC];
-      load16(row + g * VEC, uv);
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-#pragma unroll
-        for (int v = 0; v < VEC; ++v)
-          y[c] += uv[v] * ts[c * L.cgc * VEC + g * VEC + v];
-    }
-#pragma unroll
-    for (int c = 0; c < C; ++c) __stcg(ypart + (size_t)c * P + p, y[c]);
+  __syncthreads();
+  for (int j = tid; j < C * W; j += kThreads) {
+    float v = wp[j];
+    for (int w = 1; w < kWarps; ++w) v += wp[w * C * W + j];
+    part[j] = v;
   }
 }
 
-// Step 3 of a block, by the reduce warps: CTA g's rows [r0, r0 + w) of
-// y = sum over the G CTAs' partials + d x. L lanes share a value (L the
-// largest power of two with L * values <= kReduceThreads and L <= G); lane
-// q adds ranks [q G/L, (q+1) G/L) in rank order (sixteen loads in flight),
-// then the value's lane 0 adds the L lane sums in lane order. Neighbouring
-// threads take neighbouring rows, so a warp's loads are contiguous. dv, xv:
-// the CTA's rows of d and x [C][rpc] in shared memory.
-__device__ __forceinline__ void group_reduce(const float* parts, int G,
-                                             int C, int P, int r0, int w,
-                                             int rpc, const float* dv,
-                                             const float* xv, float* y,
-                                             float* red) {
-  const int rt = threadIdx.x - kComputeThreads;
-  const int S = C * w;
-  if (S == 0) return;
-  int L = 1;
-  while (2 * L * S <= kReduceThreads && 2 * L <= G) L *= 2;
-  const int per = G / L;
-  const int nv = kReduceThreads / L;  // values a round
-  const size_t stride = (size_t)C * P;
-  const int q = rt / nv, vi = rt - q * nv;
-  for (int v0 = 0; v0 < S; v0 += nv) {
-    const int v = v0 + vi;
-    const int c = v / w, j = v - c * w;
-    float acc = 0.f;
-    if (v < S) {
-      const float* p = parts + (size_t)q * per * stride + (size_t)c * P +
-                       r0 + j;
-      acc = __ldcg(p);
-#pragma unroll 1
-      for (int k0 = 1; k0 < per; k0 += 16) {
-        float x16[16];
+// Group step 2 on the tensor cores (bf16 U): the cluster route's rows_mma,
+// adding each panel's product to y [C][rows16] (`first`: the item's first
+// panel, which sets it).
+template <int C>
+__device__ __forceinline__ void panel_rows_mma(const Layout& L,
+                                               const unsigned char* ring,
+                                               int slots, int q0,
+                                               const __nv_bfloat16* ts,
+                                               float* ys, bool first) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  for (int p0 = 16 * warp; p0 < L.rows16; p0 += 16 * kWarps) {
+    float acc[4][4] = {};
+    const int r = p0 + (lane & 15);
+    const __nv_bfloat16* tg = ts + g * L.tpitch + 2 * q;
+    int slot = q0 % slots;
+    for (int cb = 0; cb < L.ncb; ++cb) {
+      const unsigned char* us = ring + slot * L.slot;
+      slot = slot + 1 == slots ? 0 : slot + 1;
 #pragma unroll
-        for (int k = 0; k < 16; ++k)
-          if (k0 + k < per) x16[k] = __ldcg(p + (k0 + k) * stride);
-#pragma unroll
-        for (int k = 0; k < 16; ++k)
-          if (k0 + k < per) acc += x16[k];
+      for (int kk = 0; kk < 4; ++kk) {
+        const int k0 = 64 * cb + 16 * kk;
+        uint32_t a[4];
+        ldmatrix_x4(a, us + swz(r, 16 * kk + 8 * (lane >> 4)));
+        uint32_t b0 = 0u, b1 = 0u;
+        if (g < C) {
+          b0 = *reinterpret_cast<const uint32_t*>(tg + k0);
+          b1 = *reinterpret_cast<const uint32_t*>(tg + k0 + 8);
+        }
+        mma_bf16(acc[kk], a, b0, b1);
       }
     }
-    red[rt] = acc;
-    warps_sync(2, kReduceThreads);
-    if (q == 0 && v < S) {
-      float tot = red[vi];
-      for (int k = 1; k < L; ++k) tot += red[k * nv + vi];
-      y[(size_t)c * P + r0 + j] = tot + dv[j] * xv[c * rpc + j];
-    }
-    warps_sync(2, kReduceThreads);
+    // a lane holds rows g and g + 8 of the tile, cohorts 2q and 2q + 1
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 2 * q + e, row = p0 + g + 8 * h, i = 2 * h + e;
+        if (c < C) {
+          float* at = ys + c * L.rows16 + row;
+          const float v = (acc[0][i] + acc[1][i]) + (acc[2][i] + acc[3][i]);
+          *at = first ? v : *at + v;
+        }
+      }
   }
 }
 
-// Persistent: group i (G consecutive CTAs) takes LD blocks i, i + n,
-// i + 2n, ... (n groups resident at once). Iteration j of a CTA, its two
-// warp roles at once:
-//   compute warps: steps 1 and 2 of block j from its slice, the partial y
-//   into buffer j % kYBufs, arrive;
-//   reduce warps: start the copies of block j + 1 (its slice and x with
-//   HOLD, by TMA; its shares of s, d and x by cp.async), wait for every
-//   CTA's arrival of block j - 1, step 3 of block j - 1, then wait for
-//   their cp.async copies;
-// and a CTA-wide barrier. The barrier the reduce warps wait on was arrived
-// at an iteration earlier. A partial buffer is rewritten only after every
-// CTA has passed step 3 of the block that used it four blocks earlier: a
-// CTA writes block j's partial after its wait for block j - 2, and every
-// CTA arrived for block j - 2 after its iteration j - 3, hence after its
-// step 3 of block j - 4. The same bound keeps the barrier slots apart: no
-// CTA arrives for block j before every CTA has arrived for block j - 2, so
-// slot j % kYBufs is free of block j - 4's. HOLD: the slice (TMA tensor
-// copies of 16 cgc bytes by up to 256 rows, from umap) and x (one bulk
-// copy per cohort) land in shared memory, two buffers, on one mbarrier
-// each. Else steps 1 and 2 read U from device memory, step 2 from L2, and
-// step 1 reads x through L1. The workspace holds two sets of barrier
-// counters: the launch counts on `ctrs` and zeroes the group's counters in
-// `next`, the set of the launch after it (launches on one stream run in
-// order, and the host alternates the sets).
-template <typename TU, int C, bool HOLD>
-__global__ void __launch_bounds__(kGroupThreads)
+// Group step 2 on the CUDA cores (f32 U): thread p takes row p (p, p +
+// 256, ...), adding U[p][k] t[c][k] over the panel's 16-byte chunks from
+// chunk p % nch on (so a quarter warp reads 8 different chunks: no bank
+// conflict), then adds the row's sum to y [C][rows16] (`first` sets it).
+template <int C>
+__device__ __forceinline__ void panel_rows_fma(const Layout& L,
+                                               const unsigned char* us,
+                                               const float* ts, float* ys,
+                                               bool first) {
+  const int nch = L.r16 / 4;
+  for (int p = threadIdx.x; p < L.rows16; p += kThreads) {
+    const float* row = reinterpret_cast<const float*>(us + (size_t)p * L.pitch);
+    float acc[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[c] = 0.f;
+    int ch = p % nch;
+#pragma unroll 4
+    for (int k = 0; k < nch; ++k) {
+      float uv[4];
+      load16(row + 4 * ch, uv);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const float4 t4 =
+            *reinterpret_cast<const float4*>(ts + c * L.tpitch + 4 * ch);
+        acc[c] += uv[0] * t4.x + uv[1] * t4.y + uv[2] * t4.z + uv[3] * t4.w;
+      }
+      ch = ch + 1 == nch ? 0 : ch + 1;
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      float* at = ys + c * L.rows16 + p;
+      *at = first ? acc[c] : *at + acc[c];
+    }
+  }
+}
+
+// Persistent: a work item is panel group pg of LD block b (panels [pg
+// ppi, pg ppi + ppi) of its npanel = ceil(R / W), ngrp = ceil(npanel /
+// ppi) groups a block); cluster i of n takes the items i, i + n, ..., item
+// k being (b, pg) = (k / ngrp, k % ngrp). Per panel of an item, in CTA g
+// (rows [g rows, (g + 1) rows) of the block, the panel's W columns):
+//   0. its slice lands by TMA in the ring (thread 0 keeps `slots`
+//      sequences in flight, across panels and items), with the panel's
+//      s; an item's rows of x and d come by cp.async, an item ahead;
+//   1. the partial t_g[c][k] = sum over its rows of U[p][k] x[c][p]:
+//      panel_t_mma (bf16) or panel_t_fma (f32);
+//   2. its partial pushed to every CTA of the cluster (bulk copies into
+//      distributed shared memory, counted on the receiver's mbarrier); step
+//      1 of the next panel; the wait for the G partials; then t = round(s *
+//      the G partials added in rank order), zero past R;
+//   3. y[c][p] += sum_k U[p][k] t[c][k] for its rows (panel_rows_mma /
+//      panel_rows_fma), in panel order; the slots are then free.
+// At an item's end: with one group a block (ngrp = 1), y = that + d x.
+// Else the CTA stores its rows of the group's sum to the block's slab of
+// the workspace (parts [B][ngrp][C][P]) and takes a ticket on the block's
+// row share (tickets [B][G]): the last of the ngrp to arrive adds the
+// groups' sums in group order, + d x, into y and resets the ticket to 0.
+// No CTA waits for one outside its cluster.
+template <typename TU, int C>
+__global__ void __launch_bounds__(kThreads)
     group_matvec_kernel(const __grid_constant__ CUtensorMap umap,
-                        const TU* __restrict__ u, const float* __restrict__ s,
+                        const float* __restrict__ s,
                         const float* __restrict__ d,
                         const float* __restrict__ x, float* __restrict__ y,
                         float* __restrict__ parts,
-                        unsigned int* __restrict__ ctrs,
-                        unsigned int* __restrict__ next, int B, int P, int R,
-                        int G, int nbuf) {
-  constexpr int VEC = 16 / sizeof(TU);
+                        unsigned int* __restrict__ tickets, int B, int P,
+                        int R, int W, int slots, int ppi) {
+  constexpr bool kTensorCores = std::is_same<TU, __nv_bfloat16>::value;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* smem =
-      smem_raw + ((128u - (smem_addr(smem_raw) & 127u)) & 127u);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
-  const GroupLayout L = group_layout(P, R, C, G, (int)sizeof(TU), nbuf);
-  const int ngroups = gridDim.x / G;
-  const int gi = blockIdx.x / G, g = blockIdx.x - gi * G;
-  const int ncg = R / VEC;
-  const int cg0 = min(ncg, g * L.cgc);
-  const int ncl = min(ncg, cg0 + L.cgc) - cg0;
-  const int r0 = min(P, g * L.rpc);
-  const int w = min(P, r0 + L.rpc) - r0;
-  const int nblk = (B - gi + ngroups - 1) / ngroups;
+      smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int G = (int)cluster.num_blocks();
+  const int g = (int)cluster.block_rank();
+  const int nclust = gridDim.x / G;
+  const int first = blockIdx.x / G;
+  const GroupLayout L = group_layout(P, C, G, W, (int)sizeof(TU), slots);
+  const int rows16 = L.h.rows16, ncb = L.h.ncb;
+  const int npanel = (R + W - 1) / W;
+  const int ngrp = (npanel + ppi - 1) / ppi;
+  const int nloc = (B * ngrp - first + nclust - 1) / nclust;
+  const int row0 = g * L.rows;
+  const int w = max(0, min(P, row0 + L.rows) - row0);  // rows of y it owns
   const int tid = threadIdx.x;
-  const bool computes = tid < kComputeThreads;
-  const int rt = tid - kComputeThreads;  // reduce thread
-  float* ts = reinterpret_cast<float*>(smem + L.ts);
-  float* gparts = parts + (size_t)gi * kYBufs * G * C * P;
-  unsigned int* ctr = ctrs + (size_t)gi * kYBufs * kSub * kSubStride;
-  const int nsub = min(kSub, G);
-  const unsigned int per_sub = (unsigned int)(G / nsub);
-  auto slot = [&](int j) { return ctr + (j % kYBufs) * kSub * kSubStride; };
-  auto blk_of = [&](int j) { return gi + j * ngroups; };
-  auto vec_of = [&](int j) {
-    return reinterpret_cast<float*>(smem + L.vbuf + (j % 3) * L.vstride);
-  };
-  auto part_of = [&](int j) {
-    return gparts + (size_t)(j % kYBufs) * G * C * P;
-  };
-  auto slice_at = [&](int j) {
-    return smem + kBarBytes + (j & 1) * (L.slice + L.xfull);
-  };
-  const int box_rows = min(P, 256);
-  // block j's copies, by the reduce warps: with HOLD its slice and x
-  // (reduce thread 0, TMA, on mbarrier j & 1); its shares of s (sv
-  // [cgc vec]), d (dv [rpc]) and x (xv [C][rpc]) by cp.async
-  auto issue = [&](int j) {
-    const int blk = blk_of(j);
-    if constexpr (HOLD) {
-      if (rt == 0) {
-        unsigned char* dst = slice_at(j);
-        mbar_expect_tx(&bars[j & 1],
-                       (uint32_t)(P * L.cgc * 16 + 4 * C * P));
-        // the buffers' last reads (generic proxy) before the copies
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        for (int r = 0; r < P; r += box_rows)
-          tile_load(dst + (size_t)r * L.cgc * 16, &umap, cg0 * VEC,
-                    blk * P + r, &bars[j & 1]);
-        for (int c = 0; c < C; ++c)
-          bulk_load(dst + L.slice + 4 * (size_t)c * P,
-                    x + ((size_t)blk * C + c) * P, 4 * P, &bars[j & 1]);
-      }
-    }
-    float* sv = vec_of(j);
-    float* dv = sv + L.cgc * VEC;
-    float* xv = dv + L.rpc;
-    for (int e = rt; e < ncl * VEC; e += kReduceThreads)
-      cp_async4(sv + e, s + (size_t)blk * R + cg0 * VEC + e);
-    for (int e = rt; e < w; e += kReduceThreads)
-      cp_async4(dv + e, d + (size_t)blk * P + r0 + e);
-    for (int e = rt; e < C * w; e += kReduceThreads) {
-      const int c = e / w, r = e - c * w;
-      cp_async4(xv + c * L.rpc + r, x + ((size_t)blk * C + c) * P + r0 + r);
-    }
-  };
-  auto reduce = [&](int j) {
-    group_wait(slot(j), nsub, (unsigned int)(j / kYBufs + 1) * per_sub);
-    const float* dv = vec_of(j) + L.cgc * VEC;
-    group_reduce(part_of(j), G, C, P, r0, w, L.rpc, dv, dv + L.rpc,
-                 y + (size_t)blk_of(j) * C * P,
-                 reinterpret_cast<float*>(smem + L.redr));
+
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // [kMaxSlots + 2]
+  unsigned char* us = smem + L.h.ubuf;
+  float* sbuf = reinterpret_cast<float*>(smem + L.sbuf);   // [stages][W]
+  float* part0 = reinterpret_cast<float*>(smem + L.part);  // [2][C][W]
+  float* recv0 = reinterpret_cast<float*>(smem + L.recv);  // [2][G][C][W]
+  float* wp = reinterpret_cast<float*>(smem + L.wp);
+  TU* ts = reinterpret_cast<TU*>(smem + L.ts);        // [C][tpitch]
+  float* ys = reinterpret_cast<float*>(smem + L.ys);  // [C][rows16]
+  int* flag = reinterpret_cast<int*>(smem + L.flag);
+  auto item = [&](int it, int* b, int* p0, int* np) {
+    const int k = first + it * nclust;
+    *b = k / ngrp;
+    *p0 = (k - *b * ngrp) * ppi;
+    *np = min(npanel, *p0 + ppi) - *p0;
   };
 
-  if (HOLD && tid == 0) {
-    mbar_init(&bars[0], 1);
-    mbar_init(&bars[1], 1);
+  // the ring: this CTA's sequences in order (items, their panels, the
+  // column blocks), sequence q in slot q % slots; thread 0 issues every
+  // sequence below `limit` (a slot's previous sequence is done by then)
+  const uint32_t seq_bytes = (uint32_t)(L.nbox * L.box_rows * L.h.pitch);
+  int issued = 0, islot = 0, iit = 0, ipj = 0, icb = 0;  // thread 0's
+  auto issue_ring = [&](int limit) {
+    for (; issued < limit && iit < nloc; ++issued) {
+      int b, p0, np;
+      item(iit, &b, &p0, &np);
+      const int pc = p0 + ipj;
+      const int wv = min(W, R - pc * W);
+      unsigned char* dst = us + (size_t)islot * L.h.slot;
+      mbar_expect_tx(&bars[islot],
+                     seq_bytes + (icb == 0 ? 4u * (uint32_t)wv : 0u));
+      for (int bx = 0; bx < L.nbox; ++bx)
+        tile_load(dst + (size_t)bx * L.box_rows * L.h.pitch, &umap,
+                  pc * W + icb * L.cbw, b * P + row0 + bx * L.box_rows,
+                  &bars[islot]);
+      if (icb == 0)
+        bulk_load(sbuf + (size_t)(islot / ncb) * W, s + (size_t)b * R + pc * W,
+                  4u * (uint32_t)wv, &bars[islot]);
+      if (++islot == slots) islot = 0;
+      if (++icb == ncb) {
+        icb = 0;
+        if (++ipj == np) {
+          ipj = 0;
+          ++iit;
+        }
+      }
+    }
+  };
+  // item it's rows of x and d into buffer it & 1, by every thread
+  auto issue_vec = [&](int it) {
+    int b, p0, np;
+    item(it, &b, &p0, &np);
+    float* vb = reinterpret_cast<float*>(smem + L.vbuf + (it & 1) * L.vstride);
+    float* dv = vb + L.vd / 4;
+    for (int e = tid; e < C * w; e += kThreads) {
+      const int c = e / w, r = e - c * w;
+      cp_async4(vb + c * rows16 + r, x + ((size_t)b * C + c) * P + row0 + r);
+    }
+    for (int e = tid; e < w; e += kThreads)
+      cp_async4(dv + e, d + (size_t)b * P + row0 + e);
+  };
+
+  // once: the barriers; zeros in the slots' rows no copy writes and in
+  // the x and d rows past w; the first items' copies
+  if (tid == 0) {
+    for (int j = 0; j < slots; ++j) mbar_init(&bars[j], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // the next launch's counters of this group: slot rt / kSub, counter
-  // rt % kSub
-  if (g == 0 && !computes && rt < kYBufs * kSub)
-    next[((size_t)gi * kYBufs * kSub + rt) * kSubStride] = 0u;
-  __syncthreads();
-  if (!computes && nblk > 0) {
-    issue(0);
-    cp_async_wait_all();
+  {
+    const size_t loaded = (size_t)L.nbox * L.box_rows * L.h.pitch;
+    const size_t pad = (L.h.slot - loaded) / 16;
+    for (size_t j = tid; j < (size_t)slots * pad; j += kThreads) {
+      const size_t sl = j / pad, e = j - sl * pad;
+      *reinterpret_cast<uint4*>(us + sl * L.h.slot + loaded + 16 * e) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  for (int v = 0; v < 2; ++v) {
+    float* vb = reinterpret_cast<float*>(smem + L.vbuf + v * L.vstride);
+    for (int j = tid; j < (C + 1) * rows16; j += kThreads)
+      if (j % rows16 >= w) vb[j] = 0.f;
   }
   __syncthreads();
-  for (int j = 0; j < nblk; ++j) {
-    if (computes) {
-      const int blk = blk_of(j);
-      const TU* us;
-      const float* xb;
-      size_t pitch;
-      if constexpr (HOLD) {
-        mbar_wait(&bars[j & 1], (uint32_t)(j >> 1) & 1u);
-        us = reinterpret_cast<const TU*>(slice_at(j));
-        xb = reinterpret_cast<const float*>(slice_at(j) + L.slice);
-        pitch = (size_t)L.cgc * VEC;
-      } else {
-        us = u + (size_t)blk * P * R + cg0 * VEC;
-        xb = x + (size_t)blk * C * P;
-        pitch = (size_t)R;
-      }
-      group_local<TU, C, HOLD>(L, us, pitch, ncl, P, xb, vec_of(j), ts,
-                               reinterpret_cast<float*>(smem + L.red),
-                               part_of(j) + (size_t)g * C * P);
-      group_arrive(slot(j), g, nsub);
+  if (tid == 0) issue_ring(slots);
+  issue_vec(0);
+  if (nloc > 1) issue_vec(1);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // step 1 of this CTA's panel n (of item it, first ring sequence q),
+  // into part buffer n & 1 (its last reader, the copies of panel n - 2,
+  // had landed before the cluster barrier of panel n - 2 completed)
+  auto step1 = [&](int n, int it, int q) {
+    const float* xs =
+        reinterpret_cast<const float*>(smem + L.vbuf + (it & 1) * L.vstride);
+    float* part = part0 + (n & 1) * C * W;
+    if constexpr (kTensorCores) {
+      panel_t_mma<C>(L.h, us, slots, q, xs, part, wp, bars);
+      // step 2 reads every column block
+      for (int k = q; k < q + ncb; ++k)
+        mbar_wait(&bars[k % slots], (uint32_t)(k / slots) & 1u);
     } else {
-      if (j + 1 < nblk) issue(j + 1);
-      if (j > 0) reduce(j - 1);
-      cp_async_wait_all();
+      mbar_wait(&bars[q % slots], (uint32_t)(q / slots) & 1u);
+      panel_t_fma<C>(L.h, us + (size_t)(q % slots) * L.h.slot, xs, part, wp);
+    }
+    // the writes of part before the bulk copies (the async proxy) read it
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  };
+  // part buffer n & 1 copied into slot g of every CTA's receive buffer
+  // n & 1, whose mbarrier rbar[n & 1] counts the bytes: G bulk copies by
+  // one thread, once the CTA's writes of it are done
+  uint64_t* rbar = bars + kMaxSlots;  // [2]
+  const uint32_t rbytes = (uint32_t)(4 * G * C * W);
+  auto push = [&](int n) {
+    if (tid != 32) return;
+    const float* recv = recv0 + (size_t)(n & 1) * G * C * W;
+    const uint32_t dst = smem_addr(recv + (size_t)g * C * W);
+    const uint32_t bar = smem_addr(&rbar[n & 1]);
+    for (int r = 0; r < G; ++r)
+      copy_remote(cluster_addr(dst, r), part0 + (n & 1) * C * W,
+                  (uint32_t)(4 * C * W), cluster_addr(bar, r));
+  };
+
+  // Software-pipelined by one panel: step 1 of panel n + 1 runs while the
+  // partials of panel n arrive. Phase n of the cluster barrier (arrival
+  // once a CTA has received and read receive buffer n & 1, wait at the
+  // top of panel n + 1's iteration) keeps a CTA from pushing panel n + 2
+  // into a buffer another CTA still reads, and from rewriting part buffer
+  // n & 1 (step 1 of panel n + 2) before its copies have landed. Every CTA's receive mbarriers are armed (expecting the G
+  // partials' bytes) before any CTA pushes: one cluster barrier after
+  // their initialization, and each re-armed before the arrival of the
+  // panel that read it.
+  if (tid == 0) {
+    for (int k = 0; k < 2; ++k) {
+      mbar_init(&rbar[k], 1);
+      mbar_expect_tx(&rbar[k], rbytes);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_arrive();
+  cluster_wait();
+  int it = 0, j = 0, q0 = 0;  // panel n's item, its panel of the item, ring
+  if (nloc > 0) {
+    step1(0, 0, 0);
+    __syncthreads();
+    push(0);
+  }
+  for (int n = 0; it < nloc; ++n, q0 += ncb) {
+    int b, p0, np;
+    item(it, &b, &p0, &np);
+    const int it1 = j + 1 < np ? it : it + 1;  // panel n + 1's item
+    const int j1 = j + 1 < np ? j + 1 : 0;
+    const bool more = it1 < nloc;
+    STAMP(n, 0);
+    if (n > 0) cluster_wait();  // phase n - 1: buffers (n + 1) & 1 free
+    if (more) {
+      if (j1 == 0) {  // the next item's x and d have landed
+        cp_async_wait_all();
+        __syncthreads();
+      }
+      step1(n + 1, it1, q0 + ncb);
+    }
+    STAMP(n, 1);
+    mbar_wait(&rbar[n & 1], (uint32_t)(n >> 1) & 1u);
+    STAMP(n, 2);
+
+    // 2. t = round(s * sum of the G partials), added in cluster-rank
+    //    order from the receive buffer; zero past R
+    const float* recv = recv0 + (size_t)(n & 1) * G * C * W;
+    const float* ss = sbuf + (size_t)(q0 % slots / ncb) * W;
+    const int wv = min(W, R - (p0 + j) * W);  // columns inside R
+    for (int j4 = 4 * tid; j4 < C * W; j4 += 4 * kThreads) {
+      float4 acc = *reinterpret_cast<const float4*>(recv + j4);
+      for (int r = 1; r < G; ++r) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(recv + (size_t)r * C * W + j4);
+        acc.x += v.x;
+        acc.y += v.y;
+        acc.z += v.z;
+        acc.w += v.w;
+      }
+      const int c = j4 / W, col = j4 - c * W;
+      const float e[4] = {acc.x, acc.y, acc.z, acc.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        store_t(ts + c * L.h.tpitch + col + k,
+                col + k < wv ? e[k] * ss[col + k] : 0.f);
     }
     __syncthreads();
+    if (tid == 0) mbar_expect_tx(&rbar[n & 1], rbytes);  // for panel n + 2
+    cluster_arrive_relaxed();
+    STAMP(n, 3);
+
+    // 3. its rows' y[c][p] += sum_k U[p][k] t[c][k]
+    if constexpr (kTensorCores)
+      panel_rows_mma<C>(L.h, us, slots, q0, ts, ys, j == 0);
+    else
+      panel_rows_fma<C>(L.h, us + (size_t)(q0 % slots) * L.h.slot, ts, ys,
+                        j == 0);
+    __syncthreads();  // panel n's slots are free
+    STAMP(n, 4);
+    if (tid == 0) issue_ring(q0 + ncb + slots);
+    if (more) push(n + 1);
+    STAMP(n, 5);
+
+    if (j == np - 1) {
+      // the item's end: y, directly (one group a block) or through the
+      // block's slab and ticket
+      const unsigned char* vb = smem + L.vbuf + (it & 1) * L.vstride;
+      const float* xs = reinterpret_cast<const float*>(vb);
+      const float* ds = reinterpret_cast<const float*>(vb + L.vd);
+      float* yb = y + (size_t)b * C * P + row0;
+      if (ngrp == 1) {
+        for (int e = tid; e < C * w; e += kThreads) {
+          const int c = e / w, r = e - c * w;
+          yb[(size_t)c * P + r] =
+              ys[c * rows16 + r] + ds[r] * xs[c * rows16 + r];
+        }
+      } else {
+        const size_t slab = (size_t)C * P;
+        const int pg = p0 / ppi;
+        float* mine = parts + ((size_t)b * ngrp + pg) * slab + row0;
+        for (int e = tid; e < C * w; e += kThreads) {
+          const int c = e / w, r = e - c * w;
+          __stcg(mine + (size_t)c * P + r, ys[c * rows16 + r]);
+        }
+        __syncthreads();
+        if (tid == 0) {
+          __threadfence();  // this CTA's sums before its ticket
+          unsigned int* ticket = tickets + (size_t)b * G + g;
+          const bool last = atomicAdd(ticket, 1u) == (unsigned int)ngrp - 1;
+          if (last) {
+            atomicExch(ticket, 0u);
+            __threadfence();  // every group's sums after the ticket
+          }
+          *flag = last;
+        }
+        __syncthreads();
+        if (*flag) {
+          const float* base = parts + (size_t)b * ngrp * slab + row0;
+          for (int e = tid; e < C * w; e += kThreads) {
+            const int c = e / w, r = e - c * w;
+            const float* p = base + (size_t)c * P + r;
+            float acc = __ldcg(p);
+#pragma unroll 1
+            for (int k0 = 1; k0 < ngrp; k0 += 8) {
+              float pv[8];
+#pragma unroll
+              for (int k = 0; k < 8; ++k)
+                if (k0 + k < ngrp) pv[k] = __ldcg(p + (k0 + k) * slab);
+#pragma unroll
+              for (int k = 0; k < 8; ++k)
+                if (k0 + k < ngrp) acc += pv[k];
+            }
+            yb[(size_t)c * P + r] = acc + ds[r] * xs[c * rows16 + r];
+          }
+        }
+      }
+      __syncthreads();  // x/d buffer it & 1, y and the flag are free
+      if (it + 2 < nloc) issue_vec(it + 2);
+      STAMP(n, 6);
+    }
+    it = it1;
+    j = j1;
   }
-  if (!computes && nblk > 0) reduce(nblk - 1);
-}
-
-template <typename TU, int C, bool HOLD>
-cudaError_t prepare_group(size_t smem) {
-  static Grant grant;
-  return allow(grant,
-               reinterpret_cast<const void*>(group_matvec_kernel<TU, C, HOLD>),
-               smem, false);
-}
-
-template <typename TU, int C, bool HOLD>
-cudaError_t launch_group(const void* u, const void* s, const void* d,
-                         const void* x, void* y, void* ws, int parity, int B,
-                         int P, int R, int G, int nbuf, int ngroups,
-                         size_t smem, cudaStream_t stream) {
-  auto kernel = group_matvec_kernel<TU, C, HOLD>;
-  cudaError_t err = prepare_group<TU, C, HOLD>(smem);
-  if (err != cudaSuccess) return err;
-  CUtensorMap umap = {};
-  if (HOLD) {
-    const GroupLayout L = group_layout(P, R, C, G, (int)sizeof(TU), nbuf);
-    err = encode_map(&umap, u, sizeof(TU) == 2, B, P, R,
-                     L.cgc * L.vec, P < 256 ? P : 256, false);
-    if (err != cudaSuccess) return err;
-  }
-  float* parts = static_cast<float*>(ws);
-  unsigned int* sets = reinterpret_cast<unsigned int*>(
-      parts + (size_t)ngroups * kYBufs * G * C * P);
-  const size_t set_words = (size_t)ngroups * kYBufs * kSub * kSubStride;
-  unsigned int* ctrs = sets + parity * set_words;
-  unsigned int* next = sets + (1 - parity) * set_words;
-  const TU* up = static_cast<const TU*>(u);
-  const float* sp = static_cast<const float*>(s);
-  const float* dp = static_cast<const float*>(d);
-  const float* xp = static_cast<const float*>(x);
-  float* yp = static_cast<float*>(y);
-  void* args[] = {&umap, &up, &sp, &dp, &xp, &yp, &parts, &ctrs,
-                  &next, &B, &P, &R, &G, &nbuf};
-  // every CTA of a group must be resident: a cooperative launch is
-  // refused (and nothing runs) if the card cannot hold the grid
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
-                                    dim3(ngroups * G), dim3(kGroupThreads),
-                                    args, smem, stream);
-  return err != cudaSuccess ? err : cudaGetLastError();
-}
-
-// CTAs of this configuration the current device holds at once
-template <typename TU, int C, bool HOLD>
-cudaError_t group_capacity(size_t smem, int* count) {
-  auto kernel = group_matvec_kernel<TU, C, HOLD>;
-  cudaError_t err = prepare_group<TU, C, HOLD>(smem);
-  if (err != cudaSuccess) return err;
-  int per_sm = 0, dev = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kGroupThreads, smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  *count = per_sm * sms;
-  return err;
-}
-
-// the group route's shape rules; smem must be what group_layout gives
-bool group_shape_ok(int P, int R, int C, int G, int itemsize, int nbuf,
-                    size_t smem) {
-  const int vec = 16 / itemsize;
-  if (!(G >= 1 && (G & (G - 1)) == 0 && cohorts_ok(C) && R >= vec &&
-        R % vec == 0 && G <= R / vec && P >= 1 &&
-        (nbuf == 0 || (nbuf == 2 && P % 4 == 0))))
-    return false;
-  const GroupLayout L = group_layout(P, R, C, G, itemsize, nbuf);
-  return L.cgc <= 32 && smem == L.total;
+  // the last phase: every copy from this CTA has landed
+  if (nloc > 0) cluster_wait();
 }
 
 template <typename TU, int C>
-cudaError_t dispatch_hold(bool hold, const void* u, const void* s,
-                          const void* d, const void* x, void* y, void* ws,
-                          int parity, int B, int P, int R, int G, int nbuf,
-                          int ngroups, size_t smem, cudaStream_t stream,
-                          int* count) {
-  if (count != nullptr)
-    return hold ? group_capacity<TU, C, true>(smem, count)
-                : group_capacity<TU, C, false>(smem, count);
-  return hold ? launch_group<TU, C, true>(u, s, d, x, y, ws, parity, B, P, R,
-                                          G, nbuf, ngroups, smem, stream)
-              : launch_group<TU, C, false>(u, s, d, x, y, ws, parity, B, P,
-                                           R, G, nbuf, ngroups, smem, stream);
+cudaError_t prepare_group(int G, size_t smem) {
+  static Grant grant;
+  return allow(grant, reinterpret_cast<const void*>(group_matvec_kernel<TU, C>),
+               smem, G > 8);
 }
 
-// the group launch (count null) or its capacity query (into *count)
+template <typename TU, int C>
+cudaError_t launch_group(const void* u, const void* s, const void* d,
+                         const void* x, void* y, void* parts, void* tickets,
+                         int B, int P, int R, int G, int W, int slots, int ppi,
+                         int nclusters, size_t smem, cudaStream_t stream) {
+  cudaError_t err = prepare_group<TU, C>(G, smem);
+  if (err != cudaSuccess) return err;
+  const GroupLayout L = group_layout(P, C, G, W, (int)sizeof(TU), slots);
+  CUtensorMap umap = {};
+  err = encode_map(&umap, u, sizeof(TU) == 2, B, P, R, L.cbw, L.box_rows,
+                   sizeof(TU) == 2);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(nclusters, G, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, group_matvec_kernel<TU, C>, umap,
+                           static_cast<const float*>(s),
+                           static_cast<const float*>(d),
+                           static_cast<const float*>(x),
+                           static_cast<float*>(y), static_cast<float*>(parts),
+                           static_cast<unsigned int*>(tickets), B, P, R, W,
+                           slots, ppi);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename TU, int C>
+cudaError_t groups_placeable(int G, size_t smem, int* count) {
+  cudaError_t err = prepare_group<TU, C>(G, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(1, G, smem, 0, &attr);
+  return cudaOccupancyMaxActiveClusters(count, group_matvec_kernel<TU, C>,
+                                        &cfg);
+}
+
+// the group route's shape rules; smem must be what group_layout gives
+bool group_shape_ok(int P, int R, int C, int G, int W, int itemsize,
+                    int slots, size_t smem) {
+  const int vec = 16 / itemsize;
+  const int unit = itemsize == 2 ? 64 : 32;
+  const int wmax = itemsize == 2 ? kGroupPanelBf16 : kGroupPanelF32;
+  // W: a power of two times the unit (the steps' lane and warp splits)
+  const bool w_ok = W >= unit && W <= wmax && W % unit == 0 &&
+                    ((W / unit) & (W / unit - 1)) == 0;
+  if (!(G >= 1 && G <= kMaxCluster && (G & (G - 1)) == 0 && cohorts_ok(C) &&
+        P >= 1 && R >= vec && R % vec == 0 && w_ok && slots >= 1 &&
+        slots <= kMaxSlots))
+    return false;
+  // two panels resident: step 1 of the next beside step 2 of this one
+  const GroupLayout L = group_layout(P, C, G, W, itemsize, slots);
+  return slots >= 2 * L.h.ncb && smem == L.total;
+}
+
+// the group launch (count null) or its placement query (clusters the
+// current device holds at once, into *count)
 template <typename TU>
 cudaError_t dispatch_group(const void* u, const void* s, const void* d,
-                           const void* x, void* y, void* ws, int parity, int B,
-                           int P, int R, int C, int G, int nbuf, int ngroups,
+                           const void* x, void* y, void* parts,
+                           void* tickets, int B, int P, int R, int C, int G,
+                           int W, int slots, int ppi, int nclusters,
                            size_t smem, cudaStream_t stream, int* count) {
-  const bool hold = nbuf > 0;
+#define VILMA_GROUP_CASE(CC)                                                 \
+  case CC:                                                                   \
+    return count != nullptr                                                  \
+               ? groups_placeable<TU, CC>(G, smem, count)                    \
+               : launch_group<TU, CC>(u, s, d, x, y, parts, tickets, B, P, R, \
+                                      G, W, slots, ppi, nclusters, smem,      \
+                                      stream);
   switch (C) {
-    case 1:
-      return dispatch_hold<TU, 1>(hold, u, s, d, x, y, ws, parity, B, P, R, G,
-                                  nbuf, ngroups, smem, stream, count);
-    case 2:
-      return dispatch_hold<TU, 2>(hold, u, s, d, x, y, ws, parity, B, P, R, G,
-                                  nbuf, ngroups, smem, stream, count);
-    case 3:
-      return dispatch_hold<TU, 3>(hold, u, s, d, x, y, ws, parity, B, P, R, G,
-                                  nbuf, ngroups, smem, stream, count);
-    case 4:
-      return dispatch_hold<TU, 4>(hold, u, s, d, x, y, ws, parity, B, P, R, G,
-                                  nbuf, ngroups, smem, stream, count);
-    case 8:
-      return dispatch_hold<TU, 8>(hold, u, s, d, x, y, ws, parity, B, P, R, G,
-                                  nbuf, ngroups, smem, stream, count);
+    VILMA_GROUP_CASE(1)
+    VILMA_GROUP_CASE(2)
+    VILMA_GROUP_CASE(3)
+    VILMA_GROUP_CASE(4)
+    VILMA_GROUP_CASE(8)
     default:
       return cudaErrorInvalidValue;
   }
+#undef VILMA_GROUP_CASE
 }
 
 // the cluster route's shape rules; smem must be what cluster_layout gives,
@@ -1470,53 +1696,72 @@ cudaError_t placeable_c(int C, int G, size_t smem, int* count) {
 }  // namespace
 
 // Group route. u [B, P, R] (f32, or bf16 when u_bf16); s [B, R],
-// d [B, P], x and y [B, C, P] f32; G CTAs per block, nbuf slice buffers per
-// CTA (2; 0: U read from device memory in both products), smem bytes of
-// dynamic shared memory per CTA, ngroups groups (ngroups * G CTAs, at most
-// what vilma_block_matvec_group_fit reports); ws holds
-// ngroups * 4 * (G * C * P + 2 * 8 * 32) floats of workspace: the partials,
-// then two sets of barrier counters, zero before the first launch. The
-// launch counts on set `parity` and zeroes the other; the caller passes
-// the other set's parity to the next launch on the same stream. Returns the
-// launch's cudaError_t.
+// d [B, P], x and y [B, C, P] f32; G CTAs per cluster (rows), panels of W
+// columns, `slots` ring slots per CTA, ppi panels a work item (ngrp =
+// ceil(ceil(R / W) / ppi) items a block), smem bytes of dynamic shared
+// memory per CTA, nclusters persistent clusters (at most what
+// vilma_block_matvec_group_fit reports, at most B * ngrp). With ngrp > 1:
+// parts holds B * ngrp * C * P floats of workspace and tickets B * G
+// zeros (left zero by the launch). Returns the launch's cudaError_t.
 extern "C" int vilma_block_matvec_group(const void* u, const void* s,
                                         const void* d, const void* x, void* y,
-                                        void* ws, int parity, int B, int P,
-                                        int R, int C, int u_bf16, int G,
-                                        int nbuf, int ngroups, int smem,
+                                        void* parts, void* tickets, int B,
+                                        int P, int R, int C, int u_bf16, int G,
+                                        int W, int slots, int ppi,
+                                        int nclusters, int smem,
                                         void* stream) {
-  if (!group_shape_ok(P, R, C, G, u_bf16 ? 2 : 4, nbuf, (size_t)smem) ||
-      ngroups < 1 || (parity != 0 && parity != 1))
+  const int npanel = W > 0 ? (R + W - 1) / W : 0;
+  if (!group_shape_ok(P, R, C, G, W, u_bf16 ? 2 : 4, slots, (size_t)smem) ||
+      nclusters < 1 || ppi < 1 ||
+      (ppi < npanel && (parts == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      u_bf16 ? dispatch_group<__nv_bfloat16>(u, s, d, x, y, ws, parity, B, P,
-                                             R, C, G, nbuf, ngroups, smem, st,
-                                             nullptr)
-             : dispatch_group<float>(u, s, d, x, y, ws, parity, B, P, R, C, G,
-                                     nbuf, ngroups, smem, st, nullptr);
+      u_bf16 ? dispatch_group<__nv_bfloat16>(u, s, d, x, y, parts, tickets, B,
+                                             P, R, C, G, W, slots, ppi,
+                                             nclusters, smem, st, nullptr)
+             : dispatch_group<float>(u, s, d, x, y, parts, tickets, B, P, R, C,
+                                     G, W, slots, ppi, nclusters, smem, st,
+                                     nullptr);
   return (int)err;
 }
 
-// How many CTAs of the group route's configuration the current device
-// holds at once, into *count.
+// How many clusters of the group route's configuration the current
+// device holds at once (0: it cannot place one), into *count.
 extern "C" int vilma_block_matvec_group_fit(int P, int R, int C, int u_bf16,
-                                            int G, int nbuf, int smem,
+                                            int G, int W, int slots, int smem,
                                             int* count) {
   *count = 0;
-  if (!group_shape_ok(P, R, C, G, u_bf16 ? 2 : 4, nbuf, (size_t)smem))
+  if (!group_shape_ok(P, R, C, G, W, u_bf16 ? 2 : 4, slots, (size_t)smem))
     return (int)cudaErrorInvalidValue;
   cudaError_t err =
       u_bf16 ? dispatch_group<__nv_bfloat16>(nullptr, nullptr, nullptr,
-                                             nullptr, nullptr, nullptr, 0, 0,
-                                             P, R, C, G, nbuf, 0, smem, 0,
-                                             count)
+                                             nullptr, nullptr, nullptr,
+                                             nullptr, 0, P, R, C, G, W, slots,
+                                             1, 0, smem, 0, count)
              : dispatch_group<float>(nullptr, nullptr, nullptr, nullptr,
-                                     nullptr, nullptr, 0, 0, P, R, C, G, nbuf,
-                                     0, smem, 0, count);
+                                     nullptr, nullptr, nullptr, 0, P, R, C, G,
+                                     W, slots, 1, 0, smem, 0, count);
   return (int)err;
 }
+
+#ifdef VILMA_MATVEC_STAMPS
+// The measurement build: where the group route's CTA 0 writes its stamps
+// (cap blocks' worth of kStampPoints x {globaltimer ns, clock64} u64s; a
+// null buf stops them), and the stamp points' names, comma-separated.
+extern "C" int vilma_block_matvec_stamps(void* buf, int cap) {
+  unsigned long long* p = static_cast<unsigned long long*>(buf);
+  const int n = buf == nullptr ? 0 : cap;
+  cudaError_t err = cudaMemcpyToSymbol(g_stamps, &p, sizeof(p));
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_stamp_cap, &n, sizeof(n));
+  return (int)err;
+}
+
+extern "C" const char* vilma_block_matvec_stamp_points() {
+  return kStampNames;
+}
+#endif
 
 // Cluster route: operands as above; G CTAs per block, `slots` column-block
 // slots in each CTA's ring (bf16; 1 for f32), smem bytes of dynamic shared

@@ -19,14 +19,18 @@ Two routes, chosen by the bucket's shape alone (`plan`):
 * cluster: a thread-block cluster of G CTAs holds one block in its
   shared memory, P/G rows each, and reads U from device memory once;
   as many clusters as the card holds walk the blocks;
-* group: for the blocks the cluster route does not take, a group of up
-  to 128 CTAs (one cooperative launch) spreads each block's columns over
-  as many SMs, so that both products are local to a CTA (its slice held
-  in shared memory where two fit); the CTAs' partials of y meet through a
-  workspace in device memory, one split-phase counter barrier a block.
+* group: for the blocks the cluster route does not take, each block's
+  columns are cut into panels of about 64 KB a CTA; a cluster of up to 16
+  CTAs splits a panel's rows and exchanges its t through distributed
+  shared memory, and walks a block's panels in order with y kept in
+  shared memory and 2-4 panels in flight by TMA. A bucket of fewer blocks
+  than the card holds clusters cuts each block into panel groups
+  (`group_split`), whose sums meet by ticket in a device-memory
+  workspace. The route is bound by the synchronization a panel costs
+  (its cluster barrier and exchanges), not by bytes (PERF.md).
 
 On a CUDA tensor the wrapper launches the kernel of the planned route or
-raises (also when the card cannot place the planned cluster or group);
+raises (also when the card cannot place the planned cluster);
 on a CPU tensor it runs `bucket_matvec_multi_plain`. There is no
 fallback.
 
@@ -45,11 +49,13 @@ import torch
 
 from vilma_tpu_torch.ops.cuda import build
 
-#: launches of the cluster route and of the group route, and of either
-#: route by cohort count (plain-version calls do not count); the
-#: backward's launches (either route) count apart, in launches_backward
+#: launches of the cluster route and of the group route (the group
+#: route's with bf16 U also in launches_group_bf16), and of either route
+#: by cohort count (plain-version calls do not count); the backward's
+#: launches (either route) count apart, in launches_backward
 launches = 0
 launches_group = 0
+launches_group_bf16 = 0
 launches_by_cohorts = {}
 launches_backward = 0
 
@@ -68,24 +74,34 @@ _CLUSTERS = (1, 2, 4, 8, 16)
 # copies
 _MAX_RANK = {2: 1024, 4: 2048}
 _MAX_SLOTS = 32
-# group route: at most this many CTAs per block (a power of two the
-# H100's 132 SMs hold at once)
-_GROUP_MAX = 128
-# warps of a group-route CTA that compute (steps 1 and 2) and that reduce
-# (step 3) (csrc/block_matvec.cu kComputeWarps, kReduceWarps)
-_COMPUTE_WARPS = 12
-_REDUCE_WARPS = 4
+# group route: the most rows of a block one CTA takes where the cluster
+# (at most 16 CTAs) allows; panel widths by U's itemsize, a multiple of
+# the unit up to the most (csrc/block_matvec.cu kGroupPanelBf16,
+# kGroupPanelF32); the bytes of a CTA's slice of one panel (one stage of
+# its ring) the planner aims at; the most stages a ring holds
+_GROUP_ROWS = 256
+_PANEL_UNIT = {2: 64, 4: 32}
+_PANEL_MAX = {2: 512, 4: 128}
+_PANEL_BYTES = 64 * 1024
+_GROUP_STAGES = 4
 
 
 @dataclass(frozen=True)
 class Plan:
     """How the kernel runs one bucket shape."""
     route: str      # 'cluster' or 'group'
-    cluster: int    # CTAs per LD block
-    slots: int      # cluster: column-block slots of a CTA's ring (bf16;
-                    # else 1); group: slice buffers per CTA (2; 0: U read
-                    # from device memory in both products)
+    cluster: int    # CTAs per cluster (cluster route: per LD block;
+                    # group route: the CTAs that split a panel's rows)
+    slots: int      # slots of a CTA's ring (cluster route: bf16 column
+                    # blocks, f32 1; group route: bf16 column blocks of 64,
+                    # f32 panels)
     smem: int       # dynamic shared memory per CTA, bytes
+    panel: int = 0  # group route: columns per panel (a block's columns
+                    # cut into ceil(R / panel) panels)
+
+    def panels(self, R):
+        """Panels of a block of rank R (1 on the cluster route)."""
+        return -(-R // self.panel) if self.route == 'group' else 1
 
 
 def cluster_smem(P, R, C, itemsize, G, slots=1):
@@ -122,44 +138,56 @@ def _ring_slots(P, R, C, G):
     return slots if slots >= ncb else 0
 
 
-def group_columns(R, itemsize, G):
-    """Column groups of 16 bytes a group-route CTA owns: ceil(R / (vec G))
-    rounded up to a power of two (vec = 16 / itemsize)."""
-    per = -(-(R // (16 // itemsize)) // G)
-    cgc = 1
-    while cgc < per:
-        cgc *= 2
-    return cgc
-
-
-def group_smem(P, R, C, itemsize, G, nbuf):
-    """Dynamic shared memory of one CTA of the group route
-    (csrc/block_matvec.cu::group_layout): 128 bytes to align the base and
-    128 of mbarriers; `nbuf` slices of all P rows by the CTA's cgc column
-    groups of 16 bytes and as many copies of the block's x [C, P] (each
-    rounded up to 128 bytes); three buffers of its shares of s [cgc vec],
-    d [rpc] and x [C, rpc] (rpc = ceil(P / G) rows of y; each padded to 16
-    bytes); t [C, cgc vec] (padded); the compute warps' sums of step 1
-    [12, cgc vec, C]; and the reduce warps' lane sums [128]."""
-    vec = 16 // itemsize
-    cgc = group_columns(R, itemsize, G)
-    rpc = -(-P // G)
-    slice_bytes = -(-P * cgc * 16 // 128) * 128
-    xfull = -(-4 * C * P // 128) * 128
-    vstride = -(-4 * (cgc * vec + (C + 1) * rpc) // 16) * 16
-    ts = -(-4 * C * cgc * vec // 16) * 16
-    red = 4 * _COMPUTE_WARPS * cgc * vec * C + 4 * 32 * _REDUCE_WARPS
-    return 256 + nbuf * (slice_bytes + xfull) + 3 * vstride + ts + red
-
-
-def group_size(R, itemsize):
-    """CTAs per block on the group route: the largest power of two up to
-    128 that leaves each CTA at least one column group of 16 bytes."""
-    ncg = R // (16 // itemsize)
+def group_size(P):
+    """CTAs per cluster on the group route: the fewest, a power of two up
+    to 16, that leave each at most 256 of a block's P rows."""
     G = 1
-    while 2 * G <= min(_GROUP_MAX, ncg):
+    while G < 16 and -(-P // G) > _GROUP_ROWS:
         G *= 2
     return G
+
+
+def group_rows(P, G):
+    """(rows, rows16) of a group-route CTA: its share ceil(P / G) of a
+    block's rows, and the rows of its slots: the rows its TMA boxes bring
+    (ceil(rows / 256) boxes of equal rows, a multiple of 8) rounded up to
+    16 (csrc/block_matvec.cu::group_layout)."""
+    rows = -(-P // G)
+    nbox = -(-rows // 256)
+    box = -(-(-(-rows // nbox)) // 8) * 8
+    return rows, -(-(nbox * box) // 16) * 16
+
+
+def group_smem(P, C, itemsize, G, W, slots):
+    """Dynamic shared memory of one CTA of the group route
+    (csrc/block_matvec.cu::group_layout): the mbarriers and the
+    last-arriver flag (1024 bytes); the ring of `slots` slots of rows16
+    rows (bf16: column blocks of 64 in 128-byte rows; f32: a panel of W
+    columns) and s [stages, W]; two buffers of x [C, rows16] and d
+    [rows16]; the partial t [2, C, W] f32 and the cluster's partials
+    pushed to it [2, G, C, W]; the warps' step-1 partials [8, C, W] (f32)
+    or [C, 512] (bf16); the rounded t [C, W + 16 / itemsize] (padded to
+    16 bytes); y [C, rows16]; and 1024 bytes to align the base."""
+    rows16 = group_rows(P, G)[1]
+    pitch, ncb = (128, W // 64) if itemsize == 2 else (4 * W, 1)
+    return (1024 + slots * rows16 * pitch + 4 * (slots // ncb) * W
+            + 2 * 4 * (C + 1) * rows16 + 2 * 4 * C * W * (1 + G)
+            + 4 * C * (8 * W if itemsize == 4 else 512)
+            + -(-itemsize * C * (W + 16 // itemsize) // 16) * 16
+            + 4 * C * rows16 + 1024)
+
+
+def group_panel(P, R, itemsize, G):
+    """Columns per panel on the group route: the widest power of two
+    times the unit (64 bf16, 32 f32) whose slice (rows16 x W) stays
+    within 64 KB, up to the most (512, 128) and to the least that covers
+    R; at least one unit."""
+    unit, rows16 = _PANEL_UNIT[itemsize], group_rows(P, G)[1]
+    W = unit
+    while (2 * W <= _PANEL_MAX[itemsize] and W < R
+           and rows16 * 2 * W * itemsize <= _PANEL_BYTES):
+        W *= 2
+    return W
 
 
 @functools.lru_cache(maxsize=None)
@@ -167,15 +195,17 @@ def plan(P, R, itemsize, C):
     """The route for a [P, R] bucket of U with `itemsize`-byte elements
     and C cohorts: the smallest cluster (at least 16 rows per CTA, at
     most 256 for bf16) whose CTAs hold a block's slice in shared memory;
-    else the group route (`group_size` CTAs per block, each owning a
-    slice of U's columns: two slice buffers where they fit, else none, U
-    read from device memory in both products). bf16 cluster CTAs keep
-    their slices in a ring of column-block slots, as many as fit up to
-    two blocks' worth, so the next block's first column blocks load while
-    one is worked on. csrc/block_matvec.cu::cluster_shape_ok and
-    group_shape_ok hold the same rules and refuse a plan whose shared
-    memory differs from its layout's. The plan depends on the shape
-    alone, not on the number of blocks, and is made once per shape."""
+    else the group route: clusters of `group_size` CTAs split the rows of
+    a panel of `group_panel` columns, with as many ring stages (panels in
+    flight per CTA) as fit, 2 to 4 (the panel halves while not even two
+    fit: step 1 of the next panel runs beside step 2 of this one). bf16
+    cluster CTAs keep their slices in a ring of column-block slots, as
+    many as fit up to two blocks' worth, so the next block's first column
+    blocks load while one is worked on.
+    csrc/block_matvec.cu::cluster_shape_ok and group_shape_ok hold the
+    same rules and refuse a plan whose shared memory differs from its
+    layout's. The plan depends on the shape alone, not on the number of
+    blocks, and is made once per shape."""
     for G in _CLUSTERS:
         # bf16 slices land as single tensor copies of at most 256 rows
         if not (P % G == 0 and (P // G) % 16 == 0 and R % 8 == 0
@@ -186,10 +216,21 @@ def plan(P, R, itemsize, C):
         smem = cluster_smem(P, R, C, itemsize, G, slots)
         if slots and smem <= _SMEM_MAX:
             return Plan('cluster', G, slots, smem)
-    G = group_size(R, itemsize)
-    nbuf = 2 if (P % 4 == 0 and group_smem(P, R, C, itemsize, G, 2)
-                 <= _SMEM_MAX) else 0
-    return Plan('group', G, nbuf, group_smem(P, R, C, itemsize, G, nbuf))
+    G = group_size(P)
+    unit = _PANEL_UNIT[itemsize]
+    W = group_panel(P, R, itemsize, G)
+    while True:
+        ncb = W // 64 if itemsize == 2 else 1
+        for stages in range(_GROUP_STAGES, 1, -1):
+            slots = stages * ncb
+            smem = group_smem(P, C, itemsize, G, W, slots)
+            if slots <= _MAX_SLOTS and smem <= _SMEM_MAX:
+                return Plan('group', G, slots, smem, W)
+        if W == unit:
+            # not even two stages fit: the wrapper refuses the plan
+            return Plan('group', G, 2 * ncb,
+                        group_smem(P, C, itemsize, G, W, 2 * ncb), W)
+        W //= 2
 
 
 def bucket_matvec_multi_plain(u, s, d, x):
@@ -215,57 +256,66 @@ def _require(cond, msg):
         raise ValueError('bucket_matvec_multi: ' + msg)
 
 
-# (device, P, R, C, bf16, plan) -> clusters (cluster route) or CTAs (group
-# route) the card holds at once
+# (device, P, R, C, bf16, plan, library) -> clusters the card holds at once
 _placeable = {}
 # (device, stream, P, C, G, groups) -> the group route's workspace and the
-# counter set its next launch uses
+# blocks it has room for
 _workspace = {}
 
 
 def _capacity(lib, device, P, R, C, bf16, pl):
-    """How many clusters (cluster route) or CTAs (group route) of plan
-    `pl` the card holds at once; raises if it cannot place one cluster
-    or one group."""
-    key = (device, P, R, C, bf16, pl)
+    """How many clusters of plan `pl` the card holds at once; raises if it
+    cannot place one."""
+    key = (device, P, R, C, bf16, pl, id(lib))
     if key not in _placeable:
         count = ctypes.c_int(0)
-        entry = ('vilma_block_matvec_cluster_fit' if pl.route == 'cluster'
-                 else 'vilma_block_matvec_group_fit')
-        build.check(getattr(lib, entry)(
-            P, R, C, bf16, pl.cluster, pl.slots, pl.smem,
-            ctypes.byref(count)), entry)
+        if pl.route == 'cluster':
+            entry = 'vilma_block_matvec_cluster_fit'
+            args = (P, R, C, bf16, pl.cluster, pl.slots, pl.smem)
+        else:
+            entry = 'vilma_block_matvec_group_fit'
+            args = (P, R, C, bf16, pl.cluster, pl.panel, pl.slots, pl.smem)
+        build.check(getattr(lib, entry)(*args, ctypes.byref(count)), entry)
         _placeable[key] = count.value
-    need = 1 if pl.route == 'cluster' else pl.cluster
-    if _placeable[key] < need:
+    if _placeable[key] < 1:
         raise RuntimeError(
-            f'bucket_matvec_multi: {device} cannot place a {pl.route} of '
-            f'{pl.cluster} CTAs with {pl.smem} bytes of shared memory each '
-            f'(a [{P}, {R}] block)')
+            f'bucket_matvec_multi: {device} cannot place a {pl.route} '
+            f'cluster of {pl.cluster} CTAs with {pl.smem} bytes of shared '
+            f'memory each (a [{P}, {R}] block)')
     return _placeable[key]
 
 
-def group_count(B, held, pl):
-    """Groups of a group-route launch: as many as the card holds at once
-    (`held` CTAs) and there are blocks; without slices in shared memory
-    one, so that the whole card works on one block at a time and the
-    second product reads it from L2."""
-    return 1 if pl.slots == 0 else min(B, held // pl.cluster)
+def group_split(B, R, held, pl):
+    """How a group-route launch cuts its work: (panels a work item, items
+    a block, clusters). A cluster takes an item's panels in order, summing
+    y in shared memory; the items of a block meet by ticket, which costs
+    about a panel more an item. Of the cuts of a block into items of equal
+    panels, the one with the least (rounds of `held` clusters) x (panels
+    an item, plus 1 when the items meet by ticket); the fewer items on a
+    tie. So a bucket of many blocks takes whole blocks, and a bucket of
+    few spreads each over several clusters."""
+    npanel = pl.panels(R)
+    best = None
+    for ppi in sorted({-(-npanel // k) for k in range(1, npanel + 1)},
+                      reverse=True):
+        groups = -(-npanel // ppi)
+        cost = -(-B * groups // held) * (ppi + (groups > 1))
+        if best is None or cost < best[0]:
+            best = (cost, ppi, groups)
+    _, ppi, groups = best
+    return ppi, groups, min(B * groups, held)
 
 
-def _group_workspace(device, stream, P, C, G, groups):
+def _group_workspace(device, stream, P, C, G, groups, B):
     """The group route's workspace, made once per (device, stream, shape)
-    (launches on one stream run in order, so they may share it): per group
-    four slots (blocks in flight), each a buffer of the CTAs' partials of
-    y [G, C, P], then two sets of the slots' barrier counters (8 of 32
-    words each). A launch counts on one set and zeroes the other for the
-    next; both start at zero. Returns [workspace, set of the next
-    launch]."""
+    and grown with B (launches on one stream run in order, so they may
+    share it): the tickets [B, G] (zero, and left zero by every launch),
+    then the panel groups' sums of y [B, groups, C, P]. Returns
+    (workspace, the blocks it has room for)."""
     key = (device, stream, P, C, G, groups)
-    if key not in _workspace:
-        _workspace[key] = [
-            torch.zeros(groups * 4 * (G * C * P + 2 * 8 * 32),
-                        dtype=torch.float32, device=device), 0]
+    if key not in _workspace or _workspace[key][1] < B:
+        _workspace[key] = (torch.zeros(B * G + B * groups * C * P,
+                                       dtype=torch.float32, device=device), B)
     return _workspace[key]
 
 
@@ -305,9 +355,11 @@ class BucketMatvec(torch.autograd.Function):
 
 
 @build.on_operands_device
-def _launch(u, s, d, x, backward=False):
-    """Check the operands, launch the planned route, count the launch."""
-    global launches, launches_group, launches_backward
+def _launch(u, s, d, x, backward=False, lib=None):
+    """Check the operands, launch the planned route, count the launch.
+    lib: the kernel library (chip_smoke.py passes the measurement build,
+    build.library('stamps')); the main one by default."""
+    global launches, launches_group, launches_group_bf16, launches_backward
     B, P, R = u.shape
     C = x.shape[1] if x.dim() == 3 else -1
     _require(u.dtype in (torch.float32, torch.bfloat16),
@@ -338,7 +390,7 @@ def _launch(u, s, d, x, backward=False):
     y = torch.empty_like(x)
     if B == 0:
         return y[:, :C]
-    lib = build.library()
+    lib = build.library() if lib is None else lib
     bf16 = int(u.dtype == torch.bfloat16)
     stream = build.stream_handle(x.device)
     held = _capacity(lib, x.device, P, R, W, bf16, pl)
@@ -348,14 +400,18 @@ def _launch(u, s, d, x, backward=False):
             y.data_ptr(), B, P, R, W, bf16, pl.cluster, pl.slots,
             min(B, held), pl.smem, stream), 'vilma_block_matvec_cluster')
     else:
-        groups = group_count(B, held, pl)
-        ws = _group_workspace(x.device, stream, P, W, pl.cluster, groups)
+        ppi, groups, nclusters = group_split(B, R, held, pl)
+        tickets = parts = 0
+        if groups > 1:
+            ws, room = _group_workspace(x.device, stream, P, W, pl.cluster,
+                                        groups, B)
+            tickets = ws.data_ptr()
+            parts = tickets + 4 * room * pl.cluster
         build.check(lib.vilma_block_matvec_group(
             u.data_ptr(), s.data_ptr(), d.data_ptr(), x.data_ptr(),
-            y.data_ptr(), ws[0].data_ptr(), ws[1], B, P, R, W, bf16,
-            pl.cluster, pl.slots, groups, pl.smem, stream),
+            y.data_ptr(), parts, tickets, B, P, R, W, bf16, pl.cluster,
+            pl.panel, pl.slots, ppi, nclusters, pl.smem, stream),
             'vilma_block_matvec_group')
-        ws[1] ^= 1
     if backward:
         launches_backward += 1
     else:
@@ -363,5 +419,6 @@ def _launch(u, s, d, x, backward=False):
             launches += 1
         else:
             launches_group += 1
+            launches_group_bf16 += bf16
         launches_by_cohorts[C] = launches_by_cohorts.get(C, 0) + 1
     return y if W == C else y[:, :C]

@@ -7,6 +7,11 @@ link. The build runs at first use, from the checkout's sources alone,
 into vilma_tpu_torch/build/ (ignored by git); the library name carries a
 hash of the sources and headers, so an edited file is rebuilt.
 
+A second library, the measurement build (`library('stamps')`), holds
+block_matvec.cu alone compiled with -DVILMA_MATVEC_STAMPS: its group
+route records per-block %globaltimer stamps of one CTA. chip_smoke.py
+phase 3 loads it beside the main library; the fit never does.
+
 Nothing here runs on import: the CPU tests import every module, and
 there is no nvcc where they run.
 """
@@ -30,8 +35,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: every pointer and the stream are void*, counts int
 SIGNATURES = {
-    'vilma_block_matvec_group': [_P] * 6 + [_I] * 10 + [_P],
-    'vilma_block_matvec_group_fit': [_I] * 7 + [_P],
+    'vilma_block_matvec_group': [_P] * 7 + [_I] * 11 + [_P],
+    'vilma_block_matvec_group_fit': [_I] * 8 + [_P],
     'vilma_block_matvec_cluster': [_P] * 5 + [_I] * 9 + [_P],
     'vilma_block_matvec_cluster_fit': [_I] * 7 + [_P],
     'vilma_compact_prologue': [_P] * 9 + [_I] * 6 + [_F, _P],
@@ -59,7 +64,17 @@ for _kdim, _shared in (
     SIGNATURES['vilma_compact_' + _kdim] = SIGNATURES[
         'vilma_compact_' + _shared]
 
-_lib = None
+# the measurement build: its sources, extra nvcc flags, extra entry
+# points (the stamp buffer's setter) and the entry point that returns the
+# stamp points' names (a C string)
+VARIANTS = {
+    'stamps': dict(sources=('block_matvec.cu',),
+                   flags=['-DVILMA_MATVEC_STAMPS'],
+                   signatures={'vilma_block_matvec_stamps': [_P, _I]},
+                   names='vilma_block_matvec_stamp_points'),
+}
+
+_libs = {}
 #: wall seconds the last build took (None until a build ran here)
 build_seconds = None
 #: what ptxas (-Xptxas -v) reported for every kernel of the last build
@@ -80,33 +95,40 @@ def _nvcc():
                        'first use on a CUDA device')
 
 
-def _sources():
-    return sorted(CSRC.glob('*.cu'))
+def _sources(variant=None):
+    if variant is None:
+        return sorted(CSRC.glob('*.cu'))
+    return [CSRC / name for name in VARIANTS[variant]['sources']]
 
 
-def library_path():
+def _flags(variant=None):
+    return NVCC_FLAGS + (VARIANTS[variant]['flags'] if variant else [])
+
+
+def library_path(variant=None):
     digest = hashlib.sha256()
     for src in sorted(CSRC.glob('*.cu*')):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    digest.update(' '.join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f'libvilma_kernels_{digest.hexdigest()[:16]}.so'
+    digest.update(' '.join(_flags(variant)).encode())
+    stem = 'libvilma_kernels' if variant is None else f'libvilma_{variant}'
+    return BUILD_DIR / f'{stem}_{digest.hexdigest()[:16]}.so'
 
 
-def build(verbose=False):
-    """Compile every csrc/*.cu into one shared library (if not built
-    yet) and return its path."""
+def build(verbose=False, variant=None):
+    """Compile every csrc/*.cu (or a variant's sources, with its flags)
+    into one shared library (if not built yet) and return its path."""
     global build_seconds, ptxas_report
-    out = library_path()
+    out = library_path(variant)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f'{out.stem}.{os.getpid()}'
-    flags = NVCC_FLAGS + ['-Xptxas', '-v']
+    flags = _flags(variant) + ['-Xptxas', '-v']
     t0 = time.perf_counter()
     objs, procs = [], []
-    for src in _sources():
+    for src in _sources(variant):
         obj = BUILD_DIR / f'{src.stem}.{tag}.o'
         objs.append(obj)
         procs.append((src, subprocess.Popen(
@@ -118,15 +140,17 @@ def build(verbose=False):
         (errors if proc.returncode else notes).append(f'{src.name}:\n{err}')
     if not errors:
         tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-        link = subprocess.run([nvcc] + NVCC_FLAGS + ['-shared', '-o', str(tmp)]
+        link = subprocess.run([nvcc] + _flags(variant)
+                              + ['-shared', '-o', str(tmp)]
                               + [str(o) for o in objs],
                               capture_output=True, text=True)
         if link.returncode:
             errors.append('link:\n' + link.stderr)
     for obj in objs:
         obj.unlink(missing_ok=True)
-    build_seconds = time.perf_counter() - t0
-    ptxas_report = '\n'.join(notes)
+    if variant is None:
+        build_seconds = time.perf_counter() - t0
+        ptxas_report = '\n'.join(notes)
     if errors:
         raise RuntimeError('nvcc failed:\n' + '\n'.join(errors)[-8000:])
     if verbose:
@@ -170,17 +194,24 @@ def kernel_resources(report):
     return found
 
 
-def library():
-    """The loaded kernel library, built on first use."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
+def library(variant=None):
+    """The loaded kernel library (or a variant of it: VARIANTS), built on
+    first use."""
+    if variant not in _libs:
+        lib = ctypes.CDLL(str(build(variant=variant)))
+        signatures = SIGNATURES
+        if variant is not None:
+            signatures = {k: v for k, v in SIGNATURES.items()
+                          if k.startswith('vilma_block_matvec')}
+            signatures.update(VARIANTS[variant]['signatures'])
+        for name, argtypes in signatures.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        if variant is not None:
+            getattr(lib, VARIANTS[variant]['names']).restype = ctypes.c_char_p
+        _libs[variant] = lib
+    return _libs[variant]
 
 
 def check(status, name):
