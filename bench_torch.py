@@ -133,8 +133,8 @@ def _name(dtype):
     return str(dtype).replace('torch.', '')
 
 
-def _ld_dir(dtype, u_dtype):
-    return os.path.join(CACHE_DIR, f'torch_{NUM_LOCI}_{BLOCK_SIZE}_'
+def _ld_dir(dtype, u_dtype, block_size=BLOCK_SIZE):
+    return os.path.join(CACHE_DIR, f'torch_{NUM_LOCI}_{block_size}_'
                         f'{RANK_FRAC}_{_name(dtype)}_{_name(u_dtype)}')
 
 
@@ -174,25 +174,25 @@ def _cast_ld(ld, dtype, u_dtype):
         inv_s=bk.inv_s.to(dtype), d=bk.d.to(dtype)) for bk in ld.buckets))
 
 
-def _cached_ld(dtype, device):
+def _cached_ld(dtype, device, block_size=BLOCK_SIZE):
     """The packed synthetic LD at `dtype` (U in BENCH_LD_DTYPE) on
-    `device`: from this twin's cache, cast from its float64 pack, or
-    factored (synthetic_ld: on the card where `device` is one) and
-    cached."""
+    `device`, in `block_size`-SNP blocks: from this twin's cache, cast
+    from its float64 pack, or factored (synthetic_ld: on the card where
+    `device` is one) and cached."""
     import torch
     from vilma_tpu_torch.utils import synthetic
     u_dtype = _ld_u_dtype() or dtype
-    path = _ld_dir(dtype, u_dtype)
+    path = _ld_dir(dtype, u_dtype, block_size)
     if os.path.exists(os.path.join(path, 'ld.pt')):
         return _load_ld(path, device)
-    base = _ld_dir(torch.float64, torch.float64)
+    base = _ld_dir(torch.float64, torch.float64, block_size)
     t0 = time.perf_counter()
     if dtype != torch.float64 and os.path.exists(os.path.join(base,
                                                               'ld.pt')):
         ld = _cast_ld(_load_ld(base, device), dtype, u_dtype)
         how = 'cast from the float64 pack'
     else:
-        ld = synthetic.synthetic_ld(NUM_LOCI, BLOCK_SIZE, RANK_FRAC, seed=0,
+        ld = synthetic.synthetic_ld(NUM_LOCI, block_size, RANK_FRAC, seed=0,
                                     dtype=dtype, u_dtype=u_dtype,
                                     device=device)
         how = f'factored on {device}'
@@ -251,10 +251,11 @@ def _model(betas, std_errs, ld, annotations, covs, dtype, device):
         device=device)
 
 
-def _build(dtype, device):
-    """(ModelData, VIState) of bench.py's problem on `device`."""
+def _build(dtype, device, block_size=BLOCK_SIZE):
+    """(ModelData, VIState) of bench.py's problem on `device`, its LD in
+    `block_size`-SNP blocks (bench.py's 1024 by default)."""
     from vilma_tpu_torch.utils import synthetic
-    ld = _cached_ld(dtype, device)
+    ld = _cached_ld(dtype, device, block_size)
     betas, std_errs, covs, annotations = _inputs()
     data = _model(betas, std_errs, ld, annotations, covs, dtype, device)
     state = synthetic.synthetic_state(

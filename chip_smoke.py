@@ -62,7 +62,9 @@ Phases:
      zeroed just before and read just after: every kernel of the path
      must launch. Then small-input references: a 2-block fit on the
      card (f32) held against the same fit on the host at f64, without
-     and with --learn-scaling (kdim and epoch-history routes).
+     and with --learn-scaling (kdim and epoch-history routes). Phases
+     4-11 memoize the loader's host factors (memo_factors): phase 4's
+     fit factors its panel, and phases 6, 10 and 11 reuse the factors.
   4b. fit at the default precision (f32 U) on a schema of a 1024-SNP and
      a 2048-SNP block: the f32 cluster route and the group route of the
      matvec must launch; then the same fit with bf16 U: the group route
@@ -121,7 +123,8 @@ Phases:
         the matvec must launch at 4 cohorts;
      b. 4 ancestries at genome scale through MultiPopVI: 1,000,448 SNPs,
         a bf16 panel each (phase 5's generator, 4 seeds; the first is
-        phase 5's own panel), -K 2
+        phase 5's own panel, each other one ANCESTRY_DISTINCT factored
+        AR(1) blocks spread over its 977), -K 2
         --drop-non-psd (216 components), f32: the initialization and 2
         steps, seconds and peak memory;
      c. a 4-trait fit of 4 blocks, -K 2: the card's f32 fit within
@@ -168,8 +171,9 @@ Phases:
      and a 2-block fit at --mesh snp=2 on the card (f32) against the
      host's unsharded f64 fit, without and with --learn-scaling, within
      the bands of the unsharded card fit (BAND_FIT, BAND_FIT_SE);
-     c. fit --distributed in one fresh process (NCCL, --mesh snp=1):
-        the process group's backend; its outputs phase 4's bit for bit;
+     c. fit --distributed in one fresh process (NCCL, --mesh snp=1),
+        run beside 17c's process and read after it: the process group's
+        backend; its outputs phase 4's bit for bit;
      d. with two cards or more, two processes over NCCL, one card each,
         at --mesh snp=2, outputs against 15c's; with one card it prints
         `phase 15d not run: 1 card`. Every process of 15c-d must leave
@@ -216,7 +220,8 @@ Phases:
         within BAND_SHARD of the unsharded run's (bit for bit is
         reported).
  18. bench_torch.py, bench.py's twin, each run a subprocess on a copy
-     of the script (its LD cache in a temporary directory): a. the
+     of the script (its LD cache in a temporary directory, where the
+     float64 pack of 100,000 SNPs is factored on the card first): a. the
      default run, both legs (100,000 SNPs, 2 cohorts, K = 18, bf16 U;
      the host's f64 baseline, then the card leg); b. --accel with
      BENCH_SCALE_SE=1 BENCH_GRID=cli (582 components, the kdim state);
@@ -224,6 +229,20 @@ Phases:
      bench line carries the expected metric and a finite value > 0; the
      kernels of its state launch over its timed chains, no other state's
      compact kernel does; lines, launches and seconds are printed.
+ 19. the drift check (tools/drift_genome_torch.py), each leg a
+     subprocess on 18a's problem and LD cache, DRIFT_ITERS (40) outer
+     steps: f64cpu on the host, f32cuda (f32 U) and bf16cuda on the
+     card, all three started after phase 12 (the LD cache made then) and
+     run in the background beside phases 13-18 with DRIFT_THREADS host
+     threads each, read here. Each card leg's report against the f64 leg
+     (drift_genome.py's keys) is printed and held to the bands of
+     tests/test_f32_genome_scale.py: 99.9% of SNPs within 2 posterior
+     SDs, at most 0.2% beyond 3, the median absolute difference below
+     1e-3 of the posterior scale, the recomputed ELBOs within 5e-3,
+     first convergence within 2; the ELBO accumulator within 1e-5 on
+     f32cuda (the f64 leg's within 1e-9), printed on bf16cuda. Each
+     leg's launches are printed; the matvec, prologue and sums must
+     launch on each card leg.
 
 The next-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failed phase exits
@@ -1808,28 +1827,40 @@ def remove_outputs(prefix):
 # phases 5 and 7: engine at whole-genome HapMap3 scale
 # ---------------------------------------------------------------------------
 
-def device_ld(num_blocks, block_size, rank, device, seed=5, u_dtype=None):
+def device_ld(num_blocks, block_size, rank, device, seed=5, u_dtype=None,
+              distinct=None):
     """A PackedLD of AR(1) blocks factored on the card (batched eigh,
     set-up rather than a kernel), eigenvectors in u_dtype (bf16 by
-    default)."""
+    default). With `distinct`, that many AR(1) blocks are factored and
+    each of the num_blocks blocks holds a copy of one of them, drawn
+    from the seed: the same packed shapes and bytes, a fraction of the
+    set-up."""
     import torch
     u_dtype = torch.bfloat16 if u_dtype is None else u_dtype
     from vilma_tpu_torch.ops.blocks import BlockBucket, PackedLD
     rng = np.random.default_rng(seed)
-    rho = torch.as_tensor(rng.uniform(0.3, 0.95, num_blocks),
-                          dtype=torch.float32, device=device)
+    rho = rng.uniform(0.3, 0.95, num_blocks)
+    pick = None
+    if distinct is not None and distinct < num_blocks:
+        pick = torch.as_tensor(rng.integers(0, distinct, num_blocks),
+                               device=device)
+        rho = rho[:distinct]
+    rho = torch.as_tensor(rho, dtype=torch.float32, device=device)
     idx = torch.arange(block_size, device=device)
     lag = (idx[:, None] - idx[None, :]).abs().float()
     us, ss = [], []
-    for b0 in range(0, num_blocks, 64):
+    for b0 in range(0, len(rho), 64):
         r = rho[b0:b0 + 64]
         blocks = r[:, None, None] ** lag[None]
         vals, vecs = torch.linalg.eigh(blocks)
         us.append(vecs[:, :, -rank:].to(u_dtype))
         ss.append(vals[:, -rank:].contiguous())
         del blocks, vals, vecs
-    u = torch.cat(us).contiguous()
+    u = torch.cat(us)
     s = torch.cat(ss)
+    if pick is not None:
+        u, s = u[pick], s[pick]
+    u = u.contiguous()
     n = num_blocks * block_size
     perm = torch.arange(n, device=device).reshape(num_blocks, block_size)
     bucket = BlockBucket(
@@ -2177,8 +2208,9 @@ class memo_factors:
     factorization (io/load.load_entry_factor) while active, keyed as the
     factor cache keys it (the .npy file's identity, the threshold, the
     variant match): a second load of the same blocks, here the host
-    references of a card run, reuses the first's factors, which the same
-    host code on the same inputs would compute bit for bit."""
+    references of a card run and phases 6-11's reloads of phase 4's
+    panel, reuses the first's factors, which the same host code on the
+    same inputs would compute bit for bit."""
 
     def __enter__(self):
         from vilma_tpu_torch.io import load
@@ -2724,11 +2756,17 @@ def run_trait_fit(out_dir, device='cuda', num_blocks=88, K=3, keep=False):
                 elbos=v, top=top, split=split.split(seconds))
 
 
+# phase 13b's panels but phase 5's: each block a copy of one of this many
+# AR(1) blocks factored for the panel (device_ld's `distinct`)
+ANCESTRY_DISTINCT = 64
+
+
 def run_ancestry_fit(device, ld5=None, num_blocks=977, steps=2):
     """Phase 13b: 4 ancestries at genome scale, through MultiPopVI:
     1,000,448 SNPs (977 blocks of 1024 at half rank), each cohort with its
     own bf16 panel (phase 5's generator, 4 seeds: the matvec at one cohort
-    per panel; the first, seed 5, is phase 5's panel `ld5` where given),
+    per panel; the first, seed 5, is phase 5's panel `ld5` where given,
+    the others ANCESTRY_DISTINCT factored blocks spread over the 977),
     the -K 2 --drop-non-psd grid at 4 cohorts, f32, the materialized
     state; the initialization and `steps` steps."""
     import torch
@@ -2736,7 +2774,8 @@ def run_ancestry_fit(device, ld5=None, num_blocks=977, steps=2):
     from vilma_tpu_torch.models import mixture
     t0 = time.perf_counter()
     lds = [ld5 if p == 0 and ld5 is not None
-           else device_ld(num_blocks, 1024, 512, device, seed=5 + p)
+           else device_ld(num_blocks, 1024, 512, device, seed=5 + p,
+                          distinct=ANCESTRY_DISTINCT)
            for p in range(4)]
     _sync(device)
     setup_s = time.perf_counter() - t0
@@ -3494,10 +3533,9 @@ def free_port():
         return sock.getsockname()[1]
 
 
-def run_distributed(argv, nproc, n_snp):
-    """`fit --distributed` in nproc processes over NCCL on localhost, one
-    card each; returns their RESULTs (a failed process fails the
-    phase)."""
+def start_distributed(argv, nproc, n_snp):
+    """`fit --distributed` started in nproc processes over NCCL on
+    localhost, one card each (stop_background kills them at exit)."""
     port = free_port()
     procs = [subprocess.Popen(
         [sys.executable, '-c', _DIST_WORKER, json.dumps(
@@ -3506,6 +3544,16 @@ def run_distributed(argv, nproc, n_snp):
                     str(rank), '--mesh', f'snp={n_snp}']), REPO],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for rank in range(nproc)]
+    BACKGROUND.extend(procs)
+    return procs
+
+
+def run_distributed(argv, nproc, n_snp, procs=None):
+    """`fit --distributed` in nproc processes (start_distributed's, or
+    `procs` started by it); returns their RESULTs (a failed process fails
+    the phase)."""
+    if procs is None:
+        procs = start_distributed(argv, nproc, n_snp)
     results = []
     for proc in procs:
         try:
@@ -3523,13 +3571,13 @@ def run_distributed(argv, nproc, n_snp):
 
 
 def run_phase15(paths, p4, vi7, st7, ld7, out_dir, cache, launches, smi):
-    """Phase 15: sharded fits on the card. p4 is phase 4's (counted_fit
+    """Phase 15a-b: sharded fits on the card (15c-d: run_phase15c, after
+    phase 17c). p4 is phase 4's (counted_fit
     result, kept output prefix); vi7, st7 and ld7 phase 7's engine, final
     state and LD; `cache` the factor cache of phase 4's panel (phase 14
     fills it; a load through it writes the uncached load's bits, phase
     14b). Adds the sharded runs' launches to `launches`; returns the
     readings."""
-    import torch
     out = {}
     devices = ['cuda:0'] * SHARDS
     phase(f'phase 15a: phase 4\'s fit at --mesh snp={SHARDS}, the shards '
@@ -3597,14 +3645,29 @@ def run_phase15(paths, p4, vi7, st7, ld7, out_dir, cache, launches, smi):
     for key in ('bucket_matvec_multi', 'prologue_epochs',
                 'delta_sums_epochs'):
         launches[key] += e['counts'][key]
+    return out
 
-    phase('phase 15c: fit --distributed, one process, --mesh snp=1, NCCL')
+
+def start_phase15c(paths, out_dir, cache):
+    """Phase 15c's process, started (it runs beside phase 17c's): phase
+    4's fit with --distributed, one process, --mesh snp=1, NCCL. Returns
+    what run_phase15c takes."""
     schema, sumstats, extract, _ = paths
     prefix = os.path.join(out_dir, 'dist_fit')
     argv = fit_argv(schema, sumstats, extract, prefix, 'cuda') + F32_BF16 \
         + ['--factor-cache', cache]
-    t0 = time.perf_counter()
-    (res,) = run_distributed(argv, 1, 1)
+    return argv, prefix, time.perf_counter(), start_distributed(argv, 1, 1)
+
+
+def run_phase15c(paths, p4, out_dir, cache, started):
+    """Phases 15c (its process `started` by start_phase15c) and 15d, with
+    two cards. Returns the readings."""
+    import torch
+    out = {}
+    argv, prefix, t0, procs = started
+    schema, sumstats, extract, _ = paths
+    phase('phase 15c: fit --distributed, one process, --mesh snp=1, NCCL')
+    (res,) = run_distributed(argv, 1, 1, procs)
     out['15c'] = res
     differ = differing_outputs(prefix, p4[1])
     log(f'  process group backend {res["backend"]}, world {res["world"]}; '
@@ -4005,7 +4068,7 @@ def gathered_readings(vi, n):
                 pads=pads, L=vi._padded_loci)
 
 
-def run_phase17(paths, out_dir, cache, launches, smi):
+def run_phase17(paths, out_dir, cache, launches, smi, beside=None):
     """Phase 17: the global-gather layout at full width. Cohort 2 fits on
     a copy of phase 4's panel with the variant order reversed inside
     every block (no shard-local layout exists); 17a at --mesh snp=3
@@ -4013,8 +4076,10 @@ def run_phase17(paths, out_dir, cache, launches, smi):
     --learn-scaling (the kdim state, the K-split kernels), the shards
     co-located on cuda:0, each against the unsharded fit of the same
     two-panel command run here; 17c the same command in one NCCL process
-    (--distributed --mesh snp=1: the per-process gathered loader).
-    Adds the runs' launches to `launches`; returns the readings."""
+    (--distributed --mesh snp=1: the per-process gathered loader), with
+    `beside()` called once its process has started (its result under
+    'beside'). Adds the runs' launches to `launches`; returns the
+    readings."""
     out = {}
     n = paths[3]
     t0 = time.perf_counter()
@@ -4074,7 +4139,11 @@ def run_phase17(paths, out_dir, cache, launches, smi):
           '--mesh snp=1 (the gathered per-process loader)')
     prefix = os.path.join(out_dir, 'gather_dist')
     t0 = time.perf_counter()
-    (res,) = run_distributed(gathered_argv(paths, rev, prefix, common), 1, 1)
+    argv = gathered_argv(paths, rev, prefix, common)
+    procs = start_distributed(argv, 1, 1)
+    if beside is not None:
+        out['beside'] = beside()
+    (res,) = run_distributed(argv, 1, 1, procs)
     ref_prefix = os.path.join(out_dir, 'gather_ref_shared')
     errs = output_errors(prefix, ref_prefix)
     differ = differing_outputs(prefix, ref_prefix)
@@ -4160,40 +4229,173 @@ def bench_reading(args, stdout):
     return line, info[0]
 
 
-def run_phase18(smi):
-    """Phase 18: bench_torch.py in subprocesses (BENCH_RUNS): each line
-    with the expected metric and a finite value > 0, the kernels of its
-    state launched and no other state's. Returns {tag: (line, launches
-    line, seconds)}."""
+def prepare_bench(tmp):
+    """bench_torch.py copied into `tmp` with its LD cache: 18a's float64
+    pack factored on the card (batched f64 eigh), which 18a's host leg
+    would factor with LAPACK (24.1 s on the card machine's host). Phases
+    18 and 19 read it."""
+    import importlib.util
+    import shutil
+    import torch
+    script = os.path.join(tmp, 'bench_torch.py')
+    shutil.copy(os.path.join(REPO, 'bench_torch.py'), script)
+    spec = importlib.util.spec_from_file_location('bench_torch', script)
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    bench._cached_ld(torch.float64, torch.device('cuda'))
+    torch.cuda.empty_cache()
+
+
+def run_phase18(tmp, smi):
+    """Phase 18: bench_torch.py in subprocesses (BENCH_RUNS), from its
+    copy in `tmp` (prepare_bench): each line with the expected metric and
+    a finite value > 0, the kernels of its state launched and no other
+    state's. Returns {tag: (line, launches line, seconds)}."""
     import torch
     out = {}
     kind = torch.cuda.get_device_name(0)
-    with tempfile.TemporaryDirectory() as tmp:
-        for tag, args, knobs, metric, kernels in BENCH_RUNS:
-            phase(f'phase {tag}: bench_torch.py {" ".join(args)} '
-                  f'{" ".join(f"{k}={v}" for k, v in knobs.items())}')
-            seconds, stdout = run_bench(tmp, args, knobs)
-            line, info = bench_reading(args, stdout)
-            require(line['metric'] == metric,
-                    f'{tag}: metric {line["metric"]}, not {metric}')
-            require(isinstance(line['value'], float)
-                    and math.isfinite(line['value']) and line['value'] > 0,
-                    f'{tag}: value {line["value"]!r}')
-            require(info['device'] == kind, f'{tag} ran on {info["device"]}')
-            counts = info['launches']
-            require_launched(counts, kernels, f'phase {tag}')
-            others = [k for k in STATE_KERNELS
-                      if k not in kernels and counts[k]]
-            require(not others, f'{tag} launched {others}')
-            for ln in stdout.splitlines():
-                if ln.startswith(('LD ', 'BENCH_GRID', 'scale_se state',
-                                  'baseline leg')):
-                    log(f'  {ln}')
-            log(f'  {json.dumps(line)}')
-            log(f'  launches over the 3 timed chains {counts}; host syncs '
-                f'{info["host_syncs_per_step"]:.2f} a step; '
-                f'{seconds:.1f} s; {smi}')
-            out[tag] = (line, info, seconds)
+    for tag, args, knobs, metric, kernels in BENCH_RUNS:
+        phase(f'phase {tag}: bench_torch.py {" ".join(args)} '
+              f'{" ".join(f"{k}={v}" for k, v in knobs.items())}')
+        seconds, stdout = run_bench(tmp, args, knobs)
+        line, info = bench_reading(args, stdout)
+        require(line['metric'] == metric,
+                f'{tag}: metric {line["metric"]}, not {metric}')
+        require(isinstance(line['value'], float)
+                and math.isfinite(line['value']) and line['value'] > 0,
+                f'{tag}: value {line["value"]!r}')
+        require(info['device'] == kind, f'{tag} ran on {info["device"]}')
+        counts = info['launches']
+        require_launched(counts, kernels, f'phase {tag}')
+        others = [k for k in STATE_KERNELS
+                  if k not in kernels and counts[k]]
+        require(not others, f'{tag} launched {others}')
+        for ln in stdout.splitlines():
+            if ln.startswith(('LD ', 'BENCH_GRID', 'scale_se state',
+                              'baseline leg')):
+                log(f'  {ln}')
+        log(f'  {json.dumps(line)}')
+        log(f'  launches over the 3 timed chains {counts}; host syncs '
+            f'{info["host_syncs_per_step"]:.2f} a step; '
+            f'{seconds:.1f} s; {smi}')
+        out[tag] = (line, info, seconds)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the drift check (tools/drift_genome_torch.py) at 100K SNPs
+# ---------------------------------------------------------------------------
+
+# the tool's legs on phase 18a's problem (100,000 SNPs, 2 cohorts, K = 18,
+# 1024-SNP blocks at half rank), DRIFT_ITERS outer steps each; each card
+# leg against the host's f64 leg within tests/test_f32_genome_scale.py's
+# bands (the tool's BANDS), the ELBO accumulator gated on f32cuda
+# (BAND_ACC_TEST 1e-5, the f64 base BAND_ACC_BASE 1e-9) and printed on
+# bf16cuda, whose U is rounded to bf16
+DRIFT_BASE = 'f64cpu'
+DRIFT_CARD_LEGS = (('f32cuda', True), ('bf16cuda', False))
+DRIFT_ITERS = 40
+DRIFT_KERNELS = ('bucket_matvec_multi', 'prologue', 'delta_sums')
+# the legs run in the background from phase 13 on (start_phase19), each
+# leg's host threads capped so that the phases in front keep most of the
+# host's cores: the f64 leg's arithmetic runs there, the card legs' on
+# the card
+DRIFT_THREADS = {DRIFT_BASE: 4, 'f32cuda': 1, 'bf16cuda': 1}
+# the processes start_phase19 started, stopped at exit if still running
+BACKGROUND = []
+
+
+def drift_tool():
+    """tools/drift_genome_torch.py as a module (compare, out_of_band)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        'drift_genome_torch',
+        os.path.join(REPO, 'tools', 'drift_genome_torch.py'))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def start_phase19(tmp):
+    """Phase 19's legs, started at once in the background: the drift
+    tool's legs in subprocesses, on a copy of the tool beside phase 18's
+    copy of bench_torch.py in `tmp` (so its LD cache is prepare_bench's),
+    each with DRIFT_THREADS host threads. Returns {leg: process}."""
+    import shutil
+    tool = os.path.join(tmp, 'tools', 'drift_genome_torch.py')
+    os.makedirs(os.path.dirname(tool), exist_ok=True)
+    shutil.copy(os.path.join(REPO, 'tools', 'drift_genome_torch.py'), tool)
+    env = {k: v for k, v in os.environ.items() if not k.startswith('BENCH_')}
+    env['BENCH_SIZE'] = '100k'
+    env['PYTHONPATH'] = REPO + os.pathsep + env.get('PYTHONPATH', '')
+    procs = {}
+    for leg in (DRIFT_BASE,) + tuple(leg for leg, _ in DRIFT_CARD_LEGS):
+        threads = str(DRIFT_THREADS[leg])
+        # the output goes to files: a full pipe nobody reads would stall
+        with open(os.path.join(tmp, f'{leg}.out'), 'w') as out, \
+                open(os.path.join(tmp, f'{leg}.err'), 'w') as err:
+            procs[leg] = subprocess.Popen(
+                [sys.executable, tool, '--leg', leg, '--out',
+                 os.path.join(tmp, f'{leg}.npz'), '--iters',
+                 str(DRIFT_ITERS)],
+                env=dict(env, OMP_NUM_THREADS=threads,
+                         MKL_NUM_THREADS=threads),
+                cwd=tmp, stdout=out, stderr=err)
+        BACKGROUND.append(procs[leg])
+    return procs
+
+
+def stop_background():
+    """Kill what start_phase19 started and is still running."""
+    for proc in BACKGROUND:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def run_phase19(tmp, smi, procs, timeout=600):
+    """Phase 19: waits for the legs start_phase19 started in `tmp`. Each
+    card leg's report against the f64 leg within the bands, its matvec
+    and [P, I] kernels launched. Returns {leg: (report, launches,
+    seconds)}."""
+    t0 = time.perf_counter()
+    try:
+        for proc in procs.values():
+            proc.wait(timeout=max(timeout - (time.perf_counter() - t0), 1))
+    finally:
+        stop_background()
+    log(f'  waited {time.perf_counter() - t0:.1f} s for the legs')
+    for leg, proc in procs.items():
+        with open(os.path.join(tmp, f'{leg}.out')) as out, \
+                open(os.path.join(tmp, f'{leg}.err')) as err:
+            stdout, stderr = out.read(), err.read()
+        require(proc.returncode == 0, f'phase 19: leg {leg} failed '
+                f'({proc.returncode}): {stderr[-3000:]}')
+        for ln in stdout.splitlines():
+            if ln.startswith(('leg=', 'LD ', 'launches', 'saved')):
+                log(f'  {ln}')
+
+    drift = drift_tool()
+    kind = smi.splitlines()[0]
+    out = {}
+    base_path = os.path.join(tmp, f'{DRIFT_BASE}.npz')
+    for leg, gated in DRIFT_CARD_LEGS:
+        path = os.path.join(tmp, f'{leg}.npz')
+        f = np.load(path)
+        counts = json.loads(str(f['launches']))
+        require(str(f['device']) == smi,
+                f'phase 19: leg {leg} ran on {f["device"]}')
+        require_launched(counts, DRIFT_KERNELS, f'phase 19 ({leg})')
+        log(f'  {leg} against {DRIFT_BASE}, {DRIFT_ITERS} outer steps '
+            f'({float(f["seconds"]):.2f} s of steps on {kind}):')
+        rep = drift.compare(base_path, path)
+        bad = drift.out_of_band(rep, accumulator=gated)
+        log(f'  {leg}: ELBO accumulator drift '
+            f'{rep["elbo_accumulator_drift_test"]:.3e} ('
+            + (f'band {drift.BAND_ACC_TEST:.0e}' if gated else 'not gated')
+            + ')')
+        require(not bad, f'phase 19: {leg} outside the bands {bad}')
+        out[leg] = (rep, counts, float(f['seconds']))
     return out
 
 
@@ -4315,7 +4517,9 @@ def main():
 
     launches = {}
     timings = {}
-    with tempfile.TemporaryDirectory() as tmp:
+    # phases 6, 10 and 11 reload phase 4's panel: its host factors are
+    # computed once, by phase 4's fit (set-up, not the path under test)
+    with tempfile.TemporaryDirectory() as tmp, memo_factors():
         phase('phase 4: CLI fit, ~90K variants, -K 12 (582 components)')
         t0 = time.perf_counter()
         # phase 4's panel lives until phase 14
@@ -4478,6 +4682,15 @@ def main():
         'written', 'npz_s', 'estimates_s', 'free_bytes', 'need_bytes')}
     torch.cuda.empty_cache()
 
+    # phase 19's legs run from here on, beside phases 13-18
+    bench_dir = tempfile.TemporaryDirectory()
+    bench_tmp = bench_dir.name
+    t19 = time.perf_counter()
+    prepare_bench(bench_tmp)
+    legs = start_phase19(bench_tmp)
+    log(f'  phase 19\'s legs {", ".join(legs)} started in the background '
+        f'({time.perf_counter() - t19:.1f} s for the LD cache)')
+
     with tempfile.TemporaryDirectory() as tmp:
         phase(f'phase 13a: fit --trait, {TRAITS} traits on one ~90K-variant '
               'panel, -K 3 --drop-non-psd, f32, the materialized state')
@@ -4508,8 +4721,9 @@ def main():
     b = run_ancestry_fit(device, ld)
     timings['ancestry_init_s'] = b['init_s']
     timings['ancestry_s_per_iter'] = b['s_per_iter']
-    log(f'  K = {b["K"]}, {b["n"]} SNPs; 3 panels factored in '
-        f'{b["setup_s"]:.1f} s (the first is phase 5\'s); initialization '
+    log(f'  K = {b["K"]}, {b["n"]} SNPs; panels 2-4 ({ANCESTRY_DISTINCT} '
+        f'factored blocks each; the first is phase 5\'s) made in '
+        f'{b["setup_s"]:.1f} s; initialization '
         f'{b["init_s"]:.3f} s, peak '
         f'device memory {b["init_peak"] / 2**30:.2f} GiB; steps '
         f'{[round(t, 3) for t in b["step_s"]]} s ({b["syncs"]:.1f} host '
@@ -4547,19 +4761,36 @@ def main():
     timings['16d_s_per_step'] = (p16['16d']['s_step'],
                                  p16['16d']['s_step0'])
     t0 = time.perf_counter()
-    p17 = run_phase17(paths, panel.name, cache, launches, smi)
+    # 15c's process runs beside 17c's: both wait on a fresh process
+    p17 = run_phase17(paths, panel.name, cache, launches, smi,
+                      beside=lambda: start_phase15c(paths, panel.name, cache))
+    p15.update(run_phase15c(paths, p4, panel.name, cache,
+                            p17.pop('beside')))
     timings['phase17_s'] = time.perf_counter() - t0
     for tag in ('17a', '17b'):
         timings[f'{tag}_s_per_step'] = p17[tag]['step_s']
         timings[f'{tag}_bytes_per_eval'] = p17[tag]['per_eval']
     panel.cleanup()
-    t0 = time.perf_counter()
-    p18 = run_phase18(smi)
-    timings['phase18_s'] = time.perf_counter() - t0
-    for tag, (line, _, seconds) in p18.items():
-        timings[f'{tag}_iters_per_s'] = line['value']
-        timings[f'{tag}_s'] = seconds
-    log(f'  phase 18: {timings["phase18_s"]:.1f} s')
+    with bench_dir:
+        t0 = time.perf_counter()
+        p18 = run_phase18(bench_tmp, smi)
+        timings['phase18_s'] = time.perf_counter() - t0
+        for tag, (line, _, seconds) in p18.items():
+            timings[f'{tag}_iters_per_s'] = line['value']
+            timings[f'{tag}_s'] = seconds
+        log(f'  phase 18: {timings["phase18_s"]:.1f} s')
+        phase(f'phase 19: the drift check, {DRIFT_BASE} against '
+              f'{", ".join(leg for leg, _ in DRIFT_CARD_LEGS)} on 18a\'s '
+              f'problem, {DRIFT_ITERS} outer steps (the legs started after '
+              f'phase 12, {time.perf_counter() - t19:.1f} s ago)')
+        t0 = time.perf_counter()
+        p19 = run_phase19(bench_tmp, smi, legs)
+        timings['phase19_s'] = time.perf_counter() - t0
+        for leg, (rep, _, seconds) in p19.items():
+            timings[f'19_{leg}_accumulator_drift'] = rep[
+                'elbo_accumulator_drift_test']
+            timings[f'19_{leg}_steps_s'] = seconds
+        log(f'  phase 19: {timings["phase19_s"]:.1f} s')
     log(f'  timings {json.dumps(timings)}')
     log(f'  all phases: {time.perf_counter() - t_start:.1f} s')
 
@@ -4580,3 +4811,5 @@ if __name__ == '__main__':
     except SmokeFailure as exc:
         print(f'chip_smoke FAILED: {exc}', file=sys.stderr)
         sys.exit(1)
+    finally:
+        stop_background()

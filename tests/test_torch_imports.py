@@ -1,8 +1,10 @@
-"""The port imports neither jax, optax, pandas nor ml_dtypes, its flags
+"""The port (with bench_torch.py and tools/drift_genome_torch.py)
+imports neither jax, optax, pandas nor ml_dtypes, its flags
 parse (component sharding among them) or raise before any file is read,
 and its entry points run on the card unless the caller asks for the
 CPU."""
 import os
+import shutil
 import subprocess
 import sys
 
@@ -69,6 +71,47 @@ def test_import_guard():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert 'LOADED []' in out.stdout, out.stdout
+
+
+# a whole f64cpu leg of tools/drift_genome_torch.py and its --compare,
+# run with jax, pandas and the JAX package blocked
+DRIFT_GUARD = """
+import runpy, sys
+sys.modules['jax'] = sys.modules['pandas'] = sys.modules['vilma_tpu'] = None
+tool, out = sys.argv[1:]
+for argv in (['--leg', 'f64cpu', '--out', out, '--iters', '1'],
+             ['--compare', out, out]):
+    sys.argv = [tool] + argv
+    try:
+        runpy.run_path(tool, run_name='__main__')
+    except SystemExit as exc:
+        assert not exc.code, exc.code
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
+                and m.split('.')[0] in ('jax', 'jaxlib', 'pandas',
+                                       'vilma_tpu'))
+print('LOADED', loaded)
+"""
+
+
+def test_drift_tool_imports_no_jax(tmp_path):
+    """tools/drift_genome_torch.py runs a leg (bench_torch's problem at
+    1,100 SNPs, one outer step, its LD cache in tmp_path) and compares
+    with jax, pandas and vilma_tpu blocked, and loads none of them."""
+    tools = tmp_path / 'tools'
+    tools.mkdir()
+    shutil.copy(os.path.join(REPO, 'bench_torch.py'), tmp_path)
+    shutil.copy(os.path.join(REPO, 'tools', 'drift_genome_torch.py'), tools)
+    env = {k: v for k, v in os.environ.items() if not k.startswith('BENCH_')}
+    env.update(BENCH_LOCI='1100', OMP_NUM_THREADS='1',
+               PYTHONPATH=REPO + os.pathsep + env.get('PYTHONPATH', ''))
+    out = subprocess.run(
+        [sys.executable, '-c', DRIFT_GUARD,
+         str(tools / 'drift_genome_torch.py'), str(tmp_path / 'd.npz')],
+        env=env, cwd=str(tmp_path), capture_output=True, text=True,
+        timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert 'LOADED []' in out.stdout, out.stdout
+    assert '"base": "f64cpu"' in out.stdout
 
 
 @pytest.mark.parametrize('flags', [

@@ -81,7 +81,9 @@ def fast_inner_product_comp(vi_mu, mixture_prec, vi_delta):
     [K, P, P, I] one."""
     quad = torch.sum(vi_mu * torch.einsum('kqp,kpi->kqi', mixture_prec,
                                           vi_mu), dim=1)
-    return 0.5 * torch.einsum('ki,ki->', quad, vi_delta)
+    # a product summed, not einsum('ki,ki->'): on the CPU that is one f32
+    # dot of K * I terms, 1.7e-5 off at 18M terms (K = 18, 1M SNPs)
+    return 0.5 * torch.sum(quad * vi_delta)
 
 
 def sum_annotations(deltas, annotations, num_annotations):
