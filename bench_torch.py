@@ -31,7 +31,9 @@ What differs from bench.py:
   lax.fori_loop does there. A leg runs a warm-up chain of n steps, then
   times the best of 3 chains of n calls to engine.outer_step, each
   between two torch.cuda.synchronize() calls. An earlier line gives the
-  host syncs a step and the kernel launches by name over the 3 chains.
+  host syncs a step and the kernel launches by name over the 3 chains,
+  the set-up seconds, and the peak device memory of the set-up and of
+  the steps.
 * Baseline. The baseline leg is the port itself on device='cpu' at
   float64, through the kernels' plain versions. So vs_baseline is not
   bench.py's, whose baseline is XLA on the CPU.
@@ -333,19 +335,38 @@ def _device_name(device):
             else 'cpu')
 
 
+def _peak_gib(device):
+    """Peak device memory (GiB) since the last reset, which it resets;
+    None on the host."""
+    import torch
+    if device.type != 'cuda':
+        return None
+    gib = torch.cuda.max_memory_allocated(device) / 2**30
+    torch.cuda.reset_peak_memory_stats(device)
+    return gib
+
+
 def accel_main():
     """The card leg: float32, U in bf16 unless BENCH_LD_DTYPE=f32.
     Prints ACCEL_LAUNCHES (the metric, the device, host syncs a step,
-    launches by kernel) and ACCEL_IPS."""
+    launches by kernel, set-up seconds, the peak device memory of the
+    set-up and of the steps) and ACCEL_IPS."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     os.environ.setdefault('BENCH_LD_DTYPE', 'bf16')
     device = _leg_device()
+    _peak_gib(device)
+    t0 = time.perf_counter()
     data, state = _build(torch.float32, device)
+    _sync([device])
+    setup_s = time.perf_counter() - t0
+    setup_peak = _peak_gib(device)
     ips, syncs, counts = _bench_steps(data, state, _accel_steps())
     print('ACCEL_LAUNCHES', json.dumps(dict(
         metric=METRIC, device=_device_name(device),
-        host_syncs_per_step=syncs, launches=counts)), flush=True)
+        host_syncs_per_step=syncs, launches=counts, setup_s=setup_s,
+        setup_peak_gib=setup_peak, steps_peak_gib=_peak_gib(device))),
+        flush=True)
     print('ACCEL_IPS', ips, flush=True)
 
 

@@ -222,8 +222,11 @@ Phases:
  18. bench_torch.py, bench.py's twin, each run a subprocess on a copy
      of the script (its LD cache in a temporary directory, where the
      float64 pack of 100,000 SNPs is factored on the card first): a. the
-     default run, both legs (100,000 SNPs, 2 cohorts, K = 18, bf16 U;
-     the host's f64 baseline, then the card leg); b. --accel with
+     default run's two legs (100,000 SNPs, 2 cohorts, K = 18, bf16 U):
+     the host's f64 baseline leg (BENCH_DEVICE=cpu, its own line) in the
+     background from phase 15 on with BASELINE_THREADS host threads,
+     read here, then the default run with BENCH_CPU_IPS set to its value
+     (the card leg, and the line with vs_baseline); b. --accel with
      BENCH_SCALE_SE=1 BENCH_GRID=cli (582 components, the kdim state);
      c. the same at BENCH_LOCI=300000 (the epoch-history state). Each
      bench line carries the expected metric and a finite value > 0; the
@@ -243,6 +246,18 @@ Phases:
      f32cuda (the f64 leg's within 1e-9), printed on bf16cuda. Each
      leg's launches are printed; the matvec, prologue and sums must
      launch on each card leg.
+ 20. the evaluation chain (tools/eval_scaling_torch.py), run right after
+     phase 5 on its engine (1,000,448 SNPs, K = 18, bf16 U): a chain of
+     EVAL_CHAIN (50) objective evaluations timed as the tool times it
+     (host ms an evaluation, the best of 3 chains), then traced (device
+     busy ms an evaluation). Held: the chain's sum within BAND_CHAIN of
+     50 x one evaluation's objective; exactly 1 prologue and 1 matvec
+     per bucket of the pack an evaluation, no other kernel; no host
+     sync (engine.host_syncs unchanged); the tool's top-offset check
+     (the prologue over the last 65,536 SNPs, the matvec over the last
+     64 blocks, against their plain versions within the phase-3 bands).
+     Then bench_hbm_torch.py's read probe at HBM_PROBE_MIB (4096) MiB:
+     finite, above 0 and at most HBM_ROOM x the published 3.35 TB/s.
 
 The next-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failed phase exits
@@ -1792,14 +1807,15 @@ def _sync(device):
 
 def check_fit_outputs(prefix, n, K, names=('pop1', 'pop2'), vi_sigma=True):
     P = len(names)
-    z = np.load(prefix + '.npz')
+    with np.load(prefix + '.npz') as npz:        # each member read once
+        z = {key: npz[key] for key in npz.files}
     require(z['vi_mu'].shape == (K, P, n), f'vi_mu shape {z["vi_mu"].shape}')
     require(z['vi_delta'].shape == (n, K), 'vi_delta shape')
-    require(('vi_sigma' in z.files) == vi_sigma, 'vi_sigma written or not')
+    require(('vi_sigma' in z) == vi_sigma, 'vi_sigma written or not')
     if vi_sigma:
         require(z['vi_sigma'].shape == (K, P, P, n), 'vi_sigma shape')
-    for key in z.files:
-        require(np.all(np.isfinite(z[key])), f'non-finite {key}')
+    for key, value in z.items():
+        require(np.all(np.isfinite(value)), f'non-finite {key}')
     require(np.allclose(z['vi_delta'].sum(axis=1), 1.0, atol=1e-3),
             'vi_delta rows do not sum to 1')
     with open(prefix + '.estimates.tsv') as fh:
@@ -1934,11 +1950,13 @@ def timed_steps(data, st, steps):
 
 
 def run_engine(device, steps=3):
+    """Phase 5: (iterations/s, host syncs a step, the engine, its state
+    after the timed steps, its LD)."""
     from vilma_tpu_torch.inference import engine
     vi, st, ld = build_engine(device)
     st, _ = engine.outer_step(vi.data, st)             # warm-up
     st, ips, syncs, _ = timed_steps(vi.data, st, steps)
-    return ips, syncs, st.elbo, ld
+    return ips, syncs, vi, st, ld
 
 
 def run_engine_se(device, ld, steps=3):
@@ -3312,6 +3330,21 @@ def keep_outputs(prefix, out_dir):
     return kept
 
 
+def scaled_max_diff(got, want, chunk=1 << 22):
+    """max |got - want| (in float64) over max |want| (at least 1e-30),
+    taken over flat chunks of `chunk` elements: the whole arrays' value,
+    with small temporaries (the outputs of phase 13a's shape hold 0.7e9
+    elements a member)."""
+    g, w = got.reshape(-1), want.reshape(-1)
+    diffs, tops = [0.0], [0.0]
+    for i in range(0, w.size, chunk):
+        d = g[i:i + chunk].astype(np.float64)
+        d -= w[i:i + chunk]
+        diffs.append(np.max(np.abs(d)))
+        tops.append(np.max(np.abs(w[i:i + chunk])))
+    return float(np.max(diffs)) / max(float(np.max(tops)), 1e-30)
+
+
 def output_errors(got, want):
     """Per output of two fit prefixes, max |got - want| over max |want|:
     each .npz member and the posterior columns of .estimates.tsv; the
@@ -3324,8 +3357,7 @@ def output_errors(got, want):
             g, w = zg[key], zw[key]
             require(g.shape == w.shape and g.dtype == w.dtype,
                     f'{key}: {g.shape} {g.dtype} vs {w.shape} {w.dtype}')
-            errs[key] = float(np.max(np.abs(g.astype(np.float64) - w))
-                              / max(float(np.max(np.abs(w))), 1e-30))
+            errs[key] = scaled_max_diff(g, w)
     with open(got + '.estimates.tsv') as fg, open(want + '.estimates.tsv') \
             as fw:
         rows_g = [ln.rstrip('\n').split('\t') for ln in fg]
@@ -4246,17 +4278,66 @@ def prepare_bench(tmp):
     torch.cuda.empty_cache()
 
 
-def run_phase18(tmp, smi):
+# 18a's host f64 baseline leg runs in the background from phase 15 on
+# (start_baseline), with this many host threads
+BASELINE_THREADS = 2
+
+
+def start_baseline(tmp):
+    """18a's baseline leg (bench_torch.py with BENCH_DEVICE=cpu) from
+    phase 18's copy in `tmp`, started in the background; its output goes
+    to files in `tmp`. Returns the process."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith('BENCH_')}
+    env.update(BENCH_DEVICE='cpu', OMP_NUM_THREADS=str(BASELINE_THREADS),
+               MKL_NUM_THREADS=str(BASELINE_THREADS))
+    env['PYTHONPATH'] = REPO + os.pathsep + env.get('PYTHONPATH', '')
+    with open(os.path.join(tmp, 'baseline.out'), 'w') as out, \
+            open(os.path.join(tmp, 'baseline.err'), 'w') as err:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.join(tmp, 'bench_torch.py')], env=env,
+            cwd=tmp, stdout=out, stderr=err)
+    BACKGROUND.append(proc)
+    return proc
+
+
+def read_baseline(tmp, proc, metric, timeout=600):
+    """The baseline leg's value (iters/s) once `proc` ends: its line of
+    bench.py's keys with `metric`, a finite value > 0, vs_baseline 1.0;
+    its lines are printed."""
+    proc.wait(timeout=timeout)
+    with open(os.path.join(tmp, 'baseline.out')) as out, \
+            open(os.path.join(tmp, 'baseline.err')) as err:
+        stdout, stderr = out.read(), err.read()
+    require(proc.returncode == 0, f'18a\'s baseline leg failed '
+            f'({proc.returncode}): {stderr[-3000:]}')
+    line = json.loads(stdout.strip().splitlines()[-1])
+    require(list(line) == ['metric', 'value', 'unit', 'vs_baseline']
+            and line['metric'] == metric and line['vs_baseline'] == 1.0
+            and math.isfinite(line['value']) and line['value'] > 0,
+            f'18a\'s baseline line {line}')
+    for ln in stdout.splitlines():
+        if ln.startswith(('LD ', 'baseline leg')):
+            log(f'  {ln} ({BASELINE_THREADS} host threads, in the '
+                'background)')
+    return line['value']
+
+
+def run_phase18(tmp, smi, baseline):
     """Phase 18: bench_torch.py in subprocesses (BENCH_RUNS), from its
-    copy in `tmp` (prepare_bench): each line with the expected metric and
-    a finite value > 0, the kernels of its state launched and no other
-    state's. Returns {tag: (line, launches line, seconds)}."""
+    copy in `tmp` (prepare_bench), 18a's card leg given the value of its
+    baseline leg, the process `baseline` (start_baseline): each line
+    with the expected metric and a finite value > 0, the kernels of its
+    state launched and no other state's. Returns {tag: (line, launches
+    line, seconds)}."""
     import torch
     out = {}
     kind = torch.cuda.get_device_name(0)
     for tag, args, knobs, metric, kernels in BENCH_RUNS:
         phase(f'phase {tag}: bench_torch.py {" ".join(args)} '
               f'{" ".join(f"{k}={v}" for k, v in knobs.items())}')
+        if tag == '18a':
+            knobs = dict(knobs, BENCH_CPU_IPS=repr(
+                read_baseline(tmp, baseline, metric)))
         seconds, stdout = run_bench(tmp, args, knobs)
         line, info = bench_reading(args, stdout)
         require(line['metric'] == metric,
@@ -4346,7 +4427,8 @@ def start_phase19(tmp):
 
 
 def stop_background():
-    """Kill what start_phase19 started and is still running."""
+    """Kill what start_phase19 and start_baseline started and is still
+    running."""
     for proc in BACKGROUND:
         if proc.poll() is None:
             proc.kill()
@@ -4397,6 +4479,82 @@ def run_phase19(tmp, smi, procs, timeout=600):
         require(not bad, f'phase 19: {leg} outside the bands {bad}')
         out[leg] = (rep, counts, float(f['seconds']))
     return out
+
+
+# phase 20: a chain of EVAL_CHAIN evaluations on phase 5's engine; the
+# chain's float64 sum of equal float32 objectives is exact, so it must
+# equal EVAL_CHAIN times one evaluation's to BAND_CHAIN. The read probe
+# may not pass the published peak by more than HBM_ROOM: a reading past
+# it means the timing is broken.
+EVAL_CHAIN = 50
+BAND_CHAIN = 1e-6
+HBM_PROBE_MIB = 4096
+HBM_PROBE_CHAIN = 30
+HBM_ROOM = 1.05
+
+
+def eval_tool():
+    """tools/eval_scaling_torch.py as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        'eval_scaling_torch',
+        os.path.join(REPO, 'tools', 'eval_scaling_torch.py'))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_phase20(data, st, smi):
+    """Phase 20 on phase 5's engine (`data`, `st`): the evaluation chain,
+    its launches, host syncs and top-offset check; then the read probe."""
+    import torch
+    import bench_hbm_torch
+    ev = eval_tool()
+    stamps = [time.perf_counter()]
+    one = float(ev.chain(data, st, 1))
+    m = ev.measure(data, st, EVAL_CHAIN)
+    stamps.append(time.perf_counter())
+    rel = abs(m['total'] - EVAL_CHAIN * one) / abs(EVAL_CHAIN * one)
+    require(math.isfinite(m['total']) and rel <= BAND_CHAIN,
+            f'the chain sums {m["total"]!r}, {rel:.2e} from {EVAL_CHAIN} x '
+            f'one evaluation\'s {one!r} (band {BAND_CHAIN:.0e})')
+    require(m['host_syncs'] == 0,
+            f'{m["host_syncs"]} host syncs inside the timed chains')
+    buckets = sum(len(ld.buckets) for ld in data.ld)
+    got = dict(m['launches'])
+    matvec = (got.pop('bucket_matvec_multi', 0)
+              + got.pop('bucket_matvec_multi_group', 0))
+    got.pop('bucket_matvec_multi_group_bf16', None)
+    require(matvec == buckets * m['evals'] and got == {
+        'prologue': m['evals']}, f'launches {m["launches"]} over '
+        f'{m["evals"]} evaluations: want 1 prologue and {buckets} matvec '
+        'an evaluation, no other kernel')
+    busy, wall = ev.busy_ms(data, st, EVAL_CHAIN)
+    stamps.append(time.perf_counter())
+    top = ev.top_offset_check(data, st)
+    require(top['ok'], f'the top-offset check missed: {top}')
+    stamps.append(time.perf_counter())
+    gib_s, ms = bench_hbm_torch.probe(HBM_PROBE_MIB, HBM_PROBE_CHAIN,
+                                      torch.device('cuda'))
+    stamps.append(time.perf_counter())
+    secs = np.diff(stamps)
+    rate = gib_s * 2**30
+    require(math.isfinite(rate) and 0 < rate <= HBM_ROOM * HBM_BYTES_S,
+            f'the read probe reads {gib_s!r} GiB/s: not in (0, '
+            f'{HBM_ROOM} x {HBM_BYTES_S:.3e} B/s]')
+    log(f'  chain of {EVAL_CHAIN}: host {m["host_ms"]:.4f} ms an '
+        f'evaluation, device busy {busy:.4f} ms (traced wall {wall:.4f}); '
+        f'launches an evaluation: prologue 1, matvec {buckets}; host syncs '
+        f'0; the sum within {rel:.2e} of {EVAL_CHAIN} x one evaluation '
+        f'(band {BAND_CHAIN:.0e}); top offset {json.dumps(top)}')
+    probe = bench_hbm_torch.line(HBM_PROBE_MIB, gib_s, ms,
+                                 torch.device('cuda'))
+    log(f'  read probe: {probe.strip()}, {rate / 1e12:.3f} TB/s, '
+        f'{rate / HBM_BYTES_S:.1%} of the published '
+        f'{HBM_BYTES_S / 1e12:.2f} TB/s; {smi}')
+    log(f'  seconds: chains {secs[0]:.1f}, trace {secs[1]:.1f}, top-offset '
+        f'check {secs[2]:.1f}, read probe {secs[3]:.1f}')
+    return dict(host_ms=m['host_ms'], busy_ms=busy, hbm_gib_s=gib_s)
 
 
 def run_phase14(paths, device, launches, timings, smi, cache):
@@ -4574,9 +4732,20 @@ def main():
                 'bucket_matvec_multi_group_bf16']
 
         phase('phase 5: engine, 1M SNPs, 2 cohorts, K=18, bf16 U')
-        ips, syncs, elbo, ld = run_engine(device)
+        ips, syncs, vi5, st5, ld = run_engine(device)
         log(f'  {ips:.3f} outer iterations/s ({syncs:.1f} host syncs per '
-            f'step), ELBO {elbo:.6e}; {smi}')
+            f'step), ELBO {st5.elbo:.6e}; {smi}')
+
+        phase(f'phase 20: phase 5\'s engine, a chain of {EVAL_CHAIN} '
+              'objective evaluations (tools/eval_scaling_torch.py), then '
+              f'the read probe at {HBM_PROBE_MIB} MiB (bench_hbm_torch.py)')
+        t0 = time.perf_counter()
+        p20 = run_phase20(vi5.data, st5, smi)
+        del vi5, st5
+        timings['phase20_s'] = time.perf_counter() - t0
+        for key in ('host_ms', 'busy_ms', 'hbm_gib_s'):
+            timings[f'20_{key}'] = p20[key]
+        log(f'  phase 20: {timings["phase20_s"]:.1f} s')
         torch.cuda.empty_cache()
 
         phase('phase 6: CLI fit --learn-scaling, phase 4\'s schema, -K 12, '
@@ -4744,6 +4913,7 @@ def main():
 
     cache = os.path.join(panel.name, 'factor_cache')
     run_phase14(paths, device, launches, timings, smi, cache)
+    baseline = start_baseline(bench_tmp)
     t0 = time.perf_counter()
     p15 = run_phase15(paths, p4, vi7, st7, ld, panel.name, cache, launches,
                       smi)
@@ -4773,7 +4943,7 @@ def main():
     panel.cleanup()
     with bench_dir:
         t0 = time.perf_counter()
-        p18 = run_phase18(bench_tmp, smi)
+        p18 = run_phase18(bench_tmp, smi, baseline)
         timings['phase18_s'] = time.perf_counter() - t0
         for tag, (line, _, seconds) in p18.items():
             timings[f'{tag}_iters_per_s'] = line['value']

@@ -233,6 +233,8 @@ def test_card_leg_on_the_host_counts_no_launch(tmp_path):
     assert info['metric'] == (f'vi_iterations_per_s_{SMALL}loci_snp_2pop'
                               '_K18_scale_se')
     assert info['device'] == 'cpu' and info['host_syncs_per_step'] >= 2
+    assert info['setup_s'] > 0
+    assert info['setup_peak_gib'] is info['steps_peak_gib'] is None
     assert info['launches']['prologue_kdim'] == 0
     assert set(info['launches']) >= {'bucket_matvec_multi', 'prologue',
                                       'delta_sums', 'prologue_epochs'}

@@ -1,8 +1,8 @@
-"""The port (with bench_torch.py and tools/drift_genome_torch.py)
-imports neither jax, optax, pandas nor ml_dtypes, its flags
-parse (component sharding among them) or raise before any file is read,
-and its entry points run on the card unless the caller asks for the
-CPU."""
+"""The port (with bench_torch.py, bench_hbm_torch.py,
+tools/drift_genome_torch.py and tools/eval_scaling_torch.py) imports
+neither jax, optax, pandas nor ml_dtypes, its flags parse (component
+sharding among them) or raise before any file is read, and its entry
+points run on the card unless the caller asks for the CPU."""
 import os
 import shutil
 import subprocess
@@ -53,6 +53,9 @@ import vilma_tpu_torch.io.load
 import vilma_tpu_torch.utils.npz_stream
 import vilma_tpu_torch.utils.synthetic
 import bench_torch
+import bench_hbm_torch
+sys.path.insert(0, 'tools')
+import eval_scaling_torch
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'pandas',
                                        'ml_dtypes', 'vilma_tpu'))
@@ -62,9 +65,10 @@ print('LOADED', loaded)
 
 def test_import_guard():
     """Every module of the port (the validation tools and the synthetic
-    problem generator among them), chip_smoke.py, profile_torch_step.py
-    and bench_torch.py import with jax, optax, pandas and ml_dtypes
-    blocked, and none of them (nor the JAX package) gets loaded."""
+    problem generator among them), chip_smoke.py, profile_torch_step.py,
+    bench_torch.py, bench_hbm_torch.py and tools/eval_scaling_torch.py
+    import with jax, optax, pandas and ml_dtypes blocked, and none of
+    them (nor the JAX package) gets loaded."""
     env = dict(os.environ)
     env['PYTHONPATH'] = REPO + os.pathsep + env.get('PYTHONPATH', '')
     out = subprocess.run([sys.executable, '-c', GUARD], env=env, cwd=REPO,
@@ -112,6 +116,49 @@ def test_drift_tool_imports_no_jax(tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     assert 'LOADED []' in out.stdout, out.stdout
     assert '"base": "f64cpu"' in out.stdout
+
+
+# a child of tools/eval_scaling_torch.py and bench_hbm_torch.py's probe,
+# run with jax, pandas and the JAX package blocked
+TWINS_GUARD = """
+import os, runpy, sys
+sys.modules['jax'] = sys.modules['pandas'] = sys.modules['vilma_tpu'] = None
+tool, hbm = sys.argv[1:]
+os.environ['EVAL_CHILD'] = '1'
+sys.argv = [tool, '2']
+runpy.run_path(tool, run_name='__main__')
+sys.argv = [hbm]
+runpy.run_path(hbm, run_name='__main__')
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
+                and m.split('.')[0] in ('jax', 'jaxlib', 'pandas',
+                                       'vilma_tpu'))
+print('LOADED', loaded)
+"""
+
+
+def test_measurement_twins_import_no_jax(tmp_path):
+    """tools/eval_scaling_torch.py's child (bench_torch's problem at 1,100
+    SNPs on BENCH_DEVICE=cpu, chains of 2, its LD cache in tmp_path) and
+    bench_hbm_torch.py at 1 MiB run with jax, pandas and vilma_tpu
+    blocked, and load none of them."""
+    tools = tmp_path / 'tools'
+    tools.mkdir()
+    shutil.copy(os.path.join(REPO, 'bench_torch.py'), tmp_path)
+    shutil.copy(os.path.join(REPO, 'tools', 'eval_scaling_torch.py'), tools)
+    env = {k: v for k, v in os.environ.items() if not k.startswith('BENCH_')}
+    env.update(BENCH_LOCI='1100', BENCH_DEVICE='cpu', HBM_SIZES='1',
+               HBM_CHAIN='2', OMP_NUM_THREADS='1',
+               PYTHONPATH=REPO + os.pathsep + env.get('PYTHONPATH', ''))
+    out = subprocess.run(
+        [sys.executable, '-c', TWINS_GUARD,
+         str(tools / 'eval_scaling_torch.py'),
+         os.path.join(REPO, 'bench_hbm_torch.py')],
+        env=env, cwd=str(tmp_path), capture_output=True, text=True,
+        timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert 'LOADED []' in out.stdout, out.stdout
+    assert 'EVAL_MS' in out.stdout and '"ok": true' in out.stdout
+    assert '1 MiB footprint' in out.stdout
 
 
 @pytest.mark.parametrize('flags', [

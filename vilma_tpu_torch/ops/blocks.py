@@ -771,26 +771,43 @@ def ridge_inverse_dot(ld, vector, regularizer):
     return _scatter_accumulate(parts, ld.n, vector.dtype, vector.device)
 
 
+# diag forms its [B, P, R] temporaries at most this many elements at a
+# time (at 6M SNPs the whole bucket's took ~37 GB of device memory)
+_DIAG_CHUNK_ELEMS = 2 ** 27
+
+
+def _block_diags(bk):
+    """Each block's diagonal [B, P]: the sum over the rank of s u**2 by a
+    fixed pairwise tree of elementwise adds (zero-padded to a power of
+    two), plus d; in block chunks, which give the same bits at any chunk
+    size."""
+    B, P, R = bk.u.shape
+    chunk = max(1, _DIAG_CHUNK_ELEMS // (P * R))
+    width = 1 << max(R - 1, 0).bit_length()
+    out = []
+    for b0 in range(0, max(B, 1), chunk):        # a bucket of 0 blocks too
+        u = bk.u[b0:b0 + chunk].to(bk.s.dtype)
+        terms = (u * u) * bk.s[b0:b0 + chunk, None, :]      # [C, P, R]
+        if width > R:
+            terms = torch.nn.functional.pad(terms, (0, width - R))
+        while terms.shape[-1] > 1:
+            half = terms.shape[-1] // 2
+            terms = terms[..., :half] + terms[..., half:]
+        out.append(terms[..., 0] + bk.d[b0:b0 + chunk])
+    return out[0] if len(out) == 1 else torch.cat(out)
+
+
 def diag(ld):
     """Diagonal of the matrix (reference matrix_structures.py:426-440).
-    The sum over the rank is a fixed pairwise tree of elementwise adds
-    (zero-padded to a power of two), so every device gives the same
-    bits. On a sharded matrix one span per shard (`over_shards`)."""
+    The sum over the rank is a fixed pairwise tree of elementwise adds,
+    so every device gives the same bits (`_block_diags`). On a sharded
+    matrix one span per shard (`over_shards`)."""
     if ld.shards:
         return over_shards(diag, ld.shards)
     parts = []
     dtype = torch.float64
     for bk in ld.buckets:
-        u = _u_as(bk, bk.s.dtype)
-        terms = (u * u) * bk.s[:, None, :]                   # [B, P, R]
-        rank = terms.shape[-1]
-        width = 1 << max(rank - 1, 0).bit_length()
-        if width > rank:
-            terms = torch.nn.functional.pad(terms, (0, width - rank))
-        while terms.shape[-1] > 1:
-            half = terms.shape[-1] // 2
-            terms = terms[..., :half] + terms[..., half:]
-        parts.append((bk.perm, terms[..., 0] + bk.d))
+        parts.append((bk.perm, _block_diags(bk)))
         dtype = bk.s.dtype
     return _scatter_accumulate(parts, ld.n, dtype, ld.device or 'cpu')
 
