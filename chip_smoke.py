@@ -258,6 +258,18 @@ Phases:
      64 blocks, against their plain versions within the phase-3 bands).
      Then bench_hbm_torch.py's read probe at HBM_PROBE_MIB (4096) MiB:
      finite, above 0 and at most HBM_ROOM x the published 3.35 TB/s.
+ 21. the fit CLI end to end on on-disk inputs, run right after phase 11:
+     tools/export_synthetic_schema_torch.py writes bench's problem at
+     E2E_LOCI (100,000) SNPs, factored on the card; check_ld_schema
+     --trace --listvars reads it back through the port's loader (every
+     variant listed; each block's U diag(s) U^T within the f32 rounding
+     bound of the exported U and s, 3 * 2^-24 * (|U| s) |U|^T); then fit
+     -K 12 --learn-scaling --num-its 5 (the kdim state) through
+     tools/e2e_fit_torch.py, which prints its E2E line (seconds by
+     stage, RSS, device memory, bytes by member), reusing the trace's
+     host factors (memo_factors). The matvec and the kdim kernels must
+     launch; every output member is present, finite, of its reckoned
+     shape and size.
 
 The next-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failed phase exits
@@ -4386,12 +4398,11 @@ DRIFT_THREADS = {DRIFT_BASE: 4, 'f32cuda': 1, 'bf16cuda': 1}
 BACKGROUND = []
 
 
-def drift_tool():
-    """tools/drift_genome_torch.py as a module (compare, out_of_band)."""
+def tool(name):
+    """tools/<name>.py as a module."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        'drift_genome_torch',
-        os.path.join(REPO, 'tools', 'drift_genome_torch.py'))
+        name, os.path.join(REPO, 'tools', name + '.py'))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -4457,7 +4468,7 @@ def run_phase19(tmp, smi, procs, timeout=600):
             if ln.startswith(('leg=', 'LD ', 'launches', 'saved')):
                 log(f'  {ln}')
 
-    drift = drift_tool()
+    drift = tool('drift_genome_torch')
     kind = smi.splitlines()[0]
     out = {}
     base_path = os.path.join(tmp, f'{DRIFT_BASE}.npz')
@@ -4493,23 +4504,12 @@ HBM_PROBE_CHAIN = 30
 HBM_ROOM = 1.05
 
 
-def eval_tool():
-    """tools/eval_scaling_torch.py as a module."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        'eval_scaling_torch',
-        os.path.join(REPO, 'tools', 'eval_scaling_torch.py'))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def run_phase20(data, st, smi):
     """Phase 20 on phase 5's engine (`data`, `st`): the evaluation chain,
     its launches, host syncs and top-offset check; then the read probe."""
     import torch
     import bench_hbm_torch
-    ev = eval_tool()
+    ev = tool('eval_scaling_torch')
     stamps = [time.perf_counter()]
     one = float(ev.chain(data, st, 1))
     m = ev.measure(data, st, EVAL_CHAIN)
@@ -4555,6 +4555,130 @@ def run_phase20(data, st, smi):
     log(f'  seconds: chains {secs[0]:.1f}, trace {secs[1]:.1f}, top-offset '
         f'check {secs[2]:.1f}, read probe {secs[3]:.1f}')
     return dict(host_ms=m['host_ms'], busy_ms=busy, hbm_gib_s=gib_s)
+
+
+# phase 21: the production CLI end to end on the on-disk inputs that
+# tools/export_synthetic_schema_torch.py writes (bench's problem at 100K)
+E2E_LOCI = 100_000
+E2E_ITS = '5'
+E2E_PATH = ('bucket_matvec_multi', 'prologue_kdim', 'delta_sums_kdim')
+
+
+def export_error(captured, device):
+    """The blocks read back by the port's loader against the factors they
+    were exported from (synthetic_factors on the card, recomputed): each
+    block's U diag(s) U^T, in float64, over the f32 rounding bound of the
+    exported U and s, 3 * 2^-24 * (|U| s) |U|^T elementwise. Returns the
+    largest ratio (at most 1 passes) and the blocks compared."""
+    import torch
+    from vilma_tpu_torch.utils import synthetic
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                               device=device)
+
+    worst, blocks = 0.0, 0
+    exported = synthetic.synthetic_factors(E2E_LOCI, 1024, 0.5, seed=0,
+                                           device=device)
+    for (idx, f), (ix, fe) in zip(captured, exported):
+        require(np.array_equal(idx, ix), f'block {blocks}: the loader '
+                'matched other variants than the export wrote')
+        u, s, ue, se = t(f.u), t(f.s), t(fe.u), t(fe.s)
+        err = ((u * s) @ u.T - (ue * se) @ ue.T).abs()
+        bound = 3 * 2.0 ** -24 * (ue.abs() * se) @ ue.abs().T
+        worst = max(worst, float((err / bound).max()))
+        blocks += 1
+    require(blocks == len(captured), 'fewer exported blocks than loaded')
+    return worst, blocks
+
+
+def run_phase21(device, smi):
+    """Phase 21: tools/export_synthetic_schema_torch.py writes bench's
+    100K problem (its factors from the card); check_ld_schema --trace
+    --listvars reads it back through the port's loader, whose blocks
+    equal the exported ones to f32 rounding (export_error); then fit -K
+    12 --learn-scaling through tools/e2e_fit_torch.py (its E2E line: the
+    stage split), the launch counters zeroed just before and read just
+    after. The fit reuses the trace's host factors (memo_factors)."""
+    from vilma_tpu_torch import frontend
+    from vilma_tpu_torch.inference import engine
+    from vilma_tpu_torch.io import load
+    export, e2e = tool('export_synthetic_schema_torch'), tool('e2e_fit_torch')
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, memo_factors():
+        d = os.path.join(tmp, 'in')
+        t0 = time.perf_counter()
+        nb, nbytes, source = export.export(d, E2E_LOCI, device=device)
+        out['export_s'] = time.perf_counter() - t0
+        require(source != 'archive' and nb == -(-E2E_LOCI // 1024),
+                f'export: {nb} blocks from {source}')
+        log(f'  export: {nb} blocks, {nbytes} bytes in '
+            f'{out["export_s"]:.1f} s (factors on {source})')
+
+        schema = os.path.join(d, 'schema.schema')
+        trace, listvars = (os.path.join(tmp, 'trace.tsv'),
+                           os.path.join(tmp, 'vars.tsv'))
+        captured = []
+        memoized = load.load_entry_factor
+
+        def capture(entry, ldthresh, cache_dir=None):
+            f = memoized(entry, ldthresh, cache_dir)
+            captured.append((entry['idx'], f))
+            return f
+
+        load.load_entry_factor = capture
+        t0 = time.perf_counter()
+        try:
+            frontend.main(['check_ld_schema', '--ld-schema', schema,
+                           '--trace', trace, '--listvars', listvars,
+                           '--device', device])
+        finally:
+            load.load_entry_factor = memoized
+        out['check_s'] = time.perf_counter() - t0
+        with open(listvars) as fh:
+            rows = fh.read().split('\n')[1:-1]
+        require(len(rows) == E2E_LOCI and rows[0].startswith('snp0\t')
+                and rows[-1].startswith(f'snp{E2E_LOCI - 1}\t'),
+                f'check_ld_schema --listvars: {len(rows)} variants')
+        with open(trace) as fh:
+            ratio = float(fh.read().split('\n')[1].split('\t')[3])
+        require(0.5 < ratio <= 1.0, f'trace ratio {ratio}')
+        out['export_err'], n_blocks = export_error(captured, device)
+        require(out['export_err'] <= 1.0,
+                f'the loaded blocks differ from the exported ones by '
+                f'{out["export_err"]:.3f} x their f32 rounding bound')
+        log(f'  check_ld_schema --trace --listvars: {out["check_s"]:.1f} s, '
+            f'{len(rows)} variants, trace ratio {ratio:.6f}; the {n_blocks} '
+            f'blocks read back within {out["export_err"]:.3f} x the f32 '
+            'rounding bound of the exported U and s')
+
+        prefix = os.path.join(tmp, 'fit')
+        argv = ['fit', '--sumstats',
+                f'{d}/pop1.sumstats.tsv,{d}/pop2.sumstats.tsv',
+                '--ld-schema', f'{schema},{schema}', '--extract',
+                f'{d}/extract.tsv', '--names', 'pop1,pop2',
+                '--samplesizes', '1e5,1e5', '--init-hg', '0.3,0.3',
+                '--seed', '42', '-K', '12', '--learn-scaling',
+                '--num-its', E2E_ITS, '--output', prefix,
+                '--device', device]
+        zero_counts()
+        engine.host_syncs = 0
+        line = e2e.run(argv, tag='phase21')
+        counts = read_counts()
+        require(line is not None, 'phase 21: the outputs do not fit')
+        require(line['iterations'] == int(E2E_ITS) and line['state'] == 'kdim',
+                f'phase 21: {line["iterations"]} steps on {line["state"]}')
+        require_launched(counts, E2E_PATH, 'phase 21')
+        check_fit_outputs(prefix, E2E_LOCI, K=line['K'])
+        for key, size in line['reckoned'].items():
+            got = line['written']['npz'].get(key, 0)
+            require(0 <= got - size <= 256, f'{key}: {got} bytes written, '
+                    f'{size} reckoned')
+        out.update(line=line, counts=counts)
+    log(f'  fit: launches {counts}; {line["iterations"]} steps; seconds '
+        f'{ {k: round(v, 2) for k, v in line["seconds"].items()} }; device '
+        f'peak GiB {line["device_peak_gib"]}; host RSS GiB '
+        f'{line["rss_gib"]}; {smi}')
+    return out
 
 
 def run_phase14(paths, device, launches, timings, smi, cache):
@@ -4833,6 +4957,18 @@ def main():
         log(f'  epoch: {secs:.1f} s for {RESUME_STEPS} steps; first ELBO '
             f'within {err:.2e} of a step from the dumped state; launches '
             f'{counts}')
+    torch.cuda.empty_cache()
+
+    phase(f'phase 21: the fit CLI end to end on on-disk inputs: '
+          f'tools/export_synthetic_schema_torch.py at {E2E_LOCI:,} SNPs, '
+          f'check_ld_schema, fit -K 12 --learn-scaling --num-its {E2E_ITS} '
+          'through tools/e2e_fit_torch.py')
+    t0 = time.perf_counter()
+    p21 = run_phase21(device, smi)
+    timings['phase21_s'] = time.perf_counter() - t0
+    timings['21_export_err'] = p21['export_err']
+    timings['21_stages_s'] = p21['line']['seconds']
+    log(f'  phase 21: {timings["phase21_s"]:.1f} s')
     torch.cuda.empty_cache()
 
     phase('phase 12: K-chunked shape, ~100K SNPs, 3 cohorts, -K 12 '

@@ -1,5 +1,6 @@
 """The port (with bench_torch.py, bench_hbm_torch.py,
-tools/drift_genome_torch.py and tools/eval_scaling_torch.py) imports
+tools/drift_genome_torch.py, tools/eval_scaling_torch.py,
+tools/export_synthetic_schema_torch.py and tools/e2e_fit_torch.py) imports
 neither jax, optax, pandas nor ml_dtypes, its flags parse (component
 sharding among them) or raise before any file is read, and its entry
 points run on the card unless the caller asks for the CPU."""
@@ -56,6 +57,8 @@ import bench_torch
 import bench_hbm_torch
 sys.path.insert(0, 'tools')
 import eval_scaling_torch
+import export_synthetic_schema_torch
+import e2e_fit_torch
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'pandas',
                                        'ml_dtypes', 'vilma_tpu'))
@@ -66,7 +69,8 @@ print('LOADED', loaded)
 def test_import_guard():
     """Every module of the port (the validation tools and the synthetic
     problem generator among them), chip_smoke.py, profile_torch_step.py,
-    bench_torch.py, bench_hbm_torch.py and tools/eval_scaling_torch.py
+    bench_torch.py, bench_hbm_torch.py, tools/eval_scaling_torch.py,
+    tools/export_synthetic_schema_torch.py and tools/e2e_fit_torch.py
     import with jax, optax, pandas and ml_dtypes blocked, and none of
     them (nor the JAX package) gets loaded."""
     env = dict(os.environ)
@@ -159,6 +163,52 @@ def test_measurement_twins_import_no_jax(tmp_path):
     assert 'LOADED []' in out.stdout, out.stdout
     assert 'EVAL_MS' in out.stdout and '"ok": true' in out.stdout
     assert '1 MiB footprint' in out.stdout
+
+
+# tools/export_synthetic_schema_torch.py's host route, then
+# tools/e2e_fit_torch.py's text stage and a one-step fit on what it wrote,
+# run with jax, pandas and the JAX package blocked
+EXPORT_GUARD = """
+import runpy, sys
+sys.modules['jax'] = sys.modules['pandas'] = sys.modules['vilma_tpu'] = None
+export, e2e, d = sys.argv[1:]
+fit = ['fit', '--sumstats', f'{d}/pop1.sumstats.tsv,{d}/pop2.sumstats.tsv',
+       '--ld-schema', f'{d}/schema.schema,{d}/schema.schema',
+       '--extract', f'{d}/extract.tsv', '-K', '2', '--num-its', '1',
+       '--output', f'{d}/run', '--device', 'cpu']
+for tool, argv in ((export, [d, '2048', '--device', 'cpu']),
+                   (e2e, ['--text-only'] + fit), (e2e, fit)):
+    sys.argv = [tool] + argv
+    try:
+        runpy.run_path(tool, run_name='__main__')
+    except SystemExit as exc:
+        assert not exc.code, exc.code
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
+                and m.split('.')[0] in ('jax', 'jaxlib', 'pandas',
+                                       'vilma_tpu'))
+print('LOADED', loaded)
+"""
+
+
+def test_export_and_e2e_tools_import_no_jax(tmp_path):
+    """tools/export_synthetic_schema_torch.py writes 2,048 SNPs factored
+    on the host, and tools/e2e_fit_torch.py times the text stage and a
+    one-step fit on them, with jax, pandas and vilma_tpu blocked; none of
+    them gets loaded, and both E2E lines are printed."""
+    env = dict(os.environ, OMP_NUM_THREADS='1',
+               PYTHONPATH=REPO + os.pathsep + os.environ.get('PYTHONPATH',
+                                                             ''))
+    out = subprocess.run(
+        [sys.executable, '-c', EXPORT_GUARD,
+         os.path.join(REPO, 'tools', 'export_synthetic_schema_torch.py'),
+         os.path.join(REPO, 'tools', 'e2e_fit_torch.py'),
+         str(tmp_path / 'in')],
+        env=env, cwd=str(tmp_path), capture_output=True, text=True,
+        timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert 'LOADED []' in out.stdout, out.stdout
+    assert 'wrote 2 blocks + 2 sumstats for 2048 SNPs' in out.stdout
+    assert 'E2E_TEXT {' in out.stdout and '\nE2E {' in out.stdout
 
 
 @pytest.mark.parametrize('flags', [

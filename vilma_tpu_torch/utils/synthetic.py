@@ -106,17 +106,29 @@ def _device_factors(specs, rank_frac, device):
         i = j
 
 
+def synthetic_factors(num_loci, block_size, rank_frac=1.0, seed=0,
+                      device=None):
+    """Yield (variant indices, LowRankFactor) of synthetic_ld's blocks in
+    order, one block at a time (at most one batch of _EIGH_BATCH blocks
+    on a CUDA device), factored as synthetic_ld factors them for
+    `device`."""
+    device = engine.resolve_device(device)
+    specs = _ar1_specs(num_loci, block_size, seed)
+    factors = (_host_factors(specs, rank_frac) if device.type == 'cpu'
+               else _device_factors(specs, rank_frac, device))
+    for (start, n, _), f in zip(specs, factors):
+        yield np.arange(start, start + n), f
+
+
 def synthetic_ld(num_loci, block_size, rank_frac=1.0, seed=0,
                  dtype=torch.float64, u_dtype=None, device=None):
     """A block-diagonal LD matrix of AR(1)-like correlation blocks, packed
     on `device` with eigenvalues in `dtype` and eigenvectors in `u_dtype`
     (default `dtype`; torch.bfloat16 for the bf16 panel)."""
     device = engine.resolve_device(device)
-    specs = _ar1_specs(num_loci, block_size, seed)
-    factors = list(_host_factors(specs, rank_frac) if device.type == 'cpu'
-                   else _device_factors(specs, rank_frac, device))
-    indices = [np.arange(start, start + n) for start, n, _ in specs]
-    return blocks.pack(factors, indices, num_loci, dtype=dtype,
+    indices, factors = zip(*synthetic_factors(num_loci, block_size,
+                                              rank_frac, seed, device))
+    return blocks.pack(list(factors), list(indices), num_loci, dtype=dtype,
                        u_dtype=u_dtype, device=device)
 
 
