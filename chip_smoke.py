@@ -1986,7 +1986,7 @@ def run_engine_se(device, ld, steps=3):
                                     st.hyper_delta)
     with count_em() as em:
         st, _, _ = engine._update_error_scaling(
-            data, st, engine._sync_float(obj), pm, lk)
+            data, st, engine._fetch(obj), pm, lk)
     require(st.nat_hist_n >= 1, 'the EM update appended no epoch')
     st, ips, syncs, _ = timed_steps(data, st, steps)
     counts = read_counts()

@@ -68,7 +68,7 @@ def main():
         obj, pm, lk = engine._objective(data, st, engine._params(st),
                                         st.hyper_delta)
         st, _, _ = engine._update_error_scaling(
-            data, st, engine._sync_float(obj), pm, lk)
+            data, st, engine._fetch(obj), pm, lk)
         print(f'state: {"epoch history" if vi._epoch else "kdim"}, '
               f'live epochs {st.nat_hist_n}, error_scaling '
               f'{st.error_scaling.tolist()}')

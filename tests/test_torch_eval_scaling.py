@@ -109,7 +109,7 @@ def test_chain_matches_the_jax_chain(state, caches, monkeypatch):
     def fetch(x):
         raise AssertionError('the chain fetched an objective')
 
-    monkeypatch.setattr(tengine, '_sync_float', fetch)
+    monkeypatch.setattr(tengine, '_fetch', fetch)
     syncs = tengine.host_syncs
     got = ev.chain(tdata, tst, 3)
     assert tengine.host_syncs == syncs

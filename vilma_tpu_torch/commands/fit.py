@@ -19,6 +19,8 @@ package's fallback; ops/blocks.py), the variants padded to a multiple of
 the snp shards, the blocks dealt to the shards, and every LD op gathering
 and summing O(I) values across the shards of a comp row.
 """
+import contextlib
+import json
 import logging
 import os
 import pickle
@@ -146,7 +148,16 @@ def args(super_parser):
                         help='this process\'s rank for --distributed.')
     parser.add_argument('--profile', type=str, default='',
                         help='Write a torch.profiler chrome trace of the '
-                             'optimization to this directory.')
+                             'fit (fit_trace.json) to this directory: the '
+                             'ops, kernels and copies of the LD pack, the '
+                             'set-up, the optimization and the outputs, '
+                             'inside the fit\'s phases as vilma.* '
+                             'annotations (vilma.pack, vilma.build, '
+                             'vilma.fit, vilma.step, vilma.trial, '
+                             'vilma.evaluate, vilma.fetch, ...); and '
+                             'fit_spans.json, the phases\' spans and the '
+                             'counts of host syncs, line-search trials '
+                             'and accepted line searches.')
     parser.add_argument('--pallas', type=str, default='auto',
                         choices=['auto', 'on', 'off'],
                         help='Use the fused kernels (the block matvec, the '
@@ -215,7 +226,8 @@ def main(args, devices=None):
     axes = _check_supported(args)
     device = _resolve_device(args)
     if not args.distributed:
-        return _fit(args, axes, device, devices)
+        with _profiled(args.profile):
+            return _fit(args, axes, device, devices)
     # a multi-process fit joins its process group before loading, so that
     # each process loads only its own blocks; every rank leaves it again,
     # after process 0 has written the files (without the barrier when
@@ -225,7 +237,8 @@ def main(args, devices=None):
                            args.process_id, device=device)
     ok = False
     try:
-        _fit(args, axes, device, devices)
+        with _profiled(args.profile):
+            _fit(args, axes, device, devices)
         ok = True
     finally:
         distributed.shutdown(barrier=ok)
@@ -439,10 +452,7 @@ def _fit(args, axes, device, devices):
     checkpoint = None
     if args.load_checkpoint:
         checkpoint = np.load(args.load_checkpoint[0])
-    if args.profile:
-        state = _profiled(elbo, args.profile, checkpoint)
-    else:
-        state = elbo.optimize(checkpoint)
+    state = elbo.optimize(checkpoint)
 
     # genome-scale fits stream the [K, *, I]-shaped members (vi_mu,
     # vi_delta, vi_sigma) into the .npz in bounded chunks. Every process
@@ -481,15 +491,38 @@ def _warn_gathered():
                     'genome order to restore full speed.')
 
 
-def _profiled(elbo, trace_dir, checkpoint=None):
-    """optimize() under torch.profiler, writing a chrome trace."""
+@contextlib.contextmanager
+def _profiled(trace_dir):
+    """With `trace_dir` (--profile), the fit under torch.profiler with
+    its phases' spans on (utils/trace.py), writing trace_dir/
+    fit_trace.json (the chrome trace) and trace_dir/fit_spans.json (the
+    spans as recorded, and the fit's device->host syncs, line-search
+    trials and accepted line searches); without, nothing."""
+    if not trace_dir:
+        yield
+        return
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from vilma_tpu_torch.inference import engine
+    from vilma_tpu_torch.utils import trace
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(trace_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        state = elbo.optimize(checkpoint)
+    counters = ('host_syncs', 'trials', 'accepted')
+    before = [getattr(engine, c) for c in counters]
+    trace.clear()
+    trace.enable()
+    try:
+        with profile(activities=activities) as prof:
+            yield
+    finally:
+        trace.disable()
     prof.export_chrome_trace(os.path.join(trace_dir, 'fit_trace.json'))
-    return state
+    with open(os.path.join(trace_dir, 'fit_spans.json'), 'w') as f:
+        json.dump({
+            'counters': {c: getattr(engine, c) - b
+                         for c, b in zip(counters, before)},
+            'fields': ['name', 'parent', 'start_ns', 'end_ns'],
+            'spans': trace.records()}, f)
+    trace.clear()

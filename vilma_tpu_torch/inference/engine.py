@@ -18,7 +18,13 @@ The JAX engine runs a whole step on the device inside lax.while_loop.
 Here the loops run on the host: every loop predicate (`new_obj <
 threshold` of a line-search trial, the beta loop's convergence test)
 needs the trial's objective, one device->host synchronization each. The
-module counts them in `host_syncs`.
+module counts them in `host_syncs`, the line-search trials in `trials`
+and the line searches that accepted one in `accepted`. The phases of
+set-up and of the loop are spans of utils/trace.py (off unless turned
+on): `vilma.build` (`vilma.precompute`, `vilma.ridge`), `vilma.fit`
+(`vilma.init`, `vilma.step`, `vilma.converge`), in a step
+`vilma.beta_loop` (`vilma.trial`), `vilma.hyper_delta` and `vilma.em`,
+and in any of them `vilma.evaluate` and `vilma.fetch`.
 
 The JAX package's K-chunked route needs no counterpart: the kernels and
 their plain versions take any K (the plain versions chunk SNPs to bound
@@ -65,6 +71,7 @@ from vilma_tpu_torch.models import sigma as sigma_mod
 from vilma_tpu_torch.ops import blocks as blocks_mod
 from vilma_tpu_torch.ops import kernels
 from vilma_tpu_torch.ops.cuda import compact_obj
+from vilma_tpu_torch.utils import trace
 from vilma_tpu_torch.utils.config import epsilon
 
 # Optimization constants (reference variational_inference.py:18-24)
@@ -99,15 +106,21 @@ _INIT_CHUNK_BYTES = 256 << 20
 
 #: device->host synchronizations made by the host loops of the optimizer
 #: (one per objective fetched to decide a loop predicate, one per
-#: convergence-statistics fetch)
+#: convergence-statistics fetch): the `_fetch` calls
 host_syncs = 0
+#: line-search trials (objective evaluations of a stepped point) made
+trials = 0
+#: line searches that accepted a trial (the others keep their parameters)
+accepted = 0
 
 
-def _sync_float(x):
-    """Fetch a device scalar to the host: one counted synchronization."""
+def _fetch(x):
+    """A device tensor's value on the host (a float of a 0-d tensor, else
+    a list): one counted synchronization, the span `vilma.fetch`."""
     global host_syncs
-    host_syncs += 1
-    return float(x)
+    with trace.span('vilma.fetch'):
+        host_syncs += 1
+        return x.item() if x.dim() == 0 else x.tolist()
 
 
 @dataclass(frozen=True)
@@ -473,13 +486,13 @@ def _objective(data, st, params, hyper_delta):
     return _finish(data, st, ll, beta_kl), post_means, linked
 
 
+@trace.spanned('vilma.evaluate')
 def _evaluate(ds, ss, mesh, params, hyper_deltas, failures=None):
     """The objective of a parameter point (one entry of `params` and
     `hyper_deltas` per shard) on the host, with its post_means and linked
     per shard. The shards' [P + 2] partials (likelihood sums, beta-KL,
     Cholesky failures of the trial) are added across shards and fetched
     in one synchronization; a failure raises (sigma.check_cholesky)."""
-    global host_syncs
     failures = failures or [[] for _ in ds]
     # the materialized KL terms are each comp slice's own
     kl_once = ss[0].nat_mu is not None
@@ -498,9 +511,8 @@ def _evaluate(ds, ss, mesh, params, hyper_deltas, failures=None):
     P = vec.shape[0] - 2
     obj = _finish(ds[0], ss[0], vec[:P], vec[P])
     if not any(failures):
-        return _sync_float(obj), pms, lks
-    host_syncs += 1
-    value, bad = torch.stack([obj, vec[P + 1]]).tolist()
+        return _fetch(obj), pms, lks
+    value, bad = _fetch(torch.stack([obj, vec[P + 1]]))
     sigma_mod.check_cholesky(bad)
     return value, pms, lks
 
@@ -659,6 +671,7 @@ def _update_beta(ds, ss, mesh, orig_obj, cur_post_means, cur_linked,
     on every shard. orig_obj is a host float. Returns (params, L0,
     new_obj, post_means, linked, err) for the accepted (or kept)
     parameters, the tensors one per shard."""
+    global accepted
     threshold = orig_obj - REL_TOL * abs(orig_obj) - ABS_TOL
     params = [_params(st) for st in ss]
     split_vd = _comp(mesh) and ss[0].nat_mu is None
@@ -669,15 +682,19 @@ def _update_beta(ds, ss, mesh, orig_obj, cur_post_means, cur_linked,
     hds = [st.hyper_delta for st in ss]
 
     def trial(L0):
-        out = [step(1. / L0) for step in steps]
-        new = [o[0] for o in out]
-        if split_vd:
-            vds = _comp_vi_delta(ds, mesh, [n[0] for n in new],
-                                 [n[1] for n in new],
-                                 [st.sigma.log_det_sigma for st in ss], hds)
-            new = [(n[0], vd) for n, vd in zip(new, vds)]
-        obj, pm, lk = _evaluate(ds, ss, mesh, new, hds,
-                                [o[1] for o in out])
+        global trials
+        trials += 1
+        with trace.span('vilma.trial'):
+            out = [step(1. / L0) for step in steps]
+            new = [o[0] for o in out]
+            if split_vd:
+                vds = _comp_vi_delta(ds, mesh, [n[0] for n in new],
+                                     [n[1] for n in new],
+                                     [st.sigma.log_det_sigma for st in ss],
+                                     hds)
+                new = [(n[0], vd) for n, vd in zip(new, vds)]
+            obj, pm, lk = _evaluate(ds, ss, mesh, new, hds,
+                                    [o[1] for o in out])
         return new, obj, pm, lk
 
     L0 = ss[0].L[0]
@@ -690,6 +707,7 @@ def _update_beta(ds, ss, mesh, orig_obj, cur_post_means, cur_linked,
     err = int(L0 > L_MAX and not _isclose(
         orig_obj, new_obj, rtol=_err_rtol(ss[0].hyper_delta.dtype)))
     if new_obj >= threshold:
+        accepted += 1
         return new, L0, new_obj, pm, lk, err
     return params, L0, orig_obj, cur_post_means, cur_linked, err
 
@@ -699,6 +717,7 @@ def _set(ss, **fields):
     return [dataclasses.replace(st, **fields) for st in ss]
 
 
+@trace.spanned('vilma.beta_loop')
 def _beta_loop(ds, ss, mesh, conv_tol, line_search_rate):
     """Up to MAX_NUM_ITERS beta updates (variational_inference.py:427-439),
     stopping once the objective gain is below conv_tol or L hits its
@@ -725,6 +744,7 @@ def _beta_loop(ds, ss, mesh, conv_tol, line_search_rate):
     return ss, delta, orig_obj, pm, lk
 
 
+@trace.spanned('vilma.hyper_delta')
 def _update_hyper_delta(ds, ss, mesh, orig_obj):
     """Closed-form per-annotation mixture-weight update
     (variational_inference.py:825-860), from the annotation sums of
@@ -796,6 +816,7 @@ def _update_error_scaling(data, st, orig_obj, post_means, linked):
             tuple(pms) if mesh is not None else pms[0])
 
 
+@trace.spanned('vilma.em')
 def _error_scaling(ds, ss, mesh, orig_obj, post_means, linked):
     """`_update_error_scaling` on per-shard lists. The [P] statistics are
     summed over every shard, then:
@@ -854,7 +875,7 @@ def _error_scaling(ds, ss, mesh, orig_obj, post_means, linked):
             for d, st, sc in zip(ds, ss, scalings)]
     else:
         n = st0.nat_hist_n
-        change = _sync_float(torch.max(torch.abs(
+        change = _fetch(torch.max(torch.abs(
             new_scaling / st0.error_scaling - 1.0)))
         if not (change > _EPOCH_SKIP_TOL and n < st0.nat_hist.shape[0]):
             return ss, 0.0, post_means
@@ -896,6 +917,7 @@ def outer_step(data, st, line_search_rate=2.0):
             tuple(pms) if mesh is not None else pms[0])
 
 
+@trace.spanned('vilma.step')
 def _outer_step(ds, ss, mesh, line_search_rate):
     """`outer_step` on per-shard lists."""
     st0 = ss[0]
@@ -1015,7 +1037,6 @@ def _conv_stats(new_pms, old_pms, ckp_pms, st, mesh=None):
     fetched in ONE synchronization: [num_err, elbo, running delta,
     allclose, max|pm|, max rel diff, max abs diff, checkpoint RMSE,
     error_scaling...]."""
-    global host_syncs
     maxima, squares = [], []
     count = 0
     for j, (new_pm, old_pm, ckp_pm) in enumerate(zip(new_pms, old_pms,
@@ -1040,10 +1061,8 @@ def _conv_stats(new_pms, old_pms, ckp_pms, st, mesh=None):
         1 - top[:1], top[1:],
         torch.sqrt(_reduce(mesh, squares) / count),
         st.error_scaling.to(top.dtype)])
-    host_syncs += 1
-    dev = dev.cpu().numpy().astype(np.float64)
     return np.concatenate([[st.num_err, st.elbo, st.running_elbo_delta],
-                           dev])
+                           np.asarray(_fetch(dev), dtype=np.float64)])
 
 
 # ---------------------------------------------------------------------------
@@ -1178,6 +1197,7 @@ def _per_cohort(rows):
     return [torch.stack(col) for col in zip(*rows)]
 
 
+@trace.spanned('vilma.precompute')
 def _precompute_sums(lds, ld_index, marginal_effects, std_errs,
                      real_masks):
     """The precompute's per-SNP part on every shard (one entry per shard
@@ -1204,6 +1224,7 @@ def _precompute_sums(lds, ld_index, marginal_effects, std_errs,
     return out
 
 
+@trace.spanned('vilma.ridge')
 def _precompute_inverse_betas(lds, ld_index, adjs, std_errs, priors):
     """The LDpred-inf initialization on every shard, given each shard's
     copy of the prior (2 N h^2 over the SE^-2 sum over every SNP)."""
@@ -1477,10 +1498,11 @@ class MultiPopVI:
                 raise ValueError(f'{name} must be specified when calling '
                                  'MultiPopVI()')
         self.mesh = mesh
-        self.data = build_model_data(
-            marginal_effects, std_errs, ld_mats, annotations, mixture_covs,
-            scaled, scale_se, gwas_N, init_hg, dtype=dtype, device=device,
-            mesh=mesh)
+        with trace.span('vilma.build'):
+            self.data = build_model_data(
+                marginal_effects, std_errs, ld_mats, annotations,
+                mixture_covs, scaled, scale_se, gwas_N, init_hg,
+                dtype=dtype, device=device, mesh=mesh)
         self._ds = (list(self.data.shards) if mesh is not None
                     else [self.data])
         self.rank = mesh.rank if mesh is not None else 0
@@ -2041,19 +2063,22 @@ class MultiPopVI:
                                      [s.hyper_delta for s in ss])
         return [t[2] * d.scalings for t, d in zip(terms, self._ds)]
 
+    @trace.spanned('vilma.fit')
     def optimize(self, loaded_checkpoint=None):
         """Coordinate ascent until convergence (reference optimize(),
         variational_inference.py:340-394), from the initialization or,
         given `loaded_checkpoint` (np.load of a checkpoint .npz), from
         the state it holds; a resumed fit may converge before step 10."""
-        if loaded_checkpoint is None:
-            st = self._initialize()
-        else:
-            st = self._state_from_checkpoint(loaded_checkpoint)
-        st = self._state(_set(self._states(st), elbo=self.elbo_value(st)))
+        with trace.span('vilma.init'):
+            if loaded_checkpoint is None:
+                st = self._initialize()
+            else:
+                st = self._state_from_checkpoint(loaded_checkpoint)
+            st = self._state(_set(self._states(st),
+                                  elbo=self.elbo_value(st)))
+            post_mean = self._posterior_mean(st)
         converged = False
         num_its = 0
-        post_mean = self._posterior_mean(st)
         ckp_post_mean = post_mean
         prev_err = 0
         while num_its < self.num_its and not converged:
@@ -2065,29 +2090,31 @@ class MultiPopVI:
                 ckp_post_mean = self._posterior_mean(st)
             st, new_post_mean = outer_step(self.data, st,
                                            line_search_rate=2.0)
-            if self._epoch:
-                # keep a free epoch slot ahead of the next EM event, so
-                # the append never freezes before the hard cap
-                st = self._maybe_grow_hist(st)
-            if self.mesh is None:
-                new_post_mean = [new_post_mean]
-            stats = _conv_stats(new_post_mean, post_mean, ckp_post_mean,
-                                self._states(st)[0], self.mesh)
-            num_err = int(stats[0])
-            if num_err > prev_err:
-                raise RuntimeError('Encountered a numerical error.')
-            prev_err = num_err
-            # the f32 line-search guard is loose (_err_rtol), so a fit
-            # that degenerates to NaN is caught here
-            if np.isnan(stats[1]) or np.isnan(stats[4]):
-                raise RuntimeError('Encountered a numerical error '
-                                   '(non-finite ELBO or posterior mean).')
-            red = float(stats[2])
-            converged = bool(stats[3]) or bool(
-                np.isclose(red, 0, atol=ELBO_TOL, rtol=0))
-            if num_its < 10 and loaded_checkpoint is None:
-                converged = False
-            self._dump_info(num_its, stats)
+            with trace.span('vilma.converge'):
+                if self._epoch:
+                    # keep a free epoch slot ahead of the next EM event,
+                    # so the append never freezes before the hard cap
+                    st = self._maybe_grow_hist(st)
+                if self.mesh is None:
+                    new_post_mean = [new_post_mean]
+                stats = _conv_stats(new_post_mean, post_mean, ckp_post_mean,
+                                    self._states(st)[0], self.mesh)
+                num_err = int(stats[0])
+                if num_err > prev_err:
+                    raise RuntimeError('Encountered a numerical error.')
+                prev_err = num_err
+                # the f32 line-search guard is loose (_err_rtol), so a fit
+                # that degenerates to NaN is caught here
+                if np.isnan(stats[1]) or np.isnan(stats[4]):
+                    raise RuntimeError('Encountered a numerical error '
+                                       '(non-finite ELBO or posterior '
+                                       'mean).')
+                red = float(stats[2])
+                converged = bool(stats[3]) or bool(
+                    np.isclose(red, 0, atol=ELBO_TOL, rtol=0))
+                if num_its < 10 and loaded_checkpoint is None:
+                    converged = False
+                self._dump_info(num_its, stats)
             post_mean = new_post_mean
             num_its += 1
 
@@ -2125,16 +2152,17 @@ class MultiPopVI:
         nb = next(b for b in _EPOCH_BUCKETS if b > B)
         pad = nb - B
         logging.info('epoch history grown %d -> %d slots', B, nb)
-        return self._state([dataclasses.replace(
-            s,
-            nat_hist=torch.cat([s.nat_hist, s.nat_hist.new_zeros(
-                (pad,) + tuple(s.nat_hist.shape[1:]))]),
-            nat_hist_scale=torch.cat([s.nat_hist_scale,
-                                      s.nat_hist_scale.new_ones(
-                                          (pad, self.num_pops))]),
-            nat_hist_c=torch.cat([s.nat_hist_c,
-                                  s.nat_hist_c.new_zeros(pad)]))
-            for s in ss])
+        with trace.span('vilma.grow_hist'):
+            return self._state([dataclasses.replace(
+                s,
+                nat_hist=torch.cat([s.nat_hist, s.nat_hist.new_zeros(
+                    (pad,) + tuple(s.nat_hist.shape[1:]))]),
+                nat_hist_scale=torch.cat([s.nat_hist_scale,
+                                          s.nat_hist_scale.new_ones(
+                                              (pad, self.num_pops))]),
+                nat_hist_c=torch.cat([s.nat_hist_c,
+                                      s.nat_hist_c.new_zeros(pad)]))
+                for s in ss])
 
     def _dump_info(self, num_its, stats):
         """Per-iteration telemetry (reference _dump_info,

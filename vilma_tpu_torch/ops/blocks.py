@@ -60,6 +60,7 @@ import torch
 
 from vilma_tpu_torch.ops import lowrank
 from vilma_tpu_torch.ops.cuda import block_matvec
+from vilma_tpu_torch.utils import trace
 
 # block sizes pad up to one of these tiers (as in the JAX package)
 _SIZE_TIERS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384)
@@ -317,10 +318,21 @@ def pack(factors, block_indices, n, dtype=torch.float64, u_dtype=None,
     process of a multi-process fit packs its own) and `device` is one
     device or one per packed shard. `seq_starts` gives each block's
     offset in matrix_power's sequential order (by default the blocks
-    follow each other in the order given)."""
-    if n_shards > 1 or shards is not None:
-        return _pack_sharded(factors, block_indices, n, dtype, u_dtype,
-                             device, spill, n_shards, shards)
+    follow each other in the order given).
+
+    The whole call is the span `vilma.pack` (utils/trace.py), each
+    bucket's moves to the device a `vilma.pack.copy` inside it."""
+    with trace.span('vilma.pack'):
+        if n_shards > 1 or shards is not None:
+            return _pack_sharded(factors, block_indices, n, dtype, u_dtype,
+                                 device, spill, n_shards, shards)
+        return _pack(factors, block_indices, n, dtype, u_dtype, device,
+                     spill, seq_starts)
+
+
+def _pack(factors, block_indices, n, dtype, u_dtype, device, spill,
+          seq_starts=None):
+    """`pack` of one unsharded PackedLD."""
     if u_dtype is None:
         u_dtype = dtype
     if len(factors) != len(block_indices):
@@ -372,16 +384,18 @@ def pack(factors, block_indices, n, dtype=torch.float64, u_dtype=None,
             seq[b, :f.n] = np.arange(start, start + f.n)
         if spill is not None:
             u.flush()
-            u_t = _u_from_spill(u, u_dtype, device)
-        else:
-            u_t = torch.from_numpy(u).to(device=device, dtype=u_dtype)
-        buckets.append(BlockBucket(
-            u=u_t,
-            s=torch.from_numpy(s).to(device),
-            inv_s=torch.from_numpy(inv_s).to(device),
-            d=torch.from_numpy(d).to(device),
-            perm=torch.from_numpy(perm).to(device),
-            seq=torch.from_numpy(seq).to(device)))
+        with trace.span('vilma.pack.copy'):
+            if spill is not None:
+                u_t = _u_from_spill(u, u_dtype, device)
+            else:
+                u_t = torch.from_numpy(u).to(device=device, dtype=u_dtype)
+            buckets.append(BlockBucket(
+                u=u_t,
+                s=torch.from_numpy(s).to(device),
+                inv_s=torch.from_numpy(inv_s).to(device),
+                d=torch.from_numpy(d).to(device),
+                perm=torch.from_numpy(perm).to(device),
+                seq=torch.from_numpy(seq).to(device)))
 
     has_diag = any(not np.allclose(f.d, 0) for f in factors)
     rank = float(sum(f.rank for f in factors))
@@ -428,8 +442,8 @@ def _pack_sharded(factors, block_indices, n, dtype, u_dtype, device, spill,
                              'here')
         owned[s][0].append(f)
         owned[s][1].append(ix - s * rows)
-    parts = tuple(pack(owned[s][0], owned[s][1], rows, dtype=dtype,
-                       u_dtype=u_dtype, device=dev, spill=spill)
+    parts = tuple(_pack(owned[s][0], owned[s][1], rows, dtype, u_dtype,
+                        dev, spill)
                   for s, dev in zip(shards, devices))
     missing = tuple(s * rows + m for s, part in zip(shards, parts)
                     for m in part.missing)
