@@ -2068,6 +2068,26 @@ class record_elbos:
         self.cls._dump_info = self.real
 
 
+class start_elbos:
+    """Context manager recording the ELBO of the state each outer step
+    starts from while active: the first is a fit's start (a resumed
+    fit's restored state)."""
+
+    def __enter__(self):
+        from vilma_tpu_torch.inference import engine
+        self.engine, self.real, self.values = engine, engine.outer_step, []
+
+        def recorded(data, st, *a, **k):
+            self.values.append(float(st.elbo))
+            return self.real(data, st, *a, **k)
+
+        engine.outer_step = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.engine.outer_step = self.real
+
+
 def write_plink_chromosome(out_dir, num_blocks, samples, seed=3):
     """One synthetic PLINK chromosome in `num_blocks` LD blocks of 500-900
     SNPs (two SNPs between blocks lie in none): haplotypes that copy
@@ -2339,18 +2359,12 @@ def resume_kdim(paths, fit_prefix, elbos, out_dir):
     steps = [int(f.split('.')[1]) for f in os.listdir(out_dir)
              if f.startswith('fit_se-checkpoint.')]
     c = max(k for k in steps if 0 < k < len(elbos))
-    streamed, first = [], []
+    streamed = []
     cls = engine.MultiPopVI
-    real_elbo = cls.elbo_value
 
     def counted(vi, *a):
         streamed.append(1)
         return real_stream(vi, *a)
-
-    def elbo_value(vi, *a):
-        value = real_elbo(vi, *a)
-        first.append(value)
-        return value
 
     t0 = time.perf_counter()
     with time_calls(**load_targets(),
@@ -2358,9 +2372,8 @@ def resume_kdim(paths, fit_prefix, elbos, out_dir):
                     steps=(engine, 'outer_step')) as split:
         real_stream = cls._nat_from_checkpoint_streamed      # timed
         cls._nat_from_checkpoint_streamed = counted
-        cls.elbo_value = elbo_value
         try:
-            with record_elbos() as rec:
+            with record_elbos() as rec, start_elbos() as first:
                 counts, step_s, _, _ = run_fit(
                     paths, os.path.join(out_dir, 'resumed'), 'cuda',
                     F32_BF16 + ['--learn-scaling', '--num-its',
@@ -2370,17 +2383,16 @@ def resume_kdim(paths, fit_prefix, elbos, out_dir):
                                 fit_prefix + '.covariance.pkl'])
         finally:
             cls._nat_from_checkpoint_streamed = real_stream
-            cls.elbo_value = real_elbo
     seconds = time.perf_counter() - t0
     log(f'  kdim card split: {split.split(seconds)}')
     require(streamed, 'the kdim resume did not take the streamed route')
     require(len(rec.values) == len(step_s) >= 1
             and all(math.isfinite(v) for v in rec.values),
             f'resumed fit: ELBOs {rec.values}')
-    err = abs(first[0] / elbos[c - 1] - 1)
+    err = abs(first.values[0] / elbos[c - 1] - 1)
     require(err <= BAND_RESUME,
-            f'ELBO after resuming at iteration {c}: {first[0]!r} vs the '
-            f'original run\'s {elbos[c - 1]!r} ({err:.2e} > '
+            f'ELBO after resuming at iteration {c}: {first.values[0]!r} vs '
+            f'the original run\'s {elbos[c - 1]!r} ({err:.2e} > '
             f'{BAND_RESUME:.0e})')
     require_launched(counts, ('bucket_matvec_multi', 'prologue_kdim',
                               'delta_sums_kdim'), 'the kdim resume')
@@ -2876,29 +2888,18 @@ def run_trait_references(out_dir, card='cuda'):
             f'exceed {BAND_TRAIT_FACTOR} x the host f32 fit\'s {host.max():.2e}')
     # resume the card's fit from its checkpoint at step 4
     c = 4
-    first = []
-    cls = engine.MultiPopVI
-    real_elbo = cls.elbo_value
-
-    def elbo_value(vi, *a):
-        value = real_elbo(vi, *a)
-        first.append(value)
-        return value
-
     prefix = os.path.join(out_dir, 'small_card')
-    cls.elbo_value = elbo_value
-    try:
+    with start_elbos() as first:
         counts, _, _, _ = run_argv(
             trait_argv(paths, os.path.join(out_dir, 'resumed'), card, 2, 2)
             + ['--precision', 'f32', '--ld-precision', 'f32',
                '--load-checkpoint', f'{prefix}-checkpoint.{c}.npz',
                prefix + '.covariance.pkl'], card)
-    finally:
-        cls.elbo_value = real_elbo
     want = elbos['card'][c - 1]
-    r_err = abs(first[0] / want - 1)
+    r_err = abs(first.values[0] / want - 1)
     require(r_err <= BAND_RESUME,
-            f'ELBO after resuming the 4-trait fit at step {c}: {first[0]!r} '
+            f'ELBO after resuming the 4-trait fit at step {c}: '
+            f'{first.values[0]!r} '
             f'vs {want!r} ({r_err:.2e} > {BAND_RESUME:.0e})')
     if card == 'cuda':
         require_launched(counts, ('bucket_matvec_multi_c4',), 'the resume')
@@ -3476,6 +3477,8 @@ def run_sharded_epoch(vi, st, ld, steps=EPOCH_STEPS, shards=EPOCH_SHARDS,
     from vilma_tpu_torch.inference import engine
     from vilma_tpu_torch.parallel import alignment, mesh as mesh_mod
     out = {}
+    # the sharded state evaluates its start afresh: so does the unsharded
+    st = engine.dataclasses.replace(st, last_eval=None)
     zero_counts()
     stU, ips0, syncs0, pmU = timed_steps(vi.data, st, steps)
     counts0 = read_counts()

@@ -113,17 +113,20 @@ def test_trajectory_matches_jax():
     """Six outer steps (line searches, beta loops, hyper-delta updates)
     track the JAX engine: pm within 1e-8 of its scale, the ELBO within
     1e-8 relative, hyper_delta within rtol 1e-7. The host loop
-    synchronizes once per objective it reads."""
+    synchronizes once per objective it reads: each line-search trial's,
+    each step's hyper-delta evaluation and the first step's start (every
+    later step starts from the state's record of its last
+    evaluation)."""
     data = synthetic.synthetic_problem(num_loci=256, num_pops=2,
                                        num_components=4, block_size=64,
                                        num_annotations=2)
     st = synthetic.synthetic_state(data, compact=True)
     tdata, tst = data_to_torch(data), state_to_torch(st)
-    syncs = tengine.host_syncs
+    syncs, trials = tengine.host_syncs, tengine.trials
     for _ in range(6):
         st, pm_j = jengine.outer_step(data, st, line_search_rate=2.0)
         tst, pm_t = tengine.outer_step(tdata, tst)
-    assert tengine.host_syncs - syncs >= 6 * 3
+    assert tengine.host_syncs - syncs == tengine.trials - trials + 6 + 1
     pm_j = np.asarray(pm_j)
     np.testing.assert_allclose(t2n(pm_t), pm_j, rtol=0,
                                atol=1e-8 * np.abs(pm_j).max())

@@ -181,7 +181,10 @@ def test_materialized_outer_steps_match_jax(P, scale_se):
     """Three outer steps of a materialized state (line searches, beta
     loops, hyper-delta updates and, with scale_se, the error-scaling EM,
     which fires at the third step) track the JAX engine; the host loop
-    synchronizes once per objective it reads."""
+    synchronizes once per objective it reads: each line-search trial's,
+    each step's hyper-delta evaluation, the first step's start (every
+    later step starts from the state's record of its last evaluation)
+    and the EM's re-evaluation."""
     data = synthetic.synthetic_problem(num_loci=32, num_pops=P,
                                        num_components=4, block_size=16,
                                        num_annotations=2, seed=P,
@@ -189,12 +192,13 @@ def test_materialized_outer_steps_match_jax(P, scale_se):
     st = synthetic.synthetic_state(data, seed=1)
     tdata, tst = data_to_torch(data), state_to_torch(st)
     assert tst.nat_mu is None
-    syncs = tengine.host_syncs
+    syncs, trials = tengine.host_syncs, tengine.trials
     for _ in range(3):
         st, pm_j = jengine.outer_step(data, st, line_search_rate=2.0)
         tst, pm_t = tengine.outer_step(tdata, tst)
         _close(pm_t, pm_j, 1e-8, 1e-8)
-    assert tengine.host_syncs - syncs >= 3 * 3
+    assert tengine.host_syncs - syncs == (tengine.trials - trials + 3 + 1
+                                          + int(scale_se))
     _state_close(tst, st)
     for name in ('log_det_sigma', 'diag', 'matches', 'sigma_summary'):
         _close(getattr(tst.sigma, name), getattr(st.sigma, name), 1e-9)

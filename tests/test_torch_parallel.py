@@ -238,6 +238,19 @@ def test_shard_regroups_an_unsharded_matrix():
         p.missing for p in sharded.shards]
 
 
+def test_shard_places_each_block_once_per_comp_shard():
+    """blocks.shard for a comp mesh (each snp span listed once per comp
+    shard) gives every local shard its span's blocks once."""
+    plain, sharded, _, _ = _sharded_matrix()
+    spans = [s for s in range(8) for _ in range(2)]
+    regrouped = tblocks.shard(plain, 8, shards=spans)
+    assert [p.rank for p in regrouped.shards] == [
+        sharded.shards[s].rank for s in spans]
+    assert [sum(b.u.shape[0] for b in p.buckets)
+            for p in regrouped.shards] == [
+        sum(b.u.shape[0] for b in sharded.shards[s].buckets) for s in spans]
+
+
 def test_shard_data_places_an_unsharded_fit():
     """mesh.shard_data of a ModelData built unsharded in the layout is
     what build_model_data builds on the mesh (its precompute reduced

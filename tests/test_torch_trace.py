@@ -128,8 +128,12 @@ def test_span_tree_and_counters(form, monkeypatch):
     """The spans of a fit's set-up and of 12 steps nest as the table of
     phases says; each evaluation fetches once, each trial evaluates once;
     the vilma.fetch spans are the host_syncs, the vilma.trial spans the
-    trials, and no more line searches accept than ran. A --learn-scaling
-    fit runs its EM, and the epoch state grows its history."""
+    trials, and no more line searches accept than ran. A beta loop opens
+    with an evaluation only after the epoch history grew (elsewhere the
+    state's record of its point stands in for it), and evals_reused
+    counts the others and each EM's posterior variances. A
+    --learn-scaling fit runs its EM, and the epoch state grows its
+    history."""
     searches = []
     update_beta = tengine._update_beta
 
@@ -140,8 +144,9 @@ def test_span_tree_and_counters(form, monkeypatch):
     monkeypatch.setattr(tengine, '_update_beta', counted)
     trace.enable()
     vi = _vi(form, monkeypatch, num_its=12)
-    syncs, trials, accepted = (tengine.host_syncs, tengine.trials,
-                               tengine.accepted)
+    syncs, trials, accepted, reused = (tengine.host_syncs, tengine.trials,
+                                       tengine.accepted,
+                                       tengine.evals_reused)
     _fit(vi)
     trace.disable()
     recs = trace.records()
@@ -174,11 +179,20 @@ def test_span_tree_and_counters(form, monkeypatch):
         elif name == 'vilma.trial':
             assert kids == ['vilma.evaluate']
         elif name == 'vilma.beta_loop':
-            assert kids[0] == 'vilma.evaluate' and len(kids) > 1
-            assert set(kids[1:]) == {'vilma.trial'}
+            opens = kids[0] == 'vilma.evaluate'
+            assert len(kids) > opens and set(kids[opens:]) == {'vilma.trial'}
         elif name == 'vilma.converge':
             assert kids[-1] == 'vilma.fetch'
             assert set(kids[:-1]) <= {'vilma.grow_hist'}
+    fit_ids = [i for i, r in enumerate(recs)
+               if r[1] == names.index('vilma.fit')]
+    grown = sum('vilma.grow_hist' in _children(recs, i)
+                for i in fit_ids[:-1])
+    loops = [i for i, name in enumerate(names) if name == 'vilma.beta_loop']
+    fresh = sum(_children(recs, i)[0] == 'vilma.evaluate' for i in loops)
+    assert fresh == grown
+    assert tengine.evals_reused - reused == (len(loops) - fresh
+                                             + names.count('vilma.em'))
     assert names.count('vilma.fetch') == tengine.host_syncs - syncs > 0
     assert names.count('vilma.trial') == tengine.trials - trials > 0
     assert 0 < tengine.accepted - accepted <= len(searches)
@@ -264,14 +278,16 @@ def test_fit_profile_writes_the_phases(tmp_path):
     """`fit --profile DIR` turns the spans on for the profiled fit alone,
     its LD pack and set-up included: DIR/fit_trace.json holds the phases
     as annotations, DIR/fit_spans.json the same spans as recorded and the
-    fit's syncs, trials and accepted line searches (one vilma.fetch span
-    a sync, one vilma.trial span a trial), and the recorder is off and
-    empty afterwards."""
+    fit's syncs, trials, accepted line searches (one vilma.fetch span
+    a sync, one vilma.trial span a trial) and reused evaluations (one a
+    step, the first step's from the fit's start; the CLI's fit runs no
+    EM), and the recorder is off and empty afterwards."""
     from vilma_tpu_torch import frontend
     from tests.test_torch_cli import _argv, _write_case
     case = _write_case(str(tmp_path))
     prof = tmp_path / 'prof'
-    syncs, trials = tengine.host_syncs, tengine.trials
+    syncs, trials, reused = (tengine.host_syncs, tengine.trials,
+                             tengine.evals_reused)
     frontend.main(_argv(case, str(tmp_path / 'run'))
                   + ['--device', 'cpu', '--profile', str(prof)])
     evts = json.loads((prof / 'fit_trace.json').read_text())['traceEvents']
@@ -294,5 +310,7 @@ def test_fit_profile_writes_the_phases(tmp_path):
     assert counters['trials'] == recorded.count('vilma.trial') \
         == tengine.trials - trials > 0
     assert 0 < counters['accepted'] <= counters['trials']
+    assert counters['evals_reused'] == tengine.evals_reused - reused \
+        == names.count('vilma.step')
     assert trace.span('vilma.x') is trace.NOOP
     assert trace.records() == []

@@ -156,8 +156,9 @@ def args(super_parser):
                              'vilma.fit, vilma.step, vilma.trial, '
                              'vilma.evaluate, vilma.fetch, ...); and '
                              'fit_spans.json, the phases\' spans and the '
-                             'counts of host syncs, line-search trials '
-                             'and accepted line searches.')
+                             'counts of host syncs, line-search trials, '
+                             'accepted line searches and evaluations '
+                             'reused.')
     parser.add_argument('--pallas', type=str, default='auto',
                         choices=['auto', 'on', 'off'],
                         help='Use the fused kernels (the block matvec, the '
@@ -497,7 +498,8 @@ def _profiled(trace_dir):
     its phases' spans on (utils/trace.py), writing trace_dir/
     fit_trace.json (the chrome trace) and trace_dir/fit_spans.json (the
     spans as recorded, and the fit's device->host syncs, line-search
-    trials and accepted line searches); without, nothing."""
+    trials, accepted line searches and evaluations a state's record
+    replaced); without, nothing."""
     if not trace_dir:
         yield
         return
@@ -509,7 +511,7 @@ def _profiled(trace_dir):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(trace_dir, exist_ok=True)
-    counters = ('host_syncs', 'trials', 'accepted')
+    counters = ('host_syncs', 'trials', 'accepted', 'evals_reused')
     before = [getattr(engine, c) for c in counters]
     trace.clear()
     trace.enable()

@@ -19,7 +19,13 @@ Here the loops run on the host: every loop predicate (`new_obj <
 threshold` of a line-search trial, the beta loop's convergence test)
 needs the trial's objective, one device->host synchronization each. The
 module counts them in `host_syncs`, the line-search trials in `trials`
-and the line searches that accepted one in `accepted`. The phases of
+and the line searches that accepted one in `accepted`. A state carries
+the last evaluation of its own point (`_LastEval`: a step's hyper-delta
+or EM evaluation, a fit's first), which the next reader of that point
+(the next step's beta loop, the EM's posterior variances) takes instead
+of evaluating again while the evaluation's inputs are the state's own
+tensors, unmodified; `evals_reused` counts the evaluations and prologues
+it replaced. The phases of
 set-up and of the loop are spans of utils/trace.py (off unless turned
 on): `vilma.build` (`vilma.precompute`, `vilma.ridge`), `vilma.fit`
 (`vilma.init`, `vilma.step`, `vilma.converge`), in a step
@@ -112,6 +118,9 @@ host_syncs = 0
 trials = 0
 #: line searches that accepted a trial (the others keep their parameters)
 accepted = 0
+#: evaluations (and the EM's posterior-variance prologues) a state's
+#: record of its last evaluation replaced (`_recall`)
+evals_reused = 0
 
 
 def _fetch(x):
@@ -184,6 +193,10 @@ class VIState:
     nat_hist_scale: torch.Tensor = None   # [B, P] error_scaling per epoch
     nat_hist_c: torch.Tensor = None       # [B] coefficients
     nat_hist_n: int = None                # live epoch count
+    # the last evaluation of this state's point (_LastEval), for the next
+    # reader of the same point; no output or checkpoint holds it
+    last_eval: object = dataclasses.field(default=None, repr=False,
+                                          compare=False)
 
 
 @dataclass(frozen=True)
@@ -463,12 +476,14 @@ def _objective_terms(data, st, params, hyper_delta, moments=None,
 
 def _objective_terms_all(ds, ss, mesh, params, hyper_deltas):
     """`_objective_terms` of every shard (one entry of `params` and
-    `hyper_deltas` per shard): the moments of every shard
-    (`_moments_all`), then the LD matvecs of all at once (a gathered
-    matrix reads every shard's vector), then each shard's likelihood."""
+    `hyper_deltas` per shard), each with its post_vars: the moments of
+    every shard (`_moments_all`), then the LD matvecs of all at once (a
+    gathered matrix reads every shard's vector), then each shard's
+    likelihood."""
     moments = _moments_all(ds, ss, mesh, params, hyper_deltas)
     dots = _ld_scaled_dots(ds, [mo[0] for mo in moments])
-    return [_objective_terms(d, s, p, h, mo, dt) for d, s, p, h, mo, dt
+    return [_objective_terms(d, s, p, h, mo, dt) + (mo[1],)
+            for d, s, p, h, mo, dt
             in zip(ds, ss, params, hyper_deltas, moments, dots)]
 
 
@@ -489,16 +504,17 @@ def _objective(data, st, params, hyper_delta):
 @trace.spanned('vilma.evaluate')
 def _evaluate(ds, ss, mesh, params, hyper_deltas, failures=None):
     """The objective of a parameter point (one entry of `params` and
-    `hyper_deltas` per shard) on the host, with its post_means and linked
-    per shard. The shards' [P + 2] partials (likelihood sums, beta-KL,
-    Cholesky failures of the trial) are added across shards and fetched
-    in one synchronization; a failure raises (sigma.check_cholesky)."""
+    `hyper_deltas` per shard) on the host, with its post_means, linked
+    and post_vars per shard.
+    The shards' [P + 2] partials (likelihood sums, beta-KL, Cholesky
+    failures of the trial) are added across shards and fetched in one
+    synchronization; a failure raises (sigma.check_cholesky)."""
     failures = failures or [[] for _ in ds]
     # the materialized KL terms are each comp slice's own
     kl_once = ss[0].nat_mu is not None
-    parts, pms, lks = [], [], []
+    parts, pms, lks, pvs = [], [], [], []
     terms = _objective_terms_all(ds, ss, mesh, params, hyper_deltas)
-    for j, (f, (ll, kl, pm, lk)) in enumerate(zip(failures, terms)):
+    for j, (f, (ll, kl, pm, lk, pv)) in enumerate(zip(failures, terms)):
         if _comp(mesh):
             ll = _once(mesh, j, ll)
             kl = _once(mesh, j, kl) if kl_once else kl
@@ -507,14 +523,107 @@ def _evaluate(ds, ss, mesh, params, hyper_deltas, failures=None):
                                 bad.reshape(1)]))
         pms.append(pm)
         lks.append(lk)
+        pvs.append(pv)
     vec = _reduce(mesh, parts)
     P = vec.shape[0] - 2
     obj = _finish(ds[0], ss[0], vec[:P], vec[P])
     if not any(failures):
-        return _fetch(obj), pms, lks
+        return _fetch(obj), pms, lks, pvs
     value, bad = _fetch(torch.stack([obj, vec[P + 1]]))
     sigma_mod.check_cholesky(bad)
-    return value, pms, lks
+    return value, pms, lks, pvs
+
+
+# ---------------------------------------------------------------------------
+# The record of a state's last evaluation
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class _LastEval:
+    """One shard's part of the last evaluation of a state's own point:
+    what the evaluation read (`_eval_inputs`) with each tensor's version
+    counter at the time, and what it gave."""
+    inputs: tuple
+    versions: tuple
+    value: float                # the objective, every shard's alike
+    post_means: torch.Tensor
+    linked: torch.Tensor
+    post_vars: torch.Tensor     # None unless the fit may run the EM
+
+
+def _eval_inputs(d, st):
+    """What an evaluation of the state's own point reads: the shard's
+    data, the beta parameters, hyper_delta, error_scaling, the epoch
+    history, the materialized state's sigma summaries."""
+    out = (d,) + _params(st) + (st.hyper_delta, st.error_scaling)
+    if st.nat_hist is not None:
+        out += (st.nat_hist, st.nat_hist_scale, st.nat_hist_n)
+    if st.nat_mu is None:
+        out += tuple(getattr(st.sigma, f.name)
+                     for f in dataclasses.fields(st.sigma))
+    return out
+
+
+def _versions(inputs):
+    """The version counter of each tensor among `inputs` (None for the
+    others; an inference tensor, which has none, never matches)."""
+    return tuple((object() if x.is_inference() else x._version)
+                 if torch.is_tensor(x) else None for x in inputs)
+
+
+def _record(ds, ss, value, pms, lks, pvs=None):
+    """The states with the evaluation of their own point attached (one
+    post_means, linked and post_vars per shard)."""
+    pvs = pvs or [None] * len(ss)
+    out = []
+    for d, st, pm, lk, pv in zip(ds, ss, pms, lks, pvs):
+        inputs = _eval_inputs(d, st)
+        out.append(dataclasses.replace(st, last_eval=_LastEval(
+            inputs, _versions(inputs), value, pm, lk, pv)))
+    return out
+
+
+def _matches(rec, inputs):
+    """Whether every input is the record's own object, tensors at the
+    record's version (the host live-epoch count by value)."""
+    return (len(rec.inputs) == len(inputs) and all(
+        a is b or (isinstance(a, int) and a == b)
+        for a, b in zip(rec.inputs, inputs))
+        and rec.versions == _versions(inputs))
+
+
+def _recall(ds, ss):
+    """(objective, post_means, linked, post_vars) of the states' own
+    point from their records, one tensor per shard (post_vars None unless
+    every record kept them), where every shard's record matches its
+    inputs; else None. Every shard of every process replaces its tensors
+    in the same code, so all decide alike."""
+    recs = [st.last_eval for st in ss]
+    if any(r is None or not _matches(r, _eval_inputs(d, st))
+           for d, st, r in zip(ds, ss, recs)):
+        return None
+    pvs = [r.post_vars for r in recs]
+    return (recs[0].value, [r.post_means for r in recs],
+            [r.linked for r in recs],
+            None if any(pv is None for pv in pvs) else pvs)
+
+
+def _state_eval(ds, ss, mesh):
+    """(objective, post_means, linked) of the states' own point: their
+    records' where they match (an evaluation reused), else one
+    evaluation."""
+    global evals_reused
+    got = _recall(ds, ss)
+    if got is not None:
+        evals_reused += 1
+        return got[:3]
+    return _evaluate(ds, ss, mesh, [_params(st) for st in ss],
+                     [st.hyper_delta for st in ss])[:3]
+
+
+def _runs_em(ds, ss):
+    """Whether a step of the fit may run the error-scaling EM."""
+    return ds[0].scale_se or ss[0].nat_hist is not None
 
 
 # ---------------------------------------------------------------------------
@@ -693,8 +802,8 @@ def _update_beta(ds, ss, mesh, orig_obj, cur_post_means, cur_linked,
                                      [st.sigma.log_det_sigma for st in ss],
                                      hds)
                 new = [(n[0], vd) for n, vd in zip(new, vds)]
-            obj, pm, lk = _evaluate(ds, ss, mesh, new, hds,
-                                    [o[1] for o in out])
+            obj, pm, lk, _ = _evaluate(ds, ss, mesh, new, hds,
+                                       [o[1] for o in out])
         return new, obj, pm, lk
 
     L0 = ss[0].L[0]
@@ -721,10 +830,11 @@ def _set(ss, **fields):
 def _beta_loop(ds, ss, mesh, conv_tol, line_search_rate):
     """Up to MAX_NUM_ITERS beta updates (variational_inference.py:427-439),
     stopping once the objective gain is below conv_tol or L hits its
-    bounds. Returns (states, objective delta, final objective,
-    post_means, linked)."""
-    orig_obj, pm, lk = _evaluate(ds, ss, mesh, [_params(st) for st in ss],
-                                 [st.hyper_delta for st in ss])
+    bounds, from the objective of the states' point (their record of it,
+    which the parameters' first update makes stale). Returns (states,
+    objective delta, final objective, post_means, linked)."""
+    orig_obj, pm, lk = _state_eval(ds, ss, mesh)
+    ss = _set(ss, last_eval=None)
     L0, num_err = ss[0].L[0], ss[0].num_err
     delta = 0.0
     for _ in range(MAX_NUM_ITERS):
@@ -795,9 +905,11 @@ def _update_hyper_delta(ds, ss, mesh, orig_obj):
             for d, st, nat_vd in zip(ds, ss, [
                 kernels.fast_vi_delta_grad(h, d.log_det, d.annotations)
                 for d, h in zip(ds, hds)])]
-    new_obj, pm, lk = _evaluate(ds, ss, mesh, [_params(st) for st in ss],
-                                hds)
-    ss = [dataclasses.replace(st, hyper_delta=h) for st, h in zip(ss, hds)]
+    new_obj, pm, lk, pvs = _evaluate(ds, ss, mesh,
+                                     [_params(st) for st in ss], hds)
+    ss = _record(ds, [dataclasses.replace(st, hyper_delta=h)
+                      for st, h in zip(ss, hds)], new_obj, pm, lk,
+                 pvs if _runs_em(ds, ss) else None)
     return ss, new_obj - orig_obj, new_obj, pm, lk
 
 
@@ -831,14 +943,24 @@ def _error_scaling(ds, ss, mesh, orig_obj, post_means, linked):
     scaling, and a zero accumulator starts under the new one. An epoch
     state freezes (no change) when the relative scaling change is below
     _EPOCH_SKIP_TOL or its buffer is full; the change is one value over
-    every shard, so all take the same decision."""
+    every shard, so all take the same decision.
+
+    The posterior variances are the state's record's (the hyper-delta
+    evaluation's) where it matches; the new state carries the record of
+    its own evaluation (a frozen state keeps the one it has)."""
+    global evals_reused
     stats = []
-    merged = (_moments_all(ds, ss, mesh, [_params(st) for st in ss],
-                           [st.hyper_delta for st in ss])
-              if _comp(mesh) else None)
+    got = _recall(ds, ss)
+    pvs = None if got is None else got[3]
+    if pvs is not None:
+        evals_reused += 1
+    elif _comp(mesh):
+        pvs = [mo[1] for mo in _moments_all(
+            ds, ss, mesh, [_params(st) for st in ss],
+            [st.hyper_delta for st in ss])]
     for j, (d, st, pm, lk) in enumerate(zip(ds, ss, post_means, linked)):
-        if merged is not None:
-            post_vars = merged[j][1]
+        if pvs is not None:
+            post_vars = pvs[j]
         elif st.nat_mu is None:
             post_vars = kernels.fast_pmv(pm, st.vi_mu, st.vi_delta,
                                          st.sigma.diag)
@@ -892,9 +1014,9 @@ def _error_scaling(ds, ss, mesh, orig_obj, post_means, linked):
                 nat_hist=hist, nat_hist_scale=scale, nat_hist_c=coef,
                 nat_hist_n=n + 1))
         ss = out
-    obj, pm, _ = _evaluate(ds, ss, mesh, [_params(st) for st in ss],
-                           [st.hyper_delta for st in ss])
-    return ss, obj - orig_obj, pm
+    obj, pm, lk, _ = _evaluate(ds, ss, mesh, [_params(st) for st in ss],
+                               [st.hyper_delta for st in ss])
+    return _record(ds, ss, obj, pm, lk), obj - orig_obj, pm
 
 
 def state_elbo(data, st):
@@ -938,8 +1060,7 @@ def _outer_step(ds, ss, mesh, line_search_rate):
                                              line_search_rate)
     ss, delta_hyper, obj, pm, lk = _update_hyper_delta(ds, ss, mesh, obj)
     new_elbo_delta = delta_beta + delta_hyper
-    if (ds[0].scale_se or ss[0].nat_hist is not None) \
-            and new_elbo_delta < EM_TOL:
+    if _runs_em(ds, ss) and new_elbo_delta < EM_TOL:
         ss, em_delta, pm = _error_scaling(ds, ss, mesh, obj, pm, lk)
         new_elbo_delta = new_elbo_delta + em_delta
     red = new_elbo_delta if math.isnan(red) else red
@@ -1004,15 +1125,17 @@ def _derive_params(data, st):
 
 def materialize_state(data, st):
     """Fill a compact VIState's derived fields (vi_mu, vi_delta, sigma,
-    nat_grad_vi_delta) for outputs and tests; the identity on a
-    materialized state."""
+    nat_grad_vi_delta) for outputs and tests, without the record of its
+    last evaluation; a materialized state as it is, without the
+    record."""
     if st.nat_mu is None:
-        return st
+        return dataclasses.replace(st, last_eval=None)
     sigma, vi_mu, vi_delta = _derive_params(data, st)
     nat_vd = kernels.fast_vi_delta_grad(st.hyper_delta, data.log_det,
                                         data.annotations)
     return dataclasses.replace(st, vi_mu=vi_mu, vi_delta=vi_delta,
-                               sigma=sigma, nat_grad_vi_delta=nat_vd)
+                               sigma=sigma, nat_grad_vi_delta=nat_vd,
+                               last_eval=None)
 
 
 def compact_nat_mu(data, error_scaling, vi_mu):
@@ -2068,15 +2191,19 @@ class MultiPopVI:
         """Coordinate ascent until convergence (reference optimize(),
         variational_inference.py:340-394), from the initialization or,
         given `loaded_checkpoint` (np.load of a checkpoint .npz), from
-        the state it holds; a resumed fit may converge before step 10."""
+        the state it holds; a resumed fit may converge before step 10.
+        One evaluation of the start gives its ELBO, its posterior mean
+        and the first step's record of it."""
         with trace.span('vilma.init'):
             if loaded_checkpoint is None:
                 st = self._initialize()
             else:
                 st = self._state_from_checkpoint(loaded_checkpoint)
-            st = self._state(_set(self._states(st),
-                                  elbo=self.elbo_value(st)))
-            post_mean = self._posterior_mean(st)
+            ds, ss = self._ds, self._states(st)
+            value, pms, lks = _state_eval(ds, ss, self.mesh)
+            st = self._state(_record(ds, _set(ss, elbo=value), value, pms,
+                                     lks))
+            post_mean = [pm * d.scalings for pm, d in zip(pms, ds)]
         converged = False
         num_its = 0
         ckp_post_mean = post_mean
@@ -2125,7 +2252,9 @@ class MultiPopVI:
         # outputs go through the chunked paths (dump_spec,
         # _streamed_moments, vi_sigma_chunks)
         # a comp-sharded fit keeps its sharded state and derives the
-        # outputs from it per column (_out_states)
+        # outputs from it per column (_out_states); no state kept holds
+        # the record of its last evaluation
+        st = self._state(_set(self._states(st), last_eval=None))
         self.state = (st if self._stream_big() or _comp(self.mesh)
                       else self._state(self._materialized(st)))
         return self.state
@@ -2154,7 +2283,7 @@ class MultiPopVI:
         logging.info('epoch history grown %d -> %d slots', B, nb)
         with trace.span('vilma.grow_hist'):
             return self._state([dataclasses.replace(
-                s,
+                s, last_eval=None,
                 nat_hist=torch.cat([s.nat_hist, s.nat_hist.new_zeros(
                     (pad,) + tuple(s.nat_hist.shape[1:]))]),
                 nat_hist_scale=torch.cat([s.nat_hist_scale,

@@ -469,7 +469,7 @@ def shard(ld, n_shards, device='cpu', shards=None):
         last = torch.where(live, perm, -1).amax(dim=1) // rows
         if bool((first != last).any()):
             raise ValueError('an LD block straddles a shard-span boundary')
-        for s in shards:
+        for s in per_shard:
             sel = torch.nonzero(first == s)[:, 0]
             if sel.numel():
                 per_shard[s].append((bk, sel))
