@@ -118,6 +118,22 @@ def test_matvec_routes_match_plain(cuda, P, R, u_dtype, route, C):
     _check_route(*_matvec_operands(cuda, B, P, R, C, u_dtype, P + C), route)
 
 
+@pytest.mark.parametrize('P,R,u_dtype,route', [
+    (1280, 552, torch.bfloat16, ('cluster', 8)),      # 160 rows a CTA
+    (1536, 656, torch.bfloat16, ('cluster', 16)),     # 96
+    (1792, 896, torch.bfloat16, ('cluster', 16)),     # 112: the 6M tail
+    (2816, 1360, torch.bfloat16, ('group', 16)),      # 2,708-SNP blocks
+    (1536, 656, torch.float32, ('group', 8)),
+    (2816, 1360, torch.float32, ('group', 16)),
+])
+@pytest.mark.parametrize('C', [1, 2])
+def test_wide_tiers_match_plain(cuda, P, R, u_dtype, route, C):
+    """blocks.pack's tiers past 1,024 SNPs (multiples of 256: rows a CTA
+    that are no power of two) on the route the planner gives them."""
+    B = 40 if route[0] == 'cluster' else 4
+    _check_route(*_matvec_operands(cuda, B, P, R, C, u_dtype, P + C), route)
+
+
 @pytest.mark.parametrize('P,R,u_dtype,C,route', [
     # the main bucket: the ring keeps 12 slots at 4 cohorts, 10 at 8
     (1024, 512, torch.bfloat16, 4, ('cluster', 8)),

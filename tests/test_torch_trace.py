@@ -281,7 +281,8 @@ def test_fit_profile_writes_the_phases(tmp_path):
     fit's syncs, trials, accepted line searches (one vilma.fetch span
     a sync, one vilma.trial span a trial) and reused evaluations (one a
     step, the first step's from the fit's start; the CLI's fit runs no
-    EM), and the recorder is off and empty afterwards."""
+    EM) and the bytes of U its LD holds and their pad, and the
+    recorder is off and empty afterwards."""
     from vilma_tpu_torch import frontend
     from tests.test_torch_cli import _argv, _write_case
     case = _write_case(str(tmp_path))
@@ -312,5 +313,6 @@ def test_fit_profile_writes_the_phases(tmp_path):
     assert 0 < counters['accepted'] <= counters['trials']
     assert counters['evals_reused'] == tengine.evals_reused - reused \
         == names.count('vilma.step')
+    assert 0 <= counters['u_pad_bytes'] < counters['u_bytes']
     assert trace.span('vilma.x') is trace.NOOP
     assert trace.records() == []

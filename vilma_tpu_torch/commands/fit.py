@@ -227,8 +227,8 @@ def main(args, devices=None):
     axes = _check_supported(args)
     device = _resolve_device(args)
     if not args.distributed:
-        with _profiled(args.profile):
-            return _fit(args, axes, device, devices)
+        with _profiled(args.profile) as found:
+            return _fit(args, axes, device, devices, found)
     # a multi-process fit joins its process group before loading, so that
     # each process loads only its own blocks; every rank leaves it again,
     # after process 0 has written the files (without the barrier when
@@ -238,15 +238,16 @@ def main(args, devices=None):
                            args.process_id, device=device)
     ok = False
     try:
-        with _profiled(args.profile):
-            _fit(args, axes, device, devices)
+        with _profiled(args.profile) as found:
+            _fit(args, axes, device, devices, found)
         ok = True
     finally:
         distributed.shutdown(barrier=ok)
 
 
-def _fit(args, axes, device, devices):
-    """main() after the process group is joined."""
+def _fit(args, axes, device, devices, found=None):
+    """main() after the process group is joined; under --profile, the
+    bytes of U the fit's LD holds and their pad go into `found`."""
     import torch
     mesh = None
     if args.mesh:
@@ -428,6 +429,10 @@ def _fit(args, axes, device, devices):
                                                      layout_map, L)
         out_index = layout_map
 
+    if found is not None:
+        from vilma_tpu_torch.ops import blocks as blocks_mod
+        found['u_bytes'], found['u_pad_bytes'] = blocks_mod.u_footprint(
+            combined_ld)
     logging.info('Fitting...')
     from vilma_tpu_torch.inference import MultiPopVI
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
@@ -499,9 +504,10 @@ def _profiled(trace_dir):
     fit_trace.json (the chrome trace) and trace_dir/fit_spans.json (the
     spans as recorded, and the fit's device->host syncs, line-search
     trials, accepted line searches and evaluations a state's record
-    replaced); without, nothing."""
+    replaced, and what the fit puts in the dict it is handed: the bytes
+    of U its LD holds and their zero pad); without, nothing."""
     if not trace_dir:
-        yield
+        yield None
         return
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -513,18 +519,19 @@ def _profiled(trace_dir):
     os.makedirs(trace_dir, exist_ok=True)
     counters = ('host_syncs', 'trials', 'accepted', 'evals_reused')
     before = [getattr(engine, c) for c in counters]
+    found = {}
     trace.clear()
     trace.enable()
     try:
         with profile(activities=activities) as prof:
-            yield
+            yield found
     finally:
         trace.disable()
     prof.export_chrome_trace(os.path.join(trace_dir, 'fit_trace.json'))
     with open(os.path.join(trace_dir, 'fit_spans.json'), 'w') as f:
         json.dump({
-            'counters': {c: getattr(engine, c) - b
-                         for c, b in zip(counters, before)},
+            'counters': {**{c: getattr(engine, c) - b
+                            for c, b in zip(counters, before)}, **found},
             'fields': ['name', 'parent', 'start_ns', 'end_ns'],
             'spans': trace.records()}, f)
     trace.clear()

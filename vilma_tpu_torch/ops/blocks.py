@@ -62,16 +62,26 @@ from vilma_tpu_torch.ops import lowrank
 from vilma_tpu_torch.ops.cuda import block_matvec
 from vilma_tpu_torch.utils import trace
 
-# block sizes pad up to one of these tiers (as in the JAX package)
-_SIZE_TIERS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384)
+# block sizes pad up to a tier: a power of two up to _POW2_TIER_MAX (the
+# JAX package's tiers, so these layouts are its), then a multiple of
+# _WIDE_TIER_STEP up to _MAX_BLOCK. The JAX package's powers of two past
+# 1,024 suit the TPU's lanes; on the card a 2,708-SNP block padded to
+# 4,096 rows is a third zeros, which every matvec reads. 256 keeps every
+# wide tier on a route of the matvec: the cluster route takes P / 16
+# rows a CTA in multiples of 16 up to 4,096 rows, the group route any P
+# (block_matvec.plan)
+_POW2_TIER_MAX = 1024
+_WIDE_TIER_STEP = 256
+_MAX_BLOCK = 16384
 
 
 def _pad_to_tier(n):
-    for t in _SIZE_TIERS:
-        if n <= t:
-            return t
-    raise ValueError(f'LD block of size {n} exceeds the maximum supported '
-                     f'block size {_SIZE_TIERS[-1]}')
+    if n > _MAX_BLOCK:
+        raise ValueError(f'LD block of size {n} exceeds the maximum '
+                         f'supported block size {_MAX_BLOCK}')
+    if n <= _POW2_TIER_MAX:
+        return max(8, 1 << (n - 1).bit_length())
+    return -(-n // _WIDE_TIER_STEP) * _WIDE_TIER_STEP
 
 
 def _pad_rank(r):
@@ -497,6 +507,24 @@ def shard(ld, n_shards, device='cpu', shards=None):
                                first_shard=shards[0] if shards else 0)
 
 
+def u_footprint(lds):
+    """(bytes of U the buckets of the PackedLDs `lds` hold, how many of
+    those are zero pad: rows past a block's size and rank columns past
+    its rank), over each matrix once and over a sharded matrix's shards
+    (`fit --profile` writes both). A block's rows are its perm entries
+    below n, its rank its positive s, as `shard` counts them."""
+    held = real = 0
+    for ld in {id(ld): ld for ld in lds}.values():
+        for part in ld.shards or (ld,):
+            for bk in part.buckets:
+                size = bk.u.element_size()
+                rows = (bk.perm < part.n).sum(dim=1)
+                rank = (bk.s > 0).sum(dim=1)
+                held += bk.u.numel() * size
+                real += int((rows * rank).sum()) * size
+    return held, held - real
+
+
 def deal_blocks(sizes, n_shards):
     """The snp shard of each block of the global-gather layout, from the
     blocks' sizes (kept rows, manifest order) alone, so that every
@@ -505,7 +533,9 @@ def deal_blocks(sizes, n_shards):
     ceil(B / n_shards), as the JAX package's multi-process loader deals
     them to processes (vilma_tpu/parallel/distributed.py:356-367). A
     shard may hold no block of a tier; none is padded with zero
-    blocks."""
+    blocks. The tiers are pack's: past 1,024 SNPs they are finer than
+    the JAX package's powers of two, so there its loader may deal wide
+    blocks otherwise, which moves no result."""
     owners = np.zeros(len(sizes), dtype=np.int64)
     tiers = {}
     for pos, size in enumerate(sizes):
