@@ -5,6 +5,7 @@ JAX, so it runs where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
+import functools
 import math
 
 import numpy as np
@@ -496,6 +497,40 @@ def test_epoch_kernels_match_plain(cuda, P, K):
     assert _scaled_err(pv, rpv) <= 1e-5
     assert abs(float(kl) - float(rkl)) <= 1e-4 * abs(float(rkl))
     assert _scaled_err(sums, rsums) <= 1e-5
+
+
+@pytest.mark.parametrize('form', ['shared', 'kdim', 'epochs'])
+@pytest.mark.parametrize('P', [1, 2, 3])
+def test_prologue_two_snps_a_thread_at_odd_i(cuda, form, P):
+    """At 400,001 SNPs every CTA the card holds gets a tile of 512, so the
+    prologue takes two SNPs a thread (the epoch state at no live epoch
+    too), and the last tile's second lanes are dead: within the bands of
+    the plain version, the partial's merge too, bit-for-bit repeatable."""
+    A, K, I = 3, 64, 400_001
+    if form == 'epochs':
+        args = _epoch_args(cuda, P, K, I, A, 2, 0, seed=P + 7)
+        run = functools.partial(co.prologue_epochs, num_live=0)
+        partial = functools.partial(co.prologue_epochs_partial, num_live=0)
+        plain = co.prologue_epochs_plain
+    else:
+        args = list(_compact_args(cuda, P, K, I, A, seed=P + 5))
+        if form == 'kdim':
+            gen = torch.Generator(device=cuda).manual_seed(P)
+            args[4] = torch.randn(K, P, I, generator=gen, device=cuda) * 0.5
+        run, partial, plain = co.prologue, co.prologue_partial, \
+            co.prologue_plain
+    pm, pv, kl = run(*args, num_annotations=A)
+    pm2, pv2, kl2 = run(*args, num_annotations=A)
+    merged = co.prologue_merge(partial(*args, num_annotations=A)[None],
+                               args[2], num_annotations=A)
+    rpm, rpv, rkl = plain(*args, num_annotations=A)
+    torch.cuda.synchronize()
+    assert (torch.equal(pm, pm2) and torch.equal(pv, pv2)
+            and torch.equal(kl, kl2))
+    for got in ((pm, pv, kl), merged):
+        assert _scaled_err(got[0], rpm) <= 1e-5
+        assert _scaled_err(got[1], rpv) <= 1e-5
+        assert abs(float(got[2]) - float(rkl)) <= 1e-4 * abs(float(rkl))
 
 
 @pytest.mark.parametrize('P', [1, 2, 3])

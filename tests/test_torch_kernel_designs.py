@@ -17,11 +17,14 @@ chip_smoke.py hold them against their plain versions there). Here:
   rank order, scaled and rounded, the panel's partial y; the panels'
   partials added in panel order; at f64 and in U's type;
 * the one-pass prologue's online accumulators (epoch, [P, I] and kdim
-  forms), emulated over K, against the two-pass clamped plain version
-  (f64 at the JAX package's route-equality tolerances, f32 within
-  chip_smoke.py's bands) and the Pallas kernel, on an ordinary and on a
-  clamp-heavy input; at K = 42,999, the runs of 128 components that keep
-  f32 sums from drifting;
+  forms), emulated over K in the kernel's arithmetic (base-2 weights, one
+  KL accumulator), against the two-pass clamped plain version (f64 at the
+  JAX package's route-equality tolerances, f32 within chip_smoke.py's
+  bands) and the Pallas kernel, on an ordinary and on a clamp-heavy
+  input; at K = 42,999, the runs of 128 components that keep f32 sums
+  from drifting; two K slices' partials through the merge's arithmetic
+  against the whole K; a dead second lane of two SNPs a thread at an odd
+  I; the prologue's tile within its shared memory, its loads aligned;
 * the z-only sums of all three forms in the kernel's order (pass 1's
   online normalizer, the clamped weights, each CTA's sums by annotation
   in SNP order across its grid stride, the partials added by
@@ -394,65 +397,85 @@ def test_group_matvec_arithmetic(u_dtype, C, G, layout):
 # the one-pass epoch prologue
 # ---------------------------------------------------------------------------
 
-RESCALE_NATS = 8.0     # csrc/compact_obj.cuh kRescale
+RESCALE_BITS = 12.0    # csrc/compact_obj.cuh kRescale2
 FOLD = 128             # csrc/compact_obj.cuh kFold
+LOG2E = 1.0 / math.log(2.0)
 
 
-def _g_term(dev):
-    """The KL term of each (component, SNP) beside its log weight."""
-    log_hd = dev['sel'] + 0.5 * dev['ldp']
-    return ((0.5 * dev['quadform']
-             + 0.5 * (dev['ldp'] + dev['logdet'] + dev['matches']))
-            - log_hd)
-
-
-def _online(y, diag, g_term, z, annotations, num_annotations, fold=FOLD):
-    """Online softmax accumulators over K (compact_obj.cuh struct
-    Online), vectorized over SNPs, with no clamp: each run of `fold`
-    components is summed apart and then added into the totals (the
+def _online_acc(dev, z, fold=FOLD):
+    """The one-pass prologue's accumulators over K (compact_obj.cuh struct
+    Online and kl_sum), vectorized over SNPs, with no clamp: weights
+    w = 2^(z2 - m2), z2 = log2(e) z, under a running base-2 reference m2
+    that moves only where a logit passes it by RESCALE_BITS; each run of
+    `fold` components is summed apart and then added into the totals (the
     kernel also starts a run at each component tile, which only shortens
-    runs). Returns (post_means, post_vars, KL)."""
+    runs). z2 is the logit rounded once into base 2: the kernel forms it
+    from base-2 terms and never rounds a product z log2(e). One KL
+    accumulator: sum_k w quad_k (the shared form reads it off
+    n . sy, as the kernel does), then q = it - sum_p dt_p ssec_p / 2 +
+    (P/2 - m) s0 with m = m2 ln 2. `dev` holds y, diag, quad, dt and, for
+    the shared form, nat. Returns the partial [3 + 2P, I] = (m, s0, q,
+    sy[P], ssec[P])."""
+    y, diag, quad, dt = dev['y'], dev['diag'], dev['quad'], dev['dt']
     P = len(y)
     K, I = z.shape
+    z2 = (z.double() * LOG2E).to(z.dtype)
     zeros = z.new_zeros(I)
-    m = torch.full_like(zeros, -math.inf)
-    # [s0, sz, sg, sy..., ssec...]: the totals and the current run
-    tot = [zeros] * (3 + 2 * P)
-    run = [zeros] * (3 + 2 * P)
+    m2 = torch.full_like(zeros, -math.inf)
+    # [s0, sy..., ssec..., sq]: the totals and the current run
+    tot = [zeros] * (2 + 2 * P)
+    run = [zeros] * (2 + 2 * P)
     for k in range(K):
-        zk = z[k]
-        move = zk > m + RESCALE_NATS
-        alpha = torch.where(move, torch.exp(m - zk), torch.ones_like(zk))
-        for acc in (tot, run):
-            acc[1] = torch.where(move, torch.where(
-                acc[0] > 0, (acc[1] + (m - zk) * acc[0]) * alpha, zeros),
-                acc[1])
-            for j in [0] + list(range(2, 3 + 2 * P)):
-                acc[j] = acc[j] * alpha
-        m = torch.where(move, zk, m)
-        dz = zk - m
-        w = torch.exp(dz)
-        terms = ([w, w * dz, w * g_term[k]]
-                 + [w * y[p][k] for p in range(P)]
-                 + [w * (diag[p][k] + y[p][k] * y[p][k]) for p in range(P)])
+        dz = z2[k] - m2
+        move = dz > RESCALE_BITS
+        alpha = torch.where(move, torch.exp2(m2 - z2[k]), torch.ones_like(dz))
+        tot = [a * alpha for a in tot]
+        run = [a * alpha for a in run]
+        m2 = torch.where(move, z2[k], m2)
+        w = torch.exp2(torch.where(move, zeros, dz))
+        terms = ([w] + [w * y[p][k] for p in range(P)]
+                 + [w * (diag[p][k] + y[p][k] * y[p][k]) for p in range(P)]
+                 + [w * quad[k]])
         run = [a + t for a, t in zip(run, terms)]
         if (k + 1) % fold == 0 or k == K - 1:
             tot = [a + r for a, r in zip(tot, run)]
             run = [zeros] * len(run)
-    s0, sz, sg = tot[:3]
-    sy, ssec = tot[3:3 + P], tot[3 + P:]
+    s0, sy, ssec, sq = tot[0], tot[1:1 + P], tot[1 + P:1 + 2 * P], tot[-1]
+    if dev.get('nat') is not None:
+        sq = sum(dev['nat'][p][0] * sy[p] for p in range(P))
+    m = m2 * math.log(2.0)
+    h = sq
+    for p in range(P):
+        h = h - 0.5 * dt[p][0] * ssec[p]
+    return torch.stack([m, s0, h + (0.5 * P - m) * s0] + sy + ssec)
+
+
+def _finish_acc(acc, annotations, num_annotations):
+    """(post_means, post_vars, KL) from [3 + 2P, I] accumulators, as the
+    whole-K kernel finishes them: pm = sy / s0, pv = ssec / s0 - pm^2,
+    kl_i = q / s0 - log s0 over the real SNPs."""
+    P = (acc.shape[0] - 3) // 2
+    s0, q = acc[1], acc[2]
     inv = 1.0 / s0
-    pm = torch.stack([v * inv for v in sy])
-    pv = torch.stack([ssec[p] * inv - pm[p] * pm[p] for p in range(P)])
-    kl_i = (sz + sg) * inv - torch.log(s0)
+    pm = acc[3:3 + P] * inv
+    pv = acc[3 + P:] * inv - pm * pm
+    kl_i = q * inv - torch.log(s0)
     kl = torch.sum(kl_i * (annotations < num_annotations).to(kl_i.dtype))
     return pm, pv, kl
+
+
+def _online(dev, z, annotations, num_annotations, fold=FOLD):
+    """The one-pass prologue's (post_means, post_vars, KL) (_online_acc,
+    then _finish_acc)."""
+    return _finish_acc(_online_acc(dev, z, fold), annotations,
+                       num_annotations)
 
 
 def _epoch_logits(coeffs, scores_t, annotations, sld, nat_u, hist_v,
                   inv_scales, hist_c, num_live):
     """The port's per-component epoch algebra and the logits z [K, I],
-    quad = y (prec + diag(dt)) y."""
+    quad = y (prec + diag(dt)) y (dev['quad']; dev['dt'] the current
+    scaled diagonal)."""
     P = nat_u.shape[0]
     dev = tco._derive_plain_epochs(coeffs, scores_t, annotations, sld, nat_u,
                                    hist_v, inv_scales, hist_c,
@@ -462,40 +485,43 @@ def _epoch_logits(coeffs, scores_t, annotations, sld, nat_u, hist_v,
     y = dev['y']
     quad = tco._dot([tco._dot(row, y) for row in tco._precision(P, c, dt)],
                     y)
+    dev = dict(dev, quad=quad, dt=dt)
     return dev, 0.5 * (quad - dev['logdet']) + dev['sel']
 
 
 def _one_pass_epochs(coeffs, scores_t, annotations, sld, nat_u, hist_v,
                      inv_scales, hist_c, *, num_annotations, num_live):
     """What the one-pass epoch prologue computes (compact_obj.cuh,
-    derive_epochs and struct Online). Returns (post_means, post_vars, KL)
+    prologue_step and struct Online). Returns (post_means, post_vars, KL)
     and the logits z [K, I]."""
     dev, z = _epoch_logits(coeffs, scores_t, annotations, sld, nat_u,
                            hist_v, inv_scales, hist_c, num_live)
-    return _online(dev['y'], dev['diag'], _g_term(dev), z, annotations,
-                   num_annotations), z
+    return _online(dev, z, annotations, num_annotations), z
 
 
 def _compact_logits(coeffs, scores_t, annotations, dterm, nat_mu):
     """The port's [P, I] or kdim per-component algebra and the logits
     z [K, I]: y = sigma n, quad = y . n with the shared [P, I] or the
-    per-component [K, P, I] natural mean n."""
+    per-component [K, P, I] natural mean n (dev['nat'] the shared one)."""
     P = nat_mu.shape[-2]
     dev = tco._derive_plain(coeffs, scores_t, annotations, dterm, nat_mu,
                             epsilon(nat_mu.dtype))
-    n = ([nat_mu[:, p] for p in range(P)] if nat_mu.dim() == 3
+    kdim = nat_mu.dim() == 3
+    n = ([nat_mu[:, p] for p in range(P)] if kdim
          else [nat_mu[p:p + 1] for p in range(P)])
-    return dev, 0.5 * (tco._dot(dev['y'], n) - dev['logdet']) + dev['sel']
+    quad = tco._dot(dev['y'], n)
+    dev = dict(dev, quad=quad, dt=[dterm[p:p + 1] for p in range(P)],
+               nat=None if kdim else n)
+    return dev, 0.5 * (quad - dev['logdet']) + dev['sel']
 
 
 def _one_pass(coeffs, scores_t, annotations, dterm, nat_mu, *,
               num_annotations):
     """What the one-pass [P, I] and kdim prologue computes (compact_obj.cuh,
-    derive_once and struct Online). Returns (post_means, post_vars, KL) and
-    the logits z [K, I]."""
+    prologue_step and struct Online). Returns (post_means, post_vars, KL)
+    and the logits z [K, I]."""
     dev, z = _compact_logits(coeffs, scores_t, annotations, dterm, nat_mu)
-    return _online(dev['y'], dev['diag'], _g_term(dev), z, annotations,
-                   num_annotations), z
+    return _online(dev, z, annotations, num_annotations), z
 
 
 def _epoch_inputs(P, kind, seed, K=24, I=300, A=3, B=4, live=2):
@@ -677,10 +703,149 @@ def test_one_pass_prologue_runs_keep_f32_at_large_k():
     dev, z = _compact_logits(*t.values())
     errs = {}
     for fold in (FOLD, K):
-        pm, pv, _ = _online(dev['y'], dev['diag'], _g_term(dev), z,
-                            t['annotations'], 1, fold=fold)
+        pm, pv, _ = _online(dev, z, t['annotations'], 1, fold=fold)
         errs[fold] = max(max_err(pm, want[0])[1], max_err(pv, want[1])[1])
     assert errs[FOLD] <= 1e-6 < errs[K], errs
+
+
+def _form_terms(form, t, k0=0, k1=None):
+    """(dev, z) of the model for components k0..k1 of the operands t
+    (_epoch_inputs' order): the shared [P, I], kdim or epoch form."""
+    sl = slice(k0, k1)
+    coeffs, scores_t, ann, sld, u, hist, isc, hc = t
+    if form == 'epochs':
+        return _epoch_logits(coeffs[sl], scores_t[sl], ann, sld, u, hist,
+                             isc, hc, 2)
+    return _compact_logits(coeffs[sl], scores_t[sl], ann, sld,
+                           u[sl] if form == 'kdim' else u)
+
+
+def _form_inputs(form, P, kind, seed, K=24, I=300):
+    """Operands of `form` in _epoch_inputs' order (kdim: a perturbed copy
+    of the natural mean per component; epochs: two live epochs)."""
+    args, A, _ = _epoch_inputs(P, kind, seed, K=K, I=I,
+                               live=2 if form == 'epochs' else 0)
+    if form == 'kdim':
+        rng = np.random.default_rng(seed + 1)
+        scale = 0.1 if kind == 'ordinary' else 0.2 * np.sqrt(args[3])
+        args[4] = args[4][None] + rng.standard_normal((K, P, I)) * scale
+    return args, A
+
+
+@pytest.mark.parametrize('P', [1, 2, 3])
+@pytest.mark.parametrize('form', ['shared', 'kdim', 'epochs'])
+@pytest.mark.parametrize('kind', ['ordinary', 'clamp'])
+def test_one_pass_k_split_matches_whole(P, form, kind):
+    """Two comp slices' partials (the model's accumulators over each half
+    of K against the half's own reference m, q = sum_k w_k (h_k - m)),
+    then the merge's arithmetic (prologue_merge_plain, merge_kernel's),
+    give the whole-K model's post_means, post_vars and KL at f64 to 1e-12,
+    and the plain version's to the route-equality tolerances; at f32 within
+    chip_smoke.py's bands of the plain version."""
+    args, A = _form_inputs(form, P, kind, seed=13 * P + len(form + kind))
+    for dtype in (torch.float64, torch.float32):
+        t = _as_torch(args, dtype)
+        ann = t[2]
+        K = t[0].shape[0]
+        parts = torch.stack([_online_acc(*_form_terms(form, t, k0, k1))
+                             for k0, k1 in ((0, K // 2 + 1), (K // 2 + 1,
+                                                              K))])
+        got = tco.prologue_merge_plain(parts, ann, num_annotations=A)
+        if form == 'epochs':
+            plain = tco.prologue_epochs_plain(*t, num_annotations=A,
+                                              num_live=2)
+        else:
+            plain = tco.prologue_plain(*t[:5], num_annotations=A)
+        if dtype == torch.float64:
+            whole = _online(*_form_terms(form, t), ann, A)
+            for g, w, tol in zip(got, whole, (1e-12, 1e-12, 1e-12)):
+                np.testing.assert_allclose(t2n(g), t2n(w), rtol=tol,
+                                           atol=tol * float(w.abs().max()))
+            for g, w in zip(got[:2], plain[:2]):
+                np.testing.assert_allclose(t2n(g), t2n(w), rtol=1e-9,
+                                           atol=1e-9 * float(w.abs().max()))
+            assert np.isclose(float(got[2]), float(plain[2]), rtol=1e-9)
+        else:
+            for g, w in zip(got[:2], plain[:2]):
+                assert _scaled(t2n(g).astype(np.float64),
+                               t2n(w).astype(np.float64)) <= BAND_F32
+            assert (abs(float(got[2]) - float(plain[2]))
+                    <= BAND_KL * abs(float(plain[2])))
+
+
+def _lane_slots(I, S, grid):
+    """The SNP slot of each (CTA, round, lane j, thread) as compact_obj.cuh
+    prologue() walks them: SNP base + j kThreads + tid for base =
+    (blockIdx + round grid) S kThreads < I; slots at or past I are dead."""
+    slots = []
+    for b in range(grid):
+        for base in range(b * S * THREADS, I, grid * S * THREADS):
+            for j in range(S):
+                slots.extend(base + j * THREADS + tid
+                             for tid in range(THREADS))
+    return slots
+
+
+@pytest.mark.parametrize('form', ['shared', 'kdim', 'epochs'])
+@pytest.mark.parametrize('I,grid', [(301, 1), (777, 1), (1799, 2)])
+def test_two_snps_a_thread_dead_lane_inert(form, I, grid):
+    """At an odd I with two SNPs a thread, the lanes cover every SNP once,
+    and a dead second lane (a slot past I, loaded as load_snp's pad: the
+    diagonal 1, a zero natural mean and history, annotation A) stays
+    inert: finite accumulators, no KL, and the live SNPs' results equal
+    the model's on the SNPs alone (to 1e-13 at f64: the host's vector and
+    scalar exp may differ in the last bit by a column's place)."""
+    P, K = 2, 24
+    args, A = _form_inputs(form, P, 'clamp', seed=I + grid, K=K, I=I)
+    slots = _lane_slots(I, 2, grid)
+    live = [i for i in slots if i < I]
+    assert sorted(live) == list(range(I))
+    assert len(slots) > I                      # some lanes are dead
+    idx = np.array(slots)
+    dead = idx >= I
+    pad = np.where(dead, 0, idx)
+    lanes = [a.copy() for a in args]
+    lanes[2] = np.where(dead, A, args[2][pad]).astype(np.int32)
+    lanes[3] = np.where(dead, 1.0, args[3][:, pad])
+    lanes[4] = np.where(dead, 0.0, args[4][..., pad])
+    lanes[5] = np.where(dead, 0.0, args[5][..., pad])
+    t = _as_torch(args, torch.float64)
+    tl = _as_torch(lanes, torch.float64)
+    acc = _online_acc(*_form_terms(form, tl))
+    assert torch.isfinite(acc).all()
+    pm, pv, kl = _finish_acc(acc, tl[2], A)
+    want = _online(*_form_terms(form, t), t[2], A)
+    order = np.argsort(idx[~dead])
+    live_cols = np.flatnonzero(~dead)[order]
+    for got, ref in ((pm[:, live_cols], want[0]),
+                     (pv[:, live_cols], want[1])):
+        np.testing.assert_allclose(t2n(got), t2n(ref), rtol=1e-13,
+                                   atol=1e-13 * float(ref.abs().max()))
+    np.testing.assert_allclose(float(kl), float(want[2]), rtol=1e-13)
+
+
+@pytest.mark.parametrize('P', [1, 2, 3])
+@pytest.mark.parametrize('K,A,table', [(18, 4, 0), (582, 4, 0),
+                                       (582, 4, 11), (42_999, 1, 0),
+                                       (20_000, 8, 0), (600, 90, 0)])
+def test_prologue_tile_fits_and_aligns(P, K, A, table):
+    """The prologue's component tile (ops/cuda/compact_obj.py
+    _prologue_shape) keeps its shared memory (prologue_floats, as
+    compact_obj.cuh counts it) within 48 KB; the staged rows end, and each
+    annotation's row of scores starts, on 16 bytes, so a SNP's four
+    scores come in one load; up to 8 annotations' rows fall on distinct
+    bank quads."""
+    kt, nblocks = tco._prologue_shape(1_000_000, K, A, P, table)
+    assert 1 <= kt <= K and nblocks == 1024
+    assert tco.prologue_floats(P, kt, A, table) * 4 <= 48 * 1024
+    if kt < K:   # the widest tile: one more component does not fit
+        assert tco.prologue_floats(P, kt + 1, A, table) * 4 > 48 * 1024
+    stride = tco.score_stride(kt)
+    assert stride >= kt and stride % 4 == 0 and (stride // 4) % 2 == 1
+    rows = -(-kt * tco.row_floats(P) // 4) * 4
+    assert rows % 4 == 0
+    quads = {(a * stride % 32) // 4 for a in range(min(A, 8))}
+    assert len(quads) == min(A, 8)
 
 
 # ---------------------------------------------------------------------------

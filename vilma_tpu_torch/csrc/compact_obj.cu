@@ -10,11 +10,13 @@
 // the kernel body are in compact_obj.cuh.
 //
 // What bounds it:
-//   shared form: arithmetic, not bytes. Each SNP reads and writes a few
+//   shared form: issue slots, not bytes. Each SNP reads and writes a few
 //     [P] values (~50 MB at 1M SNPs), but does a closed-form solve, an
-//     exponential and a logarithm per component (two passes for the sums);
-//     at K = 582 the special-function units and FP32 pipes set the time. At
-//     K = 18 it is a memory-bound streaming pass.
+//     exponential and a logarithm per component (two passes for the sums):
+//     at K = 582 the instructions a (SNP, component) pair issues set the
+//     time, so the prologue's body is written for the fewest of them (the
+//     note in compact_obj.cuh). At K = 18 it is a memory-bound streaming
+//     pass.
 //   kdim form: bytes. The [K, P, I] state is K times larger (420 MB at
 //     90,112 SNPs x 582 components, P = 2) and each (SNP, component) reads
 //     P floats of it for a few dozen flops.

@@ -31,9 +31,11 @@
 // coefficients in registers; more are read per component through L1.
 //   prologue: one pass over K with online softmax accumulators, so each
 //     (SNP, component) is derived once: K (E + 1) solves per SNP. The
-//     current-scaling solve and the summaries share one determinant and
-//     reciprocal (SFU intrinsics for it, the log-determinant and the
-//     weights).
+//     current-scaling solve is compact_obj.cuh's lean body (the adjugate,
+//     one determinant, its SFU reciprocal and base-2 logarithm, base-2
+//     weights, one KL accumulator, two SNPs a thread on large I); quad =
+//     y (prec + diag(dc)) y is the form's own. The epoch solves are as
+//     before (IEEE reciprocals).
 //   delta sums: two passes over K of the logit alone, 2 K (E + 1) solves
 //     per SNP, every reciprocal, logarithm and exponential from the SFU;
 //     the CTA adds the weights by annotation through a sorted staging

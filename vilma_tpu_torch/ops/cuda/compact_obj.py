@@ -580,17 +580,61 @@ def _check_epoch_operands(name, coeffs, scores_t, annotations, sld, nat_u,
     return P, I, K, A, ncol, B
 
 
+def _nblocks(I):
+    return max(1, min(-(-I // _THREADS), _MAX_BLOCKS))
+
+
+def row_floats(P):
+    """Floats of a component's row as the prologue stages it
+    (csrc/compact_obj.cuh row_floats): prec's upper triangle and the
+    products of its off-diagonal entries that det M and adj(M) take."""
+    return {1: 1, 2: 4, 3: 12}[P]
+
+
+def score_stride(kt):
+    """Row stride of the prologue's staged scores (csrc/compact_obj.cuh
+    score_stride): an odd multiple of 4 floats, at least kt."""
+    s = -(-kt // 4) * 4
+    return s if (s // 4) % 2 else s + 4
+
+
+def prologue_floats(P, kt, A, table_floats=0):
+    """Floats of a prologue launch's shared memory at tile width kt
+    (csrc/compact_obj.cuh prologue_floats)."""
+    return (-(-kt * row_floats(P) // 4) * 4 + A * score_stride(kt) + _WARPS
+            + table_floats)
+
+
+def _prologue_shape(I, K, A, P, table_floats=0):
+    """(component tile width kt, most CTAs) of a prologue launch: the
+    widest tile whose shared memory (`prologue_floats`) stays within 48
+    KB; the kernel's launch picks its SNPs a thread and its grid, at most
+    the CTAs returned (the length of its KL partials)."""
+    budget = _SMEM_BYTES // 4
+    # from below (the rows' padding and the stride's slack are at most 3
+    # and 7 floats an annotation) up to the widest tile
+    kt = min(K, (budget - _WARPS - table_floats - 3 - 7 * A)
+             // (row_floats(P) + A))
+    while kt < K and prologue_floats(P, kt + 1, A, table_floats) <= budget:
+        kt += 1
+    if kt < 1:
+        raise ValueError(f'{A} annotations exceed the kernel\'s shared-'
+                         'memory tile')
+    return kt, _nblocks(I)
+
+
 def _launch_shape(I, K, A, ncol, sums, table_floats=0):
     """(component tile width kt, component group kg, grid blocks) for the
-    kernels; the shared memory past the [kt] tiles of coefficients and
-    scores is counted as csrc/compact_obj.cuh extra_floats counts it. The
-    prologues keep their tiles within 48 KB (kg = K, unused). The sums
-    hold their CTA's [kg, A] partial beside the tile: all of K in one tile
-    where it fits the card's per-block limit, else all of K in one group
-    with narrower tiles, else groups of kg components (a multiple of kt)
-    whose partial fits. Raises only if one component row does not fit."""
+    sums' kernels; the shared memory past the [kt] tiles of coefficients
+    and scores is counted as csrc/compact_obj.cuh extra_floats counts it.
+    Their pass 1 alone keeps its tiles within 48 KB (kg = K, unused). The
+    sums hold their CTA's [kg, A] partial beside the tile: all of K in one
+    tile where it fits the card's per-block limit, else all of K in one
+    group with narrower tiles, else groups of kg components (a multiple of
+    kt) whose partial fits. Raises only if one component row does not
+    fit."""
     per_comp = ncol + A
-    nblocks = max(1, min(-(-I // _THREADS), _MAX_BLOCKS))
+    nblocks = _nblocks(I)
     if not sums:
         kt = min(K, (_SMEM_BYTES // 4 - _WARPS - table_floats) // per_comp)
         kg = K
@@ -640,11 +684,11 @@ def prologue(coeffs, scores_t, annotations, dterm, nat_mu, *,
     if not nat_mu.is_cuda:
         return prologue_plain(coeffs, scores_t, annotations, dterm, nat_mu,
                               num_annotations=num_annotations)
-    P, I, K, A, ncol = _check_operands('prologue', coeffs, scores_t,
+    P, I, K, A, _ = _check_operands('prologue', coeffs, scores_t,
                                        annotations, dterm, nat_mu,
                                        num_annotations)
     kdim = nat_mu.dim() == 3
-    kt, _, nblocks = _launch_shape(I, K, A, ncol, sums=False)
+    kt, nblocks = _prologue_shape(I, K, A, P)
     dev = nat_mu.device
     pm = torch.empty((P, I), dtype=torch.float32, device=dev)
     pv = torch.empty((P, I), dtype=torch.float32, device=dev)
@@ -709,11 +753,11 @@ def prologue_epochs(coeffs, scores_t, annotations, sld, nat_u, hist_v,
         return prologue_epochs_plain(
             coeffs, scores_t, annotations, sld, nat_u, hist_v, inv_scales,
             hist_c, num_annotations=num_annotations, num_live=num_live)
-    P, I, K, A, ncol, _ = _check_epoch_operands(
+    P, I, K, A, _, _ = _check_epoch_operands(
         'prologue_epochs', coeffs, scores_t, annotations, sld, nat_u,
         hist_v, inv_scales, hist_c, num_annotations, num_live)
-    kt, _, nblocks = _launch_shape(I, K, A, ncol, sums=False,
-                                   table_floats=(num_live + 1) * P + num_live)
+    kt, nblocks = _prologue_shape(I, K, A, P,
+                                  table_floats=(num_live + 1) * P + num_live)
     dev = nat_u.device
     pm = torch.empty((P, I), dtype=torch.float32, device=dev)
     pv = torch.empty((P, I), dtype=torch.float32, device=dev)
@@ -765,10 +809,6 @@ def delta_sums_epochs(coeffs, scores_t, annotations, sld, nat_u, hist_v,
 # K-split forms (component sharding): see the module docstring
 # ---------------------------------------------------------------------------
 
-def _nblocks(I):
-    return max(1, min(-(-I // _THREADS), _MAX_BLOCKS))
-
-
 @build.on_operands_device
 def prologue_partial(coeffs, scores_t, annotations, dterm, nat_mu, *,
                      num_annotations):
@@ -778,11 +818,11 @@ def prologue_partial(coeffs, scores_t, annotations, dterm, nat_mu, *,
     if not nat_mu.is_cuda:
         return prologue_partial_plain(coeffs, scores_t, annotations, dterm,
                                       nat_mu, num_annotations=num_annotations)
-    P, I, K, A, ncol = _check_operands('prologue_partial', coeffs, scores_t,
+    P, I, K, A, _ = _check_operands('prologue_partial', coeffs, scores_t,
                                        annotations, dterm, nat_mu,
                                        num_annotations)
     kdim = nat_mu.dim() == 3
-    kt, _, nblocks = _launch_shape(I, K, A, ncol, sums=False)
+    kt, nblocks = _prologue_shape(I, K, A, P)
     dev = nat_mu.device
     acc = torch.empty((acc_rows(P), I), dtype=torch.float32, device=dev)
     entry = ('vilma_compact_prologue_kdim_partial' if kdim
@@ -807,11 +847,11 @@ def prologue_epochs_partial(coeffs, scores_t, annotations, sld, nat_u,
         return prologue_epochs_partial_plain(
             coeffs, scores_t, annotations, sld, nat_u, hist_v, inv_scales,
             hist_c, num_annotations=num_annotations, num_live=num_live)
-    P, I, K, A, ncol, _ = _check_epoch_operands(
+    P, I, K, A, _, _ = _check_epoch_operands(
         'prologue_epochs_partial', coeffs, scores_t, annotations, sld, nat_u,
         hist_v, inv_scales, hist_c, num_annotations, num_live)
-    kt, _, nblocks = _launch_shape(I, K, A, ncol, sums=False,
-                                   table_floats=(num_live + 1) * P + num_live)
+    kt, nblocks = _prologue_shape(I, K, A, P,
+                                  table_floats=(num_live + 1) * P + num_live)
     dev = nat_u.device
     acc = torch.empty((acc_rows(P), I), dtype=torch.float32, device=dev)
     status = build.library().vilma_compact_prologue_epochs_partial(
